@@ -1,0 +1,111 @@
+"""Flash-attention forward: the Hopper kernel and its wrapper (counterpart of
+`repro.kernels.flash_attention`).
+
+The kernel (`csrc/flash_attention.cu`, CUDA C++ for sm_90a) replaces the
+Pallas TPU kernel `_fa_kernel`; its source says what bounds it on the H100
+and how its design differs from the TPU's. It has two paths, chosen per call:
+bf16 WMMA tensor-core products for bf16 inputs with head dims that are
+multiples of 16 and 16-byte aligned rows (the model path), fp32 CUDA-core
+FMAs for the rest. It is built with nvcc at the first
+launch and bound through ctypes, so importing this module needs neither nvcc
+nor a card.
+
+`flash_attention` takes q (B,Sq,H,hd) and k/v (B,Sk,K,hd[_v]) in the model's
+layout. A tensor on the CPU goes to the plain version
+(`ref.flash_attention_plain`); a CUDA tensor launches the kernel or raises.
+`launches` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+SOURCE = build.CSRC / "flash_attention.cu"
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0          # kernel launches since the last reset (plain int)
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library, with its C signatures declared (once)."""
+    global _lib
+    if _lib is None:
+        lib = build.load(SOURCE)
+        lib.fa_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                               + [ctypes.c_int64] * 12
+                               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p])
+        lib.fa_fwd.restype = ctypes.c_int
+        lib.fa_fwd_uses_tensor_cores.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                                 + [ctypes.c_int64] * 9)
+        lib.fa_fwd_uses_tensor_cores.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the kernel takes its tensor-core path for these CUDA inputs
+    (bf16, head dims multiples of 16, 16-byte aligned rows); the CUDA-core
+    path takes the rest. For reports and tests: launches nothing."""
+    _check(q, k, v, None)
+    return bool(_library().fa_fwd_uses_tensor_cores(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPES[q.dtype], q.shape[3], v.shape[3],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3]))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device; "
+                         f"got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q/k/v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention expects q (B,Sq,H,hd), k/v (B,Sk,K,hd)")
+    b, sq, h, hd = q.shape
+    _, sk, n_kv, _ = k.shape
+    if (k.shape[0] != b or k.shape[3] != hd or v.shape[:3] != k.shape[:3]
+            or min(sq, sk, n_kv) < 1 or h % n_kv != 0):
+        raise ValueError(f"incompatible shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if hd > MAX_HEAD_DIM or v.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"head dims {hd}/{v.shape[3]} exceed {MAX_HEAD_DIM}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention kernel needs a contiguous last dim")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Blocked attention; returns (B,Sq,H,hd_v) in q's dtype."""
+    global launches
+    if q.device.type == "cpu":
+        return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
+    _check(q, k, v, window)
+    b, sq, h, hd = q.shape
+    sk, n_kv = k.shape[1], k.shape[2]
+    hd_v = v.shape[3]
+    out = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = _library().fa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       _DTYPES[q.dtype], b, sq, sk, h, n_kv, hd, hd_v,
+                       q.stride(0), q.stride(1), q.stride(2),
+                       k.stride(0), k.stride(1), k.stride(2),
+                       v.stride(0), v.stride(1), v.stride(2),
+                       out.stride(0), out.stride(1), out.stride(2),
+                       1.0 / math.sqrt(hd), int(causal),
+                       0 if window is None else int(window), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out

@@ -1,0 +1,20 @@
+from repro_torch.models.config import (  # noqa: F401
+    SHAPES,
+    EncDecConfig,
+    HybridConfig,
+    MLAConfig,
+    ModelConfig,
+    MoEConfig,
+    RWKVConfig,
+    ShapeSpec,
+    SSMConfig,
+    VisionStubConfig,
+    shape_applicable,
+)
+from repro_torch.models.registry import (  # noqa: F401
+    ModelBundle,
+    analytic_param_count,
+    build_model,
+    cross_entropy,
+    synth_batch,
+)

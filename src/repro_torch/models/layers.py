@@ -1,0 +1,204 @@
+"""Core neural-net layers as plain functions on tensors (counterpart of
+`repro.models.layers`).
+
+Conventions:
+* each layer takes its parameters as a mapping of leaf name -> tensor, with
+  the reference's leaf names (wq/wk/wv/wo/wi/wg/wo_mlp/embed/scale/bias);
+  `transformer.py` holds them in `nn.Module`s and passes `params_of(module)`;
+* compute runs in `cfg.compute_dtype` (bf16 at full width); parameters are
+  stored in `cfg.param_dtype` (fp32 master copies) and cast at use;
+* the reference's `constrain` calls are sharding annotations that do nothing
+  without a mesh, so they are left out, as is `stream_cast`, which is the
+  identity for the configs the port supports (`weight_stream_bf16=False`).
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+
+Params = Mapping[str, torch.Tensor]
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def pdtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def params_of(module: nn.Module) -> dict[str, torch.Tensor]:
+    """A module's own parameters by leaf name (not its children's)."""
+    return dict(module.named_parameters(recurse=False))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_shapes(cfg: ModelConfig, d: int) -> dict[str, tuple[int, ...]]:
+    if cfg.norm == "rmsnorm":
+        return {"scale": (d,)}
+    if cfg.norm == "layernorm":
+        return {"scale": (d,), "bias": (d,)}
+    if cfg.norm == "nonparam_ln":      # OLMo: non-parametric LayerNorm
+        return {}
+    raise ValueError(cfg.norm)
+
+
+def norm_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + 1e-6)
+        y = y * params["scale"].float()
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        if cfg.norm == "layernorm":
+            y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def rms_norm_headwise(x: torch.Tensor) -> torch.Tensor:
+    """Parameter-free RMS over the trailing (head) dim — qwen3 qk_norm."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + 1e-6)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)                # (hd/2,)
+    angles = positions[..., None].float() * freqs                 # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                         # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # gather, then cast: the same values as the reference's cast-then-gather
+    # without casting the whole table
+    return params["embed"][tokens.long()].to(cdtype(cfg))
+
+
+def logits_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        w = params["embed"].to(cdtype(cfg)).T
+    else:
+        w = params["unembed"].to(cdtype(cfg))
+    logits = x @ w
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits.float() / c).to(logits.dtype)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Gated / plain MLP
+# ---------------------------------------------------------------------------
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "relu2":
+        return F.relu(x).square()
+    raise ValueError(kind)
+
+
+def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cdtype(cfg)
+    h = _act(x @ params["wi"].to(dt), cfg.act)
+    if cfg.mlp_gated:
+        h = h * (x @ params["wg"].to(dt))
+    return h @ params["wo_mlp"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Attention (MHA / GQA / MQA) with optional cache
+# ---------------------------------------------------------------------------
+
+def _project_qkv(params: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
+    dt = cdtype(cfg)
+    hd = cfg.resolved_head_dim
+    q = xq @ params["wq"].to(dt)
+    k = xkv @ params["wk"].to(dt)
+    v = xkv @ params["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = q.reshape(*q.shape[:-1], cfg.n_heads, hd)
+    k = k.reshape(*k.shape[:-1], cfg.n_kv_heads, hd)
+    v = v.reshape(*v.shape[:-1], cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor,
+                    causal: bool = True,
+                    use_rope: bool = True,
+                    cache: Optional[dict] = None,
+                    x_cross: Optional[torch.Tensor] = None
+                    ) -> tuple[torch.Tensor, dict]:
+    """Self- or cross-attention.
+
+    x: (B, S, D). `cache` (decode): {"k": (B, S_max, K, hd), "v": ..., "pos": int}
+    — new k/v are written at `pos` IN PLACE (the reference returns an updated
+    copy; writing into the cache saves a cache-sized copy per layer and step),
+    and attention runs over the full cache with a validity mask. Returns
+    (out, cache): the updated cache, or this segment's k/v without a cache.
+    """
+    from repro_torch.kernels import ops  # local import to avoid cycles
+
+    xkv = x if x_cross is None else x_cross
+    q, k, v = _project_qkv(params, x, xkv, cfg)
+    if cfg.qk_norm:
+        q, k = rms_norm_headwise(q), rms_norm_headwise(k)
+    if use_rope and x_cross is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None and x_cross is None:
+        # decode: write new kv at cache["pos"], attend over the cache
+        pos, s_new = cache["pos"], x.shape[1]
+        kc, vc = cache["k"], cache["v"]
+        kc[:, pos:pos + s_new] = k.to(kc.dtype)
+        vc[:, pos:pos + s_new] = v.to(vc.dtype)
+        out = ops.decode_attention(q, kc, vc, pos + s_new, window=cfg.sliding_window)
+        new_cache = {"k": kc, "v": vc, "pos": pos + s_new}
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal and x_cross is None,
+                                  window=cfg.sliding_window)
+        # expose this segment's k/v so prefill can build the decode cache
+        new_cache = {"k": k, "v": v}
+
+    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.resolved_head_dim)
+    out = out @ params["wo"].to(cdtype(cfg))
+    return out, new_cache

@@ -1,0 +1,235 @@
+"""Decoder-LM assembly for the dense family (counterpart of
+`repro.models.transformer`).
+
+Parameters live in `nn.Module`s whose names mirror the reference's leaves
+(`embedding.embed`, `blocks.<i>.attn.wq`, `blocks.<i>.mlp.wi|wg|wo_mlp`); the
+reference stacks the blocks on a leading L axis and scans them, the port
+keeps one module per block and loops. Entry points:
+
+    forward(model, batch, cfg)              -> (logits, aux_loss)
+    prefill(model, batch, cfg, pad_to)      -> (last_logits, cache)
+    decode(model, cache, batch, cfg)        -> (logits, cache)
+
+`remat` has no effect here: the port runs inference only until training is
+ported. The other families (moe, ssm, hybrid, vlm) are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Device = Union[str, torch.device]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a config outside the ported (dense) family."""
+    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
+        raise NotImplementedError(f"the port supports the dense family only, not "
+                                  f"{cfg.name} ({cfg.family})")
+
+
+# ---------------------------------------------------------------------------
+# Parameter containers
+# ---------------------------------------------------------------------------
+
+def _param(shape, cfg: ModelConfig, device: Device) -> nn.Parameter:
+    # no gradients until training is ported
+    return nn.Parameter(torch.empty(shape, dtype=L.pdtype(cfg), device=device),
+                        requires_grad=False)
+
+
+class Norm(nn.Module):
+    def __init__(self, cfg: ModelConfig, d: int, device: Device):
+        super().__init__()
+        for name, shape in L.norm_shapes(cfg, d).items():
+            self.register_parameter(name, _param(shape, cfg, device))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        self.wq = _param((d, cfg.n_heads * hd), cfg, device)
+        self.wk = _param((d, cfg.n_kv_heads * hd), cfg, device)
+        self.wv = _param((d, cfg.n_kv_heads * hd), cfg, device)
+        self.wo = _param((cfg.n_heads * hd, d), cfg, device)
+        if cfg.qkv_bias:
+            self.bq = _param((cfg.n_heads * hd,), cfg, device)
+            self.bk = _param((cfg.n_kv_heads * hd,), cfg, device)
+            self.bv = _param((cfg.n_kv_heads * hd,), cfg, device)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        self.wi = _param((cfg.d_model, cfg.d_ff), cfg, device)
+        self.wo_mlp = _param((cfg.d_ff, cfg.d_model), cfg, device)
+        if cfg.mlp_gated:
+            self.wg = _param((cfg.d_model, cfg.d_ff), cfg, device)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        self.ln1 = Norm(cfg, cfg.d_model, device)
+        self.ln2 = Norm(cfg, cfg.d_model, device)
+        self.attn = Attention(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+
+class Embedding(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        self.embed = _param((cfg.vocab_size, cfg.d_model), cfg, device)
+        if not cfg.tie_embeddings:
+            self.unembed = _param((cfg.d_model, cfg.vocab_size), cfg, device)
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embedding = Embedding(cfg, device)
+        self.final_norm = Norm(cfg, cfg.d_model, device)
+        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+
+    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        return forward(self, batch, self.cfg)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Transformer:
+    """Build the model on `device` with weights drawn from `seed`.
+
+    The same distributions as the reference's init (truncated-normal fan-in
+    dense weights, N(0, 0.02) embedding, `wo` scaled by 1/sqrt(2 L), unit norm
+    scales, zero biases), drawn from a `torch.Generator` on `device`: the
+    values differ from JAX's. To hold the port against the reference, load
+    the JAX init through `convert.params_from_jax`. On the "meta" device the
+    parameters get shapes only.
+    """
+    model = Transformer(cfg, device)
+    if torch.device(device).type == "meta":
+        return model
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dense(w: torch.Tensor, scale: float = 1.0) -> None:
+        nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=gen)
+        w.mul_(scale / math.sqrt(w.shape[0]))
+
+    with torch.no_grad():
+        model.embedding.embed.normal_(0.0, 0.02, generator=gen)
+        if not cfg.tie_embeddings:
+            dense(model.embedding.unembed)
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1.0)
+            elif name.endswith(("bias", ".bq", ".bk", ".bv")):
+                p.zero_()
+        for blk in model.blocks:
+            a = blk.attn
+            dense(a.wq)
+            dense(a.wk)
+            dense(a.wv)
+            dense(a.wo, scale=1.0 / math.sqrt(2 * cfg.n_layers))
+            dense(blk.mlp.wi)
+            dense(blk.mlp.wo_mlp)
+            if cfg.mlp_gated:
+                dense(blk.mlp.wg)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def attn_block_apply(blk: Block, x: torch.Tensor, cfg: ModelConfig, *,
+                     positions: torch.Tensor, cache: Optional[dict] = None
+                     ) -> tuple[torch.Tensor, dict]:
+    h, new_cache = L.attention_apply(L.params_of(blk.attn),
+                                     L.norm_apply(L.params_of(blk.ln1), x, cfg),
+                                     cfg, positions=positions, cache=cache)
+    x = x + h
+    h2 = L.mlp_apply(L.params_of(blk.mlp), L.norm_apply(L.params_of(blk.ln2), x, cfg), cfg)
+    return x + h2, new_cache
+
+
+def _final_logits(model: Transformer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = L.norm_apply(L.params_of(model.final_norm), x, cfg)
+    return L.logits_apply(L.params_of(model.embedding), x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward
+# ---------------------------------------------------------------------------
+
+def forward(model: Transformer, batch: dict, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits, aux_loss); aux is 0 (no MoE)."""
+    x = L.embed_tokens(L.params_of(model.embedding), batch["tokens"], cfg)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    for blk in model.blocks:
+        x, _ = attn_block_apply(blk, x, cfg, positions=positions)
+    logits = _final_logits(model, x, cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, pos: int = 0,
+               device: Device = "cuda") -> dict:
+    """Zero cache: {"layers": {"k", "v": (L, B, max_len, K, hd)}, "pos": int}.
+
+    The same structure as the reference's (and as `prefill` emits); `pos` is a
+    Python int since the host drives the decode loop.
+    """
+    check_supported(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cdt = L.cdtype(cfg)
+    return {"layers": {"k": torch.zeros(shape, dtype=cdt, device=device),
+                       "v": torch.zeros(shape, dtype=cdt, device=device)},
+            "pos": pos}
+
+
+def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
+            ) -> tuple[torch.Tensor, dict]:
+    """Run the prompt; return (last-position logits, cache) with cache length
+    max(S, pad_to) and pos = S."""
+    x = L.embed_tokens(L.params_of(model.embedding), batch["tokens"], cfg)
+    B, S, _ = x.shape
+    cache = init_cache(cfg, B, max(S, pad_to), pos=S, device=x.device)
+    positions = torch.arange(S, device=x.device)[None, :]
+    for i, blk in enumerate(model.blocks):
+        x, kv = attn_block_apply(blk, x, cfg, positions=positions)
+        cache["layers"]["k"][i, :, :S] = kv["k"]
+        cache["layers"]["v"][i, :, :S] = kv["v"]
+    logits = _final_logits(model, x[:, -1:], cfg)
+    return logits, cache
+
+
+def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
+           ) -> tuple[torch.Tensor, dict]:
+    """One decode step: batch["tokens"] (B, S_new) -> (logits (B,S_new,V), cache).
+
+    The cache's k/v are updated in place; the returned cache carries the
+    advanced `pos`.
+    """
+    x = L.embed_tokens(L.params_of(model.embedding), batch["tokens"], cfg)
+    S_new = x.shape[1]
+    pos = cache["pos"]
+    positions = pos + torch.arange(S_new, device=x.device)[None, :]
+    kc, vc = cache["layers"]["k"], cache["layers"]["v"]
+    for i, blk in enumerate(model.blocks):
+        x, _ = attn_block_apply(blk, x, cfg, positions=positions,
+                                cache={"k": kc[i], "v": vc[i], "pos": pos})
+    logits = _final_logits(model, x, cfg)
+    return logits, {"layers": cache["layers"], "pos": pos + S_new}

@@ -39,6 +39,12 @@ elif os.environ.get("REPRO_KERNELS") == "interpret":
     _ops.set_default_impl("pallas_interpret")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's Hopper kernels); "
+        "skips where torch.cuda.is_available() is false")
+
+
 @pytest.fixture(scope="session")
 def repo_root() -> pathlib.Path:
     return REPO
