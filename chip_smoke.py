@@ -4,21 +4,31 @@
     python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. builds every kernel of the serving path from `src/repro_torch/csrc`;
-3. kernel phase: runs each kernel on the card at the serving path's shapes
-   and at edge shapes, holds it against its plain PyTorch version, and times
-   kernel, plain version and the PyTorch library call that computes the same
-   function (a yardstick only; the port never calls it);
-4. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
+2. builds every kernel of the serving and training paths from
+   `src/repro_torch/csrc`, one nvcc per source, all at once;
+3. epilogue kernel phase: sq_norm, fused_axpy, fused_dot_norms and
+   adamw_epilogue at olmo-1b's parameter bucket (1,176,764,416 fp32
+   elements) and at edge sizes, held against their plain versions and timed
+   beside their bound and one PyTorch library call (a yardstick only; the
+   port never calls it);
+4. flash kernel phase: the same for the flash-attention forward;
+5. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
    serves 8 requests x 1024 prompt tokens + 32 greedy tokens through
    `repro_torch.launch.serve.serve`; the launch counts, set to 0 just before
-   and read just after, show the path went through the kernels; then
+   and read just after, show the path went through the kernel; then
    prefill + stepwise decode logits are held against one full forward, and
    the kernel path against the plain path on the same weights, in bf16 and
-   in fp32 compute;
-5. prints the device time by kernel over one prefill and four decode
-   steps (torch.profiler) and the device's busy share;
-6. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+   in fp32 compute; then the device time by kernel over one prefill and
+   four decode steps (torch.profiler);
+6. train phase: full-width olmo-1b trains 6 AsyncSAM steps (AdamW, global
+   batch 8 x 1024, b' = 2) through `FusedExecutor` + `Engine`, the CLI's
+   code; the counts, set to 0 just before and read just after, show each
+   epilogue kernel launched once per step and the flash forward on every
+   forward pass; one step is profiled; then two checks of 3 steps from one
+   init: at the train phase's lr each epilogue kernel call of the path
+   against its plain version on the same inputs, and at a small lr the
+   whole kernel path against the whole plain path;
+7. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without CUDA, or
 without the repository beside it, it exits nonzero and prints no result.
@@ -27,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -177,6 +188,157 @@ def flash_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# epilogue kernel phase
+# ---------------------------------------------------------------------------
+
+OLMO_1B_BUCKET = 1_176_764_416        # fp32 parameters of olmo-1b: one dtype bucket
+EPILOGUE_CASES = [
+    # name, n, dtype of y / w (x, g, mu, nu are fp32), element offset of
+    # every operand (1 breaks 16-byte alignment: the element-by-element path)
+    ("olmo-1b bucket", OLMO_1B_BUCKET, "float32", 0),
+    ("3 chunks + 17", 3 * 65536 + 17, "float32", 0),
+    ("n=1", 1, "float32", 0),
+    ("n=1000", 1000, "float32", 0),
+    ("n=1000 unaligned", 1000, "float32", 1),
+    ("bf16 y/w", 3 * 65536 + 17, "bfloat16", 0),
+]
+# adamw hyperparameters per case: (weight decay, clip scale); clip < 1 scales g
+ADAMW_CASES = [(0.1, 0.7), (0.0, 0.7)]
+# ops per element: sq_norm 2, axpy 2, dot_norms 6, adamw 16 (clip 1, mu 3,
+# nu 4, update 4, decay 2, apply 2)
+EPILOGUE_OPS = {"sq_norm": 2, "fused_axpy": 2, "fused_dot_norms": 6, "adamw_epilogue": 16}
+COMPARE_CHUNK = 1 << 27               # elements per chunk of the plain re-computation
+
+
+def bound(nbytes: float, ops: float, dtype: str = "float32") -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_rel(got, expect) -> tuple[float, float]:
+    """(max|got - expect|, that over max|expect|)."""
+    err = float((got.float() - expect.float()).abs().max())
+    return err, err / max(float(expect.float().abs().max()), 1e-30)
+
+
+def epilogue_phase() -> dict:
+    """Each flat-buffer kernel against its plain version on the card; returns
+    the olmo-1b bucket case's row per kernel."""
+    import torch
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sam_perturb as sp
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    main_rows, failures = {}, []
+
+    def operand(n, dtype, offset, scale, positive=False):
+        t = torch.empty(n + offset, dtype=torch.float32, device="cuda")
+        if positive:
+            t.uniform_(0.0, scale, generator=gen)
+        else:
+            t.normal_(0.0, scale, generator=gen)
+        return t.to(getattr(torch, dtype))[offset:]
+
+    def report(kernel, case, n, err, rel, tol, ms, plain_ms, library_ms, nbytes, dtype,
+               main):
+        bound_ms, bound_by = bound(nbytes, EPILOGUE_OPS[kernel] * n)
+        ok = rel <= tol
+        row = dict(kernel=kernel, case=case, n=n, dtype=dtype, max_abs_err=err,
+                   max_rel_err=rel, rel_tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print("epilogue " + json.dumps(row))
+        if not ok:
+            failures.append(f"{kernel} / {case}")
+        if main:
+            main_rows[kernel] = row
+
+    for ci, (case, n, dtype, offset) in enumerate(EPILOGUE_CASES):
+        main = ci == 0
+        ydt = getattr(torch, dtype)
+        es = ydt.itemsize
+        tol = FP32_TOL["rtol"] if dtype == "float32" else BF16_TOL["rtol"]
+        red_tol = FP32_TOL["rtol"]              # fp32 sums, other order
+        # gradient-like magnitudes
+        x = operand(n, "float32", offset, 1e-3)
+        y = operand(n, dtype, offset, 2e-2)
+
+        # --- sq_norm (of the fp32 gradient) ---
+        got = sp.sq_norm(x)
+        torch.cuda.synchronize()
+        expect = ref.sq_norm_plain(x)
+        err, rel = max_rel(got, expect)
+        report("sq_norm", case, n, err, rel, red_tol, time_ms(lambda: sp.sq_norm(x)),
+               time_ms(lambda: ref.sq_norm_plain(x)),
+               time_ms(lambda: torch.linalg.vector_norm(x) ** 2), 4 * n, "float32", main)
+
+        # --- fused_axpy: out = y + alpha x ---
+        alpha = torch.tensor(3.7, device="cuda")
+        out = torch.empty_like(y)
+        fu.fused_axpy(alpha, x, y, out=out)
+        torch.cuda.synchronize()
+        errs = [max_rel(out[i:i + COMPARE_CHUNK],
+                        ref.axpy_flat_plain(alpha, x[i:i + COMPARE_CHUNK], y[i:i + COMPARE_CHUNK]))
+                for i in range(0, n, COMPARE_CHUNK)]
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        ms = time_ms(lambda: fu.fused_axpy(alpha, x, y, out=out))
+        del out
+        report("fused_axpy", case, n, err, rel, tol, ms,
+               time_ms(lambda: ref.axpy_flat_plain(alpha, x, y)),
+               time_ms(lambda: torch.add(y, x, alpha=3.7)), n * (4 + 2 * es), dtype, main)
+
+        # --- fused_dot_norms(a = x, b = y) ---
+        got = fu.fused_dot_norms(x, y)
+        torch.cuda.synchronize()
+        expect = ref.dot_norms_flat_plain(x, y)
+        pairs = [max_rel(g_, e_) for g_, e_ in zip(got, expect)]
+        # library_ms None: no one PyTorch call gives (<a,b>, |a|^2, |b|^2)
+        report("fused_dot_norms", case, n, max(p[0] for p in pairs),
+               max(p[1] for p in pairs), red_tol, time_ms(lambda: fu.fused_dot_norms(x, y)),
+               time_ms(lambda: ref.dot_norms_flat_plain(x, y)), None, n * (4 + es), dtype,
+               main)
+
+        # --- adamw_epilogue: w (y's dtype) with fp32 g = x, mu, nu ---
+        del y
+        w = operand(n, dtype, offset, 2e-2)
+        mu = operand(n, "float32", offset, 1e-4)
+        nu = operand(n, "float32", offset, 1e-7, positive=True)
+        lr, c1, c2 = (torch.tensor(v, device="cuda") for v in (1e-3, 0.19, 0.001999))
+        for ai, (wd, clip) in enumerate(ADAMW_CASES if not main else ADAMW_CASES[:1]):
+            clip_t = torch.tensor(clip, device="cuda")
+            kw, kmu, knu = w.clone(), mu.clone(), nu.clone()
+            fu.adamw_epilogue(kw, x, kmu, knu, clip_t, lr, c1, c2, weight_decay=wd)
+            torch.cuda.synchronize()
+            errs = []
+            for i in range(0, n, COMPARE_CHUNK):
+                sl = slice(i, i + COMPARE_CHUNK)
+                new = ref.adamw_epilogue_flat_plain(w[sl], x[sl], mu[sl], nu[sl], clip_t, lr,
+                                                    c1, c2, weight_decay=wd)
+                errs += [max_rel(k_[sl], p_) for k_, p_ in zip((kw, kmu, knu), new)]
+            err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            ms = time_ms(lambda: fu.adamw_epilogue(kw, x, kmu, knu, clip_t, lr, c1, c2,
+                                                   weight_decay=wd))
+            del kw, kmu, knu
+            plain_ms = time_ms(lambda: ref.adamw_epilogue_flat_plain(
+                w, x, mu, nu, clip_t, lr, c1, c2, weight_decay=wd))
+            library_ms = None
+            if dtype == "float32" and offset == 0:
+                p = torch.nn.Parameter(w)
+                p.grad = x
+                opt = torch.optim.AdamW([p], lr=1e-3, weight_decay=wd, fused=True)
+                library_ms = time_ms(opt.step)
+                del opt, p
+            report("adamw_epilogue", f"{case}, wd {wd}, clip {clip}", n, err, rel,
+                   tol if dtype == "float32" else BF16_TOL["rtol"], ms, plain_ms, library_ms,
+                   n * (2 * es + 4 + 16), dtype, main and ai == 0)
+        del x, w, mu, nu
+        torch.cuda.empty_cache()
+    if failures:
+        fail(f"epilogue kernels disagree with their plain versions: {failures}")
+    return main_rows
+
+
+# ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
 
@@ -267,7 +429,6 @@ def profile_phase(model) -> None:
     """Device time by kernel over one full-width prefill and 4 decode steps
     (torch.profiler), and the device's busy share of the wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import TokenTask
     from repro_torch.models import transformer
@@ -290,17 +451,378 @@ def profile_phase(model) -> None:
                         tok = logits[:, -1].argmax(-1)[:, None]
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
-        by_name: dict[str, list] = {}
-        for e in prof.events():                 # device-side kernels only
-            if e.device_type == DeviceType.CUDA:
-                tot = by_name.setdefault(e.name, [0.0, 0])
-                tot[0] += e.time_range.elapsed_us()
-                tot[1] += 1
+        by_name = device_time_by_kernel(prof)
         busy_us = sum(t for t, _ in by_name.values())
         print(f"profile {phase}: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us "
               f"(busy {100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel names")
         for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
             print(f"  {t:12.1f} us {100 * t / busy_us:5.1f}%  {n:5d}x  {name[:110]}")
+
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 1024
+ASCENT_FRACTION, RHO, LR = 0.25, 0.05, 3e-3
+EPILOGUE_KERNELS = ("sq_norm", "fused_axpy", "fused_dot_norms", "adamw_epilogue")
+# Two training checks, 3 AsyncSAM steps each from the seed-0 init.
+#
+# Lockstep check, at the train phase's lr: every epilogue kernel call the path
+# makes is held, as it is made, against its plain version on the same inputs:
+# the sums by |d| / |plain|, fused_axpy's out and adamw_epilogue's w by
+# max|d| / max|plain - before| (the step's own change: a buffer left unwritten
+# misses by all of it), mu and nu by max|d| / max|plain|. The limit is the
+# epilogue phase's, the reference's fp32 kernel tolerance; the elementwise
+# kernels match bit for bit, the sums differ in their order only. Two whole
+# runs cannot hold the kernels tightly: that order difference alone (2e-7 in
+# ||a||) moves rho / ||a|| in w_hat, flips the bf16 rounding of some of its
+# weights, and Adam at this lr amplifies it to 4e-3 in grad_norm by step 2
+# (on an H100, PERF.md).
+LOCKSTEP_REL_TOL = FP32_TOL["rtol"]
+# Whole-path check, at lr 3e-5: the whole kernel path, flash forward
+# included, against the whole plain path. The flash kernel rounds P to bf16
+# before P V (the serve check's 2.7e-2 on logits), so per-step scalars are
+# held to the bf16 model tolerance and the moments follow the gradients: mu
+# (max|d| / max|mu|) to it, nu (squares) to twice it. Adam moves a weight by
+# about lr a step whatever its gradient's size, so a weight whose gradient is
+# at bf16 noise may move the other way on the other path: more than 0.1% of
+# the weights do (on an H100, PERF.md), and max|dw| says nothing. w is held
+# by its bulk: the median |dw| against the median |change| of w, where an
+# unwritten w gives about 1. At the train phase's lr those flips make the two
+# runs different models by step 2 (grad_norm 16% apart), hence lr 3e-5.
+TRAIN_CHECK_STEPS, WHOLE_CHECK_LR = 3, 3e-5
+SCALAR_REL_TOL = MODEL_BF16_REL_TOL
+COSINE_ABS_TOL = MODEL_BF16_REL_TOL
+MOMENT_REL_TOL = {"mu": MODEL_BF16_REL_TOL, "nu": 2 * MODEL_BF16_REL_TOL}
+W_BULK_TOL = 0.1
+BULK_QUANTILES = (0.5, 0.9, 0.999)  # printed; the median is held
+BULK_STRIDE = 97            # subsample for quantiles (torch.quantile takes <= 2^24)
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import sam_perturb as sp
+    fa.launches = 0
+    sp.launches = 0
+    for name in fu.launches:
+        fu.launches[name] = 0
+
+
+def flash_per_step(cfg) -> tuple[int, str]:
+    """Flash launches one AsyncSAM step implies: 2 gradient passes (ascent at
+    w, descent at w_hat); each runs every block's forward once, and again in
+    backward when the block is checkpointed (remat "full" or "dots")."""
+    fwd = 1 if cfg.remat == "none" else 2
+    n = 2 * fwd * cfg.n_layers
+    return n, (f"2 gradient passes x {fwd} forward(s) per block (remat={cfg.remat!r}) x "
+               f"{cfg.n_layers} layers = {n}")
+
+
+def build_trainer(steps: int, lr: float = LR):
+    """Full-width olmo-1b from seed 0, async_sam + AdamW on the card, and its
+    pipeline: what `python -m repro_torch.launch.train` builds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import MethodConfig
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.engine import FusedExecutor
+    from repro_torch.models import build_model
+    from repro_torch.optim import cosine_schedule, make_optimizer
+
+    cfg = get_config("olmo-1b")
+    bundle = build_model(cfg)
+    ex = FusedExecutor(bundle.loss_fn,
+                       MethodConfig(name="async_sam", rho=RHO, ascent_fraction=ASCENT_FRACTION),
+                       make_optimizer("adamw", cosine_schedule(lr, steps,
+                                                               warmup_steps=steps // 20)))
+    state = ex.init_state(bundle.init(seed=0, device="cuda"), seed=1)
+    pipe = TokenPipeline(cfg, PipelineConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                             seed=0, ascent_fraction=ASCENT_FRACTION),
+                         device="cuda")
+    return cfg, ex, state, pipe
+
+
+def train_phase():
+    """Train full-width olmo-1b through the kernels; returns (summary,
+    executor, final state, pipeline)."""
+    import statistics
+    import torch
+    from repro_torch.engine import Engine, ThroughputMeter
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.optim import epilogue_hbm_bytes
+
+    cfg, ex, state, pipe = build_trainer(TRAIN_STEPS)
+    n_params = sum(b.numel() for b in state.params.buffers)
+    print(f"train: olmo-1b {n_params} params in {len(state.params.buffers)} bucket(s) "
+          f"({[g.dtype for g in state.params.layout.groups]}), compute {cfg.compute_dtype}, "
+          f"remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, b' = "
+          f"{max(1, round(TRAIN_BATCH * ASCENT_FRACTION))}")
+    meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
+    reset_launches()                                   # counts: 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
+    launches = kernel_launches()                       # read just after
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for i, m in enumerate(report.metrics_history):
+        print(f"train step {i}: {json.dumps(m)} ({meter.step_times[i]:.4f} s)")
+    flash_n, how = flash_per_step(cfg)
+    print(f"train launches over {TRAIN_STEPS} steps: {launches}; flash per step: {how}")
+    for name in EPILOGUE_KERNELS:
+        if launches[name] != TRAIN_STEPS:
+            fail(f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
+                 f"expected once per step (one fp32 bucket)")
+    if launches["flash_attention"] != flash_n * TRAIN_STEPS:
+        fail(f"flash_attention launched {launches['flash_attention']} times, expected "
+             f"{flash_n} per step")
+    hist = report.metrics_history
+    if report.steps_done != TRAIN_STEPS or not all(
+            math.isfinite(v) for m in hist for v in m.values()):
+        fail(f"training did not finish with finite metrics: {hist}")
+    if [m["perturbed"] for m in hist] != [0.0] + [1.0] * (TRAIN_STEPS - 1):
+        fail(f"perturbed should be 0 at step 0 and 1 after: {[m['perturbed'] for m in hist]}")
+    if any(m["tau"] != 1.0 for m in hist):
+        fail(f"tau should be 1 every step: {[m['tau'] for m in hist]}")
+    step_s = statistics.median(meter.step_times[2:])
+    summary = dict(steps=TRAIN_STEPS, step_times_s=meter.step_times, median_step_s=step_s,
+                   descent_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_gib=peak_gib,
+                   launches=launches, flash_per_step=flash_n,
+                   loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"])
+    print(f"train: median step (steps 2-{TRAIN_STEPS - 1}) {step_s:.4f} s, "
+          f"{summary['descent_tokens_per_s']:.1f} descent tok/s, peak {peak_gib:.2f} GiB")
+    # the reference's model of the epilogue's traffic (no clip, decay on,
+    # carried norm, resident), against the four kernels' own bytes: without
+    # clip the model counts no grad-norm pass, which runs every step for the
+    # grad_norm metric, and it leaves out the ascent refresh's read of both
+    # fp32 ascent buffers
+    model_bytes = epilogue_hbm_bytes(n_params, 4 * n_params, family="adamw", clip=False,
+                                     weight_decay=True, carried_norm=True, fused=True,
+                                     resident=True)
+    kernel_bytes = (4 + 12 + 8 + 28) * n_params
+    print(f"train: epilogue bytes a step, reference model {model_bytes} "
+          f"({model_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s), the four kernels "
+          f"{kernel_bytes} ({kernel_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+    return summary, ex, report.final_state, pipe
+
+
+def check_run(lr: float, plain=False, w0=None, to_host: bool = False):
+    """3 steps from the seed-0 init, every entry point forced to its plain
+    version when `plain`. Returns (metrics history, final {w, mu, nu}
+    buffers, the init w on the host); the buffers stay on the card unless
+    `to_host` (the plain path's temporaries need the room), and the
+    executor's workspace is freed."""
+    import gc
+    import torch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import ops
+
+    if plain:
+        ops.set_default_impl("plain")
+    try:
+        cfg, ex, state, pipe = build_trainer(TRAIN_CHECK_STEPS, lr)
+        if w0 is None:
+            w0 = state.params.buffers[0].cpu()
+        report = Engine(ex, pipe).fit(state, TRAIN_CHECK_STEPS)
+    finally:
+        ops.set_default_impl(None)
+    final = report.final_state
+    adam = final.opt_state[0]                          # (AdamState, (), lr state)
+    bufs = {"w": final.params.buffers[0], "mu": adam.mu.buffers[0], "nu": adam.nu.buffers[0]}
+    if to_host:
+        bufs = {k: v.cpu() for k, v in bufs.items()}
+    hist = report.metrics_history
+    del ex, state, pipe, report, final, adam
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, bufs, w0
+
+
+def compare_runs(ref_run, run, w0) -> dict:
+    """Per-step scalar differences and, per buffer, max|d|, max|change| and
+    their ratio, and the BULK_QUANTILES of |d| and of |change| (over every
+    BULK_STRIDE-th element); change is the reference run's own move from the
+    init, for mu and nu their value. Buffers may lie on the host."""
+    import torch
+    (hist_r, bufs_r), (hist, bufs) = ref_run, run
+    out = {"steps": []}
+    for mr, m in zip(hist_r, hist):
+        row = {k: abs(m[k] - mr[k]) / max(abs(mr[k]), 1e-30)
+               for k in ("loss", "ascent_norm", "grad_norm") if mr[k] != 0.0}
+        row["ascent_cosine_abs"] = abs(m["ascent_cosine"] - mr["ascent_cosine"])
+        out["steps"].append(row)
+    q = torch.tensor(BULK_QUANTILES, device="cuda")
+    for name in ("w", "mu", "nu"):
+        err = change = 0.0
+        d_s, c_s = [], []
+        for i in range(0, bufs[name].numel(), COMPARE_CHUNK):
+            r = bufs_r[name][i:i + COMPARE_CHUNK].cuda()
+            d = (bufs[name][i:i + COMPARE_CHUNK].cuda() - r).abs()
+            c = (r - w0[i:i + COMPARE_CHUNK].cuda()).abs() if name == "w" else r.abs()
+            err, change = max(err, float(d.max())), max(change, float(c.max()))
+            d_s.append(d[(-i) % BULK_STRIDE::BULK_STRIDE])
+            c_s.append(c[(-i) % BULK_STRIDE::BULK_STRIDE])
+        out[name] = {"max_abs": err, "max_change": change, "max_rel": err / change,
+                     "q_abs": torch.quantile(torch.cat(d_s), q).tolist(),
+                     "q_change": torch.quantile(torch.cat(c_s), q).tolist()}
+    return out
+
+
+def lockstep_check() -> dict:
+    """3 steps at the train phase's lr through the kernels, each epilogue
+    kernel call held against its plain version on the same inputs (see
+    LOCKSTEP_REL_TOL). Returns {kernel: {calls, launches, max_rel_err}}."""
+    import torch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import kernel_launches
+
+    kernel = {name: getattr(ops, name) for name in EPILOGUE_KERNELS}
+    worst = {name: {"calls": 0, "max_rel_err": 0.0} for name in EPILOGUE_KERNELS}
+
+    def note(name, pairs):
+        """pairs: (max|d|, scale) per quantity of one call."""
+        worst[name]["calls"] += 1
+        for err, scale in pairs:
+            worst[name]["max_rel_err"] = max(worst[name]["max_rel_err"],
+                                             err / max(scale, 1e-30))
+
+    def chunked(n, fn):
+        """max over COMPARE_CHUNK slices of fn(slice) -> [(err, scale)...]."""
+        best = None
+        for i in range(0, n, COMPARE_CHUNK):
+            cur = fn(slice(i, i + COMPARE_CHUNK))
+            best = cur if best is None else [(max(e, be), max(s, bs))
+                                             for (e, s), (be, bs) in zip(cur, best)]
+        return best
+
+    def amax(t) -> float:
+        return float(t.float().abs().max())
+
+    def sq_norm(g, **kw):
+        got = kernel["sq_norm"](g, **kw)
+        want = ref.sq_norm_plain(g)
+        note("sq_norm", [(abs(float(got) - float(want)), abs(float(want)))])
+        return got
+
+    def fused_axpy(alpha, x, y, **kw):
+        got = kernel["fused_axpy"](alpha, x, y, **kw)
+
+        def part(sl):
+            want = ref.axpy_flat_plain(alpha, x[sl], y[sl])
+            return [(amax(got[sl].float() - want.float()), amax(want.float() - y[sl].float()))]
+        note("fused_axpy", chunked(y.numel(), part))
+        return got
+
+    def fused_dot_norms(a, b, **kw):
+        got = kernel["fused_dot_norms"](a, b, **kw)
+        want = ref.dot_norms_flat_plain(a, b)
+        note("fused_dot_norms", [(abs(float(g_) - float(w_)), abs(float(w_)))
+                                 for g_, w_ in zip(got, want)])
+        return got
+
+    def adamw_epilogue(w, g, mu, nu, clip_scale, lr, c1, c2, **kw):
+        w0_, mu0, nu0 = w.clone(), mu.clone(), nu.clone()
+        got = kernel["adamw_epilogue"](w, g, mu, nu, clip_scale, lr, c1, c2, **kw)
+        hyper = {k: v for k, v in kw.items() if k != "impl"}
+
+        def part(sl):
+            nw, nmu, nnu = ref.adamw_epilogue_flat_plain(w0_[sl], g[sl], mu0[sl], nu0[sl],
+                                                         clip_scale, lr, c1, c2, **hyper)
+            return [(amax(w[sl].float() - nw.float()), amax(nw.float() - w0_[sl].float())),
+                    (amax(mu[sl] - nmu), amax(nmu)), (amax(nu[sl] - nnu), amax(nnu))]
+        note("adamw_epilogue", chunked(w.numel(), part))
+        del w0_, mu0, nu0
+        return got
+
+    shadows = dict(sq_norm=sq_norm, fused_axpy=fused_axpy, fused_dot_norms=fused_dot_norms,
+                   adamw_epilogue=adamw_epilogue)
+    cfg, ex, state, pipe = build_trainer(TRAIN_CHECK_STEPS, LR)
+    before = kernel_launches()
+    for name, fn in shadows.items():
+        setattr(ops, name, fn)
+    try:
+        Engine(ex, pipe).fit(state, TRAIN_CHECK_STEPS)
+    finally:
+        for name, fn in kernel.items():
+            setattr(ops, name, fn)
+    after = kernel_launches()
+    del ex, state, pipe
+    torch.cuda.empty_cache()
+    for name in EPILOGUE_KERNELS:
+        worst[name]["launches"] = after[name] - before[name]
+    return worst
+
+
+def train_check() -> dict:
+    """The lockstep check and the whole-path check (see LOCKSTEP_REL_TOL and
+    WHOLE_CHECK_LR for what each holds and why)."""
+    lock = lockstep_check()
+    ok_lock = all(r["calls"] == r["launches"] == TRAIN_CHECK_STEPS
+                  and r["max_rel_err"] <= LOCKSTEP_REL_TOL for r in lock.values())
+    print(f"train check, lockstep ({TRAIN_CHECK_STEPS} steps, lr {LR}; each epilogue kernel "
+          f"call on the path vs its plain version on the same inputs): {json.dumps(lock)}; "
+          f"tolerance: rel {LOCKSTEP_REL_TOL}, one call and one launch per step each")
+
+    kern_hist, kern_bufs, w0 = check_run(WHOLE_CHECK_LR, to_host=True)
+    hist, bufs, _ = check_run(WHOLE_CHECK_LR, True, w0)
+    whole = compare_runs((hist, bufs), (kern_hist, kern_bufs), w0)
+    del kern_bufs, bufs, w0
+    ok_whole = all(v <= (COSINE_ABS_TOL if k == "ascent_cosine_abs" else SCALAR_REL_TOL)
+                   for row in whole["steps"] for k, v in row.items())
+    ok_whole &= all(whole[k]["max_rel"] <= MOMENT_REL_TOL[k] for k in ("mu", "nu"))
+    w_bulk = whole["w"]["q_abs"][0] / whole["w"]["q_change"][0]
+    ok_whole &= w_bulk <= W_BULK_TOL
+    print(f"train check, whole kernel path vs plain path ({TRAIN_CHECK_STEPS} steps, lr "
+          f"{WHOLE_CHECK_LR}; quantiles {list(BULK_QUANTILES)}): {json.dumps(whole)}; w bulk: "
+          f"median|d| / median|change| = {w_bulk:.3e}; tolerances: loss/ascent_norm/"
+          f"grad_norm rel {SCALAR_REL_TOL}, ascent_cosine abs {COSINE_ABS_TOL}, mu rel "
+          f"{MOMENT_REL_TOL['mu']}, nu rel {MOMENT_REL_TOL['nu']}, w bulk {W_BULK_TOL}")
+    if not ok_lock:
+        fail("an epilogue kernel on the training path disagrees with its plain version")
+    if not ok_whole:
+        fail("training on the kernel path disagrees with the plain path")
+    return {"lockstep": lock, "whole": whole, "w_bulk": w_bulk}
+
+
+def device_time_by_kernel(prof) -> dict:
+    from torch.autograd import DeviceType
+    by_name: dict[str, list] = {}
+    for e in prof.events():                            # device-side kernels only
+        if e.device_type == DeviceType.CUDA:
+            tot = by_name.setdefault(e.name, [0.0, 0])
+            tot[0] += e.time_range.elapsed_us()
+            tot[1] += 1
+    return by_name
+
+
+def train_profile(ex, state, pipe) -> dict:
+    """Device time by kernel over one training step, its busy share, and the
+    epilogue kernels' share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = pipe.peek()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = device_time_by_kernel(prof)
+    busy_us = sum(t for t, _ in by_name.values())
+    tags = {"sq_norm": "sq_norm_kernel", "fused_axpy": "axpy_kernel",
+            "fused_dot_norms": "dot_norms_kernel", "adamw_epilogue": "adamw_epilogue_kernel",
+            "flash_attention": "fa_fwd_"}
+    ours = {k: sum(t for n, (t, _) in by_name.items() if tag in n) for k, tag in tags.items()}
+    epi_us = sum(ours[k] for k in EPILOGUE_KERNELS)
+    print(f"profile train step: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us "
+          f"(busy {100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel names; epilogue "
+          f"kernels {epi_us:.1f} us = {100 * epi_us / wall_us:.2f}% of the step, "
+          f"{100 * epi_us / busy_us:.2f}% of device time; by kernel (us): "
+          f"{json.dumps(ours)}")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {t:12.1f} us {100 * t / busy_us:5.1f}%  {n:5d}x  {name[:110]}")
+    return dict(wall_us=wall_us, busy_us=busy_us, epilogue_us=epi_us, by_kernel_us=ours)
 
 
 def main() -> int:
@@ -318,6 +840,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import sam_perturb as sp
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -325,7 +849,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    libs = build.build([fa.SOURCE])
+    libs = build.build([fa.SOURCE, sp.SOURCE, fu.SOURCE])
     print(f"build: {len(libs)} kernel source(s) in {time.perf_counter() - t0:.2f}s")
     for src, lib in libs.items():
         log = lib.with_name(lib.name + ".log").read_text()
@@ -333,19 +857,40 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {src.name}: {line.strip()}")
 
+    epilogue = epilogue_phase()
     flash = flash_phase()
     served, model = serve_phase()
     print("serve " + json.dumps(served))
     profile_phase(model)
     del model
+    torch.cuda.empty_cache()
+
+    trained, ex, state, pipe = train_phase()
+    print("train " + json.dumps(trained))
+    train_profile(ex, state, pipe)
+    del ex, state, pipe
+    torch.cuda.empty_cache()
+    print("train check " + json.dumps(train_check()))
 
     kernels = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:36",
-                    launches=served["launches"]["flash_attention"],
+                    launches=served["launches"]["flash_attention"]
+                    + trained["launches"]["flash_attention"],
                     max_abs_err=flash["max_abs_err"], ms=flash["ms"],
                     plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
                     bound_by=flash["bound_by"], library_ms=flash["library_ms"])]
+    replaces = {"sq_norm": ("sam_perturb.cu", "src/repro/kernels/sam_perturb.py:36"),
+                "fused_axpy": ("fused_update.cu", "src/repro/kernels/fused_update.py:50"),
+                "fused_dot_norms": ("fused_update.cu", "src/repro/kernels/fused_update.py:76"),
+                "adamw_epilogue": ("fused_update.cu", "src/repro/kernels/fused_update.py:239")}
+    for name in EPILOGUE_KERNELS:
+        row, (src, where) = epilogue[name], replaces[name]
+        kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+                            replaces=where, launches=trained["launches"][name],
+                            max_abs_err=row["max_abs_err"], ms=row["ms"],
+                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                            bound_by=row["bound_by"], library_ms=row["library_ms"]))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -1,0 +1,58 @@
+"""repro_torch.core: AsyncSAM (Form A) and the SGD / SAM baselines
+(counterpart of `repro.core`).
+
+The other methods of the reference's registry (gsam, looksam, esam, aesam,
+mesa) are not ported yet: `make_method` raises for them, naming their
+ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.api import (  # noqa: F401
+    GUARD,
+    LossFn,
+    Method,
+    MethodConfig,
+    TrainState,
+    init_train_state,
+    step_rng,
+)
+from repro_torch.core.ascent import (  # noqa: F401
+    Compressor,
+    slice_ascent_batch,
+    split_batch,
+    system_aware_ascent_fraction,
+)
+from repro_torch.core.async_sam import AsyncSamState, make_async_sam  # noqa: F401
+from repro_torch.core.perturb import perturb  # noqa: F401
+from repro_torch.core.sam import make_sam, make_sgd  # noqa: F401
+
+_REGISTRY = {
+    "sgd": make_sgd,
+    "sam": make_sam,
+    "async_sam": make_async_sam,
+}
+_NOT_PORTED = ("gsam", "looksam", "esam", "aesam", "mesa")
+
+
+def available_methods() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def make_method(cfg: MethodConfig) -> Method:
+    """Instantiate a training method from its config (name-dispatched)."""
+    if cfg.name in _NOT_PORTED:
+        raise NotImplementedError(f"method {cfg.name!r} is not ported yet: method "
+                                  f"variants, ROADMAP.md queue 1")
+    try:
+        factory = _REGISTRY[cfg.name]
+    except KeyError:
+        raise ValueError(f"unknown method {cfg.name!r}; available: "
+                         f"{available_methods()}") from None
+    if cfg.guard_update:
+        raise NotImplementedError(GUARD)
+    if cfg.fused_update is False:
+        raise NotImplementedError("fused_update=False (the per-leaf weight-space path) is "
+                                  "not ported yet: slice 3 of the port, ROADMAP.md queue 1")
+    return dataclasses.replace(factory(cfg), cfg=cfg)

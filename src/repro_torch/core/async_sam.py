@@ -1,0 +1,135 @@
+"""AsyncSAM, the paper's contribution (Algorithm 1), Form A (counterpart of
+`make_async_sam` in `repro.core.async_sam`).
+
+Because tau = 1 removes the ascent -> descent dependency, one step computes
+both
+
+    g_t = ∇L^b ( w_t + r * a_{t-1} / ||a_{t-1}|| )     (descent, perturbed)
+    a_t = ∇L^{b'} ( w_t )                               (next ascent)
+
+The reference jits the two gradients as independent dataflow nodes; on one
+card the port runs them in sequence on one stream, which computes the same
+values. The order, on bucket-resident state:
+
+  1. a_t at w, on the ascent batch, into the spare ascent buffer;
+  2. w_hat = fused_axpy(rho / ||a_{t-1}||, a_{t-1}, w) into its own buffer;
+  3. g at w_hat, on the descent batch, into the gradient buffer;
+  4. fused_apply: sq_norm + adamw_epilogue update w, mu and nu in place;
+  5. fused_dot_norms(a_t, a_{t-1}): the carried norm and the cosine;
+  6. swap the two ascent buffers.
+
+At t = 0 no ascent gradient exists: rho_eff = 0 degrades the step to SGD
+(Algorithm 1, line 8) with the same kernels launched. Form B (the split
+ascent and descent functions of the heterogeneous executor) is a later slice
+(ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core.api import (LossFn, Method, MethodConfig, TrainState, Workspace,
+                                  _finish, step_rng, value_and_grad_acc)
+from repro_torch.core.ascent import (CompressionState, Compressor, slice_ascent_batch,
+                                     split_batch)
+from repro_torch.core.perturb import perturb
+from repro_torch.core.sam import _m
+from repro_torch.optim import GradientTransform
+from repro_torch.utils import buckets, trees
+
+Tree = Any
+
+
+class AsyncSamState(NamedTuple):
+    """Carry across steps: the ascent gradient a_{t-tau}."""
+    ascent_grad: buckets.BucketedState   # a_{t-1}, fp32; zeros before the first refresh
+    ascent_norm: torch.Tensor            # ||a_{t-1}|| (fp32 device scalar)
+    have_ascent: bool                    # a valid gradient is held
+    staleness: int                       # age of the held gradient (tau)
+    compression: CompressionState        # error-feedback residual ((), lossless)
+
+
+def _init_state(params: buckets.BucketedState, compressor: Compressor) -> AsyncSamState:
+    return AsyncSamState(
+        ascent_grad=trees.tree_zeros_like(params, torch.float32),
+        ascent_norm=torch.zeros((), dtype=torch.float32, device=params.device),
+        have_ascent=False,
+        staleness=0,
+        compression=compressor.init(params),
+    )
+
+
+def make_async_sam(cfg: MethodConfig) -> Method:
+    compressor = Compressor(kind=cfg.compressor, topk_fraction=cfg.topk_fraction)
+
+    def init(params, seed):
+        return _init_state(params, compressor)
+
+    def make_step(loss_fn: LossFn, optimizer: GradientTransform):
+        vg = value_and_grad_acc(loss_fn, cfg.n_microbatches)
+        ws = Workspace()
+
+        def step(state: TrainState, batch):
+            batch, ascent_batch = split_batch(batch)
+            if ascent_batch is None:
+                ascent_batch = slice_ascent_batch(batch, cfg.ascent_fraction)
+            ms: AsyncSamState = state.method_state
+            w = state.params
+
+            # --- 1. the NEXT ascent gradient at the unperturbed w (line 3).
+            # ascent_interval > 1 (beyond-paper "AsyncSAM-k") refreshes only
+            # every k-th step; a reused step reports a NaN ascent_loss
+            # SENTINEL (no ascent pass ran), disambiguated by ascent_reused.
+            refresh = cfg.ascent_interval <= 1 or state.step % cfg.ascent_interval == 0
+            if refresh:
+                spare = ws.get("ascent", w, torch.float32)
+                raw = spare if all(b.dtype == torch.float32 for b in w.buffers) else None
+                (loss_asc, _), a_new = vg(w, ascent_batch, step_rng(state, lane=1),
+                                          out=raw if raw is not None else ws.get("a_raw", w))
+                if a_new is not spare:           # non-fp32 buckets: cast into fp32
+                    for dst, src in zip(spare.buffers, a_new.buffers):
+                        dst.copy_(src)
+                    a_new = spare
+                staleness, reused = 1, 0.0
+            else:
+                a_new = ms.ascent_grad
+                loss_asc = torch.full((), float("nan"), device=w.device)
+                staleness, reused = ms.staleness + 1, 1.0
+
+            # --- 2. perturb with the STALE gradient a_{t-1} (line 5); at t=0
+            # rho_eff = 0 gives w_hat = w (line 8)
+            rho_eff = cfg.rho if ms.have_ascent else 0.0
+            w_hat = perturb(w, ms.ascent_grad, rho_eff, grad_norm=ms.ascent_norm,
+                            out=ws.get("w_hat", w))
+
+            # --- 3. descent gradient at the perturbed point (line 6)
+            (loss, aux), grads = vg(w_hat, batch, step_rng(state, lane=0),
+                                    out=ws.get("grads", w))
+            aux = _m(aux)
+
+            # --- 4. the optimizer update, in place
+            new_state, metrics = _finish(state, optimizer, grads, None, {}, guard=cfg.guard_update)
+
+            # --- 5. ascent-state refresh: the cosine metric and the carried
+            # norm from ONE pass over (a_t, a_{t-1})
+            dot, sq_new, sq_old = buckets.bucketed_dot_norms(a_new, ms.ascent_grad)
+            cos = dot / (torch.sqrt(sq_new) * torch.sqrt(sq_old) + 1e-12)
+            new_ms = AsyncSamState(ascent_grad=a_new, ascent_norm=torch.sqrt(sq_new),
+                                   have_ascent=True, staleness=staleness,
+                                   compression=ms.compression)
+
+            # --- 6. swap: a_{t-1}'s buffer takes the next a_t
+            if refresh:
+                ws.bufs["ascent"] = ms.ascent_grad
+
+            metrics = {"loss": loss, "ascent_loss": loss_asc,
+                       "ascent_norm": new_ms.ascent_norm, "ascent_cosine": cos,
+                       "ascent_reused": reused,
+                       "perturbed": 1.0 if ms.have_ascent else 0.0,
+                       **aux, **metrics}
+            return new_state._replace(method_state=new_ms), metrics
+
+        return step
+
+    return Method("async_sam", init, make_step)

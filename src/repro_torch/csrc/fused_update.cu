@@ -1,0 +1,251 @@
+// The fused weight-space kernels of the training step for Hopper (sm_90a),
+// CUDA C++ with plain C entries.
+//
+// Replaces three Pallas TPU kernels of src/repro/kernels/fused_update.py:
+// * `_axpy_kernel` (pallas_call in `fused_axpy`): out = y + alpha x, the SAM
+//   perturbation w_hat = w + (rho / ||a||) a; fp32 math, y's dtype out,
+//   written into a buffer the caller gives;
+// * `_dot_norms_kernel` (`fused_dot_norms`): (<a,b>, ||a||^2, ||b||^2) in one
+//   read of a and b, as fp32 partials per 65,536-element chunk summed outside
+//   the kernel; AsyncSAM's ascent refresh (the carried norm and the cosine);
+// * `_adam_kernel` (`adamw_epilogue`): g <- clip g; mu' = b1 mu + (1-b1) g;
+//   nu' = b2 nu + (1-b2) g^2; w' = w - lr ((mu'/c1) / (sqrt(nu'/c2) + eps)
+//   + wd w), writing w, mu and nu in place.
+// alpha and (clip, lr, c1, c2) are device scalars the kernels read
+// themselves, so the host never waits for the device; b1, b2, eps and wd are
+// arguments, as the TPU kernel bakes them in.
+//
+// What bounds them on the H100: each moves its operands once and does a few
+// operations per element, so the bytes bound all three. At olmo-1b's fp32
+// bucket (N = 1,176,764,416) and 3.35 TB/s:
+//   fused_axpy       12 N bytes (read x, y; write out)        4.215 ms
+//   fused_dot_norms   8 N bytes (read a, b)                   2.810 ms
+//   adamw_epilogue   28 N bytes (read w, g, mu, nu; write
+//                    w, mu, nu)                               9.836 ms
+//
+// Design: one CTA per chunk with 16-byte vector loads and stores where every
+// operand is aligned (flat_buffer.cuh), any ragged tail element by element.
+// The elementwise math uses the _rn intrinsics in the plain version's order
+// (no FMA contraction), and IEEE division and square root (the build uses no
+// --use_fast_math), so on the card the elementwise kernels round as the
+// plain version does. dot_norms sums per thread, then in a fixed-order block
+// sum: no atomics, a rerun gives the same bits. w, x, y, a and b may be fp32
+// or bf16; g fp32 or bf16; mu and nu fp32.
+//
+// Left for later: a persistent grid and deeper loads in flight per thread.
+
+#include "flat_buffer.cuh"
+
+namespace {
+
+using namespace flat;
+
+// --- fused_axpy -------------------------------------------------------------
+
+template <typename TX, typename TY>
+__global__ void __launch_bounds__(THREADS)
+axpy_kernel(const float* __restrict__ alpha_p, const TX* __restrict__ x, const TY* y,
+            TY* out, int64_t n, int vec) {
+  const Chunk c = this_chunk(n);
+  const float alpha = *alpha_p;
+  const TX* xp = x + c.base;
+  const TY* yp = y + c.base;
+  TY* op = out + c.base;
+  int done = 0;
+  if (vec) {
+    const int nv = c.len / VEC;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nv; i += THREADS) {
+      const int64_t o = static_cast<int64_t>(i) * VEC;
+      float xv[VEC], yv[VEC];
+      load8(xp + o, xv);
+      load8(yp + o, yv);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) yv[j] = __fadd_rn(yv[j], __fmul_rn(alpha, xv[j]));
+      store8(op + o, yv);
+    }
+    done = nv * VEC;
+  }
+  for (int i = done + threadIdx.x; i < c.len; i += THREADS)
+    op[i] = from_f32<TY>(__fadd_rn(to_f32(yp[i]), __fmul_rn(alpha, to_f32(xp[i]))));
+}
+
+template <typename TX, typename TY>
+cudaError_t run_axpy(const void* alpha, const void* x, const void* y, void* out, int64_t n,
+                     cudaStream_t s) {
+  const int vec = aligned16(x) && aligned16(y) && aligned16(out);
+  axpy_kernel<TX, TY><<<n_chunks(n), THREADS, 0, s>>>(
+      static_cast<const float*>(alpha), static_cast<const TX*>(x), static_cast<const TY*>(y),
+      static_cast<TY*>(out), n, vec);
+  return cudaGetLastError();
+}
+
+// --- fused_dot_norms ----------------------------------------------------------
+
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(THREADS)
+dot_norms_kernel(const TA* __restrict__ a, const TB* __restrict__ b, int64_t n, int vec,
+                 float* __restrict__ partials) {
+  const Chunk c = this_chunk(n);
+  const TA* ap = a + c.base;
+  const TB* bp = b + c.base;
+  float acc[3] = {0.0f, 0.0f, 0.0f};  // <a,b>, |a|^2, |b|^2
+  int done = 0;
+  if (vec) {
+    const int nv = c.len / VEC;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nv; i += THREADS) {
+      const int64_t o = static_cast<int64_t>(i) * VEC;
+      float av[VEC], bv[VEC];
+      load8(ap + o, av);
+      load8(bp + o, bv);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        acc[0] += av[j] * bv[j];
+        acc[1] += av[j] * av[j];
+        acc[2] += bv[j] * bv[j];
+      }
+    }
+    done = nv * VEC;
+  }
+  for (int i = done + threadIdx.x; i < c.len; i += THREADS) {
+    const float av = to_f32(ap[i]), bv = to_f32(bp[i]);
+    acc[0] += av * bv;
+    acc[1] += av * av;
+    acc[2] += bv * bv;
+  }
+  block_sum(acc);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = acc[0];
+    partials[gridDim.x + blockIdx.x] = acc[1];
+    partials[2 * gridDim.x + blockIdx.x] = acc[2];
+  }
+}
+
+template <typename TA, typename TB>
+cudaError_t run_dot_norms(const void* a, const void* b, int64_t n, void* partials,
+                          cudaStream_t s) {
+  const int vec = aligned16(a) && aligned16(b);
+  dot_norms_kernel<TA, TB><<<n_chunks(n), THREADS, 0, s>>>(
+      static_cast<const TA*>(a), static_cast<const TB*>(b), n, vec,
+      static_cast<float*>(partials));
+  return cudaGetLastError();
+}
+
+// --- adamw_epilogue -----------------------------------------------------------
+
+struct AdamHyper {
+  float b1, omb1, b2, omb2, eps, wd;  // omb1 = 1 - b1, omb2 = 1 - b2, rounded once
+};
+
+// One element: the plain version's operations, in its order.
+__device__ __forceinline__ void adam_one(float& w, float g, float& mu, float& nu, float clip,
+                                         float lr, float c1, float c2, const AdamHyper& h) {
+  g = __fmul_rn(g, clip);
+  mu = __fadd_rn(__fmul_rn(h.b1, mu), __fmul_rn(h.omb1, g));
+  nu = __fadd_rn(__fmul_rn(h.b2, nu), __fmul_rn(h.omb2, __fmul_rn(g, g)));
+  float upd = __fdiv_rn(__fdiv_rn(mu, c1), __fadd_rn(__fsqrt_rn(__fdiv_rn(nu, c2)), h.eps));
+  if (h.wd != 0.0f) upd = __fadd_rn(upd, __fmul_rn(h.wd, w));
+  w = __fsub_rn(w, __fmul_rn(lr, upd));
+}
+
+template <typename TW, typename TG>
+__global__ void __launch_bounds__(THREADS)
+adamw_epilogue_kernel(TW* w, const TG* __restrict__ g, float* mu, float* nu, int64_t n, int vec,
+                      const float* __restrict__ scal, AdamHyper h) {
+  const Chunk c = this_chunk(n);
+  const float clip = scal[0], lr = scal[1], c1 = scal[2], c2 = scal[3];
+  TW* wp = w + c.base;
+  const TG* gp = g + c.base;
+  float* mp = mu + c.base;
+  float* vp = nu + c.base;
+  int done = 0;
+  if (vec) {
+    const int nv = c.len / VEC;
+#pragma unroll 2
+    for (int i = threadIdx.x; i < nv; i += THREADS) {
+      const int64_t o = static_cast<int64_t>(i) * VEC;
+      float wv[VEC], gv[VEC], mv[VEC], vv[VEC];
+      load8(wp + o, wv);
+      load8(gp + o, gv);
+      load8(mp + o, mv);
+      load8(vp + o, vv);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) adam_one(wv[j], gv[j], mv[j], vv[j], clip, lr, c1, c2, h);
+      store8(wp + o, wv);
+      store8(mp + o, mv);
+      store8(vp + o, vv);
+    }
+    done = nv * VEC;
+  }
+  for (int i = done + threadIdx.x; i < c.len; i += THREADS) {
+    float wi = to_f32(wp[i]), mi = mp[i], vi = vp[i];
+    adam_one(wi, to_f32(gp[i]), mi, vi, clip, lr, c1, c2, h);
+    wp[i] = from_f32<TW>(wi);
+    mp[i] = mi;
+    vp[i] = vi;
+  }
+}
+
+template <typename TW, typename TG>
+cudaError_t run_adamw(void* w, const void* g, void* mu, void* nu, int64_t n, const void* scal,
+                      const AdamHyper& h, cudaStream_t s) {
+  const int vec = aligned16(w) && aligned16(g) && aligned16(mu) && aligned16(nu);
+  adamw_epilogue_kernel<TW, TG><<<n_chunks(n), THREADS, 0, s>>>(
+      static_cast<TW*>(w), static_cast<const TG*>(g), static_cast<float*>(mu),
+      static_cast<float*>(nu), n, vec, static_cast<const float*>(scal), h);
+  return cudaGetLastError();
+}
+
+// Calls f.template operator()<T>() with T the C++ type of dtype code d.
+template <typename F>
+cudaError_t by_dtype(int d, F&& f) {
+  if (d == F32) return f(float{});
+  if (d == BF16) return f(__nv_bfloat16{});
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Dtype codes: 0 = float32, 1 = bfloat16. Every function returns the CUDA
+// error of its launch (0 on success).
+
+// out[i] = y[i] + alpha * x[i]; alpha: one device float; out has y's dtype
+// and may be y itself.
+extern "C" int fused_axpy(const void* alpha, const void* x, int x_dtype, const void* y,
+                          int y_dtype, void* out, int64_t n, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_dtype(x_dtype, [&](auto xt) {
+    return by_dtype(y_dtype, [&](auto yt) {
+      return run_axpy<decltype(xt), decltype(yt)>(alpha, x, y, out, n, s);
+    });
+  }));
+}
+
+// partials: 3 x n_chunks floats, rows <a,b>, |a|^2, |b|^2 per chunk.
+extern "C" int fused_dot_norms(const void* a, int a_dtype, const void* b, int b_dtype,
+                               int64_t n, void* partials, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_dtype(a_dtype, [&](auto at) {
+    return by_dtype(b_dtype, [&](auto bt) {
+      return run_dot_norms<decltype(at), decltype(bt)>(a, b, n, partials, s);
+    });
+  }));
+}
+
+// w (w_dtype), mu and nu (float32) are updated in place; g has g_dtype;
+// scal: four device floats (clip, lr, c1, c2).
+extern "C" int adamw_epilogue(void* w, int w_dtype, const void* g, int g_dtype, void* mu,
+                              void* nu, int64_t n, const void* scal, float b1, float omb1,
+                              float b2, float omb2, float eps, float wd, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AdamHyper h{b1, omb1, b2, omb2, eps, wd};
+  return static_cast<int>(by_dtype(w_dtype, [&](auto wt) {
+    return by_dtype(g_dtype, [&](auto gt) {
+      return run_adamw<decltype(wt), decltype(gt)>(w, g, mu, nu, n, scal, h, s);
+    });
+  }));
+}

@@ -3,8 +3,8 @@
 Each source under `repro_torch/csrc/` has a plain C interface and is compiled
 on its own into a shared library for sm_90a, at first use, into
 `build/repro_torch/` at the root of the checkout. A library is named after its
-source's content, so an edited source is rebuilt and an unchanged one is
-loaded as it is. `build` starts one nvcc per missing library, all at once, and
+source's content and the shared headers', so an edited source is rebuilt and
+an unchanged one is loaded as it is. `build` starts one nvcc per missing library, all at once, and
 waits for every one of them.
 """
 from __future__ import annotations
@@ -35,7 +35,10 @@ def nvcc() -> str:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named after the source, the headers beside it
+    (`*.cuh`, which a source may include) and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:12]}.so"
 
 

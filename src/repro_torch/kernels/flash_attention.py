@@ -14,6 +14,14 @@ nor a card.
 layout. A tensor on the CPU goes to the plain version
 (`ref.flash_attention_plain`); a CUDA tensor launches the kernel or raises.
 `launches` counts the kernel's launches.
+
+Gradients: on the card the call is a `torch.autograd.Function` whose forward
+is the kernel and whose backward is autograd of the plain version,
+recomputed from the saved q, k and v. The reference has no backward kernel
+either (its Pallas kernel defines no VJP; it differentiates the jnp oracle),
+so the gradients are the plain version's. The backward kernel is ROADMAP
+queue 2 item 5. The forward kernel still runs on every forward pass, and a
+failing launch still raises.
 """
 from __future__ import annotations
 
@@ -84,13 +92,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """Blocked attention; returns (B,Sq,H,hd_v) in q's dtype."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    """One kernel launch on checked inputs; returns (B,Sq,H,hd_v)."""
     global launches
-    if q.device.type == "cpu":
-        return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
-    _check(q, k, v, window)
     b, sq, h, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
     hd_v = v.shape[3]
@@ -109,3 +114,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel. Backward: autograd of `ref.flash_attention_plain`
+    recomputed from the saved inputs (no backward kernel yet: ROADMAP queue 2
+    item 5; the reference has none either)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.flash_attention_plain(*inputs, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, inputs, d_out)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Blocked attention; returns (B,Sq,H,hd_v) in q's dtype."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
+    _check(q, k, v, window)
+    return FlashAttention.apply(q, k, v, causal, window)

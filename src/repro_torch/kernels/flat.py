@@ -1,0 +1,70 @@
+"""What the flat-buffer kernel wrappers share (`sam_perturb`, `fused_update`).
+
+`CHUNK` is the elements per CTA, the TPU kernels' chunk (the reference's
+`repro.kernels.sam_perturb.CHUNK`); the input and launch checks raise rather
+than fall back. The two in-place plain routes are the ones both the wrappers
+(for a CPU tensor) and `ops` (for `impl="plain"`) take.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import torch
+
+from repro_torch.kernels import ref
+
+CHUNK = 64 * 1024     # elements per CTA, the TPU kernels' chunk
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def n_chunks(n: int) -> int:
+    return (n + CHUNK - 1) // CHUNK
+
+
+def check_flat(kernel: str, operands: Mapping[str, torch.Tensor],
+               dtypes: Optional[Mapping[str, tuple]] = None) -> torch.device:
+    """Raise unless the operands are contiguous 1-D tensors of one length on
+    one CUDA device, each of a dtype the kernel takes (`dtypes[name]`, by
+    default float32 or bfloat16). Returns the device."""
+    tensors = list(operands.values())
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{kernel} kernel needs its operands on one CUDA device; got "
+                         f"{ {k: str(t.device) for k, t in operands.items()} }")
+    for name, t in operands.items():
+        allowed = (dtypes or {}).get(name, tuple(DTYPES))
+        if t.dtype not in allowed:
+            raise TypeError(f"{kernel}: {name} must be one of {allowed}, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be a contiguous 1-D buffer, got shape "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+        if t.numel() != tensors[0].numel():
+            raise ValueError(f"{kernel}: operands differ in length: "
+                             f"{ {k: v.numel() for k, v in operands.items()} }")
+    return dev
+
+
+def check_launch(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+
+
+def stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def axpy_plain(alpha, x: torch.Tensor, y: torch.Tensor,
+               out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain version of `fused_axpy`, written into `out` when given."""
+    res = ref.axpy_flat_plain(alpha, x, y)
+    return res if out is None else out.copy_(res)
+
+
+def adamw_epilogue_plain_(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                          nu: torch.Tensor, clip_scale, lr, c1, c2, **hyper
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of `adamw_epilogue`, written into w, mu and nu."""
+    new = ref.adamw_epilogue_flat_plain(w, g, mu, nu, clip_scale, lr, c1, c2, **hyper)
+    for buf, val in zip((w, mu, nu), new):
+        buf.copy_(val)
+    return w, mu, nu

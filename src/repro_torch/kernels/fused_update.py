@@ -1,0 +1,119 @@
+"""The fused weight-space kernels of the training step and their wrappers
+(counterpart of `repro.kernels.fused_update`).
+
+The kernels (`csrc/fused_update.cu`, CUDA C++ for sm_90a) replace three
+Pallas TPU kernels, each one pass over flat dtype buckets:
+
+  fused_axpy       out = y + alpha * x          (the SAM perturbation)
+  fused_dot_norms  (<a,b>, ||a||^2, ||b||^2)    (AsyncSAM ascent refresh)
+  adamw_epilogue   w' = w - lr * ((mu'/c1)/(sqrt(nu'/c2)+eps) + wd*w)
+
+Scalars that change per step (alpha; clip scale, lr, c1, c2) stay on the
+device and the kernels read them there, so no call waits for the device.
+Where the port departs from the reference's functional form, for memory:
+`fused_axpy` writes into `out` when given, and `adamw_epilogue` updates w, mu
+and nu in place (the reference's jit donation aliases them the same way).
+The reference's sgd_epilogue, delta_amax and delta_encode_i8 kernels are not
+ported yet (ROADMAP queue 2).
+
+A CPU tensor goes to the plain version (`kernels.ref`); a CUDA tensor
+launches the kernel or raises. Each kernel counts its launches in
+`launches[name]`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, flat, ref
+from repro_torch.kernels.flat import DTYPES, check_flat, check_launch, n_chunks, stream
+
+SOURCE = build.CSRC / "fused_update.cu"
+_F32 = (torch.float32,)
+
+launches = {"fused_axpy": 0, "fused_dot_norms": 0, "adamw_epilogue": 0}
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build.load(SOURCE)
+        p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+        lib.fused_axpy.argtypes = [p, p, i, p, i, p, i64, p]
+        lib.fused_dot_norms.argtypes = [p, i, p, i, i64, p, p]
+        lib.adamw_epilogue.argtypes = [p, i, p, i, p, p, i64, p] + [f] * 6 + [p]
+        for fn in (lib.fused_axpy, lib.fused_dot_norms, lib.adamw_epilogue):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _scalar(x, dev: torch.device) -> torch.Tensor:
+    """x as a 0-dim fp32 tensor on `dev` (no copy when it already is one)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+
+
+def fused_axpy(alpha, x: torch.Tensor, y: torch.Tensor, *,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y + alpha * x over flat vectors, y's dtype, into `out` when given."""
+    if y.device.type == "cpu":
+        return flat.axpy_plain(alpha, x, y, out)
+    if out is None:
+        out = torch.empty_like(y)
+    dev = check_flat("fused_axpy", {"x": x, "y": y, "out": out}, {"out": (y.dtype,)})
+    if y.numel() == 0:
+        return out
+    a = _scalar(alpha, dev)
+    with torch.cuda.device(dev):
+        rc = _library().fused_axpy(a.data_ptr(), x.data_ptr(), DTYPES[x.dtype], y.data_ptr(),
+                                   DTYPES[y.dtype], out.data_ptr(), y.numel(), stream(dev))
+    check_launch("fused_axpy", rc)
+    launches["fused_axpy"] += 1
+    return out
+
+
+def fused_dot_norms(a: torch.Tensor, b: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(<a,b>, ||a||^2, ||b||^2), fp32 partials per chunk summed here."""
+    if a.device.type == "cpu":
+        return ref.dot_norms_flat_plain(a, b)
+    dev = check_flat("fused_dot_norms", {"a": a, "b": b})
+    if a.numel() == 0:
+        z = torch.zeros((), dtype=torch.float32, device=dev)
+        return z, z.clone(), z.clone()
+    partials = torch.empty((3, n_chunks(a.numel())), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _library().fused_dot_norms(a.data_ptr(), DTYPES[a.dtype], b.data_ptr(),
+                                        DTYPES[b.dtype], a.numel(), partials.data_ptr(),
+                                        stream(dev))
+    check_launch("fused_dot_norms", rc)
+    launches["fused_dot_norms"] += 1
+    dot, sq_a, sq_b = torch.sum(partials, dim=1).unbind()
+    return dot, sq_a, sq_b
+
+
+def adamw_epilogue(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                   clip_scale, lr, c1, c2, *, b1: float = 0.9, b2: float = 0.999,
+                   eps: float = 1e-8, weight_decay: float = 0.0
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One clip-Adam-decay-lr step; updates w, mu and nu in place and returns
+    them. w fp32 or bf16, g fp32 or bf16, mu and nu fp32."""
+    if w.device.type == "cpu":
+        return flat.adamw_epilogue_plain_(w, g, mu, nu, clip_scale, lr, c1, c2, b1=b1,
+                                          b2=b2, eps=eps, weight_decay=weight_decay)
+    dev = check_flat("adamw_epilogue", {"w": w, "g": g, "mu": mu, "nu": nu},
+                     {"mu": _F32, "nu": _F32})
+    if w.numel() == 0:
+        return w, mu, nu
+    scal = torch.stack([_scalar(v, dev) for v in (clip_scale, lr, c1, c2)])
+    with torch.cuda.device(dev):
+        rc = _library().adamw_epilogue(
+            w.data_ptr(), DTYPES[w.dtype], g.data_ptr(), DTYPES[g.dtype], mu.data_ptr(),
+            nu.data_ptr(), w.numel(), scal.data_ptr(), b1, 1.0 - b1, b2, 1.0 - b2, eps,
+            weight_decay, stream(dev))
+    check_launch("adamw_epilogue", rc)
+    launches["adamw_epilogue"] += 1
+    return w, mu, nu

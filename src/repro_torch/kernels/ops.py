@@ -14,7 +14,10 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flat
+from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import ref
+from repro_torch.kernels import sam_perturb as sp
 
 IMPLS = ("kernel", "plain")
 _FORCED_IMPL: Optional[str] = None  # test hook: "kernel" | "plain"
@@ -54,3 +57,41 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _resolve(impl)
     return ref.decode_attention_plain(q, k, v, valid_len, window=window)
+
+
+def sq_norm(g_flat: torch.Tensor, *, impl: Optional[str] = None) -> torch.Tensor:
+    """Sum of squares of a flat vector (fp32 chunk partials on the card)."""
+    if _resolve(impl) == "plain":
+        return ref.sq_norm_plain(g_flat)
+    return sp.sq_norm(g_flat)
+
+
+def fused_axpy(alpha, x_flat: torch.Tensor, y_flat: torch.Tensor, *,
+               out: Optional[torch.Tensor] = None,
+               impl: Optional[str] = None) -> torch.Tensor:
+    """Single-pass  y + alpha * x  over flat vectors (y's dtype out), into
+    `out` when given."""
+    if _resolve(impl) == "plain":
+        return flat.axpy_plain(alpha, x_flat, y_flat, out)
+    return fu.fused_axpy(alpha, x_flat, y_flat, out=out)
+
+
+def fused_dot_norms(a_flat: torch.Tensor, b_flat: torch.Tensor, *,
+                    impl: Optional[str] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(<a,b>, ||a||^2, ||b||^2) in one pass over (a, b)."""
+    if _resolve(impl) == "plain":
+        return ref.dot_norms_flat_plain(a_flat, b_flat)
+    return fu.fused_dot_norms(a_flat, b_flat)
+
+
+def adamw_epilogue(w_flat: torch.Tensor, g_flat: torch.Tensor, mu_flat: torch.Tensor,
+                   nu_flat: torch.Tensor, clip_scale, lr, c1, c2, *,
+                   b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                   weight_decay: float = 0.0, impl: Optional[str] = None):
+    """Fused clip-adam-wd-lr-apply (AdamW family). Updates w, mu and nu in
+    place and returns (w', mu', nu'), the same tensors."""
+    plain = _resolve(impl) == "plain"
+    epilogue = flat.adamw_epilogue_plain_ if plain else fu.adamw_epilogue
+    return epilogue(w_flat, g_flat, mu_flat, nu_flat, clip_scale, lr, c1, c2,
+                    b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the attention kernels (counterpart of
-`repro.kernels.ref`).
+"""Plain PyTorch versions of the kernels (counterpart of `repro.kernels.ref`).
 
 Each function mirrors its jnp oracle line for line: it is the CPU path, the
 oracle the Hopper kernels are held against on the card, and is itself held
-against the JAX oracle by tests/test_torch_flash_attention.py. Inputs keep the
-JAX package's layout: q (B,Sq,H,hd), k/v (B,Sk,K,hd[_v]).
+against the JAX oracle by tests/test_torch_flash_attention.py (attention) and
+tests/test_torch_fused_update.py (the flat-buffer weight-space functions).
+Attention inputs keep the JAX package's layout: q (B,Sq,H,hd), k/v
+(B,Sk,K,hd[_v]). The flat-buffer functions take 1-D buckets, compute in fp32
+and return `y`'s or `w`'s dtype, as the oracles do.
 """
 from __future__ import annotations
 
@@ -127,3 +129,51 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flat-buffer weight-space functions (the SAM perturbation and the fused
+# optimizer epilogue)
+# ---------------------------------------------------------------------------
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x).float()
+
+
+def sq_norm_plain(g: torch.Tensor) -> torch.Tensor:
+    """Sum of squares in fp32 (mirror of `ref.sq_norm_jnp`)."""
+    return torch.sum(torch.square(g.float()))
+
+
+def axpy_flat_plain(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y + alpha * x (fp32 accumulation, y's dtype out; mirror of
+    `ref.axpy_flat_jnp`)."""
+    return (y.float() + _f32(alpha).to(y.device) * x.float()).to(y.dtype)
+
+
+def dot_norms_flat_plain(a: torch.Tensor, b: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(<a,b>, ||a||^2, ||b||^2) in fp32 (mirror of `ref.dot_norms_flat_jnp`)."""
+    a32 = a.float()
+    b32 = b.float()
+    return torch.sum(a32 * b32), torch.sum(a32 * a32), torch.sum(b32 * b32)
+
+
+def adamw_epilogue_flat_plain(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                              nu: torch.Tensor, clip_scale, lr, c1, c2, *,
+                              b1: float = 0.9, b2: float = 0.999,
+                              eps: float = 1e-8, weight_decay: float = 0.0
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(w', mu', nu') of one clip-Adam-decay-lr step (mirror of
+    `ref.adamw_epilogue_flat_jnp`); w' keeps w's dtype, mu'/nu' are fp32."""
+    dev = w.device
+    w32 = w.float()
+    g32 = g.float() * _f32(clip_scale).to(dev)
+    mu_new = b1 * mu.float() + (1.0 - b1) * g32
+    nu_new = b2 * nu.float() + (1.0 - b2) * torch.square(g32)
+    upd = ((mu_new / _f32(c1).to(dev))
+           / (torch.sqrt(nu_new / _f32(c2).to(dev)) + eps))
+    if weight_decay:
+        upd = upd + weight_decay * w32
+    w_new = (w32 - _f32(lr).to(dev) * upd).to(w.dtype)
+    return w_new, mu_new, nu_new

@@ -4,7 +4,8 @@
 Conventions:
 * each layer takes its parameters as a mapping of leaf name -> tensor, with
   the reference's leaf names (wq/wk/wv/wo/wi/wg/wo_mlp/embed/scale/bias);
-  `transformer.py` holds them in `nn.Module`s and passes `params_of(module)`;
+  `transformer.py` holds them in `nn.Module`s and passes each module's
+  parameters (`params_of(module)`, or views of a flat buffer in training);
 * compute runs in `cfg.compute_dtype` (bf16 at full width); parameters are
   stored in `cfg.param_dtype` (fp32 master copies) and cast at use;
 * the reference's `constrain` calls are sharding annotations that do nothing

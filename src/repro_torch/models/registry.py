@@ -1,13 +1,14 @@
 """Model bundles: a uniform (init / loss / forward / prefill / decode /
 init_cache) surface (counterpart of `repro.models.registry`).
 
-The port's bundle takes the model (an `nn.Module`) where the reference takes a
-parameter pytree, and `init(seed, device)` where it takes a PRNG key.
+The port's bundle takes the model (an `nn.Module`, or for `forward` and
+`loss_fn` a mapping of its parameter names to tensors) where the reference
+takes a parameter pytree, and `init(seed, device)` where it takes a PRNG key.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -25,10 +26,12 @@ class ModelBundle:
     decode: Callable[[transformer.Transformer, dict, dict], tuple[torch.Tensor, dict]]
     init_cache: Callable[..., dict]
 
-    def loss_fn(self, model: transformer.Transformer, batch: dict
-                ) -> tuple[torch.Tensor, dict]:
-        """Next-token cross entropy + MoE aux loss (the reference's protocol)."""
-        logits, aux_loss = self.forward(model, batch)
+    def loss_fn(self, model_or_params, batch: dict,
+                gen: Optional[torch.Generator] = None) -> tuple[torch.Tensor, dict]:
+        """Next-token cross entropy + MoE aux loss (the reference's protocol:
+        `repro_torch.core`'s loss callback). Takes the model or a mapping of
+        its parameter names to tensors; draws nothing from `gen`."""
+        logits, aux_loss = self.forward(model_or_params, batch)
         ce = cross_entropy(logits, batch["labels"])
         return ce + aux_loss, {"ce": ce, "moe_aux": aux_loss, "logits": logits}
 

@@ -6,20 +6,29 @@ Parameters live in `nn.Module`s whose names mirror the reference's leaves
 reference stacks the blocks on a leading L axis and scans them, the port
 keeps one module per block and loops. Entry points:
 
-    forward(model, batch, cfg)              -> (logits, aux_loss)
+    forward(model_or_params, batch, cfg)    -> (logits, aux_loss)
     prefill(model, batch, cfg, pad_to)      -> (last_logits, cache)
     decode(model, cache, batch, cfg)        -> (logits, cache)
 
-`remat` has no effect here: the port runs inference only until training is
-ported. The other families (moe, ssm, hybrid, vlm) are not ported yet.
+`forward` takes the model or a mapping of its parameter names to tensors
+(the training step passes leaf views of a flat buffer). Under autograd,
+`cfg.remat` checkpoints each block as the reference's `_remat` does:
+"none" saves everything, "full" saves the block's input only
+(`torch.utils.checkpoint`), "dots" saves the outputs of the matrix products
+without batch dims (`aten.mm`: the projections) and recomputes the rest,
+the counterpart of `dots_with_no_batch_dims_saveable`. Serving runs under
+`torch.inference_mode()` and checkpoints nothing. The other families (moe,
+ssm, hybrid, vlm) are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Union
+from typing import Mapping, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -39,9 +48,7 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _param(shape, cfg: ModelConfig, device: Device) -> nn.Parameter:
-    # no gradients until training is ported
-    return nn.Parameter(torch.empty(shape, dtype=L.pdtype(cfg), device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=L.pdtype(cfg), device=device))
 
 
 class Norm(nn.Module):
@@ -149,35 +156,82 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
 # Blocks
 # ---------------------------------------------------------------------------
 
-def attn_block_apply(blk: Block, x: torch.Tensor, cfg: ModelConfig, *,
+Params = Mapping[str, torch.Tensor]
+
+
+def _groups(model_or_params: Union[nn.Module, Params]) -> dict[str, dict[str, torch.Tensor]]:
+    """Parameters grouped by owning module: "blocks.3.attn" -> {"wq": ...}."""
+    named = (dict(model_or_params.named_parameters())
+             if isinstance(model_or_params, nn.Module) else model_or_params)
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for name, t in named.items():
+        owner, _, leaf = name.rpartition(".")
+        out.setdefault(owner, {})[leaf] = t
+    return out
+
+
+def _block(groups: dict, i: int) -> dict[str, dict[str, torch.Tensor]]:
+    return {part: groups.get(f"blocks.{i}.{part}", {}) for part in ("ln1", "ln2", "attn", "mlp")}
+
+
+def attn_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, cache: Optional[dict] = None
                      ) -> tuple[torch.Tensor, dict]:
-    h, new_cache = L.attention_apply(L.params_of(blk.attn),
-                                     L.norm_apply(L.params_of(blk.ln1), x, cfg),
+    """One block; `bp` maps "ln1"/"ln2"/"attn"/"mlp" to their parameters."""
+    h, new_cache = L.attention_apply(bp["attn"], L.norm_apply(bp["ln1"], x, cfg),
                                      cfg, positions=positions, cache=cache)
     x = x + h
-    h2 = L.mlp_apply(L.params_of(blk.mlp), L.norm_apply(L.params_of(blk.ln2), x, cfg), cfg)
+    h2 = L.mlp_apply(bp["mlp"], L.norm_apply(bp["ln2"], x, cfg), cfg)
     return x + h2, new_cache
 
 
-def _final_logits(model: Transformer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = L.norm_apply(L.params_of(model.final_norm), x, cfg)
-    return L.logits_apply(L.params_of(model.embedding), x, cfg)
+def _save_projections(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat="dots": keep the outputs of the
+    matrix products without batch dims, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _train_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """A block of the full-sequence forward, checkpointed per `cfg.remat`
+    when autograd records."""
+    def fn(bp_, x_, positions_):
+        return attn_block_apply(bp_, x_, cfg, positions=positions_)[0]
+
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(bp, x, positions)
+    if cfg.remat == "full":
+        return ckpt.checkpoint(fn, bp, x, positions, use_reentrant=False)
+    if cfg.remat == "dots":
+        return ckpt.checkpoint(fn, bp, x, positions, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   ckpt.create_selective_checkpoint_contexts,
+                                   _save_projections))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def _final_logits(groups: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = L.norm_apply(groups.get("final_norm", {}), x, cfg)
+    return L.logits_apply(groups["embedding"], x, cfg)
 
 
 # ---------------------------------------------------------------------------
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
-def forward(model: Transformer, batch: dict, cfg: ModelConfig
+def forward(model: Union[Transformer, Params], batch: dict, cfg: ModelConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits, aux_loss); aux is 0 (no MoE)."""
-    x = L.embed_tokens(L.params_of(model.embedding), batch["tokens"], cfg)
+    """Full-sequence forward of the model or of a mapping of its parameter
+    names to tensors. Returns (logits, aux_loss); aux is 0 (no MoE)."""
+    groups = _groups(model)
+    x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    for blk in model.blocks:
-        x, _ = attn_block_apply(blk, x, cfg, positions=positions)
-    logits = _final_logits(model, x, cfg)
+    for i in range(cfg.n_layers):
+        x = _train_block(_block(groups, i), x, cfg, positions)
+    logits = _final_logits(groups, x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -204,15 +258,16 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
             ) -> tuple[torch.Tensor, dict]:
     """Run the prompt; return (last-position logits, cache) with cache length
     max(S, pad_to) and pos = S."""
-    x = L.embed_tokens(L.params_of(model.embedding), batch["tokens"], cfg)
+    groups = _groups(model)
+    x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, max(S, pad_to), pos=S, device=x.device)
     positions = torch.arange(S, device=x.device)[None, :]
-    for i, blk in enumerate(model.blocks):
-        x, kv = attn_block_apply(blk, x, cfg, positions=positions)
+    for i in range(cfg.n_layers):
+        x, kv = attn_block_apply(_block(groups, i), x, cfg, positions=positions)
         cache["layers"]["k"][i, :, :S] = kv["k"]
         cache["layers"]["v"][i, :, :S] = kv["v"]
-    logits = _final_logits(model, x[:, -1:], cfg)
+    logits = _final_logits(groups, x[:, -1:], cfg)
     return logits, cache
 
 
@@ -223,13 +278,14 @@ def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
     The cache's k/v are updated in place; the returned cache carries the
     advanced `pos`.
     """
-    x = L.embed_tokens(L.params_of(model.embedding), batch["tokens"], cfg)
+    groups = _groups(model)
+    x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
     S_new = x.shape[1]
     pos = cache["pos"]
     positions = pos + torch.arange(S_new, device=x.device)[None, :]
     kc, vc = cache["layers"]["k"], cache["layers"]["v"]
-    for i, blk in enumerate(model.blocks):
-        x, _ = attn_block_apply(blk, x, cfg, positions=positions,
+    for i in range(cfg.n_layers):
+        x, _ = attn_block_apply(_block(groups, i), x, cfg, positions=positions,
                                 cache={"k": kc[i], "v": vc[i], "pos": pos})
-    logits = _final_logits(model, x, cfg)
+    logits = _final_logits(groups, x, cfg)
     return logits, {"layers": cache["layers"], "pos": pos + S_new}

@@ -1,0 +1,193 @@
+"""FusedUpdate: the canonical adamw chain on dtype-bucketed flat buffers
+(counterpart of `repro.optim.fused`).
+
+`fused_apply` runs the whole optimizer tail (global grad norm, clip, Adam,
+weight decay, lr, apply) as one `sq_norm` and one `adamw_epilogue` kernel
+per dtype bucket, on bucket-resident state (`utils.buckets.BucketedState`):
+w, mu and nu are updated in place, the port's counterpart of the
+reference's jit donation. It consumes and produces the reference's
+`opt_state` tuple layout (`_chain_fields`). The clip scale, learning rate and
+bias corrections are computed on the device from device step counters, so
+the host never waits for them.
+
+Not ported yet: the sgd branch (its `sgd_epilogue` kernel, ROADMAP.md queue
+2 item 6) and the per-leaf chain (slice 3 of the port, ROADMAP.md queue 1);
+both raise.
+
+`epilogue_hbm_bytes` is a copy of the reference's model of the epilogue's
+device-memory traffic; chip_smoke.py reads it as the bound of the step's
+weight-space work.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.optim.base import (PER_LEAF_CHAIN, AdamState, ClipState, FusedSpec,
+                                    GradientTransform, ScaleByScheduleState)
+from repro_torch.utils import buckets
+
+Tree = Any
+
+
+def _chain_fields(spec: FusedSpec) -> list[str]:
+    """The transform sequence base.sgd/base.adamw built (state tuple layout)."""
+    parts = []
+    if spec.clip_norm is not None:
+        parts.append("clip")
+    if spec.family == "adamw":
+        parts.append("adam")
+        if spec.weight_decay:
+            parts.append("wd")
+    else:
+        if spec.weight_decay:
+            parts.append("wd")
+        if spec.momentum:
+            parts.append("trace")
+    parts.append("lr")
+    return parts
+
+
+def fused_apply(optimizer: GradientTransform, grads: buckets.BucketedState,
+                opt_state: tuple, params: buckets.BucketedState, *,
+                impl: Optional[str] = None
+                ) -> tuple[buckets.BucketedState, tuple, torch.Tensor]:
+    """Run the whole update + apply on buckets, in place.
+
+    Returns (params, new_opt_state, grad_norm): `params` and the moments are
+    the same BucketedStates, updated; grad_norm is the global fp32 gradient
+    norm (computed for clipping anyway, and the step's contract metric).
+    """
+    spec = optimizer.fused_spec
+    if spec is None:
+        raise NotImplementedError(PER_LEAF_CHAIN)
+    if spec.family != "adamw":
+        raise NotImplementedError(f"the fused {spec.family} epilogue (sgd_epilogue kernel) "
+                                  f"is not ported yet: ROADMAP.md queue 2, item 6")
+    if not (buckets.is_bucketed(params) and buckets.is_bucketed(grads)):
+        raise TypeError("fused_apply takes bucket-resident params and grads "
+                        "(utils.buckets.BucketedState)")
+    fields = _chain_fields(spec)
+    wb, gb = params.buffers, grads.buffers
+
+    sq = torch.sum(torch.stack([ops.sq_norm(g, impl=impl) for g in gb]))
+    gnorm = torch.sqrt(sq)
+    if spec.clip_norm is not None:
+        clip_scale = torch.clamp(spec.clip_norm / (gnorm + 1e-12), max=1.0)
+    else:
+        clip_scale = torch.ones_like(gnorm)
+
+    sched_state: ScaleByScheduleState = opt_state[-1]
+    eta = spec.lr(sched_state.step)
+
+    adam_state: AdamState = opt_state[fields.index("adam")]
+    step = adam_state.step + 1
+    c1 = 1.0 - spec.b1 ** step.float()
+    c2 = 1.0 - spec.b2 ** step.float()
+    for w, g, mu, nu in zip(wb, gb, adam_state.mu.buffers, adam_state.nu.buffers):
+        ops.adamw_epilogue(w, g, mu, nu, clip_scale, eta, c1, c2, b1=spec.b1, b2=spec.b2,
+                           eps=spec.eps, weight_decay=spec.weight_decay, impl=impl)
+    new_state = []
+    for f in fields:
+        if f == "clip":
+            new_state.append(ClipState(last_norm=gnorm))
+        elif f == "adam":
+            new_state.append(AdamState(step=step, mu=adam_state.mu, nu=adam_state.nu))
+        elif f == "wd":
+            new_state.append(())
+        else:
+            new_state.append(ScaleByScheduleState(step=sched_state.step + 1))
+    return params, tuple(new_state), gnorm
+
+
+# ---------------------------------------------------------------------------
+# Modeled epilogue HBM traffic (a copy of the reference's model)
+# ---------------------------------------------------------------------------
+
+def epilogue_hbm_bytes(param_count: int, param_bytes: int, *,
+                       family: str = "adamw", clip: bool = True,
+                       weight_decay: bool = True, momentum: bool = True,
+                       carried_norm: bool = True, fused: bool,
+                       resident: bool = True) -> int:
+    """Modeled HBM bytes of one step's weight-space epilogue (perturb + tail).
+
+    Enumerates the HBM passes of the reference's code paths: every per-leaf
+    map pass of its per-leaf chain streams its operands and result
+    (fp32 intermediates included), while the fused path reads and writes each
+    tensor once per kernel. `param_bytes` is the total byte size of the
+    parameter tree (grads assumed the same dtype); optimizer state is fp32.
+    `carried_norm=True` models AsyncSAM, where the perturbation norm is
+    carried state rather than a fresh reduction over the ascent gradient.
+
+    The fused side models BOTH residency regimes. `resident=True` counts
+    kernel-streamed bytes only — training state lives as persistent dtype
+    buckets (`buckets.BucketedState`) that the kernels consume and donate
+    directly, so no conversion copies exist; this is the number the
+    reference's `benchmarks/perf_cell.py` holds its traced traffic to. The
+    model leaves out AsyncSAM's ascent refresh (`fused_dot_norms`, a read of
+    both fp32 ascent buffers) in the resident regime, and with clip=False
+    the grad-norm pass that `fused_apply` runs every step for the grad_norm
+    metric.
+    `resident=False` models the gather/scatter-per-call regime: each kernel
+    call re-gathers its operand buckets from the pytree (concatenate) and
+    scatters results back (slice), each conversion costing read + write of
+    its payload — which is why the fused kernels alone never realized their
+    reduction before bucketed state persisted across steps. (The ascent-grad
+    gather is approximated at param dtype, matching the perturb terms.)
+    """
+    P = param_bytes               # one full pass over params/grads
+    F = 4 * param_count           # one full pass over an fp32 state tree
+    total = 0
+    if fused:
+        if not carried_norm:
+            total += P                      # sq_norm kernel: read g
+        total += 3 * P                      # perturb axpy: read w,g / write w_hat
+        if clip:
+            total += P                      # clip sq_norm kernel: read g
+        if family == "adamw":
+            total += 2 * P + 2 * F          # epilogue read: w, g, mu, nu
+            total += P + 2 * F              # epilogue write: w', mu', nu'
+        else:
+            total += 2 * P                  # epilogue read: w, g
+            total += P                      # epilogue write: w'
+            if momentum:
+                total += 2 * F              # read m / write m'
+        if not resident:
+            # per-call bucket conversions: gather = read tree + write buffer,
+            # scatter = read buffer + write tree (2x payload each)
+            total += 2 * 3 * P              # perturb: gather g,w / scatter w_hat
+            if not carried_norm:
+                total += 2 * P              # fresh-norm sq_norm: gather g
+            else:
+                total += 2 * 2 * F          # ascent refresh dot_norms: gather
+                                            # a_t, a_{t-1} (fp32 carried state)
+            total += 2 * 3 * P              # apply: gather w,g / scatter w'
+            if family == "adamw":
+                total += 2 * 4 * F          # gather mu,nu / scatter mu',nu'
+            elif momentum:
+                total += 2 * 2 * F          # gather m / scatter m'
+        return total
+    # per-leaf path, pass by pass
+    if not carried_norm:
+        total += P                          # global_norm: read g
+    total += 3 * P                          # perturb map: read w,g / write w_hat
+    if clip:
+        total += P                          # global_norm: read g
+        total += P + F                      # scale map: read g / write f32
+        total += F + P                      # cast-back map: read f32 / write g
+    if family == "adamw":
+        total += F + P + F                  # mu map: read mu,g / write mu'
+        total += F + P + F                  # nu map: read nu,g / write nu'
+        total += 2 * F + P                  # update map: read mu',nu' / write u
+        if weight_decay:
+            total += 3 * P                  # wd map: read u,w / write u'
+    else:
+        if weight_decay:
+            total += 3 * P                  # wd map: read g,w / write g'
+        if momentum:
+            total += P + F + F + P          # trace map: read g,m / write m',out
+    total += P + F                          # lr map: read u / write f32
+    total += P + F + P                      # apply map: read w,u / write w'
+    return total

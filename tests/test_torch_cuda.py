@@ -126,3 +126,130 @@ def test_prefill_decode_matches_forward_on_card(dev):
             errs.append(float((logits[:, 0] - full[:, t]).abs().max()))
     assert cache["pos"] == S + n_dec
     assert max(errs) / float(full.abs().max()) < 3e-3, errs
+
+
+# ---------------------------------------------------------------------------
+# the flat-buffer kernels of the training step
+# ---------------------------------------------------------------------------
+
+FLAT_SIZES = [1, 1000, 65536, 3 * 65536 + 17]
+
+
+def _flat(dev, n, dtype, seed, scale=1.0, offset=0, positive=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.empty(n + offset, device=dev)
+    t.uniform_(0, scale, generator=g) if positive else t.normal_(0, scale, generator=g)
+    return t.to(dtype)[offset:]
+
+
+def _rel(got, expect) -> float:
+    return float((got.float() - expect.float()).abs().max()) / max(
+        float(expect.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", FLAT_SIZES)
+def test_reduction_kernels_match_plain(dev, n, dtype, offset):
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import sam_perturb as sp
+    a = _flat(dev, n, torch.float32, 0, offset=offset)
+    b = _flat(dev, n, dtype, 1, offset=offset)
+    before = sp.launches
+    got = sp.sq_norm(b)
+    assert sp.launches == before + 1 and got.dtype == torch.float32
+    assert _rel(got, ref.sq_norm_plain(b)) <= 2e-5
+    assert float(sp.sq_norm(b)) == float(got)                       # no atomics: same bits
+    before = fu.launches["fused_dot_norms"]
+    got3 = fu.fused_dot_norms(a, b)
+    assert fu.launches["fused_dot_norms"] == before + 1
+    scale = float((got3[1] * got3[2]).sqrt())
+    for g, e in zip(got3, ref.dot_norms_flat_plain(a, b)):
+        assert abs(float(g) - float(e)) <= 2e-5 * max(abs(float(e)), scale)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", FLAT_SIZES)
+def test_elementwise_kernels_match_plain_bitwise(dev, n, dtype, offset):
+    """axpy and adamw round where the plain version does (no FMA contraction,
+    IEEE division and sqrt), so on the card they agree bit for bit."""
+    from repro_torch.kernels import fused_update as fu
+    x = _flat(dev, n, torch.float32, 2, 1e-3, offset)
+    y = _flat(dev, n, dtype, 3, 2e-2, offset)
+    alpha = torch.tensor(-3.7, device=dev)
+    out = torch.empty_like(y)
+    before = fu.launches["fused_axpy"]
+    assert fu.fused_axpy(alpha, x, y, out=out) is out
+    assert fu.launches["fused_axpy"] == before + 1
+    torch.testing.assert_close(out, ref.axpy_flat_plain(alpha, x, y), rtol=0, atol=0)
+    mu = _flat(dev, n, torch.float32, 4, 1e-4, offset)
+    nu = _flat(dev, n, torch.float32, 5, 1e-7, offset, positive=True)
+    scal = [torch.tensor(v, device=dev) for v in (0.7, 1e-3, 0.19, 0.001999)]
+    for wd in (0.0, 0.1):
+        w, m, v = y.clone(), mu.clone(), nu.clone()
+        fu.adamw_epilogue(w, x, m, v, *scal, weight_decay=wd)
+        for got, e in zip((w, m, v), ref.adamw_epilogue_flat_plain(y, x, mu, nu, *scal,
+                                                                   weight_decay=wd)):
+            torch.testing.assert_close(got, e, rtol=0, atol=0)
+
+
+def test_flat_kernels_reject_what_they_do_not_take(dev):
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import sam_perturb as sp
+    x = torch.ones(10, device=dev)
+    with pytest.raises(TypeError):
+        sp.sq_norm(x.half())
+    with pytest.raises(ValueError):
+        sp.sq_norm(x.view(2, 5))
+    with pytest.raises(ValueError):
+        fu.fused_axpy(1.0, x, torch.ones(9, device=dev))
+    with pytest.raises(ValueError):
+        fu.fused_dot_norms(x, x.cpu())
+    with pytest.raises(TypeError):
+        fu.adamw_epilogue(x, x, x.bfloat16(), x, 1.0, 1e-3, 0.1, 0.1)
+    with pytest.raises(ValueError):
+        fu.fused_axpy(1.0, x[::2], x[::2])
+
+
+def test_reduced_training_kernel_path_matches_plain_path(dev):
+    """olmo-1b-reduced (fp32 compute) trains 4 AsyncSAM steps on the card
+    through the kernels, once per step each, and agrees with the plain path."""
+    from repro_torch.core import MethodConfig
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.engine import Engine, FusedExecutor
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.optim import cosine_schedule, make_optimizer
+
+    cfg = get_config("olmo-1b", reduced=True)
+    runs = {}
+    for impl in ("plain", "kernel"):
+        ops.set_default_impl(impl)
+        try:
+            bundle = build_model(cfg)
+            ex = FusedExecutor(bundle.loss_fn, MethodConfig(rho=0.05),
+                               make_optimizer("adamw", cosine_schedule(1e-3, 4)))
+            state = ex.init_state(bundle.init(seed=0, device=dev), seed=1)
+            pipe = TokenPipeline(cfg, PipelineConfig(global_batch=8, seq_len=64, seed=0,
+                                                     ascent_fraction=0.25, prefetch=0),
+                                 device=dev)
+            before = kernel_launches()
+            report = Engine(ex, pipe).fit(state, 4)
+            after = kernel_launches()
+        finally:
+            ops.set_default_impl(None)
+        runs[impl] = (report, {k: after[k] - before[k] for k in after})
+    (rp, lp), (rk, lk) = runs["plain"], runs["kernel"]
+    assert lp == dict.fromkeys(lp, 0)
+    assert lk == {"flash_attention": 4 * 2 * cfg.n_layers, "sq_norm": 4, "fused_axpy": 4,
+                  "fused_dot_norms": 4, "adamw_epilogue": 4}
+    for mp, mk in zip(rp.metrics_history, rk.metrics_history):
+        for k in ("loss", "ascent_norm", "grad_norm"):
+            assert mk[k] == pytest.approx(mp[k], rel=1e-4), k
+    # fp32 compute: the paths differ in the order of sums only; a weight whose
+    # gradient sits at that noise may take Adam's ~lr step the other way, so
+    # the bulk is held to 1e-4 of max|w| and every weight to 2 sum(lr)
+    wp, wk = rp.final_state.params.buffers[0], rk.final_state.params.buffers[0]
+    diff = (wk - wp).abs()
+    assert float(torch.quantile(diff[:2**24].float(), 0.999)) <= 1e-4 * float(wp.abs().max())
+    assert float(diff.max()) <= 2 * 4 * 1e-3

@@ -26,7 +26,7 @@ F32_TOL = dict(rtol=2e-5, atol=2e-5)
 
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 
