@@ -6,8 +6,9 @@
 1. prints the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. builds every kernel of the serving and training paths from
    `src/repro_torch/csrc`, one nvcc per source, all at once;
-3. epilogue kernel phase: sq_norm, fused_axpy, fused_dot_norms and
-   adamw_epilogue at olmo-1b's parameter bucket (1,176,764,416 fp32
+3. epilogue kernel phase: sq_norm, sam_perturb, fused_axpy, fused_dot_norms,
+   adamw_epilogue and sgd_epilogue (with and without momentum, Nesterov
+   and weight decay) at olmo-1b's parameter bucket (1,176,764,416 fp32
    elements) and at edge sizes, held against their plain versions and timed
    beside their bound and one PyTorch library call (a yardstick only; the
    port never calls it);
@@ -28,7 +29,17 @@
    init: at the train phase's lr each epilogue kernel call of the path
    against its plain version on the same inputs, and at a small lr the
    whole kernel path against the whole plain path;
-7. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+7. SGD train phase: the same model trains 6 AsyncSAM steps with the paper's
+   optimizer, sgd(cosine, momentum 0.9): sgd_epilogue once a step and no
+   adamw_epilogue; one step is profiled; a lockstep check of 3 steps holds
+   each epilogue kernel call against its plain version;
+8. restart phase: olmo-1b at full width and 2 layers trains 6 SGD-momentum
+   AsyncSAM steps under `Engine.fit` with a `CheckpointCallback` (save every
+   3 steps, asynchronous) and a failure injected before step 4; the final
+   params, momentum and carried ascent gradient must equal an uninterrupted
+   run's bit for bit, with one restart and the live buffers kept; then the
+   SAM path (2 steps), whose perturbation runs sq_norm + sam_perturb;
+9. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without CUDA, or
 without the repository beside it, it exits nonzero and prints no result.
@@ -204,9 +215,19 @@ EPILOGUE_CASES = [
 ]
 # adamw hyperparameters per case: (weight decay, clip scale); clip < 1 scales g
 ADAMW_CASES = [(0.1, 0.7), (0.0, 0.7)]
-# ops per element: sq_norm 2, axpy 2, dot_norms 6, adamw 16 (clip 1, mu 3,
-# nu 4, update 4, decay 2, apply 2)
-EPILOGUE_OPS = {"sq_norm": 2, "fused_axpy": 2, "fused_dot_norms": 6, "adamw_epilogue": 16}
+# sgd hyperparameters per case: (momentum, nesterov, weight decay); the first
+# (the path's) and the fifth (the launcher's, no momentum) run at the bucket
+SGD_CASES = [(0.9, False, 0.0), (0.9, True, 0.0), (0.9, False, 1e-4), (0.9, True, 1e-4),
+             (0.0, False, 0.0), (0.0, False, 1e-4)]
+# ops per element: sq_norm 2, sam_perturb 2, axpy 2, dot_norms 6, adamw 16
+# (clip 1, mu 3, nu 4, update 4, decay 2, apply 2); sgd's by case (sgd_ops)
+EPILOGUE_OPS = {"sq_norm": 2, "sam_perturb": 2, "fused_axpy": 2, "fused_dot_norms": 6,
+                "adamw_epilogue": 16}
+
+
+def sgd_ops(momentum: float, nesterov: bool, wd: float) -> int:
+    """clip 1, decay 2, momentum 2, Nesterov 2, lr and apply 2."""
+    return 1 + (2 if wd else 0) + (2 if momentum else 0) + (2 if nesterov else 0) + 2
 COMPARE_CHUNK = 1 << 27               # elements per chunk of the plain re-computation
 
 
@@ -241,8 +262,8 @@ def epilogue_phase() -> dict:
         return t.to(getattr(torch, dtype))[offset:]
 
     def report(kernel, case, n, err, rel, tol, ms, plain_ms, library_ms, nbytes, dtype,
-               main):
-        bound_ms, bound_by = bound(nbytes, EPILOGUE_OPS[kernel] * n)
+               main, ops_per_element=None):
+        bound_ms, bound_by = bound(nbytes, (ops_per_element or EPILOGUE_OPS[kernel]) * n)
         ok = rel <= tol
         row = dict(kernel=kernel, case=case, n=n, dtype=dtype, max_abs_err=err,
                    max_rel_err=rel, rel_tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
@@ -252,6 +273,7 @@ def epilogue_phase() -> dict:
             failures.append(f"{kernel} / {case}")
         if main:
             main_rows[kernel] = row
+        return row
 
     for ci, (case, n, dtype, offset) in enumerate(EPILOGUE_CASES):
         main = ci == 0
@@ -271,6 +293,23 @@ def epilogue_phase() -> dict:
         report("sq_norm", case, n, err, rel, red_tol, time_ms(lambda: sp.sq_norm(x)),
                time_ms(lambda: ref.sq_norm_plain(x)),
                time_ms(lambda: torch.linalg.vector_norm(x) ** 2), 4 * n, "float32", main)
+
+        # --- sam_perturb: out = w + rho x / sqrt(sq) (w = y), held exactly ---
+        sq = ref.sq_norm_plain(x)
+        out = torch.empty_like(y)
+        sp.sam_perturb(y, x, RHO, sq, out=out)
+        torch.cuda.synchronize()
+        errs = [max_rel(out[i:i + COMPARE_CHUNK],
+                        ref.sam_perturb_flat_plain(y[i:i + COMPARE_CHUNK],
+                                                   x[i:i + COMPARE_CHUNK], RHO, sq))
+                for i in range(0, n, COMPARE_CHUNK)]
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        ms = time_ms(lambda: sp.sam_perturb(y, x, RHO, sq, out=out))
+        del out
+        scale = float(ref.sam_perturb_scale(RHO, sq, x.device))
+        report("sam_perturb", case, n, err, rel, 0.0, ms,
+               time_ms(lambda: ref.sam_perturb_flat_plain(y, x, RHO, sq)),
+               time_ms(lambda: torch.add(y, x, alpha=scale)), n * (4 + 2 * es), dtype, main)
 
         # --- fused_axpy: out = y + alpha x ---
         alpha = torch.tensor(3.7, device="cuda")
@@ -331,7 +370,47 @@ def epilogue_phase() -> dict:
             report("adamw_epilogue", f"{case}, wd {wd}, clip {clip}", n, err, rel,
                    tol if dtype == "float32" else BF16_TOL["rtol"], ms, plain_ms, library_ms,
                    n * (2 * es + 4 + 16), dtype, main and ai == 0)
-        del x, w, mu, nu
+        del mu, nu
+        torch.cuda.empty_cache()
+
+        # --- sgd_epilogue: w (y's dtype), fp32 g = x and m, held exactly ---
+        m = operand(n, "float32", offset, 1e-3)
+        clip_t, lr = torch.tensor(0.7, device="cuda"), torch.tensor(1e-3, device="cuda")
+        for si, (mom, nest, wd) in enumerate(SGD_CASES):
+            if main and si not in (0, 4):
+                continue
+            kw, km = w.clone(), (m.clone() if mom else None)
+            hyper = dict(momentum=mom, nesterov=nest, weight_decay=wd)
+            fu.sgd_epilogue(kw, x, km, clip_t, lr, **hyper)
+            torch.cuda.synchronize()
+            errs = []
+            for i in range(0, n, COMPARE_CHUNK):
+                sl = slice(i, i + COMPARE_CHUNK)
+                nw, nm = ref.sgd_epilogue_flat_plain(w[sl], x[sl], m[sl] if mom else None,
+                                                     clip_t, lr, **hyper)
+                errs.append(max_rel(kw[sl], nw))
+                if mom:
+                    errs.append(max_rel(km[sl], nm))
+            err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            ms = time_ms(lambda: fu.sgd_epilogue(kw, x, km, clip_t, lr, **hyper))
+            del kw, km
+            plain_ms = time_ms(lambda: ref.sgd_epilogue_flat_plain(
+                w, x, m if mom else None, clip_t, lr, **hyper))
+            library_ms = None
+            if dtype == "float32" and offset == 0:
+                p = torch.nn.Parameter(w.clone())
+                p.grad = x
+                opt = torch.optim.SGD([p], lr=1e-3, momentum=mom, nesterov=nest,
+                                      weight_decay=wd, fused=True)
+                library_ms = time_ms(opt.step)
+                del opt, p
+            row = report("sgd_epilogue", f"{case}, momentum {mom}, nesterov {nest}, wd {wd}",
+                         n, err, rel, 0.0, ms, plain_ms, library_ms,
+                         n * (2 * es + 4 + (8 if mom else 0)), dtype, main and si == 0,
+                         sgd_ops(mom, nest, wd))
+            if main and si == 4:
+                main_rows["sgd_epilogue, no momentum"] = row
+        del x, w, m
         torch.cuda.empty_cache()
     if failures:
         fail(f"epilogue kernels disagree with their plain versions: {failures}")
@@ -465,7 +544,13 @@ def profile_phase(model) -> None:
 
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 1024
 ASCENT_FRACTION, RHO, LR = 0.25, 0.05, 3e-3
-EPILOGUE_KERNELS = ("sq_norm", "fused_axpy", "fused_dot_norms", "adamw_epilogue")
+# the paper's optimizer, sgd(cosine_schedule(lr, steps), momentum=0.9)
+# (benchmarks/common.py), at an lr that keeps the random-init loss finite
+SGD_LR, SGD_MOMENTUM = 0.05, 0.9
+# the kernels each optimizer's training path launches once a step
+PATH_KERNELS = {"adamw": ("sq_norm", "fused_axpy", "fused_dot_norms", "adamw_epilogue"),
+                "sgd": ("sq_norm", "fused_axpy", "fused_dot_norms", "sgd_epilogue")}
+EPILOGUE_KERNELS = PATH_KERNELS["adamw"]
 # Two training checks, 3 AsyncSAM steps each from the seed-0 init.
 #
 # Lockstep check, at the train phase's lr: every epilogue kernel call the path
@@ -505,9 +590,9 @@ def reset_launches() -> None:
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import sam_perturb as sp
     fa.launches = 0
-    sp.launches = 0
-    for name in fu.launches:
-        fu.launches[name] = 0
+    for counts in (sp.launches, fu.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def flash_per_step(cfg) -> tuple[int, str]:
@@ -520,22 +605,27 @@ def flash_per_step(cfg) -> tuple[int, str]:
                f"{cfg.n_layers} layers = {n}")
 
 
-def build_trainer(steps: int, lr: float = LR):
-    """Full-width olmo-1b from seed 0, async_sam + AdamW on the card, and its
-    pipeline: what `python -m repro_torch.launch.train` builds."""
+def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
+                  method: str = "async_sam"):
+    """olmo-1b (full width and depth unless `cfg`) from seed 0, AsyncSAM with
+    AdamW (what `python -m repro_torch.launch.train` builds) or with the
+    paper's sgd(momentum 0.9), on the card, and its pipeline."""
     from repro_torch.configs import get_config
     from repro_torch.core import MethodConfig
     from repro_torch.data import PipelineConfig, TokenPipeline
     from repro_torch.engine import FusedExecutor
     from repro_torch.models import build_model
-    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.optim import cosine_schedule, make_optimizer, sgd
 
-    cfg = get_config("olmo-1b")
+    cfg = cfg or get_config("olmo-1b")
     bundle = build_model(cfg)
+    if family == "adamw":
+        opt = make_optimizer("adamw", cosine_schedule(lr, steps, warmup_steps=steps // 20))
+    else:
+        opt = sgd(cosine_schedule(lr, steps), momentum=SGD_MOMENTUM)
     ex = FusedExecutor(bundle.loss_fn,
-                       MethodConfig(name="async_sam", rho=RHO, ascent_fraction=ASCENT_FRACTION),
-                       make_optimizer("adamw", cosine_schedule(lr, steps,
-                                                               warmup_steps=steps // 20)))
+                       MethodConfig(name=method, rho=RHO, ascent_fraction=ASCENT_FRACTION),
+                       opt)
     state = ex.init_state(bundle.init(seed=0, device="cuda"), seed=1)
     pipe = TokenPipeline(cfg, PipelineConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                                              seed=0, ascent_fraction=ASCENT_FRACTION),
@@ -543,7 +633,7 @@ def build_trainer(steps: int, lr: float = LR):
     return cfg, ex, state, pipe
 
 
-def train_phase():
+def train_phase(family: str = "adamw"):
     """Train full-width olmo-1b through the kernels; returns (summary,
     executor, final state, pipeline)."""
     import statistics
@@ -552,12 +642,14 @@ def train_phase():
     from repro_torch.launch.train import kernel_launches
     from repro_torch.optim import epilogue_hbm_bytes
 
-    cfg, ex, state, pipe = build_trainer(TRAIN_STEPS)
+    tag = "train" if family == "adamw" else f"train {family}"
+    lr = LR if family == "adamw" else SGD_LR
+    cfg, ex, state, pipe = build_trainer(TRAIN_STEPS, lr, family)
     n_params = sum(b.numel() for b in state.params.buffers)
-    print(f"train: olmo-1b {n_params} params in {len(state.params.buffers)} bucket(s) "
+    print(f"{tag}: olmo-1b {n_params} params in {len(state.params.buffers)} bucket(s) "
           f"({[g.dtype for g in state.params.layout.groups]}), compute {cfg.compute_dtype}, "
           f"remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, b' = "
-          f"{max(1, round(TRAIN_BATCH * ASCENT_FRACTION))}")
+          f"{max(1, round(TRAIN_BATCH * ASCENT_FRACTION))}; optimizer {family}, lr {lr}")
     meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
     reset_launches()                                   # counts: 0 just before
     torch.cuda.reset_peak_memory_stats()
@@ -565,41 +657,40 @@ def train_phase():
     launches = kernel_launches()                       # read just after
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for i, m in enumerate(report.metrics_history):
-        print(f"train step {i}: {json.dumps(m)} ({meter.step_times[i]:.4f} s)")
+        print(f"{tag} step {i}: {json.dumps(m)} ({meter.step_times[i]:.4f} s)")
     flash_n, how = flash_per_step(cfg)
-    print(f"train launches over {TRAIN_STEPS} steps: {launches}; flash per step: {how}")
-    for name in EPILOGUE_KERNELS:
-        if launches[name] != TRAIN_STEPS:
-            fail(f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
-                 f"expected once per step (one fp32 bucket)")
-    if launches["flash_attention"] != flash_n * TRAIN_STEPS:
-        fail(f"flash_attention launched {launches['flash_attention']} times, expected "
-             f"{flash_n} per step")
+    print(f"{tag} launches over {TRAIN_STEPS} steps: {launches}; flash per step: {how}")
+    for name, n in launches.items():
+        want = (TRAIN_STEPS if name in PATH_KERNELS[family]
+                else flash_n * TRAIN_STEPS if name == "flash_attention" else 0)
+        if n != want:
+            fail(f"{tag}: {name} launched {n} times in {TRAIN_STEPS} steps, expected {want} "
+                 f"(the path's kernels once per step: one fp32 bucket)")
     hist = report.metrics_history
     if report.steps_done != TRAIN_STEPS or not all(
             math.isfinite(v) for m in hist for v in m.values()):
-        fail(f"training did not finish with finite metrics: {hist}")
+        fail(f"{tag}: training did not finish with finite metrics: {hist}")
     if [m["perturbed"] for m in hist] != [0.0] + [1.0] * (TRAIN_STEPS - 1):
         fail(f"perturbed should be 0 at step 0 and 1 after: {[m['perturbed'] for m in hist]}")
     if any(m["tau"] != 1.0 for m in hist):
         fail(f"tau should be 1 every step: {[m['tau'] for m in hist]}")
     step_s = statistics.median(meter.step_times[2:])
-    summary = dict(steps=TRAIN_STEPS, step_times_s=meter.step_times, median_step_s=step_s,
-                   descent_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_gib=peak_gib,
-                   launches=launches, flash_per_step=flash_n,
+    summary = dict(optimizer=family, steps=TRAIN_STEPS, step_times_s=meter.step_times,
+                   median_step_s=step_s, descent_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                   peak_gib=peak_gib, launches=launches, flash_per_step=flash_n,
                    loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"])
-    print(f"train: median step (steps 2-{TRAIN_STEPS - 1}) {step_s:.4f} s, "
+    print(f"{tag}: median step (steps 2-{TRAIN_STEPS - 1}) {step_s:.4f} s, "
           f"{summary['descent_tokens_per_s']:.1f} descent tok/s, peak {peak_gib:.2f} GiB")
-    # the reference's model of the epilogue's traffic (no clip, decay on,
-    # carried norm, resident), against the four kernels' own bytes: without
-    # clip the model counts no grad-norm pass, which runs every step for the
-    # grad_norm metric, and it leaves out the ascent refresh's read of both
-    # fp32 ascent buffers
-    model_bytes = epilogue_hbm_bytes(n_params, 4 * n_params, family="adamw", clip=False,
-                                     weight_decay=True, carried_norm=True, fused=True,
-                                     resident=True)
-    kernel_bytes = (4 + 12 + 8 + 28) * n_params
-    print(f"train: epilogue bytes a step, reference model {model_bytes} "
+    # the reference's model of the epilogue's traffic (no clip, decay as the
+    # optimizer has it, carried norm, resident), against the four kernels'
+    # own bytes: without clip the model counts no grad-norm pass, which runs
+    # every step for the grad_norm metric, and it leaves out the ascent
+    # refresh's read of both fp32 ascent buffers
+    model_bytes = epilogue_hbm_bytes(n_params, 4 * n_params, family=family, clip=False,
+                                     weight_decay=family == "adamw", momentum=True,
+                                     carried_norm=True, fused=True, resident=True)
+    kernel_bytes = (4 + 12 + 8 + (28 if family == "adamw" else 20)) * n_params
+    print(f"{tag}: epilogue bytes a step, reference model {model_bytes} "
           f"({model_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s), the four kernels "
           f"{kernel_bytes} ({kernel_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
     return summary, ex, report.final_state, pipe
@@ -667,7 +758,7 @@ def compare_runs(ref_run, run, w0) -> dict:
     return out
 
 
-def lockstep_check() -> dict:
+def lockstep_check(family: str = "adamw") -> dict:
     """3 steps at the train phase's lr through the kernels, each epilogue
     kernel call held against its plain version on the same inputs (see
     LOCKSTEP_REL_TOL). Returns {kernel: {calls, launches, max_rel_err}}."""
@@ -676,8 +767,9 @@ def lockstep_check() -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.train import kernel_launches
 
-    kernel = {name: getattr(ops, name) for name in EPILOGUE_KERNELS}
-    worst = {name: {"calls": 0, "max_rel_err": 0.0} for name in EPILOGUE_KERNELS}
+    names = PATH_KERNELS[family]
+    kernel = {name: getattr(ops, name) for name in names}
+    worst = {name: {"calls": 0, "max_rel_err": 0.0} for name in names}
 
     def note(name, pairs):
         """pairs: (max|d|, scale) per quantity of one call."""
@@ -734,12 +826,27 @@ def lockstep_check() -> dict:
         del w0_, mu0, nu0
         return got
 
+    def sgd_epilogue(w, g, m, clip_scale, lr, **kw):
+        w0_, m0 = w.clone(), (m.clone() if m is not None else None)
+        got = kernel["sgd_epilogue"](w, g, m, clip_scale, lr, **kw)
+        hyper = {k: v for k, v in kw.items() if k != "impl"}
+
+        def part(sl):
+            nw, nm = ref.sgd_epilogue_flat_plain(w0_[sl], g[sl], None if m0 is None else m0[sl],
+                                                 clip_scale, lr, **hyper)
+            out = [(amax(w[sl].float() - nw.float()), amax(nw.float() - w0_[sl].float()))]
+            return out + ([(amax(m[sl] - nm), amax(nm))] if nm is not None else [])
+        note("sgd_epilogue", chunked(w.numel(), part))
+        del w0_, m0
+        return got
+
     shadows = dict(sq_norm=sq_norm, fused_axpy=fused_axpy, fused_dot_norms=fused_dot_norms,
-                   adamw_epilogue=adamw_epilogue)
-    cfg, ex, state, pipe = build_trainer(TRAIN_CHECK_STEPS, LR)
+                   adamw_epilogue=adamw_epilogue, sgd_epilogue=sgd_epilogue)
+    cfg, ex, state, pipe = build_trainer(TRAIN_CHECK_STEPS,
+                                         LR if family == "adamw" else SGD_LR, family)
     before = kernel_launches()
-    for name, fn in shadows.items():
-        setattr(ops, name, fn)
+    for name in names:
+        setattr(ops, name, shadows[name])
     try:
         Engine(ex, pipe).fit(state, TRAIN_CHECK_STEPS)
     finally:
@@ -748,9 +855,26 @@ def lockstep_check() -> dict:
     after = kernel_launches()
     del ex, state, pipe
     torch.cuda.empty_cache()
-    for name in EPILOGUE_KERNELS:
+    for name in names:
         worst[name]["launches"] = after[name] - before[name]
     return worst
+
+
+def sgd_check() -> dict:
+    """The SGD path's lockstep check: sgd_epilogue, elementwise, is held to
+    its plain version exactly (0 error), the others as in train_check."""
+    lock = lockstep_check("sgd")
+    ok = all(r["calls"] == r["launches"] == TRAIN_CHECK_STEPS
+             and r["max_rel_err"] <= (0.0 if name == "sgd_epilogue" else LOCKSTEP_REL_TOL)
+             for name, r in lock.items())
+    print(f"train sgd check, lockstep ({TRAIN_CHECK_STEPS} steps, lr {SGD_LR}, momentum "
+          f"{SGD_MOMENTUM}; each epilogue kernel call on the path vs its plain version on the "
+          f"same inputs): {json.dumps(lock)}; tolerance: sgd_epilogue 0 (w against the step's "
+          f"own change, m against max|m|), the others rel {LOCKSTEP_REL_TOL}; one call and one "
+          f"launch per step each")
+    if not ok:
+        fail("an epilogue kernel on the SGD training path disagrees with its plain version")
+    return lock
 
 
 def train_check() -> dict:
@@ -784,6 +908,123 @@ def train_check() -> dict:
     return {"lockstep": lock, "whole": whole, "w_bulk": w_bulk}
 
 
+# Restart phase: full width, depth cut to 2 layers (about 237 M parameters,
+# 0.95 GB a fp32 buffer) for the checkpoints' disk and time.
+RESTART_LAYERS, RESTART_STEPS, RESTART_SAVE_EVERY, RESTART_FAIL_AT = 2, 6, 3, 4
+SAM_STEPS = 2
+
+
+def restart_phase() -> dict:
+    """SGD-momentum AsyncSAM under Engine.fit with a CheckpointCallback and a
+    failure injected before step RESTART_FAIL_AT, against the same run
+    uninterrupted: one restart, the final params, momentum and carried ascent
+    gradient equal bit for bit, the live buffers kept through the restore.
+    Then the SAM path, whose perturbation runs sq_norm + sam_perturb."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.engine import CheckpointCallback, Engine
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.runtime import InjectedFailure, ResilienceConfig
+
+    cfg = dc.replace(get_config("olmo-1b"), n_layers=RESTART_LAYERS)
+
+    class TimedManager(CheckpointManager):
+        """Times every save() call (its blocking part: the copy to host, and
+        the write too for a blocking save), wait() and restore()."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.times = {"save": [], "wait": [], "restore": []}
+
+        def _timed(self, what, fn, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.times[what].append(round(time.perf_counter() - t0, 4))
+
+        def save(self, step, state, extras=None, blocking=True):
+            return self._timed("save", super().save, step, state, extras, blocking)
+
+        def wait(self):
+            return self._timed("wait", super().wait)
+
+        def restore(self, *args, **kw):
+            return self._timed("restore", super().restore, *args, **kw)
+
+    def buffers(state):
+        return {"params": state.params.buffers[0],
+                "momentum": state.opt_state[0].momentum.buffers[0],
+                "ascent_grad": state.method_state.ascent_grad.buffers[0]}
+
+    _, ex, state, pipe = build_trainer(RESTART_STEPS, SGD_LR, "sgd", cfg)
+    n_params = state.params.buffers[0].numel()
+    clean = buffers(Engine(ex, pipe).fit(state, RESTART_STEPS).final_state)
+    del ex, state, pipe
+
+    _, ex, state, pipe = build_trainer(RESTART_STEPS, SGD_LR, "sgd", cfg)
+    live = {k: v for k, v in buffers(state).items() if k != "ascent_grad"}
+    fired = []
+
+    def inject(step):
+        if step == RESTART_FAIL_AT and not fired:
+            fired.append(step)
+            raise InjectedFailure(f"injected node loss before step {step}")
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        mgr = TimedManager(tmp, keep=3)
+        t0 = time.perf_counter()
+        rep = Engine(ex, pipe, [CheckpointCallback(
+            mgr, ResilienceConfig(save_every=RESTART_SAVE_EVERY))]).fit(
+                state, RESTART_STEPS, failure_injector=inject)
+        wall_s = time.perf_counter() - t0
+        kept = sorted(p.name for p in tmp.glob("step_*"))
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / kept[-1]).rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = buffers(rep.final_state)
+    equal = {k: bool(torch.equal(got[k], clean[k])) for k in clean}
+    in_place = all(got[k] is live[k] for k in live)
+    hist = rep.metrics_history
+    out = dict(layers=RESTART_LAYERS, params=n_params, steps=rep.steps_done,
+               restarts=rep.restarts, bitwise_equal=equal, buffers_kept=in_place,
+               checkpoints_kept=kept, bytes_per_checkpoint=ckpt_bytes, wall_s=wall_s,
+               save_s=mgr.times["save"], wait_s=mgr.times["wait"],
+               restore_s=mgr.times["restore"])
+    print(f"restart: olmo-1b at full width, {RESTART_LAYERS} layers ({n_params} params), "
+          f"{RESTART_STEPS} SGD-momentum AsyncSAM steps, save every {RESTART_SAVE_EVERY} "
+          f"(asynchronous), failure before step {RESTART_FAIL_AT}: {json.dumps(out)}")
+    if not (rep.restarts == 1 and rep.steps_done == RESTART_STEPS and all(equal.values())
+            and in_place and all(math.isfinite(v) for m in hist for v in m.values())):
+        fail("the restarted run is not the uninterrupted run bit for bit, in place")
+    del ex, state, pipe, rep, got, clean, live
+    torch.cuda.empty_cache()
+
+    # the SAM path: sq_norm gives the ascent norm, sam_perturb the perturbation
+    _, ex, state, pipe = build_trainer(SAM_STEPS, SGD_LR, "sgd", cfg, method="sam")
+    reset_launches()                                   # counts: 0 just before
+    rep = Engine(ex, pipe).fit(state, SAM_STEPS)
+    launches = kernel_launches()                       # read just after
+    flash_n, _ = flash_per_step(cfg)
+    want = {"flash_attention": flash_n * SAM_STEPS, "sq_norm": 2 * SAM_STEPS,
+            "sam_perturb": SAM_STEPS, "sgd_epilogue": SAM_STEPS}
+    print(f"sam path ({SAM_STEPS} steps, {RESTART_LAYERS} layers): launches {launches}; "
+          f"losses {[m['loss'] for m in rep.metrics_history]}")
+    if launches != {k: want.get(k, 0) for k in launches} or not all(
+            math.isfinite(v) for m in rep.metrics_history for v in m.values()):
+        fail(f"the SAM path launched {launches}, expected {want} and no other kernel, "
+             f"with finite metrics")
+    out["sam_launches"] = launches
+    del ex, state, pipe, rep
+    torch.cuda.empty_cache()
+    return out
+
+
 def device_time_by_kernel(prof) -> dict:
     from torch.autograd import DeviceType
     by_name: dict[str, list] = {}
@@ -795,7 +1036,7 @@ def device_time_by_kernel(prof) -> dict:
     return by_name
 
 
-def train_profile(ex, state, pipe) -> dict:
+def train_profile(ex, state, pipe, family: str = "adamw") -> dict:
     """Device time by kernel over one training step, its busy share, and the
     epilogue kernels' share."""
     import torch
@@ -812,10 +1053,10 @@ def train_profile(ex, state, pipe) -> dict:
     busy_us = sum(t for t, _ in by_name.values())
     tags = {"sq_norm": "sq_norm_kernel", "fused_axpy": "axpy_kernel",
             "fused_dot_norms": "dot_norms_kernel", "adamw_epilogue": "adamw_epilogue_kernel",
-            "flash_attention": "fa_fwd_"}
+            "sgd_epilogue": "sgd_epilogue_kernel", "flash_attention": "fa_fwd_"}
     ours = {k: sum(t for n, (t, _) in by_name.items() if tag in n) for k, tag in tags.items()}
-    epi_us = sum(ours[k] for k in EPILOGUE_KERNELS)
-    print(f"profile train step: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us "
+    epi_us = sum(ours[k] for k in PATH_KERNELS[family])
+    print(f"profile train {family} step: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us "
           f"(busy {100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel names; epilogue "
           f"kernels {epi_us:.1f} us = {100 * epi_us / wall_us:.2f}% of the step, "
           f"{100 * epi_us / busy_us:.2f}% of device time; by kernel (us): "
@@ -872,6 +1113,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("train check " + json.dumps(train_check()))
 
+    sgd_trained, ex, state, pipe = train_phase("sgd")
+    print("train sgd " + json.dumps(sgd_trained))
+    train_profile(ex, state, pipe, "sgd")
+    del ex, state, pipe
+    torch.cuda.empty_cache()
+    sgd_check()
+    restarted = restart_phase()
+
     kernels = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:36",
@@ -881,13 +1130,20 @@ def main() -> int:
                     plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
                     bound_by=flash["bound_by"], library_ms=flash["library_ms"])]
     replaces = {"sq_norm": ("sam_perturb.cu", "src/repro/kernels/sam_perturb.py:36"),
+                "sam_perturb": ("sam_perturb.cu", "src/repro/kernels/sam_perturb.py:56"),
                 "fused_axpy": ("fused_update.cu", "src/repro/kernels/fused_update.py:50"),
                 "fused_dot_norms": ("fused_update.cu", "src/repro/kernels/fused_update.py:76"),
-                "adamw_epilogue": ("fused_update.cu", "src/repro/kernels/fused_update.py:239")}
-    for name in EPILOGUE_KERNELS:
-        row, (src, where) = epilogue[name], replaces[name]
+                "adamw_epilogue": ("fused_update.cu", "src/repro/kernels/fused_update.py:239"),
+                "sgd_epilogue": ("fused_update.cu", "src/repro/kernels/fused_update.py:178")}
+    # each kernel's launches on the path that runs it: the AdamW train phase,
+    # the SGD train phase, the SAM path of the restart phase
+    path_launches = {**trained["launches"],
+                     "sgd_epilogue": sgd_trained["launches"]["sgd_epilogue"],
+                     "sam_perturb": restarted["sam_launches"]["sam_perturb"]}
+    for name, (src, where) in replaces.items():
+        row = epilogue[name]
         kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
-                            replaces=where, launches=trained["launches"][name],
+                            replaces=where, launches=path_launches[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"]))

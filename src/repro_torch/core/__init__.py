@@ -25,7 +25,7 @@ from repro_torch.core.ascent import (  # noqa: F401
     system_aware_ascent_fraction,
 )
 from repro_torch.core.async_sam import AsyncSamState, make_async_sam  # noqa: F401
-from repro_torch.core.perturb import perturb  # noqa: F401
+from repro_torch.core.perturb import perturb, perturb_masked  # noqa: F401
 from repro_torch.core.sam import make_sam, make_sgd  # noqa: F401
 
 _REGISTRY = {
@@ -52,7 +52,4 @@ def make_method(cfg: MethodConfig) -> Method:
                          f"{available_methods()}") from None
     if cfg.guard_update:
         raise NotImplementedError(GUARD)
-    if cfg.fused_update is False:
-        raise NotImplementedError("fused_update=False (the per-leaf weight-space path) is "
-                                  "not ported yet: slice 3 of the port, ROADMAP.md queue 1")
     return dataclasses.replace(factory(cfg), cfg=cfg)

@@ -14,18 +14,22 @@ is
 with `params` a mapping of leaf name -> tensor and `gen` a torch.Generator.
 
 What differs from the reference, and why:
-* State is bucket-resident (`utils.buckets.BucketedState`) and updated in
-  place: the counterpart of the reference's donated jit buffers. Each step
-  writes into buffers it reuses (`Workspace`).
-* Gradients land in a flat gradient buffer with no gather: the loss sees leaf
-  views of the w (or w_hat) buffer that require grad, each with `.grad` a view
-  of the matching slot of the gradient buffer, and backward accumulates into
-  those views in place (`value_and_grad_acc`).
+* State is updated in place: the counterpart of the reference's donated jit
+  buffers. By default it is bucket-resident (`utils.buckets.BucketedState`);
+  `init_train_state(..., resident=False)` keeps per-leaf tensors (a mapping
+  of name -> tensor), the reference's pytree state, and each step writes its
+  new values back into them. Each step writes into buffers it reuses
+  (`Workspace`).
+* Gradients land in a gradient buffer with no gather: the loss sees leaf
+  views of w (or w_hat) that require grad, each with `.grad` the matching
+  tensor of the gradient buffer (a view of its slot in the flat buffer, on
+  resident state), and backward accumulates into them in place
+  (`value_and_grad_acc`).
 * `step` and `rng` of the TrainState are host ints: PyTorch runs eagerly, so
   the host decides the step's control flow (the reference's traced
   `lax.cond`s). Values the step computes stay on the device.
-* The numerics guard (`guard_update=True`) is slice 3 of the port and
-  raises here.
+* The numerics guard (`guard_update=True`) is a later slice of the port
+  and raises here.
 """
 from __future__ import annotations
 
@@ -34,22 +38,23 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from repro_torch.optim import GradientTransform
+from repro_torch.optim import GradientTransform, apply_updates
 from repro_torch.optim.fused import fused_apply
-from repro_torch.utils import buckets
+from repro_torch.utils import buckets, trees
 
 Tree = Any
 LossFn = Callable[[dict, Any, torch.Generator], tuple[torch.Tensor, dict]]
 
 GUARD = ("the in-step numerics guard (guard_update=True) is not ported yet: "
-         "slice 3 of the port, ROADMAP.md queue 1")
+         "it rides along with slice 4 of the port, ROADMAP.md queue 1")
 
 
 class TrainState(NamedTuple):
     step: int                # steps taken
     rng: int                 # seed of the per-step generators (`step_rng`)
-    params: buckets.BucketedState
+    params: Tree             # a BucketedState, or a mapping of name -> tensor
     opt_state: Tree
     method_state: Tree       # method-specific carry (e.g. AsyncSAM's a_{t-1})
 
@@ -70,8 +75,11 @@ class MethodConfig:
     n_microbatches: gradient accumulation over equal chunks of the batch.
     ascent_interval: refresh a_t every k steps (beyond-paper; tau <= k).
     guard_update: the in-step numerics guard; not ported, raises.
-    fused_update: the flat-buffer fused path. The port has no other path, so
-        None and True run it and False raises.
+    fused_update: the flat-buffer fused path (perturb axpy, ascent-refresh
+        dot/norms) for per-leaf state; bucket-resident state always takes it.
+        None and True take it, False keeps per-leaf state on the reference's
+        per-leaf composition. Executors resolve and pin it; the matching
+        optimizer-epilogue switch is FusedSpec.enabled.
     """
     name: str = "async_sam"
     rho: float = 0.1
@@ -95,28 +103,65 @@ class Method:
     cfg: Optional[MethodConfig] = None
 
 
+def per_leaf(params) -> dict[str, torch.Tensor]:
+    """A model's parameters (or a mapping of name -> tensor) as the per-leaf
+    state's mapping: detached tensors sharing the parameters' storage, so the
+    model reads what the steps write."""
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    return {name: t.detach() for name, t in params.items()}
+
+
 def init_train_state(params, optimizer: GradientTransform, method: Method,
-                     seed: int = 0) -> TrainState:
-    """The step-0 state. `params` may be a BucketedState, a model (its
-    parameters become views into the new buffers) or a mapping of name ->
-    tensor; the port's state is always bucket-resident."""
-    params = buckets.residentize(params)
+                     seed: int = 0, *, resident: bool = True) -> TrainState:
+    """The step-0 state. `params` may be a BucketedState, a model or a
+    mapping of name -> tensor. Resident (the default), a model's parameters
+    become views into the new buffers; per-leaf, the state holds the
+    parameters' own tensors (`per_leaf`)."""
+    params = buckets.residentize(params) if resident else per_leaf(params)
     return TrainState(step=0, rng=seed, params=params,
                       opt_state=optimizer.init(params),
                       method_state=method.init(params, seed))
 
 
-def _finish(state: TrainState, optimizer: GradientTransform,
-            grads: buckets.BucketedState, method_state: Tree, metrics: dict, *,
+def _finish(state: TrainState, optimizer: GradientTransform, grads: Tree,
+            method_state: Tree, metrics: dict, *,
             guard: bool = False) -> tuple[TrainState, dict]:
-    """Shared tail: the fused optimizer update (in place) + state threading."""
+    """Shared tail: the optimizer update, in place, + state threading.
+
+    A canonical sgd/adamw chain takes the fused flat-buffer path
+    (`optim.fused.fused_apply`); anything else the per-leaf chain's update +
+    `apply_updates`, whose results are written back into the state's tensors.
+    """
     if guard:
         raise NotImplementedError(GUARD)
     metrics = dict(metrics)
-    params, opt_state, gnorm = fused_apply(optimizer, grads, state.opt_state, state.params)
+    fused = fused_apply(optimizer, grads, state.opt_state, state.params)
+    if fused is not None:
+        params, opt_state, gnorm = fused
+    else:
+        if buckets.is_bucketed(state.params):
+            raise TypeError("bucket-resident params need an optimizer with a FusedSpec "
+                            "(optim.sgd / optim.adamw without a decay mask)")
+        updates, new_opt = optimizer.update(grads, state.opt_state, state.params)
+        params = trees.tree_copy_(state.params, apply_updates(state.params, updates))
+        opt_state = trees.tree_copy_(state.opt_state, new_opt)
+        gnorm = trees.global_norm(grads)
     metrics.setdefault("grad_norm", gnorm)
     return TrainState(step=state.step + 1, rng=state.rng, params=params,
                       opt_state=opt_state, method_state=method_state), metrics
+
+
+def scalar_metrics(metrics: dict) -> dict:
+    """The float()-able subset of a step's metrics, as host floats (a copy of
+    `repro.obs.scalar_metrics`, whose module is not ported yet); reading a
+    device scalar waits for it."""
+    return {k: float(v) for k, v in metrics.items()
+            if hasattr(v, "__float__") and getattr(v, "ndim", 0) == 0}
+
+
+def params_device(params: Tree) -> torch.device:
+    return trees.tree_leaves(params)[0].device
 
 
 def step_rng(state: TrainState, lane: int = 0) -> torch.Generator:
@@ -124,31 +169,42 @@ def step_rng(state: TrainState, lane: int = 0) -> torch.Generator:
     per lane (descent 0, ascent 1). The olmo loss draws no randomness; the
     generator is the protocol's, for losses that do."""
     seed = int(np.random.SeedSequence([state.rng, state.step, lane]).generate_state(1)[0])
-    return torch.Generator(device=state.params.device).manual_seed(seed)
+    return torch.Generator(device=params_device(state.params)).manual_seed(seed)
+
+
+def _congruent(a: Tree, b: Tree) -> bool:
+    if buckets.is_bucketed(a) or buckets.is_bucketed(b):
+        return (buckets.is_bucketed(a) and buckets.is_bucketed(b)
+                and a.layout == b.layout)
+    return (a.keys() == b.keys()
+            and all(a[k].shape == b[k].shape for k in a))
 
 
 class Workspace:
     """Buffers a step function reuses across steps (the perturbed weights,
-    gradients, the spare ascent buffer), made at first use with the params'
-    layout and held by the step's closure."""
+    gradients, the spare ascent buffer), made at first use in the params'
+    form (the same layout, or the same leaves) and held by the step's
+    closure."""
 
     def __init__(self):
-        self.bufs: dict[str, buckets.BucketedState] = {}
+        self.bufs: dict[str, Tree] = {}
 
-    def get(self, name: str, like: buckets.BucketedState,
-            dtype: Optional[torch.dtype] = None) -> buckets.BucketedState:
+    def get(self, name: str, like: Tree, dtype: Optional[torch.dtype] = None) -> Tree:
         buf = self.bufs.get(name)
-        if buf is None or buf.layout != like.layout:
-            buf = self.bufs[name] = like.zeros_like(dtype)
+        if buf is None or not _congruent(buf, like):
+            buf = self.bufs[name] = trees.tree_zeros_like(like, dtype)
         return buf
 
 
-def _grad_leaves(params: buckets.BucketedState,
-                 grads: buckets.BucketedState) -> dict[str, torch.Tensor]:
-    """Leaf views of `params` that require grad, each with `.grad` the view
-    of its slot in `grads`: backward accumulates into the gradient buffer in
-    place (autograd adds into an existing .grad)."""
-    views, gviews = params.to_tree(), grads.to_tree()
+def _grad_leaves(params: Tree, grads: Tree) -> dict[str, torch.Tensor]:
+    """Leaf views of `params` that require grad, each with `.grad` the
+    matching tensor of `grads` (on resident state a view of its slot in the
+    flat buffer): backward accumulates into the gradient buffer in place
+    (autograd adds into an existing .grad)."""
+    if buckets.is_bucketed(params):
+        views, gviews = params.to_tree(), grads.to_tree()
+    else:
+        views, gviews = per_leaf(params), grads
     for name, v in views.items():
         v.requires_grad_(True)
         v.grad = gviews[name]
@@ -165,16 +221,16 @@ def value_and_grad_acc(loss_fn: LossFn, n_micro: int):
     gradient accumulation.
 
     Returns fn(params, batch, gen, out=None) -> ((loss, aux), grads): `grads`
-    is `out` (a BucketedState congruent with params, in params' dtypes) or a
-    new one, zeroed and then filled by backward. With n_micro > 1 the batch's
-    leading dim is split into n_micro chunks run one after another, their
-    gradients summed in the buffer and divided by n_micro, as the reference
-    does; aux is reduced to its scalar metrics (mean over chunks).
+    is `out` (congruent with params, in params' dtypes: a BucketedState or a
+    mapping of tensors) or a new one, zeroed and then filled by backward.
+    With n_micro > 1 the batch's leading dim is split into n_micro chunks run
+    one after another, their gradients summed in the buffer and divided by
+    n_micro, as the reference does; aux is reduced to its scalar metrics
+    (mean over chunks).
     """
-    def fn(params: buckets.BucketedState, batch, gen: torch.Generator,
-           out: Optional[buckets.BucketedState] = None):
-        grads = out if out is not None else params.zeros_like()
-        for buf in grads.buffers:
+    def fn(params: Tree, batch, gen: torch.Generator, out: Optional[Tree] = None):
+        grads = out if out is not None else trees.tree_zeros_like(params)
+        for buf in trees.tree_leaves(grads):
             buf.zero_()
         leaves = _grad_leaves(params, grads)
         if n_micro <= 1:
@@ -193,7 +249,7 @@ def value_and_grad_acc(loss_fn: LossFn, n_micro: int):
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             auxs.append(_scalars(aux))
-        for buf in grads.buffers:
+        for buf in trees.tree_leaves(grads):
             buf.div_(n_micro)
         aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
         return (loss_sum / n_micro, aux), grads

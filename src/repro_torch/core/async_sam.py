@@ -14,9 +14,15 @@ values. The order, on bucket-resident state:
   1. a_t at w, on the ascent batch, into the spare ascent buffer;
   2. w_hat = fused_axpy(rho / ||a_{t-1}||, a_{t-1}, w) into its own buffer;
   3. g at w_hat, on the descent batch, into the gradient buffer;
-  4. fused_apply: sq_norm + adamw_epilogue update w, mu and nu in place;
+  4. the optimizer update in place (fused: sq_norm + sgd_epilogue or
+     adamw_epilogue per bucket);
   5. fused_dot_norms(a_t, a_{t-1}): the carried norm and the cosine;
   6. swap the two ascent buffers.
+
+That is the fused path, which bucket-resident state always takes. Per-leaf
+state (`FusedExecutor(resident=False)`) takes it too, gathering into buckets
+per call, unless `fused_update` is False: then the perturbation and the
+refresh are the reference's per-leaf compositions.
 
 At t = 0 no ascent gradient exists: rho_eff = 0 degrades the step to SGD
 (Algorithm 1, line 8) with the same kernels launched. Form B (the split
@@ -30,7 +36,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core.api import (LossFn, Method, MethodConfig, TrainState, Workspace,
-                                  _finish, step_rng, value_and_grad_acc)
+                                  _finish, params_device, step_rng, value_and_grad_acc)
 from repro_torch.core.ascent import (CompressionState, Compressor, slice_ascent_batch,
                                      split_batch)
 from repro_torch.core.perturb import perturb
@@ -43,17 +49,17 @@ Tree = Any
 
 class AsyncSamState(NamedTuple):
     """Carry across steps: the ascent gradient a_{t-tau}."""
-    ascent_grad: buckets.BucketedState   # a_{t-1}, fp32; zeros before the first refresh
+    ascent_grad: Tree                    # a_{t-1}, fp32, params' form; zeros at first
     ascent_norm: torch.Tensor            # ||a_{t-1}|| (fp32 device scalar)
     have_ascent: bool                    # a valid gradient is held
     staleness: int                       # age of the held gradient (tau)
     compression: CompressionState        # error-feedback residual ((), lossless)
 
 
-def _init_state(params: buckets.BucketedState, compressor: Compressor) -> AsyncSamState:
+def _init_state(params: Tree, compressor: Compressor) -> AsyncSamState:
     return AsyncSamState(
         ascent_grad=trees.tree_zeros_like(params, torch.float32),
-        ascent_norm=torch.zeros((), dtype=torch.float32, device=params.device),
+        ascent_norm=torch.zeros((), dtype=torch.float32, device=params_device(params)),
         have_ascent=False,
         staleness=0,
         compression=compressor.init(params),
@@ -84,13 +90,11 @@ def make_async_sam(cfg: MethodConfig) -> Method:
             refresh = cfg.ascent_interval <= 1 or state.step % cfg.ascent_interval == 0
             if refresh:
                 spare = ws.get("ascent", w, torch.float32)
-                raw = spare if all(b.dtype == torch.float32 for b in w.buffers) else None
+                fp32 = all(b.dtype == torch.float32 for b in trees.tree_leaves(w))
                 (loss_asc, _), a_new = vg(w, ascent_batch, step_rng(state, lane=1),
-                                          out=raw if raw is not None else ws.get("a_raw", w))
-                if a_new is not spare:           # non-fp32 buckets: cast into fp32
-                    for dst, src in zip(spare.buffers, a_new.buffers):
-                        dst.copy_(src)
-                    a_new = spare
+                                          out=spare if fp32 else ws.get("a_raw", w))
+                if a_new is not spare:           # non-fp32 params: cast into fp32
+                    a_new = trees.tree_copy_(spare, a_new)
                 staleness, reused = 1, 0.0
             else:
                 a_new = ms.ascent_grad
@@ -101,7 +105,7 @@ def make_async_sam(cfg: MethodConfig) -> Method:
             # rho_eff = 0 gives w_hat = w (line 8)
             rho_eff = cfg.rho if ms.have_ascent else 0.0
             w_hat = perturb(w, ms.ascent_grad, rho_eff, grad_norm=ms.ascent_norm,
-                            out=ws.get("w_hat", w))
+                            fused=cfg.fused_update, out=ws.get("w_hat", w))
 
             # --- 3. descent gradient at the perturbed point (line 6)
             (loss, aux), grads = vg(w_hat, batch, step_rng(state, lane=0),
@@ -111,11 +115,16 @@ def make_async_sam(cfg: MethodConfig) -> Method:
             # --- 4. the optimizer update, in place
             new_state, metrics = _finish(state, optimizer, grads, None, {}, guard=cfg.guard_update)
 
-            # --- 5. ascent-state refresh: the cosine metric and the carried
-            # norm from ONE pass over (a_t, a_{t-1})
-            dot, sq_new, sq_old = buckets.bucketed_dot_norms(a_new, ms.ascent_grad)
-            cos = dot / (torch.sqrt(sq_new) * torch.sqrt(sq_old) + 1e-12)
-            new_ms = AsyncSamState(ascent_grad=a_new, ascent_norm=torch.sqrt(sq_new),
+            # --- 5. ascent-state refresh: on the fused path the cosine metric
+            # and the carried norm from ONE pass over (a_t, a_{t-1})
+            if buckets.is_bucketed(w) or cfg.fused_update is not False:
+                dot, sq_new, sq_old = buckets.bucketed_dot_norms(a_new, ms.ascent_grad)
+                cos = dot / (torch.sqrt(sq_new) * torch.sqrt(sq_old) + 1e-12)
+                a_norm = torch.sqrt(sq_new)
+            else:
+                cos = trees.tree_cosine_similarity(a_new, ms.ascent_grad)
+                a_norm = trees.global_norm(a_new)
+            new_ms = AsyncSamState(ascent_grad=a_new, ascent_norm=a_norm,
                                    have_ascent=True, staleness=staleness,
                                    compression=ms.compression)
 

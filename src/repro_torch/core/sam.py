@@ -12,7 +12,7 @@ from repro_torch.core.api import (LossFn, Method, MethodConfig, TrainState, Work
 from repro_torch.core.ascent import split_batch
 from repro_torch.core.perturb import perturb
 from repro_torch.optim import GradientTransform
-from repro_torch.utils import buckets
+from repro_torch.utils import buckets, trees
 
 
 def make_sgd(cfg: MethodConfig) -> Method:
@@ -50,15 +50,18 @@ def make_sam(cfg: MethodConfig) -> Method:
             if cfg.same_batch_ascent or ascent_batch is None:
                 ascent_batch = batch
             gen = step_rng(state)
-            # --- gradient ascent (perturbation) ---
+            # --- gradient ascent (perturbation): on the fused path one
+            # sq_norm pass gives both the norm metric and the sam_perturb
+            # kernel's scale
             (loss_w, _), g_ascent = vg(state.params, ascent_batch, gen,
                                        out=ws.get("ascent", state.params))
-            ascent_norm = torch.sqrt(buckets.bucketed_sq_norm(g_ascent))
-            w_hat = perturb(state.params, g_ascent, cfg.rho, grad_norm=ascent_norm,
-                            out=ws.get("w_hat", state.params))
+            fused = buckets.is_bucketed(state.params) or cfg.fused_update is not False
+            sq = buckets.bucketed_sq_norm(g_ascent) if fused else trees.tree_sq_norm(g_ascent)
+            w_hat = perturb(state.params, g_ascent, cfg.rho, sq_norm=sq,
+                            fused=cfg.fused_update, out=ws.get("w_hat", state.params))
             # --- gradient descent at the perturbed point ---
             (loss, aux), grads = vg(w_hat, batch, gen, out=ws.get("grads", state.params))
-            metrics = {"loss": loss, "loss_at_w": loss_w, "ascent_norm": ascent_norm,
+            metrics = {"loss": loss, "loss_at_w": loss_w, "ascent_norm": torch.sqrt(sq),
                        **_m(aux)}
             return _finish(state, optimizer, grads, (), metrics, guard=cfg.guard_update)
 

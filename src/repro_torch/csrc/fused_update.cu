@@ -1,7 +1,7 @@
 // The fused weight-space kernels of the training step for Hopper (sm_90a),
 // CUDA C++ with plain C entries.
 //
-// Replaces three Pallas TPU kernels of src/repro/kernels/fused_update.py:
+// Replaces four Pallas TPU kernels of src/repro/kernels/fused_update.py:
 // * `_axpy_kernel` (pallas_call in `fused_axpy`): out = y + alpha x, the SAM
 //   perturbation w_hat = w + (rho / ||a||) a; fp32 math, y's dtype out,
 //   written into a buffer the caller gives;
@@ -10,10 +10,13 @@
 //   the kernel; AsyncSAM's ascent refresh (the carried norm and the cosine);
 // * `_adam_kernel` (`adamw_epilogue`): g <- clip g; mu' = b1 mu + (1-b1) g;
 //   nu' = b2 nu + (1-b2) g^2; w' = w - lr ((mu'/c1) / (sqrt(nu'/c2) + eps)
-//   + wd w), writing w, mu and nu in place.
-// alpha and (clip, lr, c1, c2) are device scalars the kernels read
-// themselves, so the host never waits for the device; b1, b2, eps and wd are
-// arguments, as the TPU kernel bakes them in.
+//   + wd w), writing w, mu and nu in place;
+// * `_sgd_kernel` / `_sgd_kernel_nomom` (`sgd_epilogue`): u = clip g (+ wd w);
+//   m' = mu m + u; d = nesterov ? mu m' + u : m'; w' = w - lr d, writing w and
+//   m in place; without momentum w' = w - lr u and no m at all.
+// alpha, (clip, lr, c1, c2) and (clip, lr) are device scalars the kernels
+// read themselves, so the host never waits for the device; b1, b2, eps, wd,
+// the momentum and nesterov are arguments, as the TPU kernels bake them in.
 //
 // What bounds them on the H100: each moves its operands once and does a few
 // operations per element, so the bytes bound all three. At olmo-1b's fp32
@@ -22,6 +25,9 @@
 //   fused_dot_norms   8 N bytes (read a, b)                   2.810 ms
 //   adamw_epilogue   28 N bytes (read w, g, mu, nu; write
 //                    w, mu, nu)                               9.836 ms
+//   sgd_epilogue     20 N bytes with momentum (read w, g, m;
+//                    write w, m)                              7.026 ms
+//                    12 N bytes without (read w, g; write w)  4.215 ms
 //
 // Design: one CTA per chunk with 16-byte vector loads and stores where every
 // operand is aligned (flat_buffer.cuh), any ragged tail element by element.
@@ -30,7 +36,9 @@
 // --use_fast_math), so on the card the elementwise kernels round as the
 // plain version does. dot_norms sums per thread, then in a fixed-order block
 // sum: no atomics, a rerun gives the same bits. w, x, y, a and b may be fp32
-// or bf16; g fp32 or bf16; mu and nu fp32.
+// or bf16; g fp32 or bf16; mu, nu and m fp32. The sgd epilogue's momentum
+// body reads m and writes m' per element before its Nesterov term reads m',
+// so updating m in place is the reference's functional (w', m').
 //
 // Left for later: a persistent grid and deeper loads in flight per thread.
 
@@ -197,6 +205,79 @@ cudaError_t run_adamw(void* w, const void* g, void* mu, void* nu, int64_t n, con
   return cudaGetLastError();
 }
 
+// --- sgd_epilogue -------------------------------------------------------------
+
+struct SgdHyper {
+  float momentum, wd;
+  int nesterov;
+};
+
+// One element: the plain version's operations, in its order. kMomentum
+// false is the TPU's `_sgd_kernel_nomom` (m is neither read nor written).
+template <bool kMomentum>
+__device__ __forceinline__ void sgd_one(float& w, float g, float& m, float clip, float lr,
+                                        const SgdHyper& h) {
+  float u = __fmul_rn(g, clip);
+  if (h.wd != 0.0f) u = __fadd_rn(u, __fmul_rn(h.wd, w));
+  if (kMomentum) {
+    m = __fadd_rn(__fmul_rn(h.momentum, m), u);
+    const float d = h.nesterov ? __fadd_rn(__fmul_rn(h.momentum, m), u) : m;
+    w = __fsub_rn(w, __fmul_rn(lr, d));
+  } else {
+    w = __fsub_rn(w, __fmul_rn(lr, u));
+  }
+}
+
+template <typename TW, typename TG, bool kMomentum>
+__global__ void __launch_bounds__(THREADS)
+sgd_epilogue_kernel(TW* w, const TG* __restrict__ g, float* m, int64_t n, int vec,
+                    const float* __restrict__ scal, SgdHyper h) {
+  const Chunk c = this_chunk(n);
+  const float clip = scal[0], lr = scal[1];
+  TW* wp = w + c.base;
+  const TG* gp = g + c.base;
+  float* mp = kMomentum ? m + c.base : nullptr;
+  int done = 0;
+  if (vec) {
+    const int nv = c.len / VEC;
+#pragma unroll 2
+    for (int i = threadIdx.x; i < nv; i += THREADS) {
+      const int64_t o = static_cast<int64_t>(i) * VEC;
+      float wv[VEC], gv[VEC], mv[VEC];
+      load8(wp + o, wv);
+      load8(gp + o, gv);
+      if (kMomentum) load8(mp + o, mv);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) sgd_one<kMomentum>(wv[j], gv[j], mv[j], clip, lr, h);
+      store8(wp + o, wv);
+      if (kMomentum) store8(mp + o, mv);
+    }
+    done = nv * VEC;
+  }
+  for (int i = done + threadIdx.x; i < c.len; i += THREADS) {
+    float wi = to_f32(wp[i]), mi = kMomentum ? mp[i] : 0.0f;
+    sgd_one<kMomentum>(wi, to_f32(gp[i]), mi, clip, lr, h);
+    wp[i] = from_f32<TW>(wi);
+    if (kMomentum) mp[i] = mi;
+  }
+}
+
+template <typename TW, typename TG>
+cudaError_t run_sgd(void* w, const void* g, void* m, int64_t n, const void* scal,
+                    const SgdHyper& h, cudaStream_t s) {
+  const bool mom = h.momentum != 0.0f;
+  const int vec = aligned16(w) && aligned16(g) && (!mom || aligned16(m));
+  if (mom)
+    sgd_epilogue_kernel<TW, TG, true><<<n_chunks(n), THREADS, 0, s>>>(
+        static_cast<TW*>(w), static_cast<const TG*>(g), static_cast<float*>(m), n, vec,
+        static_cast<const float*>(scal), h);
+  else
+    sgd_epilogue_kernel<TW, TG, false><<<n_chunks(n), THREADS, 0, s>>>(
+        static_cast<TW*>(w), static_cast<const TG*>(g), nullptr, n, vec,
+        static_cast<const float*>(scal), h);
+  return cudaGetLastError();
+}
+
 // Calls f.template operator()<T>() with T the C++ type of dtype code d.
 template <typename F>
 cudaError_t by_dtype(int d, F&& f) {
@@ -246,6 +327,22 @@ extern "C" int adamw_epilogue(void* w, int w_dtype, const void* g, int g_dtype, 
   return static_cast<int>(by_dtype(w_dtype, [&](auto wt) {
     return by_dtype(g_dtype, [&](auto gt) {
       return run_adamw<decltype(wt), decltype(gt)>(w, g, mu, nu, n, scal, h, s);
+    });
+  }));
+}
+
+// w (w_dtype) and, when momentum != 0, m (float32) are updated in place; g
+// has g_dtype; scal: two device floats (clip, lr). With momentum 0, m is not
+// touched and may be null.
+extern "C" int sgd_epilogue(void* w, int w_dtype, const void* g, int g_dtype, void* m,
+                            int64_t n, const void* scal, float momentum, int nesterov, float wd,
+                            void* stream) {
+  if (n < 1 || (momentum != 0.0f && m == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const SgdHyper h{momentum, wd, nesterov};
+  return static_cast<int>(by_dtype(w_dtype, [&](auto wt) {
+    return by_dtype(g_dtype, [&](auto gt) {
+      return run_sgd<decltype(wt), decltype(gt)>(w, g, m, n, scal, h, s);
     });
   }));
 }

@@ -15,6 +15,7 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core import TrainState
+from repro_torch.core.api import scalar_metrics  # noqa: F401  (the engine's name for it)
 
 # the reference's contract keys (repro.obs.registry), same names, same order
 ENGINE_METRIC_KEYS = ("loss", "grad_norm", "tau", "perturbed")
@@ -38,10 +39,3 @@ def ensure_metric_contract(metrics: dict, *, tau, perturbed) -> dict:
     metrics.setdefault("tau", tau)
     metrics.setdefault("perturbed", perturbed)
     return metrics
-
-
-def scalar_metrics(metrics: dict) -> dict:
-    """The float()-able subset of a step's metrics, as host floats (a copy of
-    `repro.obs.scalar_metrics`); reading a device scalar waits for it."""
-    return {k: float(v) for k, v in metrics.items()
-            if hasattr(v, "__float__") and getattr(v, "ndim", 0) == 0}

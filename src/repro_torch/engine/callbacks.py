@@ -1,4 +1,4 @@
-"""Engine callbacks: logging and throughput (counterpart of
+"""Engine callbacks: logging, throughput and checkpoints (counterpart of
 `repro.engine.callbacks`).
 
 A callback observes the fit loop; it never owns it. The hooks are
@@ -7,15 +7,20 @@ A callback observes the fit loop; it never owns it. The hooks are
     on_step(engine, state, metrics, step_time_s)
     on_fit_end(engine, report)
 
-all no-ops by default. The reference's eval, checkpoint and staleness
-callbacks come with slice 3 and Form B (ROADMAP.md queue 1).
+all no-ops by default. `CheckpointCallback` is the one callback the Engine
+inspects: its presence routes the loop through `runtime.run_resilient`. The
+reference's eval and staleness callbacks come with later slices (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import TrainState
 from repro_torch.engine.api import scalar_metrics
+from repro_torch.runtime import ResilienceConfig
 
 
 class Callback:
@@ -71,3 +76,15 @@ class ThroughputMeter(Callback):
         if self.tokens_per_batch:
             out["tokens_per_s"] = self.tokens_per_batch / mean
         return out
+
+
+@dataclasses.dataclass
+class CheckpointCallback(Callback):
+    """Periodic save/restore via CheckpointManager.
+
+    The Engine detects this callback and runs its loop under
+    `run_resilient`, which owns the save cadence, the step-0 baseline
+    checkpoint, and restore-and-continue on failure.
+    """
+    manager: CheckpointManager
+    resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)

@@ -6,19 +6,20 @@
     with Engine(executor, pipeline, callbacks=[LoggingCallback()]) as eng:
         report = eng.fit(state, steps=1000)
 
-The Engine owns iteration, timing and callback dispatch. The reference's
-checkpoint-restart loop (`CheckpointCallback` -> `run_resilient`), mesh
-events and tracker are not ported yet (slice 3 of the port, ROADMAP.md
-queue 1).
+The Engine owns iteration, timing and callback dispatch. With a
+`CheckpointCallback` the loop runs under `runtime.run_resilient`
+(checkpoints, restore-and-continue on a failed step). The reference's mesh
+events and tracker are later slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import time
-from typing import Iterable, Sequence
+from typing import Iterable, Optional, Sequence
 
 from repro_torch.core import TrainState
 from repro_torch.engine.api import FitReport, scalar_metrics
-from repro_torch.engine.callbacks import Callback
+from repro_torch.engine.callbacks import Callback, CheckpointCallback
+from repro_torch.runtime import run_resilient
 
 
 class Engine:
@@ -35,26 +36,50 @@ class Engine:
             cb.on_step(self, state, metrics, dt)
         return state, metrics
 
-    def fit(self, state: TrainState, steps: int) -> FitReport:
-        """Train until `state.step == steps`; returns a FitReport."""
-        it = iter(self.data)
+    def fit(self, state: TrainState, steps: int, *, warmup: int = 0,
+            failure_injector=None) -> FitReport:
+        """Train until `state.step == steps`; returns a FitReport.
+
+        warmup: steps executed before the clock starts and before
+        `on_fit_start` fires. failure_injector(step) may raise to simulate a
+        lost node; it is the resilient loop's, so it acts with a
+        CheckpointCallback only (as in the reference).
+        """
+        ckpt: Optional[CheckpointCallback] = next(
+            (c for c in self.callbacks if isinstance(c, CheckpointCallback)), None)
+        if warmup and ckpt is not None:
+            # run_resilient re-iterates the pipeline from its cursor; a
+            # separate warmup iterator would replay or orphan its worker
+            raise ValueError("warmup is not supported with CheckpointCallback")
+        it = iter(self.data) if ckpt is None else None
         try:
+            for _ in range(warmup):
+                state, _ = self.executor.step(state, next(it))
             for cb in self.callbacks:
                 cb.on_fit_start(self, state)
-            t0 = time.time()
-            history: list = []
-            while int(state.step) < steps:
-                try:
-                    batch = next(it)
-                except StopIteration:
-                    break
-                state, metrics = self._step(state, batch)
-                history.append(scalar_metrics(metrics))
+            if ckpt is not None:
+                rep = run_resilient(self._step, state, self.data, ckpt.manager, steps,
+                                    ckpt.resilience, failure_injector,
+                                    on_restore=getattr(self.executor, "on_restore", None))
+                report = FitReport(final_state=rep.final_state, steps_done=rep.steps_done,
+                                   restarts=rep.restarts, metrics_history=rep.metrics_history,
+                                   wall_time_s=rep.wall_time_s,
+                                   poison_rollbacks=rep.poison_rollbacks)
+            else:
+                t0 = time.time()
+                history: list = []
+                while int(state.step) < steps:
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                    state, metrics = self._step(state, batch)
+                    history.append(scalar_metrics(metrics))
+                report = FitReport(final_state=state, steps_done=int(state.step), restarts=0,
+                                   metrics_history=history, wall_time_s=time.time() - t0)
         finally:
-            if hasattr(it, "close"):
+            if it is not None and hasattr(it, "close"):
                 it.close()   # stop a prefetching pipeline's worker now
-        report = FitReport(final_state=state, steps_done=int(state.step), restarts=0,
-                           metrics_history=history, wall_time_s=time.time() - t0)
         for cb in self.callbacks:
             cb.on_fit_end(self, report)
         return report

@@ -1,12 +1,19 @@
 """FusedExecutor, Form A: one step function per training iteration
 (counterpart of `repro.engine.fused`).
 
-Meshless only. The port always runs the resident bucketed path: parameters,
-optimizer moments and the ascent state are flat buffers updated in place
-(`utils.buckets`), their kernels on the card and their plain versions on
-the CPU, by the device of the parameters. The reference's other regimes
-raise: a mesh (distributed, ROADMAP.md queue 1), `fused_update=False` and
-`resident=False` (the per-leaf chain, slice 3 of the port).
+Meshless only (a mesh is the distributed slice, ROADMAP.md queue 1). Two
+switches choose the weight-space path, resolved as the reference resolves
+them:
+* `fused_update`: the flat-buffer kernels (perturb, optimizer epilogue,
+  ascent refresh). None takes the port's default, on for every device (the
+  kernels on the card, their plain versions on the CPU); False runs the
+  reference's per-leaf compositions and optimizer chain.
+* `resident`: bucket-resident state (parameters, moments and the ascent
+  state as flat buffers updated in place, `utils.buckets`). None follows the
+  resolved `fused_update` when the whole chain qualifies: a RESIDENT_METHODS
+  method with the lossless ascent exchange and an optimizer the fused path
+  recognizes (`optim.sgd` / `optim.adamw` without a decay mask).
+The default, and the path of the card, is fused and resident.
 """
 from __future__ import annotations
 
@@ -16,13 +23,14 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core import Method, MethodConfig, TrainState, init_train_state, make_method
-from repro_torch.core.api import LossFn
+from repro_torch.core.api import LossFn, params_device
 from repro_torch.core.async_sam import AsyncSamState
 from repro_torch.engine.api import ensure_metric_contract
-from repro_torch.optim import GradientTransform
+from repro_torch.optim import GradientTransform, configure_fused
 
-PER_LEAF = ("the per-leaf weight-space path is not ported yet: slice 3 of the port, "
-            "ROADMAP.md queue 1")
+# Methods whose steps are weight-space + value_and_grad compositions, safe on
+# bucket-resident state (the reference's list, restricted to what is ported).
+RESIDENT_METHODS = ("sgd", "sam", "async_sam")
 
 
 class FusedExecutor:
@@ -31,9 +39,9 @@ class FusedExecutor:
     Args:
       loss_fn: framework loss callback `(params, batch, gen) -> (loss, aux)`.
       method: a `MethodConfig` (name-dispatched) or an already-built `Method`.
-      optimizer: a `GradientTransform` from `optim.sgd` / `optim.adamw`.
-      fused_update, resident: the reference's switches; None and True run
-        the port's one path, False raises.
+      optimizer: a `GradientTransform` (`optim.sgd`, `optim.adamw`, or a
+        hand-built chain, which runs per-leaf).
+      fused_update, resident: see the module docstring.
     """
 
     name = "fused"
@@ -45,31 +53,50 @@ class FusedExecutor:
                  resident: Optional[bool] = None):
         if optimizer is None:
             raise ValueError("FusedExecutor needs an optimizer")
-        if fused_update is False or resident is False:
-            raise NotImplementedError(f"fused_update=False / resident=False: {PER_LEAF}")
+        if fused_update is None:
+            fused_update = True
+        optimizer = configure_fused(optimizer, fused_update)
         if isinstance(method, Method):
+            # rebuild from its config so the step sees the resolved flag; a
+            # hand-constructed Method without one is taken as it is
+            if method.cfg is not None and method.cfg.fused_update != fused_update:
+                method = make_method(dataclasses.replace(method.cfg, fused_update=fused_update))
             self.method = method
         else:
             self.method = make_method(dataclasses.replace(method or MethodConfig(),
-                                                          fused_update=True))
+                                                          fused_update=fused_update))
+        if resident is None:
+            mcfg = self.method.cfg
+            resident = (fused_update and self.method.name in RESIDENT_METHODS
+                        and optimizer.fused_spec is not None
+                        and (mcfg is None or mcfg.compressor == "none"))
+        if resident and optimizer.fused_spec is None:
+            raise ValueError("bucket-resident state needs an optimizer the fused path "
+                             "recognizes (optim.sgd / optim.adamw without a decay mask); "
+                             "use resident=False")
+        self.fused_update = bool(fused_update)
+        self.resident = bool(resident)
         self.optimizer = optimizer
-        self.fused_update = self.resident = True
         self._step = self.method.make_step(loss_fn, optimizer)
         self._closed = False
 
     def init_state(self, params, seed: int = 0) -> TrainState:
-        """`params`: the model (its parameters become views into the state's
-        buffers), a mapping of name -> tensor, or a BucketedState."""
-        return init_train_state(params, self.optimizer, self.method, seed)
+        """`params`: the model, a mapping of name -> tensor, or a
+        BucketedState. Resident, the model's parameters become views into the
+        state's buffers; per-leaf, the state holds their tensors. Either way
+        the model reads what the steps write."""
+        return init_train_state(params, self.optimizer, self.method, seed,
+                                resident=self.resident)
 
     def step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         if self._closed:
             raise RuntimeError("executor is closed")
         state, metrics = self._step(state, batch)
-        if state.params.device.type == "cuda":
+        dev = params_device(state.params)
+        if dev.type == "cuda":
             # host-side timing and callbacks see the step's real latency (the
             # reference blocks on the new params)
-            torch.cuda.synchronize(state.params.device)
+            torch.cuda.synchronize(dev)
         ms = state.method_state
         tau = ms.staleness if isinstance(ms, AsyncSamState) else 0
         return state, ensure_metric_contract(

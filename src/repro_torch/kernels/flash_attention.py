@@ -19,9 +19,9 @@ Gradients: on the card the call is a `torch.autograd.Function` whose forward
 is the kernel and whose backward is autograd of the plain version,
 recomputed from the saved q, k and v. The reference has no backward kernel
 either (its Pallas kernel defines no VJP; it differentiates the jnp oracle),
-so the gradients are the plain version's. The backward kernel is ROADMAP
-queue 2 item 5. The forward kernel still runs on every forward pass, and a
-failing launch still raises.
+so the gradients are the plain version's. A backward kernel is speed work
+(ROADMAP queue 1, speed and tooling). The forward kernel still runs on every
+forward pass, and a failing launch still raises.
 """
 from __future__ import annotations
 
@@ -118,8 +118,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 class FlashAttention(torch.autograd.Function):
     """Forward: the kernel. Backward: autograd of `ref.flash_attention_plain`
-    recomputed from the saved inputs (no backward kernel yet: ROADMAP queue 2
-    item 5; the reference has none either)."""
+    recomputed from the saved inputs (no backward kernel: the reference has
+    none either; one is speed work, ROADMAP queue 1)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):

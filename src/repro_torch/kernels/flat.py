@@ -2,8 +2,8 @@
 
 `CHUNK` is the elements per CTA, the TPU kernels' chunk (the reference's
 `repro.kernels.sam_perturb.CHUNK`); the input and launch checks raise rather
-than fall back. The two in-place plain routes are the ones both the wrappers
-(for a CPU tensor) and `ops` (for `impl="plain"`) take.
+than fall back. The plain routes that write into caller buffers are the ones
+both the wrappers (for a CPU tensor) and `ops` (for `impl="plain"`) take.
 """
 from __future__ import annotations
 
@@ -58,6 +58,25 @@ def axpy_plain(alpha, x: torch.Tensor, y: torch.Tensor,
     """The plain version of `fused_axpy`, written into `out` when given."""
     res = ref.axpy_flat_plain(alpha, x, y)
     return res if out is None else out.copy_(res)
+
+
+def sam_perturb_plain(w: torch.Tensor, g: torch.Tensor, rho, sq_norm,
+                      out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain version of `sam_perturb`, written into `out` when given."""
+    res = ref.sam_perturb_flat_plain(w, g, rho, sq_norm)
+    return res if out is None else out.copy_(res)
+
+
+def sgd_epilogue_plain_(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor],
+                        clip_scale, lr, **hyper
+                        ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of `sgd_epilogue`, written into w and (with
+    momentum) m."""
+    w_new, m_new = ref.sgd_epilogue_flat_plain(w, g, m, clip_scale, lr, **hyper)
+    w.copy_(w_new)
+    if m_new is None:
+        return w, None
+    return w, m.copy_(m_new)
 
 
 def adamw_epilogue_plain_(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,

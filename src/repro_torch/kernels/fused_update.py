@@ -1,20 +1,23 @@
 """The fused weight-space kernels of the training step and their wrappers
 (counterpart of `repro.kernels.fused_update`).
 
-The kernels (`csrc/fused_update.cu`, CUDA C++ for sm_90a) replace three
+The kernels (`csrc/fused_update.cu`, CUDA C++ for sm_90a) replace four
 Pallas TPU kernels, each one pass over flat dtype buckets:
 
-  fused_axpy       out = y + alpha * x          (the SAM perturbation)
+  fused_axpy       out = y + alpha * x          (the AsyncSAM perturbation)
   fused_dot_norms  (<a,b>, ||a||^2, ||b||^2)    (AsyncSAM ascent refresh)
   adamw_epilogue   w' = w - lr * ((mu'/c1)/(sqrt(nu'/c2)+eps) + wd*w)
+  sgd_epilogue     u = clip*g (+ wd*w); m' = mu*m + u;
+                   w' = w - lr * (nesterov ? mu*m' + u : m')   (no momentum:
+                   w' = w - lr * u, and no m)
 
 Scalars that change per step (alpha; clip scale, lr, c1, c2) stay on the
 device and the kernels read them there, so no call waits for the device.
 Where the port departs from the reference's functional form, for memory:
-`fused_axpy` writes into `out` when given, and `adamw_epilogue` updates w, mu
-and nu in place (the reference's jit donation aliases them the same way).
-The reference's sgd_epilogue, delta_amax and delta_encode_i8 kernels are not
-ported yet (ROADMAP queue 2).
+`fused_axpy` writes into `out` when given, `adamw_epilogue` updates w, mu
+and nu in place, and `sgd_epilogue` w and m (the reference's jit donation
+aliases them the same way). The reference's delta_amax and delta_encode_i8
+kernels are not ported yet (ROADMAP queue 2).
 
 A CPU tensor goes to the plain version (`kernels.ref`); a CUDA tensor
 launches the kernel or raises. Each kernel counts its launches in
@@ -33,7 +36,7 @@ from repro_torch.kernels.flat import DTYPES, check_flat, check_launch, n_chunks,
 SOURCE = build.CSRC / "fused_update.cu"
 _F32 = (torch.float32,)
 
-launches = {"fused_axpy": 0, "fused_dot_norms": 0, "adamw_epilogue": 0}
+launches = {"fused_axpy": 0, "fused_dot_norms": 0, "adamw_epilogue": 0, "sgd_epilogue": 0}
 _lib = None
 
 
@@ -45,7 +48,9 @@ def _library() -> ctypes.CDLL:
         lib.fused_axpy.argtypes = [p, p, i, p, i, p, i64, p]
         lib.fused_dot_norms.argtypes = [p, i, p, i, i64, p, p]
         lib.adamw_epilogue.argtypes = [p, i, p, i, p, p, i64, p] + [f] * 6 + [p]
-        for fn in (lib.fused_axpy, lib.fused_dot_norms, lib.adamw_epilogue):
+        lib.sgd_epilogue.argtypes = [p, i, p, i, p, i64, p, f, i, f, p]
+        for fn in (lib.fused_axpy, lib.fused_dot_norms, lib.adamw_epilogue,
+                   lib.sgd_epilogue):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -117,3 +122,29 @@ def adamw_epilogue(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch
     check_launch("adamw_epilogue", rc)
     launches["adamw_epilogue"] += 1
     return w, mu, nu
+
+
+def sgd_epilogue(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor], clip_scale, lr,
+                 *, momentum: float = 0.0, nesterov: bool = False, weight_decay: float = 0.0
+                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One clip-decay-momentum-lr step; updates w and (with momentum) m in
+    place and returns (w, m), or (w, None) without momentum, the reference's
+    (w', m'-or-None). w fp32 or bf16, g fp32 or bf16, m fp32."""
+    if w.device.type == "cpu":
+        return flat.sgd_epilogue_plain_(w, g, m, clip_scale, lr, momentum=momentum,
+                                        nesterov=nesterov, weight_decay=weight_decay)
+    if momentum and m is None:
+        raise ValueError("sgd_epilogue: momentum needs its buffer m")
+    operands = {"w": w, "g": g, **({"m": m} if momentum else {})}
+    dev = check_flat("sgd_epilogue", operands, {"m": _F32})
+    if w.numel() == 0:
+        return w, m if momentum else None
+    scal = torch.stack([_scalar(clip_scale, dev), _scalar(lr, dev)])
+    with torch.cuda.device(dev):
+        rc = _library().sgd_epilogue(
+            w.data_ptr(), DTYPES[w.dtype], g.data_ptr(), DTYPES[g.dtype],
+            m.data_ptr() if momentum else None, w.numel(), scal.data_ptr(), momentum,
+            int(nesterov), weight_decay, stream(dev))
+    check_launch("sgd_epilogue", rc)
+    launches["sgd_epilogue"] += 1
+    return w, m if momentum else None

@@ -66,6 +66,16 @@ def sq_norm(g_flat: torch.Tensor, *, impl: Optional[str] = None) -> torch.Tensor
     return sp.sq_norm(g_flat)
 
 
+def sam_perturb(w_flat: torch.Tensor, g_flat: torch.Tensor, rho, sq_norm, *,
+                out: Optional[torch.Tensor] = None,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """Fused  w + rho * g / ||g||  over flat vectors (w's dtype out), into
+    `out` when given."""
+    if _resolve(impl) == "plain":
+        return flat.sam_perturb_plain(w_flat, g_flat, rho, sq_norm, out)
+    return sp.sam_perturb(w_flat, g_flat, rho, sq_norm, out=out)
+
+
 def fused_axpy(alpha, x_flat: torch.Tensor, y_flat: torch.Tensor, *,
                out: Optional[torch.Tensor] = None,
                impl: Optional[str] = None) -> torch.Tensor:
@@ -95,3 +105,14 @@ def adamw_epilogue(w_flat: torch.Tensor, g_flat: torch.Tensor, mu_flat: torch.Te
     epilogue = flat.adamw_epilogue_plain_ if plain else fu.adamw_epilogue
     return epilogue(w_flat, g_flat, mu_flat, nu_flat, clip_scale, lr, c1, c2,
                     b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+
+def sgd_epilogue(w_flat: torch.Tensor, g_flat: torch.Tensor, m_flat: Optional[torch.Tensor],
+                 clip_scale, lr, *, momentum: float = 0.0, nesterov: bool = False,
+                 weight_decay: float = 0.0, impl: Optional[str] = None):
+    """Fused clip-wd-momentum-lr-apply (SGD family). Updates w (and m) in
+    place and returns (w', m'-or-None), the same tensors."""
+    plain = _resolve(impl) == "plain"
+    epilogue = flat.sgd_epilogue_plain_ if plain else fu.sgd_epilogue
+    return epilogue(w_flat, g_flat, m_flat, clip_scale, lr, momentum=momentum,
+                    nesterov=nesterov, weight_decay=weight_decay)

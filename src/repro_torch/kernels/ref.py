@@ -140,6 +140,24 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x).float()
 
 
+def sam_perturb_scale(rho, sq_norm, device: torch.device) -> torch.Tensor:
+    """rho / (sqrt(sq_norm) + 1e-12) as an fp32 device scalar: the scale the
+    reference's `sam_perturb` computes before its kernel. A host rho is
+    filled in on the device (no copy from the host, which would wait for the
+    stream), then divided, as the reference divides."""
+    sq = _f32(sq_norm).to(device)
+    rho = (_f32(rho).to(device) if isinstance(rho, torch.Tensor)
+           else torch.full_like(sq, rho))
+    return rho / (torch.sqrt(sq) + 1e-12)
+
+
+def sam_perturb_flat_plain(w: torch.Tensor, g: torch.Tensor, rho, sq_norm) -> torch.Tensor:
+    """w + rho * g / sqrt(sq_norm) in fp32, w's dtype out (mirror of
+    `ref.sam_perturb_flat_jnp` with the Pallas kernel's cast to w's dtype)."""
+    scale = sam_perturb_scale(rho, sq_norm, w.device)
+    return (w.float() + scale * g.float()).to(w.dtype)
+
+
 def sq_norm_plain(g: torch.Tensor) -> torch.Tensor:
     """Sum of squares in fp32 (mirror of `ref.sq_norm_jnp`)."""
     return torch.sum(torch.square(g.float()))
@@ -157,6 +175,27 @@ def dot_norms_flat_plain(a: torch.Tensor, b: torch.Tensor
     a32 = a.float()
     b32 = b.float()
     return torch.sum(a32 * b32), torch.sum(a32 * a32), torch.sum(b32 * b32)
+
+
+def sgd_epilogue_flat_plain(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor],
+                            clip_scale, lr, *, momentum: float = 0.0, nesterov: bool = False,
+                            weight_decay: float = 0.0
+                            ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(w', m' or None) of one clip-decay-momentum-lr step (mirror of
+    `ref.sgd_epilogue_flat_jnp`); w' keeps w's dtype, m' is fp32. Weight
+    decay enters u before the momentum, as `add_decayed_weights` precedes
+    `trace` in the reference's sgd chain."""
+    dev = w.device
+    w32 = w.float()
+    u = g.float() * _f32(clip_scale).to(dev)
+    if weight_decay:
+        u = u + weight_decay * w32
+    lr = _f32(lr).to(dev)
+    if not momentum:
+        return (w32 - lr * u).to(w.dtype), None
+    m_new = momentum * m.float() + u
+    d = momentum * m_new + u if nesterov else m_new
+    return (w32 - lr * d).to(w.dtype), m_new
 
 
 def adamw_epilogue_flat_plain(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,

@@ -1,27 +1,37 @@
-"""Sum of squares of a flat bucket: the Hopper kernel and its wrapper
-(counterpart of the `sq_norm` half of `repro.kernels.sam_perturb`).
+"""The SAM perturbation's flat-bucket kernels and their wrappers
+(counterpart of `repro.kernels.sam_perturb`).
 
-The kernel (`csrc/sam_perturb.cu`, CUDA C++ for sm_90a) replaces the Pallas
-TPU kernel `_sq_norm_kernel`: one fp32 partial per `flat.CHUNK`-element chunk,
-summed here with `torch.sum`, as the reference wrapper sums its partials with
-`jnp.sum`. The reference's `sam_perturb` kernel is not on the training path
-(AsyncSAM perturbs through `fused_axpy`) and is not ported yet.
+The kernels (`csrc/sam_perturb.cu`, CUDA C++ for sm_90a) replace the Pallas
+TPU kernels of the reference module:
+
+  sq_norm      sum of g^2, one fp32 partial per `flat.CHUNK`-element chunk,
+               summed here with `torch.sum` (the reference sums its
+               partials with `jnp.sum`)
+  sam_perturb  w + rho * g / (sqrt(n) + 1e-12), the scale computed here on
+               the device (as the reference computes it before its
+               pallas_call) and read by the kernel; w's dtype out, into `out`
+               when given
+
+The port's SAM perturbation runs the two (`core.perturb.perturb` when it is
+not handed a norm); AsyncSAM carries its norm and perturbs through
+`fused_axpy`.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises. `launches` counts the kernel's launches.
+raises. `launches[name]` counts each kernel's launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, flat, ref
 from repro_torch.kernels.flat import DTYPES, check_flat, check_launch, n_chunks, stream
 
 SOURCE = build.CSRC / "sam_perturb.cu"
 
-launches = 0          # kernel launches since the last reset (plain int)
+launches = {"sq_norm": 0, "sam_perturb": 0}    # since the last reset
 _lib = None
 
 
@@ -31,14 +41,16 @@ def _library() -> ctypes.CDLL:
         lib = build.load(SOURCE)
         lib.sq_norm.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                                 ctypes.c_void_p, ctypes.c_void_p]
-        lib.sq_norm.restype = ctypes.c_int
+        lib.sam_perturb.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_int64, ctypes.c_void_p]
+        lib.sq_norm.restype = lib.sam_perturb.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def sq_norm(g: torch.Tensor) -> torch.Tensor:
     """Sum of squares of a flat vector, fp32 (partial per chunk, summed here)."""
-    global launches
     if g.device.type == "cpu":
         return ref.sq_norm_plain(g)
     dev = check_flat("sq_norm", {"g": g})
@@ -49,5 +61,26 @@ def sq_norm(g: torch.Tensor) -> torch.Tensor:
         rc = _library().sq_norm(g.data_ptr(), DTYPES[g.dtype], g.numel(),
                                 partials.data_ptr(), stream(dev))
     check_launch("sq_norm", rc)
-    launches += 1
+    launches["sq_norm"] += 1
     return torch.sum(partials)
+
+
+def sam_perturb(w: torch.Tensor, g: torch.Tensor, rho, sq_norm, *,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """w + rho * g / (sqrt(sq_norm) + 1e-12) over flat vectors, w's dtype, into
+    `out` when given. rho and sq_norm may be device scalars."""
+    if w.device.type == "cpu":
+        return flat.sam_perturb_plain(w, g, rho, sq_norm, out)
+    if out is None:
+        out = torch.empty_like(w)
+    dev = check_flat("sam_perturb", {"w": w, "g": g, "out": out}, {"out": (w.dtype,)})
+    if w.numel() == 0:
+        return out
+    scale = ref.sam_perturb_scale(rho, sq_norm, dev)
+    with torch.cuda.device(dev):
+        rc = _library().sam_perturb(scale.data_ptr(), w.data_ptr(), DTYPES[w.dtype],
+                                    g.data_ptr(), DTYPES[g.dtype], out.data_ptr(), w.numel(),
+                                    stream(dev))
+    check_launch("sam_perturb", rc)
+    launches["sam_perturb"] += 1
+    return out

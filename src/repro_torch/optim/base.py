@@ -1,13 +1,18 @@
 """Optimizers, schedules and their state (counterpart of `repro.optim.base`).
 
-The reference carries an optax-style per-leaf transform chain beside a
-`FusedSpec` that the fused flat-buffer path executes. The port runs the
-fused path only (`repro_torch.optim.fused.fused_apply`): `sgd` and `adamw`
-build a `GradientTransform` whose `init` gives the same `opt_state` tuple
-layout as the reference's chain (one entry per transform, in chain order),
-and whose `fused_spec` says what to run. The per-leaf chain (update
-functions, masked weight decay, hand-built chains) is slice 3 of the port
-(ROADMAP.md, queue 1) and raises here.
+As in the reference, an optimizer is an optax-style `GradientTransform`: a
+per-leaf `init`/`update` pair, composable with `chain`, plus the `FusedSpec`
+that the canonical `sgd`/`adamw` factories attach so that
+`repro_torch.optim.fused.fused_apply` can run the same chain as one epilogue
+kernel per dtype bucket. Both paths consume and produce the same `opt_state`
+tuple layout (one entry per transform, in chain order). The per-leaf path is
+the oracle, the path of hand-built chains and of masked weight decay
+(`adamw(decay_mask=...)`, which the flat-buffer kernels do not model), and
+the path of `FusedExecutor(fused_update=False)`.
+
+Updates are functional, as in the reference: `update` returns new trees and
+`apply_updates` new parameters; the training step (`core.api._finish`)
+writes them back into the state's tensors.
 
 Schedules map a step (an int32 device tensor, so the learning rate never
 leaves the device) to an fp32 tensor on the same device.
@@ -24,10 +29,6 @@ from repro_torch.utils import trees
 
 Tree = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]
-
-PER_LEAF_CHAIN = ("the per-leaf optimizer chain (hand-built chains, masked weight decay) "
-                  "is not ported yet: slice 3 of the port, ROADMAP.md queue 1")
-
 
 # ---------------------------------------------------------------------------
 # Schedules
@@ -74,25 +75,34 @@ def as_schedule(lr) -> Schedule:
 
 
 # ---------------------------------------------------------------------------
-# Transform states (the reference's NamedTuples, same fields)
+# Transforms (the reference's per-leaf chain, same state NamedTuples)
 # ---------------------------------------------------------------------------
 
-class ScaleByScheduleState(NamedTuple):
-    step: torch.Tensor
+class GradientTransform(NamedTuple):
+    init: Callable[[Tree], Tree]
+    update: Callable[..., tuple[Tree, Tree]]  # (grads, state, params) -> (updates, state)
+    # set by the canonical sgd()/adamw() factories, None for hand-built chains
+    fused_spec: Optional["FusedSpec"] = None
 
 
-class TraceState(NamedTuple):
-    momentum: Tree
+def chain(*transforms: GradientTransform) -> GradientTransform:
+    """Compose transforms left to right (optax.chain semantics)."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new_state.append(s)
+        return grads, tuple(new_state)
+
+    return GradientTransform(init, update)
 
 
-class AdamState(NamedTuple):
-    step: torch.Tensor
-    mu: Tree
-    nu: Tree
-
-
-class ClipState(NamedTuple):
-    last_norm: torch.Tensor
+def identity() -> GradientTransform:
+    return GradientTransform(lambda p: (), lambda g, s, p=None: (g, s))
 
 
 def _device(params) -> torch.device:
@@ -103,26 +113,114 @@ def _zero(params, dtype) -> torch.Tensor:
     return torch.zeros((), dtype=dtype, device=_device(params))
 
 
-def _clip_init(params) -> ClipState:
-    return ClipState(last_norm=_zero(params, torch.float32))
+def _scale(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x * s with JAX's promotion of a leaf against a 0-d fp32 array (a bf16
+    leaf times an fp32 scalar is fp32 there; PyTorch would keep bf16)."""
+    return x.to(torch.promote_types(x.dtype, s.dtype)) * s
 
 
-def _adam_init(params) -> AdamState:
-    return AdamState(step=_zero(params, torch.int32),
-                     mu=trees.tree_zeros_like(params, torch.float32),
-                     nu=trees.tree_zeros_like(params, torch.float32))
+class ScaleByScheduleState(NamedTuple):
+    step: torch.Tensor
 
 
-def _trace_init(params) -> TraceState:
-    return TraceState(momentum=trees.tree_zeros_like(params, torch.float32))
+def scale_by_learning_rate(lr) -> GradientTransform:
+    sched = as_schedule(lr)
+
+    def init(params):
+        return ScaleByScheduleState(step=_zero(params, torch.int32))
+
+    def update(grads, state, params=None):
+        eta = sched(state.step)
+        return (trees.tree_map(lambda g: _scale(g, -eta), grads),
+                ScaleByScheduleState(step=state.step + 1))
+
+    return GradientTransform(init, update)
 
 
-def _decay_init(params) -> tuple:
-    return ()
+class TraceState(NamedTuple):
+    momentum: Tree
 
 
-def _lr_init(params) -> ScaleByScheduleState:
-    return ScaleByScheduleState(step=_zero(params, torch.int32))
+def trace(decay: float, nesterov: bool = False) -> GradientTransform:
+    """Heavy-ball / Nesterov momentum."""
+
+    def init(params):
+        return TraceState(momentum=trees.tree_zeros_like(params, torch.float32))
+
+    def update(grads, state, params=None):
+        m = trees.tree_map(lambda mi, gi: decay * mi + gi.float(), state.momentum, grads)
+        out = (trees.tree_map(lambda mi, gi: decay * mi + gi.float(), m, grads)
+               if nesterov else m)
+        out = trees.tree_map(lambda o, g: o.to(g.dtype), out, grads)
+        return out, TraceState(momentum=m)
+
+    return GradientTransform(init, update)
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor
+    mu: Tree
+    nu: Tree
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransform:
+    def init(params):
+        return AdamState(step=_zero(params, torch.int32),
+                         mu=trees.tree_zeros_like(params, torch.float32),
+                         nu=trees.tree_zeros_like(params, torch.float32))
+
+    def update(grads, state, params=None):
+        step = state.step + 1
+        mu = trees.tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state.mu, grads)
+        nu = trees.tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
+                            state.nu, grads)
+        c1 = 1.0 - b1 ** step.float()
+        c2 = 1.0 - b2 ** step.float()
+        updates = trees.tree_map(
+            lambda m, v, g: ((m / c1) / (torch.sqrt(v / c2) + eps)).to(g.dtype), mu, nu, grads)
+        return updates, AdamState(step=step, mu=mu, nu=nu)
+
+    return GradientTransform(init, update)
+
+
+def add_decayed_weights(weight_decay: float,
+                        mask_fn: Optional[Callable[[str], bool]] = None) -> GradientTransform:
+    """Decoupled weight decay; `mask_fn(path)` selects the decayed leaves by
+    their path in the reference's tree ("blocks/attn/wq": slash-joined, the
+    port's block index dropped), so one mask serves both packages."""
+
+    def init(params):
+        return ()
+
+    def update(grads, state, params=None):
+        if weight_decay == 0.0 or params is None:
+            return grads, state
+        decay = lambda g, p: g + weight_decay * p.to(g.dtype)  # noqa: E731
+        if mask_fn is None:
+            return trees.tree_map(decay, grads, params), state
+        paths = trees.tree_paths(grads)
+        masked = dict(zip(paths, (mask_fn(p) for p in paths)))
+        return trees.tree_map_with_path(
+            lambda path, g, p: decay(g, p) if masked[path] else g, grads, params), state
+
+    return GradientTransform(init, update)
+
+
+class ClipState(NamedTuple):
+    last_norm: torch.Tensor
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransform:
+    def init(params):
+        return ClipState(last_norm=_zero(params, torch.float32))
+
+    def update(grads, state, params=None):
+        gnorm = trees.global_norm(grads)
+        scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
+        out = trees.tree_map(lambda g: _scale(g, scale).to(g.dtype), grads)
+        return out, ClipState(last_norm=gnorm)
+
+    return GradientTransform(init, update)
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +230,10 @@ def _lr_init(params) -> ScaleByScheduleState:
 @dataclasses.dataclass(frozen=True)
 class FusedSpec:
     """What `optim.fused.fused_apply` runs: the canonical sgd/adamw chain, in
-    the reference's transform order and state tuple layout."""
+    the reference's transform order and state tuple layout. `enabled=None`
+    takes the port's default, the fused path on every device (the kernels on
+    the card, their plain versions on the CPU); False keeps the per-leaf
+    path (`optim.fused.configure`)."""
     family: str                       # "sgd" | "adamw"
     lr: Schedule
     clip_norm: Optional[float] = None
@@ -142,51 +243,46 @@ class FusedSpec:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
-
-
-class GradientTransform(NamedTuple):
-    init: Callable[[Tree], tuple]     # params -> opt_state tuple
-    fused_spec: Optional[FusedSpec] = None
-
-
-def _chain(inits, spec: FusedSpec) -> GradientTransform:
-    return GradientTransform(init=lambda params: tuple(f(params) for f in inits),
-                             fused_spec=spec)
+    enabled: Optional[bool] = None
 
 
 def sgd(lr, momentum: float = 0.0, nesterov: bool = False,
         weight_decay: float = 0.0, clip_norm: Optional[float] = None) -> GradientTransform:
-    """The reference's sgd chain. Its epilogue kernel (`sgd_epilogue`) is not
-    ported yet, so `fused_apply` raises for it (ROADMAP.md queue 2, item 6)."""
-    inits = []
+    """The reference's sgd chain: clip -> decay -> trace -> lr."""
+    parts = []
     if clip_norm is not None:
-        inits.append(_clip_init)
+        parts.append(clip_by_global_norm(clip_norm))
     if weight_decay:
-        inits.append(_decay_init)
+        parts.append(add_decayed_weights(weight_decay))
     if momentum:
-        inits.append(_trace_init)
-    inits.append(_lr_init)
-    return _chain(inits, FusedSpec(family="sgd", lr=as_schedule(lr), clip_norm=clip_norm,
-                                   weight_decay=weight_decay, momentum=momentum,
-                                   nesterov=nesterov))
+        parts.append(trace(momentum, nesterov=nesterov))
+    parts.append(scale_by_learning_rate(lr))
+    spec = FusedSpec(family="sgd", lr=as_schedule(lr), clip_norm=clip_norm,
+                     weight_decay=weight_decay, momentum=momentum, nesterov=nesterov)
+    return chain(*parts)._replace(fused_spec=spec)
 
 
 def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.01, clip_norm: Optional[float] = None,
           decay_mask: Optional[Callable[[str], bool]] = None) -> GradientTransform:
-    if decay_mask is not None:
-        # a decay mask selects leaves by path, which the flat-buffer kernel
-        # does not model: the reference keeps such chains on the per-leaf path
-        raise NotImplementedError(f"adamw(decay_mask=...): {PER_LEAF_CHAIN}")
-    inits = []
+    """The reference's adamw chain: clip -> adam -> decay -> lr. A decay mask
+    selects leaves by path, which the flat-buffer kernel does not model: such
+    a chain has no FusedSpec and keeps the per-leaf path."""
+    parts = []
     if clip_norm is not None:
-        inits.append(_clip_init)
-    inits.append(_adam_init)
+        parts.append(clip_by_global_norm(clip_norm))
+    parts.append(scale_by_adam(b1, b2, eps))
     if weight_decay:
-        inits.append(_decay_init)
-    inits.append(_lr_init)
-    return _chain(inits, FusedSpec(family="adamw", lr=as_schedule(lr), clip_norm=clip_norm,
-                                   weight_decay=weight_decay, b1=b1, b2=b2, eps=eps))
+        parts.append(add_decayed_weights(weight_decay, decay_mask))
+    parts.append(scale_by_learning_rate(lr))
+    spec = None if decay_mask is not None else FusedSpec(
+        family="adamw", lr=as_schedule(lr), clip_norm=clip_norm, weight_decay=weight_decay,
+        b1=b1, b2=b2, eps=eps)
+    return chain(*parts)._replace(fused_spec=spec)
+
+
+def apply_updates(params: Tree, updates: Tree) -> Tree:
+    return trees.tree_map(lambda p, u: (p.float() + u.float()).to(p.dtype), params, updates)
 
 
 def make_optimizer(name: str, lr, **kw) -> GradientTransform:

@@ -1,18 +1,22 @@
-"""FusedUpdate: the canonical adamw chain on dtype-bucketed flat buffers
+"""FusedUpdate: the canonical sgd/adamw chains on dtype-bucketed flat buffers
 (counterpart of `repro.optim.fused`).
 
-`fused_apply` runs the whole optimizer tail (global grad norm, clip, Adam,
-weight decay, lr, apply) as one `sq_norm` and one `adamw_epilogue` kernel
-per dtype bucket, on bucket-resident state (`utils.buckets.BucketedState`):
-w, mu and nu are updated in place, the port's counterpart of the
-reference's jit donation. It consumes and produces the reference's
-`opt_state` tuple layout (`_chain_fields`). The clip scale, learning rate and
+`fused_apply` runs the whole optimizer tail (global grad norm, clip, weight
+decay, momentum or Adam, lr, apply) as one `sq_norm` and one epilogue kernel
+(`sgd_epilogue` or `adamw_epilogue`) per dtype bucket. On bucket-resident
+state (`utils.buckets.BucketedState`) the kernels update w and the moments
+in place, the port's counterpart of the reference's jit donation. A state of
+per-leaf tensors (`FusedExecutor(resident=False)`) is gathered into buckets
+for the call and the results are written back into its tensors, the
+reference's gather/scatter-per-call regime. Either way it consumes and
+produces the reference's `opt_state` tuple layout (`_chain_fields`), so the
+fused and per-leaf paths interoperate. The clip scale, learning rate and
 bias corrections are computed on the device from device step counters, so
 the host never waits for them.
 
-Not ported yet: the sgd branch (its `sgd_epilogue` kernel, ROADMAP.md queue
-2 item 6) and the per-leaf chain (slice 3 of the port, ROADMAP.md queue 1);
-both raise.
+Hand-built chains, masked weight decay and a chain configured off
+(`configure(opt, False)`) return None here and keep the per-leaf path, as in
+the reference.
 
 `epilogue_hbm_bytes` is a copy of the reference's model of the epilogue's
 device-memory traffic; chip_smoke.py reads it as the bound of the step's
@@ -20,16 +24,25 @@ weight-space work.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.optim.base import (PER_LEAF_CHAIN, AdamState, ClipState, FusedSpec,
-                                    GradientTransform, ScaleByScheduleState)
-from repro_torch.utils import buckets
+from repro_torch.optim.base import (AdamState, ClipState, FusedSpec, GradientTransform,
+                                    ScaleByScheduleState)
+from repro_torch.utils import buckets, trees
 
 Tree = Any
+
+
+def configure(optimizer: GradientTransform, enabled: Optional[bool]) -> GradientTransform:
+    """Pin the fused-path switch on a recognized chain (no-op otherwise)."""
+    if optimizer.fused_spec is None:
+        return optimizer
+    return optimizer._replace(fused_spec=dataclasses.replace(optimizer.fused_spec,
+                                                             enabled=enabled))
 
 
 def _chain_fields(spec: FusedSpec) -> list[str]:
@@ -50,28 +63,32 @@ def _chain_fields(spec: FusedSpec) -> list[str]:
     return parts
 
 
-def fused_apply(optimizer: GradientTransform, grads: buckets.BucketedState,
-                opt_state: tuple, params: buckets.BucketedState, *,
-                impl: Optional[str] = None
-                ) -> tuple[buckets.BucketedState, tuple, torch.Tensor]:
-    """Run the whole update + apply on buckets, in place.
+def fused_apply(optimizer: GradientTransform, grads: Tree, opt_state: tuple, params: Tree, *,
+                impl: Optional[str] = None) -> Optional[tuple[Tree, tuple, torch.Tensor]]:
+    """Run the whole update + apply on buckets, in place, or return None to
+    keep the per-leaf path.
 
     Returns (params, new_opt_state, grad_norm): `params` and the moments are
-    the same BucketedStates, updated; grad_norm is the global fp32 gradient
-    norm (computed for clipping anyway, and the step's contract metric).
+    the same objects, their tensors updated; grad_norm is the global fp32
+    gradient norm (computed for clipping anyway, and the step's contract
+    metric). Bucket-resident params always run fused: the buffers are the
+    representation.
     """
     spec = optimizer.fused_spec
-    if spec is None:
-        raise NotImplementedError(PER_LEAF_CHAIN)
-    if spec.family != "adamw":
-        raise NotImplementedError(f"the fused {spec.family} epilogue (sgd_epilogue kernel) "
-                                  f"is not ported yet: ROADMAP.md queue 2, item 6")
-    if not (buckets.is_bucketed(params) and buckets.is_bucketed(grads)):
-        raise TypeError("fused_apply takes bucket-resident params and grads "
-                        "(utils.buckets.BucketedState)")
+    resident = buckets.is_bucketed(params)
+    if spec is None or not (resident or spec.enabled is not False):
+        return None
     fields = _chain_fields(spec)
-    wb, gb = params.buffers, grads.buffers
+    layout = params.layout if resident else buckets.bucket_layout(params)
+    gathered = []                      # (per-leaf tree, its buckets) to write back
 
+    def bufs(tree) -> list[torch.Tensor]:
+        out, _ = buckets.group_buffers(tree, layout)
+        if not buckets.is_bucketed(tree):
+            gathered.append((tree, out))
+        return out
+
+    wb, gb = bufs(params), buckets.group_buffers(grads, layout)[0]
     sq = torch.sum(torch.stack([ops.sq_norm(g, impl=impl) for g in gb]))
     gnorm = torch.sqrt(sq)
     if spec.clip_norm is not None:
@@ -81,25 +98,27 @@ def fused_apply(optimizer: GradientTransform, grads: buckets.BucketedState,
 
     sched_state: ScaleByScheduleState = opt_state[-1]
     eta = spec.lr(sched_state.step)
-
-    adam_state: AdamState = opt_state[fields.index("adam")]
-    step = adam_state.step + 1
-    c1 = 1.0 - spec.b1 ** step.float()
-    c2 = 1.0 - spec.b2 ** step.float()
-    for w, g, mu, nu in zip(wb, gb, adam_state.mu.buffers, adam_state.nu.buffers):
-        ops.adamw_epilogue(w, g, mu, nu, clip_scale, eta, c1, c2, b1=spec.b1, b2=spec.b2,
-                           eps=spec.eps, weight_decay=spec.weight_decay, impl=impl)
-    new_state = []
-    for f in fields:
-        if f == "clip":
-            new_state.append(ClipState(last_norm=gnorm))
-        elif f == "adam":
-            new_state.append(AdamState(step=step, mu=adam_state.mu, nu=adam_state.nu))
-        elif f == "wd":
-            new_state.append(())
-        else:
-            new_state.append(ScaleByScheduleState(step=sched_state.step + 1))
-    return params, tuple(new_state), gnorm
+    new_state = {"clip": ClipState(last_norm=gnorm), "wd": (),
+                 "lr": ScaleByScheduleState(step=sched_state.step + 1)}
+    if spec.family == "sgd":
+        trace = opt_state[fields.index("trace")] if spec.momentum else None
+        mb = bufs(trace.momentum) if spec.momentum else [None] * len(wb)
+        for w, g, m in zip(wb, gb, mb):
+            ops.sgd_epilogue(w, g, m, clip_scale, eta, momentum=spec.momentum,
+                             nesterov=spec.nesterov, weight_decay=spec.weight_decay, impl=impl)
+        new_state["trace"] = trace
+    else:
+        adam: AdamState = opt_state[fields.index("adam")]
+        step = adam.step + 1
+        c1 = 1.0 - spec.b1 ** step.float()
+        c2 = 1.0 - spec.b2 ** step.float()
+        for w, g, mu, nu in zip(wb, gb, bufs(adam.mu), bufs(adam.nu)):
+            ops.adamw_epilogue(w, g, mu, nu, clip_scale, eta, c1, c2, b1=spec.b1, b2=spec.b2,
+                               eps=spec.eps, weight_decay=spec.weight_decay, impl=impl)
+        new_state["adam"] = AdamState(step=step, mu=adam.mu, nu=adam.nu)
+    for tree, out in gathered:         # scatter back into the per-leaf tensors
+        trees.tree_copy_(tree, buckets.BucketedState(tuple(out), layout).to_tree())
+    return params, tuple(new_state[f] for f in fields), gnorm
 
 
 # ---------------------------------------------------------------------------

@@ -38,14 +38,21 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def flatten_key(name: str) -> tuple:
-    """Sort key of a leaf name in the reference's flatten order: its path in
-    the reference's tree (block index dropped: the reference stacks the
-    blocks on a leading axis), then the block index."""
+def reference_path(name: str) -> tuple[tuple[str, ...], Optional[int]]:
+    """A port leaf name as (its path in the reference's tree, its block index
+    or None): the reference stacks the blocks on a leading axis, so
+    "blocks.3.attn.wq" is block 3 of the reference's leaf blocks/attn/wq."""
     parts = name.split(".")
     if len(parts) > 2 and parts[0] == "blocks" and parts[1].isdigit():
-        return (("blocks", *parts[2:]), int(parts[1]))
-    return (tuple(parts), 0)
+        return ("blocks", *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def flatten_key(name: str) -> tuple:
+    """Sort key of a leaf name in the reference's flatten order: its path in
+    the reference's tree, then the block index."""
+    path, block = reference_path(name)
+    return (path, block or 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,16 +168,73 @@ def is_bucketed(x) -> bool:
     return isinstance(x, BucketedState)
 
 
-def residentize(params: Union[BucketedState, nn.Module, Mapping[str, torch.Tensor]]
-                ) -> BucketedState:
+def residentize(params: Union[BucketedState, nn.Module, Mapping[str, torch.Tensor], Tree],
+                like: Tree = None) -> Tree:
     """The bucket-resident form of `params`: a BucketedState as it is, a
     model's parameters gathered (`from_module`), a mapping of name -> tensor
-    gathered (`from_tree`)."""
+    gathered (`from_tree`).
+
+    With `like`, a live training state, `params` is a restored state of the
+    same structure in portable form (`to_portable`), and every tensor of it
+    is copied INTO like's tensors: a BucketedState's buffers through its leaf
+    views, per-leaf tensors and device scalars as they are. The model's
+    parameters are views into those buffers and the step's gradient views are
+    set up against them, so a restore must not allocate new ones. Host
+    values (step, rng, flags) are taken from `params`. Returns `like`'s
+    structure holding like's tensors.
+    """
+    if like is not None:
+        with torch.no_grad():
+            return _copy_into(like, params)
     if is_bucketed(params):
         return params
     if isinstance(params, nn.Module):
         return BucketedState.from_module(params)
     return BucketedState.from_tree(params)
+
+
+def _copy_into(live: Tree, src: Tree) -> Tree:
+    if is_bucketed(live):
+        if is_bucketed(src):
+            for dst, buf in zip(live.buffers, src.buffers):
+                dst.copy_(buf)
+        else:
+            for name, view in live.to_tree().items():
+                view.copy_(src[name])
+        return live
+    if isinstance(live, torch.Tensor):
+        return live.copy_(src)
+    if isinstance(live, tuple) and hasattr(live, "_fields"):
+        return type(live)(*(_copy_into(a, b) for a, b in zip(live, src)))
+    if isinstance(live, (tuple, list)):
+        return type(live)(_copy_into(a, b) for a, b in zip(live, src))
+    if isinstance(live, Mapping):
+        return {k: _copy_into(v, src[k]) for k, v in live.items()}
+    return src
+
+
+def _nodes(tree: Tree) -> list:
+    """Every BucketedState and tensor of `tree`, in flatten order."""
+    if is_bucketed(tree) or isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, Mapping):
+        return [n for k in sorted(tree) for n in _nodes(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [n for t in tree for n in _nodes(t)]
+    return []
+
+
+def is_resident(tree: Tree) -> bool:
+    """True when any node of `tree` is a BucketedState."""
+    return any(is_bucketed(n) for n in _nodes(tree))
+
+
+def layout_stamp(tree: Tree) -> list[dict]:
+    """JSON-able record of every resident node's bucket layout (checkpoint
+    manifests stamp it beside the per-leaf arrays), the reference's format."""
+    return [{"n_leaves": n.layout.n_leaves,
+             "groups": [{"dtype": g.dtype, "size": g.size} for g in n.layout.groups]}
+            for n in _nodes(tree) if is_bucketed(n)]
 
 
 def to_portable(tree: Tree) -> Tree:
@@ -225,6 +289,19 @@ def bucketed_axpy(alpha, x, y, *, out: Optional[BucketedState] = None,
     res = BucketedState(tuple(ops.fused_axpy(alpha, xi, yi, out=oi, impl=impl)
                               for xi, yi, oi in zip(xb, yb, ob)), layout)
     return res if is_bucketed(y) else res.to_tree()
+
+
+def bucketed_sam_perturb(w, g, rho, sq_norm, *, out: Optional[BucketedState] = None,
+                         layout: Optional[BucketLayout] = None, impl: Optional[str] = None):
+    """w + rho * g / (sqrt(sq_norm) + eps) on buckets, w's dtypes kept: one
+    `sam_perturb` kernel per bucket. Resident in, resident out (into `out`
+    when given), as `bucketed_axpy`."""
+    wb, layout = group_buffers(w, layout)
+    gb, _ = group_buffers(g, layout)
+    ob = out.buffers if out is not None else [None] * len(wb)
+    res = BucketedState(tuple(ops.sam_perturb(wi, gi, rho, sq_norm, out=oi, impl=impl)
+                              for wi, gi, oi in zip(wb, gb, ob)), layout)
+    return res if is_bucketed(w) else res.to_tree()
 
 
 def bucketed_dot_norms(a, b, *, layout: Optional[BucketLayout] = None,

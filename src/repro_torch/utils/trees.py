@@ -1,10 +1,13 @@
 """Tree helpers on dicts of tensors (counterpart of `repro.utils.trees`).
 
-A tree here is a tensor, a mapping of name -> tree, a tuple or list of
-trees, or a `buckets.BucketedState`, whose leaves are its flat buffers (as a
-registered pytree node's are in the reference). Mappings are walked in
-sorted key order, as `jax.tree.flatten` walks dicts. Only the helpers the
-training step uses are ported.
+A tree here is a tensor, a mapping of name -> tree, a tuple, NamedTuple or
+list of trees, or a `buckets.BucketedState`, whose leaves are its flat
+buffers (as a registered pytree node's are in the reference). Mappings are
+walked in sorted key order, as `jax.tree.flatten` walks dicts. A leaf's path
+(`tree_paths`) is the reference's: keys, field names and indices joined by
+"/", where a port parameter name ("blocks.3.attn.wq") is its path in the
+reference's tree ("blocks/attn/wq": the reference stacks the blocks on a
+leading axis). Only the helpers the port uses are ported.
 """
 from __future__ import annotations
 
@@ -30,18 +33,65 @@ def tree_leaves(tree: Tree) -> list[torch.Tensor]:
     raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
 
 
-def tree_map(f: Callable[[torch.Tensor], torch.Tensor], tree: Tree) -> Tree:
-    """`f` on every leaf; the result has the tree's structure (a
-    BucketedState keeps its layout)."""
+def tree_map(f: Callable[..., torch.Tensor], tree: Tree, *rest: Tree) -> Tree:
+    """`f` on every leaf (with the matching leaves of `rest`, trees of the
+    same structure); the result has the tree's structure (a BucketedState
+    keeps its layout)."""
+    return tree_map_with_path(lambda _, *leaves: f(*leaves), tree, *rest)
+
+
+def _key_path(key) -> str:
+    """A mapping key as a path: a port parameter name ("blocks.3.attn.wq")
+    becomes its path in the reference's tree ("blocks/attn/wq")."""
+    return "/".join(buckets.reference_path(str(key))[0])
+
+
+def tree_map_with_path(f: Callable[..., torch.Tensor], tree: Tree, *rest: Tree,
+                       _prefix: str = "") -> Tree:
+    """`f(path, leaf, *rest_leaves)` on every leaf (see the module docstring
+    for paths)."""
+    def sub(name: str) -> str:
+        return f"{_prefix}/{name}" if _prefix else name
+
     if isinstance(tree, torch.Tensor):
-        return f(tree)
+        return f(_prefix, tree, *rest)
     if isinstance(tree, buckets.BucketedState):
-        return buckets.BucketedState(tuple(f(b) for b in tree.buffers), tree.layout)
+        return buckets.BucketedState(
+            tuple(f(sub(str(i)), *bs)
+                  for i, bs in enumerate(zip(tree.buffers, *(r.buffers for r in rest)))),
+            tree.layout)
     if isinstance(tree, Mapping):
-        return {k: tree_map(f, v) for k, v in tree.items()}
+        return {k: tree_map_with_path(f, v, *(r[k] for r in rest), _prefix=sub(_key_path(k)))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(f, v, *(getattr(r, name) for r in rest),
+                                               _prefix=sub(name))
+                            for name, v in zip(tree._fields, tree)))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(f, t) for t in tree)
+        return type(tree)(tree_map_with_path(f, v, *(r[i] for r in rest), _prefix=sub(str(i)))
+                          for i, v in enumerate(tree))
     raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def tree_paths(tree: Tree) -> list[str]:
+    """The path of every leaf, in `tree_leaves` order."""
+    paths: dict[int, str] = {}
+
+    def note(path: str, x: torch.Tensor) -> torch.Tensor:
+        paths[id(x)] = path
+        return x
+
+    tree_map_with_path(note, tree)
+    return [paths[id(x)] for x in tree_leaves(tree)]
+
+
+def tree_copy_(dst: Tree, src: Tree) -> Tree:
+    """Copy every leaf of `src` into the matching leaf of `dst`, in place;
+    returns `dst`. How a step writes its new values into the state's
+    tensors, which the model and the buffers' views keep reading."""
+    with torch.no_grad():
+        tree_map(lambda d, s: d.copy_(s), dst, src)
+    return dst
 
 
 def tree_zeros_like(tree: Tree, dtype=None) -> Tree:

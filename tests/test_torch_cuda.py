@@ -155,9 +155,9 @@ def test_reduction_kernels_match_plain(dev, n, dtype, offset):
     from repro_torch.kernels import sam_perturb as sp
     a = _flat(dev, n, torch.float32, 0, offset=offset)
     b = _flat(dev, n, dtype, 1, offset=offset)
-    before = sp.launches
+    before = sp.launches["sq_norm"]
     got = sp.sq_norm(b)
-    assert sp.launches == before + 1 and got.dtype == torch.float32
+    assert sp.launches["sq_norm"] == before + 1 and got.dtype == torch.float32
     assert _rel(got, ref.sq_norm_plain(b)) <= 2e-5
     assert float(sp.sq_norm(b)) == float(got)                       # no atomics: same bits
     before = fu.launches["fused_dot_norms"]
@@ -194,6 +194,48 @@ def test_elementwise_kernels_match_plain_bitwise(dev, n, dtype, offset):
             torch.testing.assert_close(got, e, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", FLAT_SIZES)
+def test_sgd_and_perturb_kernels_match_plain_bitwise(dev, n, dtype, offset):
+    """sgd_epilogue (each body) and sam_perturb round where the plain version
+    does, so on the card they agree bit for bit; both write in place, and a
+    rerun gives the same bits."""
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import sam_perturb as sp
+    g = _flat(dev, n, torch.float32, 6, 1e-3, offset)
+    w0 = _flat(dev, n, dtype, 7, 2e-2, offset)
+    m0 = _flat(dev, n, torch.float32, 8, 1e-3, offset)
+    clip, lr = torch.tensor(0.7, device=dev), torch.tensor(0.1, device=dev)
+    for mom, nest, wd in ((0.9, False, 0.0), (0.9, True, 1e-4), (0.9, False, 1e-4),
+                          (0.0, False, 5e-4), (0.0, False, 0.0)):
+        runs = []
+        for _ in range(2):
+            w, m = w0.clone(), m0.clone()
+            ptrs = (w.data_ptr(), m.data_ptr())
+            before = fu.launches["sgd_epilogue"]
+            wk, mk = fu.sgd_epilogue(w, g, m if mom else None, clip, lr, momentum=mom,
+                                     nesterov=nest, weight_decay=wd)
+            assert fu.launches["sgd_epilogue"] == before + 1
+            assert wk is w and (mk is m if mom else mk is None)
+            assert (w.data_ptr(), m.data_ptr()) == ptrs
+            runs.append((w, m))
+        ew, em = ref.sgd_epilogue_flat_plain(w0, g, m0, clip, lr, momentum=mom, nesterov=nest,
+                                             weight_decay=wd)
+        for w, m in runs:
+            torch.testing.assert_close(w, ew, rtol=0, atol=0)
+            torch.testing.assert_close(m, em if mom else m0, rtol=0, atol=0)
+    sq = ref.sq_norm_plain(g)
+    out = torch.empty_like(w0)
+    before = sp.launches["sam_perturb"]
+    assert sp.sam_perturb(w0, g, 0.05, sq, out=out) is out
+    assert sp.launches["sam_perturb"] == before + 1 and out.dtype == dtype
+    torch.testing.assert_close(out, ref.sam_perturb_flat_plain(w0, g, 0.05, sq), rtol=0, atol=0)
+    w = w0.clone()
+    sp.sam_perturb(w, g, torch.tensor(0.05, device=dev), sq, out=w)     # in place
+    torch.testing.assert_close(w, out, rtol=0, atol=0)
+
+
 def test_flat_kernels_reject_what_they_do_not_take(dev):
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import sam_perturb as sp
@@ -210,6 +252,12 @@ def test_flat_kernels_reject_what_they_do_not_take(dev):
         fu.adamw_epilogue(x, x, x.bfloat16(), x, 1.0, 1e-3, 0.1, 0.1)
     with pytest.raises(ValueError):
         fu.fused_axpy(1.0, x[::2], x[::2])
+    with pytest.raises(TypeError):
+        fu.sgd_epilogue(x, x, x.bfloat16(), 1.0, 1e-3, momentum=0.9)
+    with pytest.raises(ValueError):
+        fu.sgd_epilogue(x, x, None, 1.0, 1e-3, momentum=0.9)
+    with pytest.raises(ValueError):
+        sp.sam_perturb(x, x.cpu(), 0.05, 1.0)
 
 
 def test_reduced_training_kernel_path_matches_plain_path(dev):
@@ -241,8 +289,9 @@ def test_reduced_training_kernel_path_matches_plain_path(dev):
         runs[impl] = (report, {k: after[k] - before[k] for k in after})
     (rp, lp), (rk, lk) = runs["plain"], runs["kernel"]
     assert lp == dict.fromkeys(lp, 0)
-    assert lk == {"flash_attention": 4 * 2 * cfg.n_layers, "sq_norm": 4, "fused_axpy": 4,
-                  "fused_dot_norms": 4, "adamw_epilogue": 4}
+    assert lk == {"flash_attention": 4 * 2 * cfg.n_layers, "sq_norm": 4, "sam_perturb": 0,
+                  "fused_axpy": 4, "fused_dot_norms": 4, "adamw_epilogue": 4,
+                  "sgd_epilogue": 0}
     for mp, mk in zip(rp.metrics_history, rk.metrics_history):
         for k in ("loss", "ascent_norm", "grad_norm"):
             assert mk[k] == pytest.approx(mp[k], rel=1e-4), k
@@ -253,3 +302,78 @@ def test_reduced_training_kernel_path_matches_plain_path(dev):
     diff = (wk - wp).abs()
     assert float(torch.quantile(diff[:2**24].float(), 0.999)) <= 1e-4 * float(wp.abs().max())
     assert float(diff.max()) <= 2 * 4 * 1e-3
+
+
+def _sgd_trainer(dev, method="async_sam"):
+    from repro_torch.core import MethodConfig
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.engine import FusedExecutor
+    from repro_torch.optim import cosine_schedule, sgd
+
+    cfg = get_config("olmo-1b", reduced=True)
+    bundle = build_model(cfg)
+    ex = FusedExecutor(bundle.loss_fn, MethodConfig(name=method, rho=0.05),
+                       sgd(cosine_schedule(0.05, 3), momentum=0.9))
+    model = bundle.init(seed=0, device=dev)
+    pipe = TokenPipeline(cfg, PipelineConfig(global_batch=8, seq_len=64, seed=0,
+                                             ascent_fraction=0.25, prefetch=0), device=dev)
+    return cfg, bundle, model, ex, ex.init_state(model, seed=1), pipe
+
+
+def test_reduced_sgd_training_launches_the_sgd_path(dev):
+    """SGD-momentum AsyncSAM launches sgd_epilogue once a step and no
+    adamw_epilogue; SAM perturbs through sq_norm + sam_perturb."""
+    from repro_torch.engine import Engine
+    from repro_torch.launch.train import kernel_launches
+
+    for method, per_step in (("async_sam", {"sq_norm": 1, "fused_axpy": 1,
+                                            "fused_dot_norms": 1, "sgd_epilogue": 1}),
+                             ("sam", {"sq_norm": 2, "sam_perturb": 1, "sgd_epilogue": 1})):
+        cfg, _, _, ex, state, pipe = _sgd_trainer(dev, method)
+        before = kernel_launches()
+        report = Engine(ex, pipe).fit(state, 3)
+        after = kernel_launches()
+        got = {k: after[k] - before[k] for k in after}
+        want = {k: 3 * per_step.get(k, 0) for k in got}
+        fwd = 1 if cfg.remat == "none" else 2          # the block reruns in backward
+        want["flash_attention"] = 3 * 2 * fwd * cfg.n_layers    # 2 gradient passes a step
+        assert got == want, (method, got)
+        assert all(torch.isfinite(torch.tensor(list(m.values()))).all()
+                   for m in report.metrics_history)
+
+
+def test_restart_restores_into_the_live_buffers_bitwise(dev, tmp_path):
+    """A failure before step 2 of 3 costs one restart; the final state equals
+    the uninterrupted run's bit for bit and the model still views it."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.engine import CheckpointCallback, Engine
+    from repro_torch.runtime import InjectedFailure, ResilienceConfig
+
+    _, _, _, ex, state, pipe = _sgd_trainer(dev)
+    clean = Engine(ex, pipe).fit(state, 3).final_state
+    _, bundle, model, ex, state, pipe = _sgd_trainer(dev)
+    live = (state.params.buffers[0], state.opt_state[0].momentum.buffers[0])
+    fired = []
+
+    def inject(step):
+        if step == 2 and not fired:
+            fired.append(step)
+            raise InjectedFailure("node lost")
+
+    report = Engine(ex, pipe, [CheckpointCallback(CheckpointManager(tmp_path),
+                                                  ResilienceConfig(save_every=1))]).fit(
+        state, 3, failure_injector=inject)
+    final = report.final_state
+    assert report.restarts == 1
+    assert final.params.buffers[0] is live[0] and final.opt_state[0].momentum.buffers[0] is live[1]
+    for a, b in ((final.params, clean.params), (final.opt_state[0].momentum,
+                                                 clean.opt_state[0].momentum),
+                 (final.method_state.ascent_grad, clean.method_state.ascent_grad)):
+        assert torch.equal(a.buffers[0], b.buffers[0])
+    lo = live[0].data_ptr()
+    assert all(lo <= p.data_ptr() < lo + live[0].numel() * 4 for p in model.parameters())
+    batch = pipe.peek()
+    with torch.no_grad():
+        torch.testing.assert_close(bundle.loss_fn(model, batch)[0],
+                                   bundle.loss_fn(final.params.to_tree(), batch)[0],
+                                   rtol=0, atol=0)

@@ -93,7 +93,7 @@ print(len(names))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, env=_env(), cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 38
+    assert int(proc.stdout.strip()) >= 43
 
 
 def test_port_sources_name_no_jax_import():

@@ -61,8 +61,8 @@ def _few_threads():
 
 # ---------------------------------------------------------------------------
 # closed forms on the quadratic L(w) = 0.5 w'Aw (tests/test_methods.py),
-# with AdamW as the inner optimizer (the port's fused sgd epilogue is not
-# ported yet); the AdamW recursion is written out in float64 numpy
+# with AdamW as the inner optimizer (SGD's are in tests/test_torch_sgd.py);
+# the AdamW recursion is written out in float64 numpy
 # ---------------------------------------------------------------------------
 
 LR, RHO, WD = 0.05, 0.1, 0.01
@@ -232,17 +232,16 @@ def test_what_is_not_ported_raises():
         make_method(MethodConfig(name="nope"))
     with pytest.raises(NotImplementedError, match="guard"):
         make_method(MethodConfig(guard_update=True))
-    with pytest.raises(NotImplementedError):
-        make_method(MethodConfig(fused_update=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.adamw(1e-3, decay_mask=lambda path: True)
-    with pytest.raises(NotImplementedError):
-        FusedExecutor(quad_loss, MethodConfig(), optim.adamw(1e-3), resident=False)
+    # ported since: the per-leaf path, masked decay and the sgd epilogue
+    assert make_method(MethodConfig(fused_update=False)).cfg.fused_update is False
+    assert optim.adamw(1e-3, decay_mask=lambda path: True).fused_spec is None
+    assert not FusedExecutor(quad_loss, MethodConfig(), optim.adamw(1e-3),
+                             resident=False).resident
     method = make_method(MethodConfig(name="sgd"))
     opt = optim.sgd(0.1)
     state = init_train_state({"w": torch.ones(3)}, opt, method)
-    with pytest.raises(NotImplementedError, match="sgd_epilogue"):
-        method.make_step(quad_loss, opt)(state, {"A": torch.eye(3)})
+    state, _ = method.make_step(quad_loss, opt)(state, {"A": torch.eye(3)})
+    np.testing.assert_allclose(state.params.to_tree()["w"].numpy(), 0.9 * np.ones(3))
 
 
 def test_schedules_match_reference():
@@ -445,8 +444,8 @@ def test_train_cli_runs_on_cpu_and_the_loss_falls():
     assert losses[-1] < losses[0], losses
     lines = proc.stdout.strip().splitlines()
     assert json.loads(lines[-2].removeprefix("kernel launches: ")) == {
-        "flash_attention": 0, "sq_norm": 0, "fused_axpy": 0, "fused_dot_norms": 0,
-        "adamw_epilogue": 0}
+        "flash_attention": 0, "sq_norm": 0, "sam_perturb": 0, "fused_axpy": 0,
+        "fused_dot_norms": 0, "adamw_epilogue": 0, "sgd_epilogue": 0}
     summary = json.loads(lines[-1])
     assert summary["steps"] == 12 and summary["executor"] == "fused"
     assert summary["mean_step_s"] > 0 and summary["tokens_per_s"] > 0
