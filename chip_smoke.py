@@ -39,7 +39,23 @@
    params, momentum and carried ascent gradient must equal an uninterrupted
    run's bit for bit, with one restart and the live buffers kept; then the
    SAM path (2 steps), whose perturbation runs sq_norm + sam_perturb;
-9. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+9. delta kernel phase: delta_amax and delta_encode_i8 at the epilogue
+   phase's sizes (the olmo-1b bucket included), p in fp32 and bf16, and with
+   a NaN and an inf in p, held to their plain versions exactly and timed;
+10. remote phase (Form B across processes, the slice's main path): olmo-1b
+   at full width and 6 layers (the deepest whose snapshot fits the wire's
+   2 GiB frame) trains 4 lockstep SGD-momentum AsyncSAM steps through
+   `RemoteExecutor(serve_ascent=True, job_compress="int8")`, its ascent server
+   spawned on the card in a second process; every delta kernel call is held
+   to its plain version on its inputs, the launches are counted (0 just
+   before, read just after), and the client's shadow must equal a numpy
+   replay of the snapshot and every int8 payload bit for bit; prints each
+   exchange's bytes and times and both processes' peak memory;
+11. hetero phase: olmo-1b at full width and 2 layers, the descent on the
+   card and the ascent lane a CPU thread, calibrated (t_fast, t_slow, b'/b),
+   then steps until a fresh ascent gradient was harvested: the tau schedule,
+   stale reuses and SGD fallbacks;
+12. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without CUDA, or
 without the repository beside it, it exits nonzero and prints no result.
@@ -49,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -1025,6 +1042,382 @@ def restart_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# delta kernel phase
+# ---------------------------------------------------------------------------
+
+# p in the case's dtype, the shadow s and the residual e in fp32
+DELTA_CASES = EPILOGUE_CASES + [("bf16 p, unaligned", 3 * 65536 + 17, "bfloat16", 1)]
+# ops per element: amax sub, add, abs, max; encode sub, add, div, rint, two
+# compares, the NaN test, the cast, mul, add, sub
+DELTA_OPS = {"delta_amax": 4, "delta_encode_i8": 11}
+
+
+def chunks(n: int):
+    return [slice(i, i + COMPARE_CHUNK) for i in range(0, n, COMPARE_CHUNK)]
+
+
+def same(got, want) -> tuple[bool, float]:
+    """(bit for bit equal, NaN where NaN; max|got - want| elsewhere)."""
+    import torch
+    g, w = got.float(), want.float()
+    nan = torch.isnan(g) | torch.isnan(w)
+    eq = bool(torch.equal(torch.isnan(g), torch.isnan(w))) and bool(
+        torch.equal(got[~nan], want[~nan]))
+    d = (g - w).abs()[~nan & torch.isfinite(w)]
+    return eq, float(d.max()) if d.numel() else 0.0
+
+
+def plain_amax(p, s, e):
+    import torch
+    from repro_torch.kernels import ref
+    return torch.stack([ref.delta_amax_flat_plain(p[sl], s[sl], e[sl])
+                        for sl in chunks(p.numel())]).amax()
+
+
+def delta_phase() -> dict:
+    """delta_amax and delta_encode_i8 against their plain versions on the
+    card, exactly (amax, q, s', e'); returns the olmo-1b bucket's rows."""
+    import torch
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ref
+    from repro_torch.service.delta import _pow2_scale
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, failures = {}, []
+
+    def operand(n, dtype, offset, scale):
+        t = torch.empty(n + offset, dtype=torch.float32, device="cuda")
+        return t.normal_(0.0, scale, generator=gen).to(getattr(torch, dtype))[offset:]
+
+    def run(case, p, s, e, main, timed=True):
+        n, es = p.numel(), p.element_size()
+        amax = fu.delta_amax(p, s, e)
+        ok_a, err_a = same(amax, plain_amax(p, s, e))
+        scale = float(_pow2_scale(float(amax)))
+        s0, e0 = s.clone(), e.clone()
+        q, _, _ = fu.delta_encode_i8(p, s, e, scale)
+        torch.cuda.synchronize()
+        ok_q, err_q = True, 0.0
+        for sl in chunks(n):
+            for got, want in zip((q[sl], s[sl], e[sl]),
+                                 ref.delta_encode_i8_flat_plain(p[sl], s0[sl], e0[sl], scale)):
+                ok, err = same(got, want)
+                ok_q, err_q = ok_q and ok, max(err_q, err)
+        del s0, e0, q
+        out = {}
+        for kernel, ok, err, nbytes in (("delta_amax", ok_a, err_a, n * (es + 8)),
+                                        ("delta_encode_i8", ok_q, err_q, n * (es + 17))):
+            if timed and kernel == "delta_amax":
+                ms = time_ms(lambda: fu.delta_amax(p, s, e))
+                plain_ms = time_ms(lambda: ref.delta_amax_flat_plain(p, s, e))
+            elif timed:
+                ms = time_ms(lambda: fu.delta_encode_i8(p, s, e, scale))
+                plain_ms = time_ms(lambda: ref.delta_encode_i8_flat_plain(p, s, e, scale))
+            else:
+                ms = plain_ms = None
+            bound_ms, bound_by = bound(nbytes, DELTA_OPS[kernel] * n)
+            row = dict(kernel=kernel, case=case, n=n, dtype=str(p.dtype).removeprefix("torch."),
+                       amax=float(amax), scale=scale, exact=ok, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            print("delta " + json.dumps(row))
+            if not ok:
+                failures.append(f"{kernel} / {case}")
+            if main:
+                rows[kernel] = row
+            out[kernel] = row
+        torch.cuda.empty_cache()
+        return out
+
+    for ci, (case, n, dtype, offset) in enumerate(DELTA_CASES):
+        p = operand(n, dtype, offset, 2e-2)
+        s = operand(n, "float32", offset, 1e-3)
+        s.add_(p)                                      # the shadow: near p
+        e = operand(n, "float32", offset, 1e-4)
+        run(case, p, s, e, ci == 0)
+        del p, s, e
+    for bad in (float("nan"), float("inf")):
+        n = 3 * 65536 + 17
+        p = operand(n, "float32", 0, 2e-2)
+        p[[5, 70000, n - 3]] = bad
+        s = operand(n, "float32", 0, 1e-3)
+        e = operand(n, "float32", 0, 1e-4)
+        got = run(f"{bad} in p", p, s, e, False, timed=False)
+        if (got["delta_amax"]["amax"] == got["delta_amax"]["amax"]) == (bad != bad):
+            failures.append(f"delta_amax / {bad} in p: amax {got['delta_amax']['amax']}")
+    if failures:
+        fail(f"delta kernels disagree with their plain versions: {failures}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# remote phase: Form B across processes (the slice's main path)
+# ---------------------------------------------------------------------------
+
+REMOTE_LAYERS, REMOTE_STEPS = 6, 4
+REMOTE_LOSS_SPEC = "chip_smoke:olmo6_loss"
+_OLMO6: list = []
+
+
+def olmo6_loss(params, batch, gen=None):
+    """The loss of olmo-1b at full width and REMOTE_LAYERS layers: what the
+    remote phase's ascent server holds (`--loss chip_smoke:olmo6_loss`; the
+    loss specs have no depth override)."""
+    if not _OLMO6:
+        from repro_torch.configs import get_config
+        from repro_torch.models import build_model
+        _OLMO6.append(build_model(dataclasses.replace(get_config("olmo-1b"),
+                                                      n_layers=REMOTE_LAYERS)))
+    return _OLMO6[0].loss_fn(params, batch, gen)
+
+
+def host_mem_available_gib() -> float:
+    """MemAvailable of /proc/meminfo, GiB (the host's, both processes')."""
+    for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return round(int(line.split()[1]) / 2**20, 2)
+    return float("nan")
+
+
+def remote_phase() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import MethodConfig
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.engine import Callback, Engine, RemoteExecutor, ThroughputMeter
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.models import build_model
+    from repro_torch.optim import cosine_schedule, sgd
+    from repro_torch.runtime import ExecutorConfig
+    from repro_torch.service import protocol
+    from repro_torch.service.delta import ShadowState
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=REMOTE_LAYERS)
+    bundle = build_model(cfg)
+    ex = RemoteExecutor(
+        bundle.loss_fn, MethodConfig(name="async_sam", rho=RHO, ascent_fraction=ASCENT_FRACTION),
+        sgd(cosine_schedule(SGD_LR, REMOTE_STEPS), momentum=SGD_MOMENTUM),
+        exec_cfg=ExecutorConfig(lockstep=True, serve_ascent=True, loss_spec=REMOTE_LOSS_SPEC,
+                                descent_device="cuda", job_compress="int8"))
+    print(f"remote: ascent server spawned at {ex.server.addr} (on the card, pid "
+          f"{ex.server.proc.pid}) in {time.perf_counter() - t_phase:.2f}s")
+    state = ex.init_state(bundle.init(seed=0, device="cuda"), seed=1)
+    n_params = sum(b.numel() for b in state.params.buffers)
+    n_buckets = len(state.params.buffers)
+    pipe = TokenPipeline(cfg, PipelineConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                             seed=0, ascent_fraction=ASCENT_FRACTION),
+                         device="cuda")
+    enc = ex.client.job_encoder
+
+    # every job the encoder makes, for the replay; every delta kernel call
+    # held to its plain version on its inputs (the lockstep check)
+    jobs = []
+    encode = enc.encode
+
+    def recording_encode(*args, **kw):
+        job = encode(*args, **kw)
+        jobs.append((job, enc.last_d2h_s if job.kind != "snapshot" else None))
+        return job
+
+    enc.encode = recording_encode
+    kernel = {"delta_amax": ops.delta_amax, "delta_encode_i8": ops.delta_encode_i8}
+    check = {k: {"calls": 0, "exact": True, "max_abs_err": 0.0} for k in kernel}
+
+    def note(name, ok, err):
+        check[name]["calls"] += 1
+        check[name]["exact"] &= ok
+        check[name]["max_abs_err"] = max(check[name]["max_abs_err"], err)
+
+    def delta_amax(p, s, e, **kw):
+        got = kernel["delta_amax"](p, s, e, **kw)
+        note("delta_amax", *same(got, plain_amax(p, s, e)))
+        return got
+
+    def delta_encode_i8(p, s, e, scale, **kw):
+        s0, e0 = s.clone(), e.clone()
+        got = kernel["delta_encode_i8"](p, s, e, scale, **kw)
+        ok, err = True, 0.0
+        for sl in chunks(p.numel()):
+            for g_, w_ in zip((got[0][sl], s[sl], e[sl]),
+                              ref.delta_encode_i8_flat_plain(p[sl], s0[sl], e0[sl], scale)):
+                o, d = same(g_, w_)
+                ok, err = ok and o, max(err, d)
+        note("delta_encode_i8", ok, err)
+        del s0, e0
+        return got
+
+    meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
+    mem_avail = []
+
+    class HostMemory(Callback):
+        def on_step(self, engine, state, metrics, step_time_s):
+            mem_avail.append(host_mem_available_gib())
+
+    ops.delta_amax, ops.delta_encode_i8 = delta_amax, delta_encode_i8
+    reset_launches()                                   # counts: 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        report = Engine(ex, pipe, [meter, HostMemory()]).fit(state, REMOTE_STEPS)
+    finally:
+        ops.delta_amax, ops.delta_encode_i8 = kernel["delta_amax"], kernel["delta_encode_i8"]
+    launches = kernel_launches("remote")               # read just after
+    fit_s = time.perf_counter() - t0
+    client_peak = torch.cuda.max_memory_allocated()
+    hist = report.metrics_history
+    descent_s = list(ex.timings["descent"])
+    by_step = {job.step: (job.kind, d2h) for job, d2h in jobs}
+    for i, m in enumerate(hist):
+        kind, d2h = by_step.get(i, (None, None))
+        print(f"remote step {i}: loss {m['loss']:.6f} tau {m['tau']} perturbed "
+              f"{m['perturbed']}; harvested exchange: job_bytes {m.get('job_bytes')} "
+              f"grad_bytes {m.get('grad_bytes')} rtt_s {m.get('rtt_s')}; this step's job: "
+              f"{kind}, q to host {d2h} s; descent {descent_s[i]:.4f} s; step "
+              f"{meter.step_times[i]:.4f} s; host memory available {mem_avail[i]} GiB")
+    kinds = [j.kind for j, _ in jobs]
+    snap_bytes = ex.client.job_frame_measured.get("snapshot")
+    int8_bytes = ex.client.job_frame_measured.get("int8")
+
+    # the replay: the snapshot and every int8 payload through ShadowState's
+    # numpy arithmetic (what the server holds) against the client's shadow
+    replay = ShadowState()
+    for job, _ in jobs:
+        if job.kind == "snapshot":
+            replay.install(job.params, job.sync)
+        else:
+            replay.apply(job.kind, job.deltas, job.sync, job.seq)
+    shadow = enc.shadow_host()
+    replay_equal = len(shadow) == len(replay.bufs) and all(
+        np.array_equal(a, b) for a, b in zip(replay.bufs, shadow))
+    frames = {k: protocol.job_frame_bytes(k, jobs[0][0].params, jobs[0][0].batch,
+                                          jobs[0][0].rng, delta=k != "none")
+              for k in ("none", "int8")}
+    ex.close()                                         # kills the server: its exit lines
+    tail = list(ex.server.tail)
+    print("remote: the ascent server's last lines:\n  " + "\n  ".join(tail[-20:]))
+    print(f"remote: client drops {ex.client.drops}, retried {ex.client.retried_exchanges}, "
+          f"reconnects {ex.client.reconnects}, server respawns {ex.server_respawns}, last "
+          f"error {ex.client.last_error!r}")
+    server_peak = next((ln for ln in tail if ln.startswith("ascent-server peak")), None)
+    pool_stats = ex.server.stats()
+    out = dict(layers=REMOTE_LAYERS, params=n_params, buckets=n_buckets, steps=report.steps_done,
+               taus=[m["tau"] for m in hist], perturbed=[m["perturbed"] for m in hist],
+               losses=[m["loss"] for m in hist], job_kinds=kinds,
+               snapshot_jobs=enc.snapshot_jobs, delta_jobs=enc.delta_jobs,
+               encode_failures=enc.encode_failures, launches=launches, lockstep=check,
+               shadow_equals_replay=replay_equal, job_bytes_snapshot=snap_bytes,
+               job_bytes_int8=int8_bytes, job_bytes_model=frames,
+               job_ratio=(snap_bytes / int8_bytes) if snap_bytes and int8_bytes else None,
+               grad_bytes=[m.get("grad_bytes") for m in hist[1:]],
+               rtt_s=[m.get("rtt_s") for m in hist[1:]],
+               q_d2h_s=[d for _, d in jobs if d is not None], descent_s=descent_s,
+               step_s=meter.step_times, fit_s=fit_s, client_peak_bytes=client_peak,
+               server_peak=server_peak, pool_stats=pool_stats,
+               phase_s=time.perf_counter() - t_phase)
+    print("remote " + json.dumps(out))
+    flash_n = (1 if cfg.remat == "none" else 2) * cfg.n_layers     # one gradient pass a step
+    want = {"flash_attention": flash_n * REMOTE_STEPS, "sq_norm": REMOTE_STEPS,
+            "fused_axpy": REMOTE_STEPS, "sgd_epilogue": REMOTE_STEPS,
+            "delta_amax": enc.delta_jobs * n_buckets,
+            "delta_encode_i8": enc.delta_jobs * n_buckets}
+    problems = []
+    if out["taus"] != [0.0] + [1.0] * (REMOTE_STEPS - 1) or out["perturbed"] != out["taus"]:
+        problems.append(f"taus {out['taus']} perturbed {out['perturbed']}")
+    if not all(math.isfinite(v) for v in out["losses"]):
+        problems.append(f"losses {out['losses']}")
+    if (enc.snapshot_jobs, enc.delta_jobs, enc.encode_failures) != (1, REMOTE_STEPS - 1, 0):
+        problems.append(f"jobs: {enc.snapshot_jobs} snapshot, {enc.delta_jobs} delta, "
+                        f"{enc.encode_failures} encode failures")
+    if launches != {k: want.get(k, 0) for k in launches}:
+        problems.append(f"launches {launches}, expected {want}")
+    if not all(c["calls"] == enc.delta_jobs * n_buckets and c["exact"] for c in check.values()):
+        problems.append(f"lockstep {check}")
+    if not replay_equal:
+        problems.append("the client's shadow is not the numpy replay bit for bit")
+    if snap_bytes != frames["none"] or int8_bytes != frames["int8"]:
+        problems.append(f"JOB frames {snap_bytes}/{int8_bytes} != the length model {frames}")
+    if problems:
+        fail(f"remote phase: {problems}")
+    del ex, state, pipe, report, jobs, replay, shadow
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# hetero phase: the descent on the card, the ascent lane a CPU thread
+# ---------------------------------------------------------------------------
+
+# 10 steps, then more until the first fresh ascent gradient is harvested (a
+# CPU ascent of one 512-token sequence takes ~8 s against a ~0.07 s descent
+# step on an H100 host), at most HETERO_MAX_S seconds of stepping
+HETERO_LAYERS, HETERO_SEQ, HETERO_STEPS, HETERO_MAX_S = 2, 512, 10, 60.0
+
+
+def hetero_phase() -> dict:
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import MethodConfig
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.engine import HeteroExecutor
+    from repro_torch.models import build_model
+    from repro_torch.optim import cosine_schedule, sgd
+    from repro_torch.runtime import ExecutorConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=HETERO_LAYERS)
+    bundle = build_model(cfg)
+    ex = HeteroExecutor(
+        bundle.loss_fn, MethodConfig(name="async_sam", rho=RHO, ascent_fraction=ASCENT_FRACTION),
+        sgd(cosine_schedule(SGD_LR, 1000), momentum=SGD_MOMENTUM),
+        exec_cfg=ExecutorConfig(ascent_device="cpu", descent_device="cuda"),
+        calibrate=True, calibration_probes=1)
+    state = ex.init_state(bundle.init(seed=0, device="cuda"), seed=1)
+    pipe = TokenPipeline(cfg, PipelineConfig(global_batch=TRAIN_BATCH, seq_len=HETERO_SEQ,
+                                             seed=0, ascent_fraction=ASCENT_FRACTION),
+                         device="cuda")
+    pre = ex.pre_fit(state, pipe.peek())
+    print(f"hetero calibration (torch {torch.get_num_threads()} CPU threads): t_fast "
+          f"{pre['t_fast']:.6f} s/sample (card), t_slow {pre['t_slow']:.6f} s/sample (CPU), "
+          f"system-aware b'/b {pre['calibrated_ascent_fraction']:.4f} (configured "
+          f"{pre['configured_ascent_fraction']})")
+    hist, step_s = [], []
+    it = iter(pipe)
+    t_run = time.perf_counter()
+    try:
+        while len(hist) < HETERO_STEPS or (ex.ledger.refreshes < 1 and
+                                           time.perf_counter() - t_run < HETERO_MAX_S):
+            t0 = time.perf_counter()
+            state, m = ex.step(state, next(it))
+            step_s.append(time.perf_counter() - t0)
+            hist.append({k: float(v) for k, v in m.items() if k in ("loss", "tau", "perturbed")})
+    finally:
+        it.close()
+        ex.close()
+    runs = []                                   # the tau schedule as [tau, steps] runs
+    for m in hist:
+        if runs and runs[-1][0] == m["tau"]:
+            runs[-1][1] += 1
+        else:
+            runs.append([m["tau"], 1])
+    out = dict(layers=HETERO_LAYERS, seq=HETERO_SEQ, calibration=pre, steps=len(hist),
+               tau_runs=runs, perturbed_steps=sum(m["perturbed"] for m in hist),
+               ledger=ex.ledger.summary(), ascent_exchange_s=list(ex.timings["ascent"]),
+               median_descent_s=statistics.median(ex.timings["descent"]),
+               median_step_s=statistics.median(step_s),
+               loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"],
+               phase_s=time.perf_counter() - t_phase)
+    print("hetero " + json.dumps(out))
+    if not all(math.isfinite(m["loss"]) for m in hist) or ex.ledger.refreshes < 1:
+        fail(f"hetero phase: finite losses and a fresh ascent harvested needed: {out}")
+    del ex, state, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
 def device_time_by_kernel(prof) -> dict:
     from torch.autograd import DeviceType
     by_name: dict[str, list] = {}
@@ -1121,6 +1514,17 @@ def main() -> int:
     sgd_check()
     restarted = restart_phase()
 
+    t0 = time.perf_counter()
+    delta = delta_phase()
+    print(f"delta kernel phase: {time.perf_counter() - t0:.2f}s")
+    # the remote phase's server imports this file for its loss
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
+    remote = remote_phase()
+    print(f"remote phase: {remote['phase_s']:.2f}s")
+    hetero = hetero_phase()
+    print(f"hetero phase: {hetero['phase_s']:.2f}s")
+
     kernels = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:36",
@@ -1140,6 +1544,11 @@ def main() -> int:
     path_launches = {**trained["launches"],
                      "sgd_epilogue": sgd_trained["launches"]["sgd_epilogue"],
                      "sam_perturb": restarted["sam_launches"]["sam_perturb"]}
+    for name, where in (("delta_amax", "src/repro/kernels/fused_update.py:107"),
+                        ("delta_encode_i8", "src/repro/kernels/fused_update.py:134")):
+        replaces[name] = ("fused_update.cu", where)
+        epilogue[name] = delta[name]
+        path_launches[name] = remote["launches"][name]
     for name, (src, where) in replaces.items():
         row = epilogue[name]
         kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",

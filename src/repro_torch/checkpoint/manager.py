@@ -33,7 +33,8 @@ restores in the other:
 * a port parameter name is its path in the reference's tree, and the
   per-block leaves of a name ("blocks.<i>.attn.wq", i = 0..L-1) are one
   stacked (L, ...) leaf "blocks/attn/wq", as the reference stacks its blocks
-  (contiguous in a bucket, so stacking a resident state copies nothing);
+  (contiguous in a bucket, so stacking a resident state copies nothing):
+  `models.convert`'s mapping, which the ascent wire uses too;
 * host values are 0-d arrays: a bool as bool, an int as int32 (the
   reference's step and staleness; int64 when it does not fit);
 * bf16 leaves are written as the reference writes them (numpy's descr
@@ -61,6 +62,7 @@ from typing import Any, Iterator, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.models import convert
 from repro_torch.utils import buckets
 
 log = logging.getLogger("repro_torch.checkpoint")
@@ -84,25 +86,6 @@ def _leaf_crc(arr: np.ndarray) -> int:
 # Walking a state in the reference's flatten order
 # ---------------------------------------------------------------------------
 
-def _groups(mapping: Mapping) -> Iterator[tuple[str, list, bool]]:
-    """(path, keys, stacked) per leaf of `mapping`, in the reference's order:
-    a port name is its path in the reference's tree
-    (`buckets.reference_path`), and the block leaves of one name form one
-    stacked leaf (keys in block order)."""
-    groups: dict[tuple, dict] = {}
-    for key in mapping:
-        path, block = buckets.reference_path(str(key))
-        groups.setdefault(path, {})[block] = key
-    for path in sorted(groups):
-        keys = groups[path]
-        if None in keys:
-            yield "/".join(path), [keys[None]], False
-            continue
-        if sorted(keys) != list(range(len(keys))):
-            raise ValueError(f"blocks of {'/'.join(path)} are not 0..L-1: {sorted(keys)}")
-        yield "/".join(path), [keys[i] for i in range(len(keys))], True
-
-
 def _join(prefix: str, name: str) -> str:
     return f"{prefix}/{name}" if prefix else name
 
@@ -119,19 +102,6 @@ def _host(x) -> Union[torch.Tensor, np.ndarray]:
     if isinstance(x, np.ndarray):
         return x.copy()
     raise TypeError(f"checkpoint leaf of type {type(x).__name__}")
-
-
-def _stacked(leaves: list[torch.Tensor]) -> torch.Tensor:
-    """The block leaves as one (L, ...) tensor: a view when they lie end to
-    end in one buffer (a bucket's do), else a stacked copy."""
-    first = leaves[0]
-    nbytes = first.numel() * first.element_size()
-    if all(t.is_contiguous() and t.untyped_storage().data_ptr()
-           == first.untyped_storage().data_ptr()
-           and t.data_ptr() == first.data_ptr() + i * nbytes for i, t in enumerate(leaves)):
-        return torch.empty(0, dtype=first.dtype).set_(
-            first.untyped_storage(), first.storage_offset(), (len(leaves), *first.shape))
-    return torch.stack(leaves)
 
 
 def _host_leaves(tree: Tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
@@ -154,7 +124,7 @@ def _host_leaves(tree: Tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
 def _mapping_leaves(mapping: Mapping, prefix: str, copy: bool):
     """`copy` False: the mapping's tensors are host copies already (a
     bucket's views), yielded as they are."""
-    for path, keys, stacked in _groups(mapping):
+    for path, keys, stacked in convert.reference_groups(mapping):
         full, vals = _join(prefix, path), [mapping[k] for k in keys]
         if not stacked:
             if copy or not isinstance(vals[0], torch.Tensor):
@@ -162,7 +132,7 @@ def _mapping_leaves(mapping: Mapping, prefix: str, copy: bool):
             else:
                 yield full, vals[0]
             continue
-        yield full, _stacked([_host(v) for v in vals] if copy else vals)
+        yield full, convert.stack_blocks([_host(v) for v in vals] if copy else vals)
 
 
 def _to_numpy(x) -> tuple[np.ndarray, str]:
@@ -358,7 +328,7 @@ class CheckpointManager:
                 return build(tree.to_tree(), prefix)
             if isinstance(tree, Mapping):
                 out = {}
-                for path, keys, stacked in _groups(tree):
+                for path, keys, stacked in convert.reference_groups(tree):
                     full = _join(prefix, path)
                     if not stacked:
                         out[keys[0]] = build(tree[keys[0]], full)

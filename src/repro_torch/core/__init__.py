@@ -1,5 +1,5 @@
-"""repro_torch.core: AsyncSAM (Form A) and the SGD / SAM baselines
-(counterpart of `repro.core`).
+"""repro_torch.core: AsyncSAM (Form A, and Form B's split ascent and descent
+functions) and the SGD / SAM baselines (counterpart of `repro.core`).
 
 The other methods of the reference's registry (gsam, looksam, esam, aesam,
 mesa) are not ported yet: `make_method` raises for them, naming their
@@ -20,11 +20,17 @@ from repro_torch.core.api import (  # noqa: F401
 )
 from repro_torch.core.ascent import (  # noqa: F401
     Compressor,
+    StalenessLedger,
     slice_ascent_batch,
     split_batch,
     system_aware_ascent_fraction,
 )
-from repro_torch.core.async_sam import AsyncSamState, make_async_sam  # noqa: F401
+from repro_torch.core.async_sam import (  # noqa: F401
+    AsyncSamState,
+    make_ascent_fn,
+    make_async_sam,
+    make_descent_fn,
+)
 from repro_torch.core.perturb import perturb, perturb_masked  # noqa: F401
 from repro_torch.core.sam import make_sam, make_sgd  # noqa: F401
 

@@ -48,7 +48,7 @@ Tree = Any
 LossFn = Callable[[dict, Any, torch.Generator], tuple[torch.Tensor, dict]]
 
 GUARD = ("the in-step numerics guard (guard_update=True) is not ported yet: "
-         "it rides along with slice 4 of the port, ROADMAP.md queue 1")
+         "it comes with runtime/guard.py and runtime/health.py, ROADMAP.md queue 1")
 
 
 class TrainState(NamedTuple):
@@ -170,6 +170,23 @@ def step_rng(state: TrainState, lane: int = 0) -> torch.Generator:
     generator is the protocol's, for losses that do."""
     seed = int(np.random.SeedSequence([state.rng, state.step, lane]).generate_state(1)[0])
     return torch.Generator(device=params_device(state.params)).manual_seed(seed)
+
+
+def lane_key(state: TrainState) -> np.ndarray:
+    """The ascent job's rng as the lanes and the wire carry it: a uint32[2]
+    key derived from (rng, step), where the reference ships
+    `jax.random.fold_in(rng, step)` (a key of the same shape and dtype, so a
+    server of either package sees the input tree it expects)."""
+    return np.random.SeedSequence([state.rng, state.step]).generate_state(2, dtype=np.uint32)
+
+
+def key_generator(key, device) -> torch.Generator:
+    """A generator on `device` seeded from a key off the wire (the port's
+    `lane_key` or the reference's PRNG key data), as `step_rng` seeds from
+    (rng, step, lane)."""
+    words = [int(x) for x in np.asarray(key).reshape(-1)]
+    seed = int(np.random.SeedSequence(words).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _congruent(a: Tree, b: Tree) -> bool:

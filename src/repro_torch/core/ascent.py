@@ -1,16 +1,23 @@
 """Ascent-gradient channel: batch slicing and the exchange's compressor
 (counterpart of `repro.core.ascent`).
 
-Ported: how the b'-sized ascent batch is derived from (or supplied with) the
-step batch, the system-aware b' of paper §3.3, and the lossless
-`Compressor(kind="none")`. The int8 / top-k compressors and the staleness
-ledger of the heterogeneous executor come with Form B (ROADMAP.md queue 1)
-and raise here.
+How the b'-sized ascent batch is derived from (or supplied with) the step
+batch, the system-aware b' of paper §3.3, lossy compression of the ascent
+exchange (int8 / top-k with error feedback: the perturbation *direction*
+tolerates quantization noise by the same sigma^2/b' argument that tolerates
+b' < b), and the staleness ledger of the heterogeneous executor. The data-
+parallel sync modes of the reference are the distributed slice (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.utils import buckets, trees
 
 Tree = Any
 
@@ -45,24 +52,110 @@ def system_aware_ascent_fraction(t_fast: float, t_slow: float,
 
 
 class CompressionState(NamedTuple):
-    """Residual error-feedback memory (empty for the lossless exchange)."""
+    """Residual error-feedback memory, one leaf per parameter leaf."""
     error: Tree
 
 
 @dataclasses.dataclass(frozen=True)
 class Compressor:
-    """The ascent exchange's compressor. Only kind="none" is ported."""
+    """Lossy tree compressor with error feedback.
+
+    kind: "none" | "int8" | "topk"
+    topk_fraction: fraction of elements kept per leaf for kind="topk".
+    """
     kind: str = "none"
     topk_fraction: float = 0.01
 
-    def __post_init__(self):
-        if self.kind != "none":
-            raise NotImplementedError(
-                f"Compressor(kind={self.kind!r}) is not ported yet: the lossy ascent "
-                f"exchange comes with Form B, ROADMAP.md queue 1")
+    def init(self, params: Tree) -> CompressionState:
+        if self.kind == "none":
+            return CompressionState(error=())
+        return CompressionState(error=trees.tree_zeros_like(params, torch.float32))
 
-    def init(self, params) -> CompressionState:
-        return CompressionState(error=())
+    def compress(self, grad: Tree, state: CompressionState) -> tuple[Tree, CompressionState]:
+        """Return (decompressed lossy gradient, new residual state).
 
-    def compress(self, grad, state: CompressionState):
-        return grad, state
+        The returned tree is the value the *receiver* reconstructs; callers
+        use it in place of the exact gradient. The residual g + e - Q(g + e)
+        is carried so the quantization error is unbiased over time (error
+        feedback)."""
+        if self.kind == "none":
+            return grad, state
+        corrected = trees.tree_map(lambda g, e: g.float() + e, grad, state.error)
+        if self.kind == "int8":
+            quant = trees.tree_map(_int8_roundtrip, corrected)
+        elif self.kind == "topk":
+            quant = trees.tree_map(lambda x: _topk_roundtrip(x, self.topk_fraction), corrected)
+        else:
+            raise ValueError(f"unknown compressor kind {self.kind!r}")
+        new_err = trees.tree_map(torch.subtract, corrected, quant)
+        quant = trees.tree_map(lambda q, g: q.to(g.dtype), quant, grad)
+        return quant, CompressionState(error=new_err)
+
+    def wire_bytes(self, grad: Tree) -> int:
+        """Exact *payload* bytes for one exchange: per leaf, what
+        `service.protocol.encode_grad` serializes (frame overhead is
+        `service.protocol.grad_frame_bytes`'s)."""
+        leaves, _ = buckets.host_flatten(grad)
+        n = sum(math.prod(x.shape) for x in leaves)
+        if self.kind == "none":
+            return 4 * n
+        if self.kind == "int8":
+            return n + 8 * len(leaves)             # payload + per-leaf scale
+        if self.kind == "topk":
+            # per-leaf k; 8 bytes per kept entry: (u32 index, fp32 value)
+            return sum(8 * max(1, int(math.prod(x.shape) * self.topk_fraction))
+                       for x in leaves)
+        raise ValueError(self.kind)
+
+
+def _int8_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """Symmetric per-leaf int8 quantize -> dequantize."""
+    amax = torch.amax(torch.abs(x)) + 1e-12
+    scale = amax / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q.float() * scale
+
+
+def _topk_roundtrip(x: torch.Tensor, fraction: float) -> torch.Tensor:
+    """Keep the top-|fraction| magnitude entries, zero the rest."""
+    flat = x.reshape(-1)
+    k = max(1, int(flat.shape[0] * fraction))
+    _, idx = torch.topk(torch.abs(flat), k)
+    out = torch.zeros_like(flat)
+    out[idx] = flat[idx]
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Staleness ledger (host-side bookkeeping for the heterogeneous executor)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StalenessLedger:
+    """Tracks the age (tau) of the ascent gradient currently in use.
+
+    The paper fixes tau = 1; the executor lets tau grow up to
+    `max_staleness` under stragglers, after which the step degrades to SGD
+    (no perturbation)."""
+    max_staleness: int = 4
+    tau: int = 0            # age of the held ascent gradient, in steps
+    refreshes: int = 0      # how many fresh ascent grads were consumed
+    stale_reuses: int = 0   # steps that reused an old gradient (tau grew)
+    sgd_fallbacks: int = 0  # steps that ran without perturbation
+
+    def on_fresh(self) -> None:
+        self.tau = 1
+        self.refreshes += 1
+
+    def on_reuse(self) -> bool:
+        """Advance age; return True if the gradient is still usable."""
+        self.tau += 1
+        if self.tau > self.max_staleness:
+            self.sgd_fallbacks += 1
+            return False
+        self.stale_reuses += 1
+        return True
+
+    def summary(self) -> dict:
+        return dict(tau=self.tau, refreshes=self.refreshes,
+                    stale_reuses=self.stale_reuses, sgd_fallbacks=self.sgd_fallbacks)

@@ -25,9 +25,14 @@ per call, unless `fused_update` is False: then the perturbation and the
 refresh are the reference's per-leaf compositions.
 
 At t = 0 no ascent gradient exists: rho_eff = 0 degrades the step to SGD
-(Algorithm 1, line 8) with the same kernels launched. Form B (the split
-ascent and descent functions of the heterogeneous executor) is a later slice
-(ROADMAP.md queue 1).
+(Algorithm 1, line 8) with the same kernels launched. A lossy compressor
+(`MethodConfig.compressor` "int8" / "topk") keeps the carried gradient
+compressed, with error feedback, as the reference does.
+
+Form B, the split phases of the heterogeneous executor
+(`runtime.async_executor`), is `make_ascent_fn` (the ascent gradient on
+whatever resource runs the ascent lane) and `make_descent_fn` (one update
+given the held ascent gradient).
 """
 from __future__ import annotations
 
@@ -35,12 +40,15 @@ from typing import Any, NamedTuple
 
 import torch
 
+import numpy as np
+
 from repro_torch.core.api import (LossFn, Method, MethodConfig, TrainState, Workspace,
                                   _finish, params_device, step_rng, value_and_grad_acc)
 from repro_torch.core.ascent import (CompressionState, Compressor, slice_ascent_batch,
                                      split_batch)
 from repro_torch.core.perturb import perturb
 from repro_torch.core.sam import _m
+from repro_torch.models import convert
 from repro_torch.optim import GradientTransform
 from repro_torch.utils import buckets, trees
 
@@ -116,17 +124,22 @@ def make_async_sam(cfg: MethodConfig) -> Method:
             new_state, metrics = _finish(state, optimizer, grads, None, {}, guard=cfg.guard_update)
 
             # --- 5. ascent-state refresh: on the fused path the cosine metric
-            # and the carried norm from ONE pass over (a_t, a_{t-1})
-            if buckets.is_bucketed(w) or cfg.fused_update is not False:
+            # and the carried norm from ONE pass over (a_t, a_{t-1}); lossless
+            # only, since compression changes the stored gradient
+            comp_state = ms.compression
+            if ((buckets.is_bucketed(w) or cfg.fused_update is not False)
+                    and cfg.compressor == "none"):
                 dot, sq_new, sq_old = buckets.bucketed_dot_norms(a_new, ms.ascent_grad)
                 cos = dot / (torch.sqrt(sq_new) * torch.sqrt(sq_old) + 1e-12)
                 a_norm = torch.sqrt(sq_new)
             else:
                 cos = trees.tree_cosine_similarity(a_new, ms.ascent_grad)
+                a_new, comp_state = compressor.compress(a_new, ms.compression)
+                a_new = trees.tree_cast(a_new, torch.float32)
                 a_norm = trees.global_norm(a_new)
             new_ms = AsyncSamState(ascent_grad=a_new, ascent_norm=a_norm,
                                    have_ascent=True, staleness=staleness,
-                                   compression=ms.compression)
+                                   compression=comp_state)
 
             # --- 6. swap: a_{t-1}'s buffer takes the next a_t
             if refresh:
@@ -142,3 +155,80 @@ def make_async_sam(cfg: MethodConfig) -> Method:
         return step
 
     return Method("async_sam", init, make_step)
+
+
+# ---------------------------------------------------------------------------
+# Split-phase API (Form B): used by the heterogeneous async executor
+# ---------------------------------------------------------------------------
+
+def make_ascent_fn(loss_fn: LossFn):
+    """The ascent phase: (params, batch, gen) -> (grad fp32, norm, loss).
+
+    Runs on the slow resource. `params` is the lane hand-off: the reference's
+    nested tree (per-block leaves stacked, `models.convert.to_reference`) of
+    tensors on the device the lane computes on, never the live model's. The
+    loss sees port names whose block leaves are views of the stacked
+    leaves, and backward accumulates into a gradient tree of the same shape,
+    so the gradient comes back in the hand-off's form with no stacking.
+    """
+    def ascent(params, batch, gen):
+        params = trees.tree_map(torch.Tensor.detach, params)
+        grads = trees.tree_zeros_like(params)
+        leaves, gleaves = convert.from_reference(params), convert.from_reference(grads)
+        for name, v in leaves.items():
+            v.requires_grad_(True)
+            v.grad = gleaves[name]
+        loss, _ = loss_fn(leaves, batch, gen)
+        loss.backward()
+        g = trees.tree_cast(grads, torch.float32)
+        return g, trees.global_norm(g), loss.detach()
+
+    return ascent
+
+
+def make_descent_fn(cfg: MethodConfig, loss_fn: LossFn, optimizer: GradientTransform):
+    """The descent phase: one model update given a held ascent gradient.
+
+    (state, batch, a, a_norm, have_a) -> (state, metrics). `have_a` False
+    (the straggler fallback past max staleness) degrades the step to plain
+    SGD (rho 0). `a` arrives in the hand-off's form (a host tree of fp32
+    numpy arrays) or is None (nothing held: zeros); it is gathered once
+    against the state's layout, into a buffer the next steps reuse while the
+    same `a` is held. Then `perturb` runs `fused_axpy` and `_finish` the
+    optimizer's epilogue kernel, as in Form A.
+    """
+    vg = value_and_grad_acc(loss_fn, 1)
+    ws = Workspace()
+    gathered = {"src": None}
+
+    def held(a, w):
+        if a is None:
+            return ws.get("a_zero", w, torch.float32)
+        if buckets.is_bucketed(a):
+            return a
+        dev = params_device(w)
+        named = convert.from_reference(a)
+        if not buckets.is_bucketed(w):
+            return {n: torch.from_numpy(np.array(named[n], np.float32)).to(dev) for n in w}
+        buf = ws.get("a", w, torch.float32)
+        if gathered["src"] is not a or buf is not gathered.get("buf"):
+            for dst, grp in zip(buf.buffers, w.layout.groups):
+                host = np.empty(grp.size, np.float32)
+                for n, off, size in zip(grp.names, grp.offsets, grp.sizes):
+                    host[off:off + size] = np.asarray(named[n]).reshape(-1)
+                dst.copy_(torch.from_numpy(host))
+            gathered.update(src=a, buf=buf)
+        return buf
+
+    def descent(state: TrainState, batch, a, a_norm: float, have_a: bool):
+        batch, _ = split_batch(batch)
+        w = state.params
+        rho_eff = cfg.rho if have_a else 0.0
+        norm = torch.full((), a_norm, dtype=torch.float32, device=params_device(w))
+        w_hat = perturb(w, held(a, w), rho_eff, grad_norm=norm, fused=cfg.fused_update,
+                        out=ws.get("w_hat", w))
+        (loss, aux), grads = vg(w_hat, batch, step_rng(state), out=ws.get("grads", w))
+        return _finish(state, optimizer, grads, state.method_state,
+                       {"loss": loss, **_m(aux)}, guard=cfg.guard_update)
+
+    return descent

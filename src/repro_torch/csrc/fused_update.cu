@@ -1,7 +1,7 @@
 // The fused weight-space kernels of the training step for Hopper (sm_90a),
 // CUDA C++ with plain C entries.
 //
-// Replaces four Pallas TPU kernels of src/repro/kernels/fused_update.py:
+// Replaces six Pallas TPU kernels of src/repro/kernels/fused_update.py:
 // * `_axpy_kernel` (pallas_call in `fused_axpy`): out = y + alpha x, the SAM
 //   perturbation w_hat = w + (rho / ||a||) a; fp32 math, y's dtype out,
 //   written into a buffer the caller gives;
@@ -13,13 +13,22 @@
 //   + wd w), writing w, mu and nu in place;
 // * `_sgd_kernel` / `_sgd_kernel_nomom` (`sgd_epilogue`): u = clip g (+ wd w);
 //   m' = mu m + u; d = nesterov ? mu m' + u : m'; w' = w - lr d, writing w and
-//   m in place; without momentum w' = w - lr u and no m at all.
+//   m in place; without momentum w' = w - lr u and no m at all;
+// * `_delta_amax_kernel` (`delta_amax`): max |p - s + e|, the int8 JOB-delta
+//   scale probe, as fp32 partials per chunk, maxed outside the kernel; a NaN
+//   anywhere reaches the result, as jnp.max's does;
+// * `_delta_i8_kernel` (`delta_encode_i8`): d = (p - s) + e;
+//   q = clip(rint(d / scale), -127, 127) as int8 (a NaN d gives q = 0, as
+//   the jnp oracle's cast does); s' = s + f32(q) scale; e' = d - f32(q) scale,
+//   q written to a fresh buffer and s', e' in place. The scale is a power of
+//   two, a by-value argument, so q scale is exact and the shadow advance
+//   rounds as the server's numpy `buf += q.astype(f32) * scale` does.
 // alpha, (clip, lr, c1, c2) and (clip, lr) are device scalars the kernels
 // read themselves, so the host never waits for the device; b1, b2, eps, wd,
 // the momentum and nesterov are arguments, as the TPU kernels bake them in.
 //
 // What bounds them on the H100: each moves its operands once and does a few
-// operations per element, so the bytes bound all three. At olmo-1b's fp32
+// operations per element, so the bytes bound every one of them. At olmo-1b's fp32
 // bucket (N = 1,176,764,416) and 3.35 TB/s:
 //   fused_axpy       12 N bytes (read x, y; write out)        4.215 ms
 //   fused_dot_norms   8 N bytes (read a, b)                   2.810 ms
@@ -28,6 +37,8 @@
 //   sgd_epilogue     20 N bytes with momentum (read w, g, m;
 //                    write w, m)                              7.026 ms
 //                    12 N bytes without (read w, g; write w)  4.215 ms
+//   delta_amax       12 N bytes (read p, s, e)                4.215 ms
+//   delta_encode_i8  21 N bytes (read p, s, e; write q, s, e) 7.377 ms
 //
 // Design: one CTA per chunk with 16-byte vector loads and stores where every
 // operand is aligned (flat_buffer.cuh), any ragged tail element by element.
@@ -278,6 +289,135 @@ cudaError_t run_sgd(void* w, const void* g, void* m, int64_t n, const void* scal
   return cudaGetLastError();
 }
 
+// --- delta_amax ---------------------------------------------------------------
+
+// max that keeps a NaN from either side (fmaxf would drop it)
+__device__ __forceinline__ float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
+
+// d = (p - s) + e, in that order, no contraction
+__device__ __forceinline__ float delta_of(float p, float s, float e) {
+  return __fadd_rn(__fsub_rn(p, s), e);
+}
+
+// The CTA's max of one value per thread, in a fixed order, NaN kept; valid in
+// thread 0.
+__device__ __forceinline__ float block_max(float v) {
+  __shared__ float warp_max[THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+  if (lane == 0) warp_max[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < THREADS / 32 ? warp_max[lane] : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+template <typename TP>
+__global__ void __launch_bounds__(THREADS)
+delta_amax_kernel(const TP* __restrict__ p, const float* __restrict__ s,
+                  const float* __restrict__ e, int64_t n, int vec, float* __restrict__ partials) {
+  const Chunk c = this_chunk(n);
+  const TP* pp = p + c.base;
+  const float* sp = s + c.base;
+  const float* ep = e + c.base;
+  float m = 0.0f;  // |d| >= 0, or NaN, which then sticks
+  int done = 0;
+  if (vec) {
+    const int nv = c.len / VEC;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nv; i += THREADS) {
+      const int64_t o = static_cast<int64_t>(i) * VEC;
+      float pv[VEC], sv[VEC], ev[VEC];
+      load8(pp + o, pv);
+      load8(sp + o, sv);
+      load8(ep + o, ev);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) m = nan_max(m, fabsf(delta_of(pv[j], sv[j], ev[j])));
+    }
+    done = nv * VEC;
+  }
+  for (int i = done + threadIdx.x; i < c.len; i += THREADS)
+    m = nan_max(m, fabsf(delta_of(to_f32(pp[i]), sp[i], ep[i])));
+  m = block_max(m);
+  if (threadIdx.x == 0) partials[blockIdx.x] = m;
+}
+
+template <typename TP>
+cudaError_t run_delta_amax(const void* p, const void* s, const void* e, int64_t n,
+                           void* partials, cudaStream_t st) {
+  const int vec = aligned16(p) && aligned16(s) && aligned16(e);
+  delta_amax_kernel<TP><<<n_chunks(n), THREADS, 0, st>>>(
+      static_cast<const TP*>(p), static_cast<const float*>(s), static_cast<const float*>(e),
+      n, vec, static_cast<float*>(partials));
+  return cudaGetLastError();
+}
+
+// --- delta_encode_i8 ----------------------------------------------------------
+
+// One element: quantize d at `scale`, advance the shadow by the quantized
+// value and keep the rest as the residual. The clamp compares, so a NaN
+// passes it and then becomes q = 0.
+__device__ __forceinline__ int8_t encode_one(float p, float& s, float& e, float scale) {
+  const float d = delta_of(p, s, e);
+  float r = rintf(__fdiv_rn(d, scale));
+  r = r < -127.0f ? -127.0f : (r > 127.0f ? 127.0f : r);
+  const int q = (r != r) ? 0 : static_cast<int>(r);
+  const float recon = __fmul_rn(static_cast<float>(q), scale);
+  s = __fadd_rn(s, recon);
+  e = __fsub_rn(d, recon);
+  return static_cast<int8_t>(q);
+}
+
+template <typename TP>
+__global__ void __launch_bounds__(THREADS)
+delta_encode_i8_kernel(const TP* __restrict__ p, float* s, float* e, int8_t* __restrict__ q,
+                       int64_t n, int vec, float scale) {
+  const Chunk c = this_chunk(n);
+  const TP* pp = p + c.base;
+  float* sp = s + c.base;
+  float* ep = e + c.base;
+  int8_t* qp = q + c.base;
+  int done = 0;
+  if (vec) {
+    const int nv = c.len / VEC;
+#pragma unroll 2
+    for (int i = threadIdx.x; i < nv; i += THREADS) {
+      const int64_t o = static_cast<int64_t>(i) * VEC;
+      float pv[VEC], sv[VEC], ev[VEC];
+      load8(pp + o, pv);
+      load8(sp + o, sv);
+      load8(ep + o, ev);
+      union { int8_t b[VEC]; uint2 u; } qv;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) qv.b[j] = encode_one(pv[j], sv[j], ev[j], scale);
+      store8(sp + o, sv);
+      store8(ep + o, ev);
+      *reinterpret_cast<uint2*>(qp + o) = qv.u;
+    }
+    done = nv * VEC;
+  }
+  for (int i = done + threadIdx.x; i < c.len; i += THREADS) {
+    float si = sp[i], ei = ep[i];
+    qp[i] = encode_one(to_f32(pp[i]), si, ei, scale);
+    sp[i] = si;
+    ep[i] = ei;
+  }
+}
+
+template <typename TP>
+cudaError_t run_delta_encode_i8(const void* p, void* s, void* e, void* q, int64_t n, float scale,
+                                cudaStream_t st) {
+  const int vec = aligned16(p) && aligned16(s) && aligned16(e) && aligned16(q);
+  delta_encode_i8_kernel<TP><<<n_chunks(n), THREADS, 0, st>>>(
+      static_cast<const TP*>(p), static_cast<float*>(s), static_cast<float*>(e),
+      static_cast<int8_t*>(q), n, vec, scale);
+  return cudaGetLastError();
+}
+
 // Calls f.template operator()<T>() with T the C++ type of dtype code d.
 template <typename F>
 cudaError_t by_dtype(int d, F&& f) {
@@ -344,5 +484,27 @@ extern "C" int sgd_epilogue(void* w, int w_dtype, const void* g, int g_dtype, vo
     return by_dtype(g_dtype, [&](auto gt) {
       return run_sgd<decltype(wt), decltype(gt)>(w, g, m, n, scal, h, s);
     });
+  }));
+}
+
+// partials: n_chunks floats, max |(p - s) + e| per chunk; p has p_dtype, s and
+// e are float32.
+extern "C" int delta_amax(const void* p, int p_dtype, const void* s, const void* e, int64_t n,
+                          void* partials, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_dtype(p_dtype, [&](auto pt) {
+    return run_delta_amax<decltype(pt)>(p, s, e, n, partials, st);
+  }));
+}
+
+// q (int8) is written; s and e (float32) are updated in place; p has
+// p_dtype; scale is a power of two.
+extern "C" int delta_encode_i8(const void* p, int p_dtype, void* s, void* e, void* q, int64_t n,
+                               float scale, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_dtype(p_dtype, [&](auto pt) {
+    return run_delta_encode_i8<decltype(pt)>(p, s, e, q, n, scale, st);
   }));
 }

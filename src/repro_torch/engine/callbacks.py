@@ -8,9 +8,10 @@ A callback observes the fit loop; it never owns it. The hooks are
     on_fit_end(engine, report)
 
 all no-ops by default. `CheckpointCallback` is the one callback the Engine
-inspects: its presence routes the loop through `runtime.run_resilient`. The
-reference's eval and staleness callbacks come with later slices (ROADMAP.md
-queue 1).
+inspects: its presence routes the loop through `runtime.run_resilient`.
+`StalenessTelemetry` aggregates the lane executors' tau ledger. The
+reference's eval callback and the staleness callback's jsonl stream (its
+sink is the tracker's) come with later slices (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -88,3 +89,37 @@ class CheckpointCallback(Callback):
     """
     manager: CheckpointManager
     resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
+
+
+class StalenessTelemetry(Callback):
+    """Aggregate the lane executors' tau ledger: a histogram and the count of
+    steps that ran unperturbed (SGD fallbacks).
+
+    Works against the metric contract (tau, perturbed), so it attaches to the
+    fused executor too, where it records the constant tau = 1 regime. The
+    reference's `jsonl_path` stream is the tracker slice's (ROADMAP.md
+    queue 1).
+    """
+
+    def __init__(self, print_summary: bool = True):
+        self.print_summary = print_summary
+        self.tau_hist: dict[int, int] = {}
+        self.sgd_fallbacks = 0
+        self.perturbed_steps = 0
+
+    def on_step(self, engine, state, metrics, step_time_s):
+        tau = int(metrics.get("tau", 0))
+        self.tau_hist[tau] = self.tau_hist.get(tau, 0) + 1
+        if float(metrics.get("perturbed", 0.0)):
+            self.perturbed_steps += 1
+        else:
+            self.sgd_fallbacks += 1
+
+    def summary(self) -> dict:
+        return {"tau_hist": dict(sorted(self.tau_hist.items())),
+                "perturbed_steps": self.perturbed_steps,
+                "sgd_fallbacks": self.sgd_fallbacks}
+
+    def on_fit_end(self, engine, report):
+        if self.print_summary:
+            print(f"staleness: {self.summary()}")

@@ -6,10 +6,13 @@
     with Engine(executor, pipeline, callbacks=[LoggingCallback()]) as eng:
         report = eng.fit(state, steps=1000)
 
-The Engine owns iteration, timing and callback dispatch. With a
-`CheckpointCallback` the loop runs under `runtime.run_resilient`
-(checkpoints, restore-and-continue on a failed step). The reference's mesh
-events and tracker are later slices (ROADMAP.md queue 1).
+The Engine owns iteration, timing and callback dispatch. An executor with a
+`pre_fit(state, batch)` hook (the lane executors' system-aware calibration)
+gets it called once before the loop, on a probe batch, and its report lands
+in `FitReport.pre_fit`. With a `CheckpointCallback` the loop runs under
+`runtime.run_resilient` (checkpoints, restore-and-continue on a failed step).
+The reference's mesh events and tracker are later slices (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -27,6 +30,20 @@ class Engine:
         self.executor = executor
         self.data = data
         self.callbacks = list(callbacks)
+        self.pre_fit_report: Optional[dict] = None
+
+    def _probe_batch(self) -> dict:
+        """A batch for calibration probes, without advancing the cursor when
+        the pipeline supports peek()."""
+        peek = getattr(self.data, "peek", None)
+        if peek is not None:
+            return peek()
+        it = iter(self.data)
+        try:
+            return next(it)
+        finally:
+            if hasattr(it, "close"):
+                it.close()
 
     def _step(self, state: TrainState, batch: dict):
         t0 = time.perf_counter()
@@ -45,6 +62,9 @@ class Engine:
         lost node; it is the resilient loop's, so it acts with a
         CheckpointCallback only (as in the reference).
         """
+        hook = getattr(self.executor, "pre_fit", None)
+        if hook is not None and getattr(self.executor, "wants_pre_fit", True):
+            self.pre_fit_report = hook(state, self._probe_batch())
         ckpt: Optional[CheckpointCallback] = next(
             (c for c in self.callbacks if isinstance(c, CheckpointCallback)), None)
         if warmup and ckpt is not None:
@@ -80,6 +100,7 @@ class Engine:
         finally:
             if it is not None and hasattr(it, "close"):
                 it.close()   # stop a prefetching pipeline's worker now
+        report.pre_fit = self.pre_fit_report
         for cb in self.callbacks:
             cb.on_fit_end(self, report)
         return report

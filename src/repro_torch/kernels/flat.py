@@ -87,3 +87,11 @@ def adamw_epilogue_plain_(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     for buf, val in zip((w, mu, nu), new):
         buf.copy_(val)
     return w, mu, nu
+
+
+def delta_encode_i8_plain_(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor, scale
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of `delta_encode_i8`: q in a new buffer, s' and e'
+    written into s and e."""
+    q, s_new, e_new = ref.delta_encode_i8_flat_plain(p, s, e, scale)
+    return q, s.copy_(s_new), e.copy_(e_new)

@@ -1,7 +1,7 @@
 """The fused weight-space kernels of the training step and their wrappers
 (counterpart of `repro.kernels.fused_update`).
 
-The kernels (`csrc/fused_update.cu`, CUDA C++ for sm_90a) replace four
+The kernels (`csrc/fused_update.cu`, CUDA C++ for sm_90a) replace six
 Pallas TPU kernels, each one pass over flat dtype buckets:
 
   fused_axpy       out = y + alpha * x          (the AsyncSAM perturbation)
@@ -10,14 +10,19 @@ Pallas TPU kernels, each one pass over flat dtype buckets:
   sgd_epilogue     u = clip*g (+ wd*w); m' = mu*m + u;
                    w' = w - lr * (nesterov ? mu*m' + u : m')   (no momentum:
                    w' = w - lr * u, and no m)
+  delta_amax       max |p - s + e|              (int8 JOB-delta scale probe)
+  delta_encode_i8  d = p - s + e; q = clip(rint(d/scale), +-127) int8;
+                   s' = s + q*scale; e' = d - q*scale   (the JOB-delta encode)
 
 Scalars that change per step (alpha; clip scale, lr, c1, c2) stay on the
 device and the kernels read them there, so no call waits for the device.
 Where the port departs from the reference's functional form, for memory:
 `fused_axpy` writes into `out` when given, `adamw_epilogue` updates w, mu
 and nu in place, and `sgd_epilogue` w and m (the reference's jit donation
-aliases them the same way). The reference's delta_amax and delta_encode_i8
-kernels are not ported yet (ROADMAP queue 2).
+aliases them the same way). `delta_encode_i8` writes the advanced shadow and
+residual into s and e (the reference returns new buffers; a new pair would
+cost 8 bytes per parameter at every exchange), and takes the scale by value:
+the encoder holds it on the host already, for the wire.
 
 A CPU tensor goes to the plain version (`kernels.ref`); a CUDA tensor
 launches the kernel or raises. Each kernel counts its launches in
@@ -36,7 +41,8 @@ from repro_torch.kernels.flat import DTYPES, check_flat, check_launch, n_chunks,
 SOURCE = build.CSRC / "fused_update.cu"
 _F32 = (torch.float32,)
 
-launches = {"fused_axpy": 0, "fused_dot_norms": 0, "adamw_epilogue": 0, "sgd_epilogue": 0}
+launches = {"fused_axpy": 0, "fused_dot_norms": 0, "adamw_epilogue": 0, "sgd_epilogue": 0,
+            "delta_amax": 0, "delta_encode_i8": 0}
 _lib = None
 
 
@@ -49,8 +55,10 @@ def _library() -> ctypes.CDLL:
         lib.fused_dot_norms.argtypes = [p, i, p, i, i64, p, p]
         lib.adamw_epilogue.argtypes = [p, i, p, i, p, p, i64, p] + [f] * 6 + [p]
         lib.sgd_epilogue.argtypes = [p, i, p, i, p, i64, p, f, i, f, p]
+        lib.delta_amax.argtypes = [p, i, p, p, i64, p, p]
+        lib.delta_encode_i8.argtypes = [p, i, p, p, p, i64, f, p]
         for fn in (lib.fused_axpy, lib.fused_dot_norms, lib.adamw_epilogue,
-                   lib.sgd_epilogue):
+                   lib.sgd_epilogue, lib.delta_amax, lib.delta_encode_i8):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -148,3 +156,40 @@ def sgd_epilogue(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor], cl
     check_launch("sgd_epilogue", rc)
     launches["sgd_epilogue"] += 1
     return w, m if momentum else None
+
+
+def delta_amax(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """max |p - s + e| as a 0-dim fp32 device tensor: one partial per chunk,
+    maxed here (NaN kept). p fp32 or bf16, s and e fp32."""
+    if p.device.type == "cpu":
+        return ref.delta_amax_flat_plain(p, s, e)
+    dev = check_flat("delta_amax", {"p": p, "s": s, "e": e}, {"s": _F32, "e": _F32})
+    if p.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    partials = torch.empty(n_chunks(p.numel()), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _library().delta_amax(p.data_ptr(), DTYPES[p.dtype], s.data_ptr(), e.data_ptr(),
+                                   p.numel(), partials.data_ptr(), stream(dev))
+    check_launch("delta_amax", rc)
+    launches["delta_amax"] += 1
+    return torch.amax(partials)
+
+
+def delta_encode_i8(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor, scale: float
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One int8 delta encode: returns (q, s, e) with q a new int8 buffer and
+    the advanced shadow and residual written into s and e. `scale` is a host
+    float, a power of two (`service.delta._pow2_scale`)."""
+    if p.device.type == "cpu":
+        return flat.delta_encode_i8_plain_(p, s, e, scale)
+    dev = check_flat("delta_encode_i8", {"p": p, "s": s, "e": e}, {"s": _F32, "e": _F32})
+    q = torch.empty(p.shape, dtype=torch.int8, device=dev)
+    if p.numel() == 0:
+        return q, s, e
+    with torch.cuda.device(dev):
+        rc = _library().delta_encode_i8(p.data_ptr(), DTYPES[p.dtype], s.data_ptr(),
+                                        e.data_ptr(), q.data_ptr(), p.numel(), float(scale),
+                                        stream(dev))
+    check_launch("delta_encode_i8", rc)
+    launches["delta_encode_i8"] += 1
+    return q, s, e

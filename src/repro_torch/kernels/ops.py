@@ -116,3 +116,21 @@ def sgd_epilogue(w_flat: torch.Tensor, g_flat: torch.Tensor, m_flat: Optional[to
     epilogue = flat.sgd_epilogue_plain_ if plain else fu.sgd_epilogue
     return epilogue(w_flat, g_flat, m_flat, clip_scale, lr, momentum=momentum,
                     nesterov=nesterov, weight_decay=weight_decay)
+
+
+def delta_amax(p_flat: torch.Tensor, s_flat: torch.Tensor, e_flat: torch.Tensor, *,
+               impl: Optional[str] = None) -> torch.Tensor:
+    """max |p - s + e| over flat buckets (the JOB-delta int8 scale probe)."""
+    if _resolve(impl) == "plain":
+        return ref.delta_amax_flat_plain(p_flat, s_flat, e_flat)
+    return fu.delta_amax(p_flat, s_flat, e_flat)
+
+
+def delta_encode_i8(p_flat: torch.Tensor, s_flat: torch.Tensor, e_flat: torch.Tensor, scale,
+                    *, impl: Optional[str] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-pass int8 delta encode: (q int8, shadow' fp32, residual' fp32), the
+    shadow and residual written into s and e."""
+    if _resolve(impl) == "plain":
+        return flat.delta_encode_i8_plain_(p_flat, s_flat, e_flat, scale)
+    return fu.delta_encode_i8(p_flat, s_flat, e_flat, scale)

@@ -216,3 +216,29 @@ def adamw_epilogue_flat_plain(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor
         upd = upd + weight_decay * w32
     w_new = (w32 - _f32(lr).to(dev) * upd).to(w.dtype)
     return w_new, mu_new, nu_new
+
+
+def delta_amax_flat_plain(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """max |p - s + e| in fp32, the int8 JOB-delta scale probe (mirror of
+    `ref.delta_amax_flat_jnp`); a NaN anywhere gives NaN, as jnp.max does."""
+    d = p.float() - s.float() + e.float()
+    return torch.amax(torch.abs(d))
+
+
+def delta_encode_i8_flat_plain(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor, scale
+                               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(q int8, s' fp32, e' fp32) of one int8 delta encode (mirror of
+    `ref.delta_encode_i8_flat_jnp`):
+
+        d = (p - s) + e;  q = clip(round(d / scale), -127, 127)
+        s' = s + f32(q) * scale;  e' = d - f32(q) * scale
+
+    torch.round rounds half to even, as jnp.round does. A NaN d gives q = 0,
+    as the oracle's cast to int8 gives (so s' = s there, the server's numpy
+    apply of that q); torch's own cast of NaN to int8 is undefined."""
+    scale = _f32(scale).to(p.device)
+    d = p.float() - s.float() + e.float()
+    r = torch.clamp(torch.round(d / scale), -127, 127)
+    q = torch.where(torch.isnan(r), torch.zeros_like(r), r).to(torch.int8)
+    recon = q.float() * scale
+    return q, s.float() + recon, d - recon

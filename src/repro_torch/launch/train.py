@@ -1,10 +1,21 @@
-"""Training launcher (counterpart of `repro.launch.train --executor fused`).
+"""Training launcher (counterpart of `repro.launch.train`).
 
 Builds the model, the method and the optimizer as the reference does, and
-runs `FusedExecutor` under `Engine.fit`: on the card by default, where the
-perturbation, the optimizer epilogue, the ascent refresh and attention go
-through the Hopper kernels; on the CPU with `--device cpu`, through their
-plain versions. With `--ckpt-dir` the loop checkpoints every `--save-every`
+runs one of three executors under `Engine.fit`:
+  --executor fused   one step function per iteration (Form A)
+  --executor hetero  the two-lane heterogeneous executor (Form B, paper
+                     §3.3/§3.4): the ascent lane a thread, on
+                     --ascent-device (e.g. cpu: the paper's CPU helper);
+                     --calibrate adds the system-aware b' pre-fit probe
+  --executor remote  the lanes across processes: the ascent runs in a
+                     `repro_torch.service.ascent_server` (of either package);
+                     --ascent-addr names a running one, --serve-ascent spawns
+                     one on this machine; --job-compress int8 ships the
+                     params as int8 deltas against the server's shadow
+                     (the delta_amax and delta_encode_i8 kernels)
+On the card by default, where the perturbation, the optimizer epilogue, the
+ascent refresh, the delta encode and attention go through the Hopper
+kernels; on the CPU with `--device cpu`, through their plain versions. With `--ckpt-dir` the loop checkpoints every `--save-every`
 steps and restarts from the newest checkpoint after a failed step
 (`runtime.run_resilient`). Prints the reference's `step N {...}` lines, each
 kernel's launch count, `done: N steps, R restarts, Xs` with `--ckpt-dir`, and
@@ -15,12 +26,15 @@ the reference's final JSON summary.
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
       --device cpu --method async_sam --steps 12 --batch 4 --seq 32 \\
       --save-every 6 --ckpt-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
+      --device cpu --method async_sam --steps 12 --batch 4 --seq 32 \\
+      --executor remote --serve-ascent --job-compress int8
 
 `--optimizer sgd` takes the reference launcher's sgd: momentum 0 (the
 paper's momentum 0.9 is `optim.sgd(..., momentum=0.9)` through the API).
-The reference's other executors (hetero, remote), elastic meshes, the guard
-and the tracker are later slices (ROADMAP.md queue 1); their flags are not
-defined here.
+The reference's lane ladder, watchdog, netchaos proxy, guard, numerics
+chaos, elastic meshes and tracker are later slices (ROADMAP.md queue 1):
+their flags are refused by name.
 """
 from __future__ import annotations
 
@@ -31,7 +45,8 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import MethodConfig
 from repro_torch.data import PipelineConfig, TokenPipeline
-from repro_torch.engine import (CheckpointCallback, Engine, FusedExecutor, LoggingCallback,
+from repro_torch.engine import (CheckpointCallback, Engine, FusedExecutor, HeteroExecutor,
+                                LoggingCallback, RemoteExecutor, StalenessTelemetry,
                                 ThroughputMeter)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_update as fu
@@ -39,12 +54,25 @@ from repro_torch.kernels import sam_perturb as sp
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import cosine_schedule, make_optimizer
-from repro_torch.runtime import ResilienceConfig
+from repro_torch.runtime import ExecutorConfig, ResilienceConfig
+
+DELTA_KERNELS = ("delta_amax", "delta_encode_i8")
+# the reference's flags of later slices (ROADMAP.md queue 1), refused by name
+NOT_PORTED_FLAGS = {
+    "lane-ladder": "runtime/health.py", "watchdog": "runtime/health.py",
+    "netchaos": "service/netchaos.py", "guard": "runtime/guard.py",
+    "numchaos": "runtime/chaos.py", "elastic": "the distributed slice",
+    "chaos": "the distributed slice",
+}
 
 
-def kernel_launches() -> dict[str, int]:
-    """Launches of every kernel of the training path since the last reset."""
-    return {"flash_attention": fa.launches, **sp.launches, **fu.launches}
+def kernel_launches(executor: str = "fused") -> dict[str, int]:
+    """Launches of every kernel of the executor's training path since the
+    last reset (the JOB-delta kernels run on the remote lane only)."""
+    counts = {"flash_attention": fa.launches, **sp.launches, **fu.launches}
+    if executor != "remote":
+        counts = {k: v for k, v in counts.items() if k not in DELTA_KERNELS}
+    return counts
 
 
 def main() -> None:
@@ -53,8 +81,42 @@ def main() -> None:
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-scale config (CPU-trainable)")
     ap.add_argument("--method", default="async_sam")
-    ap.add_argument("--executor", choices=("fused",), default="fused",
-                    help="fused: one step function per iteration (Form A)")
+    ap.add_argument("--executor", choices=("fused", "hetero", "remote"), default="fused",
+                    help="fused: one step function per iteration (Form A); hetero: the "
+                         "two-lane async_sam; remote: the ascent lane behind "
+                         "repro_torch.service")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="hetero/remote: measure the system-aware b'/b pre-fit")
+    ap.add_argument("--ascent-addr", default="",
+                    help="remote only: address of a running ascent server "
+                         "('host:port' or 'unix:/path')")
+    ap.add_argument("--serve-ascent", action="store_true",
+                    help="remote only: spawn the ascent server as a localhost subprocess "
+                         "(loopback mode; --ascent-addr optional); it computes on the "
+                         "descent's device")
+    ap.add_argument("--job-compress", choices=("none", "int8", "topk"), default="none",
+                    help="remote only: JOB-direction (params out) encoding. 'none' ships "
+                         "full fp32 snapshots; int8/topk quantize the delta against the "
+                         "server's shadow of the last-synced params")
+    ap.add_argument("--job-delta", choices=("on", "off"), default="on",
+                    help="remote only: delta-encode JOB payloads against the server's "
+                         "shadow (off: every exchange ships a full snapshot)")
+    ap.add_argument("--pool-workers", type=int, default=0,
+                    help="remote + --serve-ascent only: ascent workers in the spawned "
+                         "pool server (0 = server default)")
+    ap.add_argument("--sync-group", default="",
+                    help="remote only: `global` ascent-sync group name (same-group "
+                         "clients get the pool's shared smoothed ascent gradient)")
+    ap.add_argument("--auth-token", default="",
+                    help="remote only: shared secret presented in HELLO")
+    ap.add_argument("--ascent-device", default="",
+                    help="hetero only: device of the slow ascent lane, e.g. 'cpu' (the "
+                         "paper's CPU helper); default the descent's")
+    ap.add_argument("--descent-device", default="",
+                    help="hetero only: device of the fast descent lane (default --device)")
+    for flag in NOT_PORTED_FLAGS:
+        ap.add_argument(f"--{flag}", nargs="?", const=True, default=None,
+                        help=argparse.SUPPRESS)
     ap.add_argument("--fused-update", choices=("auto", "on", "off"), default="auto",
                     help="flat-buffer fused perturb + optimizer epilogue (auto: on, the "
                          "kernels on the card and their plain versions on the CPU)")
@@ -83,8 +145,36 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args()
+    for flag, module in NOT_PORTED_FLAGS.items():
+        if getattr(args, flag.replace("-", "_")) is not None:
+            ap.error(f"--{flag} is not ported yet ({module}, ROADMAP.md queue 1)")
+    lanes = args.executor in ("hetero", "remote")
+    if args.calibrate and not lanes:
+        ap.error("--calibrate requires --executor hetero or remote")
+    if lanes and args.method != "async_sam":
+        ap.error(f"--executor {args.executor} realizes async_sam only "
+                 f"(got --method {args.method})")
+    if (args.ascent_device or args.descent_device) and args.executor != "hetero":
+        ap.error("--ascent-device/--descent-device apply to --executor hetero "
+                 "only (the remote ascent device is the server's --device)")
+    if (args.ascent_addr or args.serve_ascent) and args.executor != "remote":
+        ap.error("--ascent-addr/--serve-ascent apply to --executor remote only")
+    if ((args.job_compress != "none" or args.job_delta != "on")
+            and args.executor != "remote"):
+        ap.error("--job-compress/--job-delta apply to --executor remote only "
+                 "(the JOB direction exists only on the wire)")
+    if ((args.sync_group or args.auth_token or args.pool_workers)
+            and args.executor != "remote"):
+        ap.error("--pool-workers/--sync-group/--auth-token apply to "
+                 "--executor remote only (they configure the ascent pool)")
+    if args.pool_workers and not args.serve_ascent:
+        ap.error("--pool-workers configures the spawned loopback server; "
+                 "with --ascent-addr the pool size is the server's --pool-workers")
+    if args.executor == "remote" and not (args.ascent_addr or args.serve_ascent):
+        ap.error("--executor remote needs --ascent-addr (a running "
+                 "ascent server) or --serve-ascent (loopback subprocess)")
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.descent_device or args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     bundle = build_model(cfg)
     mcfg = MethodConfig(name=args.method, rho=args.rho,
@@ -98,15 +188,34 @@ def main() -> None:
         ascent_fraction=(args.ascent_fraction
                          if args.method in ("async_sam",) else 0.0)), device=device)
     switch = {"auto": None, "on": True, "off": False}
-    executor = FusedExecutor(bundle.loss_fn, mcfg, optimizer,
-                             fused_update=switch[args.fused_update],
-                             resident=switch[args.resident])
+    fused_update, resident = switch[args.fused_update], switch[args.resident]
+    if args.executor == "hetero":
+        exec_cfg = ExecutorConfig(
+            ascent_device=resolve_device(args.ascent_device) if args.ascent_device else None,
+            descent_device=device, fused_update=fused_update, resident=resident)
+        executor = HeteroExecutor(bundle.loss_fn, mcfg, optimizer, exec_cfg=exec_cfg,
+                                  calibrate=args.calibrate)
+    elif args.executor == "remote":
+        exec_cfg = ExecutorConfig(
+            ascent_addr=args.ascent_addr, serve_ascent=args.serve_ascent,
+            loss_spec=f"arch:{args.arch}" + (":reduced" if args.reduced else ""),
+            descent_device=device, fused_update=fused_update, resident=resident,
+            job_compress=args.job_compress, job_delta=(args.job_delta == "on"),
+            pool_workers=args.pool_workers, sync_group=args.sync_group,
+            auth_token=args.auth_token)
+        executor = RemoteExecutor(bundle.loss_fn, mcfg, optimizer, exec_cfg=exec_cfg,
+                                  calibrate=args.calibrate)
+    else:
+        executor = FusedExecutor(bundle.loss_fn, mcfg, optimizer,
+                                 fused_update=fused_update, resident=resident)
 
     model = bundle.init(args.seed, device)
     state = executor.init_state(model, args.seed + 1)
 
     meter = ThroughputMeter(tokens_per_batch=args.batch * args.seq)
     callbacks = [LoggingCallback(every=args.log_every, total_steps=args.steps), meter]
+    if lanes:
+        callbacks.append(StalenessTelemetry())
     if args.ckpt_dir:
         callbacks.append(CheckpointCallback(
             CheckpointManager(args.ckpt_dir, keep=3),
@@ -115,10 +224,14 @@ def main() -> None:
     with Engine(executor, pipe, callbacks) as eng:
         report = eng.fit(state, args.steps)
 
+    if report.pre_fit:
+        pf = report.pre_fit
+        print(f"calibration: configured b'/b={pf['configured_ascent_fraction']:.3f}  "
+              f"system-aware b'/b={pf['calibrated_ascent_fraction']:.3f}")
     if args.ckpt_dir:
         print(f"done: {report.steps_done} steps, {report.restarts} restarts, "
               f"{report.wall_time_s:.1f}s")
-    print(f"kernel launches: {json.dumps(kernel_launches())}")
+    print(f"kernel launches: {json.dumps(kernel_launches(args.executor))}")
     summary = meter.summary()
     if summary:
         print(json.dumps({"arch": cfg.name, "method": args.method,

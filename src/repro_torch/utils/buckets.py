@@ -18,13 +18,22 @@ module per block (`blocks.<i>.attn.wq`), so the flatten key of a port name
 drops the block index and then orders the layers. The port's buffer for a
 model therefore equals the reference's `BucketedState.from_tree(params)`
 buffer element for element.
+
+The host edge (`host_portable`, `host_layout`, `host_tree_to_buckets`,
+`host_buckets_to_tree`) is where the bucket-resident state meets the
+reference's nested tree of numpy arrays, the form the ascent lanes and the
+wire carry: the reference's tree flattens into its buckets in the same order,
+so a stacked block leaf is a view of the host copy of a bucket, and the
+buckets the ascent server derives from a snapshot's tree are the client's
+device buckets byte for byte.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -71,6 +80,9 @@ class BucketLayout:
     shapes: tuple[tuple[int, ...], ...]    # per-leaf shapes (flatten order)
     groups: tuple[BucketGroup, ...]        # sorted by dtype name
     n_leaves: int
+    # names of the model's parameterless modules (a non-parametric norm):
+    # the reference's tree holds an empty dict there, which the wire carries
+    empty: tuple[str, ...] = ()
 
 
 _LAYOUT_CACHE: dict = {}
@@ -140,6 +152,9 @@ class BucketedState:
         the parameters' own storage is freed."""
         params = dict(module.named_parameters())
         state = cls.from_tree(params)
+        empty = empty_modules(module)
+        if empty:
+            state = cls(state.buffers, dataclasses.replace(state.layout, empty=empty))
         views = state.to_tree()
         with torch.no_grad():
             for name, p in params.items():
@@ -162,6 +177,12 @@ class BucketedState:
     def zeros_like(self, dtype: Optional[torch.dtype] = None) -> "BucketedState":
         return BucketedState(tuple(torch.zeros_like(b, dtype=dtype) for b in self.buffers),
                              self.layout)
+
+
+def empty_modules(module: nn.Module) -> tuple[str, ...]:
+    """Names of a model's parameterless submodules (a non-parametric norm):
+    the reference's tree holds an empty dict at each."""
+    return tuple(n for n, m in module.named_modules() if n and next(m.parameters(), None) is None)
 
 
 def is_bucketed(x) -> bool:
@@ -313,3 +334,163 @@ def bucketed_dot_norms(a, b, *, layout: Optional[BucketLayout] = None,
     bb, _ = group_buffers(b, layout)
     parts = [ops.fused_dot_norms(ai, bi, impl=impl) for ai, bi in zip(ab, bb)]
     return tuple(torch.sum(torch.stack([p[k] for p in parts])) for k in range(3))
+
+
+# ---------------------------------------------------------------------------
+# The host edge: the lane hand-off and the wire carry the reference's nested
+# tree of numpy arrays (per-block leaves stacked), flattened as jax flattens
+# it (dict keys sorted, lists and tuples in order, None holding no leaf)
+# ---------------------------------------------------------------------------
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array the caller owns (copied off the device, or
+    off a CPU tensor the step may overwrite); bf16 as ml_dtypes' bfloat16,
+    which the wire's dtype names need."""
+    return _numpy_view(t.detach().to("cpu", copy=True))
+
+
+def host_flatten(tree) -> tuple[list, Any]:
+    """(leaves, treedef) of a nested host tree, in jax's flatten order. The
+    treedef is a hashable skeleton: "*" for a leaf, None, ("dict", keys,
+    children), ("list" | "tuple", children)."""
+    leaves: list = []
+
+    def walk(node):
+        if node is None:
+            return None
+        if isinstance(node, Mapping):
+            keys = tuple(sorted(node))
+            return ("dict", keys, tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            return ("tuple" if isinstance(node, tuple) else "list",
+                    tuple(walk(x) for x in node))
+        leaves.append(node)
+        return "*"
+
+    return leaves, walk(tree)
+
+
+def host_unflatten(treedef, leaves: Sequence):
+    """Inverse of `host_flatten`."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if node == "*":
+            return next(it)
+        if node[0] == "dict":
+            return {k: build(c) for k, c in zip(node[1], node[2])}
+        out = [build(c) for c in node[1]]
+        return tuple(out) if node[0] == "tuple" else out
+
+    return build(treedef)
+
+
+@dataclasses.dataclass(frozen=True)
+class HostGroup:
+    """One dtype bucket of a host tree (`repro.utils.buckets.BucketGroup`)."""
+    dtype: str
+    leaf_indices: tuple[int, ...]   # indices into the flattened leaf list
+    offsets: tuple[int, ...]
+    sizes: tuple[int, ...]
+    size: int
+
+
+@dataclasses.dataclass(frozen=True)
+class HostLayout:
+    """The reference's `BucketLayout` of a host tree: the same grouping (by
+    dtype name, sorted) and order, so a host bucket of the reference's tree
+    equals the port's device bucket of the same parameters element for
+    element."""
+    treedef: Any
+    shapes: tuple[tuple[int, ...], ...]
+    groups: tuple[HostGroup, ...]
+    n_leaves: int
+
+
+_HOST_LAYOUT_CACHE: dict = {}
+
+
+def _dtype_str(dtype) -> str:
+    return dtype_name(dtype) if isinstance(dtype, torch.dtype) else np.dtype(dtype).name
+
+
+def host_layout(tree) -> HostLayout:
+    """Layout for a host tree (numpy arrays or tensors, anything with .shape
+    and .dtype), cached on (treedef, shapes, dtypes)."""
+    leaves, treedef = host_flatten(tree)
+    key = (treedef, tuple((tuple(x.shape), _dtype_str(x.dtype)) for x in leaves))
+    hit = _HOST_LAYOUT_CACHE.get(key)
+    if hit is not None:
+        return hit
+    by_dtype: dict[str, list[int]] = {}
+    for i, x in enumerate(leaves):
+        by_dtype.setdefault(_dtype_str(x.dtype), []).append(i)
+    groups = []
+    for dname in sorted(by_dtype):
+        idx = by_dtype[dname]
+        sizes = tuple(math.prod(leaves[i].shape) for i in idx)
+        offsets = tuple(sum(sizes[:j]) for j in range(len(sizes)))
+        groups.append(HostGroup(dtype=dname, leaf_indices=tuple(idx), offsets=offsets,
+                                sizes=sizes, size=sum(sizes)))
+    layout = HostLayout(treedef=treedef, shapes=tuple(tuple(x.shape) for x in leaves),
+                        groups=tuple(groups), n_leaves=len(leaves))
+    _HOST_LAYOUT_CACHE[key] = layout
+    return layout
+
+
+def host_portable(params) -> Any:
+    """The lane / wire form of `params`: the reference's nested tree of numpy
+    arrays the caller owns. A BucketedState's buffers cross to the host whole
+    (one copy per dtype bucket) and are cut there, stacked block leaves being
+    views of the host bucket; a mapping of name -> tensor is stacked and
+    copied leaf by leaf; a host tree (numpy leaves) passes as it is."""
+    from repro_torch.models import convert
+    if is_bucketed(params):
+        host = BucketedState(tuple(b.detach().to("cpu", copy=True) for b in params.buffers),
+                             params.layout)
+        return convert.to_reference(host.to_tree(), leaf=_numpy_view,
+                                    empty=params.layout.empty)
+    if isinstance(params, Mapping) and all(isinstance(v, torch.Tensor) for v in params.values()):
+        return convert.to_reference(params, leaf=host_array)
+    return params
+
+
+def _numpy_view(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy without a copy (bf16 as ml_dtypes' bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def host_tree_to_buckets(tree, layout: HostLayout, dtype=None) -> list[np.ndarray]:
+    """Concatenate a host tree's leaves per layout group (numpy, no device).
+    `dtype` (e.g. float32) casts every bucket; None keeps each group's
+    dtype."""
+    leaves, _ = host_flatten(tree)
+    assert len(leaves) == layout.n_leaves, (len(leaves), layout.n_leaves)
+    out = []
+    for grp in layout.groups:
+        parts = [np.asarray(leaves[i]).reshape(-1) for i in grp.leaf_indices]
+        buf = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        if dtype is not None:
+            buf = buf.astype(dtype, copy=False)
+        out.append(np.ascontiguousarray(buf))
+    return out
+
+
+def host_buckets_to_tree(bufs: Sequence, layout: HostLayout, leaf_dtypes=None):
+    """Inverse of `host_tree_to_buckets`: cut flat host buffers into the
+    layout's tree (views where the dtype already matches); `leaf_dtypes`
+    (flatten order) casts each leaf back to its own dtype."""
+    leaves: list = [None] * layout.n_leaves
+    for buf, grp in zip(bufs, layout.groups):
+        buf = np.asarray(buf)
+        for i, off, size in zip(grp.leaf_indices, grp.offsets, grp.sizes):
+            leaf = buf[off:off + size].reshape(layout.shapes[i])
+            if leaf_dtypes is not None:
+                leaf = leaf.astype(leaf_dtypes[i], copy=False)
+            leaves[i] = leaf
+    return host_unflatten(layout.treedef, leaves)

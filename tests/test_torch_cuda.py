@@ -236,6 +236,96 @@ def test_sgd_and_perturb_kernels_match_plain_bitwise(dev, n, dtype, offset):
     torch.testing.assert_close(w, out, rtol=0, atol=0)
 
 
+def _at(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of `t` `offset` elements into a fresh buffer (offset 1 breaks
+    16-byte alignment, so the kernel takes its element-by-element path)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:]
+    return buf.copy_(t)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", FLAT_SIZES)
+def test_delta_kernels_match_plain_bitwise(dev, n, dtype, offset):
+    """delta_amax and delta_encode_i8 equal their plain versions bit for bit
+    (amax, q, s', e'): the client's shadow must be the server's; s and e are
+    written in place, and a rerun gives the same bits."""
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.service.delta import _pow2_scale
+    p = _flat(dev, n, dtype, 9, 1.0, offset)
+    s = _at(p.float() + _flat(dev, n, torch.float32, 10, 1e-2), offset)
+    e = _flat(dev, n, torch.float32, 11, 1e-3, offset)
+    before = fu.launches["delta_amax"]
+    amax = fu.delta_amax(p, s, e)
+    assert fu.launches["delta_amax"] == before + 1 and amax.dtype == torch.float32
+    assert float(amax) == float(ref.delta_amax_flat_plain(p, s, e))
+    scale = float(_pow2_scale(float(amax)))
+    expect = ref.delta_encode_i8_flat_plain(p, s, e, scale)
+    for _ in range(2):
+        sk, ek = _at(s, offset), _at(e, offset)
+        before = fu.launches["delta_encode_i8"]
+        q, s2, e2 = fu.delta_encode_i8(p, sk, ek, scale)
+        assert fu.launches["delta_encode_i8"] == before + 1
+        assert s2 is sk and e2 is ek and q.dtype == torch.int8
+        for got, want in zip((q, sk, ek), expect):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_delta_kernels_carry_nonfinite_params_as_plain(dev, bad):
+    """A NaN in p reaches the amax (the per-chunk partials and the final max
+    keep it); q, s' and e' equal the plain version's, NaN for NaN."""
+    from repro_torch.kernels import fused_update as fu
+    p = _flat(dev, 3 * 65536 + 17, torch.float32, 12)
+    p[[5, 70000, 3 * 65536 + 3]] = bad
+    s = p.nan_to_num(0.0, 0.0, 0.0) + _flat(dev, p.numel(), torch.float32, 13, 1e-2)
+    e = torch.zeros_like(s)
+    amax, want = fu.delta_amax(p, s, e), ref.delta_amax_flat_plain(p, s, e)
+    assert torch.equal(amax, want) or (bool(amax.isnan()) and bool(want.isnan()))
+    q, sk, ek = fu.delta_encode_i8(p, s.clone(), e.clone(), 1.0)
+    for got, exp in zip((q, sk, ek), ref.delta_encode_i8_flat_plain(p, s, e, 1.0)):
+        assert torch.equal(got.nan_to_num(0.5), exp.nan_to_num(0.5))
+        assert torch.equal(got.isnan(), exp.isnan())
+
+
+def test_remote_loopback_runs_the_delta_kernels(dev):
+    """A short loopback remote run on the card (the MLP of service.testing,
+    its server spawned on the card): int8 deltas through both kernels, each
+    launched once per delta job, and no encode failure."""
+    import numpy as np
+
+    from repro_torch.core import MethodConfig
+    from repro_torch.engine import Engine, RemoteExecutor
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.optim import sgd
+    from repro_torch.runtime import ExecutorConfig
+    from repro_torch.service.testing import MLP_LOSS_SPEC, mlp_init, mlp_loss
+
+    rng = np.random.default_rng(0)
+
+    def batch():
+        x, ax = (torch.from_numpy(rng.standard_normal((b, 8)).astype(np.float32)).to(dev)
+                 for b in (32, 16))
+        y, ay = (torch.from_numpy(rng.integers(0, 4, b).astype(np.int32)).to(dev)
+                 for b in (32, 16))
+        return {"x": x, "y": y, "ascent": {"x": ax, "y": ay}}
+
+    ex = RemoteExecutor(mlp_loss, MethodConfig(name="async_sam", rho=0.05, ascent_fraction=0.5),
+                        sgd(0.1, momentum=0.9),
+                        exec_cfg=ExecutorConfig(lockstep=True, serve_ascent=True,
+                                                loss_spec=MLP_LOSS_SPEC, descent_device=dev,
+                                                job_compress="int8"))
+    with ex:
+        state = ex.init_state(mlp_init(0, device=dev), seed=1)
+        before = dict(fu.launches)
+        report = Engine(ex, [batch() for _ in range(5)]).fit(state, 5)
+        enc = ex.client.job_encoder
+    assert [m["tau"] for m in report.metrics_history] == [0.0] + [1.0] * 4
+    assert (enc.snapshot_jobs, enc.delta_jobs, enc.encode_failures) == (1, 4, 0)
+    for k in ("delta_amax", "delta_encode_i8"):
+        assert fu.launches[k] - before[k] == enc.delta_jobs
+
+
 def test_flat_kernels_reject_what_they_do_not_take(dev):
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import sam_perturb as sp
