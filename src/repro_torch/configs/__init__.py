@@ -12,6 +12,7 @@ from repro_torch.models.config import ModelConfig
 # supported architecture ids -> module names
 _ARCH_MODULES = {
     "olmo-1b": "olmo_1b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -17,10 +17,21 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flat
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as r6
 from repro_torch.kernels import sam_perturb as sp
 
 IMPLS = ("kernel", "plain")
 _FORCED_IMPL: Optional[str] = None  # test hook: "kernel" | "plain"
+
+
+def mixer_launches(family: str, backward: bool = False) -> dict[str, int]:
+    """Launches since the last reset of the kernels of a family's sequence
+    mixer: flash attention (dense), the rwkv6 wkv scan (ssm) with its
+    backward when `backward` (training)."""
+    if family == "ssm":
+        names = ("rwkv6_scan_fwd", "rwkv6_scan_bwd") if backward else ("rwkv6_scan_fwd",)
+        return {name: r6.launches[name] for name in names}
+    return {"flash_attention": fa.launches}
 
 
 def set_default_impl(impl: Optional[str]) -> None:
@@ -57,6 +68,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _resolve(impl)
     return ref.decode_attention_plain(q, k, v, valid_len, window=window)
+
+
+def rwkv6_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor, *, init_state: Optional[torch.Tensor] = None,
+              impl: Optional[str] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 wkv recurrence. Returns (y, final_state).
+
+    Unlike the reference, which falls back to its oracle when `init_state`
+    is given or S is not a multiple of its chunk, the kernel takes both: a
+    decode step is a one-token scan from the carried state."""
+    if _resolve(impl) == "plain":
+        return ref.rwkv6_scan_plain(r, k, v, w, u, init_state=init_state)
+    return r6.rwkv6_scan(r, k, v, w, u, init_state=init_state)
 
 
 def sq_norm(g_flat: torch.Tensor, *, impl: Optional[str] = None) -> torch.Tensor:

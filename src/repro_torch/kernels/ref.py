@@ -2,8 +2,9 @@
 
 Each function mirrors its jnp oracle line for line: it is the CPU path, the
 oracle the Hopper kernels are held against on the card, and is itself held
-against the JAX oracle by tests/test_torch_flash_attention.py (attention) and
-tests/test_torch_fused_update.py (the flat-buffer weight-space functions).
+against the JAX oracle by tests/test_torch_flash_attention.py (attention),
+tests/test_torch_fused_update.py (the flat-buffer weight-space functions) and
+tests/test_torch_rwkv.py (the rwkv6 wkv scan and its gradient).
 Attention inputs keep the JAX package's layout: q (B,Sq,H,hd), k/v
 (B,Sk,K,hd[_v]). The flat-buffer functions take 1-D buckets, compute in fp32
 and return `y`'s or `w`'s dtype, as the oracles do.
@@ -129,6 +130,59 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): sequential wkv scan
+# ---------------------------------------------------------------------------
+
+def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                     u: torch.Tensor, init_state: Optional[torch.Tensor] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 recurrence with data-dependent decay (mirror of
+    `ref.rwkv6_scan_ref`; its `lax.scan` becomes a Python loop).
+
+    r,k,w (B,S,H,K); v (B,S,H,V); u (H,K) bonus; w is the *log* decay (<0):
+      y_t = (S_{t-1} + (u * k_t) v_t^T)^T r_t
+      S_t = diag(exp(w_t)) S_{t-1} + k_t v_t^T
+    Math in fp32; returns y (B,S,H,V) in r's dtype and the final state
+    (B,H,K,V) in fp32.
+    """
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * kv))
+        s = torch.exp(wf[:, t])[..., None] * s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+def rwkv6_scan_plain_grads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           w: torch.Tensor, u: torch.Tensor,
+                           init_state: Optional[torch.Tensor], dy: Optional[torch.Tensor],
+                           d_state: Optional[torch.Tensor]) -> tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du, d_init_state) of `rwkv6_scan_plain` for the
+    cotangents dy of y and d_state of the final state (None: zero), by
+    autograd: what `jax.grad` of the oracle gives, each in its input's dtype
+    (d_init_state fp32: the gradient at a zero state when `init_state` is
+    None)."""
+    B, _, H, K = r.shape
+    s0 = (torch.zeros((B, H, K, v.shape[-1]), dtype=torch.float32, device=r.device)
+          if init_state is None else init_state)
+    inputs = [t.detach().requires_grad_(True) for t in (r, k, v, w, u, s0)]
+    with torch.enable_grad():
+        y, s = rwkv6_scan_plain(*inputs)
+        outs = [o for o, d in ((y, dy), (s, d_state)) if d is not None]
+        grads = [d for d in (dy, d_state) if d is not None]
+        if not outs:
+            return tuple(torch.zeros_like(t) for t in inputs)
+        got = torch.autograd.grad(outs, inputs, grads, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(got, inputs))
 
 
 # ---------------------------------------------------------------------------

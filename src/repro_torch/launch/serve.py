@@ -1,14 +1,18 @@
 """Serving launcher: batched prefill + decode loop (counterpart of
 `repro.launch.serve`).
 
-A request batch is prefilled in one pass (attention through the flash
-kernel on the card), then decoded one token per step for the whole batch,
-greedy or with temperature sampling. `serve` is the function the CLI, the
-tests and chip_smoke.py all drive.
+A request batch is prefilled in one pass (on the card the sequence mixer
+runs its kernel: flash attention for olmo-1b, the rwkv6 wkv scan for
+rwkv6-7b), then decoded one token per step for the whole batch, greedy or
+with temperature sampling (an rwkv6 decode step is a one-token scan from the
+carried state, through the same kernel). `serve` is the function the CLI, the
+tests and chip_smoke.py all drive; it reports each kernel's launches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --requests 8 --prompt-len 1024 --max-new 32          # on the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --reduced \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --requests 8 --prompt-len 1024 --max-new 32          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --reduced \
       --device cpu --requests 2 --prompt-len 12 --max-new 4
 """
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.synthetic import TokenTask
-from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.ops import mixer_launches
 from repro_torch.models import build_model, transformer
 from repro_torch.models.config import ModelConfig
 
@@ -45,7 +49,7 @@ class ServeResult:
     decode_s: float
     prefill_tok_s: float        # prompt tokens / prefill time
     decode_tok_s: float         # generated tokens after the first / decode time
-    flash_launches: int         # flash kernel launches during this call
+    launches: dict[str, int]    # launches of each kernel of the path during this call
 
 
 def _sync(device: torch.device) -> None:
@@ -72,7 +76,7 @@ def serve(cfg: ModelConfig, model: transformer.Transformer,
     tokens = torch.as_tensor(prompts, device=device)
     n_req, prompt_len = tokens.shape
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    launches_before = fa.launches
+    launches_before = mixer_launches(cfg.family)
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
@@ -98,7 +102,8 @@ def serve(cfg: ModelConfig, model: transformer.Transformer,
         prefill_s=t_prefill, decode_s=t_decode,
         prefill_tok_s=n_req * prompt_len / max(t_prefill, 1e-9),
         decode_tok_s=n_req * (max_new - 1) / max(t_decode, 1e-9),
-        flash_launches=fa.launches - launches_before)
+        launches={name: n - launches_before[name]
+                  for name, n in mixer_launches(cfg.family).items()})
 
 
 def main() -> None:
@@ -126,7 +131,8 @@ def main() -> None:
           f"({res.prefill_tok_s:.0f} tok/s)")
     print(f"decode : {args.max_new - 1} steps in {res.decode_s:.3f}s "
           f"({res.decode_tok_s:.0f} tok/s)")
-    print(f"flash_attention kernel launches: {res.flash_launches}")
+    for name, n in res.launches.items():
+        print(f"{name} kernel launches: {n}")
     print("sample continuation (request 0):", res.tokens[0][:12].tolist())
 
 

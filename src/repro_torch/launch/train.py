@@ -14,14 +14,16 @@ runs one of three executors under `Engine.fit`:
                      params as int8 deltas against the server's shadow
                      (the delta_amax and delta_encode_i8 kernels)
 On the card by default, where the perturbation, the optimizer epilogue, the
-ascent refresh, the delta encode and attention go through the Hopper
-kernels; on the CPU with `--device cpu`, through their plain versions. With `--ckpt-dir` the loop checkpoints every `--save-every`
+ascent refresh, the delta encode and the sequence mixer (attention; the
+rwkv6 wkv scan and its backward) go through the Hopper kernels; on the CPU with `--device cpu`, through their plain versions. With `--ckpt-dir` the loop checkpoints every `--save-every`
 steps and restarts from the newest checkpoint after a failed step
 (`runtime.run_resilient`). Prints the reference's `step N {...}` lines, each
 kernel's launch count, `done: N steps, R restarts, Xs` with `--ckpt-dir`, and
 the reference's final JSON summary.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
+      --method async_sam --steps 6 --batch 8 --seq 1024            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
       --method async_sam --steps 6 --batch 8 --seq 1024            # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
       --device cpu --method async_sam --steps 12 --batch 4 --seq 32 \\
@@ -48,9 +50,9 @@ from repro_torch.data import PipelineConfig, TokenPipeline
 from repro_torch.engine import (CheckpointCallback, Engine, FusedExecutor, HeteroExecutor,
                                 LoggingCallback, RemoteExecutor, StalenessTelemetry,
                                 ThroughputMeter)
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import sam_perturb as sp
+from repro_torch.kernels.ops import mixer_launches
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import cosine_schedule, make_optimizer
@@ -66,10 +68,12 @@ NOT_PORTED_FLAGS = {
 }
 
 
-def kernel_launches(executor: str = "fused") -> dict[str, int]:
-    """Launches of every kernel of the executor's training path since the
-    last reset (the JOB-delta kernels run on the remote lane only)."""
-    counts = {"flash_attention": fa.launches, **sp.launches, **fu.launches}
+def kernel_launches(executor: str = "fused", family: str = "dense") -> dict[str, int]:
+    """Launches of every kernel of the executor's training path for a model
+    family since the last reset: the family's sequence mixer (flash
+    attention; the rwkv6 scan and its backward) and the weight-space kernels
+    (the JOB-delta kernels run on the remote lane only)."""
+    counts = {**mixer_launches(family, backward=True), **sp.launches, **fu.launches}
     if executor != "remote":
         counts = {k: v for k, v in counts.items() if k not in DELTA_KERNELS}
     return counts
@@ -231,7 +235,7 @@ def main() -> None:
     if args.ckpt_dir:
         print(f"done: {report.steps_done} steps, {report.restarts} restarts, "
               f"{report.wall_time_s:.1f}s")
-    print(f"kernel launches: {json.dumps(kernel_launches(args.executor))}")
+    print(f"kernel launches: {json.dumps(kernel_launches(args.executor, cfg.family))}")
     summary = meter.summary()
     if summary:
         print(json.dumps({"arch": cfg.name, "method": args.method,

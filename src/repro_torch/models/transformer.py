@@ -1,8 +1,9 @@
-"""Decoder-LM assembly for the dense family (counterpart of
-`repro.models.transformer`).
+"""Decoder-LM assembly for the dense and ssm (rwkv6) families (counterpart
+of `repro.models.transformer`).
 
 Parameters live in `nn.Module`s whose names mirror the reference's leaves
-(`embedding.embed`, `blocks.<i>.attn.wq`, `blocks.<i>.mlp.wi|wg|wo_mlp`); the
+(`embedding.embed`, `blocks.<i>.attn.wq`, `blocks.<i>.mlp.wi|wg|wo_mlp`; for
+rwkv6 `blocks.<i>.tm.wr`, `blocks.<i>.cm.wk_c`, `blocks.<i>.ln1.scale`); the
 reference stacks the blocks on a leading L axis and scans them, the port
 keeps one module per block and loops. Entry points:
 
@@ -17,8 +18,10 @@ keeps one module per block and loops. Entry points:
 (`torch.utils.checkpoint`), "dots" saves the outputs of the matrix products
 without batch dims (`aten.mm`: the projections) and recomputes the rest,
 the counterpart of `dots_with_no_batch_dims_saveable`. Serving runs under
-`torch.inference_mode()` and checkpoints nothing. The other families (moe,
-ssm, hybrid, vlm) are not ported yet.
+`torch.inference_mode()` and checkpoints nothing. An rwkv6 decode cache
+holds, per layer, the two token-shift states and the wkv state, and has no
+sequence axis (prefill ignores `pad_to`, as the reference's does). The other
+families (moe, hybrid, vlm) are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,16 +34,20 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as RWKV
 from repro_torch.models.config import ModelConfig
 
 Device = Union[str, torch.device]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config outside the ported (dense) family."""
-    if cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None:
-        raise NotImplementedError(f"the port supports the dense family only, not "
-                                  f"{cfg.name} ({cfg.family})")
+    """Raise for a config outside the ported families: dense (no MLA, no
+    MoE) and ssm with an rwkv config (rwkv6)."""
+    dense = cfg.family == "dense" and cfg.mla is None and cfg.moe is None
+    rwkv = cfg.family == "ssm" and cfg.rwkv is not None
+    if not (dense or rwkv):
+        raise NotImplementedError(f"the port supports the dense and rwkv6 families only, "
+                                  f"not {cfg.name} ({cfg.family})")
 
 
 # ---------------------------------------------------------------------------
@@ -51,11 +58,18 @@ def _param(shape, cfg: ModelConfig, device: Device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=L.pdtype(cfg), device=device))
 
 
-class Norm(nn.Module):
-    def __init__(self, cfg: ModelConfig, d: int, device: Device):
+class Shaped(nn.Module):
+    """A module whose parameters are given by name and shape."""
+
+    def __init__(self, shapes: dict[str, tuple[int, ...]], cfg: ModelConfig, device: Device):
         super().__init__()
-        for name, shape in L.norm_shapes(cfg, d).items():
+        for name, shape in shapes.items():
             self.register_parameter(name, _param(shape, cfg, device))
+
+
+class Norm(Shaped):
+    def __init__(self, cfg: ModelConfig, d: int, device: Device):
+        super().__init__(L.norm_shapes(cfg, d), cfg, device)
 
 
 class Attention(nn.Module):
@@ -90,6 +104,15 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device)
 
 
+class RWKVBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        self.ln1 = Norm(cfg, cfg.d_model, device)
+        self.ln2 = Norm(cfg, cfg.d_model, device)
+        self.tm = Shaped(RWKV.timemix_shapes(cfg), cfg, device)
+        self.cm = Shaped(RWKV.channelmix_shapes(cfg), cfg, device)
+
+
 class Embedding(nn.Module):
     def __init__(self, cfg: ModelConfig, device: Device):
         super().__init__()
@@ -105,7 +128,8 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embedding = Embedding(cfg, device)
         self.final_norm = Norm(cfg, cfg.d_model, device)
-        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        block = RWKVBlock if cfg.family == "ssm" else Block
+        self.blocks = nn.ModuleList(block(cfg, device) for _ in range(cfg.n_layers))
 
     def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         return forward(self, batch, self.cfg)
@@ -116,7 +140,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
 
     The same distributions as the reference's init (truncated-normal fan-in
     dense weights, N(0, 0.02) embedding, `wo` scaled by 1/sqrt(2 L), unit norm
-    scales, zero biases), drawn from a `torch.Generator` on `device`: the
+    scales, zero biases; rwkv6's token-shift mixes 0.5, decay base w0 -2,
+    `decay_b` scaled by 0.1, bonus u ~ 0.1 N(0, 1)), drawn from a
+    `torch.Generator` on `device`: the
     values differ from JAX's. To hold the port against the reference, load
     the JAX init through `convert.params_from_jax`. On the "meta" device the
     parameters get shapes only.
@@ -140,6 +166,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
             elif name.endswith(("bias", ".bq", ".bk", ".bv")):
                 p.zero_()
         for blk in model.blocks:
+            if cfg.family == "ssm":
+                _init_rwkv_block(blk, cfg, dense, gen)
+                continue
             a = blk.attn
             dense(a.wq)
             dense(a.wk)
@@ -150,6 +179,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
             if cfg.mlp_gated:
                 dense(blk.mlp.wg)
     return model
+
+
+def _init_rwkv_block(blk: RWKVBlock, cfg: ModelConfig, dense, gen: torch.Generator) -> None:
+    tm, cm = blk.tm, blk.cm
+    for mix in (tm.mix_r, tm.mix_k, tm.mix_v, tm.mix_w, tm.mix_g, cm.mix_k, cm.mix_r):
+        mix.fill_(0.5)
+    for w in (tm.wr, tm.wk, tm.wv, tm.wg, tm.decay_a, cm.wk_c, cm.wv_c, cm.wr_c):
+        dense(w)
+    dense(tm.wo, scale=1.0 / math.sqrt(2 * cfg.n_layers))
+    dense(tm.decay_b, scale=0.1)
+    tm.w0.fill_(-2.0)
+    tm.bonus_u.normal_(0.0, 1.0, generator=gen).mul_(0.1)
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +211,9 @@ def _groups(model_or_params: Union[nn.Module, Params]) -> dict[str, dict[str, to
     return out
 
 
-def _block(groups: dict, i: int) -> dict[str, dict[str, torch.Tensor]]:
-    return {part: groups.get(f"blocks.{i}.{part}", {}) for part in ("ln1", "ln2", "attn", "mlp")}
+def _block(groups: dict, i: int, cfg: ModelConfig) -> dict[str, dict[str, torch.Tensor]]:
+    parts = ("ln1", "ln2", "tm", "cm") if cfg.family == "ssm" else ("ln1", "ln2", "attn", "mlp")
+    return {part: groups.get(f"blocks.{i}.{part}", {}) for part in parts}
 
 
 def attn_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -183,6 +225,22 @@ def attn_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
     x = x + h
     h2 = L.mlp_apply(bp["mlp"], L.norm_apply(bp["ln2"], x, cfg), cfg)
     return x + h2, new_cache
+
+
+def rwkv_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+    """One rwkv6 block; `bp` maps "ln1"/"ln2"/"tm"/"cm" to their parameters.
+    cache: {"tm_shift", "wkv", "cm_shift"} of this layer, or None (zero
+    states). Returns (x, the new cache)."""
+    tm_cache = None if cache is None else {"shift": cache["tm_shift"], "wkv": cache["wkv"]}
+    h, tm_new = RWKV.timemix_apply(bp["tm"], L.norm_apply(bp["ln1"], x, cfg), cfg,
+                                   cache=tm_cache)
+    x = x + h
+    cm_cache = None if cache is None else {"shift": cache["cm_shift"]}
+    h2, cm_new = RWKV.channelmix_apply(bp["cm"], L.norm_apply(bp["ln2"], x, cfg), cfg,
+                                       cache=cm_cache)
+    return x + h2, {"tm_shift": tm_new["shift"], "wkv": tm_new["wkv"],
+                    "cm_shift": cm_new["shift"]}
 
 
 def _save_projections(ctx, op, *args, **kwargs):
@@ -198,6 +256,8 @@ def _train_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     """A block of the full-sequence forward, checkpointed per `cfg.remat`
     when autograd records."""
     def fn(bp_, x_, positions_):
+        if cfg.family == "ssm":
+            return rwkv_block_apply(bp_, x_, cfg)[0]
         return attn_block_apply(bp_, x_, cfg, positions=positions_)[0]
 
     if cfg.remat == "none" or not torch.is_grad_enabled():
@@ -230,7 +290,7 @@ def forward(model: Union[Transformer, Params], batch: dict, cfg: ModelConfig
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     for i in range(cfg.n_layers):
-        x = _train_block(_block(groups, i), x, cfg, positions)
+        x = _train_block(_block(groups, i, cfg), x, cfg, positions)
     logits = _final_logits(groups, x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -241,12 +301,18 @@ def forward(model: Union[Transformer, Params], batch: dict, cfg: ModelConfig
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, pos: int = 0,
                device: Device = "cuda") -> dict:
-    """Zero cache: {"layers": {"k", "v": (L, B, max_len, K, hd)}, "pos": int}.
+    """Zero cache: {"layers": {"k", "v": (L, B, max_len, K, hd)}, "pos": int};
+    for rwkv6 {"layers": {"tm_shift", "cm_shift": (L, B, 1, D), "wkv": (L, B,
+    H, K, V)}, "pos": int} (no sequence axis: `max_len` is not used).
 
     The same structure as the reference's (and as `prefill` emits); `pos` is a
     Python int since the host drives the decode loop.
     """
     check_supported(cfg)
+    if cfg.family == "ssm":
+        layer = RWKV.rwkv_cache_shape(cfg, batch, device)
+        return {"layers": {name: t.expand(cfg.n_layers, *t.shape).clone()
+                           for name, t in layer.items()}, "pos": pos}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     cdt = L.cdtype(cfg)
     return {"layers": {"k": torch.zeros(shape, dtype=cdt, device=device),
@@ -261,10 +327,18 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
     groups = _groups(model)
     x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
     B, S, _ = x.shape
+    if cfg.family == "ssm":
+        states = []
+        for i in range(cfg.n_layers):
+            x, c = rwkv_block_apply(_block(groups, i, cfg), x, cfg)
+            states.append(c)
+        cache = {"layers": {name: torch.stack([c[name] for c in states])
+                            for name in states[0]}, "pos": S}
+        return _final_logits(groups, x[:, -1:], cfg), cache
     cache = init_cache(cfg, B, max(S, pad_to), pos=S, device=x.device)
     positions = torch.arange(S, device=x.device)[None, :]
     for i in range(cfg.n_layers):
-        x, kv = attn_block_apply(_block(groups, i), x, cfg, positions=positions)
+        x, kv = attn_block_apply(_block(groups, i, cfg), x, cfg, positions=positions)
         cache["layers"]["k"][i, :, :S] = kv["k"]
         cache["layers"]["v"][i, :, :S] = kv["v"]
     logits = _final_logits(groups, x[:, -1:], cfg)
@@ -275,17 +349,25 @@ def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
            ) -> tuple[torch.Tensor, dict]:
     """One decode step: batch["tokens"] (B, S_new) -> (logits (B,S_new,V), cache).
 
-    The cache's k/v are updated in place; the returned cache carries the
-    advanced `pos`.
+    The cache's k/v (rwkv6: its states) are updated in place; the returned
+    cache carries the advanced `pos`.
     """
     groups = _groups(model)
     x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
     S_new = x.shape[1]
     pos = cache["pos"]
+    if cfg.family == "ssm":
+        layers = cache["layers"]
+        for i in range(cfg.n_layers):
+            x, new = rwkv_block_apply(_block(groups, i, cfg), x, cfg,
+                                      cache={name: t[i] for name, t in layers.items()})
+            for name, t in layers.items():
+                t[i].copy_(new[name])
+        return _final_logits(groups, x, cfg), {"layers": layers, "pos": pos + S_new}
     positions = pos + torch.arange(S_new, device=x.device)[None, :]
     kc, vc = cache["layers"]["k"], cache["layers"]["v"]
     for i in range(cfg.n_layers):
-        x, _ = attn_block_apply(_block(groups, i), x, cfg, positions=positions,
+        x, _ = attn_block_apply(_block(groups, i, cfg), x, cfg, positions=positions,
                                 cache={"k": kc[i], "v": vc[i], "pos": pos})
     logits = _final_logits(groups, x, cfg)
     return logits, {"layers": cache["layers"], "pos": pos + S_new}

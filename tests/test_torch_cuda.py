@@ -467,3 +467,223 @@ def test_restart_restores_into_the_live_buffers_bitwise(dev, tmp_path):
         torch.testing.assert_close(bundle.loss_fn(model, batch)[0],
                                    bundle.loss_fn(final.params.to_tree(), batch)[0],
                                    rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the rwkv6 wkv scan and its backward
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(dev, b, s, h, dk, dv, dtype, init, seed=0):
+    """r, k, v in `dtype`; the log decay w = -exp(N(0, 0.5) - 2) and u in
+    fp32, as the reference's kernel tests draw them; plus a strongly
+    decaying channel (exp(w) underflows to 0) in every head; init_state
+    fp32 or None."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape, scale=0.5):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    r, k = n(b, s, h, dk).to(dtype), n(b, s, h, dk).to(dtype)
+    v = n(b, s, h, dv).to(dtype)
+    w = -torch.exp(n(b, s, h, dk) - 2.0)
+    w[..., 0] = -200.0
+    u = n(h, dk, scale=0.1)
+    s0 = n(b, h, dk, dv) if init else None
+    return r, k, v, w, u, s0
+
+
+def _rel_max(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+# (B, S, H, K, V, dtype, init_state): the model's head (K = V = 64) in bf16,
+# a decode step (S = 1 from a state), ragged S, the reduced config's K = V =
+# 16 in fp32, K != V, and widths that are not 16, 32 or 64
+WKV_CASES = [
+    (2, 64, 4, 64, 64, torch.bfloat16, False),
+    (3, 1, 4, 64, 64, torch.bfloat16, True),
+    (1, 1000, 2, 64, 64, torch.bfloat16, True),
+    (2, 100, 3, 16, 16, torch.float32, True),
+    (2, 77, 2, 32, 48, torch.float32, True),
+    (2, 40, 2, 8, 24, torch.float32, False),
+]
+# fp32 outputs (y in fp32, the state, dw, du, d init_state) within 1e-5 (y,
+# state) and 1e-4 (gradients) of their max: the sums' order differs; bf16
+# outputs also round once to bf16 (2e-2, the reference's bf16 tolerance)
+WKV_FP32_TOL, WKV_GRAD_TOL = 1e-5, 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,dtype,init", WKV_CASES)
+def test_rwkv6_forward_kernel_matches_plain(dev, b, s, h, dk, dv, dtype, init):
+    from repro_torch.kernels import rwkv6_scan as r6
+    r, k, v, w, u, s0 = _wkv_inputs(dev, b, s, h, dk, dv, dtype, init)
+    before = r6.launches["rwkv6_scan_fwd"]
+    y, state = r6.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert r6.launches["rwkv6_scan_fwd"] == before + 1
+    assert y.shape == (b, s, h, dv) and y.dtype == dtype
+    assert state.shape == (b, h, dk, dv) and state.dtype == torch.float32
+    y_p, state_p = ref.rwkv6_scan_plain(r, k, v, w, u, s0)
+    assert _rel_max(state, state_p) <= WKV_FP32_TOL
+    if dtype == torch.float32:
+        assert _rel_max(y, y_p) <= WKV_FP32_TOL
+    else:
+        torch.testing.assert_close(y.float(), y_p.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("cotangents", ["both", "dy", "d_state"])
+@pytest.mark.parametrize("b,s,h,dk,dv,dtype,init", WKV_CASES)
+def test_rwkv6_backward_kernel_matches_plain(dev, b, s, h, dk, dv, dtype, init, cotangents):
+    """The backward kernel against autograd of the plain version, from dy,
+    from the final state's cotangent, or both."""
+    from repro_torch.kernels import rwkv6_scan as r6
+    r, k, v, w, u, s0 = _wkv_inputs(dev, b, s, h, dk, dv, dtype, init)
+    g = torch.Generator(device=dev).manual_seed(1)
+    dy = torch.randn((b, s, h, dv), generator=g, device=dev).to(dtype)
+    ds = torch.randn((b, h, dk, dv), generator=g, device=dev)
+    dy = None if cotangents == "d_state" else dy
+    ds = None if cotangents == "dy" else ds
+    before = r6.launches["rwkv6_scan_bwd"]
+    got = r6._launch_bwd(r, k, v, w, u, s0, dy, ds)
+    torch.cuda.synchronize()
+    assert r6.launches["rwkv6_scan_bwd"] == before + 1
+    want = ref.rwkv6_scan_plain_grads(r, k, v, w, u, s0, dy, ds)
+    for name, a, e in zip(("dr", "dk", "dv", "dw", "du", "d_init"), got, want):
+        assert a.shape == e.shape and a.dtype == e.dtype, name
+        if not e.any():                          # no path from the given cotangent
+            assert not a.any(), name
+        elif a.dtype == torch.float32:
+            assert _rel_max(a, e) <= WKV_GRAD_TOL, (name, _rel_max(a, e))
+        else:
+            scale = float(e.float().abs().max())
+            torch.testing.assert_close(a.float() / scale, e.float() / scale, rtol=2e-2,
+                                       atol=2e-2, msg=name)
+
+
+def test_rwkv6_function_runs_both_kernels(dev):
+    """Autograd through `rwkv6_scan` on the card: one forward and one
+    backward launch, the gradients of the plain version's autograd."""
+    from repro_torch.kernels import rwkv6_scan as r6
+    ins = _wkv_inputs(dev, 2, 50, 2, 64, 64, torch.float32, True)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    before = dict(r6.launches)
+    y, state = r6.rwkv6_scan(*leaves)
+    loss = (y * y).sum() + (state * state.sin()).sum()
+    got = torch.autograd.grad(loss, leaves)
+    assert {n: r6.launches[n] - before[n] for n in before} == {"rwkv6_scan_fwd": 1,
+                                                               "rwkv6_scan_bwd": 1}
+    plain = [t.clone().requires_grad_(True) for t in ins]
+    y_p, state_p = ref.rwkv6_scan_plain(*plain)
+    want = torch.autograd.grad((y_p * y_p).sum() + (state_p * state_p.sin()).sum(), plain)
+    for a, e in zip(got, want):
+        assert _rel_max(a, e) <= WKV_GRAD_TOL
+
+
+def test_rwkv6_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels import rwkv6_scan as r6
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 1, 8, 2, 16, 16, torch.float32, True)
+    with pytest.raises(TypeError):
+        r6.rwkv6_scan(r.half(), k.half(), v.half(), w, u)
+    with pytest.raises(TypeError):
+        r6.rwkv6_scan(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError):
+        r6.rwkv6_scan(r, k, v, w, u.cpu())
+    with pytest.raises(ValueError):
+        r6.rwkv6_scan(r, k, v, w, u, s0[:, :1])
+    with pytest.raises(ValueError):
+        r6.rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    big = _wkv_inputs(dev, 1, 4, 1, 72, 16, torch.float32, False)
+    with pytest.raises(ValueError):
+        r6.rwkv6_scan(*big[:5])
+
+
+def _rwkv_cfg(**kw):
+    return dataclasses.replace(get_config("rwkv6-7b", reduced=True), **kw)
+
+
+def test_rwkv_model_kernel_path_matches_plain_path(dev):
+    """Reduced rwkv6 in bf16 compute: one forward launch per layer, and the
+    kernel path within the bf16 tolerance of the plain path."""
+    from repro_torch.kernels import rwkv6_scan as r6
+    cfg = _rwkv_cfg(compute_dtype="bfloat16")
+    bundle = build_model(cfg)
+    model = bundle.init(seed=0, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=dev)
+    with torch.inference_mode():
+        before = r6.launches["rwkv6_scan_fwd"]
+        got, _ = bundle.forward(model, {"tokens": tokens})
+        assert r6.launches["rwkv6_scan_fwd"] == before + cfg.n_layers
+        ops.set_default_impl("plain")
+        try:
+            expect, _ = bundle.forward(model, {"tokens": tokens})
+        finally:
+            ops.set_default_impl(None)
+    assert _rel_max(got, expect) <= 2e-2
+
+
+def test_rwkv_prefill_decode_matches_forward_on_card(dev):
+    """Prefill + one-token decode steps (each a one-token scan from the
+    carried state, through the kernel) == one forward, in fp32 compute."""
+    from repro_torch.kernels import rwkv6_scan as r6
+    cfg = _rwkv_cfg()
+    bundle = build_model(cfg)
+    model = bundle.init(seed=0, device=dev)
+    S, n_dec = 40, 4
+    tokens = torch.randint(0, cfg.vocab_size, (2, S + n_dec), device=dev)
+    with torch.inference_mode():
+        full, _ = bundle.forward(model, {"tokens": tokens})
+        before = r6.launches["rwkv6_scan_fwd"]
+        logits, cache = bundle.prefill(model, {"tokens": tokens[:, :S]})
+        errs = [_rel_max(logits[:, -1], full[:, S - 1])]
+        for t in range(S, S + n_dec):
+            logits, cache = bundle.decode(model, cache, {"tokens": tokens[:, t:t + 1]})
+            errs.append(_rel_max(logits[:, 0], full[:, t]))
+        assert r6.launches["rwkv6_scan_fwd"] == before + (1 + n_dec) * cfg.n_layers
+    assert cache["pos"] == S + n_dec
+    assert max(errs) < 1e-4, errs
+
+
+@pytest.mark.parametrize("remat,fwd_per_pass", [("none", 1), ("full", 2)])
+def test_reduced_rwkv_training_kernel_path_matches_plain_path(dev, remat, fwd_per_pass):
+    """Reduced rwkv6 (fp32 compute) trains 3 AsyncSAM AdamW steps through the
+    kernels: per step and layer the scan's forward runs once per gradient
+    pass (twice under remat "full") and its backward once, and the run
+    agrees with the plain path."""
+    from repro_torch.core import MethodConfig
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.engine import Engine, FusedExecutor
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.optim import cosine_schedule, make_optimizer
+
+    cfg = _rwkv_cfg(remat=remat)
+    runs = {}
+    for impl in ("plain", "kernel"):
+        ops.set_default_impl(impl)
+        try:
+            bundle = build_model(cfg)
+            ex = FusedExecutor(bundle.loss_fn, MethodConfig(rho=0.05),
+                               make_optimizer("adamw", cosine_schedule(1e-3, 3)))
+            state = ex.init_state(bundle.init(seed=0, device=dev), seed=1)
+            pipe = TokenPipeline(cfg, PipelineConfig(global_batch=8, seq_len=64, seed=0,
+                                                     ascent_fraction=0.25, prefetch=0),
+                                 device=dev)
+            before = kernel_launches(family="ssm")
+            report = Engine(ex, pipe).fit(state, 3)
+            after = kernel_launches(family="ssm")
+        finally:
+            ops.set_default_impl(None)
+        runs[impl] = (report, {k: after[k] - before[k] for k in after})
+    (rp, lp), (rk, lk) = runs["plain"], runs["kernel"]
+    assert lp == dict.fromkeys(lp, 0)
+    assert lk == {"rwkv6_scan_fwd": 3 * 2 * fwd_per_pass * cfg.n_layers,
+                  "rwkv6_scan_bwd": 3 * 2 * cfg.n_layers, "sq_norm": 3, "sam_perturb": 0,
+                  "fused_axpy": 3, "fused_dot_norms": 3, "adamw_epilogue": 3,
+                  "sgd_epilogue": 0}
+    for mp, mk in zip(rp.metrics_history, rk.metrics_history):
+        for k in ("loss", "ascent_norm", "grad_norm"):
+            assert mk[k] == pytest.approx(mp[k], rel=1e-4), k
+    wp, wk = rp.final_state.params.buffers[0], rk.final_state.params.buffers[0]
+    diff = (wk - wp).abs()
+    assert float(torch.quantile(diff.float(), 0.999)) <= 1e-4 * float(wp.abs().max())
+    assert float(diff.max()) <= 2 * 3 * 1e-3

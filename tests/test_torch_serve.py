@@ -43,7 +43,7 @@ def test_serve_greedy_matches_full_forward():
     prompts = TokenTask(cfg.vocab_size, seed=0).sample(2, 12)
     res = serve(cfg, model, prompts, max_new=5)
     assert res.tokens.shape == (2, 5) and res.logits.shape == (2, 5, cfg.vocab_size)
-    assert res.flash_launches == 0
+    assert res.launches == {"flash_attention": 0}
     torch.testing.assert_close(res.tokens, res.logits.argmax(dim=-1), rtol=0, atol=0)
     full_tokens = torch.cat([torch.from_numpy(prompts).long(), res.tokens[:, :-1]], dim=1)
     with torch.inference_mode():
