@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 _ARCH_MODULES = {
     "olmo-1b": "olmo_1b",
     "rwkv6-7b": "rwkv6_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

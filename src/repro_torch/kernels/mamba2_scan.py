@@ -1,0 +1,176 @@
+"""The Mamba2 SSD scan: its Hopper kernels and their wrapper (counterpart of
+`repro.kernels.mamba2_scan`).
+
+The kernels (`csrc/mamba2_scan.cu`, CUDA C++ for sm_90a) replace the Pallas
+TPU kernel `_ssd_kernel`; the source says what bounds them on the H100 and
+how a chunk's products are spread over a CTA:
+
+  mamba2_scan_fwd  y (B,S,H,P) in x's dtype and the final state (B,H,P,N) in
+                   fp32, from an optional initial state, any S >= 1
+  mamba2_scan_bwd  dx, db, dc (their inputs' dtypes), ddt, da, dd (summed
+                   over B and S; da and dd over the heads' own b, db and dc
+                   over the heads of a group), d init_state (fp32), from the
+                   cotangents of y and of the final state: what `jax.grad`
+                   of the oracle `ref.mamba2_chunked_jnp` gives (the TPU
+                   kernel has none)
+
+`mamba2_scan` takes x (B,S,H,P), dt (B,S,H) fp32, a and d (H,) fp32, b and c
+(B,S,G,N) (x, b, c one dtype, fp32 or bf16), P and N up to `MAX_DIM`, G
+dividing H. The kernels cut the sequence into chunks of their own length
+(64); the chunk of the plain version (`chunk`, the model's `chunk_size`) does
+not change the function. A tensor on the CPU goes to the plain version
+(`ref.mamba2_chunked_plain`, differentiated by autograd); a CUDA tensor goes
+through `Mamba2Scan`, a `torch.autograd.Function` whose forward launches the
+forward kernel (saving only its inputs) and whose backward launches the
+backward kernel, or raises. Both are built with nvcc at the first launch and
+bound through ctypes, so importing this module needs neither nvcc nor a
+card. `launches[name]` counts each kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+SOURCE = build.CSRC / "mamba2_scan.cu"
+MAX_DIM = 64
+CHUNK = 64                      # the kernels' chunk length (`mamba2_chunk()` in the source)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = {"mamba2_scan_fwd": 0, "mamba2_scan_bwd": 0}    # since the last reset
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library, with its C signatures declared (once)."""
+    global _lib
+    if _lib is None:
+        lib = build.load(SOURCE)
+        dims = [ctypes.c_int] * 7 + [ctypes.c_void_p]          # dtype, B, S, H, G, P, N, stream
+        lib.mamba2_fwd.argtypes = [ctypes.c_void_p] * 9 + dims
+        lib.mamba2_bwd.argtypes = [ctypes.c_void_p] * 21 + dims
+        lib.mamba2_fwd.restype = lib.mamba2_bwd.restype = lib.mamba2_chunk.restype = ctypes.c_int
+        if lib.mamba2_chunk() != CHUNK:
+            raise RuntimeError(f"mamba2 kernels chunk {lib.mamba2_chunk()} != {CHUNK}")
+        _lib = lib
+    return _lib
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+           c: torch.Tensor, d: torch.Tensor, init_state: Optional[torch.Tensor]) -> None:
+    named = {"x": x, "dt": dt, "a": a, "b": b, "c": c, "d": d}
+    if init_state is not None:
+        named["init_state"] = init_state
+    if not all(t.is_cuda and t.device == x.device for t in named.values()):
+        raise ValueError(f"mamba2 kernel needs every operand on one CUDA device; got "
+                         f"{ {n: str(t.device) for n, t in named.items()} }")
+    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"mamba2 kernel takes float32 or bfloat16 x/b/c of one dtype; got "
+                        f"{x.dtype}, {b.dtype}, {c.dtype}")
+    fp32 = {n: t for n, t in named.items() if n in ("dt", "a", "d", "init_state")}
+    if any(t.dtype != torch.float32 for t in fp32.values()):
+        raise TypeError(f"mamba2 kernel takes dt, a, d and init_state in float32; got "
+                        f"{ {n: t.dtype for n, t in fp32.items()} }")
+    if x.dim() != 4 or b.dim() != 4:
+        raise ValueError(f"mamba2 expects x (B,S,H,P), b/c (B,S,G,N); got x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)}")
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if (dt.shape != (bsz, s, h) or a.shape != (h,) or d.shape != (h,)
+            or b.shape[:2] != (bsz, s) or c.shape != b.shape or min(bsz, s, h, p, g, n) < 1
+            or h % g != 0):
+        raise ValueError(f"incompatible shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}, "
+                         f"d {tuple(d.shape)}")
+    if init_state is not None and init_state.shape != (bsz, h, p, n):
+        raise ValueError(f"init_state must be {(bsz, h, p, n)}, got {tuple(init_state.shape)}")
+    if p > MAX_DIM or n > MAX_DIM:
+        raise ValueError(f"mamba2 kernel takes P and N up to {MAX_DIM}, got {p} and {n}")
+    if not all(t.is_contiguous() for t in named.values()):
+        raise ValueError("mamba2 kernel needs contiguous operands")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_fwd(x, dt, a, b, c, d, init_state) -> tuple[torch.Tensor, torch.Tensor]:
+    """One forward launch on checked inputs: (y, final state)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    y = torch.empty_like(x)
+    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _library().mamba2_fwd(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                   c.data_ptr(), d.data_ptr(), _ptr(init_state), y.data_ptr(),
+                                   state.data_ptr(), _DTYPES[x.dtype], bsz, s, h, g, p, n,
+                                   _stream(x.device))
+    if rc != 0:
+        raise RuntimeError(f"mamba2_scan_fwd kernel launch failed: CUDA error {rc}")
+    launches["mamba2_scan_fwd"] += 1
+    return y, state
+
+
+def _launch_bwd(x, dt, a, b, c, d, init_state, dy, d_state) -> tuple[torch.Tensor, ...]:
+    """One backward launch on checked inputs; dy / d_state may be None
+    (zero). Returns (dx, ddt, da, db, dc, dd, d_init_state)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
+    da, dd = torch.empty((h,), **f32), torch.empty((h,), **f32)
+    ds0 = torch.empty((bsz, h, p, n), **f32)
+    db_part = torch.empty((bsz, s, h, n), **f32)
+    dc_part = torch.empty((bsz, s, h, n), **f32)
+    da_part, dd_part = torch.empty((bsz, h), **f32), torch.empty((bsz, h), **f32)
+    states = torch.empty((bsz, h, -(-s // CHUNK), p, n), **f32)
+    with torch.cuda.device(dev):
+        rc = _library().mamba2_bwd(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            d.data_ptr(), _ptr(init_state), _ptr(dy), _ptr(d_state), dx.data_ptr(),
+            ddt.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(), da.data_ptr(),
+            dd.data_ptr(), ds0.data_ptr(), states.data_ptr(), _DTYPES[x.dtype], bsz, s, h, g,
+            p, n, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"mamba2_scan_bwd kernel launch failed: CUDA error {rc}")
+    launches["mamba2_scan_bwd"] += 1
+    return dx, ddt, da, db, dc, dd, ds0
+
+
+class Mamba2Scan(torch.autograd.Function):
+    """Forward: the forward kernel. Backward: the backward kernel, from the
+    saved inputs (the backward rebuilds the chunks' states it needs)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d, init_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c, d, init_state)
+        return _launch_fwd(x, dt, a, b, c, d, init_state)
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, dt, a, b, c, d, init_state = ctx.saved_tensors
+        dy = None if dy is None else dy.contiguous()
+        d_state = None if d_state is None else d_state.contiguous()
+        *grads, ds0 = _launch_bwd(x, dt, a, b, c, d, init_state, dy, d_state)
+        return (*grads, None if init_state is None else ds0)
+
+
+def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, d: torch.Tensor, init_state: Optional[torch.Tensor] = None,
+                chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD mixing; returns (y (B,S,H,P) in x's dtype, final state
+    (B,H,P,N) fp32). `chunk` is the plain version's (CPU tensors)."""
+    if x.device.type == "cpu":
+        return ref.mamba2_chunked_plain(x, dt, a, b, c, d, chunk=chunk, init_state=init_state)
+    _check(x, dt, a, b, c, d, init_state)
+    return Mamba2Scan.apply(x, dt, a, b, c, d, init_state)

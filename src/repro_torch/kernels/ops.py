@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flat
 from repro_torch.kernels import fused_update as fu
+from repro_torch.kernels import mamba2_scan as m2
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_scan as r6
 from repro_torch.kernels import sam_perturb as sp
@@ -26,11 +27,15 @@ _FORCED_IMPL: Optional[str] = None  # test hook: "kernel" | "plain"
 
 def mixer_launches(family: str, backward: bool = False) -> dict[str, int]:
     """Launches since the last reset of the kernels of a family's sequence
-    mixer: flash attention (dense), the rwkv6 wkv scan (ssm) with its
-    backward when `backward` (training)."""
+    mixer: flash attention (dense), the rwkv6 wkv scan (ssm), flash attention
+    and the Mamba2 SSD scan (hybrid); the scans' backward when `backward`
+    (training)."""
     if family == "ssm":
         names = ("rwkv6_scan_fwd", "rwkv6_scan_bwd") if backward else ("rwkv6_scan_fwd",)
         return {name: r6.launches[name] for name in names}
+    if family == "hybrid":
+        names = ("mamba2_scan_fwd", "mamba2_scan_bwd") if backward else ("mamba2_scan_fwd",)
+        return {"flash_attention": fa.launches, **{name: m2.launches[name] for name in names}}
     return {"flash_attention": fa.launches}
 
 
@@ -81,6 +86,30 @@ def rwkv6_mix(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     if _resolve(impl) == "plain":
         return ref.rwkv6_scan_plain(r, k, v, w, u, init_state=init_state)
     return r6.rwkv6_scan(r, k, v, w, u, init_state=init_state)
+
+
+def mamba2_mix(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, d: torch.Tensor, *, chunk: int = 128,
+               init_state: Optional[torch.Tensor] = None,
+               impl: Optional[str] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2/SSD sequence mixing. Returns (y, final_state).
+
+    Unlike the reference, which falls back to its oracle when `init_state`
+    is given or S is not a multiple of `chunk`, the kernel takes both."""
+    if _resolve(impl) == "plain":
+        return ref.mamba2_chunked_plain(x, dt, a, b, c, d, chunk=chunk, init_state=init_state)
+    return m2.mamba2_scan(x, dt, a, b, c, d, init_state=init_state, chunk=chunk)
+
+
+def mamba2_decode_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, d: torch.Tensor, state: torch.Tensor, *,
+                       impl: Optional[str] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD update (serving): state (B,H,P,N). The reference runs
+    its sequential oracle; on the card the port runs the kernel, a one-token
+    scan from the carried state."""
+    if _resolve(impl) == "plain":
+        return ref.mamba2_scan_plain(x, dt, a, b, c, d, init_state=state)
+    return m2.mamba2_scan(x, dt, a, b, c, d, init_state=state)
 
 
 def sq_norm(g_flat: torch.Tensor, *, impl: Optional[str] = None) -> torch.Tensor:

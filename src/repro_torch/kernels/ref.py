@@ -3,8 +3,9 @@
 Each function mirrors its jnp oracle line for line: it is the CPU path, the
 oracle the Hopper kernels are held against on the card, and is itself held
 against the JAX oracle by tests/test_torch_flash_attention.py (attention),
-tests/test_torch_fused_update.py (the flat-buffer weight-space functions) and
-tests/test_torch_rwkv.py (the rwkv6 wkv scan and its gradient).
+tests/test_torch_fused_update.py (the flat-buffer weight-space functions),
+tests/test_torch_rwkv.py (the rwkv6 wkv scan and its gradient) and
+tests/test_torch_zamba2.py (the Mamba2 SSD scan and its gradient).
 Attention inputs keep the JAX package's layout: q (B,Sq,H,hd), k/v
 (B,Sk,K,hd[_v]). The flat-buffer functions take 1-D buckets, compute in fp32
 and return `y`'s or `w`'s dtype, as the oracles do.
@@ -179,6 +180,125 @@ def rwkv6_scan_plain_grads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y, s = rwkv6_scan_plain(*inputs)
         outs = [o for o, d in ((y, dy), (s, d_state)) if d is not None]
         grads = [d for d in (dy, d_state) if d is not None]
+        if not outs:
+            return tuple(torch.zeros_like(t) for t in inputs)
+        got = torch.autograd.grad(outs, inputs, grads, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(got, inputs))
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD): sequential scan and its chunked form
+# ---------------------------------------------------------------------------
+
+def _mamba2_heads(b: torch.Tensor, c: torch.Tensor, n_heads: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B,S,G,N) gates -> (B,S,H,N) in the math dtype: group g serves heads
+    g*H/G .. (g+1)*H/G - 1 (the reference's jnp.repeat)."""
+    rep = n_heads // b.shape[2]
+    f = _mamba2_math(b)
+    return (torch.repeat_interleave(b, rep, dim=2).to(f),
+            torch.repeat_interleave(c, rep, dim=2).to(f))
+
+
+def _mamba2_math(x: torch.Tensor) -> torch.dtype:
+    """fp32, the reference's math, for fp32 and bf16 inputs; float64 for
+    float64 inputs (a witness of the fp32 versions' rounding)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def mamba2_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, d: torch.Tensor,
+                      init_state: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence (mirror of `ref.mamba2_scan_ref`; its
+    `lax.scan` becomes a Python loop).
+
+    x (B,S,H,P); dt (B,S,H) the softplus'd timestep; a (H,) the negative
+    decay rate; b, c (B,S,G,N), G groups broadcast over the heads; d (H,)
+    the skip:
+      h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) b_t^T;   y_t = h_t c_t + d x_t
+    Math in fp32 (float64 for float64 inputs, `_mamba2_math`); returns y
+    (B,S,H,P) in x's dtype and the final state (B,H,P,N) in the math dtype.
+    """
+    B, S, H, P = x.shape
+    bb, cc = _mamba2_heads(b, c, H)
+    f = _mamba2_math(x)
+    xf, dtf = x.to(f), dt.to(f)
+    decay = torch.exp(dtf * a.to(f)[None, None, :])
+    h = (torch.zeros((B, H, P, bb.shape[-1]), dtype=f, device=x.device)
+         if init_state is None else init_state.to(f))
+    ys = []
+    for t in range(S):
+        h = h * decay[:, t, :, None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xf[:, t] * dtf[:, t, :, None], bb[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, cc[:, t]))
+    y = torch.stack(ys, dim=1) + xf * d.to(f)[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def mamba2_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, d: torch.Tensor, chunk: int = 128,
+                         init_state: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: dense within a chunk, the state carried across chunks
+    (mirror of `ref.mamba2_chunked_jnp`, the Pallas kernel's blocking).
+    Falls back to `mamba2_scan_plain` when S % chunk != 0, as the oracle
+    does; the same function either way."""
+    B, S, H, P = x.shape
+    if S % chunk != 0:
+        return mamba2_scan_plain(x, dt, a, b, c, d, init_state)
+    N = b.shape[3]
+    nc = S // chunk
+    bb, cc = (t.reshape(B, nc, chunk, H, N) for t in _mamba2_heads(b, c, H))
+    f = _mamba2_math(x)
+    dtf = dt.to(f)
+    xf = (x.to(f) * dtf[..., None]).reshape(B, nc, chunk, H, P)      # dt-scaled input
+    la = dtf.reshape(B, nc, chunk, H) * a.to(f)[None, None, None, :]
+    cum = torch.cumsum(la, dim=2)                                     # (B,nc,T,H)
+    total = cum[:, :, -1]                                             # (B,nc,H)
+
+    # intra-chunk: y[t] = sum_{s<=t} exp(cum[t]-cum[s]) (C_t . B_s) x_s
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]               # (B,nc,T,T,H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    gmat = torch.exp(torch.where(tri[None, None, :, :, None], seg, -math.inf))
+    cb = torch.einsum("bntHm,bnsHm->bntsH", cc, bb)
+    y_intra = torch.einsum("bntsH,bntsH,bnsHp->bntHp", cb, gmat, xf)
+
+    # chunk states, then the carry across chunks
+    sdecay = torch.exp(total[:, :, None, :] - cum)                    # (B,nc,T,H)
+    chunk_state = torch.einsum("bnsHm,bnsH,bnsHp->bnHpm", bb, sdecay, xf)
+    h = (torch.zeros((B, H, P, N), dtype=f, device=x.device)
+         if init_state is None else init_state.to(f))
+    h_prevs = []
+    for n in range(nc):
+        h_prevs.append(h)
+        h = h * torch.exp(total[:, n])[..., None, None] + chunk_state[:, n]
+    h_prevs = torch.stack(h_prevs, dim=1)                             # (B,nc,H,P,N) entering
+
+    y_inter = torch.einsum("bntHm,bntH,bnHpm->bntHp", cc, torch.exp(cum), h_prevs)
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    y = y + x.to(f) * d.to(f)[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def mamba2_scan_plain_grads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                            b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                            init_state: Optional[torch.Tensor], dy: Optional[torch.Tensor],
+                            d_state: Optional[torch.Tensor], chunk: int = 128
+                            ) -> tuple[torch.Tensor, ...]:
+    """(dx, ddt, da, db, dc, dd, d_init_state) of `mamba2_chunked_plain`
+    for the cotangents dy of y and d_state of the final state (None: zero),
+    by autograd: what `jax.grad` of the oracle gives, each in its input's
+    dtype (d_init_state in the math dtype: the gradient at a zero state
+    when `init_state` is None)."""
+    B, _, H, P = x.shape
+    s0 = (torch.zeros((B, H, P, b.shape[-1]), dtype=_mamba2_math(x), device=x.device)
+          if init_state is None else init_state)
+    inputs = [t.detach().requires_grad_(True) for t in (x, dt, a, b, c, d, s0)]
+    with torch.enable_grad():
+        y, s = mamba2_chunked_plain(*inputs[:6], chunk=chunk, init_state=inputs[6])
+        outs = [o for o, g in ((y, dy), (s, d_state)) if g is not None]
+        grads = [g for g in (dy, d_state) if g is not None]
         if not outs:
             return tuple(torch.zeros_like(t) for t in inputs)
         got = torch.autograd.grad(outs, inputs, grads, allow_unused=True)

@@ -3,14 +3,17 @@
 
 A request batch is prefilled in one pass (on the card the sequence mixer
 runs its kernel: flash attention for olmo-1b, the rwkv6 wkv scan for
-rwkv6-7b), then decoded one token per step for the whole batch, greedy or
-with temperature sampling (an rwkv6 decode step is a one-token scan from the
+rwkv6-7b, the Mamba2 SSD scan and flash attention for zamba2-1.2b), then
+decoded one token per step for the whole batch, greedy or with temperature
+sampling (an rwkv6 or Mamba2 decode step is a one-token scan from the
 carried state, through the same kernel). `serve` is the function the CLI, the
 tests and chip_smoke.py all drive; it reports each kernel's launches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
       --requests 8 --prompt-len 1024 --max-new 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --requests 8 --prompt-len 1024 --max-new 32          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --requests 8 --prompt-len 1024 --max-new 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --reduced \
       --device cpu --requests 2 --prompt-len 12 --max-new 4

@@ -15,8 +15,10 @@ runs one of three executors under `Engine.fit`:
                      (the delta_amax and delta_encode_i8 kernels)
 On the card by default, where the perturbation, the optimizer epilogue, the
 ascent refresh, the delta encode and the sequence mixer (attention; the
-rwkv6 wkv scan and its backward) go through the Hopper kernels; on the CPU with `--device cpu`, through their plain versions. With `--ckpt-dir` the loop checkpoints every `--save-every`
-steps and restarts from the newest checkpoint after a failed step
+rwkv6 wkv scan and its backward; zamba2's Mamba2 SSD scan and its backward
+beside attention) go through the Hopper kernels; on the CPU with `--device
+cpu`, through their plain versions. With `--ckpt-dir` the loop checkpoints
+every `--save-every` steps and restarts from the newest checkpoint after a failed step
 (`runtime.run_resilient`). Prints the reference's `step N {...}` lines, each
 kernel's launch count, `done: N steps, R restarts, Xs` with `--ckpt-dir`, and
 the reference's final JSON summary.
@@ -24,6 +26,8 @@ the reference's final JSON summary.
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
       --method async_sam --steps 6 --batch 8 --seq 1024            # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --method async_sam --steps 6 --batch 8 --seq 1024            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --method async_sam --steps 6 --batch 8 --seq 1024            # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
       --device cpu --method async_sam --steps 12 --batch 4 --seq 32 \\
@@ -71,7 +75,8 @@ NOT_PORTED_FLAGS = {
 def kernel_launches(executor: str = "fused", family: str = "dense") -> dict[str, int]:
     """Launches of every kernel of the executor's training path for a model
     family since the last reset: the family's sequence mixer (flash
-    attention; the rwkv6 scan and its backward) and the weight-space kernels
+    attention; the rwkv6 scan and its backward; the Mamba2 scan and its
+    backward beside flash attention) and the weight-space kernels
     (the JOB-delta kernels run on the remote lane only)."""
     counts = {**mixer_launches(family, backward=True), **sp.launches, **fu.launches}
     if executor != "remote":

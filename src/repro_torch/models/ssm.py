@@ -1,0 +1,110 @@
+"""Mamba2 (SSD) block of the zamba2 hybrid family (counterpart of
+`repro.models.ssm`).
+
+Sequence mixing goes through `repro_torch.kernels.ops.mamba2_mix` (the
+Hopper kernel on the card); a decode step is one token through
+`ops.mamba2_decode_step` (the same kernel, from the carried state). The
+input projection is split per segment (z / x / BC / dt) as the reference's
+is; the depthwise causal conv uses explicit shifts so that decode carries a
+(width - 1)-deep conv cache. Parameters are mappings of the reference's leaf
+names to tensors, as in `layers.py`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Params, cdtype
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    bc_dim = 2 * s.n_groups * s.d_state
+    return s, d_inner, n_heads, bc_dim
+
+
+def mamba2_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The leaves of the reference's `mamba2_init`, by name and shape."""
+    s, d_inner, n_heads, bc_dim = _dims(cfg)
+    d = cfg.d_model
+    return {"wz": (d, d_inner), "wx": (d, d_inner), "wbc": (d, bc_dim), "wdt": (d, n_heads),
+            "conv_x_w": (s.d_conv, d_inner), "conv_x_b": (d_inner,),
+            "conv_bc_w": (s.d_conv, bc_dim), "conv_bc_b": (bc_dim,),
+            "a_log": (n_heads,), "d_skip": (n_heads,), "dt_bias": (n_heads,),
+            "gate_norm_scale": (d_inner,), "w_out": (d_inner, d)}
+
+
+def _causal_conv(xin: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 conv_state: Optional[torch.Tensor] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv via explicit shifts. xin (B,S,C); w (W,C).
+
+    conv_state (B,W-1,C) holds the previous W-1 inputs (decode). Returns
+    (silu(conv(x)+b), new_conv_state)."""
+    W = w.shape[0]
+    B, S, C = xin.shape
+    if conv_state is None:
+        conv_state = torch.zeros((B, W - 1, C), dtype=xin.dtype, device=xin.device)
+    padded = torch.cat([conv_state.to(xin.dtype), xin], dim=1)     # (B, S+W-1, C)
+    y = torch.zeros((B, S, C), dtype=torch.float32, device=xin.device)
+    for i in range(W):
+        y = y + padded[:, i:i + S].float() * w[i].float()
+    y = F.silu(y + b.float()).to(xin.dtype)
+    return y, padded[:, S:]                                         # last W-1 inputs
+
+
+def mamba2_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                 cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+    """x (B,S,D) -> (y, cache'). cache: {"conv_x", "conv_bc", "ssm"}."""
+    from repro_torch.kernels import ops  # local import to avoid cycles
+
+    s, d_inner, n_heads, bc_dim = _dims(cfg)
+    dt_c = cdtype(cfg)
+    B, S, _ = x.shape
+    z = x @ params["wz"].to(dt_c)
+    xs = x @ params["wx"].to(dt_c)
+    bc = x @ params["wbc"].to(dt_c)
+    dt_raw = x @ params["wdt"].to(dt_c)
+
+    xs, new_conv_x = _causal_conv(xs, params["conv_x_w"], params["conv_x_b"],
+                                  cache["conv_x"] if cache else None)
+    bc, new_conv_bc = _causal_conv(bc, params["conv_bc_w"], params["conv_bc_b"],
+                                   cache["conv_bc"] if cache else None)
+    gn = s.n_groups * s.d_state
+    b = bc[..., :gn].reshape(B, S, s.n_groups, s.d_state).contiguous()
+    c = bc[..., gn:].reshape(B, S, s.n_groups, s.d_state).contiguous()
+    xh = xs.reshape(B, S, n_heads, s.head_dim)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    a = -torch.exp(params["a_log"].float())
+    d_skip = params["d_skip"].float()
+
+    if cache is None:
+        y, final_state = ops.mamba2_mix(xh, dt, a, b, c, d_skip, chunk=s.chunk_size)
+    else:
+        y, final_state = ops.mamba2_decode_step(xh, dt, a, b, c, d_skip, state=cache["ssm"])
+    # the final state and the conv tails are the prefill's cache
+    new_cache = {"conv_x": new_conv_x, "conv_bc": new_conv_bc, "ssm": final_state}
+
+    y = y.reshape(B, S, d_inner)
+    # gated RMSNorm (Mamba2's norm before the out projection)
+    yf = y.float() * F.silu(z.float())
+    yf = yf * torch.rsqrt(yf.square().mean(dim=-1, keepdim=True) + 1e-6)
+    y = (yf * params["gate_norm_scale"].float()).to(dt_c)
+    return y @ params["w_out"].to(dt_c), new_cache
+
+
+def mamba2_cache_shape(cfg: ModelConfig, batch: int,
+                       device: Union[str, torch.device] = "cuda") -> dict:
+    """One layer's zero decode cache: the conv tails in the compute dtype,
+    the SSM state in fp32."""
+    s, d_inner, n_heads, bc_dim = _dims(cfg)
+    cdt = cdtype(cfg)
+    return {"conv_x": torch.zeros((batch, s.d_conv - 1, d_inner), dtype=cdt, device=device),
+            "conv_bc": torch.zeros((batch, s.d_conv - 1, bc_dim), dtype=cdt, device=device),
+            "ssm": torch.zeros((batch, n_heads, s.head_dim, s.d_state), dtype=torch.float32,
+                               device=device)}

@@ -1,11 +1,13 @@
-"""Decoder-LM assembly for the dense and ssm (rwkv6) families (counterpart
-of `repro.models.transformer`).
+"""Decoder-LM assembly for the dense, ssm (rwkv6) and hybrid (zamba2)
+families (counterpart of `repro.models.transformer`).
 
 Parameters live in `nn.Module`s whose names mirror the reference's leaves
 (`embedding.embed`, `blocks.<i>.attn.wq`, `blocks.<i>.mlp.wi|wg|wo_mlp`; for
-rwkv6 `blocks.<i>.tm.wr`, `blocks.<i>.cm.wk_c`, `blocks.<i>.ln1.scale`); the
-reference stacks the blocks on a leading L axis and scans them, the port
-keeps one module per block and loops. Entry points:
+rwkv6 `blocks.<i>.tm.wr`, `blocks.<i>.cm.wk_c`, `blocks.<i>.ln1.scale`; for
+zamba2 `blocks.<i>.mixer.wz`, `blocks.<i>.ln.scale`, `shared.attn.wq` and
+`lora.attn_a`, whose leading axis is the shared block's invocation, as the
+reference stacks it); the reference stacks the blocks on a leading L axis
+and scans them, the port keeps one module per block and loops. Entry points:
 
     forward(model_or_params, batch, cfg)    -> (logits, aux_loss)
     prefill(model, batch, cfg, pad_to)      -> (last_logits, cache)
@@ -20,8 +22,12 @@ without batch dims (`aten.mm`: the projections) and recomputes the rest,
 the counterpart of `dots_with_no_batch_dims_saveable`. Serving runs under
 `torch.inference_mode()` and checkpoints nothing. An rwkv6 decode cache
 holds, per layer, the two token-shift states and the wkv state, and has no
-sequence axis (prefill ignores `pad_to`, as the reference's does). The other
-families (moe, hybrid, vlm) are not ported yet.
+sequence axis (prefill ignores `pad_to`, as the reference's does). A zamba2
+model runs the shared attention block (its LoRA of the invocation) before
+every `hybrid.period` mamba blocks; only the mamba blocks are checkpointed,
+as the reference's `_remat` wraps them alone. Its decode cache holds, per
+mamba layer, the two conv tails and the SSM state, and per invocation of the
+shared block its k/v. The other families (moe, vlm) are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RWKV
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
 Device = Union[str, torch.device]
@@ -42,12 +49,14 @@ Device = Union[str, torch.device]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config outside the ported families: dense (no MLA, no
-    MoE) and ssm with an rwkv config (rwkv6)."""
+    MoE), ssm with an rwkv config (rwkv6) and hybrid with ssm and hybrid
+    configs (zamba2)."""
     dense = cfg.family == "dense" and cfg.mla is None and cfg.moe is None
     rwkv = cfg.family == "ssm" and cfg.rwkv is not None
-    if not (dense or rwkv):
-        raise NotImplementedError(f"the port supports the dense and rwkv6 families only, "
-                                  f"not {cfg.name} ({cfg.family})")
+    hybrid = cfg.family == "hybrid" and cfg.ssm is not None and cfg.hybrid is not None
+    if not (dense or rwkv or hybrid):
+        raise NotImplementedError(f"the port supports the dense, rwkv6 and zamba2 families "
+                                  f"only, not {cfg.name} ({cfg.family})")
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +122,24 @@ class RWKVBlock(nn.Module):
         self.cm = Shaped(RWKV.channelmix_shapes(cfg), cfg, device)
 
 
+class MambaBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        self.ln = Norm(cfg, cfg.d_model, device)
+        self.mixer = Shaped(SSM.mamba2_shapes(cfg), cfg, device)
+
+
+def _n_shared_invocations(cfg: ModelConfig) -> int:
+    return (cfg.n_layers + cfg.hybrid.period - 1) // cfg.hybrid.period
+
+
+def lora_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The shared block's per-invocation LoRA, stacked on the invocation
+    axis as the reference's leaves are."""
+    n, d, r = _n_shared_invocations(cfg), cfg.d_model, cfg.hybrid.lora_rank
+    return {"attn_a": (n, d, r), "attn_b": (n, r, d), "mlp_a": (n, d, r), "mlp_b": (n, r, d)}
+
+
 class Embedding(nn.Module):
     def __init__(self, cfg: ModelConfig, device: Device):
         super().__init__()
@@ -128,8 +155,11 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embedding = Embedding(cfg, device)
         self.final_norm = Norm(cfg, cfg.d_model, device)
-        block = RWKVBlock if cfg.family == "ssm" else Block
+        block = {"ssm": RWKVBlock, "hybrid": MambaBlock}.get(cfg.family, Block)
         self.blocks = nn.ModuleList(block(cfg, device) for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared = Block(cfg, device)
+            self.lora = Shaped(lora_shapes(cfg), cfg, device)
 
     def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         return forward(self, batch, self.cfg)
@@ -141,8 +171,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
     The same distributions as the reference's init (truncated-normal fan-in
     dense weights, N(0, 0.02) embedding, `wo` scaled by 1/sqrt(2 L), unit norm
     scales, zero biases; rwkv6's token-shift mixes 0.5, decay base w0 -2,
-    `decay_b` scaled by 0.1, bonus u ~ 0.1 N(0, 1)), drawn from a
-    `torch.Generator` on `device`: the
+    `decay_b` scaled by 0.1, bonus u ~ 0.1 N(0, 1); zamba2's conv weights
+    N(0, 1) / sqrt(d_conv), a_log = log(linspace(1, 16, H)), d_skip 1,
+    dt_bias = log(expm1(0.01)), `w_out` scaled by 1/sqrt(2 L), LoRA `a`
+    dense per invocation and `b` zero), drawn from a `torch.Generator` on
+    `device`: the
     values differ from JAX's. To hold the port against the reference, load
     the JAX init through `convert.params_from_jax`. On the "meta" device the
     parameters get shapes only.
@@ -168,17 +201,48 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
         for blk in model.blocks:
             if cfg.family == "ssm":
                 _init_rwkv_block(blk, cfg, dense, gen)
-                continue
-            a = blk.attn
-            dense(a.wq)
-            dense(a.wk)
-            dense(a.wv)
-            dense(a.wo, scale=1.0 / math.sqrt(2 * cfg.n_layers))
-            dense(blk.mlp.wi)
-            dense(blk.mlp.wo_mlp)
-            if cfg.mlp_gated:
-                dense(blk.mlp.wg)
+            elif cfg.family == "hybrid":
+                _init_mamba_block(blk, cfg, dense, gen)
+            else:
+                _init_attn_block(blk, cfg, dense)
+        if cfg.family == "hybrid":
+            _init_attn_block(model.shared, cfg, dense)
+            lora = model.lora
+            for i in range(lora.attn_a.shape[0]):
+                dense(lora.attn_a[i])
+                dense(lora.mlp_a[i])
+            lora.attn_b.zero_()
+            lora.mlp_b.zero_()
     return model
+
+
+def _init_attn_block(blk: Block, cfg: ModelConfig, dense) -> None:
+    a = blk.attn
+    dense(a.wq)
+    dense(a.wk)
+    dense(a.wv)
+    dense(a.wo, scale=1.0 / math.sqrt(2 * cfg.n_layers))
+    dense(blk.mlp.wi)
+    dense(blk.mlp.wo_mlp)
+    if cfg.mlp_gated:
+        dense(blk.mlp.wg)
+
+
+def _init_mamba_block(blk: MambaBlock, cfg: ModelConfig, dense, gen: torch.Generator) -> None:
+    """After the suffix loop, which zeroes every name ending in "bias",
+    `dt_bias` included."""
+    m = blk.mixer
+    for w in (m.wz, m.wx, m.wbc, m.wdt):
+        dense(w)
+    dense(m.w_out, scale=1.0 / math.sqrt(2 * cfg.n_layers))
+    for w, bias in ((m.conv_x_w, m.conv_x_b), (m.conv_bc_w, m.conv_bc_b)):
+        w.normal_(0.0, 1.0, generator=gen).div_(math.sqrt(cfg.ssm.d_conv))
+        bias.zero_()
+    n_heads = m.a_log.shape[0]
+    m.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, n_heads, dtype=torch.float32)))
+    m.d_skip.fill_(1.0)
+    m.dt_bias.fill_(math.log(math.expm1(0.01)))
+    m.gate_norm_scale.fill_(1.0)
 
 
 def _init_rwkv_block(blk: RWKVBlock, cfg: ModelConfig, dense, gen: torch.Generator) -> None:
@@ -211,9 +275,21 @@ def _groups(model_or_params: Union[nn.Module, Params]) -> dict[str, dict[str, to
     return out
 
 
+_BLOCK_PARTS = {"ssm": ("ln1", "ln2", "tm", "cm"), "hybrid": ("ln", "mixer")}
+
+
 def _block(groups: dict, i: int, cfg: ModelConfig) -> dict[str, dict[str, torch.Tensor]]:
-    parts = ("ln1", "ln2", "tm", "cm") if cfg.family == "ssm" else ("ln1", "ln2", "attn", "mlp")
+    parts = _BLOCK_PARTS.get(cfg.family, ("ln1", "ln2", "attn", "mlp"))
     return {part: groups.get(f"blocks.{i}.{part}", {}) for part in parts}
+
+
+def _shared(groups: dict) -> dict[str, dict[str, torch.Tensor]]:
+    return {part: groups.get(f"shared.{part}", {}) for part in ("ln1", "ln2", "attn", "mlp")}
+
+
+def _lora(groups: dict, g: int) -> dict[str, torch.Tensor]:
+    """The shared block's LoRA of invocation g."""
+    return {name: t[g] for name, t in groups["lora"].items()}
 
 
 def attn_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -243,6 +319,38 @@ def rwkv_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     "cm_shift": cm_new["shift"]}
 
 
+def mamba_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                      cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+    """One zamba2 mamba block; `bp` maps "ln"/"mixer" to their parameters.
+    cache: {"conv_x", "conv_bc", "ssm"} of this layer, or None. Returns (x,
+    the new cache)."""
+    h, new_cache = SSM.mamba2_apply(bp["mixer"], L.norm_apply(bp["ln"], x, cfg), cfg,
+                                    cache=cache)
+    return x + h, new_cache
+
+
+def shared_block_apply(shared: dict, lora: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                       positions: torch.Tensor, cache: Optional[dict] = None
+                       ) -> tuple[torch.Tensor, dict]:
+    """zamba2's shared attention block with the LoRA of one invocation on
+    its attention and MLP branches (the reference's `shared_block_apply`)."""
+    dt = L.cdtype(cfg)
+    xn = L.norm_apply(shared["ln1"], x, cfg)
+    h, new_cache = L.attention_apply(shared["attn"], xn, cfg, positions=positions, cache=cache)
+    h = h + (xn @ lora["attn_a"].to(dt)) @ lora["attn_b"].to(dt)
+    x = x + h
+    x2n = L.norm_apply(shared["ln2"], x, cfg)
+    h2 = L.mlp_apply(shared["mlp"], x2n, cfg)
+    h2 = h2 + (x2n @ lora["mlp_a"].to(dt)) @ lora["mlp_b"].to(dt)
+    return x + h2, new_cache
+
+
+def _segment(g: int, cfg: ModelConfig) -> range:
+    """The mamba layers after the shared block's invocation g."""
+    period = cfg.hybrid.period
+    return range(g * period, min((g + 1) * period, cfg.n_layers))
+
+
 def _save_projections(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of remat="dots": keep the outputs of the
     matrix products without batch dims, recompute everything else."""
@@ -258,6 +366,8 @@ def _train_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
     def fn(bp_, x_, positions_):
         if cfg.family == "ssm":
             return rwkv_block_apply(bp_, x_, cfg)[0]
+        if cfg.family == "hybrid":
+            return mamba_block_apply(bp_, x_, cfg)[0]
         return attn_block_apply(bp_, x_, cfg, positions=positions_)[0]
 
     if cfg.remat == "none" or not torch.is_grad_enabled():
@@ -289,8 +399,15 @@ def forward(model: Union[Transformer, Params], batch: dict, cfg: ModelConfig
     x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    for i in range(cfg.n_layers):
-        x = _train_block(_block(groups, i, cfg), x, cfg, positions)
+    if cfg.family == "hybrid":
+        for g in range(_n_shared_invocations(cfg)):
+            x, _ = shared_block_apply(_shared(groups), _lora(groups, g), x, cfg,
+                                      positions=positions)
+            for i in _segment(g, cfg):
+                x = _train_block(_block(groups, i, cfg), x, cfg, positions)
+    else:
+        for i in range(cfg.n_layers):
+            x = _train_block(_block(groups, i, cfg), x, cfg, positions)
     logits = _final_logits(groups, x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -303,21 +420,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, pos: int = 0,
                device: Device = "cuda") -> dict:
     """Zero cache: {"layers": {"k", "v": (L, B, max_len, K, hd)}, "pos": int};
     for rwkv6 {"layers": {"tm_shift", "cm_shift": (L, B, 1, D), "wkv": (L, B,
-    H, K, V)}, "pos": int} (no sequence axis: `max_len` is not used).
+    H, K, V)}, "pos": int} (no sequence axis: `max_len` is not used); for
+    zamba2 {"layers": {"conv_x", "conv_bc": (L, B, d_conv - 1, C), "ssm": (L, B,
+    H, P, N)}, "shared": {"k", "v": (n_inv, B, max_len, K, hd)}, "pos": int}.
 
     The same structure as the reference's (and as `prefill` emits); `pos` is a
     Python int since the host drives the decode loop.
     """
     check_supported(cfg)
-    if cfg.family == "ssm":
-        layer = RWKV.rwkv_cache_shape(cfg, batch, device)
-        return {"layers": {name: t.expand(cfg.n_layers, *t.shape).clone()
-                           for name, t in layer.items()}, "pos": pos}
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if cfg.family in ("ssm", "hybrid"):
+        layer = (RWKV.rwkv_cache_shape(cfg, batch, device) if cfg.family == "ssm"
+                 else SSM.mamba2_cache_shape(cfg, batch, device))
+        cache = {"layers": {name: t.expand(cfg.n_layers, *t.shape).clone()
+                            for name, t in layer.items()}}
+        if cfg.family == "hybrid":
+            cache["shared"] = _kv_cache(cfg, _n_shared_invocations(cfg), batch, max_len, device)
+        return {**cache, "pos": pos}
+    return {"layers": _kv_cache(cfg, cfg.n_layers, batch, max_len, device), "pos": pos}
+
+
+def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, device: Device) -> dict:
+    shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     cdt = L.cdtype(cfg)
-    return {"layers": {"k": torch.zeros(shape, dtype=cdt, device=device),
-                       "v": torch.zeros(shape, dtype=cdt, device=device)},
-            "pos": pos}
+    return {"k": torch.zeros(shape, dtype=cdt, device=device),
+            "v": torch.zeros(shape, dtype=cdt, device=device)}
 
 
 def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
@@ -337,6 +463,18 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
         return _final_logits(groups, x[:, -1:], cfg), cache
     cache = init_cache(cfg, B, max(S, pad_to), pos=S, device=x.device)
     positions = torch.arange(S, device=x.device)[None, :]
+    if cfg.family == "hybrid":
+        layers, shared = cache["layers"], cache["shared"]
+        for g in range(_n_shared_invocations(cfg)):
+            x, kv = shared_block_apply(_shared(groups), _lora(groups, g), x, cfg,
+                                       positions=positions)
+            shared["k"][g, :, :S] = kv["k"]
+            shared["v"][g, :, :S] = kv["v"]
+            for i in _segment(g, cfg):
+                x, c = mamba_block_apply(_block(groups, i, cfg), x, cfg)
+                for name, t in layers.items():
+                    t[i].copy_(c[name])
+        return _final_logits(groups, x[:, -1:], cfg), cache
     for i in range(cfg.n_layers):
         x, kv = attn_block_apply(_block(groups, i, cfg), x, cfg, positions=positions)
         cache["layers"]["k"][i, :, :S] = kv["k"]
@@ -349,8 +487,8 @@ def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
            ) -> tuple[torch.Tensor, dict]:
     """One decode step: batch["tokens"] (B, S_new) -> (logits (B,S_new,V), cache).
 
-    The cache's k/v (rwkv6: its states) are updated in place; the returned
-    cache carries the advanced `pos`.
+    The cache's k/v (rwkv6 and zamba2: its states) are updated in place; the
+    returned cache carries the advanced `pos`.
     """
     groups = _groups(model)
     x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
@@ -365,6 +503,19 @@ def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
                 t[i].copy_(new[name])
         return _final_logits(groups, x, cfg), {"layers": layers, "pos": pos + S_new}
     positions = pos + torch.arange(S_new, device=x.device)[None, :]
+    if cfg.family == "hybrid":
+        layers, shared = cache["layers"], cache["shared"]
+        for g in range(_n_shared_invocations(cfg)):
+            x, _ = shared_block_apply(_shared(groups), _lora(groups, g), x, cfg,
+                                      positions=positions,
+                                      cache={"k": shared["k"][g], "v": shared["v"][g],
+                                             "pos": pos})
+            for i in _segment(g, cfg):
+                x, new = mamba_block_apply(_block(groups, i, cfg), x, cfg,
+                                           cache={name: t[i] for name, t in layers.items()})
+                for name, t in layers.items():
+                    t[i].copy_(new[name])
+        return _final_logits(groups, x, cfg), {**cache, "pos": pos + S_new}
     kc, vc = cache["layers"]["k"], cache["layers"]["v"]
     for i in range(cfg.n_layers):
         x, _ = attn_block_apply(_block(groups, i, cfg), x, cfg, positions=positions,

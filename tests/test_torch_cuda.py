@@ -687,3 +687,305 @@ def test_reduced_rwkv_training_kernel_path_matches_plain_path(dev, remat, fwd_pe
     diff = (wk - wp).abs()
     assert float(torch.quantile(diff.float(), 0.999)) <= 1e-4 * float(wp.abs().max())
     assert float(diff.max()) <= 2 * 3 * 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 SSD scan and its backward
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(dev, b, s, h, p, n, g, dtype, init, fast=False, seed=0):
+    """x, b, c in `dtype`; dt = softplus(N(0, 1)), a = -linspace(1, 16, H)
+    (the model's decay rates), d = 0.5, in fp32; with `fast` the last head's
+    dt is 20, so its decay exp(dt a) = exp(-320) underflows to 0; init_state
+    fp32 or None."""
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+
+    def n_(*shape, scale=1.0):
+        return torch.randn(shape, generator=g_, device=dev) * scale
+
+    x = n_(b, s, h, p, scale=0.5).to(dtype)
+    dt = torch.nn.functional.softplus(n_(b, s, h))
+    if fast:
+        dt[..., -1] = 20.0
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    bb, cc = n_(b, s, g, n, scale=0.3).to(dtype), n_(b, s, g, n, scale=0.3).to(dtype)
+    d = torch.full((h,), 0.5, device=dev)
+    s0 = n_(b, h, p, n, scale=0.5) if init else None
+    return x, dt, a, bb, cc, d, s0
+
+
+# (B, S, H, P, N, G, dtype, init_state, fast decay): zamba2's head (P = N =
+# 64) in bf16, a decode step (S = 1 from a state), ragged S from a state,
+# G = 2 and H = 4 in fp32, a head whose decay underflows, and widths that
+# are not 16, 32 or 64 with G = H
+SSD_CASES = [
+    (2, 256, 4, 64, 64, 1, torch.bfloat16, False, False),
+    (3, 1, 4, 64, 64, 1, torch.bfloat16, True, False),
+    (1, 1000, 2, 64, 64, 1, torch.bfloat16, True, False),
+    (2, 100, 4, 16, 16, 2, torch.float32, True, False),
+    (2, 300, 8, 64, 64, 1, torch.float32, True, True),
+    (2, 130, 4, 32, 24, 4, torch.float32, False, False),
+]
+# fp32 outputs (y in fp32, the state, ddt, da, dd, d init_state; dx, db, dc
+# in fp32) within 2e-4 of their max: the reference's own limit for its kernel
+# against its sequential oracle (tests/test_kernels.py), the sums' order
+# differing; bf16 outputs also round once to bf16 (2e-2, the reference's
+# bf16 tolerance). da, a sum over B and S of terms that can cancel to a
+# small da, is held to the same 2e-4 against the plain version in float64
+# (_f64): the plain version's own da in fp32 is up to 1e-4 of max|da| from
+# it on the ragged case, too close to the limit to judge the kernel by.
+SSD_TOL = 2e-4
+
+
+def _f64(*tensors):
+    """float64 copies (None stays None): the plain SSD's math in float64."""
+    return [None if t is None else t.double() for t in tensors]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,dtype,init,fast", SSD_CASES)
+def test_mamba2_forward_kernel_matches_plain(dev, b, s, h, p, n, g, dtype, init, fast):
+    from repro_torch.kernels import mamba2_scan as m2
+    x, dt, a, bb, cc, d, s0 = _ssd_inputs(dev, b, s, h, p, n, g, dtype, init, fast)
+    before = m2.launches["mamba2_scan_fwd"]
+    y, state = m2.mamba2_scan(x, dt, a, bb, cc, d, s0)
+    torch.cuda.synchronize()
+    assert m2.launches["mamba2_scan_fwd"] == before + 1
+    assert y.shape == (b, s, h, p) and y.dtype == dtype
+    assert state.shape == (b, h, p, n) and state.dtype == torch.float32
+    y_p, state_p = ref.mamba2_chunked_plain(x, dt, a, bb, cc, d, chunk=128, init_state=s0)
+    assert bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all())
+    assert _rel_max(state, state_p) <= SSD_TOL
+    if dtype == torch.float32:
+        assert _rel_max(y, y_p) <= SSD_TOL
+    else:
+        torch.testing.assert_close(y.float(), y_p.float(), **TOL[dtype])
+
+
+def _ssd_cotangents(dev, x, state, cotangents, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    ds = torch.randn(state.shape, generator=g, device=dev)
+    return (None if cotangents == "d_state" else dy), (None if cotangents == "dy" else ds)
+
+
+@pytest.mark.parametrize("cotangents", ["both", "dy", "d_state"])
+@pytest.mark.parametrize("b,s,h,p,n,g,dtype,init,fast", SSD_CASES)
+def test_mamba2_backward_kernel_matches_plain(dev, b, s, h, p, n, g, dtype, init, fast,
+                                              cotangents):
+    """The backward kernel against autograd of the plain version, from dy,
+    from the final state's cotangent, or both."""
+    from repro_torch.kernels import mamba2_scan as m2
+    x, dt, a, bb, cc, d, s0 = _ssd_inputs(dev, b, s, h, p, n, g, dtype, init, fast)
+    dy, ds = _ssd_cotangents(dev, x, torch.empty((b, h, p, n), device=dev), cotangents)
+    before = m2.launches["mamba2_scan_bwd"]
+    got = m2._launch_bwd(x, dt, a, bb, cc, d, s0, dy, ds)
+    torch.cuda.synchronize()
+    assert m2.launches["mamba2_scan_bwd"] == before + 1
+    want = ref.mamba2_scan_plain_grads(x, dt, a, bb, cc, d, s0, dy, ds, chunk=128)
+    for name, g_, e in zip(("dx", "ddt", "da", "db", "dc", "dd", "d_init"), got, want):
+        assert g_.shape == e.shape and g_.dtype == e.dtype, name
+        assert bool(torch.isfinite(g_.float()).all()), name
+        if not e.any():                          # no path from the given cotangent
+            assert not g_.any(), name
+        elif name == "da":
+            witness = ref.mamba2_scan_plain_grads(*_f64(x, dt, a, bb, cc, d, s0, dy, ds),
+                                                  chunk=128)[2]
+            assert _rel_max(g_, witness) <= SSD_TOL, (name, _rel_max(g_, witness))
+        elif g_.dtype == torch.float32:
+            assert _rel_max(g_, e) <= SSD_TOL, (name, _rel_max(g_, e))
+        else:
+            scale = float(e.float().abs().max())
+            torch.testing.assert_close(g_.float() / scale, e.float() / scale, rtol=2e-2,
+                                       atol=2e-2, msg=name)
+
+
+def test_mamba2_backward_sums_are_deterministic(dev):
+    """db, dc (summed over the heads of a group), da and dd (over b and S)
+    come from per-(b, h) partials reduced in a fixed order: two runs give
+    the same bits."""
+    from repro_torch.kernels import mamba2_scan as m2
+    x, dt, a, bb, cc, d, s0 = _ssd_inputs(dev, 4, 300, 8, 64, 64, 2, torch.bfloat16, True)
+    dy, ds = _ssd_cotangents(dev, x, s0, "both")
+    first = m2._launch_bwd(x, dt, a, bb, cc, d, s0, dy, ds)
+    second = m2._launch_bwd(x, dt, a, bb, cc, d, s0, dy, ds)
+    for name, u, v in zip(("dx", "ddt", "da", "db", "dc", "dd", "d_init"), first, second):
+        assert torch.equal(u, v), name
+
+
+def test_mamba2_function_runs_both_kernels(dev):
+    """Autograd through `mamba2_scan` on the card: one forward and one
+    backward launch, the gradients of the plain version's autograd."""
+    from repro_torch.kernels import mamba2_scan as m2
+    ins = _ssd_inputs(dev, 2, 150, 4, 32, 32, 2, torch.float32, True)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    before = dict(m2.launches)
+    y, state = m2.mamba2_scan(*leaves)
+    loss = (y * y).sum() + (state * state.sin()).sum()
+    got = torch.autograd.grad(loss, leaves)
+    assert {k: m2.launches[k] - before[k] for k in before} == {"mamba2_scan_fwd": 1,
+                                                               "mamba2_scan_bwd": 1}
+    plain = [t.clone().requires_grad_(True) for t in ins]
+    y_p, state_p = ref.mamba2_chunked_plain(*plain[:6], init_state=plain[6])
+    want = torch.autograd.grad((y_p * y_p).sum() + (state_p * state_p.sin()).sum(), plain)
+    f64 = [t.requires_grad_(True) for t in _f64(*ins)]
+    y_w, state_w = ref.mamba2_chunked_plain(*f64[:6], init_state=f64[6])
+    (da_w,) = torch.autograd.grad((y_w * y_w).sum() + (state_w * state_w.sin()).sum(), f64[2])
+    for name, g_, e in zip(("dx", "ddt", "da", "db", "dc", "dd", "d_init"), got, want):
+        if name == "da":
+            e = da_w
+        assert _rel_max(g_, e) <= SSD_TOL, (name, _rel_max(g_, e))
+
+
+def test_mamba2_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels import mamba2_scan as m2
+    x, dt, a, bb, cc, d, s0 = _ssd_inputs(dev, 1, 8, 4, 16, 16, 2, torch.float32, True)
+    with pytest.raises(TypeError):
+        m2.mamba2_scan(x.half(), dt, a, bb.half(), cc.half(), d)
+    with pytest.raises(TypeError):
+        m2.mamba2_scan(x, dt.bfloat16(), a, bb, cc, d)
+    with pytest.raises(ValueError):
+        m2.mamba2_scan(x, dt, a.cpu(), bb, cc, d)
+    with pytest.raises(ValueError):
+        m2.mamba2_scan(x, dt, a, bb, cc, d, s0[:, :1])
+    with pytest.raises(ValueError):
+        m2.mamba2_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bb, cc, d)
+    with pytest.raises(ValueError):                               # G must divide H
+        m2.mamba2_scan(x[:, :, :3].contiguous(), dt[:, :, :3].contiguous(), a[:3], bb, cc,
+                       d[:3])
+    big = _ssd_inputs(dev, 1, 4, 2, 72, 16, 1, torch.float32, False)
+    with pytest.raises(ValueError):
+        m2.mamba2_scan(*big[:6])
+
+
+def test_mamba2_refused_launch_raises(dev, monkeypatch):
+    """A launch the kernel refuses (here: S = 0 reaching the C entry past the
+    checks) returns its CUDA error, and the wrapper raises on it instead of
+    counting a launch."""
+    from repro_torch.kernels import mamba2_scan as m2
+    x, dt, a, bb, cc, d, _ = _ssd_inputs(dev, 1, 8, 4, 16, 16, 2, torch.float32, False)
+    before = dict(m2.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        m2._launch_fwd(x[:, :0], dt[:, :0], a, bb[:, :0], cc[:, :0], d, None)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        m2._launch_bwd(x[:, :0], dt[:, :0], a, bb[:, :0], cc[:, :0], d, None, None, None)
+    assert m2.launches == before
+
+
+def _zamba_cfg(**kw):
+    return dataclasses.replace(get_config("zamba2-1.2b", reduced=True), **kw)
+
+
+# The kernel path against the plain path in bf16 compute, as a share of the
+# logits' max: the two round to bf16 at other places (the flash kernel
+# rounds P to bf16 before P V; the SSD kernel sums its chunks in another
+# order) through reduced zamba2's 5 mamba and 3 shared blocks, each about
+# bf16's own error from fp32. The olmo-1b logits' limit (chip_smoke.py); the
+# control, the plain path with its weights at 6 significant bits (two fewer
+# than bf16's), must fail it.
+ZAMBA2_BF16_TOL = 5e-2
+
+
+def _coarse_(model, bits):
+    """Round every weight of `model` in place to `bits` significant bits."""
+    drop = 24 - bits
+    with torch.no_grad():
+        for t in model.parameters():
+            iv = t.data.view(torch.int32)
+            iv.copy_((iv + (1 << (drop - 1))) & ~((1 << drop) - 1))
+    return model
+
+
+def test_zamba2_model_kernel_path_matches_plain_path(dev):
+    """Reduced zamba2 in bf16 compute: one scan launch per mamba layer and
+    one flash launch per shared-block invocation, the kernel path within
+    ZAMBA2_BF16_TOL of the plain path, and the plain path at two bits less
+    than bf16's precision outside it."""
+    from repro_torch.kernels import mamba2_scan as m2
+    cfg = _zamba_cfg(compute_dtype="bfloat16")
+    bundle = build_model(cfg)
+    model = bundle.init(seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), device=dev, generator=gen)
+    with torch.inference_mode():
+        before = (m2.launches["mamba2_scan_fwd"], fa.launches)
+        got, _ = bundle.forward(model, {"tokens": tokens})
+        assert (m2.launches["mamba2_scan_fwd"] - before[0], fa.launches - before[1]) == (
+            cfg.n_layers, 3)
+        ops.set_default_impl("plain")
+        try:
+            expect, _ = bundle.forward(model, {"tokens": tokens})
+            control, _ = bundle.forward(_coarse_(bundle.init(seed=0, device=dev), 6),
+                                        {"tokens": tokens})
+        finally:
+            ops.set_default_impl(None)
+    err, ctl = _rel_max(got, expect), _rel_max(control, expect)
+    print(f"zamba2 bf16 logits: kernel path {err}, control {ctl} (limit {ZAMBA2_BF16_TOL})")
+    assert err <= ZAMBA2_BF16_TOL < ctl, (err, ctl)
+
+
+def test_zamba2_prefill_decode_matches_forward_on_card(dev):
+    """Prefill + one-token decode steps (each a one-token scan from the
+    carried state, through the kernel) == one forward, in fp32 compute."""
+    from repro_torch.kernels import mamba2_scan as m2
+    cfg = _zamba_cfg()
+    bundle = build_model(cfg)
+    model = bundle.init(seed=0, device=dev)
+    S, n_dec = 40, 4
+    tokens = torch.randint(0, cfg.vocab_size, (2, S + n_dec), device=dev)
+    with torch.inference_mode():
+        full, _ = bundle.forward(model, {"tokens": tokens})
+        before = m2.launches["mamba2_scan_fwd"]
+        logits, cache = bundle.prefill(model, {"tokens": tokens[:, :S]}, pad_to=S + n_dec)
+        errs = [_rel_max(logits[:, -1], full[:, S - 1])]
+        for t in range(S, S + n_dec):
+            logits, cache = bundle.decode(model, cache, {"tokens": tokens[:, t:t + 1]})
+            errs.append(_rel_max(logits[:, 0], full[:, t]))
+        assert m2.launches["mamba2_scan_fwd"] == before + (1 + n_dec) * cfg.n_layers
+    assert cache["pos"] == S + n_dec
+    assert max(errs) < 1e-4, errs
+
+
+@pytest.mark.parametrize("remat,fwd_per_pass", [("none", 1), ("full", 2)])
+def test_reduced_zamba2_training_kernel_path_matches_plain_path(dev, remat, fwd_per_pass):
+    """Reduced zamba2 (fp32 compute) trains 3 AsyncSAM AdamW steps through
+    the kernels: per step and mamba layer the scan's forward runs once per
+    gradient pass (twice under remat "full") and its backward once, flash
+    once per pass and invocation, and the run agrees with the plain path."""
+    from repro_torch.core import MethodConfig
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.engine import Engine, FusedExecutor
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.optim import cosine_schedule, make_optimizer
+
+    cfg = _zamba_cfg(remat=remat)
+    runs = {}
+    for impl in ("plain", "kernel"):
+        ops.set_default_impl(impl)
+        try:
+            bundle = build_model(cfg)
+            ex = FusedExecutor(bundle.loss_fn, MethodConfig(rho=0.05),
+                               make_optimizer("adamw", cosine_schedule(1e-3, 3)))
+            state = ex.init_state(bundle.init(seed=0, device=dev), seed=1)
+            pipe = TokenPipeline(cfg, PipelineConfig(global_batch=8, seq_len=64, seed=0,
+                                                     ascent_fraction=0.25, prefetch=0),
+                                 device=dev)
+            before = kernel_launches(family="hybrid")
+            report = Engine(ex, pipe).fit(state, 3)
+            after = kernel_launches(family="hybrid")
+        finally:
+            ops.set_default_impl(None)
+        runs[impl] = (report, {k: after[k] - before[k] for k in after})
+    (rp, lp), (rk, lk) = runs["plain"], runs["kernel"]
+    assert lp == dict.fromkeys(lp, 0)
+    assert lk == {"flash_attention": 3 * 2 * 3,
+                  "mamba2_scan_fwd": 3 * 2 * fwd_per_pass * cfg.n_layers,
+                  "mamba2_scan_bwd": 3 * 2 * cfg.n_layers, "sq_norm": 3, "sam_perturb": 0,
+                  "fused_axpy": 3, "fused_dot_norms": 3, "adamw_epilogue": 3,
+                  "sgd_epilogue": 0}
+    for mp, mk in zip(rp.metrics_history, rk.metrics_history):
+        for k in ("loss", "ascent_norm", "grad_norm"):
+            assert mk[k] == pytest.approx(mp[k], rel=1e-4), k
+    wp, wk = rp.final_state.params.buffers[0], rk.final_state.params.buffers[0]
+    diff = (wk - wp).abs()
+    assert float(torch.quantile(diff.float(), 0.999)) <= 1e-4 * float(wp.abs().max())
+    assert float(diff.max()) <= 2 * 3 * 1e-3

@@ -46,7 +46,7 @@ def reduced():
 
 
 def test_configs_are_copies_of_the_reference():
-    assert ARCH_IDS == ("olmo-1b", "rwkv6-7b")
+    assert ARCH_IDS == ("olmo-1b", "rwkv6-7b", "zamba2-1.2b")
     for reduced_ in (False, True):
         assert (dataclasses.asdict(get_config("olmo-1b", reduced=reduced_))
                 == dataclasses.asdict(jax_get_config("olmo-1b", reduced=reduced_)))
