@@ -12,7 +12,11 @@
    elements) and at edge sizes, held against their plain versions and timed
    beside their bound and one PyTorch library call (a yardstick only; the
    port never calls it);
-4. flash kernel phase: the same for the flash-attention forward;
+4. flash kernel phase: the same for the flash-attention forward (olmo-1b's
+   and zamba2's prefill shapes, GQA, MQA, ragged, windowed, non-causal,
+   MLA's hd 192 / hd_v 128, and the CUDA-core path's fp32, hd 40 and
+   unaligned cases), each case also held to the kernel path it must take:
+   wgmma (TMA + wgmma) for every shape of the model paths;
 5. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
    serves 8 requests x 1024 prompt tokens + 32 greedy tokens through
    `repro_torch.launch.serve.serve`; the launch counts, set to 0 just before
@@ -160,21 +164,26 @@ def time_ms(fn, min_total_ms: float = 200.0) -> float:
 # ---------------------------------------------------------------------------
 
 FLASH_CASES = [
-    # name, (B, Sq, Sk, H, K, hd, hd_v), dtype, causal, window, offset: q/k/v are
-    # views at this element offset into wider rows (1 breaks the 16-byte row
-    # alignment, which sends a bf16 call down the CUDA-core path)
-    ("olmo-1b prefill", (8, 1024, 1024, 16, 16, 128, 128), "bfloat16", True, None, 0),
+    # name, (B, Sq, Sk, H, K, hd, hd_v), dtype, causal, window, offset, path:
+    # q/k/v are views at this element offset into wider rows (1 breaks the
+    # 16-byte row alignment, which sends a bf16 call down the CUDA-core path);
+    # `path` is the kernel path the case must take ("wgmma" for every shape
+    # of the model paths, the run fails otherwise)
+    ("olmo-1b prefill", (8, 1024, 1024, 16, 16, 128, 128), "bfloat16", True, None, 0, "wgmma"),
+    ("zamba2 prefill", (8, 1024, 1024, 32, 32, 64, 64), "bfloat16", True, None, 0, "wgmma"),
     ("olmo-1b prefill, unaligned", (8, 1024, 1024, 16, 16, 128, 128), "bfloat16", True,
-     None, 1),
-    ("GQA", (2, 256, 256, 8, 2, 64, 64), "bfloat16", True, None, 0),
-    ("MQA hd128", (2, 512, 512, 16, 1, 128, 128), "bfloat16", True, None, 0),
-    ("window 64", (2, 256, 256, 4, 4, 64, 64), "bfloat16", True, 64, 0),
-    ("non-causal", (2, 256, 256, 4, 4, 64, 64), "bfloat16", False, None, 0),
-    ("ragged S=1000", (2, 1000, 1000, 8, 8, 128, 128), "bfloat16", True, None, 0),
-    ("ragged S=37", (4, 37, 37, 16, 16, 128, 128), "bfloat16", True, None, 0),
-    ("hd_v != hd", (2, 128, 128, 4, 4, 48, 32), "bfloat16", True, None, 0),
-    ("bf16 hd 40", (2, 256, 256, 4, 2, 40, 40), "bfloat16", True, None, 0),
-    ("fp32", (2, 256, 256, 4, 2, 64, 64), "float32", True, None, 0),
+     None, 1, "cuda_cores"),
+    ("GQA", (2, 256, 256, 8, 2, 64, 64), "bfloat16", True, None, 0, "wgmma"),
+    ("MQA hd128", (2, 512, 512, 16, 1, 128, 128), "bfloat16", True, None, 0, "wgmma"),
+    ("window 64", (2, 256, 256, 4, 4, 64, 64), "bfloat16", True, 64, 0, "wgmma"),
+    ("non-causal", (2, 256, 256, 4, 4, 64, 64), "bfloat16", False, None, 0, "wgmma"),
+    ("ragged S=1000", (2, 1000, 1000, 8, 8, 128, 128), "bfloat16", True, None, 0, "wgmma"),
+    ("ragged S=37", (4, 37, 37, 16, 16, 128, 128), "bfloat16", True, None, 0, "wgmma"),
+    ("MLA hd 192 / hd_v 128", (2, 1024, 1024, 16, 16, 192, 128), "bfloat16", True, None, 0,
+     "wgmma"),
+    ("hd_v != hd", (2, 128, 128, 4, 4, 48, 32), "bfloat16", True, None, 0, "wgmma"),
+    ("bf16 hd 40", (2, 256, 256, 4, 2, 40, 40), "bfloat16", True, None, 0, "cuda_cores"),
+    ("fp32", (2, 256, 256, 4, 2, 64, 64), "float32", True, None, 0, "cuda_cores"),
 ]
 
 
@@ -213,13 +222,16 @@ def sdpa_call(q, k, v, causal: bool, window):
 
 
 def flash_phase() -> dict:
+    """Each FLASH_CASES entry against the plain version, timed beside SDPA and
+    its bound; fails when a case disagrees or takes another path than its
+    own. Returns the first (olmo-1b prefill) case's row."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     main_case, failures = None, []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, shape, dtype, causal, window, offset in FLASH_CASES:
+    for name, shape, dtype, causal, window, offset, want_path in FLASH_CASES:
         b, sq, sk, h, kv, hd, hd_v = shape
         tdt = getattr(torch, dtype)
         q, k, v = (torch.randn((*s[:-1], s[-1] + offset), generator=gen,
@@ -231,25 +243,27 @@ def flash_phase() -> dict:
         tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
         diff = (out.float() - expect.float()).abs()
         err = float(diff.max())
+        path = fa.kernel_path(q, k, v)
         ok = (out.shape == expect.shape and bool(torch.isfinite(out).all())
-              and bool((diff <= tol["atol"] + tol["rtol"] * expect.float().abs()).all()))
+              and bool((diff <= tol["atol"] + tol["rtol"] * expect.float().abs()).all())
+              and path == want_path)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
         plain_ms = time_ms(lambda: ref.flash_attention_plain(q, k, v, causal=causal,
                                                              window=window))
         library_ms = time_ms(sdpa_call(q, k, v, causal, window))
         bound_ms, bound_by = flash_bound(shape, dtype, causal, window)
-        path = "tensor cores" if fa.uses_tensor_cores(q, k, v) else "CUDA cores"
         row = dict(case=name, shape=shape, dtype=dtype, causal=causal, window=window,
-                   path=path, max_abs_err=err, atol=tol["atol"], rtol=tol["rtol"], ok=ok, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   path=path, want_path=want_path, max_abs_err=err, atol=tol["atol"],
+                   rtol=tol["rtol"], ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
         print("flash_attention " + json.dumps(row))
         if not ok:
             failures.append(name)
         if main_case is None:
             main_case = row
     if failures:
-        fail(f"flash_attention kernel disagrees with its plain version: {failures}")
+        fail(f"flash_attention kernel disagrees with its plain version or takes another "
+             f"path than its case's: {failures}")
     return main_case
 
 

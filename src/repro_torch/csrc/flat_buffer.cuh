@@ -1,15 +1,22 @@
 // Shared by the flat-buffer kernels (sam_perturb.cu, fused_update.cu): how a
-// 1-D bucket is cut into blocks, 8-element vector loads and stores, and a
-// block reduction whose order is fixed.
+// 1-D bucket is cut into blocks, vector loads and stores, and a block
+// reduction whose order is fixed.
 //
-// A bucket of n elements is cut into chunks of CHUNK = 65,536 elements, the
-// TPU kernels' chunk (src/repro/kernels/sam_perturb.py:25); one CTA of 256
-// threads owns one chunk, and the last chunk is ragged (any length, n = 1
-// included). When every operand's base address is 16-byte aligned, a thread
-// walks its chunk 8 elements at a time with 16-byte loads (two per fp32
-// vector, one per bf16 vector), then the chunk's tail element by element;
-// otherwise it goes element by element. A chunk starts 65,536 elements past
-// the base, so its alignment is the base's.
+// Two ways to cut a bucket of n elements:
+// * chunks of CHUNK = 65,536 elements, the TPU kernels' chunk
+//   (src/repro/kernels/sam_perturb.py:25): one CTA of 256 threads owns one
+//   chunk (the last one ragged, n = 1 included) and walks it 8 elements at a
+//   time with 16-byte loads (two per fp32 vector, one per bf16 vector) when
+//   every operand's base is 16-byte aligned, then its tail element by
+//   element. A chunk starts 65,536 elements past the base, so its alignment
+//   is the base's. The reductions keep one partial per chunk;
+// * a sweep (`sweep_start`, for elementwise kernels): CTA b takes elements
+//   [1024 b, 1024 b + 1024), four a thread, so the CTAs resident at one time
+//   read and write one contiguous window of each operand, as PyTorch's own
+//   elementwise kernels do. With a chunk a CTA, about a thousand resident
+//   CTAs each stream their own 256 KB of every operand at once; on the H100
+//   an elementwise kernel that reads two buffers and writes a third then
+//   takes 6-8% longer (scripts/flat_loop_probe.py).
 //
 // Arithmetic is fp32 whatever the operand type. The elementwise kernels use
 // the _rn intrinsics, which the compiler does not contract into FMAs, so
@@ -104,6 +111,45 @@ __device__ __forceinline__ void block_sum(float (&v)[N]) {
     }
   }
 }
+
+// --- the sweep ---------------------------------------------------------------
+
+constexpr int SWEEP_VEC = 4;                                  // elements a thread
+constexpr int64_t SWEEP = static_cast<int64_t>(THREADS) * SWEEP_VEC;   // a CTA
+
+// This thread's first element: 4 consecutive elements, consecutive threads on
+// consecutive vectors, consecutive CTAs on consecutive tiles.
+__device__ __forceinline__ int64_t sweep_start() {
+  return (static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x) * SWEEP_VEC;
+}
+
+// 4 elements from a base that is 16-byte aligned at element 0 (one 16-byte
+// fp32 load, one 8-byte bf16 load)
+__device__ __forceinline__ void load4(const float* p, float v[SWEEP_VEC]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[SWEEP_VEC]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float v[SWEEP_VEC]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[SWEEP_VEC]) {
+  uint2 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  h[0] = __floats2bfloat162_rn(v[0], v[1]);
+  h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+inline unsigned n_sweep_tiles(int64_t n) { return static_cast<unsigned>((n + SWEEP - 1) / SWEEP); }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 

@@ -8,11 +8,9 @@
 //   step it gives the global gradient norm (clip scale and the grad_norm
 //   metric, src/repro_torch/optim/fused.py) and SAM's ascent norm;
 // * `_perturb_kernel` (`sam_perturb`): out = w + scale g with
-//   scale = rho / (sqrt(n) + 1e-12) computed outside the kernel (the
-//   wrapper, on the device, as the reference computes it before its
-//   pallas_call) and read here from device memory; fp32 math, w's dtype out,
-//   written into a buffer the caller gives. SAM's perturbation
-//   w_hat = w + rho g / ||g||.
+//   scale = rho / (sqrt(n) + 1e-12), the scale the reference computes before
+//   its pallas_call; fp32 math, w's dtype out, written into a buffer the
+//   caller gives. SAM's perturbation w_hat = w + rho g / ||g||.
 //
 // What bounds them on the H100: each reads its operands once and does 2
 // operations per element, so the bytes bound both. At olmo-1b's fp32 bucket
@@ -20,15 +18,24 @@
 //   sq_norm      4 N bytes (read g; one float per chunk out)     1.405 ms
 //   sam_perturb 12 N bytes (read w, g; write out)                4.215 ms
 //
-// Design: one CTA per chunk (17,956 at olmo-1b's bucket), 16-byte loads
-// where every base is aligned, any ragged tail element by element
-// (flat_buffer.cuh). sq_norm accumulates in fp32 per thread, then in a
-// fixed-order block sum: no atomics, a rerun gives the same bits. The
-// perturbation uses the _rn intrinsics in the plain version's order (no FMA
-// contraction), so on the card it matches the plain version bit for bit.
-// Inputs fp32 or bf16.
+// sq_norm: one CTA per chunk, 16-byte loads where the base is aligned, any
+// ragged tail element by element (flat_buffer.cuh); fp32 sums per thread,
+// then a fixed-order block sum: no atomics, a rerun gives the same bits.
 //
-// Left for later: a persistent grid and deeper loads in flight per thread.
+// sam_perturb: the flat kernels' chunk loop with w loaded first takes 5.79
+// ms against 4.85 with g loaded first (scripts/flat_loop_probe.py): the
+// compiler then issues the second vector's g load after the first vector's
+// store, so each pair of vectors waits on two memory latencies in turn (w,
+// unlike g, may alias out). And with a chunk a CTA, ~1000 resident CTAs each
+// stream their own region of every buffer: the sweep takes 4.54 ms against
+// the chunk loop's 4.85-4.93, torch.add 4.56. So this kernel sweeps
+// (flat_buffer.cuh): one CTA per 1,024 elements, each thread loads its 4
+// elements of w and g, then stores its 4 of out, with no loop; and it
+// computes the scale itself from rho (a host float or a device scalar) and
+// the device squared norm, in the reference's order (sqrt, + 1e-12, rho /),
+// so the wrapper launches nothing else. The _rn intrinsics keep the plain
+// version's rounding (no FMA contraction): on the card it matches the plain
+// version bit for bit. Inputs fp32 or bf16; out may be w itself.
 
 #include "flat_buffer.cuh"
 
@@ -71,39 +78,31 @@ cudaError_t run(const void* g, int64_t n, void* partials, cudaStream_t s) {
 
 template <typename TW, typename TG>
 __global__ void __launch_bounds__(THREADS)
-perturb_kernel(const float* __restrict__ scale_p, const TW* w, const TG* __restrict__ g,
-               TW* out, int64_t n, int vec) {
-  const Chunk c = this_chunk(n);
-  const float scale = *scale_p;
-  const TW* wp = w + c.base;
-  const TG* gp = g + c.base;
-  TW* op = out + c.base;
-  int done = 0;
-  if (vec) {
-    const int nv = c.len / VEC;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < nv; i += THREADS) {
-      const int64_t o = static_cast<int64_t>(i) * VEC;
-      float wv[VEC], gv[VEC];
-      load8(wp + o, wv);
-      load8(gp + o, gv);
+perturb_kernel(float rho, const float* rho_p, const float* __restrict__ sq_p, const TW* w,
+               const TG* __restrict__ g, TW* out, int64_t n, int vec) {
+  const float r = rho_p != nullptr ? *rho_p : rho;
+  const float scale = __fdiv_rn(r, __fadd_rn(__fsqrt_rn(*sq_p), 1e-12f));
+  const int64_t i = sweep_start();
+  if (vec && i + SWEEP_VEC <= n) {
+    float wv[SWEEP_VEC], gv[SWEEP_VEC];
+    load4(w + i, wv);
+    load4(g + i, gv);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) wv[j] = __fadd_rn(wv[j], __fmul_rn(scale, gv[j]));
-      store8(op + o, wv);
-    }
-    done = nv * VEC;
+    for (int j = 0; j < SWEEP_VEC; ++j) wv[j] = __fadd_rn(wv[j], __fmul_rn(scale, gv[j]));
+    store4(out + i, wv);
+  } else {
+    for (int64_t k = i; k < n && k < i + SWEEP_VEC; ++k)
+      out[k] = from_f32<TW>(__fadd_rn(to_f32(w[k]), __fmul_rn(scale, to_f32(g[k]))));
   }
-  for (int i = done + threadIdx.x; i < c.len; i += THREADS)
-    op[i] = from_f32<TW>(__fadd_rn(to_f32(wp[i]), __fmul_rn(scale, to_f32(gp[i]))));
 }
 
 template <typename TW, typename TG>
-cudaError_t run_perturb(const void* scale, const void* w, const void* g, void* out, int64_t n,
-                        cudaStream_t s) {
+cudaError_t run_perturb(float rho, const void* rho_p, const void* sq, const void* w,
+                        const void* g, void* out, int64_t n, cudaStream_t s) {
   const int vec = aligned16(w) && aligned16(g) && aligned16(out);
-  perturb_kernel<TW, TG><<<n_chunks(n), THREADS, 0, s>>>(
-      static_cast<const float*>(scale), static_cast<const TW*>(w), static_cast<const TG*>(g),
-      static_cast<TW*>(out), n, vec);
+  perturb_kernel<TW, TG><<<n_sweep_tiles(n), THREADS, 0, s>>>(
+      rho, static_cast<const float*>(rho_p), static_cast<const float*>(sq),
+      static_cast<const TW*>(w), static_cast<const TG*>(g), static_cast<TW*>(out), n, vec);
   return cudaGetLastError();
 }
 
@@ -127,15 +126,17 @@ extern "C" int sq_norm(const void* g, int g_dtype, int64_t n, void* partials, vo
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out[i] = w[i] + scale * g[i]; scale: one device float; out has w's dtype
-// and may be w itself.
-extern "C" int sam_perturb(const void* scale, const void* w, int w_dtype, const void* g,
-                           int g_dtype, void* out, int64_t n, void* stream) {
+// out[i] = w[i] + scale * g[i], scale = rho / (sqrt(*sq) + 1e-12) in fp32;
+// rho is *rho_p when rho_p is not null, else `rho`; sq: one device float; out
+// has w's dtype and may be w itself.
+extern "C" int sam_perturb(float rho, const void* rho_p, const void* sq, const void* w,
+                           int w_dtype, const void* g, int g_dtype, void* out, int64_t n,
+                           void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype(w_dtype, [&](auto wt) {
     return by_dtype(g_dtype, [&](auto gt) {
-      return run_perturb<decltype(wt), decltype(gt)>(scale, w, g, out, n, s);
+      return run_perturb<decltype(wt), decltype(gt)>(rho, rho_p, sq, w, g, out, n, s);
     });
   }));
 }

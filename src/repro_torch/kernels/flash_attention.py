@@ -3,12 +3,19 @@
 
 The kernel (`csrc/flash_attention.cu`, CUDA C++ for sm_90a) replaces the
 Pallas TPU kernel `_fa_kernel`; its source says what bounds it on the H100
-and how its design differs from the TPU's. It has two paths, chosen per call:
-bf16 WMMA tensor-core products for bf16 inputs with head dims that are
-multiples of 16 and 16-byte aligned rows (the model path), fp32 CUDA-core
-FMAs for the rest. It is built with nvcc at the first
-launch and bound through ctypes, so importing this module needs neither nvcc
-nor a card.
+and how its design differs from the TPU's. It has two paths, and
+`kernel_path` (a plain function of dtype, head dims, strides and base
+alignment) names the one a call takes:
+  "wgmma"       bf16 q/k/v with head dims that are multiples of 16 and bases
+                and strides that TMA can read (16-byte aligned, positive
+                multiples of 16 bytes): every call of the model paths. TMA
+                loads into a ring of K/V tiles, Q K^T and P V as wgmma, the
+                scores, probabilities and output accumulator in registers;
+  "cuda_cores"  everything else (fp32, head dims that are not multiples of
+                16, unaligned or broadcast views): fp32 FMAs.
+The C entry refuses a path that the inputs do not satisfy. The kernel is
+built with nvcc at the first launch and bound through ctypes, so importing
+this module needs neither nvcc nor a card.
 
 `flash_attention` takes q (B,Sq,H,hd) and k/v (B,Sk,K,hd[_v]) in the model's
 layout. A tensor on the CPU goes to the plain version
@@ -36,36 +43,45 @@ from repro_torch.kernels import build, ref
 SOURCE = build.CSRC / "flash_attention.cu"
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {"cuda_cores": 0, "wgmma": 1}
 
 launches = 0          # kernel launches since the last reset (plain int)
 _lib = None
 
 
 def _library() -> ctypes.CDLL:
-    """The built kernel library, with its C signatures declared (once)."""
+    """The built kernel library, with its C signature declared (once)."""
     global _lib
     if _lib is None:
         lib = build.load(SOURCE)
-        lib.fa_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        lib.fa_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                                + [ctypes.c_int64] * 12
                                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p])
         lib.fa_fwd.restype = ctypes.c_int
-        lib.fa_fwd_uses_tensor_cores.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                                                 + [ctypes.c_int64] * 9)
-        lib.fa_fwd_uses_tensor_cores.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel's path for these inputs: "wgmma" for bf16 q/k/v whose head
+    dims are multiples of 16, whose base addresses are 16-byte aligned and
+    whose batch, sequence and head strides are positive multiples of 8
+    elements (what TMA reads); "cuda_cores" otherwise. Reads only dtypes,
+    shapes, strides and data pointers: launches nothing, needs no card."""
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        return "cuda_cores"
+    if q.shape[-1] % 16 or v.shape[-1] % 16:
+        return "cuda_cores"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in t.stride()[:3]):
+            return "cuda_cores"
+    return "wgmma"
+
+
 def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether the kernel takes its tensor-core path for these CUDA inputs
-    (bf16, head dims multiples of 16, 16-byte aligned rows); the CUDA-core
-    path takes the rest. For reports and tests: launches nothing."""
-    _check(q, k, v, None)
-    return bool(_library().fa_fwd_uses_tensor_cores(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPES[q.dtype], q.shape[3], v.shape[3],
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3]))
+    """Whether these inputs take the tensor-core (wgmma) path."""
+    return kernel_path(q, k, v) == "wgmma"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,7 +119,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = _library().fa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                       _DTYPES[q.dtype], b, sq, sk, h, n_kv, hd, hd_v,
+                       _DTYPES[q.dtype], _PATHS[kernel_path(q, k, v)],
+                       b, sq, sk, h, n_kv, hd, hd_v,
                        q.stride(0), q.stride(1), q.stride(2),
                        k.stride(0), k.stride(1), k.stride(2),
                        v.stride(0), v.stride(1), v.stride(2),

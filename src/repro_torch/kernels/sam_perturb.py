@@ -7,10 +7,10 @@ TPU kernels of the reference module:
   sq_norm      sum of g^2, one fp32 partial per `flat.CHUNK`-element chunk,
                summed here with `torch.sum` (the reference sums its
                partials with `jnp.sum`)
-  sam_perturb  w + rho * g / (sqrt(n) + 1e-12), the scale computed here on
-               the device (as the reference computes it before its
-               pallas_call) and read by the kernel; w's dtype out, into `out`
-               when given
+  sam_perturb  w + rho * g / (sqrt(n) + 1e-12), the scale computed by the
+               kernel itself from rho (a host number or a device scalar) and
+               the device squared norm, in the reference's order; w's dtype
+               out, into `out` when given (which may be w)
 
 The port's SAM perturbation runs the two (`core.perturb.perturb` when it is
 not handed a norm); AsyncSAM carries its norm and perturbs through
@@ -41,9 +41,10 @@ def _library() -> ctypes.CDLL:
         lib = build.load(SOURCE)
         lib.sq_norm.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                                 ctypes.c_void_p, ctypes.c_void_p]
-        lib.sam_perturb.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        lib.sam_perturb.argtypes = [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                                    ctypes.c_int64, ctypes.c_void_p]
+                                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                                    ctypes.c_void_p]
         lib.sq_norm.restype = lib.sam_perturb.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -76,11 +77,15 @@ def sam_perturb(w: torch.Tensor, g: torch.Tensor, rho, sq_norm, *,
     dev = check_flat("sam_perturb", {"w": w, "g": g, "out": out}, {"out": (w.dtype,)})
     if w.numel() == 0:
         return out
-    scale = ref.sam_perturb_scale(rho, sq_norm, dev)
+    # rho / (sqrt(sq_norm) + 1e-12) is the kernel's: a device rho is read
+    # there, a host one passed by value
+    sq = torch.as_tensor(sq_norm).to(dev, torch.float32)
+    rho_dev = rho.to(dev, torch.float32) if isinstance(rho, torch.Tensor) else None
     with torch.cuda.device(dev):
-        rc = _library().sam_perturb(scale.data_ptr(), w.data_ptr(), DTYPES[w.dtype],
-                                    g.data_ptr(), DTYPES[g.dtype], out.data_ptr(), w.numel(),
-                                    stream(dev))
+        rc = _library().sam_perturb(float(rho) if rho_dev is None else 0.0,
+                                    None if rho_dev is None else rho_dev.data_ptr(),
+                                    sq.data_ptr(), w.data_ptr(), DTYPES[w.dtype], g.data_ptr(),
+                                    DTYPES[g.dtype], out.data_ptr(), w.numel(), stream(dev))
     check_launch("sam_perturb", rc)
     launches["sam_perturb"] += 1
     return out

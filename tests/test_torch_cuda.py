@@ -36,25 +36,32 @@ def _qkv(dev, b, sq, sk, h, kv, hd, hd_v, dtype, seed=0):
             for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd_v))]
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kv,hd,hd_v,dtype,causal,window,tensor_cores", [
-    (2, 256, 256, 4, 4, 64, 64, torch.bfloat16, True, None, True),
-    (2, 256, 256, 8, 2, 64, 64, torch.bfloat16, True, None, True),      # GQA
-    (1, 128, 128, 8, 1, 128, 128, torch.bfloat16, True, None, True),    # MQA
-    (2, 256, 256, 4, 4, 64, 64, torch.bfloat16, True, 64, True),        # window
-    (2, 256, 256, 4, 4, 64, 64, torch.bfloat16, False, None, True),     # non-causal
-    (1, 1000, 1000, 4, 4, 128, 128, torch.bfloat16, True, None, True),  # ragged
-    (3, 37, 37, 4, 2, 64, 64, torch.bfloat16, True, None, True),        # short ragged
-    (2, 40, 300, 4, 4, 64, 64, torch.bfloat16, False, None, True),      # Sq != Sk
-    (2, 128, 128, 4, 4, 48, 32, torch.bfloat16, True, None, True),      # hd_v != hd
-    (1, 64, 64, 2, 2, 256, 256, torch.bfloat16, True, None, True),      # widest head
-    (2, 130, 130, 4, 2, 40, 40, torch.bfloat16, True, 50, False),       # hd % 16 != 0
-    (2, 256, 256, 4, 2, 64, 64, torch.float32, True, None, False),      # fp32
-    (2, 100, 100, 4, 4, 128, 128, torch.float32, True, 16, False),      # fp32 ragged window
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,hd_v,dtype,causal,window,path", [
+    (2, 256, 256, 4, 4, 64, 64, torch.bfloat16, True, None, "wgmma"),
+    (2, 256, 256, 8, 2, 64, 64, torch.bfloat16, True, None, "wgmma"),        # GQA
+    (2, 256, 256, 16, 2, 128, 128, torch.bfloat16, True, None, "wgmma"),     # GQA, H/K = 8
+    (1, 128, 128, 8, 1, 128, 128, torch.bfloat16, True, None, "wgmma"),      # MQA
+    (2, 256, 256, 4, 4, 64, 64, torch.bfloat16, True, 64, "wgmma"),          # window
+    (2, 256, 256, 4, 4, 64, 64, torch.bfloat16, False, None, "wgmma"),       # non-causal
+    (1, 1000, 1000, 4, 4, 128, 128, torch.bfloat16, True, None, "wgmma"),    # ragged
+    (3, 37, 37, 4, 2, 64, 64, torch.bfloat16, True, None, "wgmma"),          # short ragged
+    (2, 200, 200, 4, 4, 128, 128, torch.bfloat16, True, None, "wgmma"),      # rows past Sq
+    (2, 40, 300, 4, 4, 64, 64, torch.bfloat16, False, None, "wgmma"),        # Sq != Sk
+    (2, 130, 330, 4, 2, 128, 128, torch.bfloat16, False, 100, "wgmma"),      # Sk % 128, window
+    (2, 128, 128, 4, 4, 48, 32, torch.bfloat16, True, None, "wgmma"),        # hd_v != hd
+    (2, 256, 256, 4, 4, 128, 64, torch.bfloat16, True, None, "wgmma"),       # hd_v < hd
+    (2, 300, 300, 4, 4, 192, 128, torch.bfloat16, True, None, "wgmma"),      # MLA
+    (1, 64, 64, 2, 2, 256, 256, torch.bfloat16, True, None, "wgmma"),        # widest head
+    (2, 300, 300, 8, 2, 256, 256, torch.bfloat16, True, None, "wgmma"),      # 256, ragged
+    (2, 300, 300, 4, 4, 256, 128, torch.bfloat16, True, None, "wgmma"),      # 64-key tiles
+    (2, 130, 130, 4, 2, 40, 40, torch.bfloat16, True, 50, "cuda_cores"),     # hd % 16 != 0
+    (2, 256, 256, 4, 2, 64, 64, torch.float32, True, None, "cuda_cores"),    # fp32
+    (2, 100, 100, 4, 4, 128, 128, torch.float32, True, 16, "cuda_cores"),    # fp32 ragged window
 ])
 def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, hd, hd_v, dtype, causal, window,
-                                    tensor_cores):
+                                    path):
     q, k, v = _qkv(dev, b, sq, sk, h, kv, hd, hd_v, dtype)
-    assert fa.uses_tensor_cores(q, k, v) == tensor_cores
+    assert fa.kernel_path(q, k, v) == path
     before = fa.launches
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -64,15 +71,31 @@ def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, hd, hd_v, dtype, caus
     torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
 
 
-@pytest.mark.parametrize("offset,tensor_cores", [(0, True), (1, False)])
-def test_flash_kernel_reads_strided_inputs(dev, offset, tensor_cores):
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                                      (torch.float32, 64)])
+def test_flash_kernel_rows_that_see_no_key_are_zeros(dev, dtype, hd):
+    """With a window and Sq > Sk, query rows past Sk + window - 1 see no key:
+    the kernel writes them as zeros, as the Pallas kernel does (the plain
+    version follows the jnp oracle there: the mean of the values)."""
+    b, sq, sk, h, window = 2, 300, 100, 4, 16
+    q, k, v = _qkv(dev, b, sq, sk, h, h, hd, hd, dtype)
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    empty = torch.arange(sq, device=dev) >= sk + window - 1
+    assert int(empty.sum()) == sq - (sk + window - 1)
+    assert bool((out[:, empty] == 0).all())
+    expect = ref.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out[:, ~empty].float(), expect[:, ~empty].float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("offset,path", [(0, "wgmma"), (1, "cuda_cores")])
+def test_flash_kernel_reads_strided_inputs(dev, offset, path):
     """q/k/v as slices of one fused projection: strided, last dim contiguous;
     an odd element offset breaks 16-byte row alignment (CUDA-core path)."""
     b, s, h, hd = 2, 96, 4, 64
     qkv = torch.randn((b, s, 3, h, hd + offset), device=dev, dtype=torch.bfloat16)
     q, k, v = qkv[..., offset:].unbind(dim=2)
     assert not q.is_contiguous()
-    assert fa.uses_tensor_cores(q, k, v) == tensor_cores
+    assert fa.kernel_path(q, k, v) == path
     out = fa.flash_attention(q, k, v)
     expect = ref.flash_attention_plain(q, k, v)
     torch.testing.assert_close(out.float(), expect.float(), **TOL[torch.bfloat16])
@@ -234,6 +257,24 @@ def test_sgd_and_perturb_kernels_match_plain_bitwise(dev, n, dtype, offset):
     w = w0.clone()
     sp.sam_perturb(w, g, torch.tensor(0.05, device=dev), sq, out=w)     # in place
     torch.testing.assert_close(w, out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", FLAT_SIZES)
+def test_perturb_matches_axpy_at_the_same_scale_bitwise(dev, n, dtype):
+    """sam_perturb(w, g, rho, sq) is fused_axpy(rho / (sqrt(sq) + 1e-12), g,
+    w): the same bits, with out aliasing w."""
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import sam_perturb as sp
+    g = _flat(dev, n, torch.float32, 9, 1e-3)
+    w0 = _flat(dev, n, dtype, 10, 2e-2)
+    sq = ref.sq_norm_plain(g)
+    scale = ref.sam_perturb_scale(0.05, sq, dev)
+    w, y = w0.clone(), w0.clone()
+    assert sp.sam_perturb(w, g, 0.05, sq, out=w) is w
+    assert fu.fused_axpy(scale, g, y, out=y) is y
+    torch.testing.assert_close(w, y, rtol=0, atol=0)
+    assert not torch.equal(w, w0)
 
 
 def _at(t: torch.Tensor, offset: int) -> torch.Tensor:

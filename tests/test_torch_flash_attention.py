@@ -144,3 +144,69 @@ def test_kernel_module_imports_without_nvcc(monkeypatch, tmp_path):
     if not os.path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.nvcc()
+
+
+# The kernel's path is a plain function of dtype, head dims, strides and base
+# alignment, so it is pinned here where the kernel cannot run.
+@pytest.mark.parametrize("shape,dtype,offset,path", [
+    # (B, Sq, Sk, H, K, hd, hd_v); offset: elements into wider rows
+    ((8, 1024, 1024, 16, 16, 128, 128), torch.bfloat16, 0, "wgmma"),  # olmo-1b prefill, batch
+    ((2, 1024, 1024, 16, 16, 128, 128), torch.bfloat16, 0, "wgmma"),  # olmo-1b ascent slice
+    ((8, 1024, 1024, 32, 32, 64, 64), torch.bfloat16, 0, "wgmma"),    # zamba2 shared block
+    ((2, 1024, 1024, 32, 32, 64, 64), torch.bfloat16, 0, "wgmma"),    # zamba2 ascent slice
+    ((4, 32, 32, 4, 4, 16, 16), torch.bfloat16, 0, "wgmma"),          # reduced width
+    ((2, 256, 256, 16, 2, 128, 128), torch.bfloat16, 0, "wgmma"),     # GQA
+    ((2, 512, 512, 16, 16, 192, 128), torch.bfloat16, 0, "wgmma"),    # MLA
+    ((1, 64, 64, 2, 2, 256, 256), torch.bfloat16, 0, "wgmma"),        # widest head
+    ((2, 256, 256, 4, 2, 64, 64), torch.float32, 0, "cuda_cores"),
+    ((2, 256, 256, 4, 2, 40, 40), torch.bfloat16, 0, "cuda_cores"),   # hd % 16 != 0
+    ((2, 128, 128, 4, 4, 48, 40), torch.bfloat16, 0, "cuda_cores"),   # hd_v % 16 != 0
+    ((2, 256, 256, 4, 4, 128, 128), torch.bfloat16, 1, "cuda_cores"),  # unaligned view
+])
+def test_kernel_path_by_inputs(shape, dtype, offset, path):
+    b, sq, sk, h, kv, hd, hd_v = shape
+    q, k, v = (torch.empty((*s[:-1], s[-1] + offset), dtype=dtype)[..., offset:]
+               for s in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd_v)))
+    assert fa.kernel_path(q, k, v) == path
+    assert fa.uses_tensor_cores(q, k, v) == (path == "wgmma")
+
+
+def test_kernel_path_of_broadcast_and_strided_views():
+    """A broadcast k (stride 0) cannot be read by TMA; a slice of a fused qkv
+    projection (strided, 16-byte aligned rows) can."""
+    q = torch.empty((2, 64, 4, 64), dtype=torch.bfloat16)
+    k = torch.empty((2, 64, 1, 64), dtype=torch.bfloat16).expand(2, 64, 4, 64)
+    assert fa.kernel_path(q, k, k) == "cuda_cores"
+    qkv = torch.empty((2, 64, 3, 4, 64), dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(dim=2)
+    assert not q.is_contiguous() and fa.kernel_path(q, k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("arch,compute,path", [
+    ("olmo-1b", "bfloat16", "wgmma"), ("zamba2-1.2b", "bfloat16", "wgmma"),
+    ("olmo-1b", "float32", "cuda_cores"), ("zamba2-1.2b", "float32", "cuda_cores")])
+def test_model_attention_calls_take_their_kernel_path(monkeypatch, arch, compute, path):
+    """Every attention call of a reduced model's serving (no grad) and
+    training (grad) forward would take `path` on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), compute_dtype=compute)
+    bundle = build_model(cfg)
+    model = bundle.init(seed=0, device=torch.device("cpu"))
+    seen, plain = [], fa.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append(fa.kernel_path(q, k, v))
+        return plain(q, k, v, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24))
+    with torch.no_grad():
+        bundle.forward(model, {"tokens": tokens})
+    n_serving = len(seen)
+    bundle.forward(model, {"tokens": tokens})[0].float().sum().backward()
+    assert n_serving >= 1 and len(seen) >= 2 * n_serving
+    assert set(seen) == {path}
