@@ -11,7 +11,8 @@
    and weight decay) at olmo-1b's parameter bucket (1,176,764,416 fp32
    elements) and at edge sizes, held against their plain versions and timed
    beside their bound and one PyTorch library call (a yardstick only; the
-   port never calls it);
+   port never calls it); fused_axpy also held to the sweep's 1,024
+   elements a CTA;
 4. flash kernel phase: the same for the flash-attention forward (olmo-1b's
    and zamba2's prefill shapes, GQA, MQA, ragged, windowed, non-causal,
    MLA's hd 192 / hd_v 128, and the CUDA-core path's fp32, hd 40 and
@@ -78,11 +79,12 @@
    2 layers, batch 2 x 512;
 15. mamba2 kernel phase: the SSD scan's forward and backward kernels at
    zamba2-1.2b's scan shape (8 x 1024 tokens, 64 heads, P = N = 64, one
-   group, bf16 x/b/c, fp32 dt/a/d), a one-token decode step from a state, a
-   ragged S from a state, G = 2 over H = 4 in fp32 and a head whose decay
-   underflows, held against the plain scan and autograd of it (da against
-   the scan in float64; the backward run twice: bit for bit the same), timed
-   beside their bound;
+   group, bf16 x/b/c, fp32 dt/a/d) and its ascent batch's (2 x 1024), a
+   one-token decode step from a state, a ragged S from a state, G = 2 over
+   H = 4 in fp32 and a head whose decay underflows, held against the plain
+   scan and autograd of it (da against the scan in float64; the backward run
+   twice: bit for bit the same), timed beside their bound, the backward's
+   four phases also each alone;
 16. zamba2 serve phase: full-width, full-depth zamba2-1.2b (1,177,813,888
    fp32 parameters from seed 0, bf16 compute; 38 mamba layers, 7 invocations
    of the shared attention block) serves 8 x 1024 prompts + 32 greedy tokens
@@ -297,6 +299,7 @@ EPILOGUE_OPS = {"sq_norm": 2, "sam_perturb": 2, "fused_axpy": 2, "fused_dot_norm
 def sgd_ops(momentum: float, nesterov: bool, wd: float) -> int:
     """clip 1, decay 2, momentum 2, Nesterov 2, lr and apply 2."""
     return 1 + (2 if wd else 0) + (2 if momentum else 0) + (2 if nesterov else 0) + 2
+SWEEP_TILE = 1024                     # elements a CTA of a sweeping flat kernel
 COMPARE_CHUNK = 1 << 27               # elements per chunk of the plain re-computation
 
 
@@ -331,12 +334,12 @@ def epilogue_phase() -> dict:
         return t.to(getattr(torch, dtype))[offset:]
 
     def report(kernel, case, n, err, rel, tol, ms, plain_ms, library_ms, nbytes, dtype,
-               main, ops_per_element=None):
+               main, ops_per_element=None, layout_ok=True, **extra):
         bound_ms, bound_by = bound(nbytes, (ops_per_element or EPILOGUE_OPS[kernel]) * n)
-        ok = rel <= tol
+        ok = rel <= tol and layout_ok
         row = dict(kernel=kernel, case=case, n=n, dtype=dtype, max_abs_err=err,
                    max_rel_err=rel, rel_tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **extra)
         print("epilogue " + json.dumps(row))
         if not ok:
             failures.append(f"{kernel} / {case}")
@@ -391,9 +394,11 @@ def epilogue_phase() -> dict:
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
         ms = time_ms(lambda: fu.fused_axpy(alpha, x, y, out=out))
         del out
+        tile = fu.axpy_tile()                   # the sweep: 1,024 elements a CTA
         report("fused_axpy", case, n, err, rel, tol, ms,
                time_ms(lambda: ref.axpy_flat_plain(alpha, x, y)),
-               time_ms(lambda: torch.add(y, x, alpha=3.7)), n * (4 + 2 * es), dtype, main)
+               time_ms(lambda: torch.add(y, x, alpha=3.7)), n * (4 + 2 * es), dtype, main,
+               layout_ok=tile == SWEEP_TILE, elements_per_cta=tile)
 
         # --- fused_dot_norms(a = x, b = y) ---
         got = fu.fused_dot_norms(x, y)
@@ -1873,12 +1878,14 @@ def rwkv_train_phase() -> dict:
 
 # (name, (B, S, H, P, N, G), dtype of x/b/c, init_state, fast decay): the
 # model's scan shape (8 x 1024 tokens, 64 heads, P = N = 64, one group;
-# prefill and training), a decode step (one token from the carried state), a
-# ragged S from a state, G = 2 groups over H = 4 heads in fp32, and a head
-# whose decay exp(dt a) = exp(20 x -16) underflows to 0. dt, a and d are fp32,
-# as the model passes them.
+# prefill and the descent batch of training), the ascent batch's (2 x 1024:
+# half of a step's backward calls), a decode step (one token from the
+# carried state), a ragged S from a state, G = 2 groups over H = 4 heads in
+# fp32, and a head whose decay exp(dt a) = exp(20 x -16) underflows to 0. dt,
+# a and d are fp32, as the model passes them.
 M2_CASES = [
     ("zamba2-1.2b scan", (8, 1024, 64, 64, 64, 1), "bfloat16", False, False),
+    ("zamba2-1.2b ascent scan", (2, 1024, 64, 64, 64, 1), "bfloat16", False, False),
     ("decode step, S=1 from a state", (8, 1, 64, 64, 64, 1), "bfloat16", True, False),
     ("ragged S=1000 from a state", (8, 1000, 64, 64, 64, 1), "bfloat16", True, False),
     ("G=2, H=4 fp32", (2, 512, 4, 64, 64, 2), "float32", True, False),
@@ -1953,6 +1960,16 @@ def m2_bound(shape, dtype: str, init: bool, backward: bool) -> tuple[float, str]
     else:            # out y, the final state
         nbytes = inputs + tok * h * p * es + state
     return bound(nbytes, m2_flops(shape, backward))
+
+
+def m2_bwd_phase_ms(x, dt, a, b, c, d, s0, dy, ds) -> dict:
+    """Device time of each phase of the SSD backward launched alone (CUDA
+    events), on buffers that one whole backward filled first."""
+    from repro_torch.kernels import mamba2_scan as m2
+    bufs = m2.bwd_buffers(x, b)
+    m2.run_bwd(x, dt, a, b, c, d, s0, dy, ds, bufs)
+    return {name: time_ms(lambda bit=bit: m2.run_bwd(x, dt, a, b, c, d, s0, dy, ds, bufs, bit))
+            for name, bit in m2.BWD_PHASES.items()}
 
 
 def plain_m2_grads(x, dt, a, b, c, d, s0, dy, ds):
@@ -2030,7 +2047,8 @@ def mamba2_kernel_phase() -> dict:
             max_abs_err=max(e[0] for e in errs.values()),
             max_rel_err={n_: e[1] for n_, e in errs.items()}, deterministic=same, ok=ok_b,
             ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-            tf32_ops_ms=m2_flops(shape, True) / 495e12 * 1e3)
+            tf32_ops_ms=m2_flops(shape, True) / 495e12 * 1e3,
+            phase_ms=m2_bwd_phase_ms(x, dt, a, b, c, d, s0, dy, ds))
         for name, row in rows.items():
             print("mamba2 " + json.dumps(row))
             if not row["ok"]:
@@ -2327,7 +2345,7 @@ def train_profile(ex, state, pipe, family: str = "adamw") -> dict:
             "fused_dot_norms": "dot_norms_kernel", "adamw_epilogue": "adamw_epilogue_kernel",
             "sgd_epilogue": "sgd_epilogue_kernel", "flash_attention": "fa_fwd_",
             "rwkv6_scan_fwd": "wkv_fwd_kernel", "rwkv6_scan_bwd": "wkv_bwd_kernel",
-            "mamba2_scan_fwd": "ssd_fwd_kernel", "mamba2_scan_bwd": "ssd_bwd_kernel"}
+            "mamba2_scan_fwd": "ssd_fwd_kernel", "mamba2_scan_bwd": "ssd_bwd_"}
     ours = {k: sum(t for n, (t, _) in by_name.items() if tag in n) for k, tag in tags.items()}
     epi_us = sum(ours[k] for k in PATH_KERNELS[family])
     print(f"profile train {family} step: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us "

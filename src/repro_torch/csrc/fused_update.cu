@@ -40,8 +40,15 @@
 //   delta_amax       12 N bytes (read p, s, e)                4.215 ms
 //   delta_encode_i8  21 N bytes (read p, s, e; write q, s, e) 7.377 ms
 //
-// Design: one CTA per chunk with 16-byte vector loads and stores where every
-// operand is aligned (flat_buffer.cuh), any ragged tail element by element.
+// Design: fused_axpy sweeps (flat_buffer.cuh: one CTA per 1,024-element tile,
+// neighbouring CTAs on neighbouring tiles, both operands' loads issued before
+// the store), as sam_perturb does: with a chunk a CTA it took 4.855 ms at
+// olmo-1b's bucket against the sweep's 4.54 and torch.add's 4.56
+// (scripts/flat_loop_probe.py, H100 80GB HBM3 at 700 W). The other kernels
+// keep one CTA per chunk: each reaches more than half its bound and beats its
+// library call, and the reductions keep one partial per chunk. Both layouts
+// use 16-byte vector loads and stores where every operand is aligned, any
+// ragged tail or unaligned operand element by element.
 // The elementwise math uses the _rn intrinsics in the plain version's order
 // (no FMA contraction), and IEEE division and square root (the build uses no
 // --use_fast_math), so on the card the elementwise kernels round as the
@@ -65,35 +72,26 @@ template <typename TX, typename TY>
 __global__ void __launch_bounds__(THREADS)
 axpy_kernel(const float* __restrict__ alpha_p, const TX* __restrict__ x, const TY* y,
             TY* out, int64_t n, int vec) {
-  const Chunk c = this_chunk(n);
   const float alpha = *alpha_p;
-  const TX* xp = x + c.base;
-  const TY* yp = y + c.base;
-  TY* op = out + c.base;
-  int done = 0;
-  if (vec) {
-    const int nv = c.len / VEC;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < nv; i += THREADS) {
-      const int64_t o = static_cast<int64_t>(i) * VEC;
-      float xv[VEC], yv[VEC];
-      load8(xp + o, xv);
-      load8(yp + o, yv);
+  const int64_t i = sweep_start();
+  if (vec && i + SWEEP_VEC <= n) {
+    float xv[SWEEP_VEC], yv[SWEEP_VEC];
+    load4(x + i, xv);
+    load4(y + i, yv);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) yv[j] = __fadd_rn(yv[j], __fmul_rn(alpha, xv[j]));
-      store8(op + o, yv);
-    }
-    done = nv * VEC;
+    for (int j = 0; j < SWEEP_VEC; ++j) yv[j] = __fadd_rn(yv[j], __fmul_rn(alpha, xv[j]));
+    store4(out + i, yv);
+  } else {
+    for (int64_t k = i; k < n && k < i + SWEEP_VEC; ++k)
+      out[k] = from_f32<TY>(__fadd_rn(to_f32(y[k]), __fmul_rn(alpha, to_f32(x[k]))));
   }
-  for (int i = done + threadIdx.x; i < c.len; i += THREADS)
-    op[i] = from_f32<TY>(__fadd_rn(to_f32(yp[i]), __fmul_rn(alpha, to_f32(xp[i]))));
 }
 
 template <typename TX, typename TY>
 cudaError_t run_axpy(const void* alpha, const void* x, const void* y, void* out, int64_t n,
                      cudaStream_t s) {
   const int vec = aligned16(x) && aligned16(y) && aligned16(out);
-  axpy_kernel<TX, TY><<<n_chunks(n), THREADS, 0, s>>>(
+  axpy_kernel<TX, TY><<<n_sweep_tiles(n), THREADS, 0, s>>>(
       static_cast<const float*>(alpha), static_cast<const TX*>(x), static_cast<const TY*>(y),
       static_cast<TY*>(out), n, vec);
   return cudaGetLastError();
@@ -443,6 +441,9 @@ extern "C" int fused_axpy(const void* alpha, const void* x, int x_dtype, const v
     });
   }));
 }
+
+// Elements a CTA of fused_axpy takes: its grid is n over this, rounded up.
+extern "C" int fused_axpy_tile() { return static_cast<int>(SWEEP); }
 
 // partials: 3 x n_chunks floats, rows <a,b>, |a|^2, |b|^2 per chunk.
 extern "C" int fused_dot_norms(const void* a, int a_dtype, const void* b, int b_dtype,

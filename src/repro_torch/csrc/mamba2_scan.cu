@@ -48,18 +48,21 @@
 // cores (0.022 ms at TF32's 495 on the tensor cores), against ~0.15 GB moved
 // (x and y bf16, dt, b and c, the final state: 0.044 ms at 3.35 TB/s): the
 // operations bound it. Backward: 30.06 GFLOP, 0.449 ms at the fp32 rate
-// (0.061 ms at TF32's).
+// (0.061 ms at TF32's). The backward's scratch adds bytes the function does
+// not need: two (B, H, nc, P, N) fp32 buffers (nc = ceil(S / 64) chunks; 134
+// MB each at that shape), written by phase A, read and rewritten by phase B,
+// read by phase C (~0.8 GB, ~0.24 ms at 3.35 TB/s), and the per-head db / dc
+// partials (B, S, H, N) fp32 written and summed (~0.54 GB, ~0.16 ms).
 //
-// Design. The work inside a chunk is matrix products, so a chunk is spread
-// over a whole CTA, not one state row per thread (the rwkv6 scan's serial
-// chain): one CTA of 256 threads per (b, h), 512 CTAs at the zamba2 shape,
-// looping over the chunks with the state in shared memory.
-// * x, B, C (and dy) of a chunk are staged in shared memory as fp32 rows of
-//   stride D + 1 (D = 16, 32 or 64, the smallest that holds P and N), so that
-//   the 16 threads of a half-warp reading 16 rows hit 16 banks; cum is a warp
-//   scan in double (see chunk_cum); the (T, T) masked matrices (M = K dt in
-//   the forward; K, Qd and R in the backward) live in dynamic shared memory
-//   (84 KB a CTA forward, 152 KB backward).
+// Forward design. The work inside a chunk is matrix products, so a chunk is
+// spread over a whole CTA, not one state row per thread (the rwkv6 scan's
+// serial chain): one CTA of 256 threads per (b, h), 512 CTAs at the zamba2
+// shape, looping over the chunks with the state in shared memory.
+// * x, B, C of a chunk are staged in shared memory as fp32 rows of stride
+//   D + 1 (D = 16, 32 or 64, the smallest that holds P and N), so that the 16
+//   threads of a half-warp reading 16 rows hit 16 banks; cum is a warp scan
+//   in double (see chunk_cum); the (T, T) masked matrix M = K dt lives in
+//   dynamic shared memory (84 KB a CTA).
 // * Every product gives each thread a 4 x (D/16) tile of the output, rows
 //   ty + 16 i and columns tx + 16 j of a 16 x 16 thread grid, so a k step
 //   reads 4 + D/16 shared values for 4 D/16 FMAs; the causal products skip
@@ -67,22 +70,70 @@
 // * exp(cum_t - cum_s) is computed only where s <= t (for s > t the
 //   difference is positive and can overflow: inf * 0 gives NaN), and no value
 //   is ever divided by a decay: with a = -16 and a large dt, cum underflows
-//   exp to 0.
+//   exp to 0. The backward keeps both rules.
 // * T = 64, not the TPU's 128: on the CUDA cores the intra-chunk products
 //   grow with T while the state products do not, and half the shared memory
 //   lets two forward CTAs share an SM.
-// * The backward's first pass rebuilds each chunk's entering state into
-//   device scratch (B H nc P N fp32, 134 MB at the zamba2 shape, held only
-//   during the call): the forward saves nothing but its inputs, so training
-//   under remat keeps no per-layer states. The reverse pass carries dh in
-//   shared memory.
-// * Sums across CTAs (da and dd over b; db and dc over the H / G heads of a
-//   group) go through per-(b, h) partials reduced in a fixed order by a second
-//   kernel, and every sum inside a CTA has a fixed order: no atomics, a rerun
-//   gives the same bits.
 //
-// Left for later: the products on the tensor cores (wgmma, TF32 or bf16),
-// TMA staging with double buffering, and more than one CTA a (b, h).
+// Backward design. Only the carries between chunks are sequential: every
+// (T, T) and (T, D) product of a chunk needs only that chunk's entering state
+// h_in and leaving cotangent dh_out. So it runs in three phases, each a grid
+// of its own (the forward saves nothing but its inputs, so training under
+// remat keeps no per-layer states):
+// * A (ssd_bwd_chunk_kernel), one CTA of 128 threads per (b, h, chunk), 8,192
+//   at the zamba2 shape: the chunk's local state S_c = sum_t x_t (dt_t
+//   exp(total - cum_t)) B_t^T and local cotangent U_c = sum_t exp(cum_t) dy_t
+//   C_t^T into the two scratch buffers, and exp(total) per chunk;
+// * B (ssd_bwd_carry_kernel), one thread per chain, (b, h) and state
+//   element, sequential over the chunks: h_in[0] = h0, h_in[c+1] = exp(total_c)
+//   h_in[c] + S_c; dh_out[nc-1] = dh_T, dh_out[c-1] = exp(total_c) dh_out[c]
+//   + U_c; d init_state = exp(total_0) dh_out[0] + U_0. Each overwrites its
+//   buffer in place (S_c by h_in[c], U_c by dh_out[c]);
+// * C (ssd_bwd_grad_kernel), one CTA of 256 threads per (b, h, chunk), two
+//   an SM (110 KB of shared memory each at D = 64 in bf16): K, Qd and R, dx,
+//   dC, dB, W and dla from the chunk's h_in and dh_out; then ddt and
+//   per-(b, h, chunk) partials of da and dd;
+// * then the sums across CTAs: da and dd over b and chunk, db and dc over the
+//   H / G heads of a group, each reduced in a fixed order by a kernel of its
+//   own (ssd_bwd_head_reduce_kernel, ssd_bwd_group_reduce_kernel). Every sum
+//   inside a CTA has a fixed order too: no atomics, a rerun gives the same
+//   bits.
+// Two warps of a phase-C CTA share each 16-row strip of every (T, T) and (T,
+// D) product, each taking half its 8-column tiles: eight warps, sixteen an
+// SM, hide more of the shared loads' latency than four did. The strip's row
+// sums (dxd . x, dcy, E) meet in shared memory, one slot a half, added in
+// half order; R's row prefix sums stay in the warp's row groups, the second
+// half starting from the first half's row sums. The causal products skip
+// the tiles that lie above the diagonal.
+//
+// Precision. The products run on the tensor cores as mma.sync with fp32
+// sums: a warp's 16-row strip maps onto the MMA's 16 rows directly, and the
+// fragments are read from the padded shared tiles (pairs of k, without bank
+// conflicts) without the swizzled layouts and descriptors wgmma needs. With
+// bf16 x, B, C and dy (the model's path) they are m16n8k16 bf16 MMAs: those
+// four are exact in bf16, and every product has at most one fp32 operand (K,
+// Qd, h_in, dh_out, x w, dy exp(cum)), split into bf16 hi + lo (lo = the
+// rounding of v - hi, ~16 bits together): two MMAs (hi x + lo x). With fp32
+// x, B, C and dy they are m16n8k8 TF32 MMAs, every fp32 operand split into
+// TF32 hi + lo (~21 bits): two MMAs with one split operand, three with two
+// (hi hi + hi lo + lo hi). One rounding of an fp32 operand to bf16 (8 bits)
+// or TF32 (11 bits) would put ~4e-3 or ~5e-4 of error into every product:
+// above the 2e-4 the outputs are held to. The elementwise parts stay fp32 in
+// registers: the masks, exp(cum_t - cum_s) only for s <= t, dt, R and its
+// row prefix sums (shuffles within the warp's row groups), and dla summed
+// term by term (the note above).
+//
+// What holds the backward back (scripts/ssd_bwd_ablation.py, H100 80GB HBM3
+// at 700 W): at the zamba2 shape phase C takes more than half its time; of
+// that, staging its tiles takes about a quarter, its MMAs about 40%, the
+// per-head db / dc partials' stores, the segment exps and R's prefix sums
+// under a tenth each.
+// Phases A and B move their scratch at 2-3 TB/s. Left for later: wgmma with
+// TMA-staged, swizzled tiles and loads overlapped with the products (two
+// phase-C CTAs of 110 KB share an SM); the db / dc head sums without the
+// (B, S, H, N) partials (clusters of CTAs summing them through distributed
+// shared memory were tried: their scheduling cost what the partials' bytes
+// saved); phase B fused into A or C; the forward on the same schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,7 +145,7 @@ namespace {
 
 enum Dtype { F32 = 0, BF16 = 1 };
 constexpr int T = 64;          // chunk length
-constexpr int NT = 256;        // threads of a CTA, a 16 x 16 grid (ty, tx)
+constexpr int NT = 256;        // threads of a forward CTA, a 16 x 16 grid (ty, tx)
 constexpr int MAX_D = 64;      // largest P or N
 constexpr int LT = T + 1;      // row stride of a (T, T) matrix in shared memory
 constexpr unsigned FULL = 0xffffffffu;
@@ -109,33 +160,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-// Shared-memory floats of the forward and backward CTAs for width D.
+// Shared-memory floats of the forward CTA for width D.
 template <int D> constexpr int fwd_smem_floats() {
   return 3 * T * (D + 1) + D * (D + 1) + T * LT + 2 * T;
 }
-template <int D> constexpr int bwd_smem_floats() {
-  return 4 * T * (D + 1) + 2 * D * (D + 1) + 3 * T * LT + 7 * T + 8;
-}
 
 // Stage rows t0 .. t0+tc-1 of (b, h) as fp32 into (T, D + 1) tiles, zero past
-// tc, P and N: x and dy (P wide; dy and sdy may be null), B and C of the
-// head's group (N wide; sc may be null), and dt. Every thread takes part.
+// tc, P and N: x (P wide), B and C of the head's group (N wide; sc may be
+// null), and dt. Every thread takes part.
 template <int D, typename E>
-__device__ __forceinline__ void stage(float* sx, float* sb, float* sc, float* sdy, float* sdt,
-                                      const E* x, const E* b, const E* c, const E* dy,
-                                      const float* dt, int bi, int h, int g, int S, int H,
-                                      int G, int P, int N, int t0, int tc) {
+__device__ __forceinline__ void stage(float* sx, float* sb, float* sc, float* sdt, const E* x,
+                                      const E* b, const E* c, const float* dt, int bi, int h,
+                                      int g, int S, int H, int G, int P, int N, int t0, int tc) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < T * D; idx += NT) {
     const int t = idx / D, j = idx % D;
-    float xv = 0.f, bv = 0.f, cv = 0.f, gv = 0.f;
+    float xv = 0.f, bv = 0.f, cv = 0.f;
     if (t < tc) {
       const int64_t tok = static_cast<int64_t>(bi) * S + t0 + t;
-      if (j < P) {
-        const int64_t o = (tok * H + h) * P + j;
-        xv = to_f32(x[o]);
-        if (dy != nullptr) gv = to_f32(dy[o]);
-      }
+      if (j < P) xv = to_f32(x[(tok * H + h) * P + j]);
       if (j < N) {
         const int64_t o = (tok * G + g) * N + j;
         bv = to_f32(b[o]);
@@ -145,7 +188,6 @@ __device__ __forceinline__ void stage(float* sx, float* sb, float* sc, float* sd
     sx[t * LD + j] = xv;
     sb[t * LD + j] = bv;
     if (sc != nullptr) sc[t * LD + j] = cv;
-    if (sdy != nullptr) sdy[t * LD + j] = gv;
   }
   for (int t = threadIdx.x; t < T; t += NT)
     sdt[t] = t < tc ? dt[(static_cast<int64_t>(bi) * S + t0 + t) * H + h] : 0.f;
@@ -190,34 +232,12 @@ __device__ __forceinline__ float seg_exp(const double* cum, int t, int s) {
   return expf(static_cast<float>(cum[t] - cum[s]));
 }
 
-// sum over the 16 threads tx of one half-warp (one ty), in a fixed order
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
-
-// sum over the CTA in a fixed order; red holds 8 floats; every thread gets it
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  __syncthreads();                                   // red's last readers are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < NT / 32; ++w) s += red[w];
-  return s;
-}
-
 // The state update of one chunk for this thread's tile (rows p = ty + 16 i,
 // columns n = tx + 16 j): h = exp(total) h + sum_t x_t[p] w_t B_t[n], with
-// w_t = dt_t exp(total - cum_t). When `save` is given, the entering state is
-// written there first (P x N, row-major).
+// w_t = dt_t exp(total - cum_t).
 template <int D>
 __device__ __forceinline__ void state_update(float* hs, const float* sx, const float* sb,
-                                             const float* sw, float etotal, float* save,
-                                             int P, int N) {
+                                             const float* sw, float etotal) {
   constexpr int LD = D + 1, JD = D / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[JD][JD] = {};
@@ -237,9 +257,7 @@ __device__ __forceinline__ void state_update(float* hs, const float* sx, const f
   for (int i = 0; i < JD; ++i)
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
-      const int p = ty + 16 * i, n = tx + 16 * j;
-      float& hv = hs[p * LD + n];
-      if (save != nullptr && p < P && n < N) save[p * N + n] = hv;
+      float& hv = hs[(ty + 16 * i) * LD + tx + 16 * j];
       hv = etotal * hv + acc[i][j];
     }
 }
@@ -275,8 +293,7 @@ ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
   for (int t0 = 0; t0 < S; t0 += T) {
     const int tc = min(T, S - t0);
     __syncthreads();                 // the last chunk's readers are done
-    stage<D, E>(sx, sb, sc, nullptr, sdt, x, b, c, static_cast<const E*>(nullptr), dt, bi, h,
-                g, S, H, G, P, N, t0, tc);
+    stage<D, E>(sx, sb, sc, sdt, x, b, c, dt, bi, h, g, S, H, G, P, N, t0, tc);
     __syncthreads();
     if (threadIdx.x < 32) {
       const double total = chunk_cum(sdt, av, cum, nullptr, sw);
@@ -354,7 +371,7 @@ ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
       }
     }
     __syncthreads();                 // every reader of the entering state is done
-    state_update<D>(hs, sx, sb, sw, expf(stotal), nullptr, P, N);
+    state_update<D>(hs, sx, sb, sw, expf(stotal));
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < P * N; idx += NT) {
@@ -363,366 +380,712 @@ ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// --- the backward ------------------------------------------------------------
+
+constexpr int BW = 128;        // threads of a phase-A CTA: 4 warps
+constexpr int CW = 256;        // threads of a phase-C CTA: 8 warps, two on each 16-row strip
+
+// x, B, C and dy in bf16: the products run as bf16 MMAs, those four exact.
+template <typename E> __host__ __device__ constexpr bool bf16_inputs() {
+  return std::is_same<E, __nv_bfloat16>::value;
+}
+
+// Row stride (elements) of a (T, D) tile of E in shared memory: 16 bytes past
+// D, so the rows of an MMA fragment's eight row groups fall in distinct banks.
+template <int D, typename E> __host__ __device__ constexpr int lde() {
+  return D + 16 / static_cast<int>(sizeof(E));
+}
+template <int D> __host__ __device__ constexpr int ldf() { return D + 4; }   // fp32 (D, D) tiles
+constexpr int LQ = T + 4;                                  // fp32 (T, T) tiles
+
+// Shared-memory bytes of a phase-A and a phase-C CTA.
+template <int D, typename E> constexpr int chunk_smem_bytes() {
+  return 4 * T * lde<D, E>() * static_cast<int>(sizeof(E)) + 3 * T * 4;
+}
+template <int D, typename E> constexpr int grad_smem_bytes() {
+  return 4 * T * lde<D, E>() * static_cast<int>(sizeof(E)) +
+         (2 * D * ldf<D>() + 2 * T * LQ + 15 * T + 16) * 4;
+}
+
+// The TF32 value nearest v (ties away), as the MMA's 32-bit operand.
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a b for one 16 x 8 x 8 TF32 tile, fp32 sums. Fragments (g = lane / 4,
+// q = lane % 4): a = A(g, q), A(g+8, q), A(g, q+4), A(g+8, q+4); b = B(q, g),
+// B(q+4, g); d = D(g, 2q), D(g, 2q+1), D(g+8, 2q), D(g+8, 2q+1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b for one 16 x 8 x 16 bf16 tile, fp32 sums. Fragments, two bf16 a
+// register (the lower k in the low half): a = A(g, 2q..2q+1), A(g+8,
+// 2q..2q+1), A(g, 2q+8..2q+9), A(g+8, 2q+8..2q+9); b = B(2q..2q+1, g),
+// B(2q+8..2q+9, g); d as for mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A pair (v.x at the lower k) as an MMA operand register: `split` gives hi
+// and lo with hi + lo the pair to ~16 bits (bf16) or ~21 bits (TF32);
+// otherwise the pair is exact in the type and lo is unused.
+__device__ __forceinline__ void operand_bf16(float2 v, bool split, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  hi = bf16x2_bits(h);
+  if (split) {
+    const float2 hf = __bfloat1622float2(h);
+    lo = bf16x2_bits(__floats2bfloat162_rn(v.x - hf.x, v.y - hf.y));
+  }
+}
+
+__device__ __forceinline__ void operand_tf32(float v, bool split, uint32_t& hi, uint32_t& lo) {
+  hi = split ? tf32(v) : __float_as_uint(v);
+  if (split) lo = tf32(v - __uint_as_float(hi));
+}
+
+// acc[j] += A B over this warp's 16-row strip and the 8-column tiles j0 + j,
+// j < nj: fa(m, k) = (A(m, k), A(m, k + 1)) for the strip's rows m = 0..15, fb(k, n)
+// = (B(k, n), B(k + 1, n)), k over [k0, k1) (multiples of 16). SA / SB: that
+// operand is fp32 and is split into hi + lo; otherwise it is exact in the
+// MMA's type (a bf16 value, or 0/1). With E = bf16 (the model's path) the
+// MMAs are m16n8k16 bf16, and no product has two split operands; with E =
+// fp32 they are m16n8k8 TF32, with each k step's k permuted so that lane q
+// holds k = 2q and 2q + 1 in place of q and q + 4 (the same sum: A and B
+// take the same permutation), and two split operands take three MMAs (hi hi,
+// hi lo, lo hi). Each tile's MMAs add the small terms first.
+template <typename E, int NJ, bool SA, bool SB, typename FA, typename FB>
+__device__ __forceinline__ void strip_mma(float (&acc)[NJ][4], FA fa, FB fb, int k0, int k1,
+                                          int j0, int nj) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  constexpr bool BF = bf16_inputs<E>();
+  static_assert(!(BF && SA && SB), "the bf16 path splits one operand at most");
+  for (int k = k0; k < k1; k += BF ? 16 : 8) {
+    uint32_t ah[4], al[4];
+    if constexpr (BF) {
+      const float2 av[4] = {fa(gr, k + 2 * q), fa(gr + 8, k + 2 * q), fa(gr, k + 2 * q + 8),
+                            fa(gr + 8, k + 2 * q + 8)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) operand_bf16(av[i], SA, ah[i], al[i]);
+    } else {
+      const float2 lo_rows = fa(gr, k + 2 * q), hi_rows = fa(gr + 8, k + 2 * q);
+      const float av[4] = {lo_rows.x, hi_rows.x, lo_rows.y, hi_rows.y};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) operand_tf32(av[i], SA, ah[i], al[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j >= nj) break;
+      uint32_t bh[2], bl[2];
+      if constexpr (BF) {
+        operand_bf16(fb(k + 2 * q, 8 * (j0 + j) + gr), SB, bh[0], bl[0]);
+        operand_bf16(fb(k + 2 * q + 8, 8 * (j0 + j) + gr), SB, bh[1], bl[1]);
+        if constexpr (SB) mma_bf16(acc[j], ah, bl);
+        if constexpr (SA) mma_bf16(acc[j], al, bh);
+        mma_bf16(acc[j], ah, bh);
+      } else {
+        const float2 bv = fb(k + 2 * q, 8 * (j0 + j) + gr);
+        operand_tf32(bv.x, SB, bh[0], bl[0]);
+        operand_tf32(bv.y, SB, bh[1], bl[1]);
+        if constexpr (SB) mma_tf32(acc[j], ah, bl);
+        if constexpr (SA) mma_tf32(acc[j], al, bh);
+        mma_tf32(acc[j], ah, bh);
+      }
+    }
+  }
+}
+
+// Elements i and i + 1 of a shared tile of E as fp32 (i and the row stride
+// even).
+__device__ __forceinline__ float2 pair_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Rows k and k + 1 of column i of a shared tile (row stride ld) as fp32.
+template <typename E>
+__device__ __forceinline__ float2 col_pair(const E* t, int ld, int k, int i) {
+  return make_float2(to_f32(t[k * ld + i]), to_f32(t[(k + 1) * ld + i]));
+}
+
+// Stage rows t0 .. t0+tc-1 of (b, h) into (T, lde) tiles of E, zero past tc,
+// P and N: x and dy (P wide; dy may be null: zeros), B and C of the head's
+// group (N wide), and dt as fp32. Every thread of the CTA takes part. With
+// `vec` (every operand 16-byte aligned, P and N whole 16-byte vectors) each
+// thread issues all its 16-byte loads before its first store; otherwise
+// element by element.
+template <int D, typename E, int NTH>
+__device__ __forceinline__ void stage_bwd(E* sx, E* sb, E* sc, E* sdy, float* sdt, const E* x,
+                                          const E* b, const E* c, const E* dy, const float* dt,
+                                          int bi, int h, int g, int S, int H, int G, int P,
+                                          int N, int t0, int tc, bool vec) {
+  constexpr int LE = lde<D, E>();
+  for (int t = threadIdx.x; t < T; t += NTH)
+    sdt[t] = t < tc ? dt[(static_cast<int64_t>(bi) * S + t0 + t) * H + h] : 0.f;
+  if (vec) {
+    constexpr int VE = 16 / static_cast<int>(sizeof(E)), VR = D / VE;
+    constexpr int IT = (T * VR + NTH - 1) / NTH;
+    uint4 v[IT][4];
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int idx = threadIdx.x + i * NTH, t = idx / VR, j = idx % VR * VE;
+      const int64_t tok = static_cast<int64_t>(bi) * S + t0 + t;
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      const bool row = idx < T * VR && t < tc, xj = row && j < P, bj = row && j < N;
+      const int64_t ox = (tok * H + h) * P + j, ob = (tok * G + g) * N + j;
+      v[i][0] = xj ? *reinterpret_cast<const uint4*>(x + ox) : z;
+      v[i][1] = xj && dy != nullptr ? *reinterpret_cast<const uint4*>(dy + ox) : z;
+      v[i][2] = bj ? *reinterpret_cast<const uint4*>(b + ob) : z;
+      v[i][3] = bj ? *reinterpret_cast<const uint4*>(c + ob) : z;
+    }
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int idx = threadIdx.x + i * NTH, o = idx / VR * LE + idx % VR * VE;
+      if (idx < T * VR) {
+        *reinterpret_cast<uint4*>(sx + o) = v[i][0];
+        *reinterpret_cast<uint4*>(sdy + o) = v[i][1];
+        *reinterpret_cast<uint4*>(sb + o) = v[i][2];
+        *reinterpret_cast<uint4*>(sc + o) = v[i][3];
+      }
+    }
+    return;
+  }
+  const E zero = from_f32<E>(0.f);
+  for (int idx = threadIdx.x; idx < T * D; idx += NTH) {
+    const int t = idx / D, j = idx % D;
+    E xv = zero, gv = zero, bv = zero, cv = zero;
+    if (t < tc) {
+      const int64_t tok = static_cast<int64_t>(bi) * S + t0 + t;
+      if (j < P) {
+        const int64_t o = (tok * H + h) * P + j;
+        xv = x[o];
+        if (dy != nullptr) gv = dy[o];
+      }
+      if (j < N) {
+        const int64_t o = (tok * G + g) * N + j;
+        bv = b[o];
+        cv = c[o];
+      }
+    }
+    sx[t * LE + j] = xv;
+    sdy[t * LE + j] = gv;
+    sb[t * LE + j] = bv;
+    sc[t * LE + j] = cv;
+  }
+}
+
+// Load a chunk's (P, N) fp32 states from hbuf and gbuf at `st` into (D, LF)
+// tiles, zero past P and N; with `vec` (N a multiple of 4) in 16-byte loads,
+// all issued before the first store.
+template <int D, int NTH>
+__device__ __forceinline__ void stage_states(float* hs, float* gs, const float* hbuf,
+                                             const float* gbuf, int64_t st, int P, int N,
+                                             bool vec) {
+  constexpr int LF = ldf<D>();
+  if (vec) {
+    constexpr int VR = D / 4, IT = (D * VR + NTH - 1) / NTH;
+    float4 v[IT][2];
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int idx = threadIdx.x + i * NTH, p = idx / VR, n = idx % VR * 4;
+      const bool in = idx < D * VR && p < P && n < N;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      v[i][0] = in ? *reinterpret_cast<const float4*>(hbuf + st + p * N + n) : z;
+      v[i][1] = in ? *reinterpret_cast<const float4*>(gbuf + st + p * N + n) : z;
+    }
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int idx = threadIdx.x + i * NTH;
+      if (idx < D * VR) {
+        const int o = idx / VR * LF + idx % VR * 4;
+        *reinterpret_cast<float4*>(hs + o) = v[i][0];
+        *reinterpret_cast<float4*>(gs + o) = v[i][1];
+      }
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < D * D; idx += NTH) {
+    const int p = idx / D, n = idx % D;
+    const bool in = p < P && n < N;
+    hs[p * LF + n] = in ? hbuf[st + p * N + n] : 0.f;
+    gs[p * LF + n] = in ? gbuf[st + p * N + n] : 0.f;
+  }
+}
+
+// out[o] = v0 and out[o + 1] = v1 for the columns p and p + 1 below lim: one
+// 2-wide store when both are and o is even, else element by element.
+template <typename E>
+__device__ __forceinline__ void store_pair(E* out, int64_t o, float v0, float v1, int p,
+                                           int lim) {
+  if (p + 1 < lim && (o & 1) == 0) {
+    if constexpr (std::is_same<E, float>::value)
+      *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (p < lim) out[o] = from_f32<E>(v0);
+    if (p + 1 < lim) out[o + 1] = from_f32<E>(v1);
+  }
+}
+
+// The CTA's (b, h, chunk) from blockIdx.x = (b nc + chunk) H + h: the CTAs
+// resident at one time share their tokens' B and C rows.
+struct BwdTile {
+  int bi, h, ci, bh;
+};
+
+__device__ __forceinline__ BwdTile bwd_tile(int H, int nc) {
+  const int h = blockIdx.x % H, rest = blockIdx.x / H;
+  const int ci = rest % nc, bi = rest / nc;
+  return BwdTile{bi, h, ci, bi * H + h};
+}
+
+// sum over the 4 lanes of one row group (lane % 4), every lane gets it
+__device__ __forceinline__ float sum4(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// sum over a CTA of NW warps in a fixed order; red holds NW floats; every
+// thread gets it
+template <int NW>
+__device__ __forceinline__ float cta_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  __syncthreads();                                   // red's last readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = red[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) s += red[w];
+  return s;
+}
+
+// Phase A: S_c = sum_t x_t (dt_t exp(total - cum_t)) B_t^T into hbuf and U_c =
+// sum_t exp(cum_t) dy_t C_t^T into gbuf ((B, H, nc, P, N) fp32), and
+// exp(total) into etot (B, H, nc).
 template <int D, typename E>
-__global__ void __launch_bounds__(NT)
-ssd_bwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ a, const E* __restrict__ b, const E* __restrict__ c,
-               const float* __restrict__ dskip, const float* __restrict__ h0,
-               const E* __restrict__ dy, const float* __restrict__ dh, E* __restrict__ dx,
-               float* __restrict__ ddt, float* __restrict__ db_part,
-               float* __restrict__ dc_part, float* __restrict__ da_part,
-               float* __restrict__ dd_part, float* __restrict__ dh0,
-               float* __restrict__ states, int S, int H, int G, int P, int N) {
-  constexpr int LD = D + 1, JD = D / 16;
-  extern __shared__ float smem[];
-  float* sx = smem;                  // (T, LD) x
-  float* sb = sx + T * LD;           // (T, LD) B
-  float* sc = sb + T * LD;           // (T, LD) C
-  float* sdy = sc + T * LD;          // (T, LD) dy
-  float* hs = sdy + T * LD;          // (D, LD) h_in[p][n] (pass 1: the running state)
-  float* gs = hs + D * LD;           // (D, LD) dh[p][n]
-  float* sk = gs + D * LD;           // (T, LT) K = tril(C B^T) L
-  float* sq = sk + T * LT;           // (T, LT) Qd = L dt_s (dy_t . x_s)
-  float* sr = sq + T * LT;           // (T, LT) R = Qd (C B^T), then its row prefix sums
-  float* sdt = sr + T * LT;          // (T) dt
-  float* ecum = sdt + T;             // (T) exp(cum)
-  float* edec = ecum + T;            // (T) exp(total - cum); pass 1: dt exp(total - cum)
-  float* dxr = edec + T;             // (T) dxd_t . x_t
-  float* dcy = dxr + T;              // (T) C_t . (exp(cum_t) dy_t^T h_in)
-  float* ee = dcy + T;               // (T) E_t
-  float* wr = ee + T;                // (T) W_s = sum_{t>=s, k<s} R[t][k]
-  float* red = wr + T;               // (8) block reductions
+__global__ void __launch_bounds__(BW)
+ssd_bwd_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ a, const E* __restrict__ b,
+                     const E* __restrict__ c, const E* __restrict__ dy,
+                     float* __restrict__ hbuf, float* __restrict__ gbuf,
+                     float* __restrict__ etot, int S, int H, int G, int P, int N, int nc,
+                     int vec) {
+  constexpr int LE = lde<D, E>(), MT = D / 16;
+  constexpr bool XS = !bf16_inputs<E>();
+  extern __shared__ float smem[];    // the forward's declaration, reused
+  E* sx = reinterpret_cast<E*>(smem);
+  E* sb = sx + T * LE;
+  E* sc = sb + T * LE;
+  E* sdy = sc + T * LE;
+  float* sdt = reinterpret_cast<float*>(sdy + T * LE);
+  float* sw = sdt + T;               // dt exp(total - cum)
+  float* ecum = sw + T;              // exp(cum)
+  __shared__ double cum[T];
+
+  const BwdTile tl = bwd_tile(H, nc);
+  const int g = tl.h / (H / G), t0 = tl.ci * T, tc = min(T, S - t0);
+  stage_bwd<D, E, BW>(sx, sb, sc, sdy, sdt, x, b, c, dy, dt, tl.bi, tl.h, g, S, H, G, P, N, t0,
+                      tc, vec);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const double total = chunk_cum(sdt, a[tl.h], cum, ecum, sw);
+    sw[2 * threadIdx.x] *= sdt[2 * threadIdx.x];
+    sw[2 * threadIdx.x + 1] *= sdt[2 * threadIdx.x + 1];
+    if (threadIdx.x == 0) etot[static_cast<int64_t>(tl.bh) * nc + tl.ci] =
+        expf(static_cast<float>(total));
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int64_t out = (static_cast<int64_t>(tl.bh) * nc + tl.ci) * P * N;
+  for (int item = warp; item < 2 * MT; item += BW / 32) {
+    const bool is_u = item & 1;
+    const int r0 = 16 * (item >> 1);
+    const E* sa = is_u ? sdy : sx;
+    const E* sm = is_u ? sc : sb;
+    const float* scale = is_u ? ecum : sw;
+    float acc[D / 8][4] = {};
+    strip_mma<E, D / 8, true, XS>(
+        acc,
+        [&](int m, int k) {
+          const float2 v = col_pair(sa, LE, k, r0 + m);
+          return make_float2(v.x * scale[k], v.y * scale[k + 1]);
+        },
+        [&](int k, int n) { return col_pair(sm, LE, k, n); }, 0, T, 0, D / 8);
+    float* dst = (is_u ? gbuf : hbuf) + out;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int p = r0 + gr + 8 * hf, n = 8 * j + 2 * q;
+        if (p < P) store_pair(dst, p * N + n, acc[j][2 * hf], acc[j][2 * hf + 1], n, N);
+      }
+  }
+}
+
+// Phase B: the carries, one thread per chain, (b, h) and V state elements
+// (V = 4: 16-byte loads and stores). blockIdx.y 0: the state chain, hbuf S_c
+// in, h_in[c] out; 1: the cotangent chain from the last chunk down, gbuf U_c
+// in, dh_out[c] out, and dh0 = d init_state.
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int V>
+__global__ void ssd_bwd_carry_kernel(const float* __restrict__ h0, const float* __restrict__ dh,
+                                     const float* __restrict__ etot, float* __restrict__ hbuf,
+                                     float* __restrict__ gbuf, float* __restrict__ dh0,
+                                     int64_t n_state, int PN, int nc) {
+  const int64_t idx = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V;
+  if (idx >= n_state) return;
+  const bool back = blockIdx.y == 1;
+  const int64_t bh = idx / PN, e = idx % PN;
+  const float* et = etot + bh * nc;
+  float* buf = (back ? gbuf : hbuf) + bh * nc * PN + e;
+  const float* init = back ? dh : h0;
+  // CB chunks' loads at a time, all issued before the stores that follow them
+  constexpr int CB = 16;
+  float v[V] = {};
+  if (init != nullptr) load_v<V>(init + idx, v);
+  const auto chunk = [&](int i) { return back ? nc - 1 - i : i; };   // the i-th chunk walked
+  for (int i0 = 0; i0 < nc; i0 += CB) {
+    float u[CB][V];
+#pragma unroll
+    for (int i = 0; i < CB; ++i)
+      if (i0 + i < nc) load_v<V>(buf + static_cast<int64_t>(chunk(i0 + i)) * PN, u[i]);
+#pragma unroll
+    for (int i = 0; i < CB; ++i)
+      if (i0 + i < nc) {
+        const int c = chunk(i0 + i);
+        store_v<V>(buf + static_cast<int64_t>(c) * PN, v);
+        const float ev = et[c];
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = ev * v[k] + u[i][k];
+      }
+  }
+  if (back) store_v<V>(dh0 + idx, v);
+}
+
+// Phase C: every gradient of one chunk from its h_in (hbuf) and dh_out = G
+// (gbuf). Warps w and w + 4 share rows [16 w, 16 w + 16) of each product,
+// warp w taking the first half of its 8-column tiles and w + 4 the second;
+// the row sums they need (dxd . x, dcy, E, R's row prefixes) meet in shared
+// memory, each half's in a slot of its own, added in half order.
+template <int D, typename E>
+__global__ void __launch_bounds__(CW, 2)
+ssd_bwd_grad_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ a, const E* __restrict__ b,
+                    const E* __restrict__ c, const float* __restrict__ dskip,
+                    const E* __restrict__ dy, const float* __restrict__ hbuf,
+                    const float* __restrict__ gbuf, E* __restrict__ dx,
+                    float* __restrict__ ddt, float* __restrict__ db_part,
+                    float* __restrict__ dc_part, float* __restrict__ da_part,
+                    float* __restrict__ dd_part, int S, int H, int G, int P, int N, int nc,
+                    int vec) {
+  constexpr int LE = lde<D, E>(), LF = ldf<D>();
+  constexpr int NJ = D / 16, TJ = T / 16;    // a warp's tiles of a (T, D) and a (T, T) product
+  constexpr bool XS = !bf16_inputs<E>();
+  extern __shared__ float smem[];    // the forward's declaration, reused
+  E* sx = reinterpret_cast<E*>(smem);    // (T, LE) x
+  E* sb = sx + T * LE;                   // (T, LE) B
+  E* sc = sb + T * LE;                   // (T, LE) C
+  E* sdy = sc + T * LE;                  // (T, LE) dy
+  float* hs = reinterpret_cast<float*>(sdy + T * LE);   // (D, LF) h_in[p][n]
+  float* gs = hs + D * LF;               // (D, LF) G[p][n] = dh_out
+  float* sk = gs + D * LF;               // (T, LQ) K = tril(C B^T) L
+  float* sq = sk + T * LQ;               // (T, LQ) Qd = L dt_s (dy_t . x_s)
+  float* sdt = sq + T * LQ;              // (T) dt
+  float* ecum = sdt + T;                 // (T) exp(cum)
+  float* edec = ecum + T;                // (T) exp(total - cum)
+  float* dxr = edec + T;                 // (2, T) dxd_t . x_t: each half's columns, then summed
+  float* dcy = dxr + 2 * T;              // (2, T) C_t . (exp(cum_t) dy_t^T h_in), the same
+  float* ee = dcy + 2 * T;               // (2, T) E_t, the same
+  float* wr = ee + 2 * T;                // (T) W_s = sum_{t>=s, k<s} R[t][k]
+  float* wpart = wr + T;                 // (4, T) W_s over one strip's rows t
+  float* rtot = wpart + 4 * T;           // (T) R's row sums over the first half's columns
+  float* red = rtot + T;                 // (16) block reductions
   __shared__ double cum[T];
   __shared__ float stotal;
 
-  const int bh = blockIdx.x, bi = bh / H, h = bh % H, g = h / (H / G);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float av = a[h], dv = dskip[h];
-  const int64_t state = static_cast<int64_t>(bh) * P * N;
-  const int nc = (S + T - 1) / T;
-  float* my_states = states + static_cast<int64_t>(bh) * nc * P * N;
-
-  // pass 1, forward: the state entering each chunk into `states`
-  for (int idx = threadIdx.x; idx < D * D; idx += NT) {
-    const int p = idx / D, n = idx % D;
-    hs[p * LD + n] = (h0 != nullptr && p < P && n < N) ? h0[state + p * N + n] : 0.f;
-  }
-  for (int ci = 0; ci < nc; ++ci) {
-    const int t0 = ci * T, tc = min(T, S - t0);
-    __syncthreads();
-    stage<D, E>(sx, sb, nullptr, nullptr, sdt, x, b, c, static_cast<const E*>(nullptr), dt,
-                bi, h, g, S, H, G, P, N, t0, tc);
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      const double total = chunk_cum(sdt, av, cum, nullptr, edec);
-      edec[2 * threadIdx.x] *= sdt[2 * threadIdx.x];
-      edec[2 * threadIdx.x + 1] *= sdt[2 * threadIdx.x + 1];
-      if (threadIdx.x == 0) stotal = static_cast<float>(total);
-    }
-    __syncthreads();
-    state_update<D>(hs, sx, sb, edec, expf(stotal), my_states + static_cast<int64_t>(ci) * P * N,
-                    P, N);
-  }
-
-  // pass 2, backward from dh_T
-  for (int idx = threadIdx.x; idx < D * D; idx += NT) {
-    const int p = idx / D, n = idx % D;
-    gs[p * LD + n] = (dh != nullptr && p < P && n < N) ? dh[state + p * N + n] : 0.f;
-  }
-  float da_acc = 0.f, dd_acc = 0.f;
-  for (int ci = nc - 1; ci >= 0; --ci) {
-    const int t0 = ci * T, tc = min(T, S - t0);
-    __syncthreads();
-    stage<D, E>(sx, sb, sc, sdy, sdt, x, b, c, dy, dt, bi, h, g, S, H, G, P, N, t0, tc);
-    const float* hin = my_states + static_cast<int64_t>(ci) * P * N;
-    for (int idx = threadIdx.x; idx < D * D; idx += NT) {
-      const int p = idx / D, n = idx % D;
-      hs[p * LD + n] = (p < P && n < N) ? hin[p * N + n] : 0.f;
-    }
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      const double total = chunk_cum(sdt, av, cum, ecum, edec);
-      if (threadIdx.x == 0) stotal = static_cast<float>(total);
-    }
-    __syncthreads();
-    const float total = stotal;
-
-    // K, Qd and R on and below the diagonal (t = ty + 16 i, s = tx + 16 j)
-    {
-      float accs[4][4] = {}, accq[4][4] = {};
-      for (int k = 0; k < D; ++k) {
-        float cv[4], bv[4], gv[4], xv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          cv[i] = sc[(ty + 16 * i) * LD + k];
-          gv[i] = sdy[(ty + 16 * i) * LD + k];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bv[j] = sb[(tx + 16 * j) * LD + k];
-          xv[j] = sx[(tx + 16 * j) * LD + k];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j <= i; ++j) {
-            accs[i][j] += cv[i] * bv[j];
-            accq[i][j] += gv[i] * xv[j];
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = ty + 16 * i, s = tx + 16 * j;
-          float kv = 0.f, qv = 0.f, rv = 0.f;
-          if (s <= t) {
-            const float l = seg_exp(cum, t, s);
-            kv = accs[i][j] * l;
-            qv = accq[i][j] * l * sdt[s];
-            rv = qv * accs[i][j];
-          }
-          sk[t * LT + s] = kv;
-          sq[t * LT + s] = qv;
-          sr[t * LT + s] = rv;
-        }
-    }
-    __syncthreads();
-
-    // dxd[s][p] = sum_{t>=s} K[t][s] dy[t][p] + exp(total - cum_s) sum_n G[p][n] B[s][n];
-    // dx = d dy + dt dxd; dxr[s] = dxd_s . x_s; dd += dy . x
-    {
-      float acc[4][JD] = {}, acc2[4][JD] = {};
-#pragma unroll
-      for (int tb = 0; tb < 4; ++tb) {
-        for (int t = 16 * tb; t < 16 * tb + 16; ++t) {
-          float kv[4], gv[JD];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) kv[i] = i <= tb ? sk[t * LT + ty + 16 * i] : 0.f;
-#pragma unroll
-          for (int j = 0; j < JD; ++j) gv[j] = sdy[t * LD + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i <= tb; ++i)
-#pragma unroll
-            for (int j = 0; j < JD; ++j) acc[i][j] += kv[i] * gv[j];
-        }
-      }
-      for (int n = 0; n < D; ++n) {
-        float bv[4], gv[JD];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) bv[i] = sb[(ty + 16 * i) * LD + n];
-#pragma unroll
-        for (int j = 0; j < JD; ++j) gv[j] = gs[(tx + 16 * j) * LD + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < JD; ++j) acc2[i][j] += bv[i] * gv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = ty + 16 * i;
-        const float ed = edec[s], dts = sdt[s];
-        const int64_t row = ((static_cast<int64_t>(bi) * S + t0 + s) * H + h) * P;
-        float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < JD; ++j) {
-          const int p = tx + 16 * j;
-          const float xv = sx[s * LD + p], gv = sdy[s * LD + p];
-          const float dxd = acc[i][j] + ed * acc2[i][j];
-          part += dxd * xv;
-          dd_acc += gv * xv;
-          if (s < tc && p < P) dx[row + p] = from_f32<E>(dv * gv + dts * dxd);
-        }
-        part = sum16(part);
-        if (tx == 0) dxr[s] = part;
-      }
-    }
-
-    // dC[t][n] = sum_{s<=t} Qd[t][s] B[s][n] + exp(cum_t) sum_p dy[t][p] h_in[p][n];
-    // dcy[t] = C_t . (the second term)
-    {
-      float acc[4][JD] = {}, acc2[4][JD] = {};
-#pragma unroll
-      for (int sb_ = 0; sb_ < 4; ++sb_) {
-        for (int s = 16 * sb_; s < 16 * sb_ + 16; ++s) {
-          float qv[4], bv[JD];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) qv[i] = i >= sb_ ? sq[(ty + 16 * i) * LT + s] : 0.f;
-#pragma unroll
-          for (int j = 0; j < JD; ++j) bv[j] = sb[s * LD + tx + 16 * j];
-#pragma unroll
-          for (int i = sb_; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < JD; ++j) acc[i][j] += qv[i] * bv[j];
-        }
-      }
-      for (int p = 0; p < D; ++p) {
-        float gv[4], hv[JD];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) gv[i] = sdy[(ty + 16 * i) * LD + p];
-#pragma unroll
-        for (int j = 0; j < JD; ++j) hv[j] = hs[p * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < JD; ++j) acc2[i][j] += gv[i] * hv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        const float ec = ecum[t];
-        const int64_t row = ((static_cast<int64_t>(bi) * S + t0 + t) * H + h) * N;
-        float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < JD; ++j) {
-          const int n = tx + 16 * j;
-          const float st = ec * acc2[i][j];
-          part += sc[t * LD + n] * st;
-          if (t < tc && n < N) dc_part[row + n] = acc[i][j] + st;
-        }
-        part = sum16(part);
-        if (tx == 0) dcy[t] = part;
-      }
-    }
-
-    // dB[s][n] = sum_{t>=s} Qd[t][s] C[t][n] + exp(total - cum_s) dt_s sum_p x[s][p] G[p][n];
-    // ee[s] = B_s . (the second term)
-    {
-      float acc[4][JD] = {}, acc2[4][JD] = {};
-#pragma unroll
-      for (int tb = 0; tb < 4; ++tb) {
-        for (int t = 16 * tb; t < 16 * tb + 16; ++t) {
-          float qv[4], cv[JD];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) qv[i] = i <= tb ? sq[t * LT + ty + 16 * i] : 0.f;
-#pragma unroll
-          for (int j = 0; j < JD; ++j) cv[j] = sc[t * LD + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i <= tb; ++i)
-#pragma unroll
-            for (int j = 0; j < JD; ++j) acc[i][j] += qv[i] * cv[j];
-        }
-      }
-      for (int p = 0; p < D; ++p) {
-        float xv[4], gv[JD];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = sx[(ty + 16 * i) * LD + p];
-#pragma unroll
-        for (int j = 0; j < JD; ++j) gv[j] = gs[p * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < JD; ++j) acc2[i][j] += xv[i] * gv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = ty + 16 * i;
-        const float w = edec[s] * sdt[s];
-        const int64_t row = ((static_cast<int64_t>(bi) * S + t0 + s) * H + h) * N;
-        float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < JD; ++j) {
-          const int n = tx + 16 * j;
-          const float st = w * acc2[i][j];
-          part += sb[s * LD + n] * st;
-          if (s < tc && n < N) db_part[row + n] = acc[i][j] + st;
-        }
-        part = sum16(part);
-        if (tx == 0) ee[s] = part;
-      }
-    }
-
-    // R[t][k] <- sum_{k' < k} R[t][k'] for k <= t: row t's exclusive prefix
-    // sums, in order (W below sums them down the columns)
-    if (threadIdx.x < T) {
-      const int t = threadIdx.x;
-      float run = 0.f;
-      for (int k = 0; k <= t; ++k) {
-        const float r = sr[t * LT + k];
-        sr[t * LT + k] = run;
-        run += r;
-      }
-    }
-
-    // dh_in = exp(total) G + sum_t exp(cum_t) dy_t C_t^T, and sum(G * h_in)
-    float gh = 0.f;
-    {
-      float acc[JD][JD] = {};
-      for (int t = 0; t < T; ++t) {
-        const float ec = ecum[t];
-        float gv[JD], cv[JD];
-#pragma unroll
-        for (int i = 0; i < JD; ++i) gv[i] = sdy[t * LD + ty + 16 * i] * ec;
-#pragma unroll
-        for (int j = 0; j < JD; ++j) cv[j] = sc[t * LD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < JD; ++i)
-#pragma unroll
-          for (int j = 0; j < JD; ++j) acc[i][j] += gv[i] * cv[j];
-      }
-      __syncthreads();               // every reader of G in the products above is done
-      const float et = expf(total);
-#pragma unroll
-      for (int i = 0; i < JD; ++i)
-#pragma unroll
-        for (int j = 0; j < JD; ++j) {
-          float& gv = gs[(ty + 16 * i) * LD + tx + 16 * j];
-          gh += gv * hs[(ty + 16 * i) * LD + tx + 16 * j];
-          gv = et * gv + acc[i][j];
-        }
-    }
-    // W_s = sum_{t >= s} (row t's prefix sum to s), down column s in order
-    // (the prefix sums were written before the synchronization above)
-    if (threadIdx.x < T) {
-      const int s = threadIdx.x;
-      float w = 0.f;
-      for (int t = s; t < T; ++t) w += sr[t * LT + s];
-      wr[s] = w;
-    }
-    gh = block_sum(gh, red);         // synchronizes: dxr, dcy, ee, wr are written
-
-    // dla, ddt and da: warp 0, two steps a lane. Each term of dla sums only
-    // what reaches la_s (see the note at the top): W_s, the exp(cum_t) terms
-    // of t >= s, the exp(total - cum_t) terms of t < s and exp(total) sum(G
-    // h_in). None is a difference of large sums.
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x, t = 2 * lane;
-      // after: dcy summed over the steps of the lanes above (>= t + 2);
-      // before: ee summed over the steps of the lanes below (< t)
-      float up = dcy[t] + dcy[t + 1], down = ee[t] + ee[t + 1];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u = __shfl_down_sync(FULL, up, off);
-        const float v = __shfl_up_sync(FULL, down, off);
-        if (lane + off < 32) up += u;
-        if (lane >= off) down += v;
-      }
-      float after = __shfl_down_sync(FULL, up, 1), before = __shfl_up_sync(FULL, down, 1);
-      if (lane == 31) after = 0.f;
-      if (lane == 0) before = 0.f;
-      const float carry = expf(total) * gh;
-      const float tail1 = after + dcy[t + 1];
-      const float dla1 = wr[t + 1] + tail1 + (before + ee[t]) + carry;
-      const float dla0 = wr[t] + (tail1 + dcy[t]) + before + carry;
-      const int64_t base = (static_cast<int64_t>(bi) * S + t0) * H + h;
-      if (t < tc) ddt[base + static_cast<int64_t>(t) * H] = dla0 * av + dxr[t];
-      if (t + 1 < tc) ddt[base + static_cast<int64_t>(t + 1) * H] = dla1 * av + dxr[t + 1];
-      da_acc += dla0 * sdt[t] + dla1 * sdt[t + 1];
-    }
+  const BwdTile tl = bwd_tile(H, nc);
+  const int g = tl.h / (H / G), t0 = tl.ci * T, tc = min(T, S - t0);
+  const float av = a[tl.h], dv = dskip[tl.h];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int strip = warp & 3, half = warp >> 2, r0 = 16 * strip;
+  stage_bwd<D, E, CW>(sx, sb, sc, sdy, sdt, x, b, c, dy, dt, tl.bi, tl.h, g, S, H, G, P, N, t0,
+                      tc, vec);
+  stage_states<D, CW>(hs, gs, hbuf, gbuf, (static_cast<int64_t>(tl.bh) * nc + tl.ci) * P * N,
+                      P, N, N % 4 == 0);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const double total = chunk_cum(sdt, av, cum, ecum, edec);
+    if (threadIdx.x == 0) stotal = static_cast<float>(total);
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < P * N; idx += NT) {
-    const int p = idx / N, n = idx % N;
-    dh0[state + idx] = gs[p * LD + n];
+  const float total = stotal;
+  const int64_t tok0 = static_cast<int64_t>(tl.bi) * S + t0;
+
+  // K, Qd and R on and below the diagonal (the strip's tiles j < 2 strip + 2,
+  // this warp's j0 + j), then W: row t's exclusive prefix sums of R, summed
+  // down each column s over the rows t >= s; the second half's prefix sums
+  // start from the first half's row sums
+  {
+    const int j0 = TJ * half, nj = max(0, min(TJ, 2 * strip + 2 - j0));
+    float cb[TJ][4] = {}, dxm[TJ][4] = {}, rv[TJ][4];
+    strip_mma<E, TJ, XS, XS>(
+        cb, [&](int m, int k) { return pair_f32(sc + (r0 + m) * LE + k); },
+        [&](int k, int n) { return pair_f32(sb + n * LE + k); }, 0, D, j0, nj);
+    strip_mma<E, TJ, XS, XS>(
+        dxm, [&](int m, int k) { return pair_f32(sdy + (r0 + m) * LE + k); },
+        [&](int k, int n) { return pair_f32(sx + n * LE + k); }, 0, D, j0, nj);
+#pragma unroll
+    for (int j = 0; j < TJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = r0 + gr + 8 * (e >> 1), s = 8 * (j0 + j) + 2 * q + (e & 1);
+        float kv = 0.f, qv = 0.f;
+        rv[j][e] = 0.f;
+        if (j < nj && s <= t) {
+          const float l = seg_exp(cum, t, s);
+          kv = cb[j][e] * l;
+          qv = dxm[j][e] * l * sdt[s];
+          rv[j][e] = qv * cb[j][e];
+        }
+        sk[t * LQ + s] = kv;
+        sq[t * LQ + s] = qv;
+      }
+    float carry[2] = {0.f, 0.f};       // rows r0 + gr and r0 + gr + 8
+    const auto prefix_sums = [&]() {
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) {
+        float wc[2] = {0.f, 0.f};
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const float v0 = rv[j][2 * rh], pair = v0 + rv[j][2 * rh + 1];
+          const int base = lane & ~3;
+          const float p0 = __shfl_sync(FULL, pair, base), p1 = __shfl_sync(FULL, pair, base + 1);
+          const float p2 = __shfl_sync(FULL, pair, base + 2);
+          const float p3 = __shfl_sync(FULL, pair, base + 3);
+          const float excl = q == 0 ? 0.f : q == 1 ? p0 : q == 2 ? p0 + p1 : (p0 + p1) + p2;
+          const float pref0 = carry[rh] + excl, pref1 = pref0 + v0;
+          carry[rh] += ((p0 + p1) + p2) + p3;
+          const int t = r0 + gr + 8 * rh, s = 8 * (j0 + j) + 2 * q;
+          wc[0] += t >= s ? pref0 : 0.f;
+          wc[1] += t >= s + 1 ? pref1 : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) wc[i] += __shfl_xor_sync(FULL, wc[i], off);
+        }
+        if (gr == 0) {
+          wpart[strip * T + 8 * (j0 + j) + 2 * q] = wc[0];
+          wpart[strip * T + 8 * (j0 + j) + 2 * q + 1] = wc[1];
+        }
+      }
+    };
+    if (half == 0) {
+      prefix_sums();
+      if (q == 0) {
+        rtot[r0 + gr] = carry[0];
+        rtot[r0 + gr + 8] = carry[1];
+      }
+    }
+    __syncthreads();                 // K, Qd and the first half's row sums are written
+    if (half == 1) {
+      carry[0] = rtot[r0 + gr];
+      carry[1] = rtot[r0 + gr + 8];
+      prefix_sums();
+    }
   }
-  const float dd_sum = block_sum(dd_acc, red);
+
+  const int j0 = NJ * half;          // this warp's tiles of the (T, D) products
+  float dd_acc = 0.f;
+  // dxd[s][p] = sum_{t>=s} K[t][s] dy[t][p] + exp(total - cum_s) sum_n B[s][n] G[p][n];
+  // dx = d dy + dt dxd; dxr[s] = dxd_s . x_s; dd += dy . x
+  {
+    float a1[NJ][4] = {}, a2[NJ][4] = {};
+    strip_mma<E, NJ, true, XS>(
+        a1, [&](int m, int k) { return col_pair(sk, LQ, k, r0 + m); },
+        [&](int k, int n) { return col_pair(sdy, LE, k, n); }, r0, T, j0, NJ);
+    strip_mma<E, NJ, XS, true>(
+        a2, [&](int m, int k) { return pair_f32(sb + (r0 + m) * LE + k); },
+        [&](int k, int n) { return pair_f32(gs + n * LF + k); }, 0, D, j0, NJ);
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int s = r0 + gr + 8 * hf, p = 8 * (j0 + j) + 2 * q;
+        const float2 xv = pair_f32(sx + s * LE + p), gv = pair_f32(sdy + s * LE + p);
+        const float ed = edec[s], dts = sdt[s];
+        const float dxd0 = a1[j][2 * hf] + ed * a2[j][2 * hf];
+        const float dxd1 = a1[j][2 * hf + 1] + ed * a2[j][2 * hf + 1];
+        part[hf] += dxd0 * xv.x;
+        part[hf] += dxd1 * xv.y;
+        dd_acc += gv.x * xv.x;
+        dd_acc += gv.y * xv.y;
+        if (s < tc)
+          store_pair(dx, ((tok0 + s) * H + tl.h) * P + p, dv * gv.x + dts * dxd0,
+                     dv * gv.y + dts * dxd1, p, P);
+      }
+    part[0] = sum4(part[0]);
+    part[1] = sum4(part[1]);
+    if (q == 0) {
+      dxr[half * T + r0 + gr] = part[0];
+      dxr[half * T + r0 + gr + 8] = part[1];
+    }
+  }
+
+  // dC[t][n] = sum_{s<=t} Qd[t][s] B[s][n] + exp(cum_t) sum_p dy[t][p] h_in[p][n];
+  // dcy[t] = C_t . (the second term)
+  {
+    float a1[NJ][4] = {}, a2[NJ][4] = {};
+    strip_mma<E, NJ, true, XS>(
+        a1, [&](int m, int k) { return pair_f32(sq + (r0 + m) * LQ + k); },
+        [&](int k, int n) { return col_pair(sb, LE, k, n); }, 0, r0 + 16, j0, NJ);
+    strip_mma<E, NJ, XS, true>(
+        a2, [&](int m, int k) { return pair_f32(sdy + (r0 + m) * LE + k); },
+        [&](int k, int n) { return col_pair(hs, LF, k, n); }, 0, D, j0, NJ);
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = r0 + gr + 8 * hf, n = 8 * (j0 + j) + 2 * q;
+        const float ec = ecum[t];
+        const float st0 = ec * a2[j][2 * hf], st1 = ec * a2[j][2 * hf + 1];
+        const float2 cv = pair_f32(sc + t * LE + n);
+        part[hf] += cv.x * st0;
+        part[hf] += cv.y * st1;
+        if (t < tc)
+          store_pair(dc_part, ((tok0 + t) * H + tl.h) * N + n, a1[j][2 * hf] + st0,
+                     a1[j][2 * hf + 1] + st1, n, N);
+      }
+    part[0] = sum4(part[0]);
+    part[1] = sum4(part[1]);
+    if (q == 0) {
+      dcy[half * T + r0 + gr] = part[0];
+      dcy[half * T + r0 + gr + 8] = part[1];
+    }
+  }
+
+  // dB[s][n] = sum_{t>=s} Qd[t][s] C[t][n] + exp(total - cum_s) dt_s sum_p x[s][p] G[p][n];
+  // ee[s] = B_s . (the second term)
+  {
+    float a1[NJ][4] = {}, a2[NJ][4] = {};
+    strip_mma<E, NJ, true, XS>(
+        a1, [&](int m, int k) { return col_pair(sq, LQ, k, r0 + m); },
+        [&](int k, int n) { return col_pair(sc, LE, k, n); }, r0, T, j0, NJ);
+    strip_mma<E, NJ, XS, true>(
+        a2, [&](int m, int k) { return pair_f32(sx + (r0 + m) * LE + k); },
+        [&](int k, int n) { return col_pair(gs, LF, k, n); }, 0, D, j0, NJ);
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int s = r0 + gr + 8 * hf, n = 8 * (j0 + j) + 2 * q;
+        const float w = edec[s] * sdt[s];
+        const float st0 = w * a2[j][2 * hf], st1 = w * a2[j][2 * hf + 1];
+        const float2 bv = pair_f32(sb + s * LE + n);
+        part[hf] += bv.x * st0;
+        part[hf] += bv.y * st1;
+        if (s < tc)
+          store_pair(db_part, ((tok0 + s) * H + tl.h) * N + n, a1[j][2 * hf] + st0,
+                     a1[j][2 * hf + 1] + st1, n, N);
+      }
+    part[0] = sum4(part[0]);
+    part[1] = sum4(part[1]);
+    if (q == 0) {
+      ee[half * T + r0 + gr] = part[0];
+      ee[half * T + r0 + gr + 8] = part[1];
+    }
+  }
+
+  // sum(G * h_in); then each row sum's halves, and W_s: the strips' column
+  // sums in strip order
+  float gh = 0.f;
+  for (int idx = threadIdx.x; idx < D * D; idx += CW) {
+    const int p = idx / D, n = idx % D;
+    gh += gs[p * LF + n] * hs[p * LF + n];
+  }
+  gh = cta_sum<CW / 32>(gh, red);    // synchronizes: every half's row sums are written
+  if (threadIdx.x < T) {
+    const int s = threadIdx.x;
+    dxr[s] += dxr[T + s];
+    dcy[s] += dcy[T + s];
+    ee[s] += ee[T + s];
+    wr[s] = ((wpart[s] + wpart[T + s]) + wpart[2 * T + s]) + wpart[3 * T + s];
+  }
+  const float dd_sum = cta_sum<CW / 32>(dd_acc, red + CW / 32);   // synchronizes: summed
+
+  // dla, ddt and da: warp 0, two steps a lane. Each term of dla sums only
+  // what reaches la_s (see the note at the top): W_s, the exp(cum_t) terms
+  // of t >= s, the exp(total - cum_t) terms of t < s and exp(total) sum(G
+  // h_in). None is a difference of large sums.
   if (threadIdx.x < 32) {
-    float v = da_acc;
+    const int t = 2 * lane;
+    // after: dcy summed over the steps of the lanes above (>= t + 2);
+    // before: ee summed over the steps of the lanes below (< t)
+    float up = dcy[t] + dcy[t + 1], down = ee[t] + ee[t + 1];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_down_sync(FULL, up, off);
+      const float v = __shfl_up_sync(FULL, down, off);
+      if (lane + off < 32) up += u;
+      if (lane >= off) down += v;
+    }
+    float after = __shfl_down_sync(FULL, up, 1), before = __shfl_up_sync(FULL, down, 1);
+    if (lane == 31) after = 0.f;
+    if (lane == 0) before = 0.f;
+    const float carry = expf(total) * gh;
+    const float tail1 = after + dcy[t + 1];
+    const float dla1 = wr[t + 1] + tail1 + (before + ee[t]) + carry;
+    const float dla0 = wr[t] + (tail1 + dcy[t]) + before + carry;
+    const int64_t base = tok0 * H + tl.h;
+    if (t < tc) ddt[base + static_cast<int64_t>(t) * H] = dla0 * av + dxr[t];
+    if (t + 1 < tc) ddt[base + static_cast<int64_t>(t + 1) * H] = dla1 * av + dxr[t + 1];
+    float v = dla0 * sdt[t] + dla1 * sdt[t + 1];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-    if (threadIdx.x == 0) {
-      da_part[bh] = v;
-      dd_part[bh] = dd_sum;
+    if (lane == 0) {
+      const int64_t o = static_cast<int64_t>(tl.bh) * nc + tl.ci;
+      da_part[o] = v;
+      dd_part[o] = dd_sum;
     }
   }
 }
@@ -730,9 +1093,10 @@ ssd_bwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
 // db[tok][g][n] = sum over the H / G heads of group g of part[tok][h][n], in
 // head order, in the gates' dtype (the same for dc)
 template <typename E>
-__global__ void group_reduce_kernel(const float* __restrict__ db_part,
-                                    const float* __restrict__ dc_part, E* __restrict__ db,
-                                    E* __restrict__ dc, int64_t n_out, int H, int G, int N) {
+__global__ void ssd_bwd_group_reduce_kernel(const float* __restrict__ db_part,
+                                            const float* __restrict__ dc_part,
+                                            E* __restrict__ db, E* __restrict__ dc,
+                                            int64_t n_out, int H, int G, int N) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_out) return;
   const int n = static_cast<int>(idx % N);
@@ -750,17 +1114,21 @@ __global__ void group_reduce_kernel(const float* __restrict__ db_part,
   dc[idx] = from_f32<E>(sc);
 }
 
-// da[h] = sum over b of da_part[b][h], b in order (the same for dd)
-__global__ void head_reduce_kernel(const float* __restrict__ da_part,
-                                   const float* __restrict__ dd_part, float* __restrict__ da,
-                                   float* __restrict__ dd, int B, int H) {
+// da[h] = sum over b, then chunk, of da_part[b][h][chunk], in order (the same
+// for dd)
+__global__ void ssd_bwd_head_reduce_kernel(const float* __restrict__ da_part,
+                                           const float* __restrict__ dd_part,
+                                           float* __restrict__ da, float* __restrict__ dd,
+                                           int B, int H, int nc) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= H) return;
   float sa = 0.f, sd = 0.f;
-  for (int bi = 0; bi < B; ++bi) {
-    sa += da_part[bi * H + h];
-    sd += dd_part[bi * H + h];
-  }
+  for (int bi = 0; bi < B; ++bi)
+    for (int ci = 0; ci < nc; ++ci) {
+      const int64_t o = (static_cast<int64_t>(bi) * H + h) * nc + ci;
+      sa += da_part[o];
+      sd += dd_part[o];
+    }
   da[h] = sa;
   dd[h] = sd;
 }
@@ -785,6 +1153,8 @@ bool bad_dims(int B, int S, int H, int G, int P, int N) {
          N > MAX_D;
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
 // Raise the kernel's dynamic shared-memory limit to `bytes` (every launch:
 // the attribute is per device and cheap to set).
 template <typename K>
@@ -807,35 +1177,74 @@ cudaError_t launch_fwd(const void* x, const void* dt, const void* a, const void*
   return cudaGetLastError();
 }
 
+// The phases of the backward that `phases` selects (BWD_* bits), in order.
+enum BwdPhase { BWD_CHUNK = 1, BWD_CARRY = 2, BWD_GRAD = 4, BWD_REDUCE = 8 };
+
 template <int D, typename E>
 cudaError_t launch_bwd(const void* x, const void* dt, const void* a, const void* b,
                        const void* c, const void* d, const void* h0, const void* dy,
-                       const void* dh, void* dx, void* ddt, void* db_part, void* dc_part,
-                       void* db, void* dc, void* da_part, void* dd_part, void* da, void* dd,
-                       void* dh0, void* states, int B, int S, int H, int G, int P, int N,
-                       cudaStream_t st) {
-  constexpr int bytes = bwd_smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = allow_smem(ssd_bwd_kernel<D, E>, bytes);
-  if (err != cudaSuccess) return err;
-  ssd_bwd_kernel<D, E><<<B * H, NT, bytes, st>>>(
-      static_cast<const E*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
-      static_cast<const E*>(b), static_cast<const E*>(c), static_cast<const float*>(d),
-      static_cast<const float*>(h0), static_cast<const E*>(dy), static_cast<const float*>(dh),
-      static_cast<E*>(dx), static_cast<float*>(ddt), static_cast<float*>(db_part),
-      static_cast<float*>(dc_part), static_cast<float*>(da_part), static_cast<float*>(dd_part),
-      static_cast<float*>(dh0), static_cast<float*>(states), S, H, G, P, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t n_out = static_cast<int64_t>(B) * S * G * N;
-  group_reduce_kernel<E><<<static_cast<unsigned>((n_out + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(db_part), static_cast<const float*>(dc_part),
-      static_cast<E*>(db), static_cast<E*>(dc), n_out, H, G, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  head_reduce_kernel<<<(H + 127) / 128, 128, 0, st>>>(
-      static_cast<const float*>(da_part), static_cast<const float*>(dd_part),
-      static_cast<float*>(da), static_cast<float*>(dd), B, H);
-  return cudaGetLastError();
+                       const void* dh, void* dx, void* ddt, void* db, void* dc, void* da,
+                       void* dd, void* dh0, void* hbuf, void* gbuf, void* etot, void* db_part,
+                       void* dc_part, void* da_part, void* dd_part, int B, int S, int H, int G,
+                       int P, int N, int phases, cudaStream_t st) {
+  const int nc = (S + T - 1) / T;
+  const unsigned tiles = static_cast<unsigned>(B) * H * nc;
+  const E* xe = static_cast<const E*>(x);
+  const E* be = static_cast<const E*>(b);
+  const E* ce = static_cast<const E*>(c);
+  const E* dye = static_cast<const E*>(dy);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* af = static_cast<const float*>(a);
+  float* hb = static_cast<float*>(hbuf);
+  float* gb = static_cast<float*>(gbuf);
+  float* et = static_cast<float*>(etot);
+  constexpr int VE = 16 / static_cast<int>(sizeof(E));
+  const int vec = P % VE == 0 && N % VE == 0 && aligned16(x) && aligned16(b) && aligned16(c) &&
+                  aligned16(dy);
+  cudaError_t err = cudaSuccess;
+  if (phases & BWD_CHUNK) {
+    constexpr int bytes = chunk_smem_bytes<D, E>();
+    err = allow_smem(ssd_bwd_chunk_kernel<D, E>, bytes);
+    if (err != cudaSuccess) return err;
+    ssd_bwd_chunk_kernel<D, E><<<tiles, BW, bytes, st>>>(xe, dtf, af, be, ce, dye, hb, gb, et,
+                                                         S, H, G, P, N, nc, vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (phases & BWD_CARRY) {
+    const int64_t n_state = static_cast<int64_t>(B) * H * P * N;
+    const float* h0f = static_cast<const float*>(h0);
+    const float* dhf = static_cast<const float*>(dh);
+    float* dh0f = static_cast<float*>(dh0);
+    if ((P * N) % 4 == 0 && aligned16(h0) && aligned16(dh) && aligned16(dh0))
+      ssd_bwd_carry_kernel<4><<<dim3(static_cast<unsigned>((n_state / 4 + 255) / 256), 2), 256,
+                                 0, st>>>(h0f, dhf, et, hb, gb, dh0f, n_state, P * N, nc);
+    else
+      ssd_bwd_carry_kernel<1><<<dim3(static_cast<unsigned>((n_state + 255) / 256), 2), 256, 0,
+                                 st>>>(h0f, dhf, et, hb, gb, dh0f, n_state, P * N, nc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (phases & BWD_GRAD) {
+    constexpr int bytes = grad_smem_bytes<D, E>();
+    err = allow_smem(ssd_bwd_grad_kernel<D, E>, bytes);
+    if (err != cudaSuccess) return err;
+    ssd_bwd_grad_kernel<D, E><<<tiles, CW, bytes, st>>>(
+        xe, dtf, af, be, ce, static_cast<const float*>(d), dye, hb, gb, static_cast<E*>(dx),
+        static_cast<float*>(ddt), static_cast<float*>(db_part), static_cast<float*>(dc_part),
+        static_cast<float*>(da_part), static_cast<float*>(dd_part), S, H, G, P, N, nc, vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (phases & BWD_REDUCE) {
+    const int64_t n_out = static_cast<int64_t>(B) * S * G * N;
+    ssd_bwd_group_reduce_kernel<E><<<static_cast<unsigned>((n_out + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(db_part), static_cast<const float*>(dc_part),
+        static_cast<E*>(db), static_cast<E*>(dc), n_out, H, G, N);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ssd_bwd_head_reduce_kernel<<<(H + 127) / 128, 128, 0, st>>>(
+        static_cast<const float*>(da_part), static_cast<const float*>(dd_part),
+        static_cast<float*>(da), static_cast<float*>(dd), B, H, nc);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
@@ -859,23 +1268,26 @@ extern "C" int mamba2_fwd(const void* x, const void* dt, const void* a, const vo
 // float32 or null: the cotangents of y and of the final state (null: zero).
 // Writes dx (B,S,H,P), db, dc (B,S,G,N) of `dtype`, ddt (B,S,H), da, dd (H)
 // and dh0 (B,H,P,N) float32, the gradient of the initial state. Scratch, all
-// float32: db_part, dc_part (B,S,H,N), da_part, dd_part (B,H) and states
-// (B,H,ceil(S/64),P,N).
+// float32: hbuf, gbuf (B,H,nc,P,N) and etot, da_part, dd_part (B,H,nc), with
+// nc = ceil(S / 64); db_part, dc_part (B,S,H,N). `phases` selects the phases
+// to launch (1 = A, 2 = B, 4 = C, 8 = the sums; 15 is the whole backward; a
+// phase reads what the ones before it wrote).
 extern "C" int mamba2_bwd(const void* x, const void* dt, const void* a, const void* b,
                           const void* c, const void* d, const void* h0, const void* dy,
-                          const void* dh, void* dx, void* ddt, void* db_part, void* dc_part,
-                          void* db, void* dc, void* da_part, void* dd_part, void* da,
-                          void* dd, void* dh0, void* states, int dtype, int B, int S, int H,
-                          int G, int P, int N, void* stream) {
+                          const void* dh, void* dx, void* ddt, void* db, void* dc, void* da,
+                          void* dd, void* dh0, void* hbuf, void* gbuf, void* etot,
+                          void* db_part, void* dc_part, void* da_part, void* dd_part,
+                          int dtype, int B, int S, int H, int G, int P, int N, int phases,
+                          void* stream) {
   if (bad_dims(B, S, H, G, P, N)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, P, N, [&](auto dc_, auto e) {
     return launch_bwd<decltype(dc_)::value, decltype(e)>(
-        x, dt, a, b, c, d, h0, dy, dh, dx, ddt, db_part, dc_part, db, dc, da_part, dd_part, da,
-        dd, dh0, states, B, S, H, G, P, N, st);
+        x, dt, a, b, c, d, h0, dy, dh, dx, ddt, db, dc, da, dd, dh0, hbuf, gbuf, etot, db_part,
+        dc_part, da_part, dd_part, B, S, H, G, P, N, phases, st);
   }));
 }
 
-// The chunk length the kernels use (the scratch `states` holds one state per
-// chunk).
+// The chunk length the kernels use (the backward's scratch holds one state
+// per chunk).
 extern "C" int mamba2_chunk() { return T; }

@@ -57,8 +57,8 @@ def _library() -> ctypes.CDLL:
         lib.sgd_epilogue.argtypes = [p, i, p, i, p, i64, p, f, i, f, p]
         lib.delta_amax.argtypes = [p, i, p, p, i64, p, p]
         lib.delta_encode_i8.argtypes = [p, i, p, p, p, i64, f, p]
-        for fn in (lib.fused_axpy, lib.fused_dot_norms, lib.adamw_epilogue,
-                   lib.sgd_epilogue, lib.delta_amax, lib.delta_encode_i8):
+        for fn in (lib.fused_axpy, lib.fused_axpy_tile, lib.fused_dot_norms,
+                   lib.adamw_epilogue, lib.sgd_epilogue, lib.delta_amax, lib.delta_encode_i8):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -86,6 +86,11 @@ def fused_axpy(alpha, x: torch.Tensor, y: torch.Tensor, *,
     check_launch("fused_axpy", rc)
     launches["fused_axpy"] += 1
     return out
+
+
+def axpy_tile() -> int:
+    """Elements a CTA of the fused_axpy kernel takes (its sweep's tile)."""
+    return _library().fused_axpy_tile()
 
 
 def fused_dot_norms(a: torch.Tensor, b: torch.Tensor

@@ -22,9 +22,11 @@ not change the function. A tensor on the CPU goes to the plain version
 (`ref.mamba2_chunked_plain`, differentiated by autograd); a CUDA tensor goes
 through `Mamba2Scan`, a `torch.autograd.Function` whose forward launches the
 forward kernel (saving only its inputs) and whose backward launches the
-backward kernel, or raises. Both are built with nvcc at the first launch and
-bound through ctypes, so importing this module needs neither nvcc nor a
-card. `launches[name]` counts each kernel's launches.
+backward's kernels, or raises: its local chunk states, their carries, every
+chunk's gradients, and the sums across CTAs (`BWD_PHASES`). The kernels are
+built with nvcc at the first launch and bound through ctypes, so importing
+this module needs neither nvcc nor a card. `launches[name]` counts each
+forward and each backward once, however many CUDA kernels it takes.
 """
 from __future__ import annotations
 
@@ -49,9 +51,9 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load(SOURCE)
-        dims = [ctypes.c_int] * 7 + [ctypes.c_void_p]          # dtype, B, S, H, G, P, N, stream
-        lib.mamba2_fwd.argtypes = [ctypes.c_void_p] * 9 + dims
-        lib.mamba2_bwd.argtypes = [ctypes.c_void_p] * 21 + dims
+        dims = [ctypes.c_int] * 7                               # dtype, B, S, H, G, P, N
+        lib.mamba2_fwd.argtypes = [ctypes.c_void_p] * 9 + dims + [ctypes.c_void_p]
+        lib.mamba2_bwd.argtypes = [ctypes.c_void_p] * 23 + dims + [ctypes.c_int, ctypes.c_void_p]
         lib.mamba2_fwd.restype = lib.mamba2_bwd.restype = lib.mamba2_chunk.restype = ctypes.c_int
         if lib.mamba2_chunk() != CHUNK:
             raise RuntimeError(f"mamba2 kernels chunk {lib.mamba2_chunk()} != {CHUNK}")
@@ -118,32 +120,53 @@ def _launch_fwd(x, dt, a, b, c, d, init_state) -> tuple[torch.Tensor, torch.Tens
     return y, state
 
 
-def _launch_bwd(x, dt, a, b, c, d, init_state, dy, d_state) -> tuple[torch.Tensor, ...]:
-    """One backward launch on checked inputs; dy / d_state may be None
-    (zero). Returns (dx, ddt, da, db, dc, dd, d_init_state)."""
+BWD_PHASES = {"chunk": 1, "carry": 2, "grad": 4, "reduce": 8}   # the C entry's `phases` bits
+BWD_ALL = sum(BWD_PHASES.values())
+
+
+def bwd_buffers(x: torch.Tensor, b: torch.Tensor) -> dict:
+    """The backward's outputs and scratch for inputs shaped as x and b."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = -(-s // CHUNK)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return dict(
+        dx=torch.empty_like(x), ddt=torch.empty((bsz, s, h), **f32),
+        db=torch.empty_like(b), dc=torch.empty_like(b),
+        da=torch.empty((h,), **f32), dd=torch.empty((h,), **f32),
+        ds0=torch.empty((bsz, h, p, n), **f32),
+        hbuf=torch.empty((bsz, h, nc, p, n), **f32), gbuf=torch.empty((bsz, h, nc, p, n), **f32),
+        etot=torch.empty((bsz, h, nc), **f32), db_part=torch.empty((bsz, s, h, n), **f32),
+        dc_part=torch.empty((bsz, s, h, n), **f32), da_part=torch.empty((bsz, h, nc), **f32),
+        dd_part=torch.empty((bsz, h, nc), **f32))
+
+
+def run_bwd(x, dt, a, b, c, d, init_state, dy, d_state, bufs: dict,
+            phases: int = BWD_ALL) -> None:
+    """Launch the backward's `phases` (BWD_PHASES bits) on checked inputs into
+    `bufs` (bwd_buffers); counts nothing."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
-    da, dd = torch.empty((h,), **f32), torch.empty((h,), **f32)
-    ds0 = torch.empty((bsz, h, p, n), **f32)
-    db_part = torch.empty((bsz, s, h, n), **f32)
-    dc_part = torch.empty((bsz, s, h, n), **f32)
-    da_part, dd_part = torch.empty((bsz, h), **f32), torch.empty((bsz, h), **f32)
-    states = torch.empty((bsz, h, -(-s // CHUNK), p, n), **f32)
+    out = [bufs[k].data_ptr() for k in ("dx", "ddt", "db", "dc", "da", "dd", "ds0", "hbuf",
+                                        "gbuf", "etot", "db_part", "dc_part", "da_part",
+                                        "dd_part")]
     with torch.cuda.device(dev):
         rc = _library().mamba2_bwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            d.data_ptr(), _ptr(init_state), _ptr(dy), _ptr(d_state), dx.data_ptr(),
-            ddt.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(), db.data_ptr(),
-            dc.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(), da.data_ptr(),
-            dd.data_ptr(), ds0.data_ptr(), states.data_ptr(), _DTYPES[x.dtype], bsz, s, h, g,
-            p, n, _stream(dev))
+            d.data_ptr(), _ptr(init_state), _ptr(dy), _ptr(d_state), *out, _DTYPES[x.dtype],
+            bsz, s, h, g, p, n, phases, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"mamba2_scan_bwd kernel launch failed: CUDA error {rc}")
+
+
+def _launch_bwd(x, dt, a, b, c, d, init_state, dy, d_state) -> tuple[torch.Tensor, ...]:
+    """One backward (its kernels' four phases) on checked inputs; dy / d_state
+    may be None (zero). Returns (dx, ddt, da, db, dc, dd, d_init_state)."""
+    bufs = bwd_buffers(x, b)
+    run_bwd(x, dt, a, b, c, d, init_state, dy, d_state, bufs)
     launches["mamba2_scan_bwd"] += 1
-    return dx, ddt, da, db, dc, dd, ds0
+    return tuple(bufs[k] for k in ("dx", "ddt", "da", "db", "dc", "dd", "ds0"))
 
 
 class Mamba2Scan(torch.autograd.Function):

@@ -191,6 +191,29 @@ def test_reduction_kernels_match_plain(dev, n, dtype, offset):
         assert abs(float(g) - float(e)) <= 2e-5 * max(abs(float(e)), scale)
 
 
+# fused_axpy sweeps 1,024-element tiles, four elements a thread: sizes at a
+# tile's edges and with a ragged vector at the end
+SWEEP_SIZES = [1023, 1024, 1025, 4 * 1024 + 3]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", SWEEP_SIZES)
+def test_fused_axpy_sweep_edges_bitwise(dev, n, dtype, offset):
+    """fused_axpy at the sweep's tile edges, aligned and not (offset 1
+    leaves x and y off their 16-byte alignment: the element-by-element
+    path), fp32 x and fp32 or bf16 y: bitwise its plain version."""
+    from repro_torch.kernels import fused_update as fu
+    x = _flat(dev, n, torch.float32, 6, 1e-3, offset)
+    y = _flat(dev, n, dtype, 7, 2e-2, offset)
+    alpha = torch.tensor(0.37, device=dev)
+    out = torch.empty_like(y)
+    before = fu.launches["fused_axpy"]
+    assert fu.fused_axpy(alpha, x, y, out=out) is out
+    assert fu.launches["fused_axpy"] == before + 1
+    torch.testing.assert_close(out, ref.axpy_flat_plain(alpha, x, y), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", FLAT_SIZES)
@@ -736,29 +759,37 @@ def test_reduced_rwkv_training_kernel_path_matches_plain_path(dev, remat, fwd_pe
 
 def _ssd_inputs(dev, b, s, h, p, n, g, dtype, init, fast=False, seed=0):
     """x, b, c in `dtype`; dt = softplus(N(0, 1)), a = -linspace(1, 16, H)
-    (the model's decay rates), d = 0.5, in fp32; with `fast` the last head's
-    dt is 20, so its decay exp(dt a) = exp(-320) underflows to 0; init_state
-    fp32 or None."""
+    (the model's decay rates), d = 0.5, in fp32; with `fast` True the last
+    head's dt is 20, so its decay exp(dt a) = exp(-320) underflows to 0; with
+    `fast` "decades" every element of x, b and c is scaled by 10^u, u uniform
+    in [-2, 2]; init_state fp32 or None."""
     g_ = torch.Generator(device=dev).manual_seed(seed)
 
     def n_(*shape, scale=1.0):
-        return torch.randn(shape, generator=g_, device=dev) * scale
+        t = torch.randn(shape, generator=g_, device=dev) * scale
+        if fast == "decades":
+            t = t * 10.0 ** (4 * torch.rand(shape, generator=g_, device=dev) - 2)
+        return t
 
     x = n_(b, s, h, p, scale=0.5).to(dtype)
-    dt = torch.nn.functional.softplus(n_(b, s, h))
-    if fast:
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g_, device=dev))
+    if fast is True:
         dt[..., -1] = 20.0
     a = -torch.linspace(1.0, 16.0, h, device=dev)
     bb, cc = n_(b, s, g, n, scale=0.3).to(dtype), n_(b, s, g, n, scale=0.3).to(dtype)
     d = torch.full((h,), 0.5, device=dev)
-    s0 = n_(b, h, p, n, scale=0.5) if init else None
+    s0 = torch.randn((b, h, p, n), generator=g_, device=dev) * 0.5 if init else None
     return x, dt, a, bb, cc, d, s0
 
 
 # (B, S, H, P, N, G, dtype, init_state, fast decay): zamba2's head (P = N =
 # 64) in bf16, a decode step (S = 1 from a state), ragged S from a state,
-# G = 2 and H = 4 in fp32, a head whose decay underflows, and widths that
-# are not 16, 32 or 64 with G = H
+# G = 2 and H = 4 in fp32, a head whose decay underflows, widths that are
+# not 16, 32 or 64 with G = H, zamba2's ascent scan shape (2 x 1024 tokens,
+# 64 heads), five chunks of the kernels' 64 with a ragged last one, fp32 x,
+# b, c spread over four decades (the backward's split products), and bf16
+# widths that are not whole 16-byte vectors (the backward's element-by-element
+# staging and stores)
 SSD_CASES = [
     (2, 256, 4, 64, 64, 1, torch.bfloat16, False, False),
     (3, 1, 4, 64, 64, 1, torch.bfloat16, True, False),
@@ -766,6 +797,10 @@ SSD_CASES = [
     (2, 100, 4, 16, 16, 2, torch.float32, True, False),
     (2, 300, 8, 64, 64, 1, torch.float32, True, True),
     (2, 130, 4, 32, 24, 4, torch.float32, False, False),
+    (2, 1024, 64, 64, 64, 1, torch.bfloat16, False, False),
+    (2, 4 * 64 + 1, 4, 64, 64, 2, torch.bfloat16, True, False),
+    (2, 200, 4, 64, 64, 2, torch.float32, True, "decades"),
+    (2, 100, 4, 21, 18, 2, torch.bfloat16, True, False),
 ]
 # fp32 outputs (y in fp32, the state, ddt, da, dd, d init_state; dx, db, dc
 # in fp32) within 2e-4 of their max: the reference's own limit for its kernel

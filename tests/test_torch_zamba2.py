@@ -230,6 +230,132 @@ def test_plain_backward_matches_jax_grad(s, init, cotangents, dtype, g):
         assert _rel_max(gr, e) <= tol, (name, _rel_max(gr, e))
 
 
+KERNEL_CHUNK = 64                       # the CUDA backward's chunk length
+
+
+def _chunk_parallel_grads(x, dt, a, b, c, d, s0, dy, ds, T=KERNEL_CHUNK):
+    """The CUDA backward's schedule in float64 (numpy arrays in; dy, ds, s0
+    may be None): phase A, each chunk's local state S_c = sum_t x_t dt_t
+    exp(total - cum_t) B_t^T and local cotangent U_c = sum_t exp(cum_t) dy_t
+    C_t^T; phase B, the two carries h_in[c+1] = exp(total_c) h_in[c] + S_c
+    and dh_out[c-1] = exp(total_c) dh_out[c] + U_c; phase C, every chunk's
+    gradients from its h_in and dh_out alone, dla summed term by term (W_s +
+    the dcy of t >= s + the E of t < s + exp(total) sum(dh_out h_in)).
+    Returns (dx, ddt, da, db, dc, dd, d_init_state) as numpy arrays."""
+    f64 = torch.float64
+    x, dt, a, b, c, d = (torch.from_numpy(np.asarray(v)).to(f64) for v in (x, dt, a, b, c, d))
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    dy = torch.zeros_like(x) if dy is None else torch.from_numpy(np.asarray(dy)).to(f64)
+    nc = -(-s // T)
+
+    def chunks(v):                  # (B, S, H, ...) zero-padded -> (B, H, nc, T, ...)
+        v = torch.nn.functional.pad(v, [0, 0] * (v.dim() - 2) + [0, nc * T - s])
+        v = v.reshape(bsz, nc, T, *v.shape[2:])
+        return v.movedim(3, 1)
+
+    xs, dys, dts = chunks(x), chunks(dy), chunks(dt)
+    bs, cs = (chunks(v.repeat_interleave(h // g, dim=2)) for v in (b, c))
+    cum = torch.cumsum(dts * a[None, :, None, None], dim=-1)          # (B, H, nc, T)
+    total = cum[..., -1]
+    ecum, edec = torch.exp(cum), torch.exp(total[..., None] - cum)
+
+    # phase A, then phase B
+    s_loc = torch.einsum("bhctp,bhct,bhctn->bhcpn", xs, dts * edec, bs)
+    u_loc = torch.einsum("bhctp,bhct,bhctn->bhcpn", dys, ecum, cs)
+    h_in, dh_out = torch.empty_like(s_loc), torch.empty_like(u_loc)
+    hv = torch.zeros((bsz, h, p, n), dtype=f64) if s0 is None else torch.from_numpy(s0).to(f64)
+    for ci in range(nc):
+        h_in[:, :, ci] = hv
+        hv = torch.exp(total[:, :, ci, None, None]) * hv + s_loc[:, :, ci]
+    gv = torch.zeros((bsz, h, p, n), dtype=f64) if ds is None else torch.from_numpy(ds).to(f64)
+    for ci in reversed(range(nc)):
+        dh_out[:, :, ci] = gv
+        gv = torch.exp(total[:, :, ci, None, None]) * gv + u_loc[:, :, ci]
+
+    # phase C: (t, s) on and below the diagonal only, never a decay divided
+    tri = torch.tril(torch.ones(T, T, dtype=torch.bool))
+    seg = torch.where(tri, cum[..., :, None] - cum[..., None, :], torch.zeros((), dtype=f64))
+    lmat = torch.where(tri, torch.exp(seg), torch.zeros((), dtype=f64))
+    cb = torch.einsum("bhctn,bhcsn->bhcts", cs, bs)
+    kmat = cb * lmat
+    qd = torch.einsum("bhctp,bhcsp->bhcts", dys, xs) * lmat * dts[..., None, :]
+    rmat = qd * cb
+    dxd = (torch.einsum("bhcts,bhctp->bhcsp", kmat, dys)
+           + edec[..., None] * torch.einsum("bhcsn,bhcpn->bhcsp", bs, dh_out))
+    dcy_term = ecum[..., None] * torch.einsum("bhctp,bhcpn->bhctn", dys, h_in)
+    dc_h = torch.einsum("bhcts,bhcsn->bhctn", qd, bs) + dcy_term
+    e_term = (edec * dts)[..., None] * torch.einsum("bhcsp,bhcpn->bhcsn", xs, dh_out)
+    db_h = torch.einsum("bhcts,bhctn->bhcsn", qd, cs) + e_term
+    dcy, ee = (cs * dcy_term).sum(-1), (bs * e_term).sum(-1)
+    pref = torch.cumsum(rmat, dim=-1) - rmat                # row t's sum over k < s
+    w = (pref * tri).sum(-2)                                 # over the rows t >= s
+    after = torch.flip(torch.cumsum(torch.flip(dcy, [-1]), -1), [-1])      # t >= s
+    before = torch.cumsum(ee, -1) - ee                                     # t < s
+    carry = torch.exp(total) * (dh_out * h_in).sum((-2, -1))
+    dla = w + after + before + carry[..., None]
+    ddt = dla * a[None, :, None, None] + (dxd * xs).sum(-1)
+
+    def unchunk(v):                 # (B, H, nc, T, ...) -> (B, S, H, ...)
+        return v.movedim(1, 3).reshape(bsz, nc * T, h, *v.shape[4:])[:, :s]
+
+    dx = d[None, None, :, None] * dy + unchunk(dts[..., None] * dxd)
+    db_, dc_ = (unchunk(v).reshape(bsz, s, g, h // g, n).sum(3) for v in (db_h, dc_h))
+    da = (dla * dts).sum((0, 2, 3))
+    dd = (dy * x).sum((0, 1, 3))
+    return tuple(v.numpy() for v in (dx, unchunk(ddt), da, db_, dc_, dd, gv))
+
+
+# (S, init_state, cotangents, G) over H = 4: one step, one whole chunk of the
+# kernel's 64, one step past it and several chunks with a ragged end; with
+# and without an initial state; from dy, from the final state's cotangent and
+# from both
+DECOMP_CASES = [(1, True, "both", 2), (1, False, "dy", 2), (64, False, "both", 2),
+                (64, True, "d_state", 2), (65, True, "both", 2), (65, False, "dy", 1),
+                (200, True, "both", 2), (200, False, "d_state", 2), (200, True, "dy", 1)]
+
+
+@pytest.mark.parametrize("s,init,cotangents,g", DECOMP_CASES)
+def test_chunk_parallel_backward_matches_jax_grad(s, init, cotangents, g):
+    """The CUDA backward's three phases (local chunk states, the carries,
+    per-chunk gradients), rendered in float64 by _chunk_parallel_grads,
+    against jax.grad of the oracle `mamba2_chunked_jnp` on the same inputs,
+    a head whose decay underflows to 0 included. Limits as for the plain
+    backward (GRAD_TOL): the oracle's own fp32 rounding is what they allow
+    for, and what it leaves of da's exact cancellations in that head."""
+    b, h, p, n = 2, 4, 8, 8
+    x, dt, a, bb, cc, d = _ssd_inputs(b, s, h, p, g, n, seed=10)
+    dt[..., -1] = 20.0
+    a[-1] = -16.0
+    rng = np.random.default_rng(11)
+    s0 = rng.standard_normal((b, h, p, n)).astype(np.float32) if init else None
+    dy = None if cotangents == "d_state" else rng.standard_normal((b, s, h, p)).astype(np.float32)
+    ds = None if cotangents == "dy" else rng.standard_normal((b, h, p, n)).astype(np.float32)
+    got = _chunk_parallel_grads(x, dt, a, bb, cc, d, s0, dy, ds)
+
+    def loss(x_, dt_, a_, b_, c_, d_, s0_):
+        y_, st_ = jref.mamba2_chunked_jnp(x_, dt_, a_, b_, c_, d_, chunk=KERNEL_CHUNK,
+                                          init_state=s0_)
+        out = jnp.float32(0.0)
+        if dy is not None:
+            out += jnp.sum(y_ * jnp.asarray(dy))
+        if ds is not None:
+            out += jnp.sum(st_ * jnp.asarray(ds))
+        return out
+
+    js0 = jnp.zeros((b, h, p, n), jnp.float32) if s0 is None else jnp.asarray(s0)
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(7))))(
+        *(jnp.asarray(v) for v in (x, dt, a, bb, cc, d)), js0)
+    for name, gr, e in zip(("dx", "ddt", "da", "db", "dc", "dd", "d_init"), got, want):
+        e = np.asarray(e)
+        assert gr.shape == e.shape, name
+        assert np.isfinite(gr).all(), name
+        if not e.any():                          # no path from the given cotangent
+            assert not gr.any(), name
+            continue
+        assert _rel_max(gr, e) <= GRAD_TOL.get(name, 2e-4), (name, _rel_max(gr, e))
+
+
 def test_reference_cannot_differentiate_its_pallas_kernel():
     """The reference's fault: jax.grad through `mamba2_chunked` (interpret
     mode, the path its TPU training would take) raises AssertionError on
