@@ -12,7 +12,8 @@
    elements) and at edge sizes, held against their plain versions and timed
    beside their bound and one PyTorch library call (a yardstick only; the
    port never calls it); fused_axpy also held to the sweep's 1,024
-   elements a CTA;
+   elements a CTA; sq_norm and its library call also timed in turns, 7
+   rounds each (medians, spread, which is faster beyond it);
 4. flash kernel phase: the same for the flash-attention forward (olmo-1b's
    and zamba2's prefill shapes, GQA, MQA, ragged, windowed, non-causal,
    MLA's hd 192 / hd_v 128, and the CUDA-core path's fp32, hd 40 and
@@ -76,15 +77,17 @@
    and 8 backward scan launches a step, each epilogue kernel once); one step
    profiled; every wkv call of one step held against its plain version on
    its inputs; the whole kernel path against the plain path at a small lr,
-   2 layers, batch 2 x 512;
+   2 layers, batch 2 x 512, in fp32 and bf16 compute (bf16's moments held
+   by their bulk to twice the plain path's own bf16 error; a control with
+   its weights at 6 bits must fail that limit);
 15. mamba2 kernel phase: the SSD scan's forward and backward kernels at
    zamba2-1.2b's scan shape (8 x 1024 tokens, 64 heads, P = N = 64, one
    group, bf16 x/b/c, fp32 dt/a/d) and its ascent batch's (2 x 1024), a
    one-token decode step from a state, a ragged S from a state, G = 2 over
    H = 4 in fp32 and a head whose decay underflows, held against the plain
-   scan and autograd of it (da against the scan in float64; the backward run
-   twice: bit for bit the same), timed beside their bound, the backward's
-   four phases also each alone;
+   scan and autograd of it (da against the scan in float64; each kernel run
+   twice: bit for bit the same), timed beside their bound, the forward's
+   three phases and the backward's four also each alone;
 16. zamba2 serve phase: full-width, full-depth zamba2-1.2b (1,177,813,888
    fp32 parameters from seed 0, bf16 compute; 38 mamba layers, 7 invocations
    of the shared attention block) serves 8 x 1024 prompts + 32 greedy tokens
@@ -98,7 +101,7 @@
    call of one step held against its plain version on its inputs (da
    against the scan in float64); the whole kernel path against the plain
    path at a small lr, 8 layers, batch 2 x 512, in fp32 and bf16 compute
-   (bf16's moments printed, not held);
+   (bf16's moments held and controlled as rwkv6's);
 18. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without CUDA, or
@@ -314,6 +317,36 @@ def max_rel(got, expect) -> tuple[float, float]:
     return err, err / max(float(expect.float().abs().max()), 1e-30)
 
 
+# sq_norm against its library call in turns, SQ_NORM_ROUNDS rounds each: the
+# two are within a few tenths of a percent of each other, less than the
+# spread between calls on different cards, so only one run's turns can order
+# them.
+SQ_NORM_ROUNDS = 7
+
+
+def sq_norm_rounds(x) -> dict:
+    """sq_norm(x) and torch.linalg.vector_norm(x) ** 2 timed in turns: each
+    one's median, min and max over SQ_NORM_ROUNDS rounds (ms), and which is
+    faster beyond the other's spread (None: their ranges overlap)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import sam_perturb as sp
+    calls = {"sq_norm": lambda: sp.sq_norm(x),
+             "vector_norm_sq": lambda: torch.linalg.vector_norm(x) ** 2}
+    times = {k: [] for k in calls}
+    for _ in range(SQ_NORM_ROUNDS):
+        for k, fn in calls.items():
+            times[k].append(time_ms(fn))
+    out = {k: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+           for k, v in times.items()}
+    a, b = out["sq_norm"], out["vector_norm_sq"]
+    out["faster"] = ("sq_norm" if a["max"] < b["min"] else
+                     "vector_norm_sq" if b["max"] < a["min"] else None)
+    print(f"sq_norm vs vector_norm(x)**2 in turns ({SQ_NORM_ROUNDS} rounds, {x.numel()} fp32): "
+          f"{json.dumps(out)}")
+    return out
+
+
 def epilogue_phase() -> dict:
     """Each flat-buffer kernel against its plain version on the card; returns
     the olmo-1b bucket case's row per kernel."""
@@ -364,7 +397,8 @@ def epilogue_phase() -> dict:
         err, rel = max_rel(got, expect)
         report("sq_norm", case, n, err, rel, red_tol, time_ms(lambda: sp.sq_norm(x)),
                time_ms(lambda: ref.sq_norm_plain(x)),
-               time_ms(lambda: torch.linalg.vector_norm(x) ** 2), 4 * n, "float32", main)
+               time_ms(lambda: torch.linalg.vector_norm(x) ** 2), 4 * n, "float32", main,
+               **({"interleaved": sq_norm_rounds(x)} if main else {}))
 
         # --- sam_perturb: out = w + rho x / sqrt(sq) (w = y), held exactly ---
         sq = ref.sq_norm_plain(x)
@@ -772,9 +806,20 @@ def train_phase(family: str = "adamw"):
     return summary, ex, report.final_state, pipe
 
 
-def check_run(lr: float, plain=False, w0=None, to_host: bool = False, **trainer):
+def coarsen_(t, bits: int) -> None:
+    """Round every element of the fp32 tensor t in place to `bits`
+    significant bits (bf16 keeps 8)."""
+    import torch
+    drop = 24 - bits
+    iv = t.view(torch.int32)
+    iv.copy_((iv + (1 << (drop - 1))) & ~((1 << drop) - 1))
+
+
+def check_run(lr: float, plain=False, w0=None, to_host: bool = False, coarse_bits: int = 0,
+              **trainer):
     """3 steps from the seed-0 init (olmo-1b unless `trainer` names another
-    cfg, batch or seq for `build_trainer`), every entry point forced to its
+    cfg, batch or seq for `build_trainer`; with `coarse_bits` its weights
+    rounded to that many significant bits), every entry point forced to its
     plain version when `plain`. Returns (metrics history, final {w, mu, nu}
     buffers, the init w on the host); the buffers stay on the card unless
     `to_host` (the plain path's temporaries need the room), and the
@@ -790,6 +835,9 @@ def check_run(lr: float, plain=False, w0=None, to_host: bool = False, **trainer)
         cfg, ex, state, pipe = build_trainer(TRAIN_CHECK_STEPS, lr, **trainer)
         if w0 is None:
             w0 = state.params.buffers[0].cpu()
+        if coarse_bits:
+            for buf in state.params.buffers:
+                coarsen_(buf, coarse_bits)
         report = Engine(ex, pipe).fit(state, TRAIN_CHECK_STEPS)
     finally:
         ops.set_default_impl(None)
@@ -1501,7 +1549,7 @@ RWKV_FP32_TOL, RWKV_GRAD_TOL = 1e-5, 1e-4
 # y product-add and the decay multiply-add of k v (5). Backward (12), with S
 # rebuilt from the initial state: S's recurrence (3), p = S dy (2), one G
 # recurrence (3), G v and G^T k (2 + 2); dw comes through q at O(K) a step.
-# The kernel does 15: it carries G twice, in its row and its column threads.
+# The kernel does these 12: its one G recurrence gives both G v and G^T k.
 RWKV_FWD_OPS, RWKV_BWD_OPS = 5, 12
 PLAIN_GRAD_BATCH = 2                    # autograd of the plain scan, batch rows at a time
 
@@ -1712,6 +1760,76 @@ def rwkv_serve_phase():
                 phase_s=time.perf_counter() - t_phase), model
 
 
+# The scan families' whole-path check, at a small lr: the kernel path against
+# the plain path in fp32 compute (the paths differ in the order of sums only;
+# the olmo-1b check's limits on scalars, mu, nu and w) and in bf16 compute,
+# which the models run. In bf16 the two paths also round to bf16 at other
+# places, and the moments' largest differences after 3 steps are as large
+# between the plain path in bf16 and in fp32 (bf16_own: 0.38 of max|mu| for
+# rwkv6, 0.030 for zamba2 on the H100), so no limit on their max tells a wrong
+# kernel from rounding. Their bulk does: the median |d| over the median
+# |moment| (as w's bulk), held to MOMENT_BULK_MARGIN times the same ratio of
+# bf16_own from the same init (on the H100: rwkv6 mu 0.0027 against its
+# own 0.0092, zamba2 0.0300 against 0.0312). The control, the kernel path
+# with its weights rounded to COARSE_BITS significant bits (two fewer than
+# bf16's), must fail that limit.
+MOMENT_BULK_MARGIN, COARSE_BITS = 2.0, 6
+
+
+def moment_bulk(cmp: dict) -> dict:
+    """median |d| / median |moment| of mu and nu (compare_runs' quantiles)."""
+    return {k: cmp[k]["q_abs"][0] / max(cmp[k]["q_change"][0], 1e-30) for k in ("mu", "nu")}
+
+
+def scan_whole_check(tag: str, model: str, cfg, layers: int, batch: int, seq: int) -> dict:
+    """The whole kernel path against the plain path (see MOMENT_BULK_MARGIN)
+    for `cfg` cut to `layers` layers at batch x seq; prints the comparisons
+    and fails the run if they disagree or the control meets the limit.
+    Returns the comparisons, w's and the moments' bulk and the moments'
+    limits."""
+    def run(compute, plain, w0=None, coarse_bits=0):
+        ccfg = dataclasses.replace(cfg, n_layers=layers, compute_dtype=compute)
+        return check_run(WHOLE_CHECK_LR, plain, w0, to_host=True, coarse_bits=coarse_bits,
+                         cfg=ccfg, batch=batch, seq=seq)
+
+    plain32 = run("float32", True)
+    w0 = plain32[2]
+    kern = run("float32", False, w0)
+    whole = {"fp32": compare_runs(plain32[:2], kern[:2], w0)}
+    del kern
+    plain16 = run("bfloat16", True, w0)
+    whole["bf16_own"] = compare_runs(plain32[:2], plain16[:2], w0)
+    del plain32
+    kern = run("bfloat16", False, w0)
+    whole["bf16"] = compare_runs(plain16[:2], kern[:2], w0)
+    del kern
+    kern = run("bfloat16", False, w0, COARSE_BITS)
+    whole["bf16_coarse"] = compare_runs(plain16[:2], kern[:2], w0)
+    del kern, plain16, w0
+    w_bulk = {k: whole[k]["w"]["q_abs"][0] / whole[k]["w"]["q_change"][0]
+              for k in ("fp32", "bf16")}
+    bulk = {k: moment_bulk(whole[k]) for k in ("bf16_own", "bf16", "bf16_coarse")}
+    limit = {k: MOMENT_BULK_MARGIN * v for k, v in bulk["bf16_own"].items()}
+    ok = all(v <= (COSINE_ABS_TOL if k == "ascent_cosine_abs" else SCALAR_REL_TOL)
+             for name in ("fp32", "bf16") for row in whole[name]["steps"]
+             for k, v in row.items())
+    ok &= all(whole["fp32"][k]["max_rel"] <= MOMENT_REL_TOL[k] for k in ("mu", "nu"))
+    ok &= all(v <= W_BULK_TOL for v in w_bulk.values())
+    ok &= all(bulk["bf16"][k] <= limit[k] for k in limit)
+    print(f"{tag} train check, whole kernel path vs plain path ({layers} layers, batch {batch} "
+          f"x {seq}, {TRAIN_CHECK_STEPS} steps, lr {WHOLE_CHECK_LR}; fp32 and bf16 compute, "
+          f"bf16's own error (the plain path in bf16 vs in fp32) and the control (the kernel "
+          f"path, weights at {COARSE_BITS} bits, vs the plain path in bf16)): "
+          f"{json.dumps(whole)}; w bulk {w_bulk}; moments' bulk {json.dumps(bulk)}, bf16 held "
+          f"to {json.dumps(limit)} ({MOMENT_BULK_MARGIN} x bf16_own's); tolerances otherwise "
+          f"the olmo-1b check's")
+    if not ok:
+        fail(f"{model} training on the kernel path disagrees with the plain path")
+    if not any(bulk["bf16_coarse"][k] > limit[k] for k in limit):
+        fail(f"{model} whole-path check: the coarse-weights control meets the moments' limit")
+    return dict(whole=whole, w_bulk=w_bulk, moment_bulk=bulk, moment_limit=limit)
+
+
 # Training: full width at 4 layers (1,411,620,864 parameters); the whole-path
 # check at 2 layers and batch 2 x 512, where autograd of the plain scan fits
 RWKV_TRAIN_LAYERS, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH, RWKV_CHECK_SEQ = 4, 2, 2, 512
@@ -1829,46 +1947,9 @@ def rwkv_train_phase() -> dict:
         fail("a wkv kernel call on the rwkv6 training path disagrees with its plain version")
     out["lockstep"] = lock
 
-    # whole path: kernels against plain versions at a small lr, 2 layers, in
-    # fp32 compute (the paths differ in the order of sums only; scalars, mu,
-    # nu and w are held) and in bf16 compute, which the model runs. In bf16
-    # the two paths also round to bf16 at other places, and rwkv6's moments
-    # after 3 steps differ by 0.3-0.5 of their largest change even between
-    # the plain path in bf16 and in fp32 (bf16's own error, printed beside
-    # them), so no limit on them tells a wrong kernel from rounding: bf16's
-    # moments are printed, not held. Its scalars and w are held; the kernels
-    # are held by the lockstep check above and by the fp32 whole path.
-    def run(compute, plain, w0=None):
-        ccfg = dataclasses.replace(cfg, n_layers=RWKV_CHECK_LAYERS, compute_dtype=compute)
-        return check_run(WHOLE_CHECK_LR, plain, w0, to_host=True, cfg=ccfg,
-                         batch=RWKV_CHECK_BATCH, seq=RWKV_CHECK_SEQ)
-
-    plain32 = run("float32", True)
-    w0 = plain32[2]
-    kern = run("float32", False, w0)
-    whole = {"fp32": compare_runs(plain32[:2], kern[:2], w0)}
-    del kern
-    plain16 = run("bfloat16", True, w0)
-    whole["bf16_own"] = compare_runs(plain32[:2], plain16[:2], w0)
-    del plain32
-    kern = run("bfloat16", False, w0)
-    whole["bf16"] = compare_runs(plain16[:2], kern[:2], w0)
-    del kern, plain16, w0
-    w_bulk = {k: whole[k]["w"]["q_abs"][0] / whole[k]["w"]["q_change"][0]
-              for k in ("fp32", "bf16")}
-    ok_whole = all(v <= (COSINE_ABS_TOL if k == "ascent_cosine_abs" else SCALAR_REL_TOL)
-                   for name in ("fp32", "bf16") for row in whole[name]["steps"]
-                   for k, v in row.items())
-    ok_whole &= all(whole["fp32"][k]["max_rel"] <= MOMENT_REL_TOL[k] for k in ("mu", "nu"))
-    ok_whole &= all(v <= W_BULK_TOL for v in w_bulk.values())
-    print(f"rwkv train check, whole kernel path vs plain path ({RWKV_CHECK_LAYERS} layers, "
-          f"batch {RWKV_CHECK_BATCH} x {RWKV_CHECK_SEQ}, {TRAIN_CHECK_STEPS} steps, lr "
-          f"{WHOLE_CHECK_LR}; fp32 and bf16 compute, and bf16's own error: the plain path "
-          f"in bf16 vs in fp32): {json.dumps(whole)}; w bulk {w_bulk}; tolerances: the "
-          f"olmo-1b check's, except bf16's mu and nu: printed, not held")
-    if not ok_whole:
-        fail("rwkv6 training on the kernel path disagrees with the plain path")
-    out.update(whole=whole, w_bulk=w_bulk, phase_s=time.perf_counter() - t_phase)
+    # whole path: kernels against plain versions at a small lr
+    out.update(scan_whole_check("rwkv", "rwkv6", cfg, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH,
+                                RWKV_CHECK_SEQ), phase_s=time.perf_counter() - t_phase)
     return out
 
 
@@ -1962,6 +2043,17 @@ def m2_bound(shape, dtype: str, init: bool, backward: bool) -> tuple[float, str]
     return bound(nbytes, m2_flops(shape, backward))
 
 
+def m2_fwd_phase_ms(x, dt, a, b, c, d, s0) -> dict:
+    """Device time of each phase of the SSD forward launched alone (CUDA
+    events), on buffers that one whole forward filled first; with one chunk
+    "out" is the whole forward and the other phases launch nothing."""
+    from repro_torch.kernels import mamba2_scan as m2
+    bufs = m2.fwd_buffers(x, b)
+    m2.run_fwd(x, dt, a, b, c, d, s0, bufs)
+    return {name: time_ms(lambda bit=bit: m2.run_fwd(x, dt, a, b, c, d, s0, bufs, bit))
+            for name, bit in m2.FWD_PHASES.items()}
+
+
 def m2_bwd_phase_ms(x, dt, a, b, c, d, s0, dy, ds) -> dict:
     """Device time of each phase of the SSD backward launched alone (CUDA
     events), on buffers that one whole backward filled first."""
@@ -2005,11 +2097,14 @@ def mamba2_kernel_phase() -> dict:
     for ci, (case, shape, dtype, init, fast) in enumerate(M2_CASES):
         x, dt, a, b, c, d, s0 = m2_inputs(shape, dtype, init, fast)
         y, state = m2.mamba2_scan(x, dt, a, b, c, d, s0)
+        again = m2.mamba2_scan(x, dt, a, b, c, d, s0)
         torch.cuda.synchronize()
+        same = torch.equal(y, again[0]) and torch.equal(state, again[1])
+        del again
         y_p, state_p = ref.mamba2_chunked_plain(x, dt, a, b, c, d, chunk=M2_PLAIN_CHUNK,
                                                 init_state=s0)
         finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(state).all())
-        ok = finite and wkv_ok(y, y_p, M2_TOL) and wkv_ok(state, state_p, M2_TOL)
+        ok = same and finite and wkv_ok(y, y_p, M2_TOL) and wkv_ok(state, state_p, M2_TOL)
         errs = {"y": wkv_error(y, y_p), "state": wkv_error(state, state_p)}
         del y, state, y_p, state_p
         ms = time_ms(lambda: m2.mamba2_scan(x, dt, a, b, c, d, s0))
@@ -2020,8 +2115,9 @@ def mamba2_kernel_phase() -> dict:
         rows = {"mamba2_scan_fwd": dict(
             kernel="mamba2_scan_fwd", case=case, shape=shape, dtype=dtype, init_state=init,
             max_abs_err=max(e[0] for e in errs.values()),
-            max_rel_err={k: e[1] for k, e in errs.items()}, ok=ok, ms=ms, plain_ms=plain_ms,
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, tf32_ops_ms=tf32_ms)}
+            max_rel_err={k: e[1] for k, e in errs.items()}, deterministic=same, ok=ok, ms=ms,
+            plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            tf32_ops_ms=tf32_ms, phase_ms=m2_fwd_phase_ms(x, dt, a, b, c, d, s0))}
 
         gen = torch.Generator(device="cuda").manual_seed(6)
         dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
@@ -2271,47 +2367,9 @@ def zamba_train_phase() -> dict:
         fail("an SSD kernel call on the zamba2 training path disagrees with its plain version")
     out["lockstep"] = lock
 
-    # whole path: kernels against plain versions at a small lr, 8 layers, in
-    # fp32 compute (the paths differ in the order of sums only: the olmo
-    # check's limits) and in bf16 compute, which the model runs. In bf16 the
-    # two paths also round to bf16 at other places, and zamba2's moments
-    # after 3 steps differ between them by as much as between the plain path
-    # in bf16 and in fp32 (bf16's own error, printed beside them: mu 0.0316
-    # against 0.0303 on the H100), so no limit on them tells a wrong kernel
-    # from rounding: bf16's moments are printed, not held, as rwkv6's. Its
-    # scalars and w are held; the kernels are held by the lockstep check
-    # above and by the fp32 whole path.
-    def run(compute, plain, w0=None):
-        ccfg = dataclasses.replace(cfg, n_layers=ZAMBA_CHECK_LAYERS, compute_dtype=compute)
-        return check_run(WHOLE_CHECK_LR, plain, w0, to_host=True, cfg=ccfg,
-                         batch=ZAMBA_CHECK_BATCH, seq=ZAMBA_CHECK_SEQ)
-
-    plain32 = run("float32", True)
-    w0 = plain32[2]
-    kern = run("float32", False, w0)
-    whole = {"fp32": compare_runs(plain32[:2], kern[:2], w0)}
-    del kern
-    plain16 = run("bfloat16", True, w0)
-    whole["bf16_own"] = compare_runs(plain32[:2], plain16[:2], w0)
-    del plain32
-    kern = run("bfloat16", False, w0)
-    whole["bf16"] = compare_runs(plain16[:2], kern[:2], w0)
-    del kern, plain16, w0
-    w_bulk = {k: whole[k]["w"]["q_abs"][0] / whole[k]["w"]["q_change"][0]
-              for k in ("fp32", "bf16")}
-    ok_whole = all(v <= (COSINE_ABS_TOL if k == "ascent_cosine_abs" else SCALAR_REL_TOL)
-                   for name in ("fp32", "bf16") for row in whole[name]["steps"]
-                   for k, v in row.items())
-    ok_whole &= all(whole["fp32"][k]["max_rel"] <= MOMENT_REL_TOL[k] for k in ("mu", "nu"))
-    ok_whole &= all(v <= W_BULK_TOL for v in w_bulk.values())
-    print(f"zamba2 train check, whole kernel path vs plain path ({ZAMBA_CHECK_LAYERS} layers, "
-          f"batch {ZAMBA_CHECK_BATCH} x {ZAMBA_CHECK_SEQ}, {TRAIN_CHECK_STEPS} steps, lr "
-          f"{WHOLE_CHECK_LR}; fp32 and bf16 compute, and bf16's own error: the plain path "
-          f"in bf16 vs in fp32): {json.dumps(whole)}; w bulk {w_bulk}; tolerances: the "
-          f"olmo-1b check's, except bf16's mu and nu: printed, not held")
-    if not ok_whole:
-        fail("zamba2 training on the kernel path disagrees with the plain path")
-    out.update(whole=whole, w_bulk=w_bulk, phase_s=time.perf_counter() - t_phase)
+    # whole path: kernels against plain versions at a small lr
+    out.update(scan_whole_check("zamba2", "zamba2", cfg, ZAMBA_CHECK_LAYERS, ZAMBA_CHECK_BATCH,
+                                ZAMBA_CHECK_SEQ), phase_s=time.perf_counter() - t_phase)
     return out
 
 
@@ -2345,7 +2403,7 @@ def train_profile(ex, state, pipe, family: str = "adamw") -> dict:
             "fused_dot_norms": "dot_norms_kernel", "adamw_epilogue": "adamw_epilogue_kernel",
             "sgd_epilogue": "sgd_epilogue_kernel", "flash_attention": "fa_fwd_",
             "rwkv6_scan_fwd": "wkv_fwd_kernel", "rwkv6_scan_bwd": "wkv_bwd_kernel",
-            "mamba2_scan_fwd": "ssd_fwd_kernel", "mamba2_scan_bwd": "ssd_bwd_"}
+            "mamba2_scan_fwd": "ssd_fwd_", "mamba2_scan_bwd": "ssd_bwd_"}
     ours = {k: sum(t for n, (t, _) in by_name.items() if tag in n) for k, tag in tags.items()}
     epi_us = sum(ours[k] for k in PATH_KERNELS[family])
     print(f"profile train {family} step: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us "

@@ -48,63 +48,58 @@
 // cores (0.022 ms at TF32's 495 on the tensor cores), against ~0.15 GB moved
 // (x and y bf16, dt, b and c, the final state: 0.044 ms at 3.35 TB/s): the
 // operations bound it. Backward: 30.06 GFLOP, 0.449 ms at the fp32 rate
-// (0.061 ms at TF32's). The backward's scratch adds bytes the function does
-// not need: two (B, H, nc, P, N) fp32 buffers (nc = ceil(S / 64) chunks; 134
-// MB each at that shape), written by phase A, read and rewritten by phase B,
-// read by phase C (~0.8 GB, ~0.24 ms at 3.35 TB/s), and the per-head db / dc
-// partials (B, S, H, N) fp32 written and summed (~0.54 GB, ~0.16 ms).
+// (0.061 ms at TF32's). The chunk-parallel schedule adds scratch the function
+// does not need: (B, H, nc, P, N) fp32 chunk states (nc = ceil(S / 64)
+// chunks; 134 MB a buffer at that shape). The forward writes one in phase A,
+// reads and rewrites it in phase B and reads it in phase C (~0.4 GB, ~0.12 ms
+// at 3.35 TB/s); the backward two (~0.8 GB, ~0.24 ms), and the per-head db /
+// dc partials (B, S, H, N) fp32 written and summed (~0.54 GB, ~0.16 ms).
 //
-// Forward design. The work inside a chunk is matrix products, so a chunk is
-// spread over a whole CTA, not one state row per thread (the rwkv6 scan's
-// serial chain): one CTA of 256 threads per (b, h), 512 CTAs at the zamba2
-// shape, looping over the chunks with the state in shared memory.
-// * x, B, C of a chunk are staged in shared memory as fp32 rows of stride
-//   D + 1 (D = 16, 32 or 64, the smallest that holds P and N), so that the 16
-//   threads of a half-warp reading 16 rows hit 16 banks; cum is a warp scan
-//   in double (see chunk_cum); the (T, T) masked matrix M = K dt lives in
-//   dynamic shared memory (84 KB a CTA).
-// * Every product gives each thread a 4 x (D/16) tile of the output, rows
-//   ty + 16 i and columns tx + 16 j of a 16 x 16 thread grid, so a k step
-//   reads 4 + D/16 shared values for 4 D/16 FMAs; the causal products skip
-//   the blocks above the diagonal (10 of 16 of a thread's tile entries).
-// * exp(cum_t - cum_s) is computed only where s <= t (for s > t the
-//   difference is positive and can overflow: inf * 0 gives NaN), and no value
-//   is ever divided by a decay: with a = -16 and a large dt, cum underflows
-//   exp to 0. The backward keeps both rules.
-// * T = 64, not the TPU's 128: on the CUDA cores the intra-chunk products
-//   grow with T while the state products do not, and half the shared memory
-//   lets two forward CTAs share an SM.
-//
-// Backward design. Only the carries between chunks are sequential: every
-// (T, T) and (T, D) product of a chunk needs only that chunk's entering state
-// h_in and leaving cotangent dh_out. So it runs in three phases, each a grid
-// of its own (the forward saves nothing but its inputs, so training under
-// remat keeps no per-layer states):
-// * A (ssd_bwd_chunk_kernel), one CTA of 128 threads per (b, h, chunk), 8,192
-//   at the zamba2 shape: the chunk's local state S_c = sum_t x_t (dt_t
-//   exp(total - cum_t)) B_t^T and local cotangent U_c = sum_t exp(cum_t) dy_t
-//   C_t^T into the two scratch buffers, and exp(total) per chunk;
-// * B (ssd_bwd_carry_kernel), one thread per chain, (b, h) and state
-//   element, sequential over the chunks: h_in[0] = h0, h_in[c+1] = exp(total_c)
-//   h_in[c] + S_c; dh_out[nc-1] = dh_T, dh_out[c-1] = exp(total_c) dh_out[c]
-//   + U_c; d init_state = exp(total_0) dh_out[0] + U_0. Each overwrites its
-//   buffer in place (S_c by h_in[c], U_c by dh_out[c]);
-// * C (ssd_bwd_grad_kernel), one CTA of 256 threads per (b, h, chunk), two
-//   an SM (110 KB of shared memory each at D = 64 in bf16): K, Qd and R, dx,
-//   dC, dB, W and dla from the chunk's h_in and dh_out; then ddt and
-//   per-(b, h, chunk) partials of da and dd;
-// * then the sums across CTAs: da and dd over b and chunk, db and dc over the
-//   H / G heads of a group, each reduced in a fixed order by a kernel of its
-//   own (ssd_bwd_head_reduce_kernel, ssd_bwd_group_reduce_kernel). Every sum
-//   inside a CTA has a fixed order too: no atomics, a rerun gives the same
-//   bits.
+// Schedule, both directions. Only the carries between chunks are sequential:
+// every (T, T) and (T, D) product of a chunk needs only that chunk's entering
+// state h_in (and, backward, its leaving cotangent dh_out). So each direction
+// runs in phases, each a grid of its own, with T = 64 steps a chunk:
+// * A, one CTA of 128 threads per (b, h, chunk), 8,192 at the zamba2 shape
+//   (ssd_fwd_chunk_kernel and ssd_bwd_chunk_kernel, one body: chunk_states):
+//   the chunk's local state S_c = sum_t x_t (dt_t exp(total - cum_t)) B_t^T,
+//   and backward its local cotangent U_c = sum_t exp(cum_t) dy_t C_t^T, into
+//   scratch, and exp(total) per chunk;
+// * B, one thread per chain, (b, h) and state element, sequential over the
+//   chunks (ssd_fwd_carry_kernel and ssd_bwd_carry_kernel, one body:
+//   carry_chain): h_in[0] = h0, h_in[c+1] = exp(total_c) h_in[c] + S_c, and
+//   the final state h_out = h_in[nc], in fp32; backward also dh_out[nc-1] =
+//   dh_T, dh_out[c-1] = exp(total_c) dh_out[c] + U_c and d init_state =
+//   exp(total_0) dh_out[0] + U_0. Each overwrites its buffer in place (S_c by
+//   h_in[c], U_c by dh_out[c]);
+// * C, one CTA of 256 threads per (b, h, chunk): forward (ssd_fwd_out_kernel)
+//   y = (tril(C B^T) * L) (dt x) + exp(cum) (C h_in^T) + d x, rounded once to
+//   x's dtype; backward (ssd_bwd_grad_kernel) K, Qd and R, dx, dC, dB, W and
+//   dla from the chunk's h_in and dh_out, then ddt and per-(b, h, chunk)
+//   partials of da and dd;
+// * backward, then the sums across CTAs: da and dd over b and chunk, db and
+//   dc over the H / G heads of a group, each reduced in a fixed order by a
+//   kernel of its own (ssd_bwd_head_reduce_kernel, ssd_bwd_group_reduce_kernel).
+// Every sum inside a CTA has a fixed order too: no atomics, a rerun gives the
+// same bits. The forward saves nothing but its inputs, so training under
+// remat keeps no per-layer states; the scratch is allocated per call.
+// With one chunk (S <= 64: zamba2's decode calls the forward once a mamba
+// block a token at S = 1) the forward is one launch and no scratch:
+// ssd_fwd_out_kernel<ONE> takes h_in = h0, adds phase A's product and writes
+// the final state itself, and its warps whose 16-row strip lies past S skip
+// their products.
 // Two warps of a phase-C CTA share each 16-row strip of every (T, T) and (T,
 // D) product, each taking half its 8-column tiles: eight warps, sixteen an
-// SM, hide more of the shared loads' latency than four did. The strip's row
-// sums (dxd . x, dcy, E) meet in shared memory, one slot a half, added in
+// SM, hide more of the shared loads' latency than four did. The backward's
+// row sums (dxd . x, dcy, E) meet in shared memory, one slot a half, added in
 // half order; R's row prefix sums stay in the warp's row groups, the second
 // half starting from the first half's row sums. The causal products skip
 // the tiles that lie above the diagonal.
+// exp(cum_t - cum_s) is computed only where s <= t (for s > t the difference
+// is positive and can overflow: inf * 0 gives NaN), and no value is ever
+// divided by a decay: with a = -16 and a large dt, cum underflows exp to 0.
+// T = 64, not the TPU's 128: on the tensor cores a 16-row strip's products
+// grow with T, and a chunk's tiles stay small enough for two or three CTAs
+// an SM.
 //
 // Precision. The products run on the tensor cores as mma.sync with fp32
 // sums: a warp's 16-row strip maps onto the MMA's 16 rows directly, and the
@@ -112,15 +107,15 @@
 // conflicts) without the swizzled layouts and descriptors wgmma needs. With
 // bf16 x, B, C and dy (the model's path) they are m16n8k16 bf16 MMAs: those
 // four are exact in bf16, and every product has at most one fp32 operand (K,
-// Qd, h_in, dh_out, x w, dy exp(cum)), split into bf16 hi + lo (lo = the
-// rounding of v - hi, ~16 bits together): two MMAs (hi x + lo x). With fp32
-// x, B, C and dy they are m16n8k8 TF32 MMAs, every fp32 operand split into
-// TF32 hi + lo (~21 bits): two MMAs with one split operand, three with two
-// (hi hi + hi lo + lo hi). One rounding of an fp32 operand to bf16 (8 bits)
-// or TF32 (11 bits) would put ~4e-3 or ~5e-4 of error into every product:
-// above the 2e-4 the outputs are held to. The elementwise parts stay fp32 in
-// registers: the masks, exp(cum_t - cum_s) only for s <= t, dt, R and its
-// row prefix sums (shuffles within the warp's row groups), and dla summed
+// M = K dt, Qd, h_in, dh_out, x w, dy exp(cum)), split into bf16 hi + lo (lo =
+// the rounding of v - hi, ~16 bits together): two MMAs (hi x + lo x). With
+// fp32 x, B, C and dy they are m16n8k8 TF32 MMAs, every fp32 operand split
+// into TF32 hi + lo (~21 bits): two MMAs with one split operand, three with
+// two (hi hi + hi lo + lo hi). One rounding of an fp32 operand to bf16 (8
+// bits) or TF32 (11 bits) would put ~4e-3 or ~5e-4 of error into every
+// product: above the 2e-4 the outputs are held to. The elementwise parts stay
+// fp32 in registers: the masks, exp(cum_t - cum_s) only for s <= t, dt, R and
+// its row prefix sums (shuffles within the warp's row groups), and dla summed
 // term by term (the note above).
 //
 // What holds the backward back (scripts/ssd_bwd_ablation.py, H100 80GB HBM3
@@ -133,7 +128,8 @@
 // phase-C CTAs of 110 KB share an SM); the db / dc head sums without the
 // (B, S, H, N) partials (clusters of CTAs summing them through distributed
 // shared memory were tried: their scheduling cost what the partials' bytes
-// saved); phase B fused into A or C; the forward on the same schedule.
+// saved); phase B fused into A or C, in both directions (the forward's
+// chunk states then need not leave the SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -145,9 +141,7 @@ namespace {
 
 enum Dtype { F32 = 0, BF16 = 1 };
 constexpr int T = 64;          // chunk length
-constexpr int NT = 256;        // threads of a forward CTA, a 16 x 16 grid (ty, tx)
 constexpr int MAX_D = 64;      // largest P or N
-constexpr int LT = T + 1;      // row stride of a (T, T) matrix in shared memory
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -158,39 +152,6 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 // round to nearest even, as Tensor.to(torch.bfloat16) does
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// Shared-memory floats of the forward CTA for width D.
-template <int D> constexpr int fwd_smem_floats() {
-  return 3 * T * (D + 1) + D * (D + 1) + T * LT + 2 * T;
-}
-
-// Stage rows t0 .. t0+tc-1 of (b, h) as fp32 into (T, D + 1) tiles, zero past
-// tc, P and N: x (P wide), B and C of the head's group (N wide; sc may be
-// null), and dt. Every thread takes part.
-template <int D, typename E>
-__device__ __forceinline__ void stage(float* sx, float* sb, float* sc, float* sdt, const E* x,
-                                      const E* b, const E* c, const float* dt, int bi, int h,
-                                      int g, int S, int H, int G, int P, int N, int t0, int tc) {
-  constexpr int LD = D + 1;
-  for (int idx = threadIdx.x; idx < T * D; idx += NT) {
-    const int t = idx / D, j = idx % D;
-    float xv = 0.f, bv = 0.f, cv = 0.f;
-    if (t < tc) {
-      const int64_t tok = static_cast<int64_t>(bi) * S + t0 + t;
-      if (j < P) xv = to_f32(x[(tok * H + h) * P + j]);
-      if (j < N) {
-        const int64_t o = (tok * G + g) * N + j;
-        bv = to_f32(b[o]);
-        if (sc != nullptr) cv = to_f32(c[o]);
-      }
-    }
-    sx[t * LD + j] = xv;
-    sb[t * LD + j] = bv;
-    if (sc != nullptr) sc[t * LD + j] = cv;
-  }
-  for (int t = threadIdx.x; t < T; t += NT)
-    sdt[t] = t < tc ? dt[(static_cast<int64_t>(bi) * S + t0 + t) * H + h] : 0.f;
 }
 
 // Warp 0: cum = the inclusive cumsum of la = dt a over the chunk (two steps
@@ -232,155 +193,7 @@ __device__ __forceinline__ float seg_exp(const double* cum, int t, int s) {
   return expf(static_cast<float>(cum[t] - cum[s]));
 }
 
-// The state update of one chunk for this thread's tile (rows p = ty + 16 i,
-// columns n = tx + 16 j): h = exp(total) h + sum_t x_t[p] w_t B_t[n], with
-// w_t = dt_t exp(total - cum_t).
-template <int D>
-__device__ __forceinline__ void state_update(float* hs, const float* sx, const float* sb,
-                                             const float* sw, float etotal) {
-  constexpr int LD = D + 1, JD = D / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[JD][JD] = {};
-  for (int t = 0; t < T; ++t) {
-    const float w = sw[t];
-    float xv[JD], bv[JD];
-#pragma unroll
-    for (int i = 0; i < JD; ++i) xv[i] = sx[t * LD + ty + 16 * i] * w;
-#pragma unroll
-    for (int j = 0; j < JD; ++j) bv[j] = sb[t * LD + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < JD; ++i)
-#pragma unroll
-      for (int j = 0; j < JD; ++j) acc[i][j] += xv[i] * bv[j];
-  }
-#pragma unroll
-  for (int i = 0; i < JD; ++i)
-#pragma unroll
-    for (int j = 0; j < JD; ++j) {
-      float& hv = hs[(ty + 16 * i) * LD + tx + 16 * j];
-      hv = etotal * hv + acc[i][j];
-    }
-}
-
-template <int D, typename E>
-__global__ void __launch_bounds__(NT)
-ssd_fwd_kernel(const E* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ a, const E* __restrict__ b, const E* __restrict__ c,
-               const float* __restrict__ dskip, const float* __restrict__ h0,
-               E* __restrict__ y, float* __restrict__ h_out, int S, int H, int G, int P,
-               int N) {
-  constexpr int LD = D + 1, JD = D / 16;
-  extern __shared__ float smem[];
-  float* sx = smem;                  // (T, LD) x
-  float* sb = sx + T * LD;           // (T, LD) B
-  float* sc = sb + T * LD;           // (T, LD) C
-  float* hs = sc + T * LD;           // (D, LD) h[p][n]
-  float* ms = hs + D * LD;           // (T, LT) M = tril(C B^T) L dt
-  float* sdt = ms + T * LT;          // (T) dt
-  float* sw = sdt + T;               // (T) dt exp(total - cum)
-  __shared__ double cum[T];
-  __shared__ float stotal;
-
-  const int bh = blockIdx.x, bi = bh / H, h = bh % H, g = h / (H / G);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float av = a[h], dv = dskip[h];
-  const int64_t state = static_cast<int64_t>(bh) * P * N;
-
-  for (int idx = threadIdx.x; idx < D * D; idx += NT) {
-    const int p = idx / D, n = idx % D;
-    hs[p * LD + n] = (h0 != nullptr && p < P && n < N) ? h0[state + p * N + n] : 0.f;
-  }
-  for (int t0 = 0; t0 < S; t0 += T) {
-    const int tc = min(T, S - t0);
-    __syncthreads();                 // the last chunk's readers are done
-    stage<D, E>(sx, sb, sc, sdt, x, b, c, dt, bi, h, g, S, H, G, P, N, t0, tc);
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      const double total = chunk_cum(sdt, av, cum, nullptr, sw);
-      sw[2 * threadIdx.x] *= sdt[2 * threadIdx.x];
-      sw[2 * threadIdx.x + 1] *= sdt[2 * threadIdx.x + 1];
-      if (threadIdx.x == 0) stotal = static_cast<float>(total);
-    }
-    __syncthreads();
-
-    // M[t][s] = (C_t . B_s) exp(cum_t - cum_s) dt_s for s <= t, else 0;
-    // t = ty + 16 i, s = tx + 16 j: j > i lies above the diagonal
-    {
-      float acc[4][4] = {};
-      for (int n = 0; n < D; ++n) {
-        float cv[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = sc[(ty + 16 * i) * LD + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = sb[(tx + 16 * j) * LD + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j <= i; ++j) acc[i][j] += cv[i] * bv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = ty + 16 * i, s = tx + 16 * j;
-          ms[t * LT + s] = s <= t ? acc[i][j] * seg_exp(cum, t, s) * sdt[s] : 0.f;
-        }
-    }
-    __syncthreads();
-
-    // y[t][p] = sum_{s<=t} M[t][s] x[s][p] + exp(cum_t) sum_n C[t][n] h[p][n] + d x[t][p]
-    {
-      float acc[4][JD] = {}, acc2[4][JD] = {};
-#pragma unroll
-      for (int sb_ = 0; sb_ < 4; ++sb_) {
-        for (int s = 16 * sb_; s < 16 * sb_ + 16; ++s) {
-          float mv[4], xv[JD];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) mv[i] = i >= sb_ ? ms[(ty + 16 * i) * LT + s] : 0.f;
-#pragma unroll
-          for (int j = 0; j < JD; ++j) xv[j] = sx[s * LD + tx + 16 * j];
-#pragma unroll
-          for (int i = sb_; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < JD; ++j) acc[i][j] += mv[i] * xv[j];
-        }
-      }
-      for (int n = 0; n < D; ++n) {
-        float cv[4], hv[JD];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = sc[(ty + 16 * i) * LD + n];
-#pragma unroll
-        for (int j = 0; j < JD; ++j) hv[j] = hs[(tx + 16 * j) * LD + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < JD; ++j) acc2[i][j] += cv[i] * hv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        if (t >= tc) continue;
-        const float ec = expf(static_cast<float>(cum[t]));
-        const int64_t row = ((static_cast<int64_t>(bi) * S + t0 + t) * H + h) * P;
-#pragma unroll
-        for (int j = 0; j < JD; ++j) {
-          const int p = tx + 16 * j;
-          if (p < P)
-            y[row + p] = from_f32<E>(acc[i][j] + ec * acc2[i][j] + dv * sx[t * LD + p]);
-        }
-      }
-    }
-    __syncthreads();                 // every reader of the entering state is done
-    state_update<D>(hs, sx, sb, sw, expf(stotal));
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < P * N; idx += NT) {
-    const int p = idx / N, n = idx % N;
-    h_out[state + idx] = hs[p * LD + n];
-  }
-}
-
-// --- the backward ------------------------------------------------------------
+// --- the chunk-parallel phases -----------------------------------------------
 
 constexpr int BW = 128;        // threads of a phase-A CTA: 4 warps
 constexpr int CW = 256;        // threads of a phase-C CTA: 8 warps, two on each 16-row strip
@@ -398,9 +211,13 @@ template <int D, typename E> __host__ __device__ constexpr int lde() {
 template <int D> __host__ __device__ constexpr int ldf() { return D + 4; }   // fp32 (D, D) tiles
 constexpr int LQ = T + 4;                                  // fp32 (T, T) tiles
 
-// Shared-memory bytes of a phase-A and a phase-C CTA.
+// Shared-memory bytes of a phase-A CTA, a forward and a backward phase-C CTA.
 template <int D, typename E> constexpr int chunk_smem_bytes() {
   return 4 * T * lde<D, E>() * static_cast<int>(sizeof(E)) + 3 * T * 4;
+}
+template <int D, typename E> constexpr int out_smem_bytes() {
+  return 3 * T * lde<D, E>() * static_cast<int>(sizeof(E)) +
+         (D * ldf<D>() + T * LQ + 3 * T) * 4;
 }
 template <int D, typename E> constexpr int grad_smem_bytes() {
   return 4 * T * lde<D, E>() * static_cast<int>(sizeof(E)) +
@@ -526,7 +343,8 @@ __device__ __forceinline__ float2 col_pair(const E* t, int ld, int k, int i) {
 
 // Stage rows t0 .. t0+tc-1 of (b, h) into (T, lde) tiles of E, zero past tc,
 // P and N: x and dy (P wide; dy may be null: zeros), B and C of the head's
-// group (N wide), and dt as fp32. Every thread of the CTA takes part. With
+// group (N wide), and dt as fp32; sc and sdy may be null (no C or dy tile is
+// staged, c or dy not read). Every thread of the CTA takes part. With
 // `vec` (every operand 16-byte aligned, P and N whole 16-byte vectors) each
 // thread issues all its 16-byte loads before its first store; otherwise
 // element by element.
@@ -550,18 +368,19 @@ __device__ __forceinline__ void stage_bwd(E* sx, E* sb, E* sc, E* sdy, float* sd
       const bool row = idx < T * VR && t < tc, xj = row && j < P, bj = row && j < N;
       const int64_t ox = (tok * H + h) * P + j, ob = (tok * G + g) * N + j;
       v[i][0] = xj ? *reinterpret_cast<const uint4*>(x + ox) : z;
-      v[i][1] = xj && dy != nullptr ? *reinterpret_cast<const uint4*>(dy + ox) : z;
+      v[i][1] = xj && sdy != nullptr && dy != nullptr ? *reinterpret_cast<const uint4*>(dy + ox)
+                                                       : z;
       v[i][2] = bj ? *reinterpret_cast<const uint4*>(b + ob) : z;
-      v[i][3] = bj ? *reinterpret_cast<const uint4*>(c + ob) : z;
+      v[i][3] = bj && sc != nullptr ? *reinterpret_cast<const uint4*>(c + ob) : z;
     }
 #pragma unroll
     for (int i = 0; i < IT; ++i) {
       const int idx = threadIdx.x + i * NTH, o = idx / VR * LE + idx % VR * VE;
       if (idx < T * VR) {
         *reinterpret_cast<uint4*>(sx + o) = v[i][0];
-        *reinterpret_cast<uint4*>(sdy + o) = v[i][1];
+        if (sdy != nullptr) *reinterpret_cast<uint4*>(sdy + o) = v[i][1];
         *reinterpret_cast<uint4*>(sb + o) = v[i][2];
-        *reinterpret_cast<uint4*>(sc + o) = v[i][3];
+        if (sc != nullptr) *reinterpret_cast<uint4*>(sc + o) = v[i][3];
       }
     }
     return;
@@ -575,24 +394,25 @@ __device__ __forceinline__ void stage_bwd(E* sx, E* sb, E* sc, E* sdy, float* sd
       if (j < P) {
         const int64_t o = (tok * H + h) * P + j;
         xv = x[o];
-        if (dy != nullptr) gv = dy[o];
+        if (sdy != nullptr && dy != nullptr) gv = dy[o];
       }
       if (j < N) {
         const int64_t o = (tok * G + g) * N + j;
         bv = b[o];
-        cv = c[o];
+        if (sc != nullptr) cv = c[o];
       }
     }
     sx[t * LE + j] = xv;
-    sdy[t * LE + j] = gv;
+    if (sdy != nullptr) sdy[t * LE + j] = gv;
     sb[t * LE + j] = bv;
-    sc[t * LE + j] = cv;
+    if (sc != nullptr) sc[t * LE + j] = cv;
   }
 }
 
 // Load a chunk's (P, N) fp32 states from hbuf and gbuf at `st` into (D, LF)
-// tiles, zero past P and N; with `vec` (N a multiple of 4) in 16-byte loads,
-// all issued before the first store.
+// tiles, zero past P and N (a null hbuf gives zeros; with a null gs only
+// hbuf is loaded); with `vec` (N a multiple of 4) in 16-byte loads, all
+// issued before the first store.
 template <int D, int NTH>
 __device__ __forceinline__ void stage_states(float* hs, float* gs, const float* hbuf,
                                              const float* gbuf, int64_t st, int P, int N,
@@ -606,8 +426,10 @@ __device__ __forceinline__ void stage_states(float* hs, float* gs, const float* 
       const int idx = threadIdx.x + i * NTH, p = idx / VR, n = idx % VR * 4;
       const bool in = idx < D * VR && p < P && n < N;
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      v[i][0] = in ? *reinterpret_cast<const float4*>(hbuf + st + p * N + n) : z;
-      v[i][1] = in ? *reinterpret_cast<const float4*>(gbuf + st + p * N + n) : z;
+      v[i][0] = in && hbuf != nullptr ? *reinterpret_cast<const float4*>(hbuf + st + p * N + n)
+                                      : z;
+      v[i][1] = in && gs != nullptr ? *reinterpret_cast<const float4*>(gbuf + st + p * N + n)
+                                    : z;
     }
 #pragma unroll
     for (int i = 0; i < IT; ++i) {
@@ -615,7 +437,7 @@ __device__ __forceinline__ void stage_states(float* hs, float* gs, const float* 
       if (idx < D * VR) {
         const int o = idx / VR * LF + idx % VR * 4;
         *reinterpret_cast<float4*>(hs + o) = v[i][0];
-        *reinterpret_cast<float4*>(gs + o) = v[i][1];
+        if (gs != nullptr) *reinterpret_cast<float4*>(gs + o) = v[i][1];
       }
     }
     return;
@@ -623,8 +445,8 @@ __device__ __forceinline__ void stage_states(float* hs, float* gs, const float* 
   for (int idx = threadIdx.x; idx < D * D; idx += NTH) {
     const int p = idx / D, n = idx % D;
     const bool in = p < P && n < N;
-    hs[p * LF + n] = in ? hbuf[st + p * N + n] : 0.f;
-    gs[p * LF + n] = in ? gbuf[st + p * N + n] : 0.f;
+    hs[p * LF + n] = in && hbuf != nullptr ? hbuf[st + p * N + n] : 0.f;
+    if (gs != nullptr) gs[p * LF + n] = in ? gbuf[st + p * N + n] : 0.f;
   }
 }
 
@@ -677,20 +499,19 @@ __device__ __forceinline__ float cta_sum(float v, float* red) {
   return s;
 }
 
-// Phase A: S_c = sum_t x_t (dt_t exp(total - cum_t)) B_t^T into hbuf and U_c =
-// sum_t exp(cum_t) dy_t C_t^T into gbuf ((B, H, nc, P, N) fp32), and
-// exp(total) into etot (B, H, nc).
-template <int D, typename E>
-__global__ void __launch_bounds__(BW)
-ssd_bwd_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
-                     const float* __restrict__ a, const E* __restrict__ b,
-                     const E* __restrict__ c, const E* __restrict__ dy,
-                     float* __restrict__ hbuf, float* __restrict__ gbuf,
-                     float* __restrict__ etot, int S, int H, int G, int P, int N, int nc,
-                     int vec) {
+// Phase A: S_c = sum_t x_t (dt_t exp(total - cum_t)) B_t^T into hbuf and,
+// with U, U_c = sum_t exp(cum_t) dy_t C_t^T into gbuf ((B, H, nc, P, N)
+// fp32), and exp(total) into etot (B, H, nc). Without U neither C nor dy is
+// staged. A ragged chunk's products stop at the 16-step block that holds its
+// last step: the rows past it are zeros.
+template <int D, typename E, bool U>
+__device__ __forceinline__ void chunk_states(const E* x, const float* dt, const float* a,
+                                             const E* b, const E* c, const E* dy, float* hbuf,
+                                             float* gbuf, float* etot, int S, int H, int G,
+                                             int P, int N, int nc, int vec) {
   constexpr int LE = lde<D, E>(), MT = D / 16;
   constexpr bool XS = !bf16_inputs<E>();
-  extern __shared__ float smem[];    // the forward's declaration, reused
+  extern __shared__ float smem[];    // every kernel's one declaration
   E* sx = reinterpret_cast<E*>(smem);
   E* sb = sx + T * LE;
   E* sc = sb + T * LE;
@@ -702,11 +523,11 @@ ssd_bwd_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
 
   const BwdTile tl = bwd_tile(H, nc);
   const int g = tl.h / (H / G), t0 = tl.ci * T, tc = min(T, S - t0);
-  stage_bwd<D, E, BW>(sx, sb, sc, sdy, sdt, x, b, c, dy, dt, tl.bi, tl.h, g, S, H, G, P, N, t0,
-                      tc, vec);
+  stage_bwd<D, E, BW>(sx, sb, U ? sc : nullptr, U ? sdy : nullptr, sdt, x, b, c, dy, dt, tl.bi,
+                      tl.h, g, S, H, G, P, N, t0, tc, vec);
   __syncthreads();
   if (threadIdx.x < 32) {
-    const double total = chunk_cum(sdt, a[tl.h], cum, ecum, sw);
+    const double total = chunk_cum(sdt, a[tl.h], cum, U ? ecum : nullptr, sw);
     sw[2 * threadIdx.x] *= sdt[2 * threadIdx.x];
     sw[2 * threadIdx.x + 1] *= sdt[2 * threadIdx.x + 1];
     if (threadIdx.x == 0) etot[static_cast<int64_t>(tl.bh) * nc + tl.ci] =
@@ -715,10 +536,11 @@ ssd_bwd_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int kend = min(T, (tc + 15) & ~15);
   const int64_t out = (static_cast<int64_t>(tl.bh) * nc + tl.ci) * P * N;
-  for (int item = warp; item < 2 * MT; item += BW / 32) {
-    const bool is_u = item & 1;
-    const int r0 = 16 * (item >> 1);
+  for (int item = warp; item < (U ? 2 : 1) * MT; item += BW / 32) {
+    const bool is_u = U && (item & 1);
+    const int r0 = 16 * (U ? item >> 1 : item);
     const E* sa = is_u ? sdy : sx;
     const E* sm = is_u ? sc : sb;
     const float* scale = is_u ? ecum : sw;
@@ -729,7 +551,7 @@ ssd_bwd_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
           const float2 v = col_pair(sa, LE, k, r0 + m);
           return make_float2(v.x * scale[k], v.y * scale[k + 1]);
         },
-        [&](int k, int n) { return col_pair(sm, LE, k, n); }, 0, T, 0, D / 8);
+        [&](int k, int n) { return col_pair(sm, LE, k, n); }, 0, kend, 0, D / 8);
     float* dst = (is_u ? gbuf : hbuf) + out;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -741,10 +563,32 @@ ssd_bwd_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-// Phase B: the carries, one thread per chain, (b, h) and V state elements
-// (V = 4: 16-byte loads and stores). blockIdx.y 0: the state chain, hbuf S_c
-// in, h_in[c] out; 1: the cotangent chain from the last chunk down, gbuf U_c
-// in, dh_out[c] out, and dh0 = d init_state.
+template <int D, typename E>
+__global__ void __launch_bounds__(BW)
+ssd_fwd_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ a, const E* __restrict__ b,
+                     float* __restrict__ hbuf, float* __restrict__ etot, int S, int H, int G,
+                     int P, int N, int nc, int vec) {
+  chunk_states<D, E, false>(x, dt, a, b, nullptr, nullptr, hbuf, nullptr, etot, S, H, G, P, N,
+                            nc, vec);
+}
+
+template <int D, typename E>
+__global__ void __launch_bounds__(BW)
+ssd_bwd_chunk_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ a, const E* __restrict__ b,
+                     const E* __restrict__ c, const E* __restrict__ dy,
+                     float* __restrict__ hbuf, float* __restrict__ gbuf,
+                     float* __restrict__ etot, int S, int H, int G, int P, int N, int nc,
+                     int vec) {
+  chunk_states<D, E, true>(x, dt, a, b, c, dy, hbuf, gbuf, etot, S, H, G, P, N, nc, vec);
+}
+
+// Phase B: one carry chain a thread, (b, h) and V state elements (V = 4:
+// 16-byte loads and stores), from `init` (null: zeros) through the chunks'
+// local terms in buf, each overwritten by the chain's value entering its
+// chunk; `back` walks from the last chunk down. The chain's value after
+// every chunk goes to `fin` (unless null).
 template <int V>
 __device__ __forceinline__ void load_v(const float* p, float (&v)[V]) {
   if constexpr (V == 4) {
@@ -765,17 +609,14 @@ __device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
 }
 
 template <int V>
-__global__ void ssd_bwd_carry_kernel(const float* __restrict__ h0, const float* __restrict__ dh,
-                                     const float* __restrict__ etot, float* __restrict__ hbuf,
-                                     float* __restrict__ gbuf, float* __restrict__ dh0,
-                                     int64_t n_state, int PN, int nc) {
+__device__ __forceinline__ void carry_chain(const float* init, const float* etot, float* buf,
+                                            float* fin, int64_t n_state, int PN, int nc,
+                                            bool back) {
   const int64_t idx = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * V;
   if (idx >= n_state) return;
-  const bool back = blockIdx.y == 1;
   const int64_t bh = idx / PN, e = idx % PN;
   const float* et = etot + bh * nc;
-  float* buf = (back ? gbuf : hbuf) + bh * nc * PN + e;
-  const float* init = back ? dh : h0;
+  buf += bh * nc * PN + e;
   // CB chunks' loads at a time, all issued before the stores that follow them
   constexpr int CB = 16;
   float v[V] = {};
@@ -796,7 +637,154 @@ __global__ void ssd_bwd_carry_kernel(const float* __restrict__ h0, const float* 
         for (int k = 0; k < V; ++k) v[k] = ev * v[k] + u[i][k];
       }
   }
-  if (back) store_v<V>(dh0 + idx, v);
+  if (fin != nullptr) store_v<V>(fin + idx, v);
+}
+
+// The forward's chain: hbuf S_c in, h_in[c] out, the final state into h_out.
+template <int V>
+__global__ void ssd_fwd_carry_kernel(const float* __restrict__ h0, const float* __restrict__ etot,
+                                     float* __restrict__ hbuf, float* __restrict__ h_out,
+                                     int64_t n_state, int PN, int nc) {
+  carry_chain<V>(h0, etot, hbuf, h_out, n_state, PN, nc, false);
+}
+
+// The backward's two chains: blockIdx.y 0 the state chain as the forward's
+// (its final state not stored); 1 the cotangent chain from the last chunk
+// down, gbuf U_c in, dh_out[c] out, and dh0 = d init_state.
+template <int V>
+__global__ void ssd_bwd_carry_kernel(const float* __restrict__ h0, const float* __restrict__ dh,
+                                     const float* __restrict__ etot, float* __restrict__ hbuf,
+                                     float* __restrict__ gbuf, float* __restrict__ dh0,
+                                     int64_t n_state, int PN, int nc) {
+  const bool back = blockIdx.y == 1;
+  carry_chain<V>(back ? dh : h0, etot, back ? gbuf : hbuf, back ? dh0 : nullptr, n_state, PN, nc,
+                 back);
+}
+
+// Phase C of the forward: y of one chunk, from its entering state h_in (hin
+// at the chunk's (b, h, chunk) slot of (B, H, nc, P, N) fp32; null: zeros):
+//   y = M (dt x) + exp(cum) (C h_in^T) + d x,  M = tril(C B^T) * L * dt_s,
+// rounded once to x's dtype. Warps w and w + 4 share rows [16 w, 16 w + 16):
+// each computes half the strip's M tiles on and below the diagonal, then half
+// its y tiles over all of the strip's M. A strip past the chunk's last step
+// skips its products. With ONE (S <= T: this chunk is the whole sequence,
+// hin is the initial state) it also writes the final state h_out = exp(total)
+// h_in + S_c, the product of phase A, from the tiles already staged.
+template <int D, typename E, bool ONE>
+__global__ void __launch_bounds__(CW)
+ssd_fwd_out_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ a, const E* __restrict__ b,
+                   const E* __restrict__ c, const float* __restrict__ dskip,
+                   const float* __restrict__ hin, E* __restrict__ y,
+                   float* __restrict__ h_out, int S, int H, int G, int P, int N, int nc,
+                   int vec) {
+  constexpr int LE = lde<D, E>(), LF = ldf<D>();
+  constexpr int NJ = D / 16, TJ = T / 16;    // a warp's tiles of a (T, D) and a (T, T) product
+  constexpr bool XS = !bf16_inputs<E>();
+  extern __shared__ float smem[];    // every kernel's one declaration
+  E* sx = reinterpret_cast<E*>(smem);    // (T, LE) x
+  E* sb = sx + T * LE;                   // (T, LE) B
+  E* sc = sb + T * LE;                   // (T, LE) C
+  float* hs = reinterpret_cast<float*>(sc + T * LE);   // (D, LF) h_in[p][n]
+  float* sm = hs + D * LF;               // (T, LQ) M
+  float* sdt = sm + T * LQ;              // (T) dt
+  float* ecum = sdt + T;                 // (T) exp(cum)
+  float* sw = ecum + T;                  // (T) ONE: dt exp(total - cum)
+  __shared__ double cum[T];
+  __shared__ float stotal;
+
+  const BwdTile tl = bwd_tile(H, nc);
+  const int g = tl.h / (H / G), t0 = tl.ci * T, tc = min(T, S - t0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2, q = lane & 3;
+  const int strip = warp & 3, half = warp >> 2, r0 = 16 * strip;
+  stage_bwd<D, E, CW>(sx, sb, sc, nullptr, sdt, x, b, c, nullptr, dt, tl.bi, tl.h, g, S, H, G, P,
+                      N, t0, tc, vec);
+  stage_states<D, CW>(hs, nullptr, hin, nullptr,
+                      (static_cast<int64_t>(tl.bh) * nc + tl.ci) * P * N, P, N, N % 4 == 0);
+  __syncthreads();
+  if (warp == 0) {
+    const double total = chunk_cum(sdt, a[tl.h], cum, ecum, ONE ? sw : nullptr);
+    if (ONE) {
+      sw[2 * lane] *= sdt[2 * lane];
+      sw[2 * lane + 1] *= sdt[2 * lane + 1];
+    }
+    if (lane == 0) stotal = static_cast<float>(total);
+  }
+  __syncthreads();
+
+  // M[t][s] for the strip's tiles on and below the diagonal (j < 2 strip + 2),
+  // this warp's j0 + j
+  if (r0 < tc) {
+    const int j0 = TJ * half, nj = max(0, min(TJ, 2 * strip + 2 - j0));
+    float cb[TJ][4] = {};
+    strip_mma<E, TJ, XS, XS>(
+        cb, [&](int m, int k) { return pair_f32(sc + (r0 + m) * LE + k); },
+        [&](int k, int n) { return pair_f32(sb + n * LE + k); }, 0, D, j0, nj);
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = r0 + gr + 8 * (e >> 1), s = 8 * (j0 + j) + 2 * q + (e & 1);
+        sm[t * LQ + s] = s <= t ? cb[j][e] * seg_exp(cum, t, s) * sdt[s] : 0.f;
+      }
+    }
+  }
+  __syncthreads();                   // both halves of each strip's M are written
+
+  // y[t][p] = sum_{s<=t} M[t][s] x[s][p] + exp(cum_t) sum_n C[t][n] h_in[p][n] + d x[t][p]
+  if (r0 < tc) {
+    const int j0 = NJ * half;
+    float y1[NJ][4] = {}, y2[NJ][4] = {};
+    strip_mma<E, NJ, true, XS>(
+        y1, [&](int m, int k) { return pair_f32(sm + (r0 + m) * LQ + k); },
+        [&](int k, int n) { return col_pair(sx, LE, k, n); }, 0, r0 + 16, j0, NJ);
+    strip_mma<E, NJ, XS, true>(
+        y2, [&](int m, int k) { return pair_f32(sc + (r0 + m) * LE + k); },
+        [&](int k, int n) { return pair_f32(hs + n * LF + k); }, 0, D, j0, NJ);
+    const float dv = dskip[tl.h];
+    const int64_t tok0 = static_cast<int64_t>(tl.bi) * S + t0;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = r0 + gr + 8 * hf, p = 8 * (j0 + j) + 2 * q;
+        if (t >= tc) continue;
+        const float2 xv = pair_f32(sx + t * LE + p);
+        const float ec = ecum[t];
+        store_pair(y, ((tok0 + t) * H + tl.h) * P + p,
+                   y1[j][2 * hf] + ec * y2[j][2 * hf] + dv * xv.x,
+                   y1[j][2 * hf + 1] + ec * y2[j][2 * hf + 1] + dv * xv.y, p, P);
+      }
+  }
+
+  if constexpr (ONE) {
+    // h_out[p][n] = exp(total) h_in[p][n] + sum_t x[t][p] w_t B[t][n]: a
+    // 16-row strip of p and half the n tiles a warp
+    const float etotal = expf(stotal);
+    const int kend = min(T, (tc + 15) & ~15);
+    for (int item = warp; item < 2 * NJ; item += CW / 32) {
+      const int p0 = 16 * (item >> 1), j0 = NJ * (item & 1);
+      float acc[NJ][4] = {};
+      strip_mma<E, NJ, true, XS>(
+          acc,
+          [&](int m, int k) {
+            const float2 v = col_pair(sx, LE, k, p0 + m);
+            return make_float2(v.x * sw[k], v.y * sw[k + 1]);
+          },
+          [&](int k, int n) { return col_pair(sb, LE, k, n); }, 0, kend, j0, NJ);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int p = p0 + gr + 8 * hf, n = 8 * (j0 + j) + 2 * q;
+          if (p >= P) continue;
+          const float2 hv = pair_f32(hs + p * LF + n);
+          store_pair(h_out, static_cast<int64_t>(tl.bh) * P * N + p * N + n,
+                     etotal * hv.x + acc[j][2 * hf], etotal * hv.y + acc[j][2 * hf + 1], n, N);
+        }
+    }
+  }
 }
 
 // Phase C: every gradient of one chunk from its h_in (hbuf) and dh_out = G
@@ -818,7 +806,7 @@ ssd_bwd_grad_kernel(const E* __restrict__ x, const float* __restrict__ dt,
   constexpr int LE = lde<D, E>(), LF = ldf<D>();
   constexpr int NJ = D / 16, TJ = T / 16;    // a warp's tiles of a (T, D) and a (T, T) product
   constexpr bool XS = !bf16_inputs<E>();
-  extern __shared__ float smem[];    // the forward's declaration, reused
+  extern __shared__ float smem[];    // every kernel's one declaration
   E* sx = reinterpret_cast<E*>(smem);    // (T, LE) x
   E* sb = sx + T * LE;                   // (T, LE) B
   E* sc = sb + T * LE;                   // (T, LE) C
@@ -1162,19 +1150,61 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// The phases of the forward that `phases` selects (FWD_* bits), in order.
+enum FwdPhase { FWD_CHUNK = 1, FWD_CARRY = 2, FWD_OUT = 4 };
+
 template <int D, typename E>
 cudaError_t launch_fwd(const void* x, const void* dt, const void* a, const void* b,
                        const void* c, const void* d, const void* h0, void* y, void* h_out,
-                       int B, int S, int H, int G, int P, int N, cudaStream_t st) {
-  constexpr int bytes = fwd_smem_floats<D>() * static_cast<int>(sizeof(float));
-  const cudaError_t err = allow_smem(ssd_fwd_kernel<D, E>, bytes);
-  if (err != cudaSuccess) return err;
-  ssd_fwd_kernel<D, E><<<B * H, NT, bytes, st>>>(
-      static_cast<const E*>(x), static_cast<const float*>(dt), static_cast<const float*>(a),
-      static_cast<const E*>(b), static_cast<const E*>(c), static_cast<const float*>(d),
-      static_cast<const float*>(h0), static_cast<E*>(y), static_cast<float*>(h_out), S, H, G,
-      P, N);
-  return cudaGetLastError();
+                       void* hbuf, void* etot, int B, int S, int H, int G, int P, int N,
+                       int phases, cudaStream_t st) {
+  const int nc = (S + T - 1) / T;
+  const unsigned tiles = static_cast<unsigned>(B) * H * nc;
+  const E* xe = static_cast<const E*>(x);
+  const E* be = static_cast<const E*>(b);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* af = static_cast<const float*>(a);
+  const float* h0f = static_cast<const float*>(h0);
+  float* hb = static_cast<float*>(hbuf);
+  float* et = static_cast<float*>(etot);
+  float* hout = static_cast<float*>(h_out);
+  constexpr int VE = 16 / static_cast<int>(sizeof(E));
+  const int vec = P % VE == 0 && N % VE == 0 && aligned16(x) && aligned16(b) && aligned16(c);
+  constexpr int out_bytes = out_smem_bytes<D, E>();
+  cudaError_t err = cudaSuccess;
+  if (nc == 1) {                     // one chunk: phases A and C in one CTA, h_in = h0
+    if (!(phases & FWD_OUT)) return err;
+    if ((err = allow_smem(ssd_fwd_out_kernel<D, E, true>, out_bytes)) != cudaSuccess) return err;
+    ssd_fwd_out_kernel<D, E, true><<<tiles, CW, out_bytes, st>>>(
+        xe, dtf, af, be, static_cast<const E*>(c), static_cast<const float*>(d), h0f,
+        static_cast<E*>(y), hout, S, H, G, P, N, nc, vec);
+    return cudaGetLastError();
+  }
+  if (phases & FWD_CHUNK) {
+    constexpr int bytes = chunk_smem_bytes<D, E>();
+    if ((err = allow_smem(ssd_fwd_chunk_kernel<D, E>, bytes)) != cudaSuccess) return err;
+    ssd_fwd_chunk_kernel<D, E><<<tiles, BW, bytes, st>>>(xe, dtf, af, be, hb, et, S, H, G, P, N,
+                                                         nc, vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (phases & FWD_CARRY) {
+    const int64_t n_state = static_cast<int64_t>(B) * H * P * N;
+    if ((P * N) % 4 == 0 && aligned16(h0) && aligned16(h_out))
+      ssd_fwd_carry_kernel<4><<<static_cast<unsigned>((n_state / 4 + 255) / 256), 256, 0, st>>>(
+          h0f, et, hb, hout, n_state, P * N, nc);
+    else
+      ssd_fwd_carry_kernel<1><<<static_cast<unsigned>((n_state + 255) / 256), 256, 0, st>>>(
+          h0f, et, hb, hout, n_state, P * N, nc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (phases & FWD_OUT) {
+    if ((err = allow_smem(ssd_fwd_out_kernel<D, E, false>, out_bytes)) != cudaSuccess) return err;
+    ssd_fwd_out_kernel<D, E, false><<<tiles, CW, out_bytes, st>>>(
+        xe, dtf, af, be, static_cast<const E*>(c), static_cast<const float*>(d), hb,
+        static_cast<E*>(y), nullptr, S, H, G, P, N, nc, vec);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 // The phases of the backward that `phases` selects (BWD_* bits), in order.
@@ -1252,15 +1282,23 @@ cudaError_t launch_bwd(const void* x, const void* dt, const void* a, const void*
 // x (B,S,H,P); dt (B,S,H); a, d (H); b, c (B,S,G,N); h0 (B,H,P,N) or null
 // (zeros); all contiguous. x, b, c of `dtype` (0 = float32, 1 = bfloat16),
 // dt, a, d, h0 float32. Writes y (B,S,H,P) of `dtype` and h_out (B,H,P,N)
-// float32. Returns the CUDA error of the launch (0 on success).
+// float32. Scratch, float32, used when S > 64 (more than one chunk; null
+// otherwise): hbuf (B,H,nc,P,N) and etot (B,H,nc), nc = ceil(S / 64).
+// `phases` selects the phases to launch (1 = A, 2 = B, 4 = C; 7 is the whole
+// forward; a phase reads what the ones before it wrote); with one chunk, A
+// and C are one kernel, launched by bit 4. Returns the CUDA error of the
+// launches (0 on success).
 extern "C" int mamba2_fwd(const void* x, const void* dt, const void* a, const void* b,
                           const void* c, const void* d, const void* h0, void* y, void* h_out,
-                          int dtype, int B, int S, int H, int G, int P, int N, void* stream) {
+                          void* hbuf, void* etot, int dtype, int B, int S, int H, int G, int P,
+                          int N, int phases, void* stream) {
   if (bad_dims(B, S, H, G, P, N)) return static_cast<int>(cudaErrorInvalidValue);
+  if (S > T && (hbuf == nullptr || etot == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, P, N, [&](auto dc, auto e) {
-    return launch_fwd<decltype(dc)::value, decltype(e)>(x, dt, a, b, c, d, h0, y, h_out, B, S,
-                                                        H, G, P, N, st);
+    return launch_fwd<decltype(dc)::value, decltype(e)>(x, dt, a, b, c, d, h0, y, h_out, hbuf,
+                                                        etot, B, S, H, G, P, N, phases, st);
   }));
 }
 
@@ -1288,6 +1326,6 @@ extern "C" int mamba2_bwd(const void* x, const void* dt, const void* a, const vo
   }));
 }
 
-// The chunk length the kernels use (the backward's scratch holds one state
-// per chunk).
+// The chunk length the kernels use (their scratch holds one state per
+// chunk).
 extern "C" int mamba2_chunk() { return T; }

@@ -20,10 +20,14 @@ dividing H. The kernels cut the sequence into chunks of their own length
 (64); the chunk of the plain version (`chunk`, the model's `chunk_size`) does
 not change the function. A tensor on the CPU goes to the plain version
 (`ref.mamba2_chunked_plain`, differentiated by autograd); a CUDA tensor goes
-through `Mamba2Scan`, a `torch.autograd.Function` whose forward launches the
-forward kernel (saving only its inputs) and whose backward launches the
-backward's kernels, or raises: its local chunk states, their carries, every
-chunk's gradients, and the sums across CTAs (`BWD_PHASES`). The kernels are
+through `Mamba2Scan`, a `torch.autograd.Function` whose forward and backward
+launch the kernels, or raise. Both run chunk-parallel on the tensor cores:
+each chunk's local state, the carries between chunks, then every chunk's
+outputs from its entering state (`FWD_PHASES`); the backward adds the
+cotangent's carry and the sums across CTAs (`BWD_PHASES`). The chunk states
+live in fp32 scratch allocated per call (134 MB a buffer at zamba2's B 8 x
+1024); the forward saves only its inputs. A forward of one chunk (S <= 64,
+the decode step) is one kernel and allocates no scratch. The kernels are
 built with nvcc at the first launch and bound through ctypes, so importing
 this module needs neither nvcc nor a card. `launches[name]` counts each
 forward and each backward once, however many CUDA kernels it takes.
@@ -52,7 +56,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(SOURCE)
         dims = [ctypes.c_int] * 7                               # dtype, B, S, H, G, P, N
-        lib.mamba2_fwd.argtypes = [ctypes.c_void_p] * 9 + dims + [ctypes.c_void_p]
+        lib.mamba2_fwd.argtypes = [ctypes.c_void_p] * 11 + dims + [ctypes.c_int, ctypes.c_void_p]
         lib.mamba2_bwd.argtypes = [ctypes.c_void_p] * 23 + dims + [ctypes.c_int, ctypes.c_void_p]
         lib.mamba2_fwd.restype = lib.mamba2_bwd.restype = lib.mamba2_chunk.restype = ctypes.c_int
         if lib.mamba2_chunk() != CHUNK:
@@ -103,21 +107,47 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_fwd(x, dt, a, b, c, d, init_state) -> tuple[torch.Tensor, torch.Tensor]:
-    """One forward launch on checked inputs: (y, final state)."""
+FWD_PHASES = {"chunk": 1, "carry": 2, "out": 4}                 # the C entry's `phases` bits
+FWD_ALL = sum(FWD_PHASES.values())
+
+
+def fwd_buffers(x: torch.Tensor, b: torch.Tensor) -> dict:
+    """The forward's outputs (y, state) and, with more than one chunk, its
+    scratch (hbuf: the chunks' states, etot: exp(total) a chunk)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    nc = -(-s // CHUNK)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    bufs = dict(y=torch.empty_like(x), state=torch.empty((bsz, h, p, n), **f32), hbuf=None,
+                etot=None)
+    if nc > 1:
+        bufs.update(hbuf=torch.empty((bsz, h, nc, p, n), **f32),
+                    etot=torch.empty((bsz, h, nc), **f32))
+    return bufs
+
+
+def run_fwd(x, dt, a, b, c, d, init_state, bufs: dict, phases: int = FWD_ALL) -> None:
+    """Launch the forward's `phases` (FWD_PHASES bits; with one chunk "out"
+    is the whole forward) on checked inputs into `bufs` (fwd_buffers);
+    counts nothing."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    y = torch.empty_like(x)
-    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _library().mamba2_fwd(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                                   c.data_ptr(), d.data_ptr(), _ptr(init_state), y.data_ptr(),
-                                   state.data_ptr(), _DTYPES[x.dtype], bsz, s, h, g, p, n,
-                                   _stream(x.device))
+        rc = _library().mamba2_fwd(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            d.data_ptr(), _ptr(init_state), bufs["y"].data_ptr(), bufs["state"].data_ptr(),
+            _ptr(bufs["hbuf"]), _ptr(bufs["etot"]), _DTYPES[x.dtype], bsz, s, h, g, p, n,
+            phases, _stream(x.device))
     if rc != 0:
         raise RuntimeError(f"mamba2_scan_fwd kernel launch failed: CUDA error {rc}")
+
+
+def _launch_fwd(x, dt, a, b, c, d, init_state) -> tuple[torch.Tensor, torch.Tensor]:
+    """One forward (its kernels' phases) on checked inputs: (y, final state)."""
+    bufs = fwd_buffers(x, b)
+    run_fwd(x, dt, a, b, c, d, init_state, bufs)
     launches["mamba2_scan_fwd"] += 1
-    return y, state
+    return bufs["y"], bufs["state"]
 
 
 BWD_PHASES = {"chunk": 1, "carry": 2, "grad": 4, "reduce": 8}   # the C entry's `phases` bits
@@ -170,8 +200,8 @@ def _launch_bwd(x, dt, a, b, c, d, init_state, dy, d_state) -> tuple[torch.Tenso
 
 
 class Mamba2Scan(torch.autograd.Function):
-    """Forward: the forward kernel. Backward: the backward kernel, from the
-    saved inputs (the backward rebuilds the chunks' states it needs)."""
+    """Forward: the forward's kernels. Backward: the backward's kernels, from
+    the saved inputs (the backward rebuilds the chunks' states it needs)."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, d, init_state):

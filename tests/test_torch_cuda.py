@@ -563,7 +563,8 @@ def _rel_max(got, want) -> float:
 
 # (B, S, H, K, V, dtype, init_state): the model's head (K = V = 64) in bf16,
 # a decode step (S = 1 from a state), ragged S, the reduced config's K = V =
-# 16 in fp32, K != V, and widths that are not 16, 32 or 64
+# 16 in fp32, K != V, widths that are not 16, 32 or 64, and K = V = 32 (the
+# backward's 128-thread layout) at S = 1 and at one step past a staged chunk
 WKV_CASES = [
     (2, 64, 4, 64, 64, torch.bfloat16, False),
     (3, 1, 4, 64, 64, torch.bfloat16, True),
@@ -571,6 +572,9 @@ WKV_CASES = [
     (2, 100, 3, 16, 16, torch.float32, True),
     (2, 77, 2, 32, 48, torch.float32, True),
     (2, 40, 2, 8, 24, torch.float32, False),
+    (2, 1, 4, 32, 32, torch.bfloat16, True),
+    (2, 33, 4, 32, 32, torch.bfloat16, True),
+    (2, 33, 3, 32, 32, torch.float32, False),
 ]
 # fp32 outputs (y in fp32, the state, dw, du, d init_state) within 1e-5 (y,
 # state) and 1e-4 (gradients) of their max: the sums' order differs; bf16
@@ -873,6 +877,38 @@ def test_mamba2_backward_kernel_matches_plain(dev, b, s, h, p, n, g, dtype, init
             scale = float(e.float().abs().max())
             torch.testing.assert_close(g_.float() / scale, e.float() / scale, rtol=2e-2,
                                        atol=2e-2, msg=name)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,g,dtype,init", [
+    (4, 300, 8, 64, 64, 2, torch.bfloat16, True),
+    (3, 1, 4, 64, 64, 1, torch.bfloat16, True),
+    (2, 130, 4, 32, 24, 4, torch.float32, False),
+])
+def test_mamba2_forward_is_deterministic(dev, b, s, h, p, n, g, dtype, init):
+    """The forward's phases sum in a fixed order (no atomics): two runs give
+    the same bits."""
+    from repro_torch.kernels import mamba2_scan as m2
+    ins = _ssd_inputs(dev, b, s, h, p, n, g, dtype, init)
+    first, second = m2.mamba2_scan(*ins), m2.mamba2_scan(*ins)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("s,kernels", [(1, 1), (64, 1), (65, 3)])
+def test_mamba2_forward_kernel_count(dev, s, kernels):
+    """A forward of one chunk (S <= 64: the decode step) is one CUDA kernel
+    and allocates no scratch; a longer one launches its three phases."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import mamba2_scan as m2
+    ins = _ssd_inputs(dev, 2, s, 4, 64, 64, 1, torch.bfloat16, True)
+    assert (m2.fwd_buffers(ins[0], ins[3])["hbuf"] is None) == (kernels == 1)
+    m2.mamba2_scan(*ins)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m2.mamba2_scan(*ins)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == kernels, names
+    assert all("ssd_fwd_" in name for name in names), names
 
 
 def test_mamba2_backward_sums_are_deterministic(dev):

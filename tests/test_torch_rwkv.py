@@ -202,6 +202,114 @@ def test_plain_backward_matches_jax_grad(init, cotangents, dtype):
         assert _rel_max(g, e) <= tol, (name, _rel_max(g, e))
 
 
+def _one_carry_backward(r, k, v, w, u, s0, dy, ds):
+    """The CUDA backward's algebra in float64 (numpy arrays in; s0, dy, ds
+    may be None): pass 1 rebuilds S forward from s0 and keeps p_t = S_{t-1}
+    dy_t; pass 2 runs one G recurrence backward from ds, G_{t-1} = exp(w_t) G_t
+    + r_t dy_t^T, with q_T = sum_j G_T S_T, dw_t = q_t - k_t (G_t v_t), q_{t-1}
+    = dw_t + r_t p_t (no division by a decay), and dv_t = G_t^T k_t + dy_t
+    sum_i r u k as a column sum of the one G. Returns (dr, dk, dv, dw, du,
+    d_init_state) as numpy arrays."""
+    f64 = torch.float64
+    r, k, v, w, u = (torch.from_numpy(np.asarray(a)).to(f64) for a in (r, k, v, w, u))
+    b, s, h, dk_ = r.shape
+    dv_ = v.shape[-1]
+    dy = torch.zeros((b, s, h, dv_), dtype=f64) if dy is None else torch.from_numpy(dy).to(f64)
+    st = torch.zeros((b, h, dk_, dv_), dtype=f64) if s0 is None else torch.from_numpy(s0).to(f64)
+    ew = torch.exp(w)
+    p = torch.empty_like(r)
+    for t in range(s):                                    # pass 1
+        p[:, t] = torch.einsum("bhij,bhj->bhi", st, dy[:, t])
+        st = ew[:, t, :, :, None] * st + k[:, t, :, :, None] * v[:, t, :, None, :]
+    g = torch.zeros_like(st) if ds is None else torch.from_numpy(ds).to(f64)
+    q = (g * st).sum(-1)
+    grads = [torch.empty_like(r), torch.empty_like(k), torch.empty_like(v), torch.empty_like(w)]
+    du = torch.zeros_like(u)
+    for t in reversed(range(s)):                          # pass 2: one G recurrence
+        rt, kt, vt, gt = r[:, t], k[:, t], v[:, t], dy[:, t]
+        gv = torch.einsum("bhij,bhj->bhi", g, vt)         # row sums
+        dyv = (gt * vt).sum(-1, keepdim=True)
+        bonus = (rt * u * kt).sum(-1, keepdim=True)
+        dwt = q - kt * gv
+        grads[0][:, t] = p[:, t] + u * kt * dyv
+        grads[1][:, t] = gv + rt * u * dyv
+        grads[2][:, t] = torch.einsum("bhij,bhi->bhj", g, kt) + gt * bonus   # column sums
+        grads[3][:, t] = dwt
+        q = dwt + rt * p[:, t]
+        du += (rt * kt * dyv).sum(0)
+        g = ew[:, t, :, :, None] * g + rt[..., None] * gt[..., None, :]
+    return tuple(t.numpy() for t in (*grads, du, g))
+
+
+def _wkv_f64_grads(r, k, v, w, u, s0, dy, ds):
+    """Autograd of the recurrence itself in float64: the exact gradient the
+    one-carry rendition must reach."""
+    f64 = torch.float64
+    ins = [torch.from_numpy(np.asarray(a)).to(f64).requires_grad_(True)
+           for a in (r, k, v, w, u, np.zeros((r.shape[0], r.shape[2], r.shape[3], v.shape[-1]))
+                     if s0 is None else s0)]
+    rt, kt, vt, wt, ut, st = ins
+    ys = []
+    for t in range(r.shape[1]):
+        kv = kt[:, t, :, :, None] * vt[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", rt[:, t], st + ut[None, :, :, None] * kv))
+        st = torch.exp(wt[:, t, :, :, None]) * st + kv
+    loss = torch.zeros((), dtype=f64)
+    if dy is not None:
+        loss = loss + (torch.stack(ys, 1) * torch.from_numpy(dy).to(f64)).sum()
+    if ds is not None:
+        loss = loss + (st * torch.from_numpy(ds).to(f64)).sum()
+    got = torch.autograd.grad(loss, ins, allow_unused=True)
+    return [np.zeros(t.shape) if g is None else g.numpy() for g, t in zip(got, ins)]
+
+
+# (K = V, init_state, cotangents): the reduced config's 16 and the model's 64,
+# with and without an initial state, from dy, from the final state's
+# cotangent and from both
+ONE_CARRY_CASES = [(n, init, cot) for n in (16, 64) for init in (True, False)
+                   for cot in ("both", "dy", "d_state")]
+
+
+@pytest.mark.parametrize("n,init,cotangents", ONE_CARRY_CASES)
+def test_one_carry_backward_matches_jax_grad(n, init, cotangents):
+    """The CUDA backward's algebra (one G recurrence; dv a column sum of it;
+    dw through q, never divided by exp(w)), rendered in float64 by
+    _one_carry_backward, with a channel whose exp(w) underflows to 0: within
+    1e-10 of autograd of the recurrence in float64, and within the plain
+    backward's limit of 1e-4 (the oracle's fp32 sums) of jax.grad of the
+    oracle `rwkv6_scan_ref` on the same inputs."""
+    b, s, h = 2, 33, 2
+    r, k, v, w, u = _wkv_inputs(b, s, h, n, n, seed=7)
+    w[..., 0] = -200.0
+    rng = np.random.default_rng(8)
+    s0 = rng.standard_normal((b, h, n, n)).astype(np.float32) if init else None
+    dy = None if cotangents == "d_state" else rng.standard_normal((b, s, h, n)).astype(np.float32)
+    ds = None if cotangents == "dy" else rng.standard_normal((b, h, n, n)).astype(np.float32)
+    got = _one_carry_backward(r, k, v, w, u, s0, dy, ds)
+    exact = _wkv_f64_grads(r, k, v, w, u, s0, dy, ds)
+
+    def loss(r_, k_, v_, w_, u_, s0_):
+        y_, st_ = jref.rwkv6_scan_ref(r_, k_, v_, w_, u_, init_state=s0_)
+        out = jnp.float32(0.0)
+        if dy is not None:
+            out += jnp.sum(y_ * jnp.asarray(dy))
+        if ds is not None:
+            out += jnp.sum(st_ * jnp.asarray(ds))
+        return out
+
+    js0 = jnp.zeros((b, h, n, n), jnp.float32) if s0 is None else jnp.asarray(s0)
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(6))))(
+        *(jnp.asarray(a) for a in (r, k, v, w, u)), js0)
+    for name, g, x64, e in zip(("dr", "dk", "dv", "dw", "du", "d_init"), got, exact, want):
+        e = np.asarray(e)
+        assert g.shape == e.shape and np.isfinite(g).all(), name
+        if not e.any():                          # no path from the given cotangent
+            assert not g.any() and not x64.any(), name
+            continue
+        assert _rel_max(g, x64) <= 1e-10, (name, _rel_max(g, x64))
+        assert _rel_max(g, e) <= 1e-4, (name, _rel_max(g, e))
+
+
 def test_reference_cannot_differentiate_its_pallas_kernel():
     """The reference's fault: jax.grad through `rwkv6_chunked` (interpret
     mode, the path its TPU training would take) raises AssertionError on

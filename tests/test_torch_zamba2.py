@@ -356,6 +356,92 @@ def test_chunk_parallel_backward_matches_jax_grad(s, init, cotangents, g):
         assert _rel_max(gr, e) <= GRAD_TOL.get(name, 2e-4), (name, _rel_max(gr, e))
 
 
+def _chunk_parallel_forward(x, dt, a, b, c, d, s0, T=KERNEL_CHUNK):
+    """The CUDA forward's schedule in float64 (numpy arrays in; s0 may be
+    None): phase A, each chunk's local state S_c = sum_t x_t dt_t exp(total -
+    cum_t) B_t^T and exp(total); phase B, the carry h_in[c+1] = exp(total_c)
+    h_in[c] + S_c, whose last value is the final state; phase C, every
+    chunk's y = M (x) + exp(cum) (C h_in^T) + d x from its h_in alone, M =
+    tril(C B^T) * exp(cum_t - cum_s) * dt_s formed only on and below the
+    diagonal. (With one chunk the kernel runs A and C in one CTA from h_in =
+    s0: the same arithmetic.) Returns (y, final state) as numpy arrays."""
+    f64 = torch.float64
+    x, dt, a, b, c, d = (torch.from_numpy(np.asarray(v)).to(f64) for v in (x, dt, a, b, c, d))
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    nc = -(-s // T)
+
+    def chunks(v):                  # (B, S, H, ...) zero-padded -> (B, H, nc, T, ...)
+        v = torch.nn.functional.pad(v, [0, 0] * (v.dim() - 2) + [0, nc * T - s])
+        return v.reshape(bsz, nc, T, *v.shape[2:]).movedim(3, 1)
+
+    xs, dts = chunks(x), chunks(dt)
+    bs, cs = (chunks(v.repeat_interleave(h // g, dim=2)) for v in (b, c))
+    cum = torch.cumsum(dts * a[None, :, None, None], dim=-1)          # (B, H, nc, T)
+    total = cum[..., -1]
+
+    # phase A, then phase B
+    s_loc = torch.einsum("bhctp,bhct,bhctn->bhcpn", xs, dts * torch.exp(total[..., None] - cum),
+                         bs)
+    h_in = torch.empty_like(s_loc)
+    hv = torch.zeros((bsz, h, p, n), dtype=f64) if s0 is None else torch.from_numpy(s0).to(f64)
+    for ci in range(nc):
+        h_in[:, :, ci] = hv
+        hv = torch.exp(total[:, :, ci, None, None]) * hv + s_loc[:, :, ci]
+
+    # phase C: M on and below the diagonal only, never a decay divided
+    tri = torch.tril(torch.ones(T, T, dtype=torch.bool))
+    seg = torch.where(tri, cum[..., :, None] - cum[..., None, :], torch.zeros((), dtype=f64))
+    mmat = torch.where(tri, torch.einsum("bhctn,bhcsn->bhcts", cs, bs) * torch.exp(seg)
+                       * dts[..., None, :], torch.zeros((), dtype=f64))
+    y = (torch.einsum("bhcts,bhcsp->bhctp", mmat, xs)
+         + torch.exp(cum)[..., None] * torch.einsum("bhctn,bhcpn->bhctp", cs, h_in))
+    y = y.movedim(1, 3).reshape(bsz, nc * T, h, p)[:, :s] + d[None, None, :, None] * x
+    return y.numpy(), hv.numpy()
+
+
+# (S, init_state, G) over H = 4: one step (the decode step: one chunk), one
+# whole chunk of the kernel's 64, a ragged second chunk and four chunks; with
+# and without an initial state; one group and two
+FWD_DECOMP_CASES = [(s, init, g) for s in (1, 64, 100, 256) for init in (True, False)
+                    for g in (1, 2)]
+
+
+@pytest.mark.parametrize("s,init,g", FWD_DECOMP_CASES)
+def test_chunk_parallel_forward_matches_oracles(s, init, g):
+    """The CUDA forward's three phases (local chunk states, the carry, each
+    chunk's outputs from its entering state), rendered in float64 by
+    _chunk_parallel_forward, a head whose decay underflows to 0 included:
+    within 1e-10 of the sequential recurrence in float64 (the port's plain
+    scan, `ref.mamba2_scan_plain`, on float64 inputs), which pins the
+    algebra; and within the reference's kernel limit of 2e-4 of the JAX
+    package's chunked oracle `mamba2_chunked_jnp` and its Pallas kernel in
+    interpret mode (which takes neither an initial state nor a ragged S and
+    falls back to the oracle for them), whose fp32 rounding is what that
+    limit allows for."""
+    b, h, p, n = 2, 4, 8, 8
+    x, dt, a, bb, cc, d = _ssd_inputs(b, s, h, p, g, n, seed=12)
+    dt[..., -1] = 20.0
+    a[-1] = -16.0
+    s0 = (np.random.default_rng(13).standard_normal((b, h, p, n)).astype(np.float32)
+          if init else None)
+    y, state = _chunk_parallel_forward(x, dt, a, bb, cc, d, s0)
+
+    y64, state64 = ref.mamba2_scan_plain(*(t.double() for t in _t(x, dt, a, bb, cc, d)),
+                                         init_state=None if s0 is None
+                                         else torch.from_numpy(s0).double())
+    assert _rel_max(y, y64.numpy()) <= 1e-10 and _rel_max(state, state64.numpy()) <= 1e-10
+    jins = [jnp.asarray(v) for v in (x, dt, a, bb, cc, d)]
+    js0 = None if s0 is None else jnp.asarray(s0)
+    expect = [jax.jit(lambda *a_: jref.mamba2_chunked_jnp(*a_, chunk=KERNEL_CHUNK,
+                                                           init_state=js0))(*jins),
+              mamba2_chunked(*jins, chunk=KERNEL_CHUNK, init_state=js0, interpret=True)]
+    for expect_y, expect_s in expect:
+        assert np.isfinite(y).all() and np.isfinite(state).all()
+        assert _rel_max(y, expect_y) <= 2e-4, _rel_max(y, expect_y)
+        assert _rel_max(state, expect_s) <= 2e-4, _rel_max(state, expect_s)
+
+
 def test_reference_cannot_differentiate_its_pallas_kernel():
     """The reference's fault: jax.grad through `mamba2_chunked` (interpret
     mode, the path its TPU training would take) raises AssertionError on
