@@ -12,8 +12,9 @@
    elements) and at edge sizes, held against their plain versions and timed
    beside their bound and one PyTorch library call (a yardstick only; the
    port never calls it); fused_axpy also held to the sweep's 1,024
-   elements a CTA; sq_norm and its library call also timed in turns, 7
-   rounds each (medians, spread, which is faster beyond it);
+   elements a CTA and sq_norm to its sweep's 4,096 elements a tile and the
+   same bits on a rerun; sq_norm and its library call also timed in turns,
+   7 rounds each (medians, spread, which is faster beyond it);
 4. flash kernel phase: the same for the flash-attention forward (olmo-1b's
    and zamba2's prefill shapes, GQA, MQA, ragged, windowed, non-causal,
    MLA's hd 192 / hd_v 128, and the CUDA-core path's fp32, hd 40 and
@@ -64,8 +65,9 @@
 12. rwkv kernel phase: the wkv scan's forward and backward kernels at
    rwkv6-7b's scan shape (8 x 1024 tokens, 64 heads of 64, bf16 r/k/v, fp32
    decay and bonus), a one-token decode step from a state, a ragged S and
-   K = V = 16 in fp32, held against the plain scan and autograd of it, and
-   timed beside their bound;
+   K = V = 16 in fp32, held against the plain scan and autograd of it (the
+   forward run twice: the same bits), and timed beside their bound; the
+   forward kernel's registers and spills (ptxas) printed;
 13. rwkv serve phase: full-width, full-depth rwkv6-7b (7,534,813,184 fp32
    parameters from seed 0, bf16 compute) serves 8 x 1024 prompts + 32 greedy
    tokens through `launch.serve.serve`: 32 forward launches per prefill and
@@ -303,6 +305,7 @@ def sgd_ops(momentum: float, nesterov: bool, wd: float) -> int:
     """clip 1, decay 2, momentum 2, Nesterov 2, lr and apply 2."""
     return 1 + (2 if wd else 0) + (2 if momentum else 0) + (2 if nesterov else 0) + 2
 SWEEP_TILE = 1024                     # elements a CTA of a sweeping flat kernel
+SQ_NORM_TILE = 4096                   # elements a tile of sq_norm's sweep
 COMPARE_CHUNK = 1 << 27               # elements per chunk of the plain re-computation
 
 
@@ -395,10 +398,14 @@ def epilogue_phase() -> dict:
         torch.cuda.synchronize()
         expect = ref.sq_norm_plain(x)
         err, rel = max_rel(got, expect)
+        # a rerun gives the same bits (fixed-order sums, no atomics)
+        same_bits = float(sp.sq_norm(x)) == float(got)
+        sq_tile = sp.sq_norm_tile()             # the reduction's sweep: 4,096 a tile
         report("sq_norm", case, n, err, rel, red_tol, time_ms(lambda: sp.sq_norm(x)),
                time_ms(lambda: ref.sq_norm_plain(x)),
                time_ms(lambda: torch.linalg.vector_norm(x) ** 2), 4 * n, "float32", main,
-               **({"interleaved": sq_norm_rounds(x)} if main else {}))
+               layout_ok=sq_tile == SQ_NORM_TILE and same_bits, elements_per_tile=sq_tile,
+               deterministic=same_bits, **({"interleaved": sq_norm_rounds(x)} if main else {}))
 
         # --- sam_perturb: out = w + rho x / sqrt(sq) (w = y), held exactly ---
         sq = ref.sq_norm_plain(x)
@@ -1623,20 +1630,42 @@ def wkv_bound(shape, dtype: str, init: bool, backward: bool) -> tuple[float, str
     return bound(nbytes, ops)
 
 
+def ptxas_report(source, kernel: str) -> dict:
+    """Registers and spills of each instantiation of `kernel` in the build
+    log of `source` (ptxas -v), keyed by its mangled name."""
+    from repro_torch.kernels import build
+    lib = build.library_path(source)
+    lines = lib.with_name(lib.name + ".log").read_text().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            name = line.split("'")[1]
+            out[name] = " ".join(part.split(":", 1)[-1].strip() for part in lines[i + 1:i + 4]
+                                 if "spill" in part or "registers" in part)
+    return out
+
+
 def rwkv_kernel_phase() -> dict:
     """Both wkv kernels against their plain versions at RWKV_CASES, timed;
-    returns the model shape's row per kernel."""
+    the forward run twice (the same bits); returns the model shape's row per
+    kernel."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as r6
 
+    for name, regs in ptxas_report(r6.SOURCE, "wkv_fwd_kernel").items():
+        print(f"rwkv forward ptxas {name}: {regs}")
     main_rows, failures = {}, []
     for ci, (case, shape, dtype, init) in enumerate(RWKV_CASES):
         r, k, v, w, u, s0 = wkv_inputs(shape, dtype, init)
         y, state = r6.rwkv6_scan(r, k, v, w, u, s0)
+        y2, state2 = r6.rwkv6_scan(r, k, v, w, u, s0)
         torch.cuda.synchronize()
+        same_bits = bool(torch.equal(y, y2) and torch.equal(state, state2))
+        del y2, state2
         y_p, state_p = ref.rwkv6_scan_plain(r, k, v, w, u, s0)
-        ok = wkv_ok(y, y_p, RWKV_FP32_TOL) and wkv_ok(state, state_p, RWKV_FP32_TOL)
+        ok = (wkv_ok(y, y_p, RWKV_FP32_TOL) and wkv_ok(state, state_p, RWKV_FP32_TOL)
+              and same_bits)
         err = max(wkv_error(y, y_p)[0], wkv_error(state, state_p)[0])
         del y, state, y_p, state_p
         ms = time_ms(lambda: r6.rwkv6_scan(r, k, v, w, u, s0))
@@ -1644,8 +1673,8 @@ def rwkv_kernel_phase() -> dict:
         bound_ms, bound_by = wkv_bound(shape, dtype, init, backward=False)
         rows = {"rwkv6_scan_fwd": dict(
             kernel="rwkv6_scan_fwd", case=case, shape=shape, dtype=dtype, init_state=init,
-            max_abs_err=err, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None,
-            bound_ms=bound_ms, bound_by=bound_by)}
+            max_abs_err=err, ok=ok, deterministic=same_bits, ms=ms, plain_ms=plain_ms,
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by)}
 
         b, _, h, dk, dv = shape
         g = torch.Generator(device="cuda").manual_seed(4)

@@ -2,7 +2,7 @@
 // 1-D bucket is cut into blocks, vector loads and stores, and a block
 // reduction whose order is fixed.
 //
-// Two ways to cut a bucket of n elements:
+// Three ways to cut a bucket of n elements:
 // * chunks of CHUNK = 65,536 elements, the TPU kernels' chunk
 //   (src/repro/kernels/sam_perturb.py:25): one CTA of 256 threads owns one
 //   chunk (the last one ragged, n = 1 included) and walks it 8 elements at a
@@ -16,7 +16,10 @@
 //   elementwise kernels do. With a chunk a CTA, about a thousand resident
 //   CTAs each stream their own 256 KB of every operand at once; on the H100
 //   an elementwise kernel that reads two buffers and writes a third then
-//   takes 6-8% longer (scripts/flat_loop_probe.py).
+//   takes 6-8% longer (scripts/flat_loop_probe.py);
+// * a reduction's sweep (`red_vector`): one CTA per 4,096-element tile, so
+//   the resident CTAs again read one contiguous window; each tile keeps one
+//   partial.
 //
 // Arithmetic is fp32 whatever the operand type. The elementwise kernels use
 // the _rn intrinsics, which the compiler does not contract into FMAs, so
@@ -150,6 +153,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[SWEEP_VEC
 }
 
 inline unsigned n_sweep_tiles(int64_t n) { return static_cast<unsigned>((n + SWEEP - 1) / SWEEP); }
+
+// A reduction's sweep takes tiles of RED_TILE = 4,096 elements: a thread's
+// vector q of a tile is elements [(q THREADS + t) 4, + 4), so each of its
+// RED_VECS loads reads one contiguous stretch of the tile across the CTA.
+constexpr int RED_VECS = 4;
+constexpr int64_t RED_TILE = SWEEP * RED_VECS;
+
+__device__ __forceinline__ int64_t red_vector(int64_t tile, int q) {
+  return tile * RED_TILE + (static_cast<int64_t>(q) * THREADS + threadIdx.x) * SWEEP_VEC;
+}
+
+inline unsigned n_red_tiles(int64_t n) {
+  return static_cast<unsigned>((n + RED_TILE - 1) / RED_TILE);
+}
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 

@@ -35,11 +35,25 @@
 // Design. Every state element evolves on its own (its row's decay, its
 // row's k and its column's v), so the state splits across threads without
 // any exchange on its recurrence; only the sums over a row or a column meet.
-// * forward: one CTA per (b, h), thread j owns column j of S (K floats in
-//   registers) and computes y_t[j] itself, with no cross-thread reduction;
-//   r_t, k_t, exp(w_t), v_t are staged in shared memory TC = 32 timesteps at
-//   a time, read by every thread as broadcasts; the bonus term sum_i r u k
-//   is one number per t, computed once per chunk;
+// * forward: one CTA of 2 N threads per (b, h), 128 at K = V = 64 (4 CTAs
+//   an SM at 124 registers): a warp is 8 row groups x 4 column groups, and
+//   thread (g, c) holds the 8 x 4 block of S of rows g + 8 m (m < N / 8)
+//   and columns [4 c, 4 c + 4) of its warp's 16 in registers. A step reads
+//   per thread one float4 a row (r, k, exp(w), r u k, packed when staged)
+//   and one float4 of v from shared memory: 9 loads for 32 state elements,
+//   where the column-a-thread layout it replaces read 3 scalars a row for
+//   every element (1.51 ms). Each thread sums y over its rows, the bonus
+//   folded in as v_j times its rows' sum of r u k; a column's 8 row groups
+//   share a warp, so their partials meet by lane exchanges in a fixed order
+//   (halving at lane bits 16 and 8, then 4), with no shared memory and no
+//   barrier, and one lane of each column writes y. Inputs are staged FTC =
+//   16 steps at a time: the next chunk is copied into shared memory by
+//   16-byte cp.async under the current chunk's serial loop (no registers
+//   held; a prefetch into registers spilled at the 128-register cap), then
+//   converted. By scripts/wkv_fwd_ablation.py (PERF.md), without the
+//   exchanges it takes ~80% of its time; without the prefetch, the loop's
+//   unrolling or the 16-byte copies 2-25% longer; with the rows read from
+//   registers no less, so shared memory's issue rate no longer bounds it;
 // * backward: one CTA of 4 N threads per (b, h), 256 at K = V = 64: thread
 //   (i, c) holds columns [c N/4, (c + 1) N/4) of row i of S (pass 1) and of G
 //   (pass 2) in registers, so a step's serial chain is N/4 multiply-adds of
@@ -82,9 +96,9 @@
 // past K or V are zero-padded in shared memory so that every loop is
 // unrolled over N.
 //
-// Left for later: the forward on the backward's layout (K rows x 4 column
-// groups: its serial chain is N multiply-adds a step), and the chunked form
-// on the tensor cores.
+// Left for later: the chunked form on the tensor cores (its exp(-cum)
+// rescaling overflows fp32 at realistic decays, as the reference kernel's
+// docstring says).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,92 +122,283 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-// Stage timesteps t0 .. t0+tc-1 of (b, h) into shared memory, zero past K,
-// V and tc: r, k, exp(w) (K wide) and v (V wide). Every thread of the block
-// takes part.
-template <int N, typename T>
-__device__ __forceinline__ void stage(float (*sr)[N], float (*sk)[N], float (*sew)[N],
-                                      float (*sv)[N], const T* r, const T* k, const T* v,
-                                      const float* w, int b, int h, int S, int H, int K, int V,
-                                      int t0, int tc) {
-  for (int idx = threadIdx.x; idx < TC * N; idx += blockDim.x) {
-    const int t = idx / N, c = idx % N;
-    float rv = 0.f, kv = 0.f, ev = 0.f, vv = 0.f;
-    if (t < tc) {
-      const int64_t base = (static_cast<int64_t>(b) * S + t0 + t) * H + h;
-      if (c < K) {
-        const int64_t o = base * K + c;
-        rv = to_f32(r[o]);
-        kv = to_f32(k[o]);
-        ev = expf(w[o]);
-      }
-      if (c < V) vv = to_f32(v[base * V + c]);
-    }
-    sr[t][c] = rv;
-    sk[t][c] = kv;
-    sew[t][c] = ev;
-    sv[t][c] = vv;
-  }
+// --- the forward ----------------------------------------------------------
+
+constexpr int FTC = 16;       // forward: timesteps staged in shared memory at a time
+constexpr int FWD_C = 4;      // forward: columns of S a thread holds
+
+// The forward's layout at N: a thread holds C columns of the N / 8 rows
+// rg + 8 m of S; a warp is 8 row groups x 4 column groups, so it holds every
+// row of 4 C columns, and N / (4 C) warps hold S.
+template <int N> __host__ __device__ constexpr int fwd_cols() {
+  return FWD_C < N / 4 ? FWD_C : N / 4;
+}
+template <int N> __host__ __device__ constexpr int fwd_threads() { return 8 * N / fwd_cols<N>(); }
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// sum_i a[i] b[i] over N with four partial sums (the FMA chains overlap)
-template <int N>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+// Place of row i in a staged step of the forward's row tile: after each 8
+// rows one float4 of padding, so that a thread staging 8 consecutive rows
+// and its neighbour 8 rows on land in other banks; a step is NP float4.
+template <int N> __host__ __device__ constexpr int fwd_np() { return N + N / 8; }
+__device__ __forceinline__ int rowpos(int i) { return i + (i >> 3); }
+
+// VT elements of T, read as one piece (16 bytes when VT > 1)
+template <typename T, int VT>
+struct alignas(VT * sizeof(T)) Vec {
+  T x[VT];
+};
+
+// One chunk of the forward's inputs in shared memory as loaded, (FTC, N)
+// each: r, k, v (T) and w, zero past K, V and the chunk's steps (a zero w is
+// a decay of 1 on a row whose k and state are 0: the row stays 0).
+template <int N, typename T>
+struct FwdRaw {
+  alignas(16) T r[FTC * N];
+  alignas(16) T k[FTC * N];
+  alignas(16) T v[FTC * N];
+  alignas(16) float w[FTC * N];
+};
+
+// 16 bytes from device to shared memory, asynchronously (zeros if !valid)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Elements of T a run of the forward's staging: 16 bytes where VEC (K and V
+// multiples of it, 16-byte aligned r, k, v, w), else one.
+template <typename T, bool VEC> __host__ __device__ constexpr int fwd_run() {
+  return VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
+}
+
+// Steps t0 .. t0 + tc - 1 of (b, h) into raw. VEC: 16-byte cp.async copies
+// that land while the caller runs on (it waits with cp_async_wait_all); else
+// element by element, at once.
+template <int N, int NTH, bool VEC, typename T>
+__device__ __forceinline__ void fwd_copy(FwdRaw<N, T>& raw, const T* r, const T* k, const T* v,
+                                         const float* w, int b, int h, int S, int H, int K,
+                                         int V, int t0, int tc) {
+  const auto row = [&](int t) { return (static_cast<int64_t>(b) * S + t0 + t) * H + h; };
+  if constexpr (VEC) {
+    constexpr int VT = fwd_run<T, VEC>();
 #pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    p0 += a[i] * b[i];
-    p1 += a[i + 1] * b[i + 1];
-    p2 += a[i + 2] * b[i + 2];
-    p3 += a[i + 3] * b[i + 3];
+    for (int q = threadIdx.x; q < FTC * N / VT; q += NTH) {
+      const int t = q / (N / VT), c = q % (N / VT) * VT;
+      const bool rk = t < tc && c < K, cv = t < tc && c < V;
+      const int64_t o = row(t);
+      cp_async16(raw.r + t * N + c, rk ? r + o * K + c : r, rk);
+      cp_async16(raw.k + t * N + c, rk ? k + o * K + c : k, rk);
+      cp_async16(raw.v + t * N + c, cv ? v + o * V + c : v, cv);
+    }
+#pragma unroll
+    for (int q = threadIdx.x; q < FTC * N / 4; q += NTH) {
+      const int t = q / (N / 4), c = q % (N / 4) * 4;
+      const bool rk = t < tc && c < K;
+      cp_async16(raw.w + t * N + c, rk ? w + row(t) * K + c : w, rk);
+    }
+  } else {
+    const T zero = from_f32<T>(0.f);
+    for (int idx = threadIdx.x; idx < FTC * N; idx += NTH) {
+      const int t = idx / N, c = idx % N;
+      const bool rk = t < tc && c < K, cv = t < tc && c < V;
+      const int64_t o = row(t);
+      raw.r[idx] = rk ? r[o * K + c] : zero;
+      raw.k[idx] = rk ? k[o * K + c] : zero;
+      raw.w[idx] = rk ? w[o * K + c] : 0.f;
+      raw.v[idx] = cv ? v[o * V + c] : zero;
+    }
   }
-  return (p0 + p1) + (p2 + p3);
 }
 
-template <int N, typename T>
-__global__ void __launch_bounds__(N)
+// The raw chunk converted for the serial loop: each step's row i as one
+// float4 (r, k, exp(w), r u k) at rowpos(i), and v as fp32; su holds u.
+template <int N, int NTH, bool VEC, typename T>
+__device__ __forceinline__ void fwd_put(const FwdRaw<N, T>& raw, float4* srow, float* sv,
+                                        const float* su) {
+  constexpr int VT = fwd_run<T, VEC>();
+#pragma unroll
+  for (int q = threadIdx.x; q < FTC * N / VT; q += NTH) {
+    const int t = q / (N / VT), c = q % (N / VT) * VT, o = t * N + c;
+    const Vec<T, VT> rv = *reinterpret_cast<const Vec<T, VT>*>(raw.r + o);
+    const Vec<T, VT> kv = *reinterpret_cast<const Vec<T, VT>*>(raw.k + o);
+    const Vec<T, VT> vv = *reinterpret_cast<const Vec<T, VT>*>(raw.v + o);
+    float wv[VT], vf[VT];
+    if constexpr (VT % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < VT; j += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(raw.w + o + j);
+        wv[j] = q4.x;
+        wv[j + 1] = q4.y;
+        wv[j + 2] = q4.z;
+        wv[j + 3] = q4.w;
+      }
+    } else {
+      wv[0] = raw.w[o];
+    }
+#pragma unroll
+    for (int j = 0; j < VT; ++j) {
+      const int i = c + j;
+      const float rr = to_f32(rv.x[j]), kk = to_f32(kv.x[j]);
+      srow[t * fwd_np<N>() + rowpos(i)] = make_float4(rr, kk, expf(wv[j]), rr * su[i] * kk);
+      vf[j] = to_f32(vv.x[j]);
+    }
+    if constexpr (VT % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < VT; j += 4)
+        *reinterpret_cast<float4*>(sv + o + j) =
+            make_float4(vf[j], vf[j + 1], vf[j + 2], vf[j + 3]);
+    } else {
+      sv[o] = vf[0];
+    }
+  }
+}
+
+// Halving levels of group_sum for C columns a thread.
+template <int C> __host__ __device__ constexpr int halvings() {
+  return C == 8 ? 3 : C == 4 ? 2 : C == 2 ? 1 : 0;
+}
+
+// p (a thread's C column partials over its rows) summed over the warp's 8
+// row groups (lane bits 4, 3, 2, in that order): halving exchanges while a
+// thread holds more than one column (the lane whose bit is set keeps the
+// upper half), then plain exchanges. Returns the sum for column
+// c0 + sum over the halvings of (its lane bit) C / 2^(level + 1).
+template <int C>
+__device__ __forceinline__ float group_sum(float (&p)[C], int lane) {
+  constexpr int L = halvings<C>();
+#pragma unroll
+  for (int lvl = 0; lvl < L; ++lvl) {
+    const int n = C >> lvl, off = 16 >> lvl;
+    const bool hi = lane & off;
+#pragma unroll
+    for (int m = 0; m < n / 2; ++m) {
+      const float keep = hi ? p[m + n / 2] : p[m], send = hi ? p[m] : p[m + n / 2];
+      p[m] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+#pragma unroll
+  for (int off = 16 >> L; off >= 4; off >>= 1) p[0] += __shfl_xor_sync(0xffffffffu, p[0], off);
+  return p[0];
+}
+
+// VEC: 16-byte copies of the inputs (fwd_copy); vec: V % 4 == 0 and s0
+// (when given) and s_out 16-byte aligned (float4 state loads and stores)
+template <int N, typename T, bool VEC>
+__global__ void __launch_bounds__(fwd_threads<N>(), 512 / fwd_threads<N>())
 wkv_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                const float* __restrict__ w, const float* __restrict__ u,
                const float* __restrict__ s0, T* __restrict__ y, float* __restrict__ s_out,
-               int S, int H, int K, int V) {
-  __shared__ float sr[TC][N], sk[TC][N], sew[TC][N], sv[TC][N];
-  __shared__ float sbonus[TC];
-  __shared__ float su[N];
+               int S, int H, int K, int V, int vec) {
+  constexpr int C = fwd_cols<N>(), NTH = fwd_threads<N>(), R = N / 8, NP = fwd_np<N>();
+  constexpr int L = halvings<C>();
+  static_assert(C % 4 == 0, "float4 columns");
+  __shared__ FwdRaw<N, T> raw;                     // the next chunk as loaded
+  __shared__ float4 srow[FTC * NP];                // (FTC, NP) r, k, exp(w), r u k
+  __shared__ __align__(16) float sv[FTC * N];      // (FTC, N) v
+  __shared__ float su[N];                          // u
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int j = threadIdx.x;                      // this thread's column of S
-  const bool col = j < V;
-  su[j] = j < K ? u[h * K + j] : 0.f;
+  const int lane = threadIdx.x & 31, rg = lane >> 2;
+  const int c0 = (threadIdx.x >> 5) * 4 * C + (lane & 3) * C;   // this thread's columns
+  int yc = c0;                                     // the column whose y it sums
+#pragma unroll
+  for (int lvl = 0; lvl < L; ++lvl) yc += ((lane >> (4 - lvl)) & 1) * (C >> (lvl + 1));
+  // after the plain exchanges every lane of a column holds its sum: the
+  // lanes whose unused row-group bits are 0 write it
+  const bool writer = (lane & (((1 << (5 - L)) - 1) & ~3)) == 0 && yc < V;
+  const int64_t state = static_cast<int64_t>(bh) * K * V;
+  if (threadIdx.x < N) su[threadIdx.x] = threadIdx.x < K ? u[h * K + threadIdx.x] : 0.f;
 
-  float s[N];                                     // S[:, j]
+  float s[R][C];                                   // S[rg + 8 m][c0 + c]
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-    s[i] = (s0 != nullptr && col && i < K) ? s0[(static_cast<int64_t>(bh) * K + i) * V + j]
-                                           : 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += TC) {
-    const int tc = min(TC, S - t0);
-    __syncthreads();                              // the last chunk's readers are done
-    stage<N, T>(sr, sk, sew, sv, r, k, v, w, b, h, S, H, K, V, t0, tc);
-    __syncthreads();
-    for (int t = j; t < tc; t += N) {             // sum_i r u k, once per timestep
-      float acc = 0.f;
+  for (int m = 0; m < R; ++m) {
+    const int i = rg + 8 * m;
 #pragma unroll
-      for (int i = 0; i < N; ++i) acc += sr[t][i] * su[i] * sk[t][i];
-      sbonus[t] = acc;
-    }
-    __syncthreads();
-    for (int t = 0; t < tc; ++t) {
-      const float vj = sv[t][j];
-      const float yj = dot<N>(sr[t], s) + vj * sbonus[t];
-#pragma unroll
-      for (int i = 0; i < N; ++i) s[i] = sew[t][i] * s[i] + sk[t][i] * vj;
-      if (col) y[((static_cast<int64_t>(b) * S + t0 + t) * H + h) * V + j] = from_f32<T>(yj);
+    for (int c = 0; c < C; c += 4) {
+      const int j = c0 + c;
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (s0 != nullptr && i < K) {
+        const float* row = s0 + state + static_cast<int64_t>(i) * V;
+        if (vec) {
+          if (j < V) q = *reinterpret_cast<const float4*>(row + j);
+        } else {
+          q = make_float4(j < V ? row[j] : 0.f, j + 1 < V ? row[j + 1] : 0.f,
+                          j + 2 < V ? row[j + 2] : 0.f, j + 3 < V ? row[j + 3] : 0.f);
+        }
+      }
+      s[m][c] = q.x;
+      s[m][c + 1] = q.y;
+      s[m][c + 2] = q.z;
+      s[m][c + 3] = q.w;
     }
   }
-  if (col) {
+
+  const auto copy = [&](int from) {             // steps from .. of (b, h) into raw
+    fwd_copy<N, NTH, VEC>(raw, r, k, v, w, b, h, S, H, K, V, from, min(FTC, S - from));
+  };
+  copy(0);
+  for (int t0 = 0; t0 < S; t0 += FTC) {
+    const int tc = min(FTC, S - t0);
+    cp_async_wait_all();
+    __syncthreads();                               // the chunk is in raw; srow's readers are done
+    fwd_put<N, NTH, VEC>(raw, srow, sv, su);
+    __syncthreads();                               // raw is read, srow written
+    if (t0 + FTC < S) copy(t0 + FTC);              // lands during this chunk's serial loop
+#pragma unroll 2
+    for (int step = 0; step < tc; ++step) {
+      float vv[C], yp[C], bonus = 0.f;             // bonus: this thread's rows of r u k
 #pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (i < K) s_out[(static_cast<int64_t>(bh) * K + i) * V + j] = s[i];
+      for (int c = 0; c < C; c += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(sv + step * N + c0 + c);
+        vv[c] = q.x;
+        vv[c + 1] = q.y;
+        vv[c + 2] = q.z;
+        vv[c + 3] = q.w;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) yp[c] = 0.f;
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const float4 row = srow[step * NP + rg + 9 * m];   // row rg + 8 m: r, k, exp(w), r u k
+        bonus += row.w;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          yp[c] = fmaf(row.x, s[m][c], yp[c]);
+          s[m][c] = fmaf(row.z, s[m][c], row.y * vv[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) yp[c] = fmaf(vv[c], bonus, yp[c]);
+      const float yt = group_sum<C>(yp, lane);
+      if (writer)
+        y[((static_cast<int64_t>(b) * S + t0 + step) * H + h) * V + yc] = from_f32<T>(yt);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int i = rg + 8 * m;
+    if (i >= K) continue;
+    float* row = s_out + state + static_cast<int64_t>(i) * V;
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      const int j = c0 + c;
+      if (vec) {
+        if (j < V) *reinterpret_cast<float4*>(row + j) =
+            make_float4(s[m][c], s[m][c + 1], s[m][c + 2], s[m][c + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j + q < V) row[j + q] = s[m][c + q];
+      }
+    }
   }
 }
 
@@ -500,11 +705,16 @@ template <int N, typename T>
 cudaError_t launch_fwd(const void* r, const void* k, const void* v, const void* w,
                        const void* u, const void* s0, void* y, void* s_out, int B, int S,
                        int H, int K, int V, cudaStream_t st) {
-  wkv_fwd_kernel<N, T><<<B * H, N, 0, st>>>(
+  constexpr int VT = fwd_run<T, true>();
+  const bool vec_in = K % VT == 0 && V % VT == 0 && aligned16(r) && aligned16(k) &&
+                      aligned16(v) && aligned16(w);
+  const int vec = V % 4 == 0 && aligned16(s_out) && (s0 == nullptr || aligned16(s0));
+  auto kernel = vec_in ? wkv_fwd_kernel<N, T, true> : wkv_fwd_kernel<N, T, false>;
+  kernel<<<B * H, fwd_threads<N>(), 0, st>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(w), static_cast<const float*>(u),
       static_cast<const float*>(s0), static_cast<T*>(y), static_cast<float*>(s_out), S, H, K,
-      V);
+      V, vec);
   return cudaGetLastError();
 }
 

@@ -4,9 +4,9 @@
 The kernels (`csrc/sam_perturb.cu`, CUDA C++ for sm_90a) replace the Pallas
 TPU kernels of the reference module:
 
-  sq_norm      sum of g^2, one fp32 partial per `flat.CHUNK`-element chunk,
-               summed here with `torch.sum` (the reference sums its
-               partials with `jnp.sum`)
+  sq_norm      sum of g^2 in fp32: one fp32 partial per
+               `sq_norm_tile()`-element tile, summed here with `torch.sum`
+               (the reference sums its per-chunk partials with `jnp.sum`)
   sam_perturb  w + rho * g / (sqrt(n) + 1e-12), the scale computed by the
                kernel itself from rho (a host number or a device scalar) and
                the device squared norm, in the reference's order; w's dtype
@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, flat, ref
-from repro_torch.kernels.flat import DTYPES, check_flat, check_launch, n_chunks, stream
+from repro_torch.kernels.flat import DTYPES, check_flat, check_launch, stream
 
 SOURCE = build.CSRC / "sam_perturb.cu"
 
@@ -45,25 +45,33 @@ def _library() -> ctypes.CDLL:
                                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                                     ctypes.c_void_p]
-        lib.sq_norm.restype = lib.sam_perturb.restype = ctypes.c_int
+        for fn in (lib.sq_norm, lib.sq_norm_tile, lib.sam_perturb):
+            fn.restype = ctypes.c_int
+        lib.tile = lib.sq_norm_tile()
         _lib = lib
     return _lib
 
 
 def sq_norm(g: torch.Tensor) -> torch.Tensor:
-    """Sum of squares of a flat vector, fp32 (partial per chunk, summed here)."""
+    """Sum of squares of a flat vector, fp32 (a 0-dim tensor)."""
     if g.device.type == "cpu":
         return ref.sq_norm_plain(g)
     dev = check_flat("sq_norm", {"g": g})
     if g.numel() == 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
-    partials = torch.empty(n_chunks(g.numel()), dtype=torch.float32, device=dev)
+    lib = _library()
+    partials = torch.empty(-(-g.numel() // lib.tile), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = _library().sq_norm(g.data_ptr(), DTYPES[g.dtype], g.numel(),
-                                partials.data_ptr(), stream(dev))
+        rc = lib.sq_norm(g.data_ptr(), DTYPES[g.dtype], g.numel(), partials.data_ptr(),
+                         stream(dev))
     check_launch("sq_norm", rc)
     launches["sq_norm"] += 1
     return torch.sum(partials)
+
+
+def sq_norm_tile() -> int:
+    """Elements a tile of the sq_norm kernel's sweep."""
+    return _library().tile
 
 
 def sam_perturb(w: torch.Tensor, g: torch.Tensor, rho, sq_norm, *,

@@ -191,6 +191,32 @@ def test_reduction_kernels_match_plain(dev, n, dtype, offset):
         assert abs(float(g) - float(e)) <= 2e-5 * max(abs(float(e)), scale)
 
 
+# sq_norm sweeps 4,096-element tiles, a CTA each: sizes at a tile's edges,
+# several tiles and a ragged end, olmo-1b-reduced's bucket (98,304), and
+# more tiles than the card holds CTAs at once (1,100)
+SQ_TILE = 4096
+SQ_NORM_SIZES = [1, SQ_TILE - 1, SQ_TILE, SQ_TILE + 1, 5 * SQ_TILE + 3, 98_304,
+                 1100 * SQ_TILE + 5]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", SQ_NORM_SIZES)
+def test_sq_norm_sweep_matches_plain_and_reruns_bitwise(dev, n, dtype, offset):
+    """sq_norm at its sweep's edges, fp32 and bf16, aligned and from a view
+    starting at element 1 (the element-by-element path): within 2e-5 of its
+    plain version, and a rerun gives the same bits."""
+    from repro_torch.kernels import sam_perturb as sp
+    assert sp.sq_norm_tile() == SQ_TILE
+    g = _flat(dev, n, dtype, 2, offset=offset)
+    before = sp.launches["sq_norm"]
+    got = sp.sq_norm(g)
+    assert sp.launches["sq_norm"] == before + 1
+    assert got.shape == () and got.dtype == torch.float32
+    assert _rel(got, ref.sq_norm_plain(g)) <= 2e-5
+    assert torch.equal(sp.sq_norm(g), got)
+
+
 # fused_axpy sweeps 1,024-element tiles, four elements a thread: sizes at a
 # tile's edges and with a ragged vector at the end
 SWEEP_SIZES = [1023, 1024, 1025, 4 * 1024 + 3]
@@ -564,7 +590,9 @@ def _rel_max(got, want) -> float:
 # (B, S, H, K, V, dtype, init_state): the model's head (K = V = 64) in bf16,
 # a decode step (S = 1 from a state), ragged S, the reduced config's K = V =
 # 16 in fp32, K != V, widths that are not 16, 32 or 64, and K = V = 32 (the
-# backward's 128-thread layout) at S = 1 and at one step past a staged chunk
+# backward's 128-thread layout) at S = 1 and at one step past a staged chunk;
+# then S shorter than the forward's staged chunk (16 steps) and S two chunks
+# and 5 steps, at K = V = 64
 WKV_CASES = [
     (2, 64, 4, 64, 64, torch.bfloat16, False),
     (3, 1, 4, 64, 64, torch.bfloat16, True),
@@ -575,6 +603,8 @@ WKV_CASES = [
     (2, 1, 4, 32, 32, torch.bfloat16, True),
     (2, 33, 4, 32, 32, torch.bfloat16, True),
     (2, 33, 3, 32, 32, torch.float32, False),
+    (2, 5, 3, 64, 64, torch.bfloat16, True),
+    (2, 37, 2, 64, 64, torch.float32, False),
 ]
 # fp32 outputs (y in fp32, the state, dw, du, d init_state) within 1e-5 (y,
 # state) and 1e-4 (gradients) of their max: the sums' order differs; bf16
@@ -598,6 +628,16 @@ def test_rwkv6_forward_kernel_matches_plain(dev, b, s, h, dk, dv, dtype, init):
         assert _rel_max(y, y_p) <= WKV_FP32_TOL
     else:
         torch.testing.assert_close(y.float(), y_p.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,dtype,init", WKV_CASES)
+def test_rwkv6_forward_reruns_bitwise(dev, b, s, h, dk, dv, dtype, init):
+    """The forward's sums run in a fixed order: a rerun gives the same bits."""
+    from repro_torch.kernels import rwkv6_scan as r6
+    ins = _wkv_inputs(dev, b, s, h, dk, dv, dtype, init)
+    y, state = r6.rwkv6_scan(*ins)
+    y2, state2 = r6.rwkv6_scan(*ins)
+    assert torch.equal(y, y2) and torch.equal(state, state2)
 
 
 @pytest.mark.parametrize("cotangents", ["both", "dy", "d_state"])

@@ -83,6 +83,56 @@ def test_sq_norm_plain_matches_pallas_and_oracle(n, dtype):
     _close(got, _pallas_sq_norm(jg), jref.sq_norm_jnp(jg), tol=dict(rtol=2e-5, atol=0))
 
 
+# sq_norm's CUDA sweep (csrc/sam_perturb.cu, flat_buffer.cuh): one CTA of 256
+# threads per 4,096-element tile; a thread's vector q of a tile is elements
+# (q 256 + t) 4 .. + 3
+SQ_TILE, SQ_THREADS = 4096, 256
+SQ_SIZES = [1, SQ_TILE - 1, SQ_TILE, SQ_TILE + 1, 5 * SQ_TILE + 3, 98_304, 1100 * SQ_TILE + 5]
+
+
+def _tree(a):
+    """The block sum's shuffle-down tree over the last axis (32 lanes)."""
+    for half in (16, 8, 4, 2, 1):
+        a = a[..., :half] + a[..., half:2 * half]
+    return a[..., 0]
+
+
+def _sq_norm_sweep(x, dtype):
+    """sq_norm's CUDA partition in numpy at `dtype`: per tile, four sums a
+    thread (one per vector slot, each vector's 4 elements in order), the
+    block sum (warp trees, then warp 0's tree over the 8 warp sums) into the
+    tile's partial; then the partials' sum (the wrapper's torch.sum; here
+    numpy's). Elements past n add nothing, as the kernel skips them."""
+    tiles = -(-x.size // SQ_TILE)
+    xp = np.zeros(tiles * SQ_TILE, dtype)
+    xp[:x.size] = x
+    vec = xp.reshape(tiles, 4, SQ_THREADS, 4)                     # [tile, q, t, j]
+    acc = np.zeros((tiles, 4, SQ_THREADS), dtype)
+    for j in range(4):
+        acc = acc + vec[..., j] * vec[..., j]
+    thread = (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])   # (tiles, 256)
+    warps = _tree(thread.reshape(tiles, 8, 32))
+    partials = _tree(np.concatenate([warps, np.zeros((tiles, 24), dtype)], -1))
+    return np.sum(partials, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", SQ_SIZES)
+def test_sq_norm_sweep_matches_pallas_and_oracle(n, dtype):
+    """The CUDA kernel's partition and order, rendered by _sq_norm_sweep: in
+    float64 within 1e-12 of the sum in float64; in fp32 within the
+    reference's 2e-5 of its Pallas kernel (interpret mode) and its jnp
+    oracle, as the plain version is held."""
+    jg, tg = _vec(n, dtype, 3)
+    x = tg.float().numpy()
+    exact = float(np.sum(x.astype(np.float64) ** 2))
+    got64 = _sq_norm_sweep(x.astype(np.float64), np.float64)
+    assert abs(got64 - exact) <= 1e-12 * exact
+    got = _sq_norm_sweep(x, np.float32)
+    assert got.dtype == np.float32
+    _close(got, _pallas_sq_norm(jg), jref.sq_norm_jnp(jg), tol=dict(rtol=2e-5, atol=0))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", SIZES)
 def test_axpy_plain_matches_pallas_and_oracle(n, dtype):

@@ -310,6 +310,94 @@ def test_one_carry_backward_matches_jax_grad(n, init, cotangents):
         assert _rel_max(g, e) <= 1e-4, (name, _rel_max(g, e))
 
 
+def _blocked_forward(r, k, v, w, u, s0, dtype):
+    """The CUDA forward's arithmetic in numpy at `dtype` (numpy arrays in; s0
+    may be None): K and V zero-padded to N (16, 32 or 64), the rows of S in
+    8 row groups (group g holds rows g + 8 m), each group's partial of y_t[j]
+    summed over its rows in order, the bonus folded in as v_t[j] times the
+    group's sum of r u k, the 8 partials added in the kernel's exchange
+    order ((g, g + 4), then (g, g + 2), then (g, g + 1)), then S updated as
+    exp(w) S + k v^T. Returns (y (B,S,H,V), final state (B,H,K,V))."""
+    b, s, h, dk = r.shape
+    dv = v.shape[-1]
+    n = next(x for x in (16, 32, 64) if max(dk, dv) <= x)
+
+    def pad(a, width, fill=0.0):
+        out = np.full(a.shape[:-1] + (width,), fill, dtype)
+        out[..., :a.shape[-1]] = a
+        return out
+
+    rp, kp, vp = pad(r, n), pad(k, n), pad(v, n)
+    ew = np.exp(pad(w, n, -np.inf))
+    up = pad(u, n)
+    st = np.zeros((b, h, n, n), dtype)
+    if s0 is not None:
+        st[:, :, :dk, :dv] = s0
+    ys = []
+    for t in range(s):
+        rt, kt, vt = rp[:, t], kp[:, t], vp[:, t]                 # (B, H, N)
+        ruk = rt * up * kt
+        rows = st.reshape(b, h, n // 8, 8, n)                      # [m][g] = row g + 8 m
+        part = np.zeros((b, h, 8, n), dtype)
+        bonus = np.zeros((b, h, 8), dtype)
+        for m in range(n // 8):
+            part = part + rt.reshape(b, h, n // 8, 8)[:, :, m, :, None] * rows[:, :, m]
+            bonus = bonus + ruk.reshape(b, h, n // 8, 8)[:, :, m]
+        part = part + vt[:, :, None, :] * bonus[..., None]
+        part = part[:, :, :4] + part[:, :, 4:]
+        part = part[:, :, :2] + part[:, :, 2:]
+        ys.append((part[:, :, 0] + part[:, :, 1])[..., :dv])
+        st = ew[:, t][..., None] * st + kt[..., None] * vt[..., None, :]
+    return np.stack(ys, 1), st[:, :, :dk, :dv]
+
+
+def _wkv_f64_forward(r, k, v, w, u, s0):
+    """The recurrence itself in float64: (y, final state)."""
+    r, k, v, w, u = (np.asarray(a, np.float64) for a in (r, k, v, w, u))
+    st = (np.zeros(r.shape[:1] + r.shape[2:] + v.shape[-1:]) if s0 is None
+          else np.asarray(s0, np.float64))
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(np.einsum("bhi,bhij->bhj", r[:, t], st + u[None, :, :, None] * kv))
+        st = np.exp(w[:, t])[..., None] * st + kv
+    return np.stack(ys, 1), st
+
+
+# (K, V, init_state): the reduced config's 16 and the model's 64 with and
+# without an initial state, and K != V (padded to 64)
+BLOCKED_CASES = [(16, 16, True), (16, 16, False), (64, 64, True), (64, 64, False),
+                 (24, 40, False)]
+
+
+@pytest.mark.parametrize("dk,dv,init", BLOCKED_CASES)
+def test_blocked_forward_matches_recurrence_oracle_and_pallas(dk, dv, init):
+    """The CUDA forward's blocked order (row-group partials, their fixed-order
+    sum, the bonus folded in), rendered by _blocked_forward at S = 33 (not a
+    multiple of the kernel's 16-step chunk) with a channel whose exp(w)
+    underflows to 0: in float64 within 1e-10 of the recurrence in float64;
+    in fp32 within 1e-5 of the max of the oracle `rwkv6_scan_ref` and of the
+    Pallas kernel in interpret mode (chunk 11; from a state the reference
+    itself takes its oracle)."""
+    b, s, h = 2, 33, 2
+    r, k, v, w, u = _wkv_inputs(b, s, h, dk, dv, seed=9)
+    w[..., 0] = -200.0
+    rng = np.random.default_rng(10)
+    s0 = rng.standard_normal((b, h, dk, dv)).astype(np.float32) if init else None
+    y64, st64 = _blocked_forward(r, k, v, w, u, s0, np.float64)
+    y_x, st_x = _wkv_f64_forward(r, k, v, w, u, s0)
+    assert _rel_max(y64, y_x) <= 1e-10 and _rel_max(st64, st_x) <= 1e-10
+    y32, st32 = _blocked_forward(r, k, v, w, u, s0, np.float32)
+    assert y32.dtype == st32.dtype == np.float32 and np.isfinite(y32).all()
+    jins = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    js0 = None if s0 is None else jnp.asarray(s0)
+    want = [jax.jit(jref.rwkv6_scan_ref)(*jins, init_state=js0),
+            rwkv6_chunked(*jins, chunk=11, init_state=js0, interpret=True)]
+    for y_e, st_e in want:
+        assert _rel_max(y32, y_e) <= 1e-5, _rel_max(y32, y_e)
+        assert _rel_max(st32, st_e) <= 1e-5, _rel_max(st32, st_e)
+
+
 def test_reference_cannot_differentiate_its_pallas_kernel():
     """The reference's fault: jax.grad through `rwkv6_chunked` (interpret
     mode, the path its TPU training would take) raises AssertionError on
