@@ -15,8 +15,10 @@
    elements a CTA and sq_norm to its sweep's 4,096 elements a tile and the
    same bits on a rerun; sq_norm and its library call also timed in turns,
    7 rounds each (medians, spread, which is faster beyond it);
-4. flash kernel phase: the same for the flash-attention forward (olmo-1b's
-   and zamba2's prefill shapes, GQA, MQA, ragged, windowed, non-causal,
+4. flash kernel phase: the same for the flash-attention forward (olmo-1b's,
+   zamba2's, gemma-2b's (8 heads of 256 on one kv head), qwen3-8b's (32/8
+   heads of 128) and qwen2.5-32b's (40/8) prefill shapes, GQA, MQA, ragged,
+   windowed, non-causal,
    MLA's hd 192 / hd_v 128, and the CUDA-core path's fp32, hd 40 and
    unaligned cases), each case also held to the kernel path it must take:
    wgmma (TMA + wgmma) for every shape of the model paths;
@@ -104,7 +106,31 @@
    against the scan in float64); the whole kernel path against the plain
    path at a small lr, 8 layers, batch 2 x 512, in fp32 and bf16 compute
    (bf16's moments held and controlled as rwkv6's);
-18. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+18. dense serve phases: gemma-2b and qwen3-8b at full depth, qwen2.5-32b at
+   the deepest cut whose fp32 weights leave 16 GiB of the card, each serving
+   8 x 1024 prompts + 32 greedy tokens through `launch.serve.serve` (fp32
+   weights from seed 0, bf16 compute): n_layers flash launches a prefill
+   (counts 0 just before, read just after); prefill + stepwise decode against
+   one forward and the kernel path against the plain path, both held to
+   twice bf16's own error on the model's weights (the plain path in bf16
+   against it in fp32), fp32 compute to 1e-4; the profile of 5; then a
+   control, the kernel path with its weights at 6 bits, must exceed that
+   limit;
+19. dense train phases: gemma-2b and qwen3-8b at full width and the deepest
+   depth whose step, extrapolated from one step at 1 and at 2 layers, leaves
+   10% of the card, train 6 AsyncSAM AdamW steps through `FusedExecutor` +
+   `Engine`: each epilogue kernel once a step, flash on every forward; one
+   step profiled; the lockstep check of one step at half that depth;
+20. variants phase: full-width, full-depth olmo-1b trains gsam (3 steps,
+   bucket-resident), looksam (k 2: fresh, reuse, fresh, reuse), esam (3),
+   aesam (10: 8 forced SAM steps, then its z decides) and mesa (4, the term
+   on from step 2) on per-leaf state, as the launcher builds them; every
+   step's launches of sq_norm, sam_perturb, fused_axpy, fused_dot_norms,
+   adamw_epilogue and flash held to its branch's; step time, peak memory,
+   the state each carries, one step profiled (its copies and host reads:
+   AE-SAM's z); every weight-space kernel call of one gsam step and of a
+   looksam fresh and reuse step against its plain version;
+21. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without CUDA, or
 without the repository beside it, it exits nonzero and prints no result.
@@ -178,6 +204,10 @@ FLASH_CASES = [
     # of the model paths, the run fails otherwise)
     ("olmo-1b prefill", (8, 1024, 1024, 16, 16, 128, 128), "bfloat16", True, None, 0, "wgmma"),
     ("zamba2 prefill", (8, 1024, 1024, 32, 32, 64, 64), "bfloat16", True, None, 0, "wgmma"),
+    ("gemma-2b prefill", (8, 1024, 1024, 8, 1, 256, 256), "bfloat16", True, None, 0, "wgmma"),
+    ("qwen3-8b prefill", (8, 1024, 1024, 32, 8, 128, 128), "bfloat16", True, None, 0, "wgmma"),
+    ("qwen2.5-32b prefill", (8, 1024, 1024, 40, 8, 128, 128), "bfloat16", True, None, 0,
+     "wgmma"),
     ("olmo-1b prefill, unaligned", (8, 1024, 1024, 16, 16, 128, 128), "bfloat16", True,
      None, 1, "cuda_cores"),
     ("GQA", (2, 256, 256, 8, 2, 64, 64), "bfloat16", True, None, 0, "wgmma"),
@@ -723,10 +753,13 @@ def flash_per_step(cfg) -> tuple[int, str]:
 
 
 def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
-                  method: str = "async_sam", batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
-    """olmo-1b (full width and depth unless `cfg`) from seed 0, AsyncSAM with
-    AdamW (what `python -m repro_torch.launch.train` builds) or with the
-    paper's sgd(momentum 0.9), on the card, and its pipeline."""
+                  method: str = "async_sam", batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                  mkw=None):
+    """olmo-1b (full width and depth unless `cfg`) from seed 0, AsyncSAM (or
+    `method`, with the MethodConfig fields `mkw`) with AdamW (what `python -m
+    repro_torch.launch.train` builds) or with the paper's sgd(momentum 0.9),
+    on the card, and its pipeline (an ascent sub-batch for async_sam only, as
+    the launcher's)."""
     from repro_torch.configs import get_config
     from repro_torch.core import MethodConfig
     from repro_torch.data import PipelineConfig, TokenPipeline
@@ -741,12 +774,13 @@ def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
     else:
         opt = sgd(cosine_schedule(lr, steps), momentum=SGD_MOMENTUM)
     ex = FusedExecutor(bundle.loss_fn,
-                       MethodConfig(name=method, rho=RHO, ascent_fraction=ASCENT_FRACTION),
+                       MethodConfig(name=method, rho=RHO, ascent_fraction=ASCENT_FRACTION,
+                                    **(mkw or {})),
                        opt)
     state = ex.init_state(bundle.init(seed=0, device="cuda"), seed=1)
-    pipe = TokenPipeline(cfg, PipelineConfig(global_batch=batch, seq_len=seq,
-                                             seed=0, ascent_fraction=ASCENT_FRACTION),
-                         device="cuda")
+    pipe = TokenPipeline(cfg, PipelineConfig(
+        global_batch=batch, seq_len=seq, seed=0,
+        ascent_fraction=ASCENT_FRACTION if method == "async_sam" else 0.0), device="cuda")
     return cfg, ex, state, pipe
 
 
@@ -890,16 +924,20 @@ def compare_runs(ref_run, run, w0) -> dict:
     return out
 
 
-def lockstep_check(family: str = "adamw") -> dict:
-    """3 steps at the train phase's lr through the kernels, each epilogue
-    kernel call held against its plain version on the same inputs (see
-    LOCKSTEP_REL_TOL). Returns {kernel: {calls, launches, max_rel_err}}."""
+def lockstep_check(family: str = "adamw", names=None, steps: int = TRAIN_CHECK_STEPS,
+                   **trainer) -> dict:
+    """`steps` steps at the train phase's lr through the kernels (olmo-1b's
+    AsyncSAM unless `trainer` names another cfg, method or its fields for
+    `build_trainer`), each call of the weight-space kernels `names` (the
+    family's epilogue kernels by default) held against its plain version on
+    the same inputs (see LOCKSTEP_REL_TOL). Returns {kernel: {calls,
+    launches, max_rel_err}}."""
     import torch
     from repro_torch.engine import Engine
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.train import kernel_launches
 
-    names = PATH_KERNELS[family]
+    names = names or PATH_KERNELS[family]
     kernel = {name: getattr(ops, name) for name in names}
     worst = {name: {"calls": 0, "max_rel_err": 0.0} for name in names}
 
@@ -937,6 +975,15 @@ def lockstep_check(family: str = "adamw") -> dict:
         note("fused_axpy", chunked(y.numel(), part))
         return got
 
+    def sam_perturb(w, g, rho, sq, **kw):
+        got = kernel["sam_perturb"](w, g, rho, sq, **kw)
+
+        def part(sl):
+            want = ref.sam_perturb_flat_plain(w[sl], g[sl], rho, sq)
+            return [(amax(got[sl].float() - want.float()), amax(want.float() - w[sl].float()))]
+        note("sam_perturb", chunked(w.numel(), part))
+        return got
+
     def fused_dot_norms(a, b, **kw):
         got = kernel["fused_dot_norms"](a, b, **kw)
         want = ref.dot_norms_flat_plain(a, b)
@@ -972,15 +1019,16 @@ def lockstep_check(family: str = "adamw") -> dict:
         del w0_, m0
         return got
 
-    shadows = dict(sq_norm=sq_norm, fused_axpy=fused_axpy, fused_dot_norms=fused_dot_norms,
-                   adamw_epilogue=adamw_epilogue, sgd_epilogue=sgd_epilogue)
-    cfg, ex, state, pipe = build_trainer(TRAIN_CHECK_STEPS,
-                                         LR if family == "adamw" else SGD_LR, family)
+    shadows = dict(sq_norm=sq_norm, sam_perturb=sam_perturb, fused_axpy=fused_axpy,
+                   fused_dot_norms=fused_dot_norms, adamw_epilogue=adamw_epilogue,
+                   sgd_epilogue=sgd_epilogue)
+    cfg, ex, state, pipe = build_trainer(steps, LR if family == "adamw" else SGD_LR, family,
+                                         **trainer)
     before = kernel_launches()
     for name in names:
         setattr(ops, name, shadows[name])
     try:
-        Engine(ex, pipe).fit(state, TRAIN_CHECK_STEPS)
+        Engine(ex, pipe).fit(state, steps)
     finally:
         for name, fn in kernel.items():
             setattr(ops, name, fn)
@@ -2402,6 +2450,419 @@ def zamba_train_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the other dense configs (gemma-2b, qwen3-8b, qwen2.5-32b) and the method
+# variants (gsam, looksam, esam, aesam, mesa)
+# ---------------------------------------------------------------------------
+
+DENSE_SERVE_ARCHS = ("gemma-2b", "qwen3-8b", "qwen2.5-32b")
+DENSE_TRAIN_ARCHS = ("gemma-2b", "qwen3-8b")
+# Serving keeps the fp32 weights and casts a layer's at use. Beside them the
+# phase needs one full forward's logits (8 x 1056 x vocab in bf16, 2.6-4.3 GB),
+# the fp32-compute prefills' activations and the plain attention's fp32
+# scores: a config deeper than its fp32 weights plus this much is cut.
+SERVE_HEADROOM_GIB = 16
+# Training takes the deepest cut whose peak, extrapolated from one step at 1
+# and at 2 layers, leaves this share of the card free.
+TRAIN_HEADROOM = 0.10
+# bf16 over 18-36 layers: each of these models' serving logits (prefill +
+# decode against one forward, the kernel path against the plain path) is held
+# to DENSE_BF16_MARGIN times bf16's own error on its weights (the plain path
+# in bf16 against it in fp32, max|d| / max|ref|), as the scan families'
+# moments are; the control, the kernel path with its weights at
+# DENSE_COARSE_BITS significant bits, must exceed that limit. On the H100
+# bf16's own error is 3.4e-2 (gemma-2b) to 5.7e-2 (qwen3-8b) and the kernel
+# path 0.78-0.90 of it; weights at 6 bits gave 2.0-2.4 times it, qwen3-8b's
+# 1.119e-1 against its limit of 1.132e-1, so the control takes 5 bits.
+DENSE_BF16_MARGIN, DENSE_COARSE_BITS = 2.0, 5
+
+
+def param_count(cfg, layers: int) -> int:
+    from repro_torch.models import analytic_param_count
+    return analytic_param_count(dataclasses.replace(cfg, n_layers=layers))
+
+
+def serve_depth(cfg) -> int:
+    """The deepest cut of `cfg` (all of it if it fits) whose fp32 weights
+    leave SERVE_HEADROOM_GIB of the card."""
+    import torch
+    budget = torch.cuda.get_device_properties(0).total_memory - SERVE_HEADROOM_GIB * 2**30
+    one, two = param_count(cfg, 1), param_count(cfg, 2)
+    return max(1, min(cfg.n_layers, 1 + int((budget / 4 - one) // (two - one))))
+
+
+def dense_serve_phase(arch: str) -> dict:
+    """Serve `arch` (full width; full depth, or the deepest cut that fits)
+    through the kernels: the launch count, prefill + decode against one
+    forward, the kernel path against the plain path in bf16 and in fp32
+    compute, the profile, then the coarse-weights control."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenTask
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model, transformer
+
+    t_phase = time.perf_counter()
+    n_req, prompt_len, max_new = 8, 1024, 32
+    full_cfg = get_config(arch)
+    cfg = dataclasses.replace(full_cfg, n_layers=serve_depth(full_cfg))
+    cut = ("full depth" if cfg.n_layers == full_cfg.n_layers else
+           f"depth cut to {cfg.n_layers} of {full_cfg.n_layers} layers (fp32 weights + "
+           f"{SERVE_HEADROOM_GIB} GiB of the card)")
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{arch} serve: init on the card {time.perf_counter() - t0:.3f}s, {n_params} params "
+          f"({cfg.param_dtype}, {4 * n_params / 2**30:.2f} GiB; full depth "
+          f"{param_count(full_cfg, full_cfg.n_layers)}), {cut}, compute {cfg.compute_dtype}")
+    prompts = TokenTask(cfg.vocab_size, seed=0).sample(n_req, prompt_len)
+    serve(cfg, model, prompts, 2)                         # warm-up, not counted
+
+    reset_launches()                                      # counts: 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(cfg, model, prompts, max_new)
+    launches = {"flash_attention": fa.launches}           # read just after
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch} serve: prefill {n_req}x{prompt_len} in {res.prefill_s:.4f}s "
+          f"({res.prefill_tok_s:.1f} tok/s); decode {max_new - 1} steps in {res.decode_s:.4f}s "
+          f"({res.decode_tok_s:.1f} tok/s); peak {peak_gib:.2f} GiB; launches {launches}")
+    if launches["flash_attention"] != cfg.n_layers:
+        fail(f"{arch}: flash_attention launched {launches['flash_attention']} times in one "
+             f"prefill, expected n_layers={cfg.n_layers}")
+    if res.tokens.shape != (n_req, max_new) or res.logits.shape != (n_req, max_new,
+                                                                     cfg.vocab_size):
+        fail(f"{arch}: unexpected output shapes {tuple(res.tokens.shape)} "
+             f"{tuple(res.logits.shape)}")
+    if not bool(torch.isfinite(res.logits).all()):
+        fail(f"{arch}: non-finite logits")
+
+    full_tokens = torch.cat([torch.as_tensor(prompts, device="cuda").long(),
+                             res.tokens[:, :-1]], dim=1)
+    with torch.inference_mode():
+        fwd, _ = transformer.forward(model, {"tokens": full_tokens}, cfg)
+    err_fwd = rel_err(res.logits, fwd[:, prompt_len - 1:])
+    del fwd
+    tokens = torch.as_tensor(prompts, device="cuda")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+
+    def prefill_logits(c, impl):
+        ops.set_default_impl(impl)
+        try:
+            with torch.inference_mode():
+                return transformer.prefill(model, {"tokens": tokens}, c)[0][:, -1]
+        finally:
+            ops.set_default_impl(None)
+
+    plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
+    kernel32 = prefill_logits(cfg32, "kernel")
+    err_plain = rel_err(res.logits[:, 0], plain16)
+    err_fp32 = rel_err(kernel32, plain32)
+    own = rel_err(plain16, plain32)
+    limit = DENSE_BF16_MARGIN * own
+    profile_phase(model)
+    with torch.no_grad():                                 # the control, last: it spoils
+        for p in model.parameters():                      # the weights
+            coarsen_(p.data, DENSE_COARSE_BITS)
+    err_coarse = rel_err(prefill_logits(cfg, "kernel"), plain16)
+    print(f"{arch} serve check (max|d|/max|ref|): prefill+decode vs forward {err_fwd:.3e}; "
+          f"kernel vs plain prefill {err_plain:.3e}; both held to {DENSE_BF16_MARGIN} x bf16's "
+          f"own error (bf16 plain vs fp32 plain {own:.3e}) = {limit:.3e}; fp32 compute kernel "
+          f"vs plain {err_fp32:.3e} (tolerance {MODEL_FP32_REL_TOL}); control, weights at "
+          f"{DENSE_COARSE_BITS} bits vs plain {err_coarse:.3e} (must exceed the limit)")
+    if not (err_fwd <= limit and err_plain <= limit and err_fp32 <= MODEL_FP32_REL_TOL):
+        fail(f"{arch} serving logits disagree")
+    if err_coarse <= limit:
+        fail(f"{arch} serve check: the coarse-weights control meets the limit")
+    out = dict(arch=arch, layers=cfg.n_layers, full_layers=full_cfg.n_layers, params=n_params,
+               launches=launches, prefill_s=res.prefill_s, decode_s=res.decode_s,
+               prefill_tok_s=res.prefill_tok_s, decode_tok_s=res.decode_tok_s,
+               peak_gib=peak_gib, err_forward=err_fwd, err_plain=err_plain, err_fp32=err_fp32,
+               bf16_own=own, limit=limit, err_coarse=err_coarse)
+    del model, plain16, plain32, kernel32, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def probe_peak(cfg, layers: int) -> int:
+    """Peak device bytes of one AsyncSAM AdamW step of `cfg` cut to `layers`
+    layers at the train phase's batch, its state included."""
+    import gc
+    import torch
+    _, ex, state, pipe = build_trainer(1, LR, cfg=dataclasses.replace(cfg, n_layers=layers))
+    batch = pipe.peek()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ex.step(state, batch)
+    peak = torch.cuda.max_memory_allocated()
+    del ex, state, pipe, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def train_depth(cfg) -> tuple[int, dict]:
+    """The deepest cut of `cfg` whose step's peak, extrapolated linearly in
+    the depth from probes at 1 and 2 layers, leaves TRAIN_HEADROOM of the
+    card. Returns (layers, the probes)."""
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    p1, p2 = probe_peak(cfg, 1), probe_peak(cfg, 2)
+    layers = 1 + int(((1 - TRAIN_HEADROOM) * total - p1) // (p2 - p1))
+    layers = max(1, min(cfg.n_layers, layers))
+    return layers, dict(peak_1_layer_gib=p1 / 2**30, peak_2_layers_gib=p2 / 2**30,
+                        card_gib=total / 2**30, predicted_peak_gib=(p1 + (layers - 1)
+                                                                    * (p2 - p1)) / 2**30)
+
+
+def dense_train_phase(arch: str) -> dict:
+    """Train `arch` at full width and the deepest depth that fits, 6
+    AsyncSAM AdamW steps through FusedExecutor + Engine: the launch counts,
+    the profile of one step, then the lockstep check of one step at half
+    that depth (room for the check's copies of w, mu and nu)."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Engine, ThroughputMeter
+    from repro_torch.launch.train import kernel_launches
+
+    t_phase = time.perf_counter()
+    full_cfg = get_config(arch)
+    layers, probes = train_depth(full_cfg)
+    cfg = dataclasses.replace(full_cfg, n_layers=layers)
+    _, ex, state, pipe = build_trainer(TRAIN_STEPS, LR, cfg=cfg)
+    n_params = sum(b.numel() for b in state.params.buffers)
+    print(f"{arch} train: full width, depth cut to {layers} of {full_cfg.n_layers} layers "
+          f"(probes {json.dumps(probes)}; headroom {TRAIN_HEADROOM}), {n_params} params, "
+          f"compute {cfg.compute_dtype}, remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"b' = {max(1, round(TRAIN_BATCH * ASCENT_FRACTION))}; adamw, lr {LR}")
+    meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
+    reset_launches()                                   # counts: 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
+    launches = kernel_launches()                       # read just after
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    hist = report.metrics_history
+    for i, m in enumerate(hist):
+        print(f"{arch} train step {i}: {json.dumps(m)} ({meter.step_times[i]:.4f} s)")
+    flash_n, how = flash_per_step(cfg)
+    want = {"flash_attention": flash_n * TRAIN_STEPS,
+            **{k: TRAIN_STEPS for k in PATH_KERNELS["adamw"]}}
+    print(f"{arch} train launches over {TRAIN_STEPS} steps: {launches}; flash per step: {how}")
+    if launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"{arch} train: launches {launches}, expected {want} and no other kernel")
+    if report.steps_done != TRAIN_STEPS or not all(
+            math.isfinite(v) for m in hist for v in m.values()):
+        fail(f"{arch} train: training did not finish with finite metrics: {hist}")
+    if [m["perturbed"] for m in hist] != [0.0] + [1.0] * (TRAIN_STEPS - 1):
+        fail(f"{arch} train: perturbed should be 0 then 1: {[m['perturbed'] for m in hist]}")
+    step_s = statistics.median(meter.step_times[2:])
+    out = dict(arch=arch, layers=layers, full_layers=full_cfg.n_layers, params=n_params,
+               probes=probes, steps=TRAIN_STEPS, step_times_s=meter.step_times,
+               median_step_s=step_s, descent_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+               peak_gib=peak_gib, launches=launches, flash_per_step=flash_n,
+               loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"])
+    print(f"{arch} train: median step (steps 2-{TRAIN_STEPS - 1}) {step_s:.4f} s, "
+          f"{out['descent_tokens_per_s']:.1f} descent tok/s, peak {peak_gib:.2f} GiB "
+          f"(predicted {probes['predicted_peak_gib']:.2f})")
+    final = report.final_state
+    out["profile"] = train_profile(ex, final, pipe, tag=f"{arch} adamw")
+    del ex, state, pipe, report, final
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check_layers = max(1, layers // 2)
+    lock = lockstep_check(steps=1, cfg=dataclasses.replace(cfg, n_layers=check_layers))
+    print(f"{arch} train check, lockstep (one step at {check_layers} layers, lr {LR}; each "
+          f"epilogue kernel call vs its plain version on the same inputs): {json.dumps(lock)}; "
+          f"tolerance rel {LOCKSTEP_REL_TOL}, one call and one launch each")
+    if not all(r["calls"] == r["launches"] == 1 and r["max_rel_err"] <= LOCKSTEP_REL_TOL
+               for r in lock.values()):
+        fail(f"an epilogue kernel on the {arch} training path disagrees with its plain version")
+    out.update(lockstep=lock, lockstep_layers=check_layers,
+               phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+# Full-width, full-depth olmo-1b trains each variant through FusedExecutor +
+# Engine as the launcher builds it (AdamW at lr 3e-3, rho 0.05, batch 8 x
+# 1024), for enough steps to show its branches: LookSAM (k 2) fresh, reuse,
+# fresh, reuse; AE-SAM past its 8 forced SAM steps; MESA's term on from step 2.
+VARIANT_STEPS = {"gsam": 3, "looksam": 4, "esam": 3, "aesam": 10, "mesa": 4}
+VARIANT_MKW = {"looksam": {"looksam_k": 2}, "mesa": {"mesa_start_step": 2}}
+WEIGHT_KERNELS = ("sq_norm", "sam_perturb", "fused_axpy", "fused_dot_norms", "adamw_epilogue")
+# the methods whose every weight-space kernel call is held to its plain
+# version, and over how many steps (LookSAM's: a fresh and a reuse step)
+VARIANT_LOCKSTEP = {"gsam": 1, "looksam": 2}
+
+
+def variant_per_step(method: str, m: dict, cfg) -> dict:
+    """The launches one step of `method` makes on one fp32 bucket, by the
+    branch its metrics `m` report: a SAM-like step takes two gradient
+    passes, LookSAM's reuse and AE-SAM's SGD step one, MESA one and a forward
+    at the EMA under no_grad (no remat rerun)."""
+    fwd = 1 if cfg.remat == "none" else 2
+    sam_like = {"gsam": True, "esam": True, "looksam": m.get("fresh") == 1.0,
+                "aesam": m.get("sam_step") == 1.0, "mesa": False}[method]
+    out = dict.fromkeys(WEIGHT_KERNELS, 0)
+    out["adamw_epilogue"] = 1
+    out["sq_norm"] = 2 if (sam_like or method == "aesam") else 1
+    out["sam_perturb"] = 1 if sam_like else 0
+    if method == "looksam":
+        out["fused_axpy"] = out["fused_dot_norms"] = 1
+    passes = 2 if sam_like else 1
+    out["flash_attention"] = passes * fwd * cfg.n_layers + (cfg.n_layers if method == "mesa"
+                                                            else 0)
+    return out
+
+
+def carried_bytes(tree) -> int:
+    """Device bytes of the tensors in a method's state."""
+    from repro_torch.utils import buckets
+    if buckets.is_bucketed(tree):
+        return sum(b.numel() * b.element_size() for b in tree.buffers)
+    if hasattr(tree, "numel") and hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(carried_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(carried_bytes(v) for v in tree)
+    return 0
+
+
+def esam_mask_check(beta: float) -> dict:
+    """ESAM's mask drawn over olmo-1b's parameter bucket on the card: one
+    byte an element, density beta within 5 binomial standard deviations."""
+    import torch
+    from repro_torch.core.variants import esam_mask
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mask = esam_mask({"w": torch.empty(1, device="cuda").expand(OLMO_1B_BUCKET)}, beta,
+                     torch.Generator(device="cuda").manual_seed(0))["w"]
+    mask_bytes = torch.cuda.memory_allocated() - before
+    density = float(mask.sum(dtype=torch.int64)) / OLMO_1B_BUCKET
+    sigma = math.sqrt(beta * (1 - beta) / OLMO_1B_BUCKET)
+    out = dict(elements=OLMO_1B_BUCKET, bytes=mask_bytes, density=density, beta=beta,
+               sigmas=(density - beta) / sigma)
+    print(f"variant esam mask at olmo-1b's bucket: {json.dumps(out)}")
+    del mask
+    if mask_bytes > OLMO_1B_BUCKET + 2**21 or abs(density - beta) > 5 * sigma:
+        fail(f"esam mask: {out}; expected one byte an element and density {beta} within "
+             f"5 sigma")
+    return out
+
+
+def variants_phase() -> dict:
+    """Each variant at full-width, full-depth olmo-1b: its launches every
+    step against its branch, finite metrics and its branches' own checks,
+    step time, peak memory and the state it carries, one profiled step; then
+    every weight-space kernel call of gsam's and looksam's steps against
+    its plain version."""
+    import gc
+    import statistics
+    import torch
+    from repro_torch.engine import Callback, Engine, ThroughputMeter
+    from repro_torch.launch.train import kernel_launches
+
+    class StepLaunches(Callback):
+        """Each step's launches: the counts' difference across the step."""
+
+        def __init__(self):
+            self.last, self.rows = kernel_launches(), []
+
+        def on_step(self, engine, state, metrics, step_time_s):
+            now = kernel_launches()
+            self.rows.append({k: now[k] - self.last[k] for k in now})
+            self.last = now
+
+    t_phase = time.perf_counter()
+    out = {}
+    for method, steps in VARIANT_STEPS.items():
+        t0 = time.perf_counter()
+        mkw = VARIANT_MKW.get(method, {})
+        cfg, ex, state, pipe = build_trainer(steps, LR, method=method, mkw=mkw)
+        reset_launches()                               # counts: 0 just before
+        meter, per_step = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ), StepLaunches()
+        torch.cuda.reset_peak_memory_stats()
+        report = Engine(ex, pipe, [meter, per_step]).fit(state, steps)
+        launches = kernel_launches()                   # read just after
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        hist = report.metrics_history
+        final = report.final_state
+        row = dict(resident=ex.resident, steps=steps, mkw=mkw, launches=launches,
+                   per_step=per_step.rows, step_times_s=meter.step_times,
+                   median_step_s=statistics.median(meter.step_times[1:]), peak_gib=peak_gib,
+                   carried_bytes=carried_bytes(final.method_state),
+                   loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"])
+        for i, (m, got) in enumerate(zip(hist, per_step.rows)):
+            want = variant_per_step(method, m, cfg)
+            print(f"variant {method} step {i}: {json.dumps(m)} ({meter.step_times[i]:.4f} s); "
+                  f"launches {json.dumps({k: got[k] for k in want})}")
+            if {k: got[k] for k in got if got[k] or k in want} != want:
+                fail(f"variant {method} step {i}: launches {got}, expected {want}")
+        if report.steps_done != steps or not all(
+                math.isfinite(v) for m in hist for v in m.values()):
+            fail(f"variant {method}: training did not finish with finite metrics: {hist}")
+        if ex.resident != (method == "gsam"):
+            fail(f"variant {method}: resident {ex.resident}; gsam alone is resident")
+        if method == "looksam" and [m["fresh"] for m in hist] != [1.0, 0.0] * (steps // 2):
+            fail(f"looksam (k 2): fresh {[m['fresh'] for m in hist]}, expected 1, 0, 1, 0")
+        if method == "aesam":
+            mcfg = ex.method.cfg
+            mean, var, zs = 0.0, 1.0, []          # z as the step computes it, from gnorm_sq
+            for m in hist:
+                zs.append((m["gnorm_sq"] - mean) / (math.sqrt(var) + 1e-12))
+                mean, var = (mcfg.aesam_ema * mean + (1 - mcfg.aesam_ema) * m["gnorm_sq"],
+                             mcfg.aesam_ema * var
+                             + (1 - mcfg.aesam_ema) * (m["gnorm_sq"] - mean) ** 2)
+            row["z"], row["sam_step"] = zs, [m["sam_step"] for m in hist]
+            print(f"variant aesam: sam_step {row['sam_step']}; z {zs}; lambda_hi "
+                  f"{mcfg.aesam_lambda_hi}")
+            want = [1.0 if (i < 8 or z > mcfg.aesam_lambda_hi) else 0.0
+                    for i, z in enumerate(zs)]
+            if row["sam_step"] != want:
+                fail(f"aesam: sam_step {row['sam_step']}, expected {want} from z")
+        if method == "esam":
+            row["mask"] = esam_mask_check(ex.method.cfg.esam_beta)
+        if method == "mesa":
+            mcfg = ex.method.cfg
+            if not all(m["mesa_kl"] > 0 for m in hist[mcfg.mesa_start_step:]):
+                fail(f"mesa: mesa_kl {[m['mesa_kl'] for m in hist]} not > 0 once active")
+            if not all(m["loss"] > m["ce"] for m in hist[mcfg.mesa_start_step:]):
+                fail("mesa: the distillation term is not in the loss once active")
+        row["profile"] = train_profile(ex, final, pipe, tag=f"variant {method}")
+        print(f"variant {method}: resident {ex.resident}; median step {row['median_step_s']:.4f} s "
+              f"(steps 1-{steps - 1}), peak {peak_gib:.2f} GiB, carried state "
+              f"{row['carried_bytes']} bytes; in the profiled step copy kernels "
+              f"{row['profile']['copy_us']:.1f} us, memcpys {row['profile']['memcpy_us']:.1f} "
+              f"us, host reads {row['profile']['host_read_us']:.1f} us")
+        del ex, state, pipe, report, final
+        gc.collect()
+        torch.cuda.empty_cache()
+        if method in VARIANT_LOCKSTEP:
+            n = VARIANT_LOCKSTEP[method]
+            lock = lockstep_check(names=WEIGHT_KERNELS, steps=n, method=method, mkw=mkw)
+            print(f"variant {method} check, lockstep ({n} step(s), lr {LR}; every weight-space "
+                  f"kernel call vs its plain version on the same inputs): {json.dumps(lock)}; "
+                  f"tolerance rel {LOCKSTEP_REL_TOL}")
+            if not all(r["calls"] == r["launches"] and r["max_rel_err"] <= LOCKSTEP_REL_TOL
+                       for r in lock.values()):
+                fail(f"a weight-space kernel on the {method} path disagrees with its plain "
+                     f"version")
+            row["lockstep"] = lock
+        row["phase_s"] = time.perf_counter() - t0
+        print(f"variant {method} phase: {row['phase_s']:.2f}s")
+        out[method] = row
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def device_time_by_kernel(prof) -> dict:
     from torch.autograd import DeviceType
     by_name: dict[str, list] = {}
@@ -2413,9 +2874,13 @@ def device_time_by_kernel(prof) -> dict:
     return by_name
 
 
-def train_profile(ex, state, pipe, family: str = "adamw") -> dict:
-    """Device time by kernel over one training step, its busy share, and the
-    epilogue kernels' share."""
+def train_profile(ex, state, pipe, family: str = "adamw", tag: str = "") -> dict:
+    """Device time by kernel over one training step, its busy share, the
+    epilogue kernels' share, the device time of copy kernels (casts, and
+    copies between dtypes) and of device-to-device memcpys (a per-leaf
+    state's gathers into buckets and scatters back go there), and the host's
+    time in reads of a device value (`aten::_local_scalar_dense`, each
+    waiting for the device)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2428,21 +2893,28 @@ def train_profile(ex, state, pipe, family: str = "adamw") -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = device_time_by_kernel(prof)
     busy_us = sum(t for t, _ in by_name.values())
-    tags = {"sq_norm": "sq_norm_kernel", "fused_axpy": "axpy_kernel",
+    tags = {"sq_norm": "sq_norm_kernel", "sam_perturb": "perturb_kernel",
+            "fused_axpy": "axpy_kernel",
             "fused_dot_norms": "dot_norms_kernel", "adamw_epilogue": "adamw_epilogue_kernel",
             "sgd_epilogue": "sgd_epilogue_kernel", "flash_attention": "fa_fwd_",
             "rwkv6_scan_fwd": "wkv_fwd_kernel", "rwkv6_scan_bwd": "wkv_bwd_kernel",
             "mamba2_scan_fwd": "ssd_fwd_", "mamba2_scan_bwd": "ssd_bwd_"}
     ours = {k: sum(t for n, (t, _) in by_name.items() if tag in n) for k, tag in tags.items()}
     epi_us = sum(ours[k] for k in PATH_KERNELS[family])
-    print(f"profile train {family} step: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us "
-          f"(busy {100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel names; epilogue "
-          f"kernels {epi_us:.1f} us = {100 * epi_us / wall_us:.2f}% of the step, "
-          f"{100 * epi_us / busy_us:.2f}% of device time; by kernel (us): "
+    memcpy_us = sum(t for n, (t, _) in by_name.items() if n.startswith("Memcpy"))
+    copy_us = sum(t for n, (t, _) in by_name.items() if "copy" in n.lower())
+    read_us = sum(e.cpu_time_total for e in prof.key_averages()
+                  if e.key == "aten::_local_scalar_dense")
+    print(f"profile train {tag or family} step: wall {wall_us:.1f} us, device kernels "
+          f"{busy_us:.1f} us (busy {100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel "
+          f"names; epilogue kernels {epi_us:.1f} us = {100 * epi_us / wall_us:.2f}% of the "
+          f"step, {100 * epi_us / busy_us:.2f}% of device time; copy kernels {copy_us:.1f} us, "
+          f"memcpys {memcpy_us:.1f} us; host reads {read_us:.1f} us; by kernel (us): "
           f"{json.dumps(ours)}")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t:12.1f} us {100 * t / busy_us:5.1f}%  {n:5d}x  {name[:110]}")
-    return dict(wall_us=wall_us, busy_us=busy_us, epilogue_us=epi_us, by_kernel_us=ours)
+    return dict(wall_us=wall_us, busy_us=busy_us, epilogue_us=epi_us, by_kernel_us=ours,
+                copy_us=copy_us, memcpy_us=memcpy_us, host_read_us=read_us)
 
 
 def main() -> int:
@@ -2539,13 +3011,31 @@ def main() -> int:
     print("zamba2 train " + json.dumps(zamba_trained))
     print(f"zamba2 train phase: {zamba_trained['phase_s']:.2f}s")
 
+    dense_served, dense_trained = {}, {}
+    for arch in DENSE_SERVE_ARCHS:
+        dense_served[arch] = dense_serve_phase(arch)
+        print(f"{arch} serve " + json.dumps(dense_served[arch]))
+        print(f"{arch} serve phase: {dense_served[arch]['phase_s']:.2f}s")
+    for arch in DENSE_TRAIN_ARCHS:
+        dense_trained[arch] = dense_train_phase(arch)
+        print(f"{arch} train " + json.dumps(dense_trained[arch]))
+        print(f"{arch} train phase: {dense_trained[arch]['phase_s']:.2f}s")
+    variants = variants_phase()
+    print("variants " + json.dumps(variants))
+    print(f"variants phase: {variants['phase_s']:.2f}s")
+    # the launches of these paths, each counted from 0 just before it
+    new_paths = ([r["launches"] for r in dense_served.values()]
+                 + [r["launches"] for r in dense_trained.values()]
+                 + [variants[m]["launches"] for m in VARIANT_STEPS])
+
     kernels = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:36",
                     launches=served["launches"]["flash_attention"]
                     + trained["launches"]["flash_attention"]
                     + zamba_served["launches"]["flash_attention"]
-                    + zamba_trained["launches"]["flash_attention"],
+                    + zamba_trained["launches"]["flash_attention"]
+                    + sum(p["flash_attention"] for p in new_paths),
                     max_abs_err=flash["max_abs_err"], ms=flash["ms"],
                     plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
                     bound_by=flash["bound_by"], library_ms=flash["library_ms"])]
@@ -2555,8 +3045,9 @@ def main() -> int:
                 "fused_dot_norms": ("fused_update.cu", "src/repro/kernels/fused_update.py:76"),
                 "adamw_epilogue": ("fused_update.cu", "src/repro/kernels/fused_update.py:239"),
                 "sgd_epilogue": ("fused_update.cu", "src/repro/kernels/fused_update.py:178")}
-    # each kernel's launches on the path that runs it: the AdamW train phase,
-    # the SGD train phase, the SAM path of the restart phase
+    # each kernel's launches on the paths that run it: the AdamW train phase,
+    # the SGD train phase, the SAM path of the restart phase, the remote
+    # phase (the delta kernels), the dense train phases and the variants
     path_launches = {**trained["launches"],
                      "sgd_epilogue": sgd_trained["launches"]["sgd_epilogue"],
                      "sam_perturb": restarted["sam_launches"]["sam_perturb"]}
@@ -2565,6 +3056,8 @@ def main() -> int:
         replaces[name] = ("fused_update.cu", where)
         epilogue[name] = delta[name]
         path_launches[name] = remote["launches"][name]
+    for name in path_launches:
+        path_launches[name] += sum(p.get(name, 0) for p in new_paths)
     for name, (src, where) in replaces.items():
         row = epilogue[name]
         kernels.append(dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",

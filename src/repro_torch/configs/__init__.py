@@ -1,6 +1,7 @@
 """Architecture config registry (counterpart of `repro.configs`).
 
-Lists only the archs the port supports; the others join as their model
+Lists the archs of the families the port supports (dense, rwkv6, zamba2), in
+the reference's order; the MoE, MLA, vision and audio archs join as their
 families are ported.
 """
 from __future__ import annotations
@@ -11,9 +12,12 @@ from repro_torch.models.config import ModelConfig
 
 # supported architecture ids -> module names
 _ARCH_MODULES = {
+    "zamba2-1.2b": "zamba2_1_2b",
+    "gemma-2b": "gemma_2b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "qwen3-8b": "qwen3_8b",
     "olmo-1b": "olmo_1b",
     "rwkv6-7b": "rwkv6_7b",
-    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

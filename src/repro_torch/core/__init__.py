@@ -1,9 +1,6 @@
 """repro_torch.core: AsyncSAM (Form A, and Form B's split ascent and descent
-functions) and the SGD / SAM baselines (counterpart of `repro.core`).
-
-The other methods of the reference's registry (gsam, looksam, esam, aesam,
-mesa) are not ported yet: `make_method` raises for them, naming their
-ROADMAP item.
+functions) and the SAM family it is compared against: SGD, SAM, GSAM,
+LookSAM, ESAM, AE-SAM and MESA (counterpart of `repro.core`).
 """
 from __future__ import annotations
 
@@ -31,15 +28,25 @@ from repro_torch.core.async_sam import (  # noqa: F401
     make_async_sam,
     make_descent_fn,
 )
-from repro_torch.core.perturb import perturb, perturb_masked  # noqa: F401
-from repro_torch.core.sam import make_sam, make_sgd  # noqa: F401
+from repro_torch.core.perturb import perturb, perturb_masked, perturbation_scale  # noqa: F401
+from repro_torch.core.sam import make_gsam, make_sam, make_sgd  # noqa: F401
+from repro_torch.core.variants import (  # noqa: F401
+    make_aesam,
+    make_esam,
+    make_looksam,
+    make_mesa,
+)
 
 _REGISTRY = {
     "sgd": make_sgd,
     "sam": make_sam,
+    "gsam": make_gsam,
     "async_sam": make_async_sam,
+    "looksam": make_looksam,
+    "esam": make_esam,
+    "aesam": make_aesam,
+    "mesa": make_mesa,
 }
-_NOT_PORTED = ("gsam", "looksam", "esam", "aesam", "mesa")
 
 
 def available_methods() -> list[str]:
@@ -48,9 +55,6 @@ def available_methods() -> list[str]:
 
 def make_method(cfg: MethodConfig) -> Method:
     """Instantiate a training method from its config (name-dispatched)."""
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(f"method {cfg.name!r} is not ported yet: method "
-                                  f"variants, ROADMAP.md queue 1")
     try:
         factory = _REGISTRY[cfg.name]
     except KeyError:

@@ -61,30 +61,46 @@ class TrainState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class MethodConfig:
-    """One config object for the ported methods: the reference's fields that
-    sgd, sam and async_sam read, with the reference's defaults. The fields of
-    the methods not ported yet (gsam's alpha, looksam_k, esam_beta, aesam_*,
-    mesa_*) come with those methods.
+    """One config object for the whole family, with the reference's fields
+    and defaults; a method ignores the fields it does not read.
 
-    name: sgd | sam | async_sam (the others are not ported yet)
+    name: sgd | sam | async_sam | gsam | looksam | esam | aesam | mesa
     rho: perturbation radius r (paper Table A.2 uses 0.05~0.1).
     ascent_fraction: b'/b for AsyncSAM (paper: {25,50,75,100}%).
     same_batch_ascent: SAM convention: ascent uses the same minibatch as
         descent (Foret et al.); AsyncSAM uses *different* samples by design.
+    alpha: GSAM mixing coefficient (0.7~0.9); LookSAM's reuse weight.
+    looksam_k: LookSAM's gradient-ascent reuse interval (paper fixes 2).
+    esam_beta: fraction of parameters ESAM's SWP perturbs.
+    aesam_lambda_hi, aesam_ema: AE-SAM takes a SAM step when the z-score of
+        ||g||^2 against its EMA (decay aesam_ema) exceeds lambda_hi.
+    mesa_decay, mesa_lambda, mesa_temp, mesa_start_step: MESA's EMA decay,
+        the weight and temperature of its distillation term, and the step
+        from which the term is on.
     compressor, topk_fraction: ascent compression; only "none" is ported.
-    n_microbatches: gradient accumulation over equal chunks of the batch.
+    n_microbatches: gradient accumulation over equal chunks of the batch
+        (MESA takes one pass without it, as in the reference).
     ascent_interval: refresh a_t every k steps (beyond-paper; tau <= k).
     guard_update: the in-step numerics guard; not ported, raises.
-    fused_update: the flat-buffer fused path (perturb axpy, ascent-refresh
-        dot/norms) for per-leaf state; bucket-resident state always takes it.
-        None and True take it, False keeps per-leaf state on the reference's
-        per-leaf composition. Executors resolve and pin it; the matching
-        optimizer-epilogue switch is FusedSpec.enabled.
+    fused_update: the flat-buffer fused path (perturb, ascent-refresh
+        dot/norms, the optimizer epilogue) for per-leaf state; bucket-resident
+        state always takes it. None and True take it, False keeps per-leaf
+        state on the reference's per-leaf composition. Executors resolve and
+        pin it; the matching optimizer-epilogue switch is FusedSpec.enabled.
     """
     name: str = "async_sam"
     rho: float = 0.1
     ascent_fraction: float = 0.25
     same_batch_ascent: bool = True
+    alpha: float = 0.8
+    looksam_k: int = 2
+    esam_beta: float = 0.6
+    aesam_lambda_hi: float = 1.0
+    aesam_ema: float = 0.9
+    mesa_decay: float = 0.995
+    mesa_lambda: float = 0.8
+    mesa_temp: float = 1.5
+    mesa_start_step: int = 200
     compressor: str = "none"
     topk_fraction: float = 0.01
     n_microbatches: int = 1

@@ -46,7 +46,7 @@ from repro_torch.core.api import (LossFn, Method, MethodConfig, TrainState, Work
                                   _finish, params_device, step_rng, value_and_grad_acc)
 from repro_torch.core.ascent import (CompressionState, Compressor, slice_ascent_batch,
                                      split_batch)
-from repro_torch.core.perturb import perturb
+from repro_torch.core.perturb import on_fused_path, perturb
 from repro_torch.core.sam import _m
 from repro_torch.models import convert
 from repro_torch.optim import GradientTransform
@@ -127,8 +127,7 @@ def make_async_sam(cfg: MethodConfig) -> Method:
             # and the carried norm from ONE pass over (a_t, a_{t-1}); lossless
             # only, since compression changes the stored gradient
             comp_state = ms.compression
-            if ((buckets.is_bucketed(w) or cfg.fused_update is not False)
-                    and cfg.compressor == "none"):
+            if on_fused_path(w, cfg.fused_update) and cfg.compressor == "none":
                 dot, sq_new, sq_old = buckets.bucketed_dot_norms(a_new, ms.ascent_grad)
                 cos = dot / (torch.sqrt(sq_new) * torch.sqrt(sq_old) + 1e-12)
                 a_norm = torch.sqrt(sq_new)

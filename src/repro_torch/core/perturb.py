@@ -24,6 +24,19 @@ Tree = Any
 _EPS = 1e-12
 
 
+def on_fused_path(params: Tree, fused: Optional[bool]) -> bool:
+    """Whether a step on `params` takes the flat-buffer kernels: resident
+    state always, per-leaf state unless `fused` is False."""
+    return buckets.is_bucketed(params) or fused is not False
+
+
+def grad_sq_norm(grad: Tree, fused: bool) -> torch.Tensor:
+    """||g||^2 as a device scalar: one `sq_norm` kernel per bucket on the
+    fused path (a per-leaf tree gathered into buckets for the call), the
+    reference's per-leaf sum otherwise."""
+    return buckets.bucketed_sq_norm(grad) if fused else trees.tree_sq_norm(grad)
+
+
 def perturbation_scale(grad: Tree, rho: Union[float, torch.Tensor],
                        grad_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scalar rho/||g|| with a zero-safe denominator."""
@@ -73,3 +86,21 @@ def perturb_masked(params: Tree, grad: Tree, rho: Union[float, torch.Tensor], ma
     radius stays rho."""
     masked = trees.tree_map(lambda g, m: g * m, grad, mask)
     return perturb(params, masked, rho, fused=fused)
+
+
+def gradient_norm_penalty_direction(grad_w: Tree, grad_pert: Tree, alpha: float, *,
+                                    out: Optional[Tree] = None) -> Tree:
+    """Generalized-SAM mixing (1-alpha) ∇L(w) + alpha ∇L(ŵ) (Zhao et al. 22),
+    in fp32 and cast to the gradients' dtypes, on buckets or per-leaf trees
+    alike; into `out` when given (`grad_pert` itself may be `out`: an fp32
+    pair is mixed in place, with no fp32 temporaries)."""
+    def mix(gw, gp, o=None):
+        if gw.dtype == gp.dtype == torch.float32:
+            return torch.mul(gp, alpha, out=o).add_(gw, alpha=1.0 - alpha)
+        res = ((1.0 - alpha) * gw.float() + alpha * gp.float()).to(gw.dtype)
+        return res if o is None else o.copy_(res)
+
+    with torch.no_grad():
+        if out is None:
+            return trees.tree_map(mix, grad_w, grad_pert)
+        return trees.tree_map(mix, grad_w, grad_pert, out)

@@ -1,7 +1,10 @@
-"""SGD and SAM (Foret et al. 21) baselines (counterpart of `repro.core.sam`).
+"""SGD, SAM (Foret et al. 21) and Generalized SAM (Zhao et al. 22) baselines
+(counterpart of `repro.core.sam`).
 
-The synchronous references AsyncSAM is compared against. Generalized SAM
-(`make_gsam`) is not ported yet (ROADMAP.md queue 1, method variants).
+The synchronous references AsyncSAM is compared against. On the fused path
+(resident state always) SAM and GSAM perturb with the reference's two-kernel
+design: one `sq_norm` pass, which also gives the norm metric, then one
+`sam_perturb` kernel per bucket.
 """
 from __future__ import annotations
 
@@ -10,9 +13,9 @@ import torch
 from repro_torch.core.api import (LossFn, Method, MethodConfig, TrainState, Workspace,
                                   _finish, step_rng, value_and_grad_acc)
 from repro_torch.core.ascent import split_batch
-from repro_torch.core.perturb import perturb
+from repro_torch.core.perturb import (gradient_norm_penalty_direction, grad_sq_norm,
+                                     on_fused_path, perturb)
 from repro_torch.optim import GradientTransform
-from repro_torch.utils import buckets, trees
 
 
 def make_sgd(cfg: MethodConfig) -> Method:
@@ -35,6 +38,22 @@ def make_sgd(cfg: MethodConfig) -> Method:
     return Method("sgd", init, make_step)
 
 
+def _sam_grads(cfg: MethodConfig, vg, ws: Workspace, state: TrainState, batch):
+    """SAM's two gradient evaluations: g_w at w on the ascent batch, then
+    the gradient at w_hat = w + rho g_w / ||g_w|| on the descent batch.
+    Returns (loss at w, g_w, ||g_w||^2, (loss, aux) at w_hat, its gradient)."""
+    batch, ascent_batch = split_batch(batch)
+    if cfg.same_batch_ascent or ascent_batch is None:
+        ascent_batch = batch
+    gen = step_rng(state)
+    (loss_w, _), g_w = vg(state.params, ascent_batch, gen, out=ws.get("ascent", state.params))
+    sq = grad_sq_norm(g_w, on_fused_path(state.params, cfg.fused_update))
+    w_hat = perturb(state.params, g_w, cfg.rho, sq_norm=sq, fused=cfg.fused_update,
+                    out=ws.get("w_hat", state.params))
+    (loss, aux), g_hat = vg(w_hat, batch, gen, out=ws.get("grads", state.params))
+    return loss_w, g_w, sq, (loss, _m(aux)), g_hat
+
+
 def make_sam(cfg: MethodConfig) -> Method:
     """Vanilla SAM: two sequential gradient evaluations per step (Eq. 1)."""
 
@@ -46,28 +65,36 @@ def make_sam(cfg: MethodConfig) -> Method:
         ws = Workspace()
 
         def step(state: TrainState, batch):
-            batch, ascent_batch = split_batch(batch)
-            if cfg.same_batch_ascent or ascent_batch is None:
-                ascent_batch = batch
-            gen = step_rng(state)
-            # --- gradient ascent (perturbation): on the fused path one
-            # sq_norm pass gives both the norm metric and the sam_perturb
-            # kernel's scale
-            (loss_w, _), g_ascent = vg(state.params, ascent_batch, gen,
-                                       out=ws.get("ascent", state.params))
-            fused = buckets.is_bucketed(state.params) or cfg.fused_update is not False
-            sq = buckets.bucketed_sq_norm(g_ascent) if fused else trees.tree_sq_norm(g_ascent)
-            w_hat = perturb(state.params, g_ascent, cfg.rho, sq_norm=sq,
-                            fused=cfg.fused_update, out=ws.get("w_hat", state.params))
-            # --- gradient descent at the perturbed point ---
-            (loss, aux), grads = vg(w_hat, batch, gen, out=ws.get("grads", state.params))
+            loss_w, _, sq, (loss, aux), grads = _sam_grads(cfg, vg, ws, state, batch)
             metrics = {"loss": loss, "loss_at_w": loss_w, "ascent_norm": torch.sqrt(sq),
-                       **_m(aux)}
+                       **aux}
             return _finish(state, optimizer, grads, (), metrics, guard=cfg.guard_update)
 
         return step
 
     return Method("sam", init, make_step)
+
+
+def make_gsam(cfg: MethodConfig) -> Method:
+    """Generalized SAM / gradient-norm penalty: SAM's two gradients, mixed
+    (1 - alpha) ∇L(w) + alpha ∇L(ŵ) in place of the second."""
+
+    def init(params, seed):
+        return ()
+
+    def make_step(loss_fn: LossFn, optimizer: GradientTransform):
+        vg = value_and_grad_acc(loss_fn, cfg.n_microbatches)
+        ws = Workspace()
+
+        def step(state: TrainState, batch):
+            loss_w, g_w, _, (loss, aux), g_hat = _sam_grads(cfg, vg, ws, state, batch)
+            grads = gradient_norm_penalty_direction(g_w, g_hat, cfg.alpha, out=g_hat)
+            metrics = {"loss": loss, "loss_at_w": loss_w, **aux}
+            return _finish(state, optimizer, grads, (), metrics, guard=cfg.guard_update)
+
+        return step
+
+    return Method("gsam", init, make_step)
 
 
 def _m(aux: dict) -> dict:

@@ -11,19 +11,21 @@ on its device, bit-identical to the reference's for the same config: the same
 * the AsyncSAM ascent sub-batch: b' fresh samples per step (paper §3.3) under
   the "ascent" key, so methods never slice the descent batch;
 * restartability: `state()` / `restore()` capture the step cursor;
-* a worker thread that synthesizes the next batches (`prefetch`) while the
-  device steps; batches are moved to the device as they are handed out.
+* a worker thread that synthesizes (or reads) the next batches
+  (`prefetch`) while the device steps; batches are moved to the device as
+  they are handed out;
+* the source: the synthetic `TokenTask` by default, or any object with the
+  same `batch(n, seq_len, stream)` (`MmapTokenDataset`, a token file).
 
-The dense family and the synthetic source only: the modality-stub inputs of
-the vision and audio families come with those families, and the mmap
-corpus source with a corpus (ROADMAP.md queue 1).
+The token families only: the modality-stub inputs of the vision and audio
+families come with those families (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import queue
 import threading
-from typing import Iterator, Union
+from typing import Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -44,10 +46,12 @@ class PipelineConfig:
 
 
 class TokenPipeline:
-    """Synthetic-LM pipeline on `device` (default the card)."""
+    """LM pipeline on `device` (default the card) over `source`: the
+    synthetic `TokenTask` of the config's vocabulary and the pipeline's seed
+    when None, or e.g. a `MmapTokenDataset`."""
 
     def __init__(self, cfg: ModelConfig, pcfg: PipelineConfig,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", source: Optional[object] = None):
         if pcfg.global_batch % pcfg.world != 0:
             raise ValueError(f"global batch {pcfg.global_batch} does not split over "
                              f"{pcfg.world} ranks")
@@ -57,7 +61,8 @@ class TokenPipeline:
         self.cfg = cfg
         self.pcfg = pcfg
         self.device = torch.device(device)
-        self.source = TokenTask(vocab_size=cfg.vocab_size, seed=pcfg.seed)
+        self.source = (source if source is not None
+                       else TokenTask(vocab_size=cfg.vocab_size, seed=pcfg.seed))
         self._step = 0
         self._local_batch = pcfg.global_batch // pcfg.world
         b_asc = max(1, round(pcfg.global_batch * pcfg.ascent_fraction))

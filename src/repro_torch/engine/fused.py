@@ -28,9 +28,12 @@ from repro_torch.core.async_sam import AsyncSamState
 from repro_torch.engine.api import ensure_metric_contract
 from repro_torch.optim import GradientTransform, configure_fused
 
-# Methods whose steps are weight-space + value_and_grad compositions, safe on
-# bucket-resident state (the reference's list, restricted to what is ported).
-RESIDENT_METHODS = ("sgd", "sam", "async_sam")
+# Methods whose steps are weight-space + value_and_grad compositions, kept on
+# bucket-resident state (the reference's list). The others (looksam, esam,
+# aesam, mesa) keep per-leaf state, as in the reference; with fused_update on
+# their weight-space passes still run the flat-buffer kernels, each call
+# gathering its operands into buckets.
+RESIDENT_METHODS = ("sgd", "sam", "gsam", "async_sam")
 
 
 class FusedExecutor:

@@ -15,8 +15,13 @@ tests and chip_smoke.py all drive; it reports each kernel's launches.
       --requests 8 --prompt-len 1024 --max-new 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --requests 8 --prompt-len 1024 --max-new 32          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+      --requests 8 --prompt-len 1024 --max-new 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --reduced \
       --device cpu --requests 2 --prompt-len 12 --max-new 4
+
+Every arch of `configs.ARCH_IDS` serves: olmo-1b, gemma-2b, qwen3-8b and
+qwen2.5-32b through flash attention, rwkv6-7b and zamba2-1.2b as above.
 """
 from __future__ import annotations
 

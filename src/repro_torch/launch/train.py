@@ -35,7 +35,12 @@ the reference's final JSON summary.
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
       --device cpu --method async_sam --steps 12 --batch 4 --seq 32 \\
       --executor remote --serve-ascent --job-compress int8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --reduced \\
+      --device cpu --method looksam --steps 6 --batch 4 --seq 32
 
+`--method` is any of the reference's eight (`core.available_methods()`):
+sgd, sam, gsam, async_sam and the variants looksam, esam, aesam and mesa,
+each with the `MethodConfig` defaults beyond rho, b'/b and the microbatches.
 `--optimizer sgd` takes the reference launcher's sgd: momentum 0 (the
 paper's momentum 0.9 is `optim.sgd(..., momentum=0.9)` through the API).
 The reference's lane ladder, watchdog, netchaos proxy, guard, numerics
@@ -49,7 +54,7 @@ import json
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.core import MethodConfig
+from repro_torch.core import MethodConfig, available_methods
 from repro_torch.data import PipelineConfig, TokenPipeline
 from repro_torch.engine import (CheckpointCallback, Engine, FusedExecutor, HeteroExecutor,
                                 LoggingCallback, RemoteExecutor, StalenessTelemetry,
@@ -89,7 +94,7 @@ def main() -> None:
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-scale config (CPU-trainable)")
-    ap.add_argument("--method", default="async_sam")
+    ap.add_argument("--method", choices=available_methods(), default="async_sam")
     ap.add_argument("--executor", choices=("fused", "hetero", "remote"), default="fused",
                     help="fused: one step function per iteration (Form A); hetero: the "
                          "two-lane async_sam; remote: the ascent lane behind "

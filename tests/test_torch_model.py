@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.data.synthetic import TokenTask as JaxTokenTask
 from repro.models import build_model as jax_build_model
@@ -46,10 +47,13 @@ def reduced():
 
 
 def test_configs_are_copies_of_the_reference():
-    assert ARCH_IDS == ("olmo-1b", "rwkv6-7b", "zamba2-1.2b")
-    for reduced_ in (False, True):
-        assert (dataclasses.asdict(get_config("olmo-1b", reduced=reduced_))
-                == dataclasses.asdict(jax_get_config("olmo-1b", reduced=reduced_)))
+    assert ARCH_IDS == ("zamba2-1.2b", "gemma-2b", "qwen2.5-32b", "qwen3-8b", "olmo-1b",
+                        "rwkv6-7b")
+    assert ARCH_IDS == tuple(a for a in JAX_ARCH_IDS if a in ARCH_IDS)   # its order
+    for arch in ARCH_IDS:
+        for reduced_ in (False, True):
+            assert (dataclasses.asdict(get_config(arch, reduced=reduced_))
+                    == dataclasses.asdict(jax_get_config(arch, reduced=reduced_))), arch
     with pytest.raises(ValueError):
         get_config("mixtral-8x7b")
 

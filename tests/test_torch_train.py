@@ -225,9 +225,12 @@ def test_microbatch_accumulation_matches_full_batch():
 
 
 def test_what_is_not_ported_raises():
+    # ported since: the method variants, each with the reference's defaults
     for name in ("gsam", "looksam", "esam", "aesam", "mesa"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_method(MethodConfig(name=name))
+        method = make_method(MethodConfig(name=name))
+        assert method.name == name and method.cfg == MethodConfig(name=name)
+        assert FusedExecutor(quad_loss, MethodConfig(name=name),
+                             optim.adamw(1e-3)).resident == (name == "gsam")
     with pytest.raises(ValueError):
         make_method(MethodConfig(name="nope"))
     with pytest.raises(NotImplementedError, match="guard"):
