@@ -14,7 +14,10 @@
    port never calls it); fused_axpy also held to the sweep's 1,024
    elements a CTA and sq_norm to its sweep's 4,096 elements a tile and the
    same bits on a rerun; sq_norm and its library call also timed in turns,
-   7 rounds each (medians, spread, which is faster beyond it);
+   7 rounds each (medians, spread, which is faster beyond it); the two
+   epilogues also with the numerics guard's flag at 0 (w, mu, nu and m must
+   stay as they were, bit for bit; timed as `skip_ms`) before the checked
+   call at 1;
 4. flash kernel phase: the same for the flash-attention forward (olmo-1b's,
    zamba2's, gemma-2b's (8 heads of 256 on one kv head), qwen3-8b's (32/8
    heads of 128) and qwen2.5-32b's (40/8) prefill shapes, GQA, MQA, ragged,
@@ -37,7 +40,16 @@
    forward pass; one step is profiled; then two checks of 3 steps from one
    init: at the train phase's lr each epilogue kernel call of the path
    against its plain version on the same inputs, and at a small lr the
-   whole kernel path against the whole plain path;
+   whole kernel path against the whole plain path; then the guard phase:
+   the same model, 8 AsyncSAM AdamW steps with `guard_update` under
+   `GuardedExecutor` and `Engine.fit(tracker=...)` (a strict MemorySink), the
+   loss made NaN at steps 3 and 4 by a wrapper of the loss: update_skipped 1
+   exactly there, w, mu and nu after each skipped step equal to their copies
+   from before it bit for bit, adamw_epilogue launched once a step,
+   nonfinite_count the gradient's element count, guard_state reaching 1, the
+   carried ascent norm finite, the final loss finite; and the median clean
+   guarded step against the train phase's unguarded median (the guard's
+   cost);
 7. SGD train phase: the same model trains 6 AsyncSAM steps with the paper's
    optimizer, sgd(cosine, momentum 0.9): sgd_epilogue once a step and no
    adamw_epilogue; one step is profiled; a lockstep check of 3 steps holds
@@ -59,11 +71,15 @@
    to its plain version on its inputs, the launches are counted (0 just
    before, read just after), and the client's shadow must equal a numpy
    replay of the snapshot and every int8 payload bit for bit; prints each
-   exchange's bytes and times and both processes' peak memory;
+   exchange's bytes and times and both processes' peak memory; it runs with
+   the lane ladder on and a tracker: lane_state 0 every step, the
+   ascent_rpc spans counted;
 11. hetero phase: olmo-1b at full width and 2 layers, the descent on the
    card and the ascent lane a CPU thread, calibrated (t_fast, t_slow, b'/b),
    then steps until a fresh ascent gradient was harvested: the tau schedule,
-   stale reuses and SGD fallbacks;
+   stale reuses and SGD fallbacks; the lanes' spans go to a Chrome trace
+   (build/hetero_trace.json) and its hidden-perturbation fraction is printed
+   (`repro_torch.obs.compute_overlap`);
 12. rwkv kernel phase: the wkv scan's forward and backward kernels at
    rwkv6-7b's scan shape (8 x 1024 tokens, 64 heads of 64, bf16 r/k/v, fp32
    decay and bonus), a one-token decode step from a state, a ragged S and
@@ -344,6 +360,13 @@ def bound(nbytes: float, ops: float, dtype: str = "float32") -> tuple[float, str
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def unchanged(got, before) -> bool:
+    """Bit for bit the same tensor contents (the guard's skip)."""
+    import torch
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return bool(torch.equal(got.view(view), before.view(view)))
+
+
 def max_rel(got, expect) -> tuple[float, float]:
     """(max|got - expect|, that over max|expect|)."""
     err = float((got.float() - expect.float()).abs().max())
@@ -390,6 +413,9 @@ def epilogue_phase() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     main_rows, failures = {}, []
+    # the numerics guard's verdict as the step hands it to the epilogues: a
+    # 0-d fp32 device tensor, 0 (skip: nothing written) or 1 (the update)
+    KEEP = (torch.zeros((), device="cuda"), torch.ones((), device="cuda"))
 
     def operand(n, dtype, offset, scale, positive=False):
         t = torch.empty(n + offset, dtype=torch.float32, device="cuda")
@@ -491,7 +517,13 @@ def epilogue_phase() -> dict:
         for ai, (wd, clip) in enumerate(ADAMW_CASES if not main else ADAMW_CASES[:1]):
             clip_t = torch.tensor(clip, device="cuda")
             kw, kmu, knu = w.clone(), mu.clone(), nu.clone()
-            fu.adamw_epilogue(kw, x, kmu, knu, clip_t, lr, c1, c2, weight_decay=wd)
+            # the guard's skip: keep 0 writes nothing, bit for bit
+            fu.adamw_epilogue(kw, x, kmu, knu, clip_t, lr, c1, c2, weight_decay=wd,
+                              keep=KEEP[0])
+            torch.cuda.synchronize()
+            skip_same = all(unchanged(a, b) for a, b in ((kw, w), (kmu, mu), (knu, nu)))
+            fu.adamw_epilogue(kw, x, kmu, knu, clip_t, lr, c1, c2, weight_decay=wd,
+                              keep=KEEP[1])
             torch.cuda.synchronize()
             errs = []
             for i in range(0, n, COMPARE_CHUNK):
@@ -501,7 +533,9 @@ def epilogue_phase() -> dict:
                 errs += [max_rel(k_[sl], p_) for k_, p_ in zip((kw, kmu, knu), new)]
             err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
             ms = time_ms(lambda: fu.adamw_epilogue(kw, x, kmu, knu, clip_t, lr, c1, c2,
-                                                   weight_decay=wd))
+                                                   weight_decay=wd, keep=KEEP[1]))
+            skip_ms = time_ms(lambda: fu.adamw_epilogue(kw, x, kmu, knu, clip_t, lr, c1, c2,
+                                                        weight_decay=wd, keep=KEEP[0]))
             del kw, kmu, knu
             plain_ms = time_ms(lambda: ref.adamw_epilogue_flat_plain(
                 w, x, mu, nu, clip_t, lr, c1, c2, weight_decay=wd))
@@ -514,7 +548,8 @@ def epilogue_phase() -> dict:
                 del opt, p
             report("adamw_epilogue", f"{case}, wd {wd}, clip {clip}", n, err, rel,
                    tol if dtype == "float32" else BF16_TOL["rtol"], ms, plain_ms, library_ms,
-                   n * (2 * es + 4 + 16), dtype, main and ai == 0)
+                   n * (2 * es + 4 + 16), dtype, main and ai == 0, layout_ok=skip_same,
+                   skip_unchanged=skip_same, skip_ms=skip_ms)
         del mu, nu
         torch.cuda.empty_cache()
 
@@ -526,7 +561,10 @@ def epilogue_phase() -> dict:
                 continue
             kw, km = w.clone(), (m.clone() if mom else None)
             hyper = dict(momentum=mom, nesterov=nest, weight_decay=wd)
-            fu.sgd_epilogue(kw, x, km, clip_t, lr, **hyper)
+            fu.sgd_epilogue(kw, x, km, clip_t, lr, keep=KEEP[0], **hyper)
+            torch.cuda.synchronize()
+            skip_same = unchanged(kw, w) and (not mom or unchanged(km, m))
+            fu.sgd_epilogue(kw, x, km, clip_t, lr, keep=KEEP[1], **hyper)
             torch.cuda.synchronize()
             errs = []
             for i in range(0, n, COMPARE_CHUNK):
@@ -537,7 +575,9 @@ def epilogue_phase() -> dict:
                 if mom:
                     errs.append(max_rel(km[sl], nm))
             err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
-            ms = time_ms(lambda: fu.sgd_epilogue(kw, x, km, clip_t, lr, **hyper))
+            ms = time_ms(lambda: fu.sgd_epilogue(kw, x, km, clip_t, lr, keep=KEEP[1], **hyper))
+            skip_ms = time_ms(lambda: fu.sgd_epilogue(kw, x, km, clip_t, lr, keep=KEEP[0],
+                                                      **hyper))
             del kw, km
             plain_ms = time_ms(lambda: ref.sgd_epilogue_flat_plain(
                 w, x, m if mom else None, clip_t, lr, **hyper))
@@ -552,7 +592,8 @@ def epilogue_phase() -> dict:
             row = report("sgd_epilogue", f"{case}, momentum {mom}, nesterov {nest}, wd {wd}",
                          n, err, rel, 0.0, ms, plain_ms, library_ms,
                          n * (2 * es + 4 + (8 if mom else 0)), dtype, main and si == 0,
-                         sgd_ops(mom, nest, wd))
+                         sgd_ops(mom, nest, wd), layout_ok=skip_same,
+                         skip_unchanged=skip_same, skip_ms=skip_ms)
             if main and si == 4:
                 main_rows["sgd_epilogue, no momentum"] = row
         del x, w, m
@@ -754,12 +795,12 @@ def flash_per_step(cfg) -> tuple[int, str]:
 
 def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
                   method: str = "async_sam", batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                  mkw=None):
+                  mkw=None, loss_wrap=None):
     """olmo-1b (full width and depth unless `cfg`) from seed 0, AsyncSAM (or
     `method`, with the MethodConfig fields `mkw`) with AdamW (what `python -m
     repro_torch.launch.train` builds) or with the paper's sgd(momentum 0.9),
     on the card, and its pipeline (an ascent sub-batch for async_sam only, as
-    the launcher's)."""
+    the launcher's). `loss_wrap(loss_fn)` replaces the model's loss."""
     from repro_torch.configs import get_config
     from repro_torch.core import MethodConfig
     from repro_torch.data import PipelineConfig, TokenPipeline
@@ -773,7 +814,7 @@ def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
         opt = make_optimizer("adamw", cosine_schedule(lr, steps, warmup_steps=steps // 20))
     else:
         opt = sgd(cosine_schedule(lr, steps), momentum=SGD_MOMENTUM)
-    ex = FusedExecutor(bundle.loss_fn,
+    ex = FusedExecutor(loss_wrap(bundle.loss_fn) if loss_wrap else bundle.loss_fn,
                        MethodConfig(name=method, rho=RHO, ascent_fraction=ASCENT_FRACTION,
                                     **(mkw or {})),
                        opt)
@@ -845,6 +886,124 @@ def train_phase(family: str = "adamw"):
           f"({model_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s), the four kernels "
           f"{kernel_bytes} ({kernel_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
     return summary, ex, report.final_state, pipe
+
+
+# ---------------------------------------------------------------------------
+# guard phase: the numerics guard on the AdamW train path
+# ---------------------------------------------------------------------------
+
+# 8 guarded steps, a NaN loss (ascent and descent) at steps 3 and 4
+GUARD_STEPS, GUARD_SKIPS = 8, (3, 4)
+
+
+def guard_phase(unguarded_step_s: float) -> dict:
+    """Full-width olmo-1b, Form A AsyncSAM with AdamW under `GuardedExecutor`
+    and `Engine.fit(tracker=...)` with a strict MemorySink; the loss is NaN at
+    GUARD_SKIPS. Each skipped step must write nothing (w, mu and nu equal
+    their copies from before it, bit for bit) while adamw_epilogue still
+    launches once (it returns at keep 0); nonfinite_count is the gradient's
+    element count there, the guard's ladder reaches rung 1, the carried
+    ascent norm stays finite. Returns the counts and the guard's cost: the
+    median clean guarded step against the train phase's unguarded one."""
+    import statistics
+    import torch
+    from repro_torch.engine import Callback, Engine, GuardConfig, GuardedExecutor, ThroughputMeter
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.obs import MemorySink, Tracker
+    from repro_torch.optim.base import AdamState
+
+    t_phase = time.perf_counter()
+    poison = {"on": False}
+
+    def wrap(loss_fn):
+        def loss(params, batch, gen):
+            value, aux = loss_fn(params, batch, gen)
+            return (value * float("nan") if poison["on"] else value), aux
+        return loss
+
+    cfg, ex, state, pipe = build_trainer(GUARD_STEPS, LR, mkw={"guard_update": True},
+                                         loss_wrap=wrap)
+    guard = GuardedExecutor(ex, GuardConfig())
+    n_params = sum(b.numel() for b in state.params.buffers)
+
+    def buffers(st):
+        adam = next(x for x in st.opt_state if isinstance(x, AdamState))
+        return {"w": st.params.buffers, "mu": adam.mu.buffers, "nu": adam.nu.buffers}
+
+    rows, snap = [], {}
+    launched = {"before": 0}
+
+    class Watch(Callback):
+        def on_step(self, engine, st, metrics, step_time_s):
+            i = st.step - 1                              # the step just taken
+            n_epi = fu.launches["adamw_epilogue"] - launched["before"]
+            launched["before"] = fu.launches["adamw_epilogue"]
+            row = {k: float(metrics[k]) for k in ("loss", "update_skipped", "nonfinite_count",
+                                                  "guard_state", "rho_scale", "perturbed")}
+            row.update(step=i, adamw_epilogue=n_epi, step_s=step_time_s,
+                       carried_norm=float(st.method_state.ascent_norm))
+            if i in GUARD_SKIPS:
+                row["unchanged"] = all(unchanged(a, b) for k, bufs in buffers(st).items()
+                                       for a, b in zip(bufs, snap[k]))
+            rows.append(row)
+            # the copies' blocks go back to the allocator's cache, which the
+            # next step reuses (emptying it would time cudaMalloc into the step)
+            snap.clear()
+            poison["on"] = st.step in GUARD_SKIPS       # the next step's loss
+            if poison["on"]:
+                snap.update({k: [b.clone() for b in bufs] for k, bufs in buffers(st).items()})
+
+    sink = MemorySink(strict=True)
+    meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
+    reset_launches()                                     # counts: 0 just before
+    torch.cuda.reset_peak_memory_stats()
+    report = Engine(guard, pipe, [meter, Watch()]).fit(state, GUARD_STEPS,
+                                                        tracker=Tracker([sink]))
+    launches = kernel_launches()                         # read just after
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for row in rows:
+        print("guard step " + json.dumps(row))
+    clean = [r["step_s"] for r in rows if r["step"] >= 2 and r["step"] not in GUARD_SKIPS]
+    guarded_s = statistics.median(clean)
+    out = dict(steps=report.steps_done, params=n_params, launches=launches,
+               skipped=[r["step"] for r in rows if r["update_skipped"] == 1.0],
+               guard_states=[r["guard_state"] for r in rows], steps_skipped=guard.steps_skipped,
+               logged_steps=len(sink.steps), median_clean_guarded_step_s=guarded_s,
+               median_unguarded_step_s=unguarded_step_s,
+               guard_cost_s=guarded_s - unguarded_step_s, peak_gib=peak_gib,
+               loss_last=rows[-1]["loss"], phase_s=time.perf_counter() - t_phase)
+    print(f"guard: median clean guarded step {guarded_s:.4f} s (steps "
+          f"{[r['step'] for r in rows if r['step'] >= 2 and r['step'] not in GUARD_SKIPS]}) "
+          f"against the train phase's unguarded {unguarded_step_s:.4f} s: "
+          f"{guarded_s - unguarded_step_s:+.4f} s a step; peak {peak_gib:.2f} GiB")
+    flash_n, _ = flash_per_step(cfg)
+    problems = []
+    if out["skipped"] != list(GUARD_SKIPS):
+        problems.append(f"update_skipped at {out['skipped']}, expected {list(GUARD_SKIPS)}")
+    for r in rows:
+        skip = r["step"] in GUARD_SKIPS
+        if skip and not r["unchanged"]:
+            problems.append(f"step {r['step']}: w/mu/nu changed on a skipped step")
+        if r["adamw_epilogue"] != 1:
+            problems.append(f"step {r['step']}: adamw_epilogue launched {r['adamw_epilogue']}")
+        if r["nonfinite_count"] != (n_params if skip else 0):
+            problems.append(f"step {r['step']}: nonfinite_count {r['nonfinite_count']}")
+        if not math.isfinite(r["carried_norm"]):
+            problems.append(f"step {r['step']}: carried ascent norm {r['carried_norm']}")
+    if max(out["guard_states"]) < 1:
+        problems.append(f"guard_state never reached 1: {out['guard_states']}")
+    if not math.isfinite(out["loss_last"]) or out["logged_steps"] != GUARD_STEPS:
+        problems.append(f"final loss {out['loss_last']}, {out['logged_steps']} logged steps")
+    want = {k: (GUARD_STEPS if k in PATH_KERNELS["adamw"] else
+                flash_n * GUARD_STEPS if k == "flash_attention" else 0) for k in launches}
+    if launches != want:
+        problems.append(f"launches {launches}, expected {want}")
+    if problems:
+        fail(f"guard phase: {problems}")
+    del ex, guard, state, pipe, report, snap
+    torch.cuda.empty_cache()
+    return out
 
 
 def coarsen_(t, bits: int) -> None:
@@ -1352,6 +1511,7 @@ def remote_phase() -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.train import kernel_launches
     from repro_torch.models import build_model
+    from repro_torch.obs import MemorySink, Tracker
     from repro_torch.optim import cosine_schedule, sgd
     from repro_torch.runtime import ExecutorConfig
     from repro_torch.service import protocol
@@ -1364,7 +1524,7 @@ def remote_phase() -> dict:
         bundle.loss_fn, MethodConfig(name="async_sam", rho=RHO, ascent_fraction=ASCENT_FRACTION),
         sgd(cosine_schedule(SGD_LR, REMOTE_STEPS), momentum=SGD_MOMENTUM),
         exec_cfg=ExecutorConfig(lockstep=True, serve_ascent=True, loss_spec=REMOTE_LOSS_SPEC,
-                                descent_device="cuda", job_compress="int8"))
+                                descent_device="cuda", job_compress="int8", lane_ladder=True))
     print(f"remote: ascent server spawned at {ex.server.addr} (on the card, pid "
           f"{ex.server.proc.pid}) in {time.perf_counter() - t_phase:.2f}s")
     state = ex.init_state(bundle.init(seed=0, device="cuda"), seed=1)
@@ -1423,8 +1583,10 @@ def remote_phase() -> dict:
     reset_launches()                                   # counts: 0 just before
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    sink = MemorySink(strict=True)
     try:
-        report = Engine(ex, pipe, [meter, HostMemory()]).fit(state, REMOTE_STEPS)
+        report = Engine(ex, pipe, [meter, HostMemory()]).fit(state, REMOTE_STEPS,
+                                                              tracker=Tracker([sink]))
     finally:
         ops.delta_amax, ops.delta_encode_i8 = kernel["delta_amax"], kernel["delta_encode_i8"]
     launches = kernel_launches("remote")               # read just after
@@ -1479,6 +1641,9 @@ def remote_phase() -> dict:
                q_d2h_s=[d for _, d in jobs if d is not None], descent_s=descent_s,
                step_s=meter.step_times, fit_s=fit_s, client_peak_bytes=client_peak,
                server_peak=server_peak, pool_stats=pool_stats,
+               lane_states=[m.get("lane_state") for m in hist],
+               ascent_rpc_spans=sum(sp.name == "ascent_rpc" for sp in sink.spans),
+               ascent_exchange_spans=sum(sp.name == "ascent_exchange" for sp in sink.spans),
                phase_s=time.perf_counter() - t_phase)
     print("remote " + json.dumps(out))
     flash_n = (1 if cfg.remat == "none" else 2) * cfg.n_layers     # one gradient pass a step
@@ -1502,6 +1667,10 @@ def remote_phase() -> dict:
         problems.append("the client's shadow is not the numpy replay bit for bit")
     if snap_bytes != frames["none"] or int8_bytes != frames["int8"]:
         problems.append(f"JOB frames {snap_bytes}/{int8_bytes} != the length model {frames}")
+    if out["lane_states"] != [0.0] * REMOTE_STEPS:
+        problems.append(f"lane_state {out['lane_states']}, expected 0 on every step")
+    if out["ascent_rpc_spans"] < REMOTE_STEPS - 1:
+        problems.append(f"{out['ascent_rpc_spans']} ascent_rpc spans")
     if problems:
         fail(f"remote phase: {problems}")
     del ex, state, pipe, report, jobs, replay, shadow
@@ -1527,6 +1696,7 @@ def hetero_phase() -> dict:
     from repro_torch.data import PipelineConfig, TokenPipeline
     from repro_torch.engine import HeteroExecutor
     from repro_torch.models import build_model
+    from repro_torch.obs import TraceEventSink, Tracker, compute_overlap, use_tracker
     from repro_torch.optim import cosine_schedule, sgd
     from repro_torch.runtime import ExecutorConfig
 
@@ -1549,17 +1719,32 @@ def hetero_phase() -> dict:
           f"{pre['configured_ascent_fraction']})")
     hist, step_s = [], []
     it = iter(pipe)
+    # the lanes' spans (ascent_compute on the CPU thread's track, descent_compute
+    # on the descent's) as a Chrome trace, read back for the hidden fraction
+    trace_path = ROOT / "build" / "hetero_trace.json"
+    tracker = Tracker([TraceEventSink(trace_path)])
     t_run = time.perf_counter()
     try:
-        while len(hist) < HETERO_STEPS or (ex.ledger.refreshes < 1 and
-                                           time.perf_counter() - t_run < HETERO_MAX_S):
-            t0 = time.perf_counter()
-            state, m = ex.step(state, next(it))
-            step_s.append(time.perf_counter() - t0)
-            hist.append({k: float(v) for k, v in m.items() if k in ("loss", "tau", "perturbed")})
+        with use_tracker(tracker):
+            while len(hist) < HETERO_STEPS or (ex.ledger.refreshes < 1 and
+                                               time.perf_counter() - t_run < HETERO_MAX_S):
+                t0 = time.perf_counter()
+                with tracker.span("train_step", lane="descent", step=len(hist)):
+                    state, m = ex.step(state, next(it))
+                step_s.append(time.perf_counter() - t0)
+                hist.append({k: float(v) for k, v in m.items()
+                             if k in ("loss", "tau", "perturbed")})
     finally:
         it.close()
+        # the trace is written before the lane closes: the exchange still in
+        # flight when the loop stops (close() waits it out, the descent
+        # stopped) is not in it
+        tracker.close()
         ex.close()
+    overlap = compute_overlap(json.loads(trace_path.read_text()))
+    print(f"hetero overlap (ascent lane on the CPU, descent on the card): hidden-perturbation "
+          f"fraction {overlap['hidden_fraction']:.4f} of {overlap['ascent_busy_s']:.3f} s ascent "
+          f"busy over {overlap['ascent_spans']} span(s); {json.dumps(overlap)}")
     runs = []                                   # the tau schedule as [tau, steps] runs
     for m in hist:
         if runs and runs[-1][0] == m["tau"]:
@@ -1571,7 +1756,7 @@ def hetero_phase() -> dict:
                ledger=ex.ledger.summary(), ascent_exchange_s=list(ex.timings["ascent"]),
                median_descent_s=statistics.median(ex.timings["descent"]),
                median_step_s=statistics.median(step_s),
-               loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"],
+               loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"], overlap=overlap,
                phase_s=time.perf_counter() - t_phase)
     print("hetero " + json.dumps(out))
     if not all(math.isfinite(m["loss"]) for m in hist) or ex.ledger.refreshes < 1:
@@ -2965,6 +3150,9 @@ def main() -> int:
     del ex, state, pipe
     torch.cuda.empty_cache()
     print("train check " + json.dumps(train_check()))
+    guarded = guard_phase(trained["median_step_s"])
+    print("guard " + json.dumps(guarded))
+    print(f"guard phase: {guarded['phase_s']:.2f}s")
 
     sgd_trained, ex, state, pipe = train_phase("sgd")
     print("train sgd " + json.dumps(sgd_trained))
@@ -3026,7 +3214,7 @@ def main() -> int:
     # the launches of these paths, each counted from 0 just before it
     new_paths = ([r["launches"] for r in dense_served.values()]
                  + [r["launches"] for r in dense_trained.values()]
-                 + [variants[m]["launches"] for m in VARIANT_STEPS])
+                 + [variants[m]["launches"] for m in VARIANT_STEPS] + [guarded["launches"]])
 
     kernels = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",

@@ -7,7 +7,6 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.api import (  # noqa: F401
-    GUARD,
     LossFn,
     Method,
     MethodConfig,
@@ -60,6 +59,4 @@ def make_method(cfg: MethodConfig) -> Method:
     except KeyError:
         raise ValueError(f"unknown method {cfg.name!r}; available: "
                          f"{available_methods()}") from None
-    if cfg.guard_update:
-        raise NotImplementedError(GUARD)
     return dataclasses.replace(factory(cfg), cfg=cfg)

@@ -28,8 +28,10 @@ What differs from the reference, and why:
 * `step` and `rng` of the TrainState are host ints: PyTorch runs eagerly, so
   the host decides the step's control flow (the reference's traced
   `lax.cond`s). Values the step computes stay on the device.
-* The numerics guard (`guard_update=True`) is a later slice of the port
-  and raises here.
+* The numerics guard (`guard_update=True`) cannot tree-select the old
+  state back after the update, as the reference does: the update is in
+  place. Its verdict is computed on the device before the epilogue and the
+  epilogue kernels take it (`_finish`).
 """
 from __future__ import annotations
 
@@ -40,15 +42,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.obs.registry import scalar_metrics  # noqa: F401  (re-exported)
 from repro_torch.optim import GradientTransform, apply_updates
 from repro_torch.optim.fused import fused_apply
 from repro_torch.utils import buckets, trees
 
 Tree = Any
 LossFn = Callable[[dict, Any, torch.Generator], tuple[torch.Tensor, dict]]
-
-GUARD = ("the in-step numerics guard (guard_update=True) is not ported yet: "
-         "it comes with runtime/guard.py and runtime/health.py, ROADMAP.md queue 1")
 
 
 class TrainState(NamedTuple):
@@ -81,7 +81,12 @@ class MethodConfig:
     n_microbatches: gradient accumulation over equal chunks of the batch
         (MESA takes one pass without it, as in the reference).
     ascent_interval: refresh a_t every k steps (beyond-paper; tau <= k).
-    guard_update: the in-step numerics guard; not ported, raises.
+    guard_update: the in-step numerics guard: a non-finite loss or gradient
+        norm discards the update (params and optimizer state unchanged, step
+        advanced so the batch is consumed) and the step emits update_skipped
+        and nonfinite_count. Honoured by sgd, sam, gsam and async_sam, the
+        methods the guard ladder drives; the variants ignore it, as in the
+        reference.
     fused_update: the flat-buffer fused path (perturb, ascent-refresh
         dot/norms, the optimizer epilogue) for per-leaf state; bucket-resident
         state always takes it. None and True take it, False keeps per-leaf
@@ -148,11 +153,32 @@ def _finish(state: TrainState, optimizer: GradientTransform, grads: Tree,
     A canonical sgd/adamw chain takes the fused flat-buffer path
     (`optim.fused.fused_apply`); anything else the per-leaf chain's update +
     `apply_updates`, whose results are written back into the state's tensors.
+
+    guard=True (MethodConfig.guard_update) adds the in-step numerics check.
+    The verdict keep = isfinite(||g||) & isfinite(loss) is a 0-d fp32 device
+    tensor computed before any state is written: the fused path hands it to
+    the epilogue kernels (at 0 they write nothing, and the step counters keep
+    their values through torch.where); the per-leaf path selects each leaf
+    with torch.where, as the reference tree-selects. The step counter of the
+    TrainState still advances, so the batch is consumed, not replayed. The
+    step then carries `update_skipped` (1 - keep) and `nonfinite_count` (one
+    more reduction over the gradient, paid only with the guard on). The
+    methods that honour the guard here carry no method state except
+    async_sam, which decides its carry itself (`core.async_sam`).
     """
-    if guard:
-        raise NotImplementedError(GUARD)
     metrics = dict(metrics)
-    fused = fused_apply(optimizer, grads, state.opt_state, state.params)
+    verdict: dict = {}
+
+    def keep_of(gnorm: torch.Tensor) -> torch.Tensor:
+        ok = torch.isfinite(gnorm)
+        loss = metrics.get("loss")
+        if loss is not None:
+            ok = ok & torch.isfinite(torch.as_tensor(loss, device=gnorm.device))
+        verdict["keep"] = ok.float()
+        return verdict["keep"]
+
+    fused = fused_apply(optimizer, grads, state.opt_state, state.params,
+                        verdict=keep_of if guard else None)
     if fused is not None:
         params, opt_state, gnorm = fused
     else:
@@ -160,20 +186,22 @@ def _finish(state: TrainState, optimizer: GradientTransform, grads: Tree,
             raise TypeError("bucket-resident params need an optimizer with a FusedSpec "
                             "(optim.sgd / optim.adamw without a decay mask)")
         updates, new_opt = optimizer.update(grads, state.opt_state, state.params)
-        params = trees.tree_copy_(state.params, apply_updates(state.params, updates))
-        opt_state = trees.tree_copy_(state.opt_state, new_opt)
+        new_params = apply_updates(state.params, updates)
         gnorm = trees.global_norm(grads)
+        if guard:
+            ok = keep_of(gnorm) != 0
+            kept = lambda n, o: torch.where(ok, n, o)  # noqa: E731
+            new_params = trees.tree_map(kept, new_params, state.params)
+            new_opt = trees.tree_map(kept, new_opt, state.opt_state)
+        params = trees.tree_copy_(state.params, new_params)
+        opt_state = trees.tree_copy_(state.opt_state, new_opt)
     metrics.setdefault("grad_norm", gnorm)
+    if guard:
+        metrics["update_skipped"] = 1.0 - verdict["keep"]
+        metrics["nonfinite_count"] = sum(
+            torch.sum(~torch.isfinite(g)) for g in trees.tree_leaves(grads)).float()
     return TrainState(step=state.step + 1, rng=state.rng, params=params,
                       opt_state=opt_state, method_state=method_state), metrics
-
-
-def scalar_metrics(metrics: dict) -> dict:
-    """The float()-able subset of a step's metrics, as host floats (a copy of
-    `repro.obs.scalar_metrics`, whose module is not ported yet); reading a
-    device scalar waits for it."""
-    return {k: float(v) for k, v in metrics.items()
-            if hasattr(v, "__float__") and getattr(v, "ndim", 0) == 0}
 
 
 def params_device(params: Tree) -> torch.device:

@@ -25,7 +25,18 @@ per call, unless `fused_update` is False: then the perturbation and the
 refresh are the reference's per-leaf compositions.
 
 At t = 0 no ascent gradient exists: rho_eff = 0 degrades the step to SGD
-(Algorithm 1, line 8) with the same kernels launched. A lossy compressor
+(Algorithm 1, line 8) with the same kernels launched.
+
+With `guard_update` (the numerics guard), step 4's epilogue takes the
+device verdict keep = isfinite(||g||) & isfinite(loss) and writes nothing at
+0 (`core.api._finish`). The carry needs a verdict of its own: the reference
+keeps a non-finite a_t out of the carried state (and, on a skipped update,
+the whole method state), but here the carry is decided on the host
+(`have_ascent` is a host bool, the buffer swap of step 6 a host decision).
+So a guarded step reads (keep, isfinite(||a_t||)) to the host once, after
+every kernel of the step is queued; that read is the guard's only device
+synchronisation. Unless both are true, the step gives back the spare buffer
+and keeps a_{t-1}, its norm, `have_ascent` and the staleness. A lossy compressor
 (`MethodConfig.compressor` "int8" / "topk") keeps the carried gradient
 compressed, with error feedback, as the reference does.
 
@@ -121,7 +132,8 @@ def make_async_sam(cfg: MethodConfig) -> Method:
             aux = _m(aux)
 
             # --- 4. the optimizer update, in place
-            new_state, metrics = _finish(state, optimizer, grads, None, {}, guard=cfg.guard_update)
+            new_state, metrics = _finish(state, optimizer, grads, None, {"loss": loss},
+                                         guard=cfg.guard_update)
 
             # --- 5. ascent-state refresh: on the fused path the cosine metric
             # and the carried norm from ONE pass over (a_t, a_{t-1}); lossless
@@ -139,13 +151,23 @@ def make_async_sam(cfg: MethodConfig) -> Method:
             new_ms = AsyncSamState(ascent_grad=a_new, ascent_norm=a_norm,
                                    have_ascent=True, staleness=staleness,
                                    compression=comp_state)
+            shown_norm = a_norm
+            if cfg.guard_update:
+                # the guard's one host read: (keep, isfinite(||a_t||))
+                skipped, ok_a = torch.stack([metrics["update_skipped"],
+                                             torch.isfinite(a_norm).float()]).tolist()
+                if not ok_a:
+                    shown_norm = ms.ascent_norm
+                if skipped or not ok_a:
+                    new_ms = ms
 
-            # --- 6. swap: a_{t-1}'s buffer takes the next a_t
-            if refresh:
+            # --- 6. swap: a_{t-1}'s buffer takes the next a_t (a kept
+            # a_{t-1} leaves the spare buffer where it was)
+            if refresh and new_ms is not ms:
                 ws.bufs["ascent"] = ms.ascent_grad
 
             metrics = {"loss": loss, "ascent_loss": loss_asc,
-                       "ascent_norm": new_ms.ascent_norm, "ascent_cosine": cos,
+                       "ascent_norm": shown_norm, "ascent_cosine": cos,
                        "ascent_reused": reused,
                        "perturbed": 1.0 if ms.have_ascent else 0.0,
                        **aux, **metrics}

@@ -23,9 +23,15 @@
 //   q written to a fresh buffer and s', e' in place. The scale is a power of
 //   two, a by-value argument, so q scale is exact and the shadow advance
 //   rounds as the server's numpy `buf += q.astype(f32) * scale` does.
-// alpha, (clip, lr, c1, c2) and (clip, lr) are device scalars the kernels
-// read themselves, so the host never waits for the device; b1, b2, eps, wd,
-// the momentum and nesterov are arguments, as the TPU kernels bake them in.
+// alpha, (clip, lr, c1, c2, keep) and (clip, lr, keep) are device scalars the
+// kernels read themselves, so the host never waits for the device; b1, b2,
+// eps, wd, the momentum and nesterov are arguments, as the TPU kernels bake
+// them in. `keep` is the numerics guard's verdict (isfinite(||g||) &
+// isfinite(loss), computed on the device before the epilogue): at 0 each
+// epilogue kernel returns before it reads or writes anything, so w and the
+// moments stay as they were bit for bit (the reference's tree-select of the
+// old state, which in-place buffers cannot do after the fact); at 1 it
+// computes exactly what it computes without the guard.
 //
 // What bounds them on the H100: each moves its operands once and does a few
 // operations per element, so the bytes bound every one of them. At olmo-1b's fp32
@@ -170,6 +176,7 @@ template <typename TW, typename TG>
 __global__ void __launch_bounds__(THREADS)
 adamw_epilogue_kernel(TW* w, const TG* __restrict__ g, float* mu, float* nu, int64_t n, int vec,
                       const float* __restrict__ scal, AdamHyper h) {
+  if (scal[4] == 0.0f) return;  // the guard's skip: nothing is written
   const Chunk c = this_chunk(n);
   const float clip = scal[0], lr = scal[1], c1 = scal[2], c2 = scal[3];
   TW* wp = w + c.base;
@@ -241,6 +248,7 @@ template <typename TW, typename TG, bool kMomentum>
 __global__ void __launch_bounds__(THREADS)
 sgd_epilogue_kernel(TW* w, const TG* __restrict__ g, float* m, int64_t n, int vec,
                     const float* __restrict__ scal, SgdHyper h) {
+  if (scal[2] == 0.0f) return;  // the guard's skip: nothing is written
   const Chunk c = this_chunk(n);
   const float clip = scal[0], lr = scal[1];
   TW* wp = w + c.base;
@@ -458,7 +466,7 @@ extern "C" int fused_dot_norms(const void* a, int a_dtype, const void* b, int b_
 }
 
 // w (w_dtype), mu and nu (float32) are updated in place; g has g_dtype;
-// scal: four device floats (clip, lr, c1, c2).
+// scal: five device floats (clip, lr, c1, c2, keep); keep 0 writes nothing.
 extern "C" int adamw_epilogue(void* w, int w_dtype, const void* g, int g_dtype, void* mu,
                               void* nu, int64_t n, const void* scal, float b1, float omb1,
                               float b2, float omb2, float eps, float wd, void* stream) {
@@ -473,7 +481,8 @@ extern "C" int adamw_epilogue(void* w, int w_dtype, const void* g, int g_dtype, 
 }
 
 // w (w_dtype) and, when momentum != 0, m (float32) are updated in place; g
-// has g_dtype; scal: two device floats (clip, lr). With momentum 0, m is not
+// has g_dtype; scal: three device floats (clip, lr, keep), keep 0 writes
+// nothing. With momentum 0, m is not
 // touched and may be null.
 extern "C" int sgd_epilogue(void* w, int w_dtype, const void* g, int g_dtype, void* m,
                             int64_t n, const void* scal, float momentum, int nesterov, float wd,

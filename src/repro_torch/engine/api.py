@@ -15,10 +15,10 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core import TrainState
-from repro_torch.core.api import scalar_metrics  # noqa: F401  (the engine's name for it)
-
-# the reference's contract keys (repro.obs.registry), same names, same order
-ENGINE_METRIC_KEYS = ("loss", "grad_norm", "tau", "perturbed")
+# the contract tuples are derived from the typed registry (obs.registry) and
+# re-exported here, as the reference's engine.api does
+from repro_torch.obs.registry import (ENGINE_METRIC_KEYS,  # noqa: F401
+                                      ENGINE_OPTIONAL_METRIC_KEYS, scalar_metrics)
 
 
 @dataclasses.dataclass

@@ -9,18 +9,20 @@ A callback observes the fit loop; it never owns it. The hooks are
 
 all no-ops by default. `CheckpointCallback` is the one callback the Engine
 inspects: its presence routes the loop through `runtime.run_resilient`.
-`StalenessTelemetry` aggregates the lane executors' tau ledger. The
-reference's eval callback and the staleness callback's jsonl stream (its
-sink is the tracker's) come with later slices (ROADMAP.md queue 1).
+`StalenessTelemetry` aggregates the lane executors' tau ledger and, with
+`jsonl_path`, streams one record per step through the tracker's `JsonlSink`.
+The reference's eval callback is a later slice (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import pathlib
+from typing import Optional, Union
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import TrainState
-from repro_torch.engine.api import scalar_metrics
+from repro_torch.engine.api import ENGINE_OPTIONAL_METRIC_KEYS
+from repro_torch.obs import JsonlSink, scalar_metrics
 from repro_torch.runtime import ResilienceConfig
 
 
@@ -96,13 +98,25 @@ class StalenessTelemetry(Callback):
     steps that ran unperturbed (SGD fallbacks).
 
     Works against the metric contract (tau, perturbed), so it attaches to the
-    fused executor too, where it records the constant tau = 1 regime. The
-    reference's `jsonl_path` stream is the tracker slice's (ROADMAP.md
-    queue 1).
+    fused executor too, where it records the constant tau = 1 regime.
+
+    With `jsonl_path` set, every step also appends one JSON record
+    `{step, tau, perturbed, step_time_s, loss}` plus each
+    `ENGINE_OPTIONAL_METRIC_KEYS` member the step carries (the remote lane's
+    wire bytes and rtt, the pool's depth and wait, the lane ladder's and the
+    guard's counters), streamed through `repro_torch.obs.JsonlSink`, which
+    owns the schema: the same bytes as the reference's records, so
+    `benchmarks/fig3_throughput.py` and other consumers read either.
     """
 
-    def __init__(self, print_summary: bool = True):
+    #: metric keys recorded per step when the executor emits them
+    OPTIONAL_KEYS = ENGINE_OPTIONAL_METRIC_KEYS
+
+    def __init__(self, print_summary: bool = True,
+                 jsonl_path: Union[str, pathlib.Path, None] = None):
         self.print_summary = print_summary
+        self.jsonl_path = pathlib.Path(jsonl_path) if jsonl_path else None
+        self._sink = None
         self.tau_hist: dict[int, int] = {}
         self.sgd_fallbacks = 0
         self.perturbed_steps = 0
@@ -114,6 +128,10 @@ class StalenessTelemetry(Callback):
             self.perturbed_steps += 1
         else:
             self.sgd_fallbacks += 1
+        if self.jsonl_path is not None:
+            if self._sink is None:
+                self._sink = JsonlSink(self.jsonl_path)
+            self._sink.log({**metrics, "step_time_s": step_time_s}, step=int(state.step))
 
     def summary(self) -> dict:
         return {"tau_hist": dict(sorted(self.tau_hist.items())),
@@ -121,5 +139,8 @@ class StalenessTelemetry(Callback):
                 "sgd_fallbacks": self.sgd_fallbacks}
 
     def on_fit_end(self, engine, report):
+        if self._sink is not None:
+            self._sink.close()
+            self._sink = None
         if self.print_summary:
             print(f"staleness: {self.summary()}")

@@ -11,8 +11,13 @@ The Engine owns iteration, timing and callback dispatch. An executor with a
 gets it called once before the loop, on a probe batch, and its report lands
 in `FitReport.pre_fit`. With a `CheckpointCallback` the loop runs under
 `runtime.run_resilient` (checkpoints, restore-and-continue on a failed step).
-The reference's mesh events and tracker are later slices (ROADMAP.md
-queue 1).
+`fit(tracker=...)` installs a `repro_torch.obs.Tracker` for the fit: each
+step runs under a `train_step` span (host time: on the card it ends when the
+executor's step returns, after whatever synchronize the executor does) and
+logs its scalars and `step_time_s` to the tracker. The reference's mesh
+events (`events=`, its elastic executor) are the distributed slice
+(ROADMAP.md queue 1); a `runtime.chaos.ChaosSchedule` passed as
+`failure_injector` raises its crash events as it does in the reference.
 """
 from __future__ import annotations
 
@@ -20,8 +25,9 @@ import time
 from typing import Iterable, Optional, Sequence
 
 from repro_torch.core import TrainState
-from repro_torch.engine.api import FitReport, scalar_metrics
+from repro_torch.engine.api import FitReport
 from repro_torch.engine.callbacks import Callback, CheckpointCallback
+from repro_torch.obs import Tracker, current_tracker, scalar_metrics, use_tracker
 from repro_torch.runtime import run_resilient
 
 
@@ -46,22 +52,40 @@ class Engine:
                 it.close()
 
     def _step(self, state: TrainState, batch: dict):
+        trk = current_tracker()
         t0 = time.perf_counter()
-        state, metrics = self.executor.step(state, batch)
+        with trk.span("train_step", lane="descent", step=int(state.step)):
+            state, metrics = self.executor.step(state, batch)
         dt = time.perf_counter() - t0
+        if trk.sinks:
+            trk.log({**scalar_metrics(metrics), "step_time_s": dt}, step=int(state.step))
+        trk.histogram("step_time_s", dt)
         for cb in self.callbacks:
             cb.on_step(self, state, metrics, dt)
         return state, metrics
 
     def fit(self, state: TrainState, steps: int, *, warmup: int = 0,
-            failure_injector=None) -> FitReport:
+            failure_injector=None, tracker: Optional[Tracker] = None) -> FitReport:
         """Train until `state.step == steps`; returns a FitReport.
 
         warmup: steps executed before the clock starts and before
         `on_fit_start` fires. failure_injector(step) may raise to simulate a
         lost node; it is the resilient loop's, so it acts with a
         CheckpointCallback only (as in the reference).
+
+        tracker: installed as the process-global current tracker for the
+        fit (`obs.use_tracker`), so the lanes report spans to it from their
+        own threads. Without one, whatever tracker is current (by default the
+        null tracker) stays in effect.
         """
+        if tracker is not None:
+            with use_tracker(tracker):
+                return self._fit(state, steps, warmup=warmup,
+                                 failure_injector=failure_injector)
+        return self._fit(state, steps, warmup=warmup, failure_injector=failure_injector)
+
+    def _fit(self, state: TrainState, steps: int, *, warmup: int,
+             failure_injector) -> FitReport:
         hook = getattr(self.executor, "pre_fit", None)
         if hook is not None and getattr(self.executor, "wants_pre_fit", True):
             self.pre_fit_report = hook(state, self._probe_batch())

@@ -92,6 +92,12 @@ class FusedExecutor:
                                 resident=self.resident)
 
     def step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        """One step; on the card it ends in a synchronize, so the host-side
+        timing (ThroughputMeter, the Engine's step_time_s) sees the step's
+        latency, as the reference's block on the new params does. The
+        tracker's `train_step` span around it is host time too: it covers the
+        device's work only through that synchronize, which is the step's
+        own; no span adds one."""
         if self._closed:
             raise RuntimeError("executor is closed")
         state, metrics = self._step(state, batch)

@@ -23,10 +23,13 @@ Wiring (ExecutorConfig fields):
                    against the server's shadow (`service.delta`), int8
                    through the `delta_amax` and `delta_encode_i8` kernels
 
+    watchdog       loopback: a STATS-scraping `runtime.health.ServerWatchdog`
+                   tells a wedged server (alive to TCP, counters frozen with
+                   work queued) from a dead one and restarts either under a
+                   `watchdog_max_restarts` budget
+
 Step metrics additionally carry `wire_bytes` (the last JOB + GRAD exchange),
-its split `job_bytes` / `grad_bytes`, and `rtt_s`. The reference's server
-watchdog (`runtime/health.py`) is a later slice: `ExecutorConfig(watchdog=
-True)` raises.
+its split `job_bytes` / `grad_bytes`, and `rtt_s`.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ from repro_torch.core.ascent import Compressor
 from repro_torch.engine.hetero import HeteroExecutor
 from repro_torch.optim import GradientTransform
 from repro_torch.runtime.async_executor import ExecutorConfig
+from repro_torch.runtime.fault_tolerance import RestartBudget
+from repro_torch.runtime.health import ServerWatchdog
 from repro_torch.service.ascent_server import ServerHandle, spawn_server
 from repro_torch.service.client import RemoteAscentClient
 
@@ -94,7 +99,18 @@ class RemoteExecutor(HeteroExecutor):
                 self.server.kill()
             raise
         self.xcfg = xcfg
+        # the watchdog and the step loop's respawn share one lock
         self._server_lock = threading.Lock()
+        self.watchdog: Optional[ServerWatchdog] = None
+        if xcfg.watchdog and self.server is not None:
+            self.watchdog = ServerWatchdog(
+                addr_fn=lambda: self.client.address,
+                restart_fn=self._watchdog_restart,
+                budget=RestartBudget(xcfg.watchdog_max_restarts, what="server restart"),
+                interval_s=xcfg.watchdog_interval_s,
+                wedge_scrapes=xcfg.watchdog_wedge_scrapes,
+                auth_token=xcfg.auth_token)
+            self.watchdog.start()
 
     def _spawn(self, bind: str, xcfg: ExecutorConfig) -> ServerHandle:
         return spawn_server(self._loss_spec, bind=bind, device=self._server_device,
@@ -119,11 +135,29 @@ class RemoteExecutor(HeteroExecutor):
                 return
             self.client.set_address(self.server.addr)
 
+    def _watchdog_restart(self, verdict: str) -> None:
+        """Watchdog verdict (dead or wedged): replace the loopback server. A
+        wedged server is still alive to the OS, so it is killed first; the
+        client is pointed at the replacement and reconnects."""
+        with self._server_lock:
+            if self.server is None:
+                return
+            self.client._note_error(f"watchdog: server {verdict}; restarting")
+            self.server.kill()
+            try:
+                self.server = self._spawn("127.0.0.1:0", self.xcfg)
+            except RuntimeError as e:
+                self.client._note_error(f"watchdog respawn failed: {e}")
+                return
+            self.client.set_address(self.server.addr)
+
     def step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         self._maybe_respawn_server()
         return super().step(state, batch)
 
     def close(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.close()    # stop scraping before the server dies
         super().close()              # inner executor -> client (lane) close
         if self.server is not None:
             self.server.kill()

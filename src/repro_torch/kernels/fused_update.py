@@ -16,6 +16,10 @@ Pallas TPU kernels, each one pass over flat dtype buckets:
 
 Scalars that change per step (alpha; clip scale, lr, c1, c2) stay on the
 device and the kernels read them there, so no call waits for the device.
+The two epilogues also take `keep`, the numerics guard's verdict as a 0-d
+fp32 device tensor (None: 1): at 0 the kernel writes nothing and w and the
+moments stay as they were bit for bit; at 1 it computes what it computes
+without it.
 Where the port departs from the reference's functional form, for memory:
 `fused_axpy` writes into `out` when given, `adamw_epilogue` updates w, mu
 and nu in place, and `sgd_epilogue` w and m (the reference's jit donation
@@ -115,18 +119,21 @@ def fused_dot_norms(a: torch.Tensor, b: torch.Tensor
 
 def adamw_epilogue(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                    clip_scale, lr, c1, c2, *, b1: float = 0.9, b2: float = 0.999,
-                   eps: float = 1e-8, weight_decay: float = 0.0
+                   eps: float = 1e-8, weight_decay: float = 0.0, keep=None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One clip-Adam-decay-lr step; updates w, mu and nu in place and returns
-    them. w fp32 or bf16, g fp32 or bf16, mu and nu fp32."""
+    them. w fp32 or bf16, g fp32 or bf16, mu and nu fp32. `keep` 0 (the
+    guard's skip) leaves all three as they were."""
     if w.device.type == "cpu":
         return flat.adamw_epilogue_plain_(w, g, mu, nu, clip_scale, lr, c1, c2, b1=b1,
-                                          b2=b2, eps=eps, weight_decay=weight_decay)
+                                          b2=b2, eps=eps, weight_decay=weight_decay,
+                                          keep=keep)
     dev = check_flat("adamw_epilogue", {"w": w, "g": g, "mu": mu, "nu": nu},
                      {"mu": _F32, "nu": _F32})
     if w.numel() == 0:
         return w, mu, nu
-    scal = torch.stack([_scalar(v, dev) for v in (clip_scale, lr, c1, c2)])
+    scal = torch.stack([_scalar(v, dev) for v in (clip_scale, lr, c1, c2,
+                                                  1.0 if keep is None else keep)])
     with torch.cuda.device(dev):
         rc = _library().adamw_epilogue(
             w.data_ptr(), DTYPES[w.dtype], g.data_ptr(), DTYPES[g.dtype], mu.data_ptr(),
@@ -138,21 +145,24 @@ def adamw_epilogue(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch
 
 
 def sgd_epilogue(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor], clip_scale, lr,
-                 *, momentum: float = 0.0, nesterov: bool = False, weight_decay: float = 0.0
-                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 *, momentum: float = 0.0, nesterov: bool = False, weight_decay: float = 0.0,
+                 keep=None) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One clip-decay-momentum-lr step; updates w and (with momentum) m in
     place and returns (w, m), or (w, None) without momentum, the reference's
-    (w', m'-or-None). w fp32 or bf16, g fp32 or bf16, m fp32."""
+    (w', m'-or-None). w fp32 or bf16, g fp32 or bf16, m fp32. `keep` 0 (the
+    guard's skip) leaves w and m as they were."""
     if w.device.type == "cpu":
         return flat.sgd_epilogue_plain_(w, g, m, clip_scale, lr, momentum=momentum,
-                                        nesterov=nesterov, weight_decay=weight_decay)
+                                        nesterov=nesterov, weight_decay=weight_decay,
+                                        keep=keep)
     if momentum and m is None:
         raise ValueError("sgd_epilogue: momentum needs its buffer m")
     operands = {"w": w, "g": g, **({"m": m} if momentum else {})}
     dev = check_flat("sgd_epilogue", operands, {"m": _F32})
     if w.numel() == 0:
         return w, m if momentum else None
-    scal = torch.stack([_scalar(clip_scale, dev), _scalar(lr, dev)])
+    scal = torch.stack([_scalar(clip_scale, dev), _scalar(lr, dev),
+                        _scalar(1.0 if keep is None else keep, dev)])
     with torch.cuda.device(dev):
         rc = _library().sgd_epilogue(
             w.data_ptr(), DTYPES[w.dtype], g.data_ptr(), DTYPES[g.dtype],

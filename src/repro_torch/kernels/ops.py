@@ -151,24 +151,26 @@ def fused_dot_norms(a_flat: torch.Tensor, b_flat: torch.Tensor, *,
 def adamw_epilogue(w_flat: torch.Tensor, g_flat: torch.Tensor, mu_flat: torch.Tensor,
                    nu_flat: torch.Tensor, clip_scale, lr, c1, c2, *,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                   weight_decay: float = 0.0, impl: Optional[str] = None):
+                   weight_decay: float = 0.0, keep=None, impl: Optional[str] = None):
     """Fused clip-adam-wd-lr-apply (AdamW family). Updates w, mu and nu in
-    place and returns (w', mu', nu'), the same tensors."""
+    place and returns (w', mu', nu'), the same tensors; `keep` 0 (the numerics
+    guard's skip) leaves them as they were."""
     plain = _resolve(impl) == "plain"
     epilogue = flat.adamw_epilogue_plain_ if plain else fu.adamw_epilogue
     return epilogue(w_flat, g_flat, mu_flat, nu_flat, clip_scale, lr, c1, c2,
-                    b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+                    b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, keep=keep)
 
 
 def sgd_epilogue(w_flat: torch.Tensor, g_flat: torch.Tensor, m_flat: Optional[torch.Tensor],
                  clip_scale, lr, *, momentum: float = 0.0, nesterov: bool = False,
-                 weight_decay: float = 0.0, impl: Optional[str] = None):
+                 weight_decay: float = 0.0, keep=None, impl: Optional[str] = None):
     """Fused clip-wd-momentum-lr-apply (SGD family). Updates w (and m) in
-    place and returns (w', m'-or-None), the same tensors."""
+    place and returns (w', m'-or-None), the same tensors; `keep` 0 (the
+    numerics guard's skip) leaves them as they were."""
     plain = _resolve(impl) == "plain"
     epilogue = flat.sgd_epilogue_plain_ if plain else fu.sgd_epilogue
     return epilogue(w_flat, g_flat, m_flat, clip_scale, lr, momentum=momentum,
-                    nesterov=nesterov, weight_decay=weight_decay)
+                    nesterov=nesterov, weight_decay=weight_decay, keep=keep)
 
 
 def delta_amax(p_flat: torch.Tensor, s_flat: torch.Tensor, e_flat: torch.Tensor, *,

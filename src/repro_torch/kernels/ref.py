@@ -351,14 +351,23 @@ def dot_norms_flat_plain(a: torch.Tensor, b: torch.Tensor
     return torch.sum(a32 * b32), torch.sum(a32 * a32), torch.sum(b32 * b32)
 
 
+def _kept(keep, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """`new` where the guard's verdict `keep` is nonzero, else `old` (in
+    `new`'s dtype: the same bits as the kernels' skip, which writes nothing)."""
+    if keep is None:
+        return new
+    return torch.where(_f32(keep).to(new.device) != 0, new, old.to(new.dtype))
+
+
 def sgd_epilogue_flat_plain(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor],
                             clip_scale, lr, *, momentum: float = 0.0, nesterov: bool = False,
-                            weight_decay: float = 0.0
+                            weight_decay: float = 0.0, keep=None
                             ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(w', m' or None) of one clip-decay-momentum-lr step (mirror of
     `ref.sgd_epilogue_flat_jnp`); w' keeps w's dtype, m' is fp32. Weight
     decay enters u before the momentum, as `add_decayed_weights` precedes
-    `trace` in the reference's sgd chain."""
+    `trace` in the reference's sgd chain. `keep` 0 (the numerics guard's
+    skip) gives back w and m as they were."""
     dev = w.device
     w32 = w.float()
     u = g.float() * _f32(clip_scale).to(dev)
@@ -366,19 +375,21 @@ def sgd_epilogue_flat_plain(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.
         u = u + weight_decay * w32
     lr = _f32(lr).to(dev)
     if not momentum:
-        return (w32 - lr * u).to(w.dtype), None
+        return _kept(keep, (w32 - lr * u).to(w.dtype), w), None
     m_new = momentum * m.float() + u
     d = momentum * m_new + u if nesterov else m_new
-    return (w32 - lr * d).to(w.dtype), m_new
+    return _kept(keep, (w32 - lr * d).to(w.dtype), w), _kept(keep, m_new, m)
 
 
 def adamw_epilogue_flat_plain(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                               nu: torch.Tensor, clip_scale, lr, c1, c2, *,
                               b1: float = 0.9, b2: float = 0.999,
-                              eps: float = 1e-8, weight_decay: float = 0.0
+                              eps: float = 1e-8, weight_decay: float = 0.0, keep=None
                               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(w', mu', nu') of one clip-Adam-decay-lr step (mirror of
-    `ref.adamw_epilogue_flat_jnp`); w' keeps w's dtype, mu'/nu' are fp32."""
+    `ref.adamw_epilogue_flat_jnp`); w' keeps w's dtype, mu'/nu' are fp32.
+    `keep` 0 (the numerics guard's skip) gives back w, mu and nu as they
+    were."""
     dev = w.device
     w32 = w.float()
     g32 = g.float() * _f32(clip_scale).to(dev)
@@ -389,7 +400,7 @@ def adamw_epilogue_flat_plain(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor
     if weight_decay:
         upd = upd + weight_decay * w32
     w_new = (w32 - _f32(lr).to(dev) * upd).to(w.dtype)
-    return w_new, mu_new, nu_new
+    return _kept(keep, w_new, w), _kept(keep, mu_new, mu), _kept(keep, nu_new, nu)
 
 
 def delta_amax_flat_plain(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:

@@ -43,9 +43,27 @@ sgd, sam, gsam, async_sam and the variants looksam, esam, aesam and mesa,
 each with the `MethodConfig` defaults beyond rho, b'/b and the microbatches.
 `--optimizer sgd` takes the reference launcher's sgd: momentum 0 (the
 paper's momentum 0.9 is `optim.sgd(..., momentum=0.9)` through the API).
-The reference's lane ladder, watchdog, netchaos proxy, guard, numerics
-chaos, elastic meshes and tracker are later slices (ROADMAP.md queue 1):
-their flags are refused by name.
+
+Resilience and observability, with the reference's flags, checks and exit
+summaries: `--guard` (the numerics guard: the in-step skip in the epilogue
+kernels, the rho de-escalation ladder, and with `--ckpt-dir` PoisonBatch
+rollback; prints `guard: rung ...`), `--numchaos SPEC` (poisons float batch
+leaves by the batch cursor; token batches have none, so on a language model
+it is a counted no-op; prints `numchaos: fired ...`), `--lane-ladder`
+(hetero/remote: remote -> thread -> ledger-only failover), `--watchdog`
+(remote + --serve-ascent: restart a dead or wedged server), `--netchaos
+SPEC` (remote: a frame-aware fault proxy on the wire), `--trace PATH` (a
+Chrome/Perfetto trace, one track per lane) and `--telemetry-jsonl PATH`
+(one record per step, the reference's bytes):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \
+      --device cpu --steps 8 --batch 4 --seq 32 --guard \
+      --numchaos nan_grad:nth=5 --trace /tmp/t.json --telemetry-jsonl /tmp/t.jsonl
+
+The reference's elastic-mesh flags (`--elastic`, `--chaos`, which needs
+`--elastic`, `--model-axis`, `--resize-budget`, `--resize-window-s`) wait
+for the distributed slice (ROADMAP.md queue 1, item 7) and are refused by
+name.
 """
 from __future__ import annotations
 
@@ -56,25 +74,26 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import MethodConfig, available_methods
 from repro_torch.data import PipelineConfig, TokenPipeline
-from repro_torch.engine import (CheckpointCallback, Engine, FusedExecutor, HeteroExecutor,
-                                LoggingCallback, RemoteExecutor, StalenessTelemetry,
-                                ThroughputMeter)
+from repro_torch.engine import (CheckpointCallback, Engine, FusedExecutor, GuardConfig,
+                                GuardedExecutor, HeteroExecutor, LoggingCallback,
+                                RemoteExecutor, StalenessTelemetry, ThroughputMeter)
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import sam_perturb as sp
 from repro_torch.kernels.ops import mixer_launches
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import cosine_schedule, make_optimizer
-from repro_torch.runtime import ExecutorConfig, ResilienceConfig
+from repro_torch.obs import TraceEventSink, Tracker
+from repro_torch.runtime import (ExecutorConfig, NumericChaosPipeline, ResilienceConfig,
+                                 parse_numchaos)
 
 DELTA_KERNELS = ("delta_amax", "delta_encode_i8")
-# the reference's flags of later slices (ROADMAP.md queue 1), refused by name
-NOT_PORTED_FLAGS = {
-    "lane-ladder": "runtime/health.py", "watchdog": "runtime/health.py",
-    "netchaos": "service/netchaos.py", "guard": "runtime/guard.py",
-    "numchaos": "runtime/chaos.py", "elastic": "the distributed slice",
-    "chaos": "the distributed slice",
-}
+# the reference's elastic-mesh flags, refused by name until the distributed
+# slice (ROADMAP.md queue 1, item 7): engine/elastic.py, runtime/elastic.py,
+# launch/mesh.py (--chaos drives the elastic executor's mesh events)
+_ITEM7 = "the distributed slice, ROADMAP.md queue 1 item 7"
+NOT_PORTED_FLAGS = {flag: _ITEM7 for flag in (
+    "elastic", "chaos", "model-axis", "resize-budget", "resize-window-s")}
 
 
 def kernel_launches(executor: str = "fused", family: str = "dense") -> dict[str, int]:
@@ -128,6 +147,35 @@ def main() -> None:
                          "paper's CPU helper); default the descent's")
     ap.add_argument("--descent-device", default="",
                     help="hetero only: device of the fast descent lane (default --device)")
+    ap.add_argument("--netchaos", default="",
+                    help="remote only: interpose service.netchaos.ChaosProxy between the "
+                         "client and the ascent server, driven by this fault schedule: "
+                         "comma-separated 'action[:FRAME][:key=val...]', e.g. "
+                         "'corrupt:GRAD:every=5,drop:JOB_DELTA:nth=7' (actions: corrupt, "
+                         "truncate, drop, delay, stall, blackhole, duplicate)")
+    ap.add_argument("--lane-ladder", action="store_true",
+                    help="hetero/remote: health-driven degradation ladder (remote -> "
+                         "in-process thread -> ledger-only), with lane_state/"
+                         "lane_failovers/lane_recoveries telemetry")
+    ap.add_argument("--guard", action="store_true",
+                    help="numerics guard (runtime.guard): in-step skip of non-finite "
+                         "updates (the epilogue kernels write nothing), loss-spike and "
+                         "stale-ascent detection, the rho de-escalation ladder and, with "
+                         "--ckpt-dir, PoisonBatch rollback; telemetry in guard_state/"
+                         "rho_scale/steps_skipped/poison_rollbacks")
+    ap.add_argument("--numchaos", default="",
+                    help="deterministic numerics-chaos injector over the batch stream: "
+                         "'kind[:key=val...]' rules keyed on the batch cursor, e.g. "
+                         "'nan_grad:nth=40:span=8,spike:prob=0.01:scale=1e4'. Poisons "
+                         "float batch leaves only: token batches pass through untouched")
+    ap.add_argument("--watchdog", action="store_true",
+                    help="remote + --serve-ascent only: STATS-scraping server watchdog "
+                         "that restarts a dead or wedged loopback server under a budget")
+    ap.add_argument("--telemetry-jsonl", default="",
+                    help="write per-step tau/perturbed/step-time records here")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome/Perfetto trace-event JSON here: the descent, the "
+                         "ascent lane and the pool workers as named tracks")
     for flag in NOT_PORTED_FLAGS:
         ap.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -161,7 +209,7 @@ def main() -> None:
     args = ap.parse_args()
     for flag, module in NOT_PORTED_FLAGS.items():
         if getattr(args, flag.replace("-", "_")) is not None:
-            ap.error(f"--{flag} is not ported yet ({module}, ROADMAP.md queue 1)")
+            ap.error(f"--{flag} is not ported yet ({module})")
     lanes = args.executor in ("hetero", "remote")
     if args.calibrate and not lanes:
         ap.error("--calibrate requires --executor hetero or remote")
@@ -187,13 +235,27 @@ def main() -> None:
     if args.executor == "remote" and not (args.ascent_addr or args.serve_ascent):
         ap.error("--executor remote needs --ascent-addr (a running "
                  "ascent server) or --serve-ascent (loopback subprocess)")
+    if args.netchaos and args.executor != "remote":
+        ap.error("--netchaos applies to --executor remote only (it attacks "
+                 "the ascent wire)")
+    if args.lane_ladder and not lanes:
+        ap.error("--lane-ladder applies to --executor hetero or remote "
+                 "(the fused executor has no ascent lane to degrade)")
+    if args.watchdog and not args.serve_ascent:
+        ap.error("--watchdog restarts the spawned loopback server; it needs "
+                 "--serve-ascent (an external server is restarted by its "
+                 "own supervisor)")
+    if args.watchdog and args.netchaos:
+        ap.error("--watchdog and --netchaos are mutually exclusive: under "
+                 "--netchaos the launcher owns the server (behind the "
+                 "proxy), so the executor's watchdog could not restart it")
 
     device = resolve_device(args.descent_device or args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
     bundle = build_model(cfg)
     mcfg = MethodConfig(name=args.method, rho=args.rho,
                         ascent_fraction=args.ascent_fraction,
-                        n_microbatches=args.n_micro)
+                        n_microbatches=args.n_micro, guard_update=args.guard)
     optimizer = make_optimizer(args.optimizer,
                                cosine_schedule(args.lr, args.steps,
                                                warmup_steps=args.steps // 20))
@@ -201,42 +263,89 @@ def main() -> None:
         global_batch=args.batch, seq_len=args.seq, seed=args.seed,
         ascent_fraction=(args.ascent_fraction
                          if args.method in ("async_sam",) else 0.0)), device=device)
+    numchaos = None
+    if args.numchaos:
+        numchaos = parse_numchaos(args.numchaos, seed=args.seed)
+        pipe = NumericChaosPipeline(pipe, numchaos)
+        print(f"numchaos: {len(numchaos.rules)} rules over the batch stream")
     switch = {"auto": None, "on": True, "off": False}
     fused_update, resident = switch[args.fused_update], switch[args.resident]
+    netchaos_proxy = netchaos_server = None
     if args.executor == "hetero":
         exec_cfg = ExecutorConfig(
             ascent_device=resolve_device(args.ascent_device) if args.ascent_device else None,
-            descent_device=device, fused_update=fused_update, resident=resident)
+            descent_device=device, fused_update=fused_update, resident=resident,
+            lane_ladder=args.lane_ladder)
         executor = HeteroExecutor(bundle.loss_fn, mcfg, optimizer, exec_cfg=exec_cfg,
                                   calibrate=args.calibrate)
     elif args.executor == "remote":
+        loss_spec = f"arch:{args.arch}" + (":reduced" if args.reduced else "")
+        upstream, serve = args.ascent_addr, args.serve_ascent
+        if args.netchaos:
+            # the client talks to the proxy, the proxy to the real server,
+            # spawned here (not by RemoteExecutor) so the proxy can
+            # interpose on the loopback path too
+            from repro_torch.service.ascent_server import spawn_server
+            from repro_torch.service.netchaos import ChaosProxy, parse_faults
+            if serve:
+                netchaos_server = spawn_server(loss_spec, device=str(device),
+                                               pool_workers=args.pool_workers,
+                                               auth_token=args.auth_token)
+                upstream, serve = netchaos_server.addr, False
+            netchaos_proxy = ChaosProxy(upstream, parse_faults(args.netchaos))
+            upstream = netchaos_proxy.addr
+            print(f"netchaos: proxy {netchaos_proxy.addr} -> {netchaos_proxy.upstream} "
+                  f"({len(netchaos_proxy.schedule.rules)} fault rules)")
         exec_cfg = ExecutorConfig(
-            ascent_addr=args.ascent_addr, serve_ascent=args.serve_ascent,
-            loss_spec=f"arch:{args.arch}" + (":reduced" if args.reduced else ""),
+            ascent_addr=upstream, serve_ascent=serve, loss_spec=loss_spec,
             descent_device=device, fused_update=fused_update, resident=resident,
             job_compress=args.job_compress, job_delta=(args.job_delta == "on"),
             pool_workers=args.pool_workers, sync_group=args.sync_group,
-            auth_token=args.auth_token)
+            auth_token=args.auth_token, lane_ladder=args.lane_ladder,
+            watchdog=args.watchdog)
         executor = RemoteExecutor(bundle.loss_fn, mcfg, optimizer, exec_cfg=exec_cfg,
                                   calibrate=args.calibrate)
     else:
         executor = FusedExecutor(bundle.loss_fn, mcfg, optimizer,
                                  fused_update=fused_update, resident=resident)
+    guard = None
+    if args.guard:
+        # outermost wrapper, so its verdict covers everything below;
+        # PoisonBatch rollback needs the checkpoint-restart loop, so it arms
+        # only with --ckpt-dir
+        guard = executor = GuardedExecutor(executor, GuardConfig(rollback=bool(args.ckpt_dir)))
 
     model = bundle.init(args.seed, device)
     state = executor.init_state(model, args.seed + 1)
 
     meter = ThroughputMeter(tokens_per_batch=args.batch * args.seq)
     callbacks = [LoggingCallback(every=args.log_every, total_steps=args.steps), meter]
-    if lanes:
-        callbacks.append(StalenessTelemetry())
+    if lanes or args.telemetry_jsonl:
+        callbacks.append(StalenessTelemetry(jsonl_path=args.telemetry_jsonl or None))
     if args.ckpt_dir:
         callbacks.append(CheckpointCallback(
             CheckpointManager(args.ckpt_dir, keep=3),
             ResilienceConfig(save_every=args.save_every, max_restarts=args.max_restarts,
-                             restart_window_s=args.restart_window_s or None)))
-    with Engine(executor, pipe, callbacks) as eng:
-        report = eng.fit(state, args.steps)
+                             restart_window_s=args.restart_window_s or None,
+                             require_finite_restore=args.guard)))
+    tracker = Tracker([TraceEventSink(args.trace)]) if args.trace else None
+    try:
+        with Engine(executor, pipe, callbacks) as eng:
+            report = eng.fit(state, args.steps, tracker=tracker)
+    finally:
+        # the launcher's netchaos plumbing (the executor tears down only what
+        # it spawned itself)
+        if netchaos_proxy is not None:
+            netchaos_proxy.close()
+        if netchaos_server is not None:
+            netchaos_server.kill()
+    if netchaos_proxy is not None:
+        print(f"netchaos: {netchaos_proxy.connections} connections, "
+              f"{netchaos_proxy.fault_count()} faults fired "
+              f"{netchaos_proxy.schedule.fired_actions()}")
+    if tracker is not None:
+        tracker.close()
+        print(f"trace written to {args.trace} (load at ui.perfetto.dev)")
 
     if report.pre_fit:
         pf = report.pre_fit
@@ -245,6 +354,15 @@ def main() -> None:
     if args.ckpt_dir:
         print(f"done: {report.steps_done} steps, {report.restarts} restarts, "
               f"{report.wall_time_s:.1f}s")
+    if numchaos is not None:
+        print(f"numchaos: fired {dict(numchaos.fired)}"
+              + (f", {numchaos.skipped_no_float} no-float-leaf skips"
+                 if numchaos.skipped_no_float else ""))
+    if guard is not None:
+        print(f"guard: rung {guard.ladder.level} "
+              f"(rho_scale {guard.cfg.rho_scales[guard.ladder.level]}), "
+              f"{guard.steps_skipped} updates skipped, "
+              f"{guard.poison_rollbacks} poison rollbacks")
     print(f"kernel launches: {json.dumps(kernel_launches(args.executor, cfg.family))}")
     summary = meter.summary()
     if summary:

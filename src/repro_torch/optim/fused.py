@@ -14,6 +14,13 @@ fused and per-leaf paths interoperate. The clip scale, learning rate and
 bias corrections are computed on the device from device step counters, so
 the host never waits for them.
 
+With `verdict` (the numerics guard, `core.api._finish(guard=True)`), the
+keep flag `verdict(grad_norm)` is computed on the device after the norm and
+before the epilogues, which take it: at 0 they write nothing, and the step
+counters (`AdamState.step`, `ScaleByScheduleState.step`) and
+`ClipState.last_norm` keep their values through `torch.where`, so a skipped
+step leaves the whole optimizer state as it was with no host read.
+
 Hand-built chains, masked weight decay and a chain configured off
 (`configure(opt, False)`) return None here and keep the per-leaf path, as in
 the reference.
@@ -25,7 +32,7 @@ weight-space work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -64,7 +71,9 @@ def _chain_fields(spec: FusedSpec) -> list[str]:
 
 
 def fused_apply(optimizer: GradientTransform, grads: Tree, opt_state: tuple, params: Tree, *,
-                impl: Optional[str] = None) -> Optional[tuple[Tree, tuple, torch.Tensor]]:
+                impl: Optional[str] = None,
+                verdict: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> Optional[tuple[Tree, tuple, torch.Tensor]]:
     """Run the whole update + apply on buckets, in place, or return None to
     keep the per-leaf path.
 
@@ -72,7 +81,8 @@ def fused_apply(optimizer: GradientTransform, grads: Tree, opt_state: tuple, par
     the same objects, their tensors updated; grad_norm is the global fp32
     gradient norm (computed for clipping anyway, and the step's contract
     metric). Bucket-resident params always run fused: the buffers are the
-    representation.
+    representation. `verdict(grad_norm)` -> a 0-d fp32 keep flag: see the
+    module docstring.
     """
     spec = optimizer.fused_spec
     resident = buckets.is_bucketed(params)
@@ -95,17 +105,24 @@ def fused_apply(optimizer: GradientTransform, grads: Tree, opt_state: tuple, par
         clip_scale = torch.clamp(spec.clip_norm / (gnorm + 1e-12), max=1.0)
     else:
         clip_scale = torch.ones_like(gnorm)
+    keep = verdict(gnorm) if verdict is not None else None
+
+    def kept(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+        return new if keep is None else torch.where(keep != 0, new, old)
 
     sched_state: ScaleByScheduleState = opt_state[-1]
     eta = spec.lr(sched_state.step)
-    new_state = {"clip": ClipState(last_norm=gnorm), "wd": (),
-                 "lr": ScaleByScheduleState(step=sched_state.step + 1)}
+    new_state = {"wd": (), "lr": ScaleByScheduleState(step=kept(sched_state.step + 1,
+                                                                sched_state.step))}
+    if spec.clip_norm is not None:
+        new_state["clip"] = ClipState(last_norm=kept(gnorm, opt_state[0].last_norm))
     if spec.family == "sgd":
         trace = opt_state[fields.index("trace")] if spec.momentum else None
         mb = bufs(trace.momentum) if spec.momentum else [None] * len(wb)
         for w, g, m in zip(wb, gb, mb):
             ops.sgd_epilogue(w, g, m, clip_scale, eta, momentum=spec.momentum,
-                             nesterov=spec.nesterov, weight_decay=spec.weight_decay, impl=impl)
+                             nesterov=spec.nesterov, weight_decay=spec.weight_decay,
+                             keep=keep, impl=impl)
         new_state["trace"] = trace
     else:
         adam: AdamState = opt_state[fields.index("adam")]
@@ -114,8 +131,9 @@ def fused_apply(optimizer: GradientTransform, grads: Tree, opt_state: tuple, par
         c2 = 1.0 - spec.b2 ** step.float()
         for w, g, mu, nu in zip(wb, gb, bufs(adam.mu), bufs(adam.nu)):
             ops.adamw_epilogue(w, g, mu, nu, clip_scale, eta, c1, c2, b1=spec.b1, b2=spec.b2,
-                               eps=spec.eps, weight_decay=spec.weight_decay, impl=impl)
-        new_state["adam"] = AdamState(step=step, mu=adam.mu, nu=adam.nu)
+                               eps=spec.eps, weight_decay=spec.weight_decay, keep=keep,
+                               impl=impl)
+        new_state["adam"] = AdamState(step=kept(step, adam.step), mu=adam.mu, nu=adam.nu)
     for tree, out in gathered:         # scatter back into the per-leaf tensors
         trees.tree_copy_(tree, buckets.BucketedState(tuple(out), layout).to_tree())
     return params, tuple(new_state[f] for f in fields), gnorm

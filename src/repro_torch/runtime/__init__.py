@@ -1,13 +1,20 @@
-"""repro_torch.runtime: checkpoint-restart and the heterogeneous asynchronous
-executor (counterpart of the `fault_tolerance` and `async_executor` parts of
-`repro.runtime`). The reference's guard, health, chaos and elastic modules
-are later slices (ROADMAP.md queue 1)."""
+"""repro_torch.runtime: checkpoint-restart, the heterogeneous asynchronous
+executor, the numerics guard, lane health with the degradation ladder and the
+server watchdog, and the scripted chaos schedule (counterpart of
+`repro.runtime`). The reference's elastic module is the distributed slice
+(ROADMAP.md queue 1)."""
 from repro_torch.runtime.async_executor import (  # noqa: F401
     AsyncSamExecutor,
     ExecutorConfig,
     LedgerOnlyLane,
     ThreadAscentLane,
     ascent_exchange,
+)
+from repro_torch.runtime.chaos import (  # noqa: F401
+    ChaosSchedule,
+    DeviceLoss,
+    MeshEvent,
+    parse_schedule,
 )
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     InjectedFailure,
@@ -16,4 +23,19 @@ from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     RestartBudget,
     RunReport,
     run_resilient,
+)
+from repro_torch.runtime.guard import (  # noqa: F401
+    GuardConfig,
+    GuardedExecutor,
+    NumericChaos,
+    NumericChaosPipeline,
+    NumericRule,
+    SpikeDetector,
+    parse_numchaos,
+)
+from repro_torch.runtime.health import (  # noqa: F401
+    LADDER_LEVELS,
+    LaneHealth,
+    LaneLadder,
+    ServerWatchdog,
 )

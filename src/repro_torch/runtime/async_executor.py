@@ -31,10 +31,20 @@ that form. A lane that encodes its own jobs (the remote client) gets the live
 device parameters instead and encodes them synchronously, before the next
 descent.
 
-Not ported here: the reference's degradation ladder and lane health
-(`runtime/health.py`, with the watchdog), the numerics guard's executor hook
-(`guard_update`), and the tracker's spans. Their `ExecutorConfig` fields stay
-at their defaults; setting one raises, naming its ROADMAP item.
+With `lane_ladder=True` the executor runs the reference's degradation
+ladder (`runtime.health`): an unhealthy or stalled lane fails over one rung
+(the configured lane -> an in-process thread lane -> ledger-only descent)
+and recovers after a probationary cooldown, reported as `lane_state`,
+`lane_failovers` and `lane_recoveries`. The numerics guard
+(`runtime.guard.GuardedExecutor`) drives `set_rho_scale` and `drop_ascent`;
+`guard_update` overrides `MethodConfig.guard_update` for this executor. A
+harvest whose norm is not finite is always dropped as a lost exchange.
+
+Spans, to the current tracker (`repro_torch.obs`): `ascent_compute` on the
+thread lane's track, `ascent_exchange` from submit to harvest on the lane's
+track, and `descent_compute` on the descent track. `descent_compute` ends
+after the synchronize the step already does for its timing, so on the card
+it covers the descent's kernels; no span adds a synchronize of its own.
 """
 from __future__ import annotations
 
@@ -54,21 +64,12 @@ from repro_torch.core import (Compressor, MethodConfig, StalenessLedger, TrainSt
 from repro_torch.core.api import LossFn, key_generator, lane_key, params_device
 from repro_torch.core.ascent import CompressionState
 from repro_torch.models import convert
+from repro_torch.obs import current_tracker, trace_now
 from repro_torch.optim import GradientTransform, configure_fused
 from repro_torch.utils import buckets, trees
 
 Tree = Any
 Device = Union[str, torch.device, None]
-
-_HEALTH = "ROADMAP.md queue 1: runtime/health.py (lane ladder, health, watchdog)"
-_NOT_PORTED = {
-    "guard_update": "ROADMAP.md queue 1: runtime/guard.py (the numerics guard)",
-    "lane_ladder": _HEALTH, "health_window": _HEALTH, "health_error_threshold": _HEALTH,
-    "health_min_samples": _HEALTH, "health_stall_timeout_s": _HEALTH,
-    "ladder_probation_steps": _HEALTH, "ladder_cooldown_steps": _HEALTH,
-    "watchdog": _HEALTH, "watchdog_interval_s": _HEALTH, "watchdog_wedge_scrapes": _HEALTH,
-    "watchdog_max_restarts": _HEALTH,
-}
 
 
 @dataclasses.dataclass
@@ -87,7 +88,9 @@ class ExecutorConfig:
     # before the next harvest, so the tau schedule is timing-independent
     # (step 0 unperturbed, tau = 1 thereafter)
     lockstep: bool = False
-    guard_update: Optional[bool] = None          # not ported (raises)
+    # numerics guard (runtime.guard): None follows MethodConfig.guard_update;
+    # True/False overrides it for this executor
+    guard_update: Optional[bool] = None
     # --- remote lane (engine.RemoteExecutor / repro_torch.service) -----------
     ascent_addr: str = ""          # "host:port" or "unix:/path" of the server
     serve_ascent: bool = False     # loopback: spawn the server as a subprocess
@@ -104,24 +107,21 @@ class ExecutorConfig:
     sync_group: str = ""
     auth_token: str = ""
     pool_workers: int = 0          # loopback spawn only: 0 = server default
-    # --- not ported: degradation ladder, lane health, server watchdog ---------
+    # --- health-driven degradation ladder (runtime.health) ------------------
+    # off by default: the ladder swaps lanes at runtime, which the lockstep
+    # parity tests must not see
     lane_ladder: bool = False
-    health_window: int = 16
+    health_window: int = 16        # rolling exchange-outcome window
     health_error_threshold: float = 0.5
     health_min_samples: int = 4
-    health_stall_timeout_s: float = 30.0
+    health_stall_timeout_s: float = 30.0   # silence with work outstanding
     ladder_probation_steps: int = 8
     ladder_cooldown_steps: int = 16
-    watchdog: bool = False
+    # --- server watchdog (engine.RemoteExecutor loopback) -------------------
+    watchdog: bool = False         # scrape STATS; restart a dead/wedged server
     watchdog_interval_s: float = 5.0
     watchdog_wedge_scrapes: int = 3
     watchdog_max_restarts: int = 2
-
-    def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if f.name in _NOT_PORTED and getattr(self, f.name) != f.default:
-                raise NotImplementedError(
-                    f"ExecutorConfig.{f.name} is not ported yet: {_NOT_PORTED[f.name]}")
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +273,11 @@ class ThreadAscentLane:
             if self._stop.is_set():   # shutting down: don't start new compute
                 break
             t0 = time.perf_counter()
-            g, norm, wire, self._comp_state = ascent_exchange(
-                self._ascent_fn, self._norm_fn, self._compressor, self._comp_state,
-                params, batch, rng, device=self._device, delay_s=self._delay_s)
+            with current_tracker().span("ascent_compute", lane=self.lane_name,
+                                        gen=gen, step=_step):
+                g, norm, wire, self._comp_state = ascent_exchange(
+                    self._ascent_fn, self._norm_fn, self._compressor, self._comp_state,
+                    params, batch, rng, device=self._device, delay_s=self._delay_s)
             self.wire_bytes_per_exchange = wire
             dt = time.perf_counter() - t0
             self.timings.append(dt)
@@ -358,6 +360,8 @@ class AsyncSamExecutor:
             fused_update = True
         optimizer = configure_fused(optimizer, fused_update)
         method_cfg = dataclasses.replace(method_cfg, fused_update=fused_update)
+        if self.xcfg.guard_update is not None:
+            method_cfg = dataclasses.replace(method_cfg, guard_update=self.xcfg.guard_update)
         resident = self.xcfg.resident
         if resident is None:
             resident = (bool(fused_update) and method_cfg.compressor == "none"
@@ -374,6 +378,23 @@ class AsyncSamExecutor:
         self._lane: AscentLane = ascent_lane if ascent_lane is not None else \
             ThreadAscentLane(self._ascent_raw, self._norm, self._compressor,
                              device=self.xcfg.ascent_device, delay_s=self.xcfg.ascent_delay_s)
+        # --- degradation ladder (runtime.health): remote -> local -> ledger.
+        # Level 0 is the configured lane; the local thread lane is built at
+        # the first failover, and a demoted primary stays open (a remote
+        # client keeps reconnecting, which is what promotion waits for).
+        self._ladder = self._health = None
+        self._local_lane: Optional[ThreadAscentLane] = None
+        self._ledger_lane = LedgerOnlyLane()
+        self._announce_ladder = False
+        if self.xcfg.lane_ladder:
+            from repro_torch.runtime.health import LaneHealth, LaneLadder
+            self._ladder = LaneLadder(probation_steps=self.xcfg.ladder_probation_steps,
+                                      cooldown_steps=self.xcfg.ladder_cooldown_steps)
+            self._health = LaneHealth(window=self.xcfg.health_window,
+                                      error_threshold=self.xcfg.health_error_threshold,
+                                      min_samples=self.xcfg.health_min_samples,
+                                      stall_timeout_s=self.xcfg.health_stall_timeout_s)
+        self._primary_lane = self._lane
         self._gen = 0            # bumped by reset(): fences off in-flight work
         self._inflight = 0       # results the lane still owes (lockstep gate)
         self._closed = False
@@ -382,6 +403,9 @@ class AsyncSamExecutor:
         self._rho_scale = 1.0
         self.nonfinite_drops = 0
         self._exchange_meta: dict = {}
+        # submit times of in-flight jobs (FIFO: the lanes are ordered
+        # queues), so a harvest can record its submit -> harvest span
+        self._submit_t: list[float] = []
         self.timings = {"ascent": getattr(self._lane, "timings", []), "descent": []}
         self.last_calibration: Optional[dict] = None    # {t_fast, t_slow}, seconds/sample
 
@@ -397,22 +421,37 @@ class AsyncSamExecutor:
 
         # harvest a finished ascent gradient (fresh: tau resets to 1); results
         # from a pre-reset() generation are discarded
+        trk = current_tracker()
         block = self.xcfg.lockstep and self._inflight > 0
         got = self._lane.poll(block=block, timeout=120.0 if block else None)
         self._exchange_meta = {}
         if got is not None:
             self._inflight = max(0, self._inflight - 1)
+            t_sub = self._submit_t.pop(0) if self._submit_t else None
             gen, g, norm, meta = got
+            if self._health is not None and gen == self._gen:
+                # one exchange concluded on the active lane (g None is the
+                # lost-exchange sentinel; fenced generations are no evidence)
+                self._health.record(g is not None, meta.get("rtt_s"))
             if g is not None and gen == self._gen and not np.isfinite(norm):
                 # a non-finite harvest is a lost exchange: holding it would
                 # poison every later perturbation (0 * NaN is NaN)
                 self.nonfinite_drops += 1
+                trk.event("ascent_nonfinite_drop", lane="guard",
+                          drops=self.nonfinite_drops, step=int(state.step))
                 g = None
             if g is not None and gen == self._gen:
                 self._held = (g, norm)
                 self._exchange_meta = dict(meta)
                 self.ledger.on_fresh()
                 have = True
+                if t_sub is not None:
+                    # the whole window this exchange lived in: submitted on
+                    # an earlier step, harvested now
+                    trk.span_at("ascent_exchange",
+                                lane=getattr(self._lane, "lane_name", "ascent-thread"),
+                                t0=t_sub, t1=trace_now(), tau=self.ledger.tau, gen=gen,
+                                step=int(state.step))
             else:
                 # g None: the lane's lost-exchange sentinel; reuse and age
                 have = self._held is not None and self.ledger.on_reuse()
@@ -420,7 +459,15 @@ class AsyncSamExecutor:
             if block:
                 # the blocking wait timed out: that exchange is lost
                 self._inflight = max(0, self._inflight - 1)
+                if self._submit_t:
+                    self._submit_t.pop(0)
+                if self._health is not None:
+                    self._health.record(False)
             have = self._held is not None and self.ledger.on_reuse()
+
+        # degradation ladder: decide on the window just updated, before the
+        # submit below, so a swapped-in lane receives this step's job
+        self._evaluate_ladder()
 
         # submit the next ascent job against the CURRENT params (one step old
         # when used, Algorithm 1 line 3); the full-check comes first so a busy
@@ -433,6 +480,9 @@ class AsyncSamExecutor:
             if self._lane.submit(self._gen, lane_params, ascent_batch, lane_key(state),
                                  int(state.step)):
                 self._inflight += 1
+                self._submit_t.append(trace_now())
+                if self._health is not None:
+                    self._health.note_submit()
 
         t0 = time.perf_counter()
         g, norm = self._held if self._held is not None else (None, 0.0)
@@ -442,8 +492,10 @@ class AsyncSamExecutor:
         if scale <= 0.0:
             have = False
         eff_norm = norm / scale if 0.0 < scale != 1.0 else norm
-        new_state, metrics = self._descent(state, descent_batch, g, eff_norm, bool(have))
-        synchronize(params_device(new_state.params))
+        with trk.span("descent_compute", lane="descent", step=int(state.step),
+                      perturbed=bool(have)):
+            new_state, metrics = self._descent(state, descent_batch, g, eff_norm, bool(have))
+            synchronize(params_device(new_state.params))
         self.timings["descent"].append(time.perf_counter() - t0)
         metrics = dict(metrics)
         metrics["tau"] = self.ledger.tau
@@ -454,7 +506,75 @@ class AsyncSamExecutor:
                     "pool_depth", "pool_wait_s", "client_id"):
             if key in self._exchange_meta:
                 metrics[key] = float(self._exchange_meta[key])
+        # ladder telemetry: the rung every step (ladder runs only); the
+        # cumulative counters only on the step after a transition, so summing
+        # a jsonl column never double-counts
+        if self._ladder is not None:
+            metrics["lane_state"] = float(self._ladder.level)
+            if self._announce_ladder:
+                self._announce_ladder = False
+                metrics["lane_failovers"] = float(self._ladder.failovers)
+                metrics["lane_recoveries"] = float(self._ladder.recoveries)
         return new_state, metrics
+
+    # --- degradation ladder (runtime.health) -----------------------------------
+    def _evaluate_ladder(self) -> None:
+        """One ladder decision a step: demote on an unhealthy or stalled
+        window, promote one rung after the cooldown when the upper lane is
+        ready. A transition fences the generation (a result the old lane
+        still owes is not consumed) but keeps the held gradient, which ages
+        on the staleness ledger."""
+        ladder, health = self._ladder, self._health
+        if ladder is None:
+            return
+        ladder.tick()
+        if health.unhealthy() or health.stalled():
+            if ladder.demote():
+                self._swap_lane("lane_failover")
+            else:
+                health.reset()   # already at the bottom: clear the verdict
+        elif ladder.can_promote() and self._upper_ready(ladder.level - 1):
+            ladder.promote()
+            self._swap_lane("lane_recovery")
+
+    def _upper_ready(self, level: int) -> bool:
+        """May the ladder promote into `level`? The primary rung needs a live
+        connection and no fatal (auth) rejection; a lane without a
+        `connected` event (the thread lane) is always ready."""
+        if level == 0:
+            lane = self._primary_lane
+            if getattr(lane, "fatal_error", ""):
+                return False
+            conn = getattr(lane, "connected", None)
+            return conn.is_set() if conn is not None else True
+        return True
+
+    def _lane_for_level(self, level: int):
+        if level == 0:
+            return self._primary_lane
+        if level == 1:
+            if self._local_lane is None:
+                self._local_lane = ThreadAscentLane(
+                    self._ascent_raw, self._norm, self._compressor,
+                    device=self.xcfg.ascent_device, delay_s=self.xcfg.ascent_delay_s)
+            return self._local_lane
+        return self._ledger_lane
+
+    def _swap_lane(self, event: str) -> None:
+        from repro_torch.runtime.health import LADDER_LEVELS
+        old = self._lane
+        self._gen += 1               # fence off the old lane's in-flight work
+        self._inflight = 0
+        self._submit_t.clear()
+        old.reset()
+        self._lane = self._lane_for_level(self._ladder.level)
+        self._lane.reset()
+        self._health.reset()
+        self._announce_ladder = True
+        current_tracker().event(event, lane="health", level=self._ladder.level,
+                                rung=LADDER_LEVELS[self._ladder.level],
+                                failovers=self._ladder.failovers,
+                                recoveries=self._ladder.recoveries)
 
     def reset(self) -> None:
         """Drop held and in-flight ascent state (after a checkpoint restore
@@ -464,9 +584,12 @@ class AsyncSamExecutor:
         computing from being consumed."""
         self._gen += 1
         self._inflight = 0
+        self._submit_t.clear()
         self._lane.reset()
         self._held = None
         self.ledger.tau = 0
+        if self._health is not None:
+            self._health.reset()   # fenced-off exchanges are not evidence
 
     def set_rho_scale(self, scale: float) -> None:
         """Scale the effective rho of every later step (1.0 undegraded, 0.0
@@ -517,7 +640,12 @@ class AsyncSamExecutor:
         if self._closed:
             return
         self._closed = True
-        self._lane.close()
+        # the ladder may have built more lanes; close each distinct one
+        seen: list = []
+        for lane in (self._lane, self._primary_lane, self._local_lane):
+            if lane is not None and not any(lane is x for x in seen):
+                seen.append(lane)
+                lane.close()
 
     def __enter__(self):
         return self

@@ -12,8 +12,8 @@ frames out and gradient frames back over TCP or Unix sockets.
 `protocol` owns the frame format and the exact wire-byte models in both
 directions; `delta` the delta-encoded params direction (client `JobEncoder`
 on two kernels, `delta_amax` and `delta_encode_i8`; server `ShadowState`);
-`pool` the multi-client serve core (`AscentPool`). The reference's
-`netchaos` proxy is a later slice (ROADMAP.md queue 1).
+`pool` the multi-client serve core (`AscentPool`); `netchaos` the
+frame-aware chaos proxy for the wire (`ChaosProxy`).
 """
 from repro_torch.service.ascent_server import (  # noqa: F401
     AscentServer,
@@ -26,6 +26,12 @@ from repro_torch.service.client import (  # noqa: F401
     fetch_pool_stats,
 )
 from repro_torch.service.delta import JobEncoder, ShadowState  # noqa: F401
+from repro_torch.service.netchaos import (  # noqa: F401
+    ChaosProxy,
+    FaultRule,
+    FaultSchedule,
+    parse_faults,
+)
 from repro_torch.service.pool import (  # noqa: F401
     AscentPool,
     PoolConfig,

@@ -41,8 +41,9 @@ whole fleet.
 
 The batch and the rng cross to the host at submit (`host_tree`: numpy, dict
 keys sorted, as the reference's `jax.device_get` gives them); the rng is the
-uint32[2] key the executor derives (`core.api.lane_key`). The reference's
-tracker span per exchange comes with the tracker slice (ROADMAP.md queue 1).
+uint32[2] key the executor derives (`core.api.lane_key`). Each completed
+exchange records an `ascent_rpc` span (send JOB -> GRAD decoded) on the
+lane's track of the current tracker (`repro_torch.obs`).
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ from typing import Any, Optional
 import numpy as np
 
 from repro_torch.core.ascent import Compressor
+from repro_torch.obs import current_tracker, trace_now
 from repro_torch.runtime.async_executor import drain_queue, host_tree, poll_queue
 from repro_torch.service import protocol
 from repro_torch.service.delta import EncodedJob, JobEncoder
@@ -497,6 +499,13 @@ class RemoteAscentClient:
                 continue
             pending = None
             self.exchanges += 1
+            # the on-wire window of this exchange (send JOB -> GRAD decoded),
+            # on the remote lane's own trace track
+            current_tracker().span_at(
+                "ascent_rpc", lane=self.lane_name, t0=t0, t1=trace_now(),
+                gen=rgen, step=job.step, kind=job.kind,
+                wire_bytes=in_bytes + out_bytes,
+                server_compute_s=round(compute_s, 6))
             self.timings.append(rtt)
             self.last_rtt_s = rtt
             self.last_wire_in_bytes = in_bytes

@@ -53,8 +53,9 @@ isolation — a connection that speaks garbage, wedges, or dies is dropped
 without touching the queue, the workers, or any other client.
 
 The workers share one ascent function (`core.make_ascent_fn`; each exchange
-builds its own autograd graph) on the server's device. The reference's
-tracker span per exchange comes with the tracker slice (ROADMAP.md queue 1).
+builds its own autograd graph) on the server's device. Each worker records a
+`pool_exchange` span per job on its own track of the current tracker
+(`repro_torch.obs`).
 """
 from __future__ import annotations
 
@@ -69,6 +70,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 
 from repro_torch.core import make_ascent_fn
+from repro_torch.obs import current_tracker
 from repro_torch.runtime.async_executor import ascent_exchange
 from repro_torch.service import protocol
 from repro_torch.service.delta import ShadowState
@@ -623,7 +625,13 @@ class AscentPool:
             wait_s = time.monotonic() - work.enq_t
             pool = (work.depth, wait_s) if client.pool_grad else None
             try:
-                leaves, norm, dt = self._compute(client, work)
+                with current_tracker().span(
+                        "pool_exchange",
+                        lane=threading.current_thread().name,
+                        client_id=client.client_id, group=client.group,
+                        gen=work.gen, step=work.step,
+                        wait_s=round(wait_s, 6)):
+                    leaves, norm, dt = self._compute(client, work)
                 payload = protocol.encode_grad(
                     work.gen, work.step, norm, dt, leaves,
                     client.compressor, pool=pool)

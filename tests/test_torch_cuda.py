@@ -484,6 +484,86 @@ def test_reduced_training_kernel_path_matches_plain_path(dev):
     assert float(diff.max()) <= 2 * 4 * 1e-3
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", FLAT_SIZES)
+def test_epilogue_keep_flag_skips_bitwise(dev, n, dtype, offset):
+    """The numerics guard's flag: at keep 0 adamw_epilogue and sgd_epilogue
+    launch, return at once and leave every buffer as it was bit for bit (NaN
+    gradients included); at keep 1 they compute what they compute without
+    it, bit for bit."""
+    from repro_torch.kernels import fused_update as fu
+    g = _flat(dev, n, torch.float32, 9, 1e-3, offset)
+    g[::5] = float("nan")
+    w0 = _flat(dev, n, dtype, 10, 2e-2, offset)
+    mu0 = _flat(dev, n, torch.float32, 11, 1e-4, offset)
+    nu0 = _flat(dev, n, torch.float32, 12, 1e-7, offset, positive=True)
+    scal = [torch.tensor(v, device=dev) for v in (0.7, 1e-3, 0.19, 0.001999)]
+    zero, one = torch.zeros((), device=dev), torch.ones((), device=dev)
+    runs = {}
+    for keep in (zero, one, None):
+        w, mu, nu = w0.clone(), mu0.clone(), nu0.clone()
+        before = fu.launches["adamw_epilogue"]
+        fu.adamw_epilogue(w, g, mu, nu, *scal, weight_decay=0.1, keep=keep)
+        assert fu.launches["adamw_epilogue"] == before + 1
+        runs[None if keep is None else float(keep)] = (w, mu, nu)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(runs[0.0], (w0, mu0, nu0)))
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(runs[1.0], runs[None]))
+    for mom in (0.9, 0.0):
+        out = {}
+        for keep in (zero, one, None):
+            w, m = w0.clone(), mu0.clone()
+            fu.sgd_epilogue(w, g, m if mom else None, scal[0], scal[1], momentum=mom,
+                            weight_decay=1e-4, keep=keep)
+            out[None if keep is None else float(keep)] = (w, m)
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(out[0.0], (w0, mu0)))
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(out[1.0], out[None]))
+
+
+def test_guarded_reduced_training_skips_on_the_card(dev):
+    """olmo-1b-reduced AsyncSAM with guard_update under GuardedExecutor, a NaN
+    loss at step 2: update_skipped there only, the weights and moments as
+    before it, adamw_epilogue launched every step."""
+    from repro_torch.core import MethodConfig
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.engine import Engine, FusedExecutor, GuardedExecutor
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.optim import cosine_schedule, make_optimizer
+
+    cfg = get_config("olmo-1b", reduced=True)
+    bundle = build_model(cfg)
+    poison = {"on": False}
+
+    def loss(params, batch, gen):
+        value, aux = bundle.loss_fn(params, batch, gen)
+        return (value * float("nan") if poison["on"] else value), aux
+
+    ex = FusedExecutor(loss, MethodConfig(rho=0.05, guard_update=True),
+                       make_optimizer("adamw", cosine_schedule(1e-3, 5)))
+    g = GuardedExecutor(ex)
+    state = g.init_state(bundle.init(seed=0, device=dev), seed=1)
+    pipe = TokenPipeline(cfg, PipelineConfig(global_batch=8, seq_len=64, seed=0,
+                                             ascent_fraction=0.25, prefetch=0), device=dev)
+    it, skipped = iter(pipe), []
+    for i in range(5):
+        poison["on"] = i == 2
+        before = [t.clone() for t in state.params.buffers + state.opt_state[0].mu.buffers]
+        n = fu.launches["adamw_epilogue"]
+        state, m = g.step(state, next(it))
+        assert fu.launches["adamw_epilogue"] == n + 1
+        skipped.append(float(m["update_skipped"]))
+        if i == 2:
+            after = state.params.buffers + state.opt_state[0].mu.buffers
+            assert all(torch.equal(a, b) for a, b in zip(after, before))
+            assert float(m["nonfinite_count"]) == sum(t.numel() for t in state.params.buffers)
+        assert torch.isfinite(state.method_state.ascent_norm)
+    assert skipped == [0.0, 0.0, 1.0, 0.0, 0.0]
+
+
 def _sgd_trainer(dev, method="async_sam"):
     from repro_torch.core import MethodConfig
     from repro_torch.data import PipelineConfig, TokenPipeline

@@ -233,8 +233,8 @@ def test_what_is_not_ported_raises():
                              optim.adamw(1e-3)).resident == (name == "gsam")
     with pytest.raises(ValueError):
         make_method(MethodConfig(name="nope"))
-    with pytest.raises(NotImplementedError, match="guard"):
-        make_method(MethodConfig(guard_update=True))
+    # ported since: the in-step numerics guard
+    assert make_method(MethodConfig(guard_update=True)).cfg.guard_update is True
     # ported since: the per-leaf path, masked decay and the sgd epilogue
     assert make_method(MethodConfig(fused_update=False)).cfg.fused_update is False
     assert optim.adamw(1e-3, decay_mask=lambda path: True).fused_spec is None
