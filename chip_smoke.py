@@ -23,7 +23,10 @@
    heads of 128) and qwen2.5-32b's (40/8) prefill shapes, GQA, MQA, ragged,
    windowed, non-causal,
    MLA's hd 192 / hd_v 128, and the CUDA-core path's fp32, hd 40 and
-   unaligned cases), each case also held to the kernel path it must take:
+   unaligned cases; deepseek-v2-lite's MLA prefill at batch 8, mixtral's
+   2 x 8192 prefill with its 4096-token window, phi-3-vision's hd 96 and
+   whisper-tiny's 6 heads of 64, non-causal (encoder, cross) and causal
+   (decoder self)), each case also held to the kernel path it must take:
    wgmma (TMA + wgmma) for every shape of the model paths;
 5. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
    serves 8 requests x 1024 prompt tokens + 32 greedy tokens through
@@ -97,7 +100,7 @@
    and 8 backward scan launches a step, each epilogue kernel once); one step
    profiled; every wkv call of one step held against its plain version on
    its inputs; the whole kernel path against the plain path at a small lr,
-   2 layers, batch 2 x 512, in fp32 and bf16 compute (bf16's moments held
+   1 layer, batch 2 x 512, in fp32 and bf16 compute (bf16's moments held
    by their bulk to twice the plain path's own bf16 error; a control with
    its weights at 6 bits must fail that limit);
 15. mamba2 kernel phase: the SSD scan's forward and backward kernels at
@@ -122,21 +125,34 @@
    against the scan in float64); the whole kernel path against the plain
    path at a small lr, 8 layers, batch 2 x 512, in fp32 and bf16 compute
    (bf16's moments held and controlled as rwkv6's);
-18. dense serve phases: gemma-2b and qwen3-8b at full depth, qwen2.5-32b at
-   the deepest cut whose fp32 weights leave 16 GiB of the card, each serving
-   8 x 1024 prompts + 32 greedy tokens through `launch.serve.serve` (fp32
-   weights from seed 0, bf16 compute): n_layers flash launches a prefill
-   (counts 0 just before, read just after); prefill + stepwise decode against
-   one forward and the kernel path against the plain path, both held to
-   twice bf16's own error on the model's weights (the plain path in bf16
-   against it in fp32), fp32 compute to 1e-4; the profile of 5; then a
-   control, the kernel path with its weights at 6 bits, must exceed that
+18. serve phases, one function for every config: gemma-2b, qwen3-8b,
+   deepseek-v2-lite-16b, phi-3-vision-4.2b and whisper-tiny at full depth,
+   qwen2.5-32b and mixtral-8x7b at the deepest cut whose fp32 weights leave
+   16 GiB of the card, each serving 8 x 1024 prompts (mixtral 2 x 8192, so
+   its 4096-token window binds in prefill and decode) + 32 greedy tokens
+   through `launch.serve.serve` with the launcher's zero stub inputs (fp32
+   weights from seed 0, bf16 compute): the depth and its cuts, tokens/s,
+   peak memory, the flash launches of one prefill (one a layer; whisper's
+   encoder layers plus its decoder's self- and cross-attention; counts 0
+   just before, read just after); prefill + stepwise decode against one
+   forward over the same tokens (the MoE models at capacity factor 8, where
+   no route drops, with the routes decode and the forward disagree on
+   counted) and the kernel path against the plain path, both held to twice
+   bf16's own error on the model's weights (the plain path in bf16 against
+   it in fp32; by max, the MoE models by their bulk: a route flip moves a
+   token by a whole expert), fp32 compute to 1e-4; the profile of 5; then a
+   control, the kernel path with its weights at 5 bits, must exceed that
    limit;
-19. dense train phases: gemma-2b and qwen3-8b at full width and the deepest
-   depth whose step, extrapolated from one step at 1 and at 2 layers, leaves
-   10% of the card, train 6 AsyncSAM AdamW steps through `FusedExecutor` +
-   `Engine`: each epilogue kernel once a step, flash on every forward; one
-   step profiled; the lockstep check of one step at half that depth;
+19. train phases, one function for every config: gemma-2b, qwen3-8b and the
+   four above at full width and the deepest depth whose step, extrapolated
+   from one-step probes at the shallowest cut with every kind of block
+   (deepseek: its dense layer and one MoE layer) and one layer more, leaves
+   10% of the card (the second probe only where the first's peak scaled by
+   the parameters fits the card), train 6 AsyncSAM AdamW steps through
+   `FusedExecutor` + `Engine`: each epilogue kernel once a step, flash on
+   every forward as the model implies; moe_aux finite, and non-zero exactly
+   on the MoE models; one step profiled; the lockstep check of one step at
+   half that depth;
 20. variants phase: full-width, full-depth olmo-1b trains gsam (3 steps,
    bucket-resident), looksam (k 2: fresh, reuse, fresh, reuse), esam (3),
    aesam (10: 8 forced SAM steps, then its z decides) and mesa (4, the term
@@ -146,13 +162,20 @@
    the state each carries, one step profiled (its copies and host reads:
    AE-SAM's z); every weight-space kernel call of one gsam step and of a
    looksam fresh and reuse step against its plain version;
-21. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+21. MoE whole-path check: deepseek-v2-lite at 2 layers (its dense layer and
+   one MoE layer), batch 2 x 512: one forward on the kernel path and on the
+   plain path in bf16, the (token, slot) routes that differ counted, the
+   logits held by their bulk to twice bf16's own error (a 6-bit-weights
+   control must exceed it); then the whole training path against the
+   plain path as the scan families' (`scan_whole_check`);
+22. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without CUDA, or
 without the repository beside it, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -235,6 +258,16 @@ FLASH_CASES = [
     ("MLA hd 192 / hd_v 128", (2, 1024, 1024, 16, 16, 192, 128), "bfloat16", True, None, 0,
      "wgmma"),
     ("hd_v != hd", (2, 128, 128, 4, 4, 48, 32), "bfloat16", True, None, 0, "wgmma"),
+    ("deepseek-v2-lite MLA prefill", (8, 1024, 1024, 16, 16, 192, 128), "bfloat16", True,
+     None, 0, "wgmma"),
+    ("mixtral-8x7b prefill, window 4096", (2, 8192, 8192, 32, 8, 128, 128), "bfloat16",
+     True, 4096, 0, "wgmma"),
+    ("phi-3-vision prefill (hd 96)", (8, 1024, 1024, 32, 32, 96, 96), "bfloat16", True,
+     None, 0, "wgmma"),
+    ("whisper-tiny encoder / cross", (8, 1024, 1024, 6, 6, 64, 64), "bfloat16", False,
+     None, 0, "wgmma"),
+    ("whisper-tiny decoder self", (8, 1024, 1024, 6, 6, 64, 64), "bfloat16", True, None, 0,
+     "wgmma"),
     ("bf16 hd 40", (2, 256, 256, 4, 2, 40, 40), "bfloat16", True, None, 0, "cuda_cores"),
     ("fp32", (2, 256, 256, 4, 2, 64, 64), "float32", True, None, 0, "cuda_cores"),
 ]
@@ -690,38 +723,48 @@ def serve_phase():
                 max_new=max_new), model
 
 
-def profile_phase(model) -> None:
-    """Device time by kernel over one full-width prefill and 4 decode steps
-    (torch.profiler), and the device's busy share of the wall time."""
+def profile_phase(model, cfg=None, n_req: int = 8, prompt_len: int = 1024,
+                  tag: str = "") -> dict:
+    """Device time by kernel over one full-width prefill of n_req x
+    prompt_len prompts (with the launcher's stub inputs) and 4 decode steps
+    (torch.profiler), and the device's busy share of the wall time. Returns
+    {phase: {wall_us, busy_us, busy}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import TokenTask
-    from repro_torch.models import transformer
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import build_model
 
-    cfg = model.cfg
-    tokens = torch.as_tensor(TokenTask(cfg.vocab_size, seed=0).sample(8, 1024),
-                             device="cuda")
+    cfg = cfg or model.cfg
+    bundle = build_model(cfg)
+    batch = prompt_batch(cfg, torch.as_tensor(
+        TokenTask(cfg.vocab_size, seed=0).sample(n_req, prompt_len), device="cuda"))
+    pad_to = prompt_len + 36
+    out = {}
     for phase in ("prefill", "decode"):
         with torch.inference_mode():
-            logits, cache = transformer.prefill(model, {"tokens": tokens}, cfg, pad_to=1060)
+            logits, cache = bundle.prefill(model, batch, pad_to=pad_to)
             tok = logits[:, -1].argmax(-1)[:, None]
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 if phase == "prefill":
-                    transformer.prefill(model, {"tokens": tokens}, cfg, pad_to=1060)
+                    bundle.prefill(model, batch, pad_to=pad_to)
                 else:
                     for _ in range(4):
-                        logits, cache = transformer.decode(model, cache, {"tokens": tok}, cfg)
+                        logits, cache = bundle.decode(model, cache, {"tokens": tok})
                         tok = logits[:, -1].argmax(-1)[:, None]
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
         by_name = device_time_by_kernel(prof)
         busy_us = sum(t for t, _ in by_name.values())
-        print(f"profile {phase}: wall {wall_us:.1f} us, device kernels {busy_us:.1f} us "
-              f"(busy {100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel names")
+        out[phase] = dict(wall_us=wall_us, busy_us=busy_us, busy=busy_us / wall_us)
+        print(f"profile {tag + ' ' if tag else ''}{phase}: wall {wall_us:.1f} us, device "
+              f"kernels {busy_us:.1f} us (busy {100 * busy_us / wall_us:.1f}%), "
+              f"{len(by_name)} kernel names")
         for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
             print(f"  {t:12.1f} us {100 * t / busy_us:5.1f}%  {n:5d}x  {name[:110]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -783,14 +826,23 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def flash_calls_per_forward(cfg) -> int:
+    """Flash calls of one forward: one a layer; whisper's encoder layers,
+    and its decoder's self- and cross-attention a layer."""
+    if cfg.family == "audio":
+        return cfg.encdec.n_encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def flash_per_step(cfg) -> tuple[int, str]:
     """Flash launches one AsyncSAM step implies: 2 gradient passes (ascent at
     w, descent at w_hat); each runs every block's forward once, and again in
     backward when the block is checkpointed (remat "full" or "dots")."""
     fwd = 1 if cfg.remat == "none" else 2
-    n = 2 * fwd * cfg.n_layers
+    calls = flash_calls_per_forward(cfg)
+    n = 2 * fwd * calls
     return n, (f"2 gradient passes x {fwd} forward(s) per block (remat={cfg.remat!r}) x "
-               f"{cfg.n_layers} layers = {n}")
+               f"{calls} calls a forward = {n}")
 
 
 def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
@@ -2093,8 +2145,9 @@ def scan_whole_check(tag: str, model: str, cfg, layers: int, batch: int, seq: in
 
 
 # Training: full width at 4 layers (1,411,620,864 parameters); the whole-path
-# check at 2 layers and batch 2 x 512, where autograd of the plain scan fits
-RWKV_TRAIN_LAYERS, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH, RWKV_CHECK_SEQ = 4, 2, 2, 512
+# check at 1 layer and batch 2 x 512, where autograd of the plain scan fits
+# (at 2 layers its five 3-step runs took ~100 s of a run near its time limit)
+RWKV_TRAIN_LAYERS, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH, RWKV_CHECK_SEQ = 4, 1, 2, 512
 
 
 def rwkv_per_step(cfg) -> dict:
@@ -2640,22 +2693,43 @@ def zamba_train_phase() -> dict:
 # variants (gsam, looksam, esam, aesam, mesa)
 # ---------------------------------------------------------------------------
 
-DENSE_SERVE_ARCHS = ("gemma-2b", "qwen3-8b", "qwen2.5-32b")
-DENSE_TRAIN_ARCHS = ("gemma-2b", "qwen3-8b")
+# Every config is served and trained at full width through the same two
+# phases; a config's own data is its prompt shape, its stub inputs (the
+# launcher's `prompt_batch`) and its flash calls a forward
+# (`flash_calls_per_forward`).
+SERVE_ARCHS = ("gemma-2b", "qwen3-8b", "qwen2.5-32b", "mixtral-8x7b", "deepseek-v2-lite-16b",
+               "phi-3-vision-4.2b", "whisper-tiny")
+TRAIN_ARCHS = ("gemma-2b", "qwen3-8b", "mixtral-8x7b", "deepseek-v2-lite-16b",
+               "phi-3-vision-4.2b", "whisper-tiny")
+# (requests, prompt tokens) served, 8 x 1024 unless named: mixtral's prompts
+# are long enough for its 4096-token window to bind in prefill and in every
+# decode step
+SERVE_PROMPTS = {"mixtral-8x7b": (2, 8192)}
+SERVE_NEW_TOKENS = 32
+# A MoE layer's capacity C grows with the group's length, so prefill and one
+# longer forward drop different routes at the config's capacity factor. The
+# serve check holds prefill + decode against one forward at this factor,
+# where no route is dropped, as the CPU tests do.
+CHECK_CAPACITY_FACTOR = 8.0
 # Serving keeps the fp32 weights and casts a layer's at use. Beside them the
 # phase needs one full forward's logits (8 x 1056 x vocab in bf16, 2.6-4.3 GB),
 # the fp32-compute prefills' activations and the plain attention's fp32
 # scores: a config deeper than its fp32 weights plus this much is cut.
 SERVE_HEADROOM_GIB = 16
-# Training takes the deepest cut whose peak, extrapolated from one step at 1
-# and at 2 layers, leaves this share of the card free.
+# Training takes the deepest cut whose peak, extrapolated from one step at
+# the two shallowest cuts, leaves this share of the card free.
 TRAIN_HEADROOM = 0.10
-# bf16 over 18-36 layers: each of these models' serving logits (prefill +
-# decode against one forward, the kernel path against the plain path) is held
-# to DENSE_BF16_MARGIN times bf16's own error on its weights (the plain path
-# in bf16 against it in fp32, max|d| / max|ref|), as the scan families'
-# moments are; the control, the kernel path with its weights at
-# DENSE_COARSE_BITS significant bits, must exceed that limit. On the H100
+# bf16 over 4-36 layers: each config's serving logits (prefill + decode
+# against one forward, the kernel path against the plain path) are held to
+# DENSE_BF16_MARGIN times bf16's own error on its weights (the plain path in
+# bf16 against it in fp32, max|d| / max|ref|), as the scan families' moments
+# are; the control, the kernel path with its weights at DENSE_COARSE_BITS
+# significant bits, must exceed that limit. On a MoE model a router tie that
+# rounds the other way moves a token by a whole expert (mixtral's decode
+# against the forward: max|d| 0.99 of max|ref| at 11 layers, 32 steps), so
+# the MoE models' logits are held by their bulk (median|d| / median|ref|, as
+# the whole-path checks' moments) and the serve check counts the routes
+# decode and the forward disagree on. On the H100
 # bf16's own error is 3.4e-2 (gemma-2b) to 5.7e-2 (qwen3-8b) and the kernel
 # path 0.78-0.90 of it; weights at 6 bits gave 2.0-2.4 times it, qwen3-8b's
 # 1.119e-1 against its limit of 1.132e-1, so the control takes 5 bits.
@@ -2676,48 +2750,56 @@ def serve_depth(cfg) -> int:
     return max(1, min(cfg.n_layers, 1 + int((budget / 4 - one) // (two - one))))
 
 
-def dense_serve_phase(arch: str) -> dict:
+def model_serve_phase(arch: str) -> dict:
     """Serve `arch` (full width; full depth, or the deepest cut that fits)
-    through the kernels: the launch count, prefill + decode against one
-    forward, the kernel path against the plain path in bf16 and in fp32
-    compute, the profile, then the coarse-weights control."""
+    through `launch.serve.serve` with the launcher's stub inputs: the
+    launches of one prefill, tokens/s and peak memory; prefill + decode
+    against one forward over the same tokens (a MoE model at
+    CHECK_CAPACITY_FACTOR, its routes compared too); the kernel path against
+    the plain path in bf16 and in fp32 compute; the profile; then the
+    coarse-weights control."""
     import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenTask
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import build_model, transformer
+    from repro_torch.launch.serve import prompt_batch, serve
+    from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
-    n_req, prompt_len, max_new = 8, 1024, 32
+    n_req, prompt_len = SERVE_PROMPTS.get(arch, (8, 1024))
+    max_new = SERVE_NEW_TOKENS
     full_cfg = get_config(arch)
     cfg = dataclasses.replace(full_cfg, n_layers=serve_depth(full_cfg))
-    cut = ("full depth" if cfg.n_layers == full_cfg.n_layers else
-           f"depth cut to {cfg.n_layers} of {full_cfg.n_layers} layers (fp32 weights + "
-           f"{SERVE_HEADROOM_GIB} GiB of the card)")
+    cuts = ([] if cfg.n_layers == full_cfg.n_layers else
+            [f"depth {cfg.n_layers} of {full_cfg.n_layers} layers (fp32 weights + "
+             f"{SERVE_HEADROOM_GIB} GiB of the card)"])
     t0 = time.perf_counter()
     model = build_model(cfg).init(seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{arch} serve: init on the card {time.perf_counter() - t0:.3f}s, {n_params} params "
           f"({cfg.param_dtype}, {4 * n_params / 2**30:.2f} GiB; full depth "
-          f"{param_count(full_cfg, full_cfg.n_layers)}), {cut}, compute {cfg.compute_dtype}")
+          f"{param_count(full_cfg, full_cfg.n_layers)}), full width, cuts: {cuts or 'none'}; "
+          f"{n_req} x {prompt_len} prompts + {max_new} greedy tokens, compute "
+          f"{cfg.compute_dtype}, window {cfg.sliding_window}")
     prompts = TokenTask(cfg.vocab_size, seed=0).sample(n_req, prompt_len)
-    serve(cfg, model, prompts, 2)                         # warm-up, not counted
+    serve(cfg, model, prompts[:, :1024], 2)               # warm-up, not counted
 
     reset_launches()                                      # counts: 0 just before
     torch.cuda.reset_peak_memory_stats()
     res = serve(cfg, model, prompts, max_new)
     launches = {"flash_attention": fa.launches}           # read just after
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = flash_calls_per_forward(cfg)
     print(f"{arch} serve: prefill {n_req}x{prompt_len} in {res.prefill_s:.4f}s "
           f"({res.prefill_tok_s:.1f} tok/s); decode {max_new - 1} steps in {res.decode_s:.4f}s "
-          f"({res.decode_tok_s:.1f} tok/s); peak {peak_gib:.2f} GiB; launches {launches}")
-    if launches["flash_attention"] != cfg.n_layers:
+          f"({res.decode_tok_s:.1f} tok/s); peak {peak_gib:.2f} GiB; flash launches per "
+          f"prefill {launches['flash_attention']} (expected {want})")
+    if launches["flash_attention"] != want:
         fail(f"{arch}: flash_attention launched {launches['flash_attention']} times in one "
-             f"prefill, expected n_layers={cfg.n_layers}")
+             f"prefill, expected {want}")
     if res.tokens.shape != (n_req, max_new) or res.logits.shape != (n_req, max_new,
                                                                      cfg.vocab_size):
         fail(f"{arch}: unexpected output shapes {tuple(res.tokens.shape)} "
@@ -2725,48 +2807,76 @@ def dense_serve_phase(arch: str) -> dict:
     if not bool(torch.isfinite(res.logits).all()):
         fail(f"{arch}: non-finite logits")
 
-    full_tokens = torch.cat([torch.as_tensor(prompts, device="cuda").long(),
-                             res.tokens[:, :-1]], dim=1)
-    with torch.inference_mode():
-        fwd, _ = transformer.forward(model, {"tokens": full_tokens}, cfg)
-    err_fwd = rel_err(res.logits, fwd[:, prompt_len - 1:])
-    del fwd
     tokens = torch.as_tensor(prompts, device="cuda")
+    moe = cfg.moe is not None
+    measure = bulk_rel if moe else rel_err
+    check_cfg, check, flips = cfg, res, None
+    with recorded_routes() as dec_routes:
+        if moe:
+            check_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=CHECK_CAPACITY_FACTOR))
+            check = serve(check_cfg, model, prompts, max_new)
+    # the prompt's stub inputs (whisper's frame count follows the prompt)
+    full = {**prompt_batch(check_cfg, tokens),
+            "tokens": torch.cat([tokens.long(), check.tokens[:, :-1]], dim=1)}
+    with torch.inference_mode(), recorded_routes() as fwd_routes:
+        fwd, _ = build_model(check_cfg).forward(model, full)
+    if moe:
+        # prefill's routes, then each decode step's, a call per MoE layer
+        n_moe = len(fwd_routes)
+        steps = [dec_routes[i:i + n_moe] for i in range(0, len(dec_routes), n_moe)]
+        flips = route_flips([r for step in steps for r in step],
+                            [r[:, :prompt_len] for r in fwd_routes]
+                            + [r[:, prompt_len - 1 + i:prompt_len + i]
+                               for i in range(1, max_new) for r in fwd_routes])
+        flips["tokens_of"] = n_req * (prompt_len + max_new - 1) * n_moe
+    err_fwd = measure(check.logits, fwd[:, prompt_len - 1:])
+    max_fwd = rel_err(check.logits, fwd[:, prompt_len - 1:])
+    del fwd, full, check, dec_routes, fwd_routes
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
 
     def prefill_logits(c, impl):
         ops.set_default_impl(impl)
         try:
             with torch.inference_mode():
-                return transformer.prefill(model, {"tokens": tokens}, c)[0][:, -1]
+                return build_model(c).prefill(model, prompt_batch(c, tokens))[0][:, -1]
         finally:
             ops.set_default_impl(None)
 
     plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
     kernel32 = prefill_logits(cfg32, "kernel")
-    err_plain = rel_err(res.logits[:, 0], plain16)
+    err_plain = measure(res.logits[:, 0], plain16)
     err_fp32 = rel_err(kernel32, plain32)
-    own = rel_err(plain16, plain32)
+    own = measure(plain16, plain32)
     limit = DENSE_BF16_MARGIN * own
-    profile_phase(model)
+    profile = profile_phase(model, cfg, n_req, prompt_len, tag=arch)
     with torch.no_grad():                                 # the control, last: it spoils
         for p in model.parameters():                      # the weights
             coarsen_(p.data, DENSE_COARSE_BITS)
-    err_coarse = rel_err(prefill_logits(cfg, "kernel"), plain16)
-    print(f"{arch} serve check (max|d|/max|ref|): prefill+decode vs forward {err_fwd:.3e}; "
+    err_coarse = measure(prefill_logits(cfg, "kernel"), plain16)
+    how = ("median|d|/median|ref|: a route flip moves a token by a whole expert; max|d|/max|ref| "
+           f"of prefill+decode vs forward {max_fwd:.3e}; decode's routes vs the forward's "
+           f"{json.dumps(flips)}" if moe else "max|d|/max|ref|")
+    print(f"{arch} serve check ({how}): prefill+decode vs forward {err_fwd:.3e}"
+          f"{f' (capacity factor {CHECK_CAPACITY_FACTOR})' if moe else ''}; "
           f"kernel vs plain prefill {err_plain:.3e}; both held to {DENSE_BF16_MARGIN} x bf16's "
           f"own error (bf16 plain vs fp32 plain {own:.3e}) = {limit:.3e}; fp32 compute kernel "
-          f"vs plain {err_fp32:.3e} (tolerance {MODEL_FP32_REL_TOL}); control, weights at "
-          f"{DENSE_COARSE_BITS} bits vs plain {err_coarse:.3e} (must exceed the limit)")
+          f"vs plain {err_fp32:.3e} (tolerance {MODEL_FP32_REL_TOL}, max|d|/max|ref|); "
+          f"control, weights at {DENSE_COARSE_BITS} bits vs plain {err_coarse:.3e} (must "
+          f"exceed the limit)")
     if not (err_fwd <= limit and err_plain <= limit and err_fp32 <= MODEL_FP32_REL_TOL):
         fail(f"{arch} serving logits disagree")
     if err_coarse <= limit:
         fail(f"{arch} serve check: the coarse-weights control meets the limit")
-    out = dict(arch=arch, layers=cfg.n_layers, full_layers=full_cfg.n_layers, params=n_params,
+    out = dict(arch=arch, layers=cfg.n_layers, full_layers=full_cfg.n_layers, cuts=cuts,
+               params=n_params, requests=n_req, prompt_len=prompt_len, max_new=max_new,
                launches=launches, prefill_s=res.prefill_s, decode_s=res.decode_s,
                prefill_tok_s=res.prefill_tok_s, decode_tok_s=res.decode_tok_s,
-               peak_gib=peak_gib, err_forward=err_fwd, err_plain=err_plain, err_fp32=err_fp32,
-               bf16_own=own, limit=limit, err_coarse=err_coarse)
+               peak_gib=peak_gib, measure=measure.__name__, err_forward=err_fwd,
+               err_forward_max=max_fwd, route_flips=flips,
+               check_capacity_factor=CHECK_CAPACITY_FACTOR if moe else None,
+               err_plain=err_plain, err_fp32=err_fp32, bf16_own=own, limit=limit,
+               err_coarse=err_coarse, profile=profile)
     del model, plain16, plain32, kernel32, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -2791,25 +2901,47 @@ def probe_peak(cfg, layers: int) -> int:
     return peak
 
 
+def shallowest_cut(cfg) -> int:
+    """The fewest layers that hold every kind of block: 1, and for a config
+    whose first layers are dense (deepseek) those and one MoE layer."""
+    from repro_torch.models.transformer import n_dense
+    return n_dense(cfg) + 1
+
+
 def train_depth(cfg) -> tuple[int, dict]:
-    """The deepest cut of `cfg` whose step's peak, extrapolated linearly in
-    the depth from probes at 1 and 2 layers, leaves TRAIN_HEADROOM of the
-    card. Returns (layers, the probes)."""
+    """The deepest cut of `cfg` whose step's peak leaves TRAIN_HEADROOM of
+    the card, from one-step probes at lo = `shallowest_cut` and lo + 1
+    layers, extrapolated linearly in the depth. The second probe runs only
+    if lo's peak scaled by the parameter counts fits the card; else the
+    depth is lo. Returns (layers, the probes)."""
     import torch
     total = torch.cuda.get_device_properties(0).total_memory
-    p1, p2 = probe_peak(cfg, 1), probe_peak(cfg, 2)
-    layers = 1 + int(((1 - TRAIN_HEADROOM) * total - p1) // (p2 - p1))
-    layers = max(1, min(cfg.n_layers, layers))
-    return layers, dict(peak_1_layer_gib=p1 / 2**30, peak_2_layers_gib=p2 / 2**30,
-                        card_gib=total / 2**30, predicted_peak_gib=(p1 + (layers - 1)
-                                                                    * (p2 - p1)) / 2**30)
+    lo = shallowest_cut(cfg)
+    p_lo = probe_peak(cfg, lo)
+    probes = dict(card_gib=total / 2**30, probe_layers=lo, peak_lo_gib=p_lo / 2**30)
+    layers, peak = min(lo, cfg.n_layers), p_lo
+    if lo < cfg.n_layers:
+        upper = p_lo * param_count(cfg, lo + 1) / param_count(cfg, lo)
+        if upper > total:
+            probes["upper_next_gib"] = upper / 2**30
+        else:
+            p_next = probe_peak(cfg, lo + 1)
+            probes["peak_next_gib"] = p_next / 2**30
+            per_layer = max(p_next - p_lo, 1)
+            layers = lo + int(((1 - TRAIN_HEADROOM) * total - p_lo) // per_layer)
+            layers = max(lo, min(cfg.n_layers, layers))
+            peak = p_lo + (layers - lo) * per_layer
+    probes["predicted_peak_gib"] = peak / 2**30
+    return layers, probes
 
 
-def dense_train_phase(arch: str) -> dict:
+def model_train_phase(arch: str) -> dict:
     """Train `arch` at full width and the deepest depth that fits, 6
-    AsyncSAM AdamW steps through FusedExecutor + Engine: the launch counts,
-    the profile of one step, then the lockstep check of one step at half
-    that depth (room for the check's copies of w, mu and nu)."""
+    AsyncSAM AdamW steps through FusedExecutor + Engine: the launches
+    against the count the model implies, the step time, peak memory and (on
+    a MoE model) the router's aux loss, the profile of one step, then the
+    lockstep check of one step at half that depth (room for the check's
+    copies of w, mu and nu)."""
     import gc
     import statistics
     import torch
@@ -2821,17 +2953,20 @@ def dense_train_phase(arch: str) -> dict:
     full_cfg = get_config(arch)
     layers, probes = train_depth(full_cfg)
     cfg = dataclasses.replace(full_cfg, n_layers=layers)
+    cuts = ([] if layers == full_cfg.n_layers else
+            [f"depth {layers} of {full_cfg.n_layers} layers (one step's peak leaves "
+             f"{TRAIN_HEADROOM:.0%} of the card)"])
     _, ex, state, pipe = build_trainer(TRAIN_STEPS, LR, cfg=cfg)
     n_params = sum(b.numel() for b in state.params.buffers)
-    print(f"{arch} train: full width, depth cut to {layers} of {full_cfg.n_layers} layers "
-          f"(probes {json.dumps(probes)}; headroom {TRAIN_HEADROOM}), {n_params} params, "
-          f"compute {cfg.compute_dtype}, remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-          f"b' = {max(1, round(TRAIN_BATCH * ASCENT_FRACTION))}; adamw, lr {LR}")
+    print(f"{arch} train: full width, cuts: {cuts or 'none'} (probes {json.dumps(probes)}), "
+          f"{n_params} params, compute {cfg.compute_dtype}, remat {cfg.remat}; batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, b' = {max(1, round(TRAIN_BATCH * ASCENT_FRACTION))}; "
+          f"adamw, lr {LR}")
     meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
     reset_launches()                                   # counts: 0 just before
     torch.cuda.reset_peak_memory_stats()
     report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
-    launches = kernel_launches()                       # read just after
+    launches = kernel_launches("fused", cfg.family)    # read just after
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     hist = report.metrics_history
     for i, m in enumerate(hist):
@@ -2847,22 +2982,26 @@ def dense_train_phase(arch: str) -> dict:
         fail(f"{arch} train: training did not finish with finite metrics: {hist}")
     if [m["perturbed"] for m in hist] != [0.0] + [1.0] * (TRAIN_STEPS - 1):
         fail(f"{arch} train: perturbed should be 0 then 1: {[m['perturbed'] for m in hist]}")
+    moe_aux = [m["moe_aux"] for m in hist]
+    if (cfg.moe is not None) != all(a > 0 for a in moe_aux):
+        fail(f"{arch} train: moe_aux {moe_aux} (non-zero exactly on the MoE models)")
     step_s = statistics.median(meter.step_times[2:])
-    out = dict(arch=arch, layers=layers, full_layers=full_cfg.n_layers, params=n_params,
-               probes=probes, steps=TRAIN_STEPS, step_times_s=meter.step_times,
-               median_step_s=step_s, descent_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
-               peak_gib=peak_gib, launches=launches, flash_per_step=flash_n,
+    out = dict(arch=arch, layers=layers, full_layers=full_cfg.n_layers, cuts=cuts,
+               params=n_params, probes=probes, steps=TRAIN_STEPS,
+               step_times_s=meter.step_times, median_step_s=step_s,
+               descent_tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_gib=peak_gib,
+               launches=launches, flash_per_step=flash_n, moe_aux=moe_aux,
                loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"])
     print(f"{arch} train: median step (steps 2-{TRAIN_STEPS - 1}) {step_s:.4f} s, "
           f"{out['descent_tokens_per_s']:.1f} descent tok/s, peak {peak_gib:.2f} GiB "
-          f"(predicted {probes['predicted_peak_gib']:.2f})")
+          f"(predicted {probes['predicted_peak_gib']:.2f}), moe_aux {moe_aux}")
     final = report.final_state
     out["profile"] = train_profile(ex, final, pipe, tag=f"{arch} adamw")
     del ex, state, pipe, report, final
     gc.collect()
     torch.cuda.empty_cache()
 
-    check_layers = max(1, layers // 2)
+    check_layers = max(shallowest_cut(cfg), layers // 2)
     lock = lockstep_check(steps=1, cfg=dataclasses.replace(cfg, n_layers=check_layers))
     print(f"{arch} train check, lockstep (one step at {check_layers} layers, lr {LR}; each "
           f"epilogue kernel call vs its plain version on the same inputs): {json.dumps(lock)}; "
@@ -3048,6 +3187,124 @@ def variants_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE, MLA, vision-stub and encoder-decoder families (mixtral-8x7b,
+# deepseek-v2-lite-16b, phi-3-vision-4.2b, whisper-tiny)
+# ---------------------------------------------------------------------------
+
+# the whole-path check on deepseek: 2 layers (the dense one and one MoE
+# layer), batch 2 x 512
+MOE_CHECK_ARCH, MOE_CHECK_LAYERS, MOE_CHECK_BATCH, MOE_CHECK_SEQ = (
+    "deepseek-v2-lite-16b", 2, 2, 512)
+
+
+def bulk_rel(a, b) -> float:
+    """median |a - b| / median |b| (over every BULK_STRIDE-th element)."""
+    import torch
+    d = (a.float() - b.float()).abs().flatten()[::BULK_STRIDE]
+    return float(torch.median(d)) / max(float(torch.median(b.float().abs().flatten()[
+        ::BULK_STRIDE])), 1e-30)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Yields a list that collects the experts (G, S, K) of every MoE
+    layer's router call made inside the block, in call order."""
+    from repro_torch.models import moe as MOE
+    routes, original = [], MOE.route
+
+    def recording(router, x, c):
+        out = original(router, x, c)
+        routes.append(out[2])
+        return out
+
+    MOE.route = recording
+    try:
+        yield routes
+    finally:
+        MOE.route = original
+
+
+def route_flips(a, b) -> dict:
+    """(token, slot) routes and tokens' expert sets that differ between two
+    lists of route tensors of the same shapes."""
+    slots = sum(int((x != y).sum()) for x, y in zip(a, b))
+    sets = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum()) for x, y in zip(a, b))
+    return dict(slots=slots, tokens=sets)
+
+
+def route_flip_check(cfg, batch: int, seq: int) -> dict:
+    """One forward of `cfg` (seed-0 weights) over a batch x seq batch on the
+    kernel path in bf16, the plain path in bf16 and in fp32, and the kernel
+    path with its weights at COARSE_BITS: the (token, slot) routes of every
+    MoE layer that differ from the plain bf16 path's, and the logits' bulk
+    error. Under bf16 a near-tie in the router can flip between two paths
+    that round differently, and moves that token's output by a whole expert:
+    the count is reported, and the logits are held by their bulk to
+    MOMENT_BULK_MARGIN x bf16's own error; the control must exceed it."""
+    import gc
+    import torch
+    from repro_torch.data.synthetic import TokenTask
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    model = build_model(cfg).init(seed=0, device="cuda")
+    tokens = torch.as_tensor(TokenTask(cfg.vocab_size, seed=0).sample(batch, seq),
+                             device="cuda")
+
+    def run(compute, impl):
+        ops.set_default_impl(impl)
+        try:
+            with torch.inference_mode(), recorded_routes() as routes:
+                logits, _ = build_model(dataclasses.replace(cfg, compute_dtype=compute)
+                                        ).forward(model, {"tokens": tokens})
+        finally:
+            ops.set_default_impl(None)
+        return logits.float(), routes
+
+    k16, p16, p32 = run("bfloat16", "kernel"), run("bfloat16", "plain"), run("float32", "plain")
+    with torch.no_grad():
+        for p in model.parameters():
+            coarsen_(p.data, COARSE_BITS)
+    c16 = run("bfloat16", "kernel")
+
+    def flips(a, b) -> dict:
+        return route_flips(a[1], b[1])
+
+    n_routes = sum(x.numel() for x in p16[1])
+    own = bulk_rel(p16[0], p32[0])
+    out = dict(routes=n_routes, moe_layers=len(p16[1]),
+               flips_kernel_vs_plain=flips(k16, p16), flips_bf16_vs_fp32=flips(p16, p32),
+               flips_coarse_vs_plain=flips(c16, p16), logits_bulk=bulk_rel(k16[0], p16[0]),
+               logits_bulk_own=own, logits_bulk_coarse=bulk_rel(c16[0], p16[0]),
+               limit=MOMENT_BULK_MARGIN * own, logits_max_rel=rel_err(k16[0], p16[0]))
+    del model, k16, p16, p32, c16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_whole_check() -> dict:
+    """deepseek at MOE_CHECK_LAYERS layers and MOE_CHECK_BATCH x
+    MOE_CHECK_SEQ: the route flips of one forward (kernel vs plain path) and
+    the whole training path against the plain path (`scan_whole_check`)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_CHECK_ARCH), n_layers=MOE_CHECK_LAYERS)
+    routes = route_flip_check(cfg, MOE_CHECK_BATCH, MOE_CHECK_SEQ)
+    print(f"{MOE_CHECK_ARCH} route check ({MOE_CHECK_LAYERS} layers, batch {MOE_CHECK_BATCH} "
+          f"x {MOE_CHECK_SEQ}, one forward; routes that differ from the plain bf16 path's, "
+          f"by (token, slot) and by token's expert set; logits' bulk median|d|/median|ref|): "
+          f"{json.dumps(routes)}")
+    if not routes["logits_bulk"] <= routes["limit"]:
+        fail(f"{MOE_CHECK_ARCH}: the kernel path's logits disagree with the plain path's")
+    if routes["logits_bulk_coarse"] <= routes["limit"]:
+        fail(f"{MOE_CHECK_ARCH} route check: the coarse-weights control meets the limit")
+    whole = scan_whole_check(MOE_CHECK_ARCH, MOE_CHECK_ARCH, cfg, MOE_CHECK_LAYERS,
+                             MOE_CHECK_BATCH, MOE_CHECK_SEQ)
+    return dict(routes=routes, **whole, phase_s=time.perf_counter() - t0)
+
+
 def device_time_by_kernel(prof) -> dict:
     from torch.autograd import DeviceType
     by_name: dict[str, list] = {}
@@ -3199,21 +3456,23 @@ def main() -> int:
     print("zamba2 train " + json.dumps(zamba_trained))
     print(f"zamba2 train phase: {zamba_trained['phase_s']:.2f}s")
 
-    dense_served, dense_trained = {}, {}
-    for arch in DENSE_SERVE_ARCHS:
-        dense_served[arch] = dense_serve_phase(arch)
-        print(f"{arch} serve " + json.dumps(dense_served[arch]))
-        print(f"{arch} serve phase: {dense_served[arch]['phase_s']:.2f}s")
-    for arch in DENSE_TRAIN_ARCHS:
-        dense_trained[arch] = dense_train_phase(arch)
-        print(f"{arch} train " + json.dumps(dense_trained[arch]))
-        print(f"{arch} train phase: {dense_trained[arch]['phase_s']:.2f}s")
+    arch_served, arch_trained = {}, {}
+    for arch in SERVE_ARCHS:
+        arch_served[arch] = model_serve_phase(arch)
+        print(f"{arch} serve " + json.dumps(arch_served[arch]))
+        print(f"{arch} serve phase: {arch_served[arch]['phase_s']:.2f}s")
+    for arch in TRAIN_ARCHS:
+        arch_trained[arch] = model_train_phase(arch)
+        print(f"{arch} train " + json.dumps(arch_trained[arch]))
+        print(f"{arch} train phase: {arch_trained[arch]['phase_s']:.2f}s")
     variants = variants_phase()
     print("variants " + json.dumps(variants))
     print(f"variants phase: {variants['phase_s']:.2f}s")
+    moe_check = moe_whole_check()
+    print(f"{MOE_CHECK_ARCH} whole-path check phase: {moe_check['phase_s']:.2f}s")
     # the launches of these paths, each counted from 0 just before it
-    new_paths = ([r["launches"] for r in dense_served.values()]
-                 + [r["launches"] for r in dense_trained.values()]
+    new_paths = ([r["launches"] for r in arch_served.values()]
+                 + [r["launches"] for r in arch_trained.values()]
                  + [variants[m]["launches"] for m in VARIANT_STEPS] + [guarded["launches"]])
 
     kernels = [dict(name="flash_attention", route="cuda",
@@ -3235,7 +3494,7 @@ def main() -> int:
                 "sgd_epilogue": ("fused_update.cu", "src/repro/kernels/fused_update.py:178")}
     # each kernel's launches on the paths that run it: the AdamW train phase,
     # the SGD train phase, the SAM path of the restart phase, the remote
-    # phase (the delta kernels), the dense train phases and the variants
+    # phase (the delta kernels), every config's train phase and the variants
     path_launches = {**trained["launches"],
                      "sgd_epilogue": sgd_trained["launches"]["sgd_epilogue"],
                      "sam_perturb": restarted["sam_launches"]["sam_perturb"]}

@@ -17,8 +17,10 @@ on its device, bit-identical to the reference's for the same config: the same
 * the source: the synthetic `TokenTask` by default, or any object with the
   same `batch(n, seq_len, stream)` (`MmapTokenDataset`, a token file).
 
-The token families only: the modality-stub inputs of the vision and audio
-families come with those families (ROADMAP.md queue 1).
+* the modality-stub inputs (`_family_extras`): a vlm model's precomputed
+  patch embeddings and an audio model's frame embeddings, standard normal
+  from the stream's own numpy generator, in the compute dtype, as the
+  reference draws them.
 """
 from __future__ import annotations
 
@@ -55,9 +57,6 @@ class TokenPipeline:
         if pcfg.global_batch % pcfg.world != 0:
             raise ValueError(f"global batch {pcfg.global_batch} does not split over "
                              f"{pcfg.world} ranks")
-        if cfg.vision is not None or cfg.family == "audio":
-            raise NotImplementedError(f"{cfg.name}: the vision/audio stub inputs are not "
-                                      f"ported yet (ROADMAP.md queue 1, other families)")
         self.cfg = cfg
         self.pcfg = pcfg
         self.device = torch.device(device)
@@ -95,14 +94,20 @@ class TokenPipeline:
     def _make(self, step: int) -> dict:
         """Numpy batch of `step`; stream ids (step, rank, lane)."""
         stream = step * 2 * self.pcfg.world + 2 * self.pcfg.rank
-        batch = self.source.batch(self._local_batch, self.seq_len, stream)
+        batch = self._one(self._local_batch, stream)
         if self._local_ascent:
-            batch["ascent"] = self.source.batch(self._local_ascent, self.seq_len, stream + 1)
+            batch["ascent"] = self._one(self._local_ascent, stream + 1)
         return batch
 
+    def _one(self, n: int, stream: int) -> dict:
+        return {**self.source.batch(n, self.seq_len, stream),
+                **_family_extras(self.cfg, n, self.seq_len, stream)}
+
     def _to_device(self, batch: dict) -> dict:
+        cdt = getattr(torch, self.cfg.compute_dtype)
         return {k: self._to_device(v) if isinstance(v, dict)
-                else torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                else torch.from_numpy(np.ascontiguousarray(v)).to(
+                    self.device, dtype=cdt if k in _EXTRAS else None)
                 for k, v in batch.items()}
 
     def __iter__(self) -> Iterator[dict]:
@@ -145,3 +150,16 @@ class TokenPipeline:
             except queue.Empty:
                 pass
             t.join(timeout=5.0)
+
+
+_EXTRAS = ("patch_embeds", "enc_frames")
+
+
+def _family_extras(cfg: ModelConfig, n: int, s: int, stream: int) -> dict:
+    """Modality-stub inputs (precomputed embeddings) as float32 numpy arrays,
+    drawn as the reference's; `_to_device` casts them to the compute dtype,
+    as the reference's `jnp.asarray(..., dtype=compute_dtype)` does."""
+    from repro_torch.models.registry import stub_shapes
+    rng = np.random.default_rng((stream, 99))
+    return {name: rng.normal(size=shape).astype(np.float32)
+            for name, shape in stub_shapes(cfg, n, s).items()}

@@ -20,8 +20,13 @@ tests and chip_smoke.py all drive; it reports each kernel's launches.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --reduced \
       --device cpu --requests 2 --prompt-len 12 --max-new 4
 
-Every arch of `configs.ARCH_IDS` serves: olmo-1b, gemma-2b, qwen3-8b and
-qwen2.5-32b through flash attention, rwkv6-7b and zamba2-1.2b as above.
+Every arch of `configs.ARCH_IDS` serves: olmo-1b, gemma-2b, qwen3-8b,
+qwen2.5-32b, mixtral-8x7b (windowed), deepseek-v2-lite-16b (MLA: the absorbed
+decode runs in plain torch, as the reference's), phi-3-vision-4.2b and
+whisper-tiny (encoder, decoder self- and cross-attention) through flash
+attention, rwkv6-7b and zamba2-1.2b as above. The stub inputs of phi-3's
+vision frontend and whisper's audio frontend are zeros, as the reference's
+launcher makes them.
 """
 from __future__ import annotations
 
@@ -36,8 +41,9 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.synthetic import TokenTask
 from repro_torch.kernels.ops import mixer_launches
-from repro_torch.models import build_model, transformer
+from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import stub_shapes
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -73,7 +79,16 @@ def _pick(last_logits: torch.Tensor, temperature: float,
     return torch.multinomial(probs, 1, generator=gen)
 
 
-def serve(cfg: ModelConfig, model: transformer.Transformer,
+def prompt_batch(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
+    """The prefill batch of prompts (B, S): the tokens and the stub inputs,
+    zeros in the compute dtype, as the reference's launcher builds them."""
+    return {"tokens": tokens,
+            **{name: torch.zeros(shape, dtype=getattr(torch, cfg.compute_dtype),
+                                 device=tokens.device)
+               for name, shape in stub_shapes(cfg, *tokens.shape).items()}}
+
+
+def serve(cfg: ModelConfig, model: torch.nn.Module,
           prompts: Union[np.ndarray, torch.Tensor], max_new: int, *,
           temperature: float = 0.0, seed: int = 0) -> ServeResult:
     """Prefill `prompts` (B, S) and generate `max_new` tokens per request on
@@ -83,13 +98,14 @@ def serve(cfg: ModelConfig, model: transformer.Transformer,
     device = next(model.parameters()).device
     tokens = torch.as_tensor(prompts, device=device)
     n_req, prompt_len = tokens.shape
+    bundle = build_model(cfg)
+    batch = prompt_batch(cfg, tokens)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     launches_before = mixer_launches(cfg.family)
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = transformer.prefill(model, {"tokens": tokens}, cfg,
-                                            pad_to=prompt_len + max_new)
+        logits, cache = bundle.prefill(model, batch, pad_to=prompt_len + max_new)
         _sync(device)
         t_prefill = time.perf_counter() - t0
 
@@ -98,7 +114,7 @@ def serve(cfg: ModelConfig, model: transformer.Transformer,
         generated = [tok]
         t0 = time.perf_counter()
         for _ in range(max_new - 1):
-            logits, cache = transformer.decode(model, cache, {"tokens": tok}, cfg)
+            logits, cache = bundle.decode(model, cache, {"tokens": tok})
             step_logits.append(logits[:, -1])
             tok = _pick(logits[:, -1], temperature, gen)
             generated.append(tok)

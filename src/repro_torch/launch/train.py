@@ -37,6 +37,12 @@ the reference's final JSON summary.
       --executor remote --serve-ascent --job-compress int8
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --reduced \\
       --device cpu --method looksam --steps 6 --batch 4 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-lite-16b \\
+      --reduced --device cpu --steps 12 --batch 4 --seq 32
+
+Every arch of `configs.ARCH_IDS` trains; the moe family's step metrics carry
+the router's aux loss (`moe_aux`), and the vlm and audio families' batches
+their stub inputs (`TokenPipeline`).
 
 `--method` is any of the reference's eight (`core.available_methods()`):
 sgd, sam, gsam, async_sam and the variants looksam, esam, aesam and mesa,
@@ -99,8 +105,10 @@ NOT_PORTED_FLAGS = {flag: _ITEM7 for flag in (
 def kernel_launches(executor: str = "fused", family: str = "dense") -> dict[str, int]:
     """Launches of every kernel of the executor's training path for a model
     family since the last reset: the family's sequence mixer (flash
-    attention; the rwkv6 scan and its backward; the Mamba2 scan and its
-    backward beside flash attention) and the weight-space kernels
+    attention for the dense, moe, vlm and audio families, whisper's encoder,
+    decoder self- and cross-attention alike; the rwkv6 scan and its
+    backward; the Mamba2 scan and its backward beside flash attention) and
+    the weight-space kernels
     (the JOB-delta kernels run on the remote lane only)."""
     counts = {**mixer_launches(family, backward=True), **sp.launches, **fu.launches}
     if executor != "remote":

@@ -13,7 +13,8 @@ here:
 * `to_reference` builds the reference's nested tree from a mapping of port
   names (the lane hand-off and the wire carry that tree), and
   `from_reference` cuts a nested tree back into port names, block leaves as
-  views of the stacked leaf;
+  views of the stacked leaf (`blocks`, `enc_blocks`, `dec_blocks`; a moe
+  model's `dense_blocks` the reference keeps as a list, one subtree a layer);
 * `params_from_jax` turns the reference's parameter tree, given as nested
   dicts of numpy arrays (`jax.tree.map(np.asarray, params)`), into the port's
   `state_dict`.
@@ -86,23 +87,31 @@ def to_reference(mapping: Mapping[str, torch.Tensor],
     return _sorted(tree)
 
 
-def _sorted(tree: dict) -> dict:
-    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+def _sorted(tree: dict):
+    """Keys sorted at every level; a node keyed 0..n-1 (`dense_blocks`)
+    becomes the list the reference keeps there."""
+    out = {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
-def from_reference(tree: Mapping, prefix: str = "") -> dict:
+def from_reference(tree, prefix: str = "") -> dict:
     """Port name -> leaf of a nested reference tree (numpy arrays or
-    tensors); a leaf under "blocks" is cut along its leading axis into views,
-    one per block."""
+    tensors); a leaf under a stacked list (`buckets.STACKED`) is cut along
+    its leading axis into views, one per block; a list's items are named by
+    their index."""
     out = {}
-    for name, leaf in tree.items():
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) else tree.items()
+    for name, leaf in items:
         path = f"{prefix}{name}"
-        if isinstance(leaf, Mapping):
+        if isinstance(leaf, (Mapping, list, tuple)):
             out.update(from_reference(leaf, path + "."))
-        elif path.startswith("blocks."):
-            rest = path[len("blocks."):]
+            continue
+        top, _, rest = path.partition(".")
+        if top in buckets.STACKED and rest:
             for i in range(leaf.shape[0]):
-                out[f"blocks.{i}.{rest}"] = leaf[i]
+                out[f"{top}.{i}.{rest}"] = leaf[i]
         else:
             out[path] = leaf
     return out

@@ -1,0 +1,249 @@
+"""Whisper-style encoder-decoder backbone, the audio family (counterpart of
+`repro.models.encdec`).
+
+The conv/mel frontend is a stub, as in the reference: the batch carries
+precomputed frame embeddings `enc_frames` (B, S_enc, d_model), and a learned
+adapter (`frontend_adapter`) keeps a parameterised frontend boundary.
+Positions are sinusoidal (no RoPE), norms LayerNorm, MLPs plain GELU. The
+encoder's self-attention is non-causal; each decoder block runs causal
+self-attention, cross-attention over the encoder output and the MLP. All of
+them go through the flash kernel on the card. The decode cache holds per
+decoder layer the self-attention k/v (padded to `pad_to`) and the cross k/v,
+computed once at prefill; decode's cross-attention runs `ops.decode_attention`
+over them. Parameter names mirror the reference's leaves
+(`enc_blocks.<i>.attn.wq`, `dec_blocks.<i>.cross_attn.wk`,
+`dec_blocks.<i>.ln3.bias`, `enc_norm.scale`); the reference stacks the
+blocks on a leading axis and scans them, the port loops. The reference's
+`constrain_param_tree` calls are sharding hints and are left out.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional, Union
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import (MLP, Attention, Device, Embedding, Norm,
+                                            _final_logits, _groups, _param, dense_init,
+                                            init_attention, init_mlp, init_norms_and_biases,
+                                            remat_call)
+
+Params = Mapping[str, torch.Tensor]
+
+
+def _sinusoid_at(pos: int, d: int, n: int, device: Union[str, torch.device]) -> torch.Tensor:
+    """(n, d) sinusoidal embeddings of positions pos .. pos + n - 1, in fp32."""
+    p = torch.arange(pos, pos + n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10000.0) * dim / (d // 2))
+    ang = p * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+class EncBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        self.ln1 = Norm(cfg, cfg.d_model, device)
+        self.ln2 = Norm(cfg, cfg.d_model, device)
+        self.attn = Attention(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+
+class DecBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        self.ln1 = Norm(cfg, cfg.d_model, device)
+        self.ln2 = Norm(cfg, cfg.d_model, device)
+        self.ln3 = Norm(cfg, cfg.d_model, device)
+        self.self_attn = Attention(cfg, device)
+        self.cross_attn = Attention(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+
+class EncDec(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__()
+        if cfg.family != "audio" or cfg.encdec is None:
+            raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not an encoder-decoder")
+        self.cfg = cfg
+        self.frontend_adapter = _param((cfg.d_model, cfg.d_model), cfg, device)
+        self.enc_blocks = nn.ModuleList(EncBlock(cfg, device)
+                                        for _ in range(cfg.encdec.n_encoder_layers))
+        self.enc_norm = Norm(cfg, cfg.d_model, device)
+        self.embedding = Embedding(cfg, device)
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg, device) for _ in range(cfg.n_layers))
+        self.final_norm = Norm(cfg, cfg.d_model, device)
+
+    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        return forward(self, batch, self.cfg)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> EncDec:
+    """Build the model on `device` with weights drawn from `seed`: the
+    reference's distributions (dense fan-in weights, attention `wo` scaled by
+    1/sqrt(2 L), N(0, 0.02) embedding, LayerNorm scale 1 and bias 0) from a
+    `torch.Generator`, not JAX's values (load those through
+    `convert.params_from_jax`). On the "meta" device, shapes only."""
+    model = EncDec(cfg, device)
+    if torch.device(device).type == "meta":
+        return model
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dense = dense_init(gen)
+    with torch.no_grad():
+        dense(model.frontend_adapter)
+        model.embedding.embed.normal_(0.0, 0.02, generator=gen)
+        init_norms_and_biases(model)
+        for a in ([b.attn for b in model.enc_blocks]
+                  + [a for b in model.dec_blocks for a in (b.self_attn, b.cross_attn)]):
+            init_attention(a, cfg, dense)
+        for blk in (*model.enc_blocks, *model.dec_blocks):
+            init_mlp(blk.mlp, cfg, dense)
+    return model
+
+
+def _blocks(groups: dict, prefix: str, n: int, parts: tuple[str, ...]) -> list[dict]:
+    return [{part: groups.get(f"{prefix}.{i}.{part}", {}) for part in parts}
+            for i in range(n)]
+
+
+def _enc_blocks(groups: dict, cfg: ModelConfig) -> list[dict]:
+    return _blocks(groups, "enc_blocks", cfg.encdec.n_encoder_layers,
+                   ("ln1", "ln2", "attn", "mlp"))
+
+
+def _dec_blocks(groups: dict, cfg: ModelConfig) -> list[dict]:
+    return _blocks(groups, "dec_blocks", cfg.n_layers,
+                   ("ln1", "ln2", "ln3", "self_attn", "cross_attn", "mlp"))
+
+
+def encode(groups: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over the frame embeddings: (B, S_enc, d_model)."""
+    dt = L.cdtype(cfg)
+    x = frames.to(dt) @ groups[""]["frontend_adapter"].to(dt)
+    x = x + _sinusoid_at(0, cfg.d_model, x.shape[1], x.device).to(dt)[None]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def body(blk, xc, positions_):
+        h, _ = L.attention_apply(blk["attn"], L.norm_apply(blk["ln1"], xc, cfg), cfg,
+                                 positions=positions_, causal=False, use_rope=False)
+        xc = xc + h
+        return xc + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], xc, cfg), cfg)
+
+    for blk in _enc_blocks(groups, cfg):
+        x = remat_call(body, cfg, blk, x, positions)
+    return L.norm_apply(groups["enc_norm"], x, cfg)
+
+
+def _dec_block_apply(blk: dict, x: torch.Tensor, enc_out: Optional[torch.Tensor],
+                     cfg: ModelConfig, *, positions: torch.Tensor,
+                     cache: Optional[dict] = None):
+    """Returns (y, self k/v, cross k/v). `cache` holds {"k", "v", "pos",
+    "cross_k", "cross_v"} in decode (the self k/v written at pos in place;
+    cross k/v None); None at train and prefill, where the cross k/v come
+    from `enc_out`."""
+    self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"],
+                                             "pos": cache["pos"]}
+    h, self_kv = L.attention_apply(blk["self_attn"], L.norm_apply(blk["ln1"], x, cfg), cfg,
+                                   positions=positions, cache=self_cache, use_rope=False)
+    x = x + h
+    xn = L.norm_apply(blk["ln2"], x, cfg)
+    if cache is None:
+        h, cross_kv = L.attention_apply(blk["cross_attn"], xn, cfg, positions=positions,
+                                        causal=False, use_rope=False, x_cross=enc_out)
+    else:
+        # decode: attend over the stored cross k/v (no growth, no mask)
+        from repro_torch.kernels import ops
+        q, _, _ = L._project_qkv(blk["cross_attn"], xn, xn, cfg)
+        kx, vx = cache["cross_k"], cache["cross_v"]
+        h = ops.decode_attention(q, kx, vx, kx.shape[1])
+        h = h.reshape(*h.shape[:-2], cfg.n_heads * cfg.resolved_head_dim)
+        h = h @ blk["cross_attn"]["wo"].to(L.cdtype(cfg))
+        cross_kv = None
+    x = x + h
+    x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln3"], x, cfg), cfg)
+    return x, self_kv, cross_kv
+
+
+def _embed(groups: dict, tokens: torch.Tensor, pos: int, cfg: ModelConfig) -> torch.Tensor:
+    x = L.embed_tokens(groups["embedding"], tokens, cfg)
+    return x + _sinusoid_at(pos, cfg.d_model, x.shape[1], x.device).to(x.dtype)[None]
+
+
+def forward(model: Union[EncDec, Params], batch: dict, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward of the model or of a mapping of its parameter names
+    to tensors: (logits over the decoder positions, aux 0)."""
+    groups = _groups(model)
+    enc_out = encode(groups, batch["enc_frames"], cfg)
+    x = _embed(groups, batch["tokens"], 0, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+    def body(blk, xc, enc, positions_):
+        return _dec_block_apply(blk, xc, enc, cfg, positions=positions_)[0]
+
+    for blk in _dec_blocks(groups, cfg):
+        x = remat_call(body, cfg, blk, x, enc_out, positions)
+    return (_final_logits(groups, x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, pos: int = 0,
+               device: Device = "cuda") -> dict:
+    """Zero cache {"layers": {"k", "v": (L, B, max_len, K, hd), "cross_k",
+    "cross_v": (L, B, enc_len, K, hd)}, "pos": int}, enc_len =
+    `registry.whisper_enc_len(cfg, max_len)` (the reference's `_encdec_cache`)."""
+    from repro_torch.models.registry import whisper_enc_len
+    cdt = L.cdtype(cfg)
+    hd = cfg.resolved_head_dim
+    lens = {"k": max_len, "v": max_len, "cross_k": whisper_enc_len(cfg, max_len),
+            "cross_v": whisper_enc_len(cfg, max_len)}
+    return {"layers": {name: torch.zeros((cfg.n_layers, batch, n, cfg.n_kv_heads, hd),
+                                         dtype=cdt, device=device)
+                       for name, n in lens.items()}, "pos": pos}
+
+
+def prefill(model: EncDec, batch: dict, cfg: ModelConfig, pad_to: int = 0
+            ) -> tuple[torch.Tensor, dict]:
+    """Encode the frames and run the prompt: (last-position logits, cache)
+    with the self k/v padded to max(S, pad_to), the cross k/v as the
+    encoder gave them, and pos = S."""
+    groups = _groups(model)
+    enc_out = encode(groups, batch["enc_frames"], cfg)
+    x = _embed(groups, batch["tokens"], 0, cfg)
+    B, S, _ = x.shape
+    max_len = max(S, pad_to)
+    positions = torch.arange(S, device=x.device)[None, :]
+    cdt = L.cdtype(cfg)
+    hd = cfg.resolved_head_dim
+    self_kv = {name: torch.zeros((cfg.n_layers, B, max_len, cfg.n_kv_heads, hd), dtype=cdt,
+                                 device=x.device) for name in ("k", "v")}
+    cross = {"cross_k": [], "cross_v": []}
+    for i, blk in enumerate(_dec_blocks(groups, cfg)):
+        x, kv, cross_kv = _dec_block_apply(blk, x, enc_out, cfg, positions=positions)
+        self_kv["k"][i, :, :S] = kv["k"]
+        self_kv["v"][i, :, :S] = kv["v"]
+        cross["cross_k"].append(cross_kv["k"])
+        cross["cross_v"].append(cross_kv["v"])
+    layers = {**self_kv, **{name: torch.stack(ts) for name, ts in cross.items()}}
+    return _final_logits(groups, x[:, -1:], cfg), {"layers": layers, "pos": S}
+
+
+def decode(model: EncDec, cache: dict, batch: dict, cfg: ModelConfig
+           ) -> tuple[torch.Tensor, dict]:
+    """One decode step: batch["tokens"] (B, S_new) -> (logits, cache); the
+    self k/v are written in place, the returned cache carries the advanced
+    `pos`."""
+    groups = _groups(model)
+    pos = cache["pos"]
+    x = _embed(groups, batch["tokens"], pos, cfg)
+    S_new = x.shape[1]
+    positions = pos + torch.arange(S_new, device=x.device)[None, :]
+    layers = cache["layers"]
+    for i, blk in enumerate(_dec_blocks(groups, cfg)):
+        x, _, _ = _dec_block_apply(blk, x, None, cfg, positions=positions,
+                                   cache={**{name: t[i] for name, t in layers.items()},
+                                          "pos": pos})
+    return _final_logits(groups, x, cfg), {**cache, "pos": pos + S_new}

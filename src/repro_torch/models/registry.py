@@ -4,6 +4,7 @@ init_cache) surface (counterpart of `repro.models.registry`).
 The port's bundle takes the model (an `nn.Module`, or for `forward` and
 `loss_fn` a mapping of its parameter names to tensors) where the reference
 takes a parameter pytree, and `init(seed, device)` where it takes a PRNG key.
+The audio family (whisper) is `encdec`'s, every other family `transformer`'s.
 """
 from __future__ import annotations
 
@@ -13,17 +14,19 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
+from torch import nn
+
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelConfig
-    init: Callable[..., transformer.Transformer]
-    forward: Callable[[transformer.Transformer, dict], tuple[torch.Tensor, torch.Tensor]]
+    init: Callable[..., nn.Module]
+    forward: Callable[[nn.Module, dict], tuple[torch.Tensor, torch.Tensor]]
     prefill: Callable[..., tuple[torch.Tensor, dict]]
-    decode: Callable[[transformer.Transformer, dict, dict], tuple[torch.Tensor, dict]]
+    decode: Callable[[nn.Module, dict, dict], tuple[torch.Tensor, dict]]
     init_cache: Callable[..., dict]
 
     def loss_fn(self, model_or_params, batch: dict,
@@ -46,34 +49,64 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
-    transformer.check_supported(cfg)
+    mod = encdec if cfg.family == "audio" else transformer
+    if mod is transformer:
+        transformer.check_supported(cfg)
     return ModelBundle(
         cfg=cfg,
-        init=lambda seed=0, device="cuda": transformer.init_params(cfg, seed, device),
-        forward=lambda m, b: transformer.forward(m, b, cfg),
-        prefill=lambda m, b, pad_to=0: transformer.prefill(m, b, cfg, pad_to=pad_to),
-        decode=lambda m, c, b: transformer.decode(m, c, b, cfg),
-        init_cache=lambda batch, max_len, pos=0, device="cuda": transformer.init_cache(
+        init=lambda seed=0, device="cuda": mod.init_params(cfg, seed, device),
+        forward=lambda m, b: mod.forward(m, b, cfg),
+        prefill=lambda m, b, pad_to=0: mod.prefill(m, b, cfg, pad_to=pad_to),
+        decode=lambda m, c, b: mod.decode(m, c, b, cfg),
+        init_cache=lambda batch, max_len, pos=0, device="cuda": mod.init_cache(
             cfg, batch, max_len, pos, device),
     )
 
 
+def whisper_enc_len(cfg: ModelConfig, dec_len: int) -> int:
+    """Encoder frames for a decoder length: min(dec_len * enc_len_ratio,
+    dec_len), as the reference's."""
+    return min(int(dec_len * cfg.encdec.enc_len_ratio), dec_len)
+
+
+def stub_shapes(cfg: ModelConfig, b: int, s: int) -> dict[str, tuple[int, ...]]:
+    """The modality-stub inputs of a batch of b x s tokens: the vlm family's
+    precomputed patch embeddings and the audio family's frame embeddings."""
+    shapes = {}
+    if cfg.vision is not None:
+        shapes["patch_embeds"] = (b, cfg.vision.n_image_tokens, cfg.vision.clip_dim)
+    if cfg.family == "audio":
+        shapes["enc_frames"] = (b, whisper_enc_len(cfg, s), cfg.d_model)
+    return shapes
+
+
 def synth_batch(cfg: ModelConfig, b: int, s: int, seed: int = 0,
                 device: transformer.Device = "cuda") -> dict:
-    """Random token batch drawn with numpy from `seed`; labels are the tokens
-    shifted left, with -1 (masked) at the last position."""
-    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(b, s),
-                                                  dtype=np.int32)
+    """Random batch drawn with numpy from `seed`: tokens, labels (the tokens
+    shifted left, -1 (masked) at the last position) and, as the reference's
+    `_synth_one` adds them, the stub inputs (standard normal, in the compute
+    dtype)."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, size=(b, s), dtype=np.int32)
     labels = np.roll(tokens, -1, axis=1)
     labels[:, -1] = -1
-    return {"tokens": torch.from_numpy(tokens).to(device),
-            "labels": torch.from_numpy(labels).to(device)}
+    batch = {"tokens": torch.from_numpy(tokens).to(device),
+             "labels": torch.from_numpy(labels).to(device)}
+    for name, shape in stub_shapes(cfg, b, s).items():
+        batch[name] = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            device=device, dtype=getattr(torch, cfg.compute_dtype))
+    return batch
 
 
 def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact count from the model built on the meta device (no memory);
-    `active_only` subtracts inactive experts (no MoE family is ported yet)."""
-    del active_only
-    model = transformer.init_params(cfg, device="meta")
-    return sum(p.numel() for p in model.parameters())
+    `active_only` subtracts the inactive experts of every MoE layer."""
+    model = build_model(cfg).init(device="meta")
+    total = sum(p.numel() for p in model.parameters())
+    if active_only and cfg.moe is not None:
+        e, k = cfg.moe.n_experts, cfg.moe.top_k
+        expert_params = 3 * cfg.d_model * cfg.moe.expert_d_ff
+        n_moe_layers = cfg.n_layers - cfg.moe.first_dense_layers
+        total -= n_moe_layers * (e - k) * expert_params
+    return int(total)
 

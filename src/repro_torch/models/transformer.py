@@ -1,5 +1,6 @@
-"""Decoder-LM assembly for the dense, ssm (rwkv6) and hybrid (zamba2)
-families (counterpart of `repro.models.transformer`).
+"""Decoder-LM assembly for the dense, moe, vlm, ssm (rwkv6) and hybrid
+(zamba2) families (counterpart of `repro.models.transformer`; the audio
+family's encoder-decoder is `encdec.py`).
 
 Parameters live in `nn.Module`s whose names mirror the reference's leaves
 (`embedding.embed`, `blocks.<i>.attn.wq`, `blocks.<i>.mlp.wi|wg|wo_mlp`; for
@@ -27,10 +28,20 @@ model runs the shared attention block (its LoRA of the invocation) before
 every `hybrid.period` mamba blocks; only the mamba blocks are checkpointed,
 as the reference's `_remat` wraps them alone. Its decode cache holds, per
 mamba layer, the two conv tails and the SSM state, and per invocation of the
-shared block its k/v. The other families (moe, vlm) are not ported yet.
+shared block its k/v. A moe block takes the MoE feed-forward
+(`blocks.<i>.moe.router|we_in|we_gate|we_out`, `blocks.<i>.moe.shared.wi`)
+and, where `cfg.mla` is set, MLA attention (`blocks.<i>.attn.w_dkv`, ...);
+deepseek's first `moe.first_dense_layers` layers are `dense_blocks.<j>`, a
+gated MLP of width `moe.dense_d_ff` (the reference keeps them as a list, not
+stacked); `forward` returns the MoE aux loss summed over the layers. Its MLA
+cache holds the compressed latent {"c_kv", "k_rope"} per layer, and the dense
+layers' caches are the list "dense_layers". A vlm model projects the
+precomputed patch embeddings (`batch["patch_embeds"]`, `projector`) over the
+first `vision.n_image_tokens` positions.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Mapping, Optional, Union
@@ -40,6 +51,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
@@ -48,15 +61,28 @@ Device = Union[str, torch.device]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config outside the ported families: dense (no MLA, no
-    MoE), ssm with an rwkv config (rwkv6) and hybrid with ssm and hybrid
-    configs (zamba2)."""
-    dense = cfg.family == "dense" and cfg.mla is None and cfg.moe is None
-    rwkv = cfg.family == "ssm" and cfg.rwkv is not None
-    hybrid = cfg.family == "hybrid" and cfg.ssm is not None and cfg.hybrid is not None
-    if not (dense or rwkv or hybrid):
-        raise NotImplementedError(f"the port supports the dense, rwkv6 and zamba2 families "
-                                  f"only, not {cfg.name} ({cfg.family})")
+    """Raise for a config this module does not assemble: dense and vlm (a
+    vision config) without MoE, moe with a MoE config (MLA or not), ssm with
+    an rwkv config (rwkv6) and hybrid with ssm and hybrid configs (zamba2).
+    The audio family is `encdec`'s."""
+    ok = {"dense": cfg.moe is None,
+          "vlm": cfg.moe is None and cfg.vision is not None,
+          "moe": cfg.moe is not None,
+          "ssm": cfg.rwkv is not None,
+          "hybrid": cfg.ssm is not None and cfg.hybrid is not None}.get(cfg.family, False)
+    if not ok:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not a decoder-LM config "
+                                  f"of the dense, moe, vlm, ssm or hybrid families")
+
+
+def dense_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of a moe model's leading dense layers: d_ff = dense_d_ff."""
+    return dataclasses.replace(cfg, d_ff=cfg.moe.dense_d_ff or cfg.d_ff)
+
+
+def n_dense(cfg: ModelConfig) -> int:
+    """Leading dense layers of a moe model (deepseek's first layer), else 0."""
+    return cfg.moe.first_dense_layers if cfg.moe is not None else 0
 
 
 # ---------------------------------------------------------------------------
@@ -104,13 +130,27 @@ class MLP(nn.Module):
             self.wg = _param((cfg.d_model, cfg.d_ff), cfg, device)
 
 
-class Block(nn.Module):
+class MoE(Shaped):
     def __init__(self, cfg: ModelConfig, device: Device):
+        super().__init__(MOE.moe_shapes(cfg), cfg, device)
+        if cfg.moe.n_shared_experts:
+            self.shared = Shaped(MOE.shared_shapes(cfg), cfg, device)
+
+
+class Block(nn.Module):
+    """An attention block: MHA/GQA or, where `cfg.mla` is set, MLA; a gated
+    MLP or, with `use_moe`, the MoE feed-forward."""
+
+    def __init__(self, cfg: ModelConfig, device: Device, use_moe: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg, cfg.d_model, device)
         self.ln2 = Norm(cfg, cfg.d_model, device)
-        self.attn = Attention(cfg, device)
-        self.mlp = MLP(cfg, device)
+        self.attn = (Shaped(MLA.mla_shapes(cfg), cfg, device) if cfg.mla is not None
+                     else Attention(cfg, device))
+        if use_moe:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
 
 class RWKVBlock(nn.Module):
@@ -155,11 +195,20 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embedding = Embedding(cfg, device)
         self.final_norm = Norm(cfg, cfg.d_model, device)
-        block = {"ssm": RWKVBlock, "hybrid": MambaBlock}.get(cfg.family, Block)
-        self.blocks = nn.ModuleList(block(cfg, device) for _ in range(cfg.n_layers))
+        if cfg.family == "moe":
+            if n_dense(cfg):
+                self.dense_blocks = nn.ModuleList(Block(dense_cfg(cfg), device)
+                                                  for _ in range(n_dense(cfg)))
+            self.blocks = nn.ModuleList(Block(cfg, device, use_moe=True)
+                                        for _ in range(cfg.n_layers - n_dense(cfg)))
+        else:
+            block = {"ssm": RWKVBlock, "hybrid": MambaBlock}.get(cfg.family, Block)
+            self.blocks = nn.ModuleList(block(cfg, device) for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
             self.shared = Block(cfg, device)
             self.lora = Shaped(lora_shapes(cfg), cfg, device)
+        if cfg.vision is not None:
+            self.projector = _param((cfg.vision.clip_dim, cfg.d_model), cfg, device)
 
     def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         return forward(self, batch, self.cfg)
@@ -174,30 +223,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
     `decay_b` scaled by 0.1, bonus u ~ 0.1 N(0, 1); zamba2's conv weights
     N(0, 1) / sqrt(d_conv), a_log = log(linspace(1, 16, H)), d_skip 1,
     dt_bias = log(expm1(0.01)), `w_out` scaled by 1/sqrt(2 L), LoRA `a`
-    dense per invocation and `b` zero), drawn from a `torch.Generator` on
-    `device`: the
-    values differ from JAX's. To hold the port against the reference, load
-    the JAX init through `convert.params_from_jax`. On the "meta" device the
+    dense per invocation and `b` zero; the router, each expert's weights and
+    the shared experts, MLA's projections and the vlm projector dense, MLA's
+    `wo` scaled by 1/sqrt(2 L), its kv norm scale 1), drawn from a
+    `torch.Generator` on `device`: the values differ from JAX's. To hold the
+    port against the reference, load the JAX init through
+    `convert.params_from_jax`. On the "meta" device the
     parameters get shapes only.
     """
     model = Transformer(cfg, device)
     if torch.device(device).type == "meta":
         return model
     gen = torch.Generator(device=device).manual_seed(seed)
-
-    def dense(w: torch.Tensor, scale: float = 1.0) -> None:
-        nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=gen)
-        w.mul_(scale / math.sqrt(w.shape[0]))
-
+    dense = dense_init(gen)
     with torch.no_grad():
         model.embedding.embed.normal_(0.0, 0.02, generator=gen)
         if not cfg.tie_embeddings:
             dense(model.embedding.unembed)
-        for name, p in model.named_parameters():
-            if name.endswith("scale"):
-                p.fill_(1.0)
-            elif name.endswith(("bias", ".bq", ".bk", ".bv")):
-                p.zero_()
+        init_norms_and_biases(model)
         for blk in model.blocks:
             if cfg.family == "ssm":
                 _init_rwkv_block(blk, cfg, dense, gen)
@@ -205,6 +248,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
                 _init_mamba_block(blk, cfg, dense, gen)
             else:
                 _init_attn_block(blk, cfg, dense)
+        for blk in getattr(model, "dense_blocks", ()):
+            _init_attn_block(blk, dense_cfg(cfg), dense)
+        if cfg.vision is not None:
+            dense(model.projector)
         if cfg.family == "hybrid":
             _init_attn_block(model.shared, cfg, dense)
             lora = model.lora
@@ -216,16 +263,53 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
     return model
 
 
-def _init_attn_block(blk: Block, cfg: ModelConfig, dense) -> None:
-    a = blk.attn
-    dense(a.wq)
-    dense(a.wk)
-    dense(a.wv)
+def dense_init(gen: torch.Generator):
+    """The reference's dense initialiser, drawing from `gen`: w ~ truncated
+    N(0, 1) on [-2, 2], times scale / sqrt(fan-in)."""
+    def dense(w: torch.Tensor, scale: float = 1.0) -> None:
+        nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=gen)
+        w.mul_(scale / math.sqrt(w.shape[0]))
+    return dense
+
+
+def init_norms_and_biases(model: nn.Module) -> None:
+    """Every norm scale (MLA's `kv_norm_scale` too) to 1, every bias to 0."""
+    for name, p in model.named_parameters():
+        if name.endswith("scale"):
+            p.fill_(1.0)
+        elif name.endswith(("bias", ".bq", ".bk", ".bv")):
+            p.zero_()
+
+
+def init_attention(a: nn.Module, cfg: ModelConfig, dense) -> None:
+    """An attention's projections dense, its `wo` scaled by 1/sqrt(2 L)."""
+    for name in ("wq", "wk", "wv", "w_dkv", "w_uk", "w_uv"):
+        if hasattr(a, name):
+            dense(getattr(a, name))
     dense(a.wo, scale=1.0 / math.sqrt(2 * cfg.n_layers))
-    dense(blk.mlp.wi)
-    dense(blk.mlp.wo_mlp)
+
+
+def init_mlp(mlp: nn.Module, cfg: ModelConfig, dense) -> None:
+    dense(mlp.wi)
+    dense(mlp.wo_mlp)
     if cfg.mlp_gated:
-        dense(blk.mlp.wg)
+        dense(mlp.wg)
+
+
+def _init_attn_block(blk: Block, cfg: ModelConfig, dense) -> None:
+    """After `init_norms_and_biases`."""
+    init_attention(blk.attn, cfg, dense)
+    if hasattr(blk, "moe"):
+        moe = blk.moe
+        dense(moe.router)
+        for w in (moe.we_in, moe.we_gate, moe.we_out):
+            for e in range(w.shape[0]):          # each expert's own fan-in
+                dense(w[e])
+        if hasattr(moe, "shared"):
+            for w in (moe.shared.wi, moe.shared.wg, moe.shared.wo_mlp):
+                dense(w)
+        return
+    init_mlp(blk.mlp, cfg, dense)
 
 
 def _init_mamba_block(blk: MambaBlock, cfg: ModelConfig, dense, gen: torch.Generator) -> None:
@@ -275,12 +359,22 @@ def _groups(model_or_params: Union[nn.Module, Params]) -> dict[str, dict[str, to
     return out
 
 
-_BLOCK_PARTS = {"ssm": ("ln1", "ln2", "tm", "cm"), "hybrid": ("ln", "mixer")}
+_BLOCK_PARTS = {"ssm": ("ln1", "ln2", "tm", "cm"), "hybrid": ("ln", "mixer"),
+                "moe": ("ln1", "ln2", "attn", "moe")}
 
 
-def _block(groups: dict, i: int, cfg: ModelConfig) -> dict[str, dict[str, torch.Tensor]]:
-    parts = _BLOCK_PARTS.get(cfg.family, ("ln1", "ln2", "attn", "mlp"))
-    return {part: groups.get(f"blocks.{i}.{part}", {}) for part in parts}
+def _block(groups: dict, i: int, cfg: ModelConfig, prefix: str = "blocks"
+           ) -> dict[str, dict[str, torch.Tensor]]:
+    """Block i's parameters by part; a moe block's "moe" part holds its
+    shared experts under "shared". `prefix` "dense_blocks" names a moe
+    model's leading dense layers."""
+    parts = (_BLOCK_PARTS.get(cfg.family, ("ln1", "ln2", "attn", "mlp"))
+             if prefix == "blocks" else ("ln1", "ln2", "attn", "mlp"))
+    bp = {part: groups.get(f"{prefix}.{i}.{part}", {}) for part in parts}
+    shared = groups.get(f"{prefix}.{i}.moe.shared")
+    if shared is not None:
+        bp["moe"] = {**bp["moe"], "shared": shared}
+    return bp
 
 
 def _shared(groups: dict) -> dict[str, dict[str, torch.Tensor]]:
@@ -294,13 +388,20 @@ def _lora(groups: dict, g: int) -> dict[str, torch.Tensor]:
 
 def attn_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                      positions: torch.Tensor, cache: Optional[dict] = None
-                     ) -> tuple[torch.Tensor, dict]:
-    """One block; `bp` maps "ln1"/"ln2"/"attn"/"mlp" to their parameters."""
-    h, new_cache = L.attention_apply(bp["attn"], L.norm_apply(bp["ln1"], x, cfg),
-                                     cfg, positions=positions, cache=cache)
+                     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """One block; `bp` maps "ln1"/"ln2"/"attn" and "mlp" or "moe" to their
+    parameters. Returns (x, the MoE aux loss (0 without MoE), the cache)."""
+    attend = MLA.mla_apply if cfg.mla is not None else L.attention_apply
+    h, new_cache = attend(bp["attn"], L.norm_apply(bp["ln1"], x, cfg), cfg,
+                          positions=positions, cache=cache)
     x = x + h
-    h2 = L.mlp_apply(bp["mlp"], L.norm_apply(bp["ln2"], x, cfg), cfg)
-    return x + h2, new_cache
+    h2in = L.norm_apply(bp["ln2"], x, cfg)
+    if "moe" in bp:
+        h2, aux = MOE.moe_apply(bp["moe"], h2in, cfg)
+    else:
+        h2 = L.mlp_apply(bp["mlp"], h2in, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h2, aux, new_cache
 
 
 def rwkv_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -359,27 +460,33 @@ def _save_projections(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _train_block(bp: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """A block of the full-sequence forward, checkpointed per `cfg.remat`
-    when autograd records."""
-    def fn(bp_, x_, positions_):
-        if cfg.family == "ssm":
-            return rwkv_block_apply(bp_, x_, cfg)[0]
-        if cfg.family == "hybrid":
-            return mamba_block_apply(bp_, x_, cfg)[0]
-        return attn_block_apply(bp_, x_, cfg, positions=positions_)[0]
-
+def remat_call(fn, cfg: ModelConfig, *args):
+    """fn(*args), checkpointed per `cfg.remat` when autograd records (the
+    reference's `_remat`)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
-        return fn(bp, x, positions)
+        return fn(*args)
     if cfg.remat == "full":
-        return ckpt.checkpoint(fn, bp, x, positions, use_reentrant=False)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "dots":
-        return ckpt.checkpoint(fn, bp, x, positions, use_reentrant=False,
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
                                context_fn=functools.partial(
                                    ckpt.create_selective_checkpoint_contexts,
                                    _save_projections))
     raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def _train_block(bp: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
+                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A block of the full-sequence forward, checkpointed per `cfg.remat`:
+    (x, the MoE aux loss; None outside the attention families)."""
+    def fn(bp_, x_, positions_):
+        if cfg.family == "ssm":
+            return rwkv_block_apply(bp_, x_, cfg)[0], None
+        if cfg.family == "hybrid":
+            return mamba_block_apply(bp_, x_, cfg)[0], None
+        return attn_block_apply(bp_, x_, cfg, positions=positions_)[:2]
+
+    return remat_call(fn, cfg, bp, x, positions)
 
 
 def _final_logits(groups: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -391,25 +498,58 @@ def _final_logits(groups: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tens
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
+def _embed_inputs(groups: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings; a vlm model's first n_image_tokens positions are
+    overwritten with the projected patch embeddings."""
+    x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
+    if cfg.vision is not None and "patch_embeds" in batch:
+        dt = L.cdtype(cfg)
+        patches = batch["patch_embeds"].to(dt) @ groups[""]["projector"].to(dt)
+        n = patches.shape[1]
+        if n > x.shape[1]:
+            raise ValueError(f"{n} image tokens do not fit a sequence of {x.shape[1]}")
+        x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
+    return x
+
+
+def _layers(groups: dict, cfg: ModelConfig):
+    """(block parameters, the block's config, its index among the cached
+    layers, dense) in execution order: a moe model's leading dense layers,
+    then the blocks."""
+    nd = n_dense(cfg)
+    if nd:
+        dcfg = dense_cfg(cfg)
+        for j in range(nd):
+            yield _block(groups, j, dcfg, "dense_blocks"), dcfg, j, True
+    for i in range(cfg.n_layers - nd):
+        yield _block(groups, i, cfg), cfg, i, False
+
+
 def forward(model: Union[Transformer, Params], batch: dict, cfg: ModelConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward of the model or of a mapping of its parameter
-    names to tensors. Returns (logits, aux_loss); aux is 0 (no MoE)."""
+    names to tensors. Returns (logits, aux_loss): the MoE aux loss summed
+    over the layers, 0 without MoE."""
     groups = _groups(model)
-    x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
+    x = _embed_inputs(groups, batch, cfg)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for g in range(_n_shared_invocations(cfg)):
             x, _ = shared_block_apply(_shared(groups), _lora(groups, g), x, cfg,
                                       positions=positions)
             for i in _segment(g, cfg):
-                x = _train_block(_block(groups, i, cfg), x, cfg, positions)
-    else:
+                x, _ = _train_block(_block(groups, i, cfg), x, cfg, positions)
+    elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            x = _train_block(_block(groups, i, cfg), x, cfg, positions)
+            x, _ = _train_block(_block(groups, i, cfg), x, cfg, positions)
+    else:
+        for bp, bcfg, _, _ in _layers(groups, cfg):
+            x, aux = _train_block(bp, x, bcfg, positions)
+            aux_total = aux_total + aux
     logits = _final_logits(groups, x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +562,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, pos: int = 0,
     for rwkv6 {"layers": {"tm_shift", "cm_shift": (L, B, 1, D), "wkv": (L, B,
     H, K, V)}, "pos": int} (no sequence axis: `max_len` is not used); for
     zamba2 {"layers": {"conv_x", "conv_bc": (L, B, d_conv - 1, C), "ssm": (L, B,
-    H, P, N)}, "shared": {"k", "v": (n_inv, B, max_len, K, hd)}, "pos": int}.
+    H, P, N)}, "shared": {"k", "v": (n_inv, B, max_len, K, hd)}, "pos": int}; with
+    MLA {"c_kv": (L, B, max_len, R), "k_rope": (L, B, max_len, rope)} in place
+    of k/v; a moe model with leading dense layers also has "dense_layers", a
+    list of one such per-layer dict each (L counts the other layers).
 
     The same structure as the reference's (and as `prefill` emits); `pos` is a
     Python int since the host drives the decode loop.
@@ -436,14 +579,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, pos: int = 0,
         if cfg.family == "hybrid":
             cache["shared"] = _kv_cache(cfg, _n_shared_invocations(cfg), batch, max_len, device)
         return {**cache, "pos": pos}
-    return {"layers": _kv_cache(cfg, cfg.n_layers, batch, max_len, device), "pos": pos}
+    nd = n_dense(cfg)
+    cache = {"layers": _kv_cache(cfg, cfg.n_layers - nd, batch, max_len, device), "pos": pos}
+    if nd:
+        # the leading dense layers share the attention kind (MLA for
+        # deepseek), so their caches mirror the other layers' structure
+        cache["dense_layers"] = [{name: t[0] for name, t in
+                                  _kv_cache(cfg, 1, batch, max_len, device).items()}
+                                 for _ in range(nd)]
+    return cache
 
 
 def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, device: Device) -> dict:
-    shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     cdt = L.cdtype(cfg)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": torch.zeros((n, batch, max_len, m.kv_lora_rank), dtype=cdt,
+                                    device=device),
+                "k_rope": torch.zeros((n, batch, max_len, m.qk_rope_head_dim), dtype=cdt,
+                                      device=device)}
+    shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device)}
+
+
+def _layer_cache(cache: dict, i: int, dense: bool) -> dict:
+    """Layer i's cache tensors (views): of the dense layers or of the others."""
+    if dense:
+        return cache["dense_layers"][i]
+    return {name: t[i] for name, t in cache["layers"].items()}
 
 
 def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
@@ -451,7 +615,7 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
     """Run the prompt; return (last-position logits, cache) with cache length
     max(S, pad_to) and pos = S."""
     groups = _groups(model)
-    x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
+    x = _embed_inputs(groups, batch, cfg)
     B, S, _ = x.shape
     if cfg.family == "ssm":
         states = []
@@ -475,10 +639,10 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
                 for name, t in layers.items():
                     t[i].copy_(c[name])
         return _final_logits(groups, x[:, -1:], cfg), cache
-    for i in range(cfg.n_layers):
-        x, kv = attn_block_apply(_block(groups, i, cfg), x, cfg, positions=positions)
-        cache["layers"]["k"][i, :, :S] = kv["k"]
-        cache["layers"]["v"][i, :, :S] = kv["v"]
+    for bp, bcfg, i, dense in _layers(groups, cfg):
+        x, _, kv = attn_block_apply(bp, x, bcfg, positions=positions)
+        for name, t in _layer_cache(cache, i, dense).items():
+            t[:, :S] = kv[name]
     logits = _final_logits(groups, x[:, -1:], cfg)
     return logits, cache
 
@@ -516,9 +680,8 @@ def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
                 for name, t in layers.items():
                     t[i].copy_(new[name])
         return _final_logits(groups, x, cfg), {**cache, "pos": pos + S_new}
-    kc, vc = cache["layers"]["k"], cache["layers"]["v"]
-    for i in range(cfg.n_layers):
-        x, _ = attn_block_apply(_block(groups, i, cfg), x, cfg, positions=positions,
-                                cache={"k": kc[i], "v": vc[i], "pos": pos})
+    for bp, bcfg, i, dense in _layers(groups, cfg):
+        x, _, _ = attn_block_apply(bp, x, bcfg, positions=positions,
+                                   cache={**_layer_cache(cache, i, dense), "pos": pos})
     logits = _final_logits(groups, x, cfg)
-    return logits, {"layers": cache["layers"], "pos": pos + S_new}
+    return logits, {**cache, "pos": pos + S_new}

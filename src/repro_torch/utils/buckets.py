@@ -47,13 +47,19 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+# the module lists whose blocks the reference stacks on a leading axis (a
+# moe model's `dense_blocks` it keeps as a list: "dense_blocks/0/attn/wq")
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def reference_path(name: str) -> tuple[tuple[str, ...], Optional[int]]:
     """A port leaf name as (its path in the reference's tree, its block index
     or None): the reference stacks the blocks on a leading axis, so
-    "blocks.3.attn.wq" is block 3 of the reference's leaf blocks/attn/wq."""
+    "blocks.3.attn.wq" is block 3 of the reference's leaf blocks/attn/wq
+    (also `enc_blocks`, `dec_blocks`)."""
     parts = name.split(".")
-    if len(parts) > 2 and parts[0] == "blocks" and parts[1].isdigit():
-        return ("blocks", *parts[2:]), int(parts[1])
+    if len(parts) > 2 and parts[0] in STACKED and parts[1].isdigit():
+        return (parts[0], *parts[2:]), int(parts[1])
     return tuple(parts), None
 
 

@@ -94,3 +94,36 @@ def test_pipeline_over_mmap_source_is_bit_identical(token_file, ascent_fraction)
                 _same(sub[k], jsub[k])
     # the default source is still the synthetic stream
     assert isinstance(TokenPipeline(cfg, PipelineConfig(**kw), device="cpu").source, TokenTask)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return (t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy())
+
+
+def _jbits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-tiny"])
+@pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
+def test_stub_inputs_are_bit_identical(arch, reduced):
+    """The vision and audio stub inputs, the reference's `_family_extras`,
+    through the pipeline (descent and ascent lanes, three steps): the same
+    bits in the compute dtype (fp32 reduced, bf16 full)."""
+    jcfg, cfg = jax_get_config(arch, reduced=reduced), get_config(arch, reduced=reduced)
+    kw = dict(global_batch=4, seq_len=24 if reduced else 640, seed=5, ascent_fraction=0.25,
+              prefetch=0)
+    it = iter(TokenPipeline(cfg, PipelineConfig(**kw), device="cpu"))
+    jit_ = iter(JTokenPipeline(jcfg, JPipelineConfig(**kw)))
+    name = "patch_embeds" if cfg.vision is not None else "enc_frames"
+    for _ in range(3):
+        b, jb = next(it), next(jit_)
+        for sub, jsub in ((b, jb), (b["ascent"], jb["ascent"])):
+            assert set(sub) - {"ascent"} == set(jsub) - {"ascent"} == {"tokens", "labels", name}
+            for k in ("tokens", "labels"):
+                _same(sub[k], jsub[k])
+            got, expect = sub[name], jsub[name]
+            assert got.dtype == getattr(torch, cfg.compute_dtype)
+            assert tuple(got.shape) == tuple(expect.shape)
+            np.testing.assert_array_equal(_bits(got), _jbits(expect))

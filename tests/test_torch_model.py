@@ -47,15 +47,16 @@ def reduced():
 
 
 def test_configs_are_copies_of_the_reference():
-    assert ARCH_IDS == ("zamba2-1.2b", "gemma-2b", "qwen2.5-32b", "qwen3-8b", "olmo-1b",
-                        "rwkv6-7b")
-    assert ARCH_IDS == tuple(a for a in JAX_ARCH_IDS if a in ARCH_IDS)   # its order
+    """All ten of the reference's archs, in its order, field for field."""
+    assert ARCH_IDS == JAX_ARCH_IDS == (
+        "mixtral-8x7b", "deepseek-v2-lite-16b", "zamba2-1.2b", "gemma-2b", "qwen2.5-32b",
+        "qwen3-8b", "olmo-1b", "phi-3-vision-4.2b", "rwkv6-7b", "whisper-tiny")
     for arch in ARCH_IDS:
         for reduced_ in (False, True):
             assert (dataclasses.asdict(get_config(arch, reduced=reduced_))
                     == dataclasses.asdict(jax_get_config(arch, reduced=reduced_))), arch
     with pytest.raises(ValueError):
-        get_config("mixtral-8x7b")
+        get_config("mixtral-8x22b")
 
 
 @pytest.mark.parametrize("reduced_", [True, False])
@@ -63,6 +64,25 @@ def test_param_count_matches_reference(reduced_):
     jcfg = jax_get_config("olmo-1b", reduced=reduced_)
     cfg = get_config("olmo-1b", reduced=reduced_)
     assert analytic_param_count(cfg) == cfg.param_count() == jcfg.param_count()
+
+
+# the reference's analytic counts at full size (all, active): the expert
+# weights of the top-k experts only count as active
+FULL_COUNTS = {"mixtral-8x7b": (46_702_792_704, 12_879_925_248),
+               "deepseek-v2-lite-16b": (15_706_484_224, 2_661_150_208),
+               "phi-3-vision-4.2b": (3_824_225_280, 3_824_225_280),
+               "whisper-tiny": (36_595_584, 36_595_584)}
+
+
+@pytest.mark.parametrize("arch", list(FULL_COUNTS))
+def test_full_param_counts_match_reference(arch):
+    """Built on the meta device (no memory); `active_only` too."""
+    from repro.models import analytic_param_count as jax_analytic_param_count
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    total, active = FULL_COUNTS[arch]
+    assert analytic_param_count(cfg) == jax_analytic_param_count(jcfg) == total
+    assert (analytic_param_count(cfg, active_only=True)
+            == jax_analytic_param_count(jcfg, active_only=True) == active)
 
 
 def test_state_dict_names_mirror_jax_leaves(reduced):
