@@ -63,6 +63,18 @@
    params, momentum and carried ascent gradient must equal an uninterrupted
    run's bit for bit, with one restart and the live buffers kept; then the
    SAM path (2 steps), whose perturbation runs sq_norm + sam_perturb;
+8b. elastic phase: the launcher's code under --elastic on a world-1 NCCL
+   group: olmo-1b at full width and 2 layers trains 8 AsyncSAM AdamW steps
+   through `make_host_mesh` (a 1-device mesh: bucket-resident, the
+   kernels), `FusedExecutor(mesh=, model_cfg=)`, `ElasticExecutor`, a
+   `CheckpointCallback` saving every 2 steps and `Engine.fit(events=)`, with
+   a resize to 1 device at step 2, a grow to 2 at step 4 that one card
+   cannot meet (skipped) and a crash at step 5 restored onto the survivor:
+   the final params, mu, nu and carried ascent gradient equal the
+   uninterrupted run's bit for bit, one restart, two resizes, mesh_devices 1
+   every step, and every step's launches (counts 0 just before, read just
+   after; the replayed steps too) those of the AdamW path; prints the
+   resize and restore times;
 9. delta kernel phase: delta_amax and delta_encode_i8 at the epilogue
    phase's sizes (the olmo-1b bucket included), p in fp32 and bf16, and with
    a NaN and an inf in p, held to their plain versions exactly and timed;
@@ -153,7 +165,7 @@
    every forward as the model implies; moe_aux finite, and non-zero exactly
    on the MoE models; one step profiled; the lockstep check of one step at
    half that depth;
-20. variants phase: full-width, full-depth olmo-1b trains gsam (3 steps,
+20. variants phase: full-width olmo-1b at 4 of its 16 layers trains gsam (3 steps,
    bucket-resident), looksam (k 2: fresh, reuse, fresh, reuse), esam (3),
    aesam (10: 8 forced SAM steps, then its z decides) and mesa (4, the term
    on from step 2) on per-leaf state, as the launcher builds them; every
@@ -847,12 +859,14 @@ def flash_per_step(cfg) -> tuple[int, str]:
 
 def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
                   method: str = "async_sam", batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                  mkw=None, loss_wrap=None):
+                  mkw=None, loss_wrap=None, mesh=None):
     """olmo-1b (full width and depth unless `cfg`) from seed 0, AsyncSAM (or
     `method`, with the MethodConfig fields `mkw`) with AdamW (what `python -m
     repro_torch.launch.train` builds) or with the paper's sgd(momentum 0.9),
     on the card, and its pipeline (an ascent sub-batch for async_sam only, as
-    the launcher's). `loss_wrap(loss_fn)` replaces the model's loss."""
+    the launcher's). `loss_wrap(loss_fn)` replaces the model's loss; `mesh`
+    (a `launch.mesh.Mesh`) goes to the executor with the config, as the
+    launcher's fused executor gets its host mesh."""
     from repro_torch.configs import get_config
     from repro_torch.core import MethodConfig
     from repro_torch.data import PipelineConfig, TokenPipeline
@@ -869,7 +883,7 @@ def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
     ex = FusedExecutor(loss_wrap(bundle.loss_fn) if loss_wrap else bundle.loss_fn,
                        MethodConfig(name=method, rho=RHO, ascent_fraction=ASCENT_FRACTION,
                                     **(mkw or {})),
-                       opt)
+                       opt, mesh=mesh, model_cfg=cfg if mesh is not None else None)
     state = ex.init_state(bundle.init(seed=0, device="cuda"), seed=1)
     pipe = TokenPipeline(cfg, PipelineConfig(
         global_batch=batch, seq_len=seq, seed=0,
@@ -1305,28 +1319,13 @@ RESTART_LAYERS, RESTART_STEPS, RESTART_SAVE_EVERY, RESTART_FAIL_AT = 2, 6, 3, 4
 SAM_STEPS = 2
 
 
-def restart_phase() -> dict:
-    """SGD-momentum AsyncSAM under Engine.fit with a CheckpointCallback and a
-    failure injected before step RESTART_FAIL_AT, against the same run
-    uninterrupted: one restart, the final params, momentum and carried ascent
-    gradient equal bit for bit, the live buffers kept through the restore.
-    Then the SAM path, whose perturbation runs sq_norm + sam_perturb."""
-    import dataclasses as dc
-    import shutil
-    import tempfile
-    import torch
+def timed_manager(root, keep: int = 3):
+    """A CheckpointManager that times every save() call (its blocking part:
+    the copy to host, and the write too for a blocking save), wait() and
+    restore()."""
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
-    from repro_torch.engine import CheckpointCallback, Engine
-    from repro_torch.launch.train import kernel_launches
-    from repro_torch.runtime import InjectedFailure, ResilienceConfig
-
-    cfg = dc.replace(get_config("olmo-1b"), n_layers=RESTART_LAYERS)
 
     class TimedManager(CheckpointManager):
-        """Times every save() call (its blocking part: the copy to host, and
-        the write too for a blocking save), wait() and restore()."""
-
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.times = {"save": [], "wait": [], "restore": []}
@@ -1346,6 +1345,26 @@ def restart_phase() -> dict:
 
         def restore(self, *args, **kw):
             return self._timed("restore", super().restore, *args, **kw)
+
+    return TimedManager(root, keep=keep)
+
+
+def restart_phase() -> dict:
+    """SGD-momentum AsyncSAM under Engine.fit with a CheckpointCallback and a
+    failure injected before step RESTART_FAIL_AT, against the same run
+    uninterrupted: one restart, the final params, momentum and carried ascent
+    gradient equal bit for bit, the live buffers kept through the restore.
+    Then the SAM path, whose perturbation runs sq_norm + sam_perturb."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import CheckpointCallback, Engine
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.runtime import InjectedFailure, ResilienceConfig
+
+    cfg = dc.replace(get_config("olmo-1b"), n_layers=RESTART_LAYERS)
 
     def buffers(state):
         return {"params": state.params.buffers[0],
@@ -1368,7 +1387,7 @@ def restart_phase() -> dict:
 
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
     try:
-        mgr = TimedManager(tmp, keep=3)
+        mgr = timed_manager(tmp, keep=3)
         t0 = time.perf_counter()
         rep = Engine(ex, pipe, [CheckpointCallback(
             mgr, ResilienceConfig(save_every=RESTART_SAVE_EVERY))]).fit(
@@ -1413,6 +1432,135 @@ def restart_phase() -> dict:
     out["sam_launches"] = launches
     del ex, state, pipe, rep
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# elastic phase: the launcher's distributed code on one card
+# ---------------------------------------------------------------------------
+
+# olmo-1b at full width and 2 layers (the restart phase's model), 8 AsyncSAM
+# AdamW steps, a checkpoint every 2 steps (asynchronous), and three events:
+# a resize to 1 device at step 2, a grow to 2 at step 4 that one card cannot
+# meet (skipped, no budget spent), a crash at step 5 restored onto the
+# survivor.
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_SAVE_EVERY = 2, 8, 2
+ELASTIC_EVENTS = ((2, 1, "resize"), (4, 2, "resize"), (5, 1, "crash"))
+
+
+def elastic_phase() -> dict:
+    """The launcher's fused path under --elastic on a world-1 NCCL group:
+    `make_host_mesh` (a 1-device mesh, so the state is bucket-resident and
+    the step runs the kernels), `FusedExecutor(mesh=, model_cfg=)`,
+    `ElasticExecutor`, a `CheckpointCallback` and `Engine.fit(events=)`,
+    against the same run uninterrupted and without checkpoints: the final
+    params, mu, nu and carried ascent gradient equal bit for bit, one
+    restart, two resizes, mesh_devices 1 every step, and every step's
+    launches (the replayed ones too) those of the AdamW path."""
+    import dataclasses as dc
+    import shutil
+    import socket
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Callback, CheckpointCallback, ElasticExecutor, Engine
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import kernel_launches
+    from repro_torch.runtime import ChaosSchedule, MeshEvent, ResilienceConfig
+
+    t_phase = time.perf_counter()
+    cfg = dc.replace(get_config("olmo-1b"), n_layers=ELASTIC_LAYERS)
+    flash_n, _ = flash_per_step(cfg)
+    want = {"flash_attention": flash_n, **dict.fromkeys(PATH_KERNELS["adamw"], 1)}
+
+    class StepLaunches(Callback):
+        """Each step's launches: the counts' difference across the step."""
+
+        def __init__(self):
+            self.last, self.rows = kernel_launches(), []
+
+        def on_step(self, engine, state, metrics, step_time_s):
+            now = kernel_launches()
+            self.rows.append({k: now[k] - self.last[k] for k in now if now[k] - self.last[k]})
+            self.last = now
+
+    def buffers(state):
+        return {"params": state.params.buffers[0], "mu": state.opt_state[0].mu.buffers[0],
+                "nu": state.opt_state[0].nu.buffers[0],
+                "ascent_grad": state.method_state.ascent_grad.buffers[0]}
+
+    def run(events, mgr):
+        mesh = make_host_mesh(model_axis=1, device="cuda")
+        _, inner, state, pipe = build_trainer(ELASTIC_STEPS, LR, "adamw", cfg, mesh=mesh)
+        if not (inner.resident and inner.fused_update and mesh.size == 1 and mesh.live):
+            fail(f"elastic phase: a 1-device host mesh must run the resident fused path "
+                 f"({mesh}, resident {inner.resident})")
+        ex = ElasticExecutor(inner, model_cfg=cfg, model_axis=1)
+        per_step = StepLaunches()
+        cbs = [per_step]
+        if mgr is not None:
+            cbs.append(CheckpointCallback(mgr, ResilienceConfig(save_every=ELASTIC_SAVE_EVERY)))
+        reset_launches()                                # counts: 0 just before
+        per_step.last = kernel_launches()
+        t0 = time.perf_counter()
+        rep = Engine(ex, pipe, cbs).fit(state, ELASTIC_STEPS, events=events)
+        wall_s = time.perf_counter() - t0
+        launches = kernel_launches()                    # read just after
+        return ex, rep, per_step.rows, launches, wall_s
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)                     # this rank's card, before its group
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    try:
+        _, clean, clean_rows, clean_launches, clean_s = run(None, None)
+        clean_bufs = {k: v.clone() for k, v in buffers(clean.final_state).items()}
+        del clean
+        torch.cuda.empty_cache()
+        mgr = timed_manager(tmp, keep=2)
+        events = ChaosSchedule([MeshEvent(st, n, kind=k) for st, n, k in ELASTIC_EVENTS])
+        ex, rep, rows, launches, wall_s = run(events, mgr)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+    got = buffers(rep.final_state)
+    equal = {k: bool(torch.equal(got[k], clean_bufs[k])) for k in got}
+    hist = rep.metrics_history
+    marked = [m for m in hist if "resize_events" in m]
+    out = dict(layers=ELASTIC_LAYERS, steps=rep.steps_done, restarts=rep.restarts,
+               resize_events=ex.resize_events, bitwise_equal=equal,
+               mesh_devices=[m["mesh_devices"] for m in hist],
+               resize_time_s=[m["resize_time_s"] for m in marked],
+               restore_s=mgr.times["restore"], save_s=mgr.times["save"], wait_s=mgr.times["wait"],
+               per_step=rows, clean_per_step=clean_rows, clean_wall_s=clean_s, wall_s=wall_s,
+               losses=[m["loss"] for m in hist])
+    out["launches"] = {k: launches.get(k, 0) + clean_launches.get(k, 0)
+                       for k in set(launches) | set(clean_launches)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"elastic: olmo-1b at full width, {ELASTIC_LAYERS} layers, {ELASTIC_STEPS} AsyncSAM "
+          f"AdamW steps on a 1-device host mesh (world-1 NCCL group), save every "
+          f"{ELASTIC_SAVE_EVERY}, events {ELASTIC_EVENTS}: {json.dumps(out)}")
+    print(f"elastic phase: resize_time_s {out['resize_time_s']}, restore "
+          f"{out['restore_s']} s, phase {out['phase_s']:.2f}s")
+    problems = []
+    if not (rep.restarts == 1 and ex.resize_events == 2 and rep.steps_done == ELASTIC_STEPS):
+        problems.append("one restart, two resizes and every step done expected")
+    if not all(equal.values()):
+        problems.append(f"not the uninterrupted run bit for bit: {equal}")
+    if out["mesh_devices"] != [1.0] * len(hist) or len(marked) != 2:
+        problems.append("mesh_devices 1.0 every step and two resize markers expected")
+    # the chaos run takes every step once and replays the steps after its
+    # last checkpoint (steps 5 of 8 restored from step 4: 9 steps)
+    if len(rows) != ELASTIC_STEPS + 1 or any(r != want for r in rows + clean_rows):
+        problems.append(f"every step's launches must be {want}")
+    if not all(math.isfinite(v) for m in hist for v in m.values()):
+        problems.append("non-finite metrics")
+    if problems:
+        fail(f"elastic phase: {problems}")
     return out
 
 
@@ -3014,10 +3162,14 @@ def model_train_phase(arch: str) -> dict:
     return out
 
 
-# Full-width, full-depth olmo-1b trains each variant through FusedExecutor +
-# Engine as the launcher builds it (AdamW at lr 3e-3, rho 0.05, batch 8 x
-# 1024), for enough steps to show its branches: LookSAM (k 2) fresh, reuse,
-# fresh, reuse; AE-SAM past its 8 forced SAM steps; MESA's term on from step 2.
+# Full-width olmo-1b, its depth cut to VARIANT_LAYERS of 16 layers (the run's
+# time pays for the elastic phase; every check here reads a step's branch and
+# its kernels, which the depth does not change), trains each variant through
+# FusedExecutor + Engine as the launcher builds it (AdamW at lr 3e-3, rho
+# 0.05, batch 8 x 1024), for enough steps to show its branches: LookSAM (k 2)
+# fresh, reuse, fresh, reuse; AE-SAM past its 8 forced SAM steps; MESA's term
+# on from step 2.
+VARIANT_LAYERS = 4
 VARIANT_STEPS = {"gsam": 3, "looksam": 4, "esam": 3, "aesam": 10, "mesa": 4}
 VARIANT_MKW = {"looksam": {"looksam_k": 2}, "mesa": {"mesa_start_step": 2}}
 WEIGHT_KERNELS = ("sq_norm", "sam_perturb", "fused_axpy", "fused_dot_norms", "adamw_epilogue")
@@ -3105,12 +3257,18 @@ def variants_phase() -> dict:
             self.rows.append({k: now[k] - self.last[k] for k in now})
             self.last = now
 
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+
     t_phase = time.perf_counter()
-    out = {}
+    vcfg = dc.replace(get_config("olmo-1b"), n_layers=VARIANT_LAYERS)
+    print(f"variants: olmo-1b at full width, {VARIANT_LAYERS} of "
+          f"{get_config('olmo-1b').n_layers} layers")
+    out = {"layers": VARIANT_LAYERS}
     for method, steps in VARIANT_STEPS.items():
         t0 = time.perf_counter()
         mkw = VARIANT_MKW.get(method, {})
-        cfg, ex, state, pipe = build_trainer(steps, LR, method=method, mkw=mkw)
+        cfg, ex, state, pipe = build_trainer(steps, LR, method=method, mkw=mkw, cfg=vcfg)
         reset_launches()                               # counts: 0 just before
         meter, per_step = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ), StepLaunches()
         torch.cuda.reset_peak_memory_stats()
@@ -3171,7 +3329,8 @@ def variants_phase() -> dict:
         torch.cuda.empty_cache()
         if method in VARIANT_LOCKSTEP:
             n = VARIANT_LOCKSTEP[method]
-            lock = lockstep_check(names=WEIGHT_KERNELS, steps=n, method=method, mkw=mkw)
+            lock = lockstep_check(names=WEIGHT_KERNELS, steps=n, method=method, mkw=mkw,
+                                  cfg=vcfg)
             print(f"variant {method} check, lockstep ({n} step(s), lr {LR}; every weight-space "
                   f"kernel call vs its plain version on the same inputs): {json.dumps(lock)}; "
                   f"tolerance rel {LOCKSTEP_REL_TOL}")
@@ -3360,6 +3519,7 @@ def train_profile(ex, state, pipe, family: str = "adamw", tag: str = "") -> dict
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an "
@@ -3418,6 +3578,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sgd_check()
     restarted = restart_phase()
+    elastic = elastic_phase()
 
     t0 = time.perf_counter()
     delta = delta_phase()
@@ -3473,7 +3634,8 @@ def main() -> int:
     # the launches of these paths, each counted from 0 just before it
     new_paths = ([r["launches"] for r in arch_served.values()]
                  + [r["launches"] for r in arch_trained.values()]
-                 + [variants[m]["launches"] for m in VARIANT_STEPS] + [guarded["launches"]])
+                 + [variants[m]["launches"] for m in VARIANT_STEPS] + [guarded["launches"]]
+                 + [elastic["launches"]])
 
     kernels = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
@@ -3535,6 +3697,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")
+    print(f"whole run: {time.perf_counter() - t_run:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

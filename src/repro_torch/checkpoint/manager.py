@@ -47,6 +47,16 @@ an int seed, so that one leaf does not cross between the packages.
 Restore places tensors on the device of the matching tensor of `like`, or
 on `device` when given (`run_resilient` restores to the host and copies into
 the live buffers, `buckets.residentize(..., like=state)`).
+
+Sharded state (DTensor leaves, `engine.fused` on a mesh of ranks): a save
+gathers each leaf to its full tensor (a collective on the leaf's mesh, so
+every rank of the world calls `save` at the same step, as `run_resilient`
+does), rank 0 alone writes the reference's format, blocking, and every rank
+waits at a barrier until it is on disk. A restore reads the full arrays on
+every rank and re-places each leaf onto the current mesh: by `shardings`
+(`runtime.elastic.state_shardings`) when given, else as the matching leaf
+of `like` lies. So a checkpoint written on 8 ranks restores onto 4, or into
+a 1-device (bucket-resident) fit.
 """
 from __future__ import annotations
 
@@ -63,7 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import convert
-from repro_torch.utils import buckets
+from repro_torch.utils import buckets, distributed
 
 log = logging.getLogger("repro_torch.checkpoint")
 
@@ -94,7 +104,7 @@ def _host(x) -> Union[torch.Tensor, np.ndarray]:
     """A leaf as a host value the caller may keep: tensors are copied off the
     device (a CPU tensor too: the step writes its state in place)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True)
+        return distributed.gather(x.detach()).to("cpu", copy=True)
     if isinstance(x, (bool, np.bool_)):
         return np.asarray(bool(x))
     if isinstance(x, (int, np.integer)):
@@ -133,6 +143,20 @@ def _mapping_leaves(mapping: Mapping, prefix: str, copy: bool):
                 yield full, vals[0]
             continue
         yield full, convert.stack_blocks([_host(v) for v in vals] if copy else vals)
+
+
+def _tensors(tree: Tree) -> Iterator[torch.Tensor]:
+    """Every tensor of `tree` (a BucketedState's buffers included)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif buckets.is_bucketed(tree):
+        yield from tree.buffers
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 def _to_numpy(x) -> tuple[np.ndarray, str]:
@@ -195,29 +219,19 @@ class CheckpointManager:
         caller must not keep training believing checkpoints exist.
         """
         self.wait()
+        sharded = any(map(distributed.is_dtensor, _tensors(state)))
         leaves = [(path, *_to_numpy(x)) for path, x in _host_leaves(state)]
         final = self.root / f"step_{step:08d}"
-        tmp = self.root / f"step_{step:08d}.tmp"
+        if sharded:
+            # every rank gathered; rank 0 writes, and no rank goes on before
+            # the checkpoint is on disk
+            if distributed.rank() == 0:
+                self._write(leaves, step, extras, final)
+            distributed.barrier()
+            return final
 
         def write():
-            if tmp.exists():
-                shutil.rmtree(tmp)
-            (tmp / "arrays").mkdir(parents=True)
-            manifest = {"step": step, "extras": extras or {}, "leaves": []}
-            for path, arr, dtype in leaves:
-                fname = path.replace("/", "__") + ".npy"
-                _write_leaf(tmp / "arrays" / fname, arr, dtype)
-                manifest["leaves"].append({"path": path, "file": fname,
-                                           "shape": list(arr.shape), "dtype": dtype,
-                                           "crc32": _leaf_crc(arr)})
-            manifest_bytes = json.dumps(manifest).encode()
-            (tmp / "manifest.json").write_bytes(manifest_bytes)
-            # the manifest's own checksum lives in a sibling file
-            (tmp / "manifest.crc32").write_text(str(zlib.crc32(manifest_bytes)))
-            if final.exists():
-                shutil.rmtree(final)
-            tmp.rename(final)
-            self._gc()
+            self._write(leaves, step, extras, final)
 
         if blocking:
             write()
@@ -230,6 +244,28 @@ class CheckpointManager:
             self._worker = threading.Thread(target=guarded, daemon=True)
             self._worker.start()
         return final
+
+    def _write(self, leaves: list, step: int, extras: Optional[dict],
+               final: pathlib.Path) -> None:
+        tmp = self.root / f"step_{step:08d}.tmp"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        (tmp / "arrays").mkdir(parents=True)
+        manifest = {"step": step, "extras": extras or {}, "leaves": []}
+        for path, arr, dtype in leaves:
+            fname = path.replace("/", "__") + ".npy"
+            _write_leaf(tmp / "arrays" / fname, arr, dtype)
+            manifest["leaves"].append({"path": path, "file": fname,
+                                       "shape": list(arr.shape), "dtype": dtype,
+                                       "crc32": _leaf_crc(arr)})
+        manifest_bytes = json.dumps(manifest).encode()
+        (tmp / "manifest.json").write_bytes(manifest_bytes)
+        # the manifest's own checksum lives in a sibling file
+        (tmp / "manifest.crc32").write_text(str(zlib.crc32(manifest_bytes)))
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)
+        self._gc()
 
     def wait(self) -> None:
         """Join any in-flight async save; re-raise its failure (once)."""
@@ -294,8 +330,8 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def _load_step(self, step: int, like: Tree,
-                   device: Optional[torch.device]) -> tuple[Tree, dict]:
+    def _load_step(self, step: int, like: Tree, device: Optional[torch.device],
+                   shardings: Tree = None) -> tuple[Tree, dict]:
         """Load one step into `like`'s structure, crc-checking every leaf as it
         is read; CheckpointIntegrityError on any mismatch or corruption."""
         d = self.root / f"step_{step:08d}"
@@ -319,11 +355,21 @@ class CheckpointManager:
                 raise ValueError(f"{path}: ckpt {arr.shape} vs model {tuple(shape)}")
             return arr, rec["dtype"]
 
-        def tensor(path: str, leaf: torch.Tensor, arr: np.ndarray, dtype: str):
-            t = _as_tensor(arr, dtype).to(leaf.dtype)
+        def tensor(leaf: torch.Tensor, t: torch.Tensor, sh) -> torch.Tensor:
+            """The loaded full tensor `t` placed as the live `leaf` is, or
+            by its LeafSharding `sh`."""
+            t = t.to(leaf.dtype)
+            if sh is not None and hasattr(sh, "placements"):
+                from repro_torch.runtime.elastic import place_leaf
+                return place_leaf(t, sh.mesh, sh.placements)
+            if distributed.is_dtensor(leaf):
+                return distributed.place_like(t, leaf)
             return t.to(device if device is not None else leaf.device)
 
-        def build(tree: Tree, prefix: str) -> Tree:
+        def sub(sh, key):
+            return None if sh is None or hasattr(sh, "placements") else sh[key]
+
+        def build(tree: Tree, prefix: str, sh=None) -> Tree:
             if buckets.is_bucketed(tree):
                 return build(tree.to_tree(), prefix)
             if isinstance(tree, Mapping):
@@ -331,34 +377,38 @@ class CheckpointManager:
                 for path, keys, stacked in convert.reference_groups(tree):
                     full = _join(prefix, path)
                     if not stacked:
-                        out[keys[0]] = build(tree[keys[0]], full)
+                        out[keys[0]] = build(tree[keys[0]], full, sub(sh, keys[0]))
                         continue
                     first = tree[keys[0]]
                     arr, dtype = load(full, (len(keys), *first.shape))
-                    stacked = tensor(full, first, arr, dtype)
-                    out.update(zip(keys, stacked.unbind(0)))
+                    blocks = _as_tensor(arr, dtype).unbind(0)
+                    out.update((k, tensor(tree[k], b, sub(sh, k))) for k, b in zip(keys, blocks))
                 return {k: out[k] for k in tree}
             if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-                return type(tree)(*(build(v, _join(prefix, n))
-                                    for n, v in zip(tree._fields, tree)))
+                return type(tree)(*(build(v, _join(prefix, n), sub(sh, i))
+                                    for i, (n, v) in enumerate(zip(tree._fields, tree))))
             if isinstance(tree, (tuple, list)):
-                return type(tree)(build(v, _join(prefix, str(i))) for i, v in enumerate(tree))
+                return type(tree)(build(v, _join(prefix, str(i)), sub(sh, i))
+                                  for i, v in enumerate(tree))
             if isinstance(tree, torch.Tensor):
                 arr, dtype = load(prefix, tuple(tree.shape))
-                return tensor(prefix, tree, arr, dtype)
+                return tensor(tree, _as_tensor(arr, dtype), sh)
             if isinstance(tree, (bool, int, np.integer, np.bool_)):
                 arr, _ = load(prefix, ())
                 return type(tree)(arr.item())
             raise TypeError(f"checkpoint leaf {prefix} of type {type(tree).__name__}")
 
-        return build(like, ""), manifest["extras"]
+        return build(like, "", shardings), manifest["extras"]
 
     def restore(self, like: Tree, step: Optional[int] = None, *,
                 device: Optional[Union[str, torch.device]] = None,
-                require_finite: bool = False) -> tuple[Tree, dict]:
+                require_finite: bool = False,
+                shardings: Tree = None) -> tuple[Tree, dict]:
         """Restore into the structure of `like` (a state, or any tree of the
         same structure; BucketedState nodes come back in portable form).
-        Returns (state, extras).
+        Returns (state, extras). `shardings` (`runtime.elastic.
+        state_shardings` of the state on the current mesh) places each leaf
+        on that mesh; without it a leaf is placed as like's is.
 
         A corrupted or truncated checkpoint falls back to the newest verified
         older step; only when every candidate fails does this raise.
@@ -373,7 +423,7 @@ class CheckpointManager:
         last_err: Optional[Exception] = None
         for s in reversed(candidates):
             try:
-                state, extras = self._load_step(s, like, device)
+                state, extras = self._load_step(s, like, device, shardings)
             except CheckpointIntegrityError as e:
                 log.warning("checkpoint step %d failed verification (%s); "
                             "falling back to an older step", s, e)

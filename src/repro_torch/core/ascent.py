@@ -5,9 +5,10 @@ How the b'-sized ascent batch is derived from (or supplied with) the step
 batch, the system-aware b' of paper §3.3, lossy compression of the ascent
 exchange (int8 / top-k with error feedback: the perturbation *direction*
 tolerates quantization noise by the same sigma^2/b' argument that tolerates
-b' < b), and the staleness ledger of the heterogeneous executor. The data-
-parallel sync modes of the reference are the distributed slice (ROADMAP.md
-queue 1).
+b' < b), and the staleness ledger of the heterogeneous executor. On a mesh
+of ranks (`engine.fused`) the ascent gradient, like the descent's, is the
+mean over the data-parallel group (the reference's `global` semantics,
+which GSPMD gives it).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """repro_torch.engine: the execution API over training schedules (counterpart
-of `repro.engine`). Ported: the fused executor (Form A, meshless), the lane
-executors of Form B (`HeteroExecutor`, `RemoteExecutor`), the numerics
+of `repro.engine`): the fused executor (Form A, meshless or sharded over a
+mesh of ranks), the lane executors of Form B (`HeteroExecutor`,
+`RemoteExecutor`), the elastic wrapper (`ElasticExecutor`), the numerics
 guard's wrapper (`GuardedExecutor`, outermost), and the Engine with its
 logging, throughput, checkpoint and staleness callbacks."""
 from repro_torch.engine.api import (  # noqa: F401
@@ -17,6 +18,7 @@ from repro_torch.engine.callbacks import (  # noqa: F401
     StalenessTelemetry,
     ThroughputMeter,
 )
+from repro_torch.engine.elastic import ElasticExecutor  # noqa: F401
 from repro_torch.engine.engine import Engine  # noqa: F401
 from repro_torch.engine.fused import FusedExecutor  # noqa: F401
 from repro_torch.engine.hetero import HeteroExecutor  # noqa: F401

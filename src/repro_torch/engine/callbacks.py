@@ -87,10 +87,13 @@ class CheckpointCallback(Callback):
 
     The Engine detects this callback and runs its loop under
     `run_resilient`, which owns the save cadence, the step-0 baseline
-    checkpoint, and restore-and-continue on failure.
+    checkpoint, and restore-and-continue on failure; `shardings` (if set,
+    `runtime.elastic.state_shardings`) lets a restore re-place the state on
+    the current mesh (elastic restart).
     """
     manager: CheckpointManager
     resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
+    shardings: Optional[object] = None
 
 
 class StalenessTelemetry(Callback):

@@ -14,10 +14,9 @@ in `FitReport.pre_fit`. With a `CheckpointCallback` the loop runs under
 `fit(tracker=...)` installs a `repro_torch.obs.Tracker` for the fit: each
 step runs under a `train_step` span (host time: on the card it ends when the
 executor's step returns, after whatever synchronize the executor does) and
-logs its scalars and `step_time_s` to the tracker. The reference's mesh
-events (`events=`, its elastic executor) are the distributed slice
-(ROADMAP.md queue 1); a `runtime.chaos.ChaosSchedule` passed as
-`failure_injector` raises its crash events as it does in the reference.
+logs its scalars and `step_time_s` to the tracker. `fit(events=...)` takes
+a MeshEvent source (`runtime.chaos.ChaosSchedule`) for an
+`ElasticExecutor`, as the reference's does.
 """
 from __future__ import annotations
 
@@ -65,13 +64,22 @@ class Engine:
         return state, metrics
 
     def fit(self, state: TrainState, steps: int, *, warmup: int = 0,
-            failure_injector=None, tracker: Optional[Tracker] = None) -> FitReport:
+            failure_injector=None, events=None,
+            tracker: Optional[Tracker] = None) -> FitReport:
         """Train until `state.step == steps`; returns a FitReport.
 
         warmup: steps executed before the clock starts and before
         `on_fit_start` fires. failure_injector(step) may raise to simulate a
         lost node; it is the resilient loop's, so it acts with a
         CheckpointCallback only (as in the reference).
+
+        events: a MeshEvent source (`runtime.chaos.ChaosSchedule` or a
+        capacity watcher). With an `ElasticExecutor` it is attached to the
+        executor, which drains it before each step (graceful resizes
+        in-band; crash events through the restore path, which needs a
+        `CheckpointCallback`). With any other executor a callable source
+        takes the failure injector's place (its crash events raise, its
+        resizes are skipped); anything else raises ValueError.
 
         tracker: installed as the process-global current tracker for the
         fit (`obs.use_tracker`), so the lanes report spans to it from their
@@ -81,11 +89,26 @@ class Engine:
         if tracker is not None:
             with use_tracker(tracker):
                 return self._fit(state, steps, warmup=warmup,
-                                 failure_injector=failure_injector)
-        return self._fit(state, steps, warmup=warmup, failure_injector=failure_injector)
+                                 failure_injector=failure_injector, events=events)
+        return self._fit(state, steps, warmup=warmup, failure_injector=failure_injector,
+                         events=events)
 
     def _fit(self, state: TrainState, steps: int, *, warmup: int,
-             failure_injector) -> FitReport:
+             failure_injector, events) -> FitReport:
+        if events is not None:
+            attach = getattr(self.executor, "attach_events", None)
+            if attach is not None:
+                attach(events)
+            elif callable(events):
+                if failure_injector is not None:
+                    raise ValueError("pass either events or failure_injector "
+                                     "to a non-elastic executor, not both")
+                failure_injector = events
+            else:
+                raise ValueError(
+                    f"{type(self.executor).__name__} cannot consume a "
+                    "MeshEvent source; wrap it in ElasticExecutor or pass a "
+                    "callable failure injector")
         hook = getattr(self.executor, "pre_fit", None)
         if hook is not None and getattr(self.executor, "wants_pre_fit", True):
             self.pre_fit_report = hook(state, self._probe_batch())
@@ -104,7 +127,8 @@ class Engine:
             if ckpt is not None:
                 rep = run_resilient(self._step, state, self.data, ckpt.manager, steps,
                                     ckpt.resilience, failure_injector,
-                                    on_restore=getattr(self.executor, "on_restore", None))
+                                    on_restore=getattr(self.executor, "on_restore", None),
+                                    shardings=ckpt.shardings)
                 report = FitReport(final_state=rep.final_state, steps_done=rep.steps_done,
                                    restarts=rep.restarts, metrics_history=rep.metrics_history,
                                    wall_time_s=rep.wall_time_s,

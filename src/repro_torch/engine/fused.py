@@ -1,19 +1,47 @@
 """FusedExecutor, Form A: one step function per training iteration
 (counterpart of `repro.engine.fused`).
 
-Meshless only (a mesh is the distributed slice, ROADMAP.md queue 1). Two
-switches choose the weight-space path, resolved as the reference resolves
-them:
+Two switches choose the weight-space path, resolved as the reference
+resolves them:
 * `fused_update`: the flat-buffer kernels (perturb, optimizer epilogue,
-  ascent refresh). None takes the port's default, on for every device (the
-  kernels on the card, their plain versions on the CPU); False runs the
+  ascent refresh). None takes the port's default: on for a step on one
+  device (no mesh, or a mesh of 1 device; the kernels on the card, their
+  plain versions on the CPU), off on a larger mesh, where flattening a
+  sharded leaf into a bucket would gather it whole. False runs the
   reference's per-leaf compositions and optimizer chain.
 * `resident`: bucket-resident state (parameters, moments and the ascent
   state as flat buffers updated in place, `utils.buckets`). None follows the
-  resolved `fused_update` when the whole chain qualifies: a RESIDENT_METHODS
-  method with the lossless ascent exchange and an optimizer the fused path
-  recognizes (`optim.sgd` / `optim.adamw` without a decay mask).
+  resolved `fused_update` when the whole chain qualifies: an unsharded step,
+  a RESIDENT_METHODS method with the lossless ascent exchange and an
+  optimizer the fused path recognizes (`optim.sgd` / `optim.adamw` without a
+  decay mask). Resident state on a mesh of more than 1 device raises.
 The default, and the path of the card, is fused and resident.
+
+With `mesh` (a `launch.mesh.Mesh`, and then `model_cfg` for the sharding
+rules) of more than one rank, the state is stored sharded: every leaf a
+DTensor placed by `launch.sharding.state_spec_tree` (ZeRO-3 storage), each
+rank holding 1/N of a leaf that the rules shard over N devices. The step
+computes data-parallel:
+  * each rank gathers the weights to full tensors (`distributed.
+    gather_for_compute`, differentiable) and runs the meshless model on its
+    slice of the batch over the dp axes (the ascent slice too); a leading
+    dim the dp axes do not divide is not split, as `batch_spec_tree` drops
+    it;
+  * the loss (and each scalar aux) is the mean over the dp group, and each
+    weight's gradient is averaged over the dp group and cut to its shard;
+  * the per-leaf weight-space path (perturbation, ascent refresh, optimizer
+    chain) runs on the DTensor leaves, elementwise on each shard; its norms
+    and dots reduce in one all-reduce over the flattened mesh, so every rank
+    sees the same bits (`utils.trees`).
+The numbers are the unsharded step's up to summation order. The ranks along
+"model" repeat their dp row's compute: the reference shards that compute by
+heads under GSPMD, and tensor-parallel compute here (around the kernels) is
+speed work (ROADMAP.md queue 1, item 9). A loss whose per-row terms do not
+average (a MoE's load-balancing aux over a batch split) gives the mean of
+the slices' values. A rank outside a smaller mesh (after a shrink) holds
+empty shards, skips the compute, keeps its step count and takes the step's
+metrics from rank 0, so every rank reports the same numbers and can rejoin
+on a grow (`resize`).
 """
 from __future__ import annotations
 
@@ -25,8 +53,9 @@ import torch
 from repro_torch.core import Method, MethodConfig, TrainState, init_train_state, make_method
 from repro_torch.core.api import LossFn, params_device
 from repro_torch.core.async_sam import AsyncSamState
-from repro_torch.engine.api import ensure_metric_contract
+from repro_torch.engine.api import ensure_metric_contract, scalar_metrics
 from repro_torch.optim import GradientTransform, configure_fused
+from repro_torch.utils import distributed, trees
 
 # Methods whose steps are weight-space + value_and_grad compositions, kept on
 # bucket-resident state (the reference's list). The others (looksam, esam,
@@ -37,13 +66,17 @@ RESIDENT_METHODS = ("sgd", "sam", "gsam", "async_sam")
 
 
 class FusedExecutor:
-    """Single-resource executor: the whole step runs on the params' device.
+    """Single-resource executor: the whole step runs on the params' device,
+    or data-parallel on sharded state over `mesh`.
 
     Args:
       loss_fn: framework loss callback `(params, batch, gen) -> (loss, aux)`.
       method: a `MethodConfig` (name-dispatched) or an already-built `Method`.
       optimizer: a `GradientTransform` (`optim.sgd`, `optim.adamw`, or a
         hand-built chain, which runs per-leaf).
+      mesh: a `launch.mesh.Mesh`; None (or a 1-device mesh) is the
+        single-device step.
+      model_cfg: the ModelConfig the sharding rules read; needed with `mesh`.
       fused_update, resident: see the module docstring.
     """
 
@@ -52,12 +85,14 @@ class FusedExecutor:
     def __init__(self, loss_fn: LossFn,
                  method: Union[Method, MethodConfig, None] = None,
                  optimizer: Optional[GradientTransform] = None, *,
+                 mesh=None, model_cfg=None,
                  fused_update: Optional[bool] = None,
                  resident: Optional[bool] = None):
         if optimizer is None:
             raise ValueError("FusedExecutor needs an optimizer")
+        unsharded = mesh is None or mesh.size == 1
         if fused_update is None:
-            fused_update = True
+            fused_update = unsharded
         optimizer = configure_fused(optimizer, fused_update)
         if isinstance(method, Method):
             # rebuild from its config so the step sees the resolved flag; a
@@ -70,26 +105,85 @@ class FusedExecutor:
                                                           fused_update=fused_update))
         if resident is None:
             mcfg = self.method.cfg
-            resident = (fused_update and self.method.name in RESIDENT_METHODS
+            resident = (fused_update and unsharded and self.method.name in RESIDENT_METHODS
                         and optimizer.fused_spec is not None
                         and (mcfg is None or mcfg.compressor == "none"))
+        if resident and not unsharded:
+            # flattening a model-sharded leaf into a global bucket would
+            # gather it whole; a sharded mesh keeps the per-leaf state
+            raise ValueError("bucket-resident state needs an unsharded step "
+                             f"(mesh size {mesh.size}); use resident=False or "
+                             "drop the mesh")
         if resident and optimizer.fused_spec is None:
             raise ValueError("bucket-resident state needs an optimizer the fused path "
                              "recognizes (optim.sgd / optim.adamw without a decay mask); "
                              "use resident=False")
+        if mesh is not None and model_cfg is None:
+            raise ValueError("mesh sharding needs the ModelConfig (model_cfg=...)")
         self.fused_update = bool(fused_update)
         self.resident = bool(resident)
         self.optimizer = optimizer
-        self._step = self.method.make_step(loss_fn, optimizer)
+        self.mesh = mesh
+        self.model_cfg = model_cfg
+        self._loss_fn = loss_fn
+        self._step = self._make_step()
         self._closed = False
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the state lies sharded over a mesh of ranks."""
+        return self.mesh is not None and self.mesh.sharded
+
+    def _make_step(self):
+        """The method's step, built afresh (its workspace is tied to the
+        state's placement), on the data-parallel loss when sharded."""
+        loss_fn = _dp_loss(self._loss_fn, self.mesh) if self.sharded else self._loss_fn
+        return self.method.make_step(loss_fn, self.optimizer)
 
     def init_state(self, params, seed: int = 0) -> TrainState:
         """`params`: the model, a mapping of name -> tensor, or a
         BucketedState. Resident, the model's parameters become views into the
         state's buffers; per-leaf, the state holds their tensors. Either way
-        the model reads what the steps write."""
-        return init_train_state(params, self.optimizer, self.method, seed,
-                                resident=self.resident)
+        the model reads what the steps write. On a sharded mesh the state is
+        then placed by the rules (the model keeps its own tensors)."""
+        state = init_train_state(params, self.optimizer, self.method, seed,
+                                 resident=self.resident)
+        if self.sharded:
+            from repro_torch.runtime.elastic import reshard_state
+            state = reshard_state(state, self.model_cfg, self.mesh)
+        return state
+
+    def resize(self, state: TrainState, new_mesh) -> TrainState:
+        """Elastic re-entry: re-place the live `state` onto `new_mesh` and
+        rebuild the step against it.
+
+        Bucket-resident state stays resident: its layout is
+        mesh-independent and the target must be unsharded, as at
+        construction; the buffers stay where they are (moved only to another
+        device) and `self.mesh` becomes None (a 1-device mesh adds nothing).
+        Per-leaf state re-places leaf by sharding rule, rank to rank
+        (`runtime.elastic.reshard_state`; None: every rank holds it whole).
+        """
+        if self._closed:
+            raise RuntimeError("executor is closed")
+        from repro_torch.runtime.elastic import reshard_state
+        if self.resident:
+            if new_mesh is not None and new_mesh.size > 1:
+                raise ValueError(
+                    "bucket-resident step cannot resize onto a sharded mesh "
+                    f"(size {new_mesh.size}); per-shard bucketing is the "
+                    "reference's follow-on — rebuild with resident=False to "
+                    "resize across sharded meshes")
+            state = reshard_state(state, self.model_cfg, new_mesh)
+            self.mesh = None
+            return state
+        if new_mesh is not None and self.model_cfg is None:
+            raise ValueError("resize onto a mesh needs the ModelConfig "
+                             "(construct the executor with model_cfg=...)")
+        state = reshard_state(state, self.model_cfg, new_mesh)
+        self.mesh = new_mesh
+        self._step = self._make_step()
+        return state
 
     def step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One step; on the card it ends in a synchronize, so the host-side
@@ -100,16 +194,25 @@ class FusedExecutor:
         own; no span adds one."""
         if self._closed:
             raise RuntimeError("executor is closed")
-        state, metrics = self._step(state, batch)
-        dev = params_device(state.params)
-        if dev.type == "cuda":
-            # host-side timing and callbacks see the step's real latency (the
-            # reference blocks on the new params)
-            torch.cuda.synchronize(dev)
-        ms = state.method_state
-        tau = ms.staleness if isinstance(ms, AsyncSamState) else 0
-        return state, ensure_metric_contract(
-            metrics, tau=tau, perturbed=0.0 if self.method.name == "sgd" else 1.0)
+        if self.sharded and not self.mesh.is_member:
+            # outside the mesh: nothing to compute; keep the step count
+            state, metrics = state._replace(step=state.step + 1), {}
+        else:
+            state, metrics = self._step(state, batch)
+            dev = params_device(state.params)
+            if dev.type == "cuda":
+                # host-side timing and callbacks see the step's real latency
+                # (the reference blocks on the new params)
+                torch.cuda.synchronize(dev)
+            ms = state.method_state
+            tau = ms.staleness if isinstance(ms, AsyncSamState) else 0
+            metrics = ensure_metric_contract(
+                metrics, tau=tau, perturbed=0.0 if self.method.name == "sgd" else 1.0)
+        if self.sharded and self.mesh.size < distributed.world_size():
+            # every rank reports rank 0's numbers (the ranks outside the mesh
+            # computed none)
+            metrics = distributed.broadcast_object(scalar_metrics(metrics))
+        return state, metrics
 
     def close(self) -> None:
         self._closed = True
@@ -119,3 +222,37 @@ class FusedExecutor:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _dp_loss(loss_fn: LossFn, mesh) -> LossFn:
+    """`loss_fn` data-parallel over `mesh`: the weights gathered, this rank's
+    slice of the batch over the dp axes, the loss and the scalar aux averaged
+    over the dp group (see the module docstring)."""
+    from repro_torch.launch.mesh import dp_axes
+
+    dm, names = mesh.device_mesh, tuple(mesh.axis_names)
+    dp_dims = [names.index(a) for a in dp_axes(mesh)]
+    _, dp_groups = distributed.mesh_groups(dm)
+
+    def fn(params, batch, gen):
+        coord = dm.get_coordinate()
+        group = dp_groups[coord[names.index("model")] if "model" in names else 0]
+        idx, n = distributed.dp_index(dm, dp_dims)
+        rows = [x.shape[0] for x in trees.tree_leaves(batch) if x.dim()]
+        split = n > 1 and bool(rows) and all(r % n == 0 for r in rows)
+        if split:
+            batch = trees.tree_map(
+                lambda x: x[idx * (x.shape[0] // n):(idx + 1) * (x.shape[0] // n)]
+                if x.dim() else x, batch)
+        n_eff = n if split else 1
+        full = {k: distributed.gather_for_compute(v, group, n_eff) for k, v in params.items()}
+        loss, aux = loss_fn(full, batch, gen)
+        if n_eff > 1:
+            loss = distributed.dp_mean(loss, group, n_eff)
+            aux = {k: (distributed.dp_mean(v, group, n_eff, differentiable=False)
+                       if isinstance(v, torch.Tensor) and v.dim() == 0
+                       and v.is_floating_point() else v)
+                   for k, v in aux.items()}
+        return loss, aux
+
+    return fn

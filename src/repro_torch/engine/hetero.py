@@ -116,6 +116,19 @@ class HeteroExecutor:
     def drop_ascent(self) -> None:
         self._inner.drop_ascent()
 
+    def resize(self, state: TrainState, new_mesh) -> TrainState:
+        """Descent-mesh resize: the descent lane is meshless (per-host), so
+        the state stays put, but the ascent lane must not keep serving
+        gradients computed against the pre-resize timeline. `reset()` bumps
+        the generation fence and resets the lane; a remote lane's client
+        invalidates its `JobEncoder` shadow there, so the next JOB is a full
+        snapshot under a fresh sync id and the ascent pool keeps serving
+        across the resize (no server restart, no new wire format). The gap
+        shows as tau growth on the staleness ledger and, past max_staleness,
+        SGD fallback; training never stalls."""
+        self._inner.reset()
+        return state
+
     def close(self) -> None:
         self._inner.close()
 

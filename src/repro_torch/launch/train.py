@@ -66,40 +66,51 @@ Chrome/Perfetto trace, one track per lane) and `--telemetry-jsonl PATH`
       --device cpu --steps 8 --batch 4 --seq 32 --guard \
       --numchaos nan_grad:nth=5 --trace /tmp/t.json --telemetry-jsonl /tmp/t.jsonl
 
-The reference's elastic-mesh flags (`--elastic`, `--chaos`, which needs
-`--elastic`, `--model-axis`, `--resize-budget`, `--resize-window-s`) wait
-for the distributed slice (ROADMAP.md queue 1, item 7) and are refused by
-name.
+The fused executor runs on `launch.mesh.make_host_mesh(--model-axis)`:
+one device in a single process; under `torchrun` (`python -m
+torch.distributed.run --nproc-per-node N`) the launcher starts the process
+group from the environment (gloo with `--device cpu`, NCCL on the card, one
+rank per card), the mesh spans every rank as (N / model_axis, model_axis),
+and the state lies sharded (`engine.fused`). Only rank 0 prints. `--elastic`
+wraps the executor in `ElasticExecutor`; `--chaos` scripts its mesh events
+(`STEP:DEVICES[:crash],...`; crash events restore from `--ckpt-dir`), under
+`--resize-budget` resizes per `--resize-window-s`:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch olmo-1b --reduced --device cpu \
+      --model-axis 2 --elastic --chaos 4:2,8:4 --steps 12 --batch 8 --seq 16 \
+      --ckpt-dir /tmp/ck --save-every 4
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
+
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import MethodConfig, available_methods
 from repro_torch.data import PipelineConfig, TokenPipeline
-from repro_torch.engine import (CheckpointCallback, Engine, FusedExecutor, GuardConfig,
-                                GuardedExecutor, HeteroExecutor, LoggingCallback,
-                                RemoteExecutor, StalenessTelemetry, ThroughputMeter)
+from repro_torch.engine import (CheckpointCallback, ElasticExecutor, Engine, FusedExecutor,
+                                GuardConfig, GuardedExecutor, HeteroExecutor,
+                                LoggingCallback, RemoteExecutor, StalenessTelemetry,
+                                ThroughputMeter)
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import sam_perturb as sp
 from repro_torch.kernels.ops import mixer_launches
+from repro_torch.launch.mesh import init_from_env, make_host_mesh
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import cosine_schedule, make_optimizer
 from repro_torch.obs import TraceEventSink, Tracker
 from repro_torch.runtime import (ExecutorConfig, NumericChaosPipeline, ResilienceConfig,
-                                 parse_numchaos)
+                                 parse_numchaos, parse_schedule)
+from repro_torch.utils import distributed
 
 DELTA_KERNELS = ("delta_amax", "delta_encode_i8")
-# the reference's elastic-mesh flags, refused by name until the distributed
-# slice (ROADMAP.md queue 1, item 7): engine/elastic.py, runtime/elastic.py,
-# launch/mesh.py (--chaos drives the elastic executor's mesh events)
-_ITEM7 = "the distributed slice, ROADMAP.md queue 1 item 7"
-NOT_PORTED_FLAGS = {flag: _ITEM7 for flag in (
-    "elastic", "chaos", "model-axis", "resize-budget", "resize-window-s")}
 
 
 def kernel_launches(executor: str = "fused", family: str = "dense") -> dict[str, int]:
@@ -184,9 +195,6 @@ def main() -> None:
     ap.add_argument("--trace", default="",
                     help="write a Chrome/Perfetto trace-event JSON here: the descent, the "
                          "ascent lane and the pool workers as named tracks")
-    for flag in NOT_PORTED_FLAGS:
-        ap.add_argument(f"--{flag}", nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
     ap.add_argument("--fused-update", choices=("auto", "on", "off"), default="auto",
                     help="flat-buffer fused perturb + optimizer epilogue (auto: on, the "
                          "kernels on the card and their plain versions on the CPU)")
@@ -194,6 +202,19 @@ def main() -> None:
                     help="bucket-resident training state: params/opt-state persist as "
                          "dtype buckets, the step runs buffer->buffer (auto: follows the "
                          "resolved fused path; checkpoints stay per-leaf either way)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="wrap the executor in ElasticExecutor: survive mesh shrink/grow "
+                         "events mid-fit (graceful resizes reshard the live state; crash "
+                         "events restore the last checkpoint onto the survivors — those "
+                         "need --ckpt-dir)")
+    ap.add_argument("--chaos", default="",
+                    help="elastic only: scripted MeshEvent schedule 'STEP:DEVICES[:crash],"
+                         "...' e.g. '40:4,80:8,120:2:crash' (deterministic chaos harness; "
+                         "in production a capacity watcher replaces this)")
+    ap.add_argument("--resize-budget", type=int, default=8,
+                    help="elastic only: resizes tolerated per window")
+    ap.add_argument("--resize-window-s", type=float, default=0.0,
+                    help="elastic only: rolling window for --resize-budget (0 = lifetime)")
     ap.add_argument("--restart-window-s", type=float, default=0.0,
                     help="rolling window for the checkpoint-restart budget: tolerate "
                          "--max-restarts within this many seconds instead of over the "
@@ -208,6 +229,8 @@ def main() -> None:
     ap.add_argument("--ascent-fraction", type=float, default=0.25)
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="TP width of the host mesh")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
@@ -215,10 +238,10 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args()
-    for flag, module in NOT_PORTED_FLAGS.items():
-        if getattr(args, flag.replace("-", "_")) is not None:
-            ap.error(f"--{flag} is not ported yet ({module})")
     lanes = args.executor in ("hetero", "remote")
+    if lanes and args.model_axis != 1:
+        ap.error("--model-axis applies to --executor fused only "
+                 "(the hetero/remote lanes run meshless)")
     if args.calibrate and not lanes:
         ap.error("--calibrate requires --executor hetero or remote")
     if lanes and args.method != "async_sam":
@@ -257,8 +280,36 @@ def main() -> None:
         ap.error("--watchdog and --netchaos are mutually exclusive: under "
                  "--netchaos the launcher owns the server (behind the "
                  "proxy), so the executor's watchdog could not restart it")
+    if args.chaos and not args.elastic:
+        ap.error("--chaos needs --elastic (a non-elastic executor cannot "
+                 "act on mesh resize events)")
+    if args.elastic and args.chaos and not args.ckpt_dir:
+        if any(e.kind == "crash" for e in parse_schedule(args.chaos).pending):
+            ap.error("crash-kind chaos events recover via checkpoint-restart "
+                     "— add --ckpt-dir")
 
     device = resolve_device(args.descent_device or args.device)
+    # under torchrun: one rank per device, the group from the environment;
+    # rank 0 alone prints
+    multi = init_from_env(device)
+    quiet = multi and distributed.rank() != 0
+    stdout = sys.stdout
+    if quiet:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        _run(args, device)
+        if multi:
+            distributed.barrier()        # no rank tears down while another works
+    finally:
+        if quiet:
+            sys.stdout.close()
+            sys.stdout = stdout
+        if multi:
+            dist.destroy_process_group()
+
+
+def _run(args, device) -> None:
+    lanes = args.executor in ("hetero", "remote")
     cfg = get_config(args.arch, reduced=args.reduced)
     bundle = build_model(cfg)
     mcfg = MethodConfig(name=args.method, rho=args.rho,
@@ -314,11 +365,20 @@ def main() -> None:
         executor = RemoteExecutor(bundle.loss_fn, mcfg, optimizer, exec_cfg=exec_cfg,
                                   calibrate=args.calibrate)
     else:
-        executor = FusedExecutor(bundle.loss_fn, mcfg, optimizer,
+        mesh = make_host_mesh(model_axis=args.model_axis, device=device)
+        executor = FusedExecutor(bundle.loss_fn, mcfg, optimizer, mesh=mesh, model_cfg=cfg,
                                  fused_update=fused_update, resident=resident)
+    events = None
+    if args.elastic:
+        executor = ElasticExecutor(executor, model_cfg=cfg, model_axis=args.model_axis,
+                                   resize_budget=args.resize_budget,
+                                   resize_window_s=args.resize_window_s or None)
+        if args.chaos:
+            events = parse_schedule(args.chaos)
     guard = None
     if args.guard:
-        # outermost wrapper, so its verdict covers everything below;
+        # outermost wrapper, so its verdict covers everything below (elastic
+        # resizes included);
         # PoisonBatch rollback needs the checkpoint-restart loop, so it arms
         # only with --ckpt-dir
         guard = executor = GuardedExecutor(executor, GuardConfig(rollback=bool(args.ckpt_dir)))
@@ -339,7 +399,7 @@ def main() -> None:
     tracker = Tracker([TraceEventSink(args.trace)]) if args.trace else None
     try:
         with Engine(executor, pipe, callbacks) as eng:
-            report = eng.fit(state, args.steps, tracker=tracker)
+            report = eng.fit(state, args.steps, events=events, tracker=tracker)
     finally:
         # the launcher's netchaos plumbing (the executor tears down only what
         # it spawned itself)

@@ -1,8 +1,7 @@
 """repro_torch.runtime: checkpoint-restart, the heterogeneous asynchronous
 executor, the numerics guard, lane health with the degradation ladder and the
-server watchdog, and the scripted chaos schedule (counterpart of
-`repro.runtime`). The reference's elastic module is the distributed slice
-(ROADMAP.md queue 1)."""
+server watchdog, the scripted chaos schedule and elastic resharding between
+meshes (counterpart of `repro.runtime`)."""
 from repro_torch.runtime.async_executor import (  # noqa: F401
     AsyncSamExecutor,
     ExecutorConfig,
@@ -15,6 +14,12 @@ from repro_torch.runtime.chaos import (  # noqa: F401
     DeviceLoss,
     MeshEvent,
     parse_schedule,
+)
+from repro_torch.runtime.elastic import (  # noqa: F401
+    LeafSharding,
+    make_sized_mesh,
+    reshard_state,
+    state_shardings,
 )
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     InjectedFailure,

@@ -15,10 +15,9 @@ on the training step, so a chaos run is exactly reproducible:
 
 Two consumption surfaces:
 
-  * `poll(step)`: the `MeshEvent` source the reference's `ElasticExecutor`
-    drains before each inner step ("resize" reshards in-band; "crash" is
-    raised as `DeviceLoss`). The port's elastic executor is the distributed
-    slice (ROADMAP.md queue 1), so nothing in the port polls yet.
+  * `poll(step)`: the `MeshEvent` source `engine.ElasticExecutor` drains
+    before each inner step ("resize" reshards in-band; "crash" is raised as
+    `DeviceLoss`).
   * `__call__(step)`: failure-injector compatibility. A schedule passed to a
     non-elastic run (`Engine.fit(failure_injector=schedule)` with a
     `CheckpointCallback`) raises its crash events as `DeviceLoss` (an

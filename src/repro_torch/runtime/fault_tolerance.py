@@ -108,8 +108,8 @@ def run_resilient(step_fn: Callable[[TrainState, dict], tuple[TrainState, dict]]
                   n_steps: int,
                   rcfg: Optional[ResilienceConfig] = None,
                   failure_injector: Optional[Callable[[int], None]] = None,
-                  on_restore: Optional[Callable[[TrainState], Optional[TrainState]]] = None
-                  ) -> RunReport:
+                  on_restore: Optional[Callable[[TrainState], Optional[TrainState]]] = None,
+                  shardings=None) -> RunReport:
     """Run `n_steps` of `step_fn`, surviving crashes via checkpoint-restart.
 
     The reference's cadence: a blocking baseline checkpoint at the first
@@ -120,7 +120,9 @@ def run_resilient(step_fn: Callable[[TrainState, dict], tuple[TrainState, dict]]
     rollback to the newest checkpoint that verifies. The pipeline exposes
     state()/restore() (`repro_torch.data.pipeline`). `on_restore` is called
     with the restored state after every rollback; a state it returns
-    replaces the restored one.
+    replaces the restored one. `shardings` (`runtime.elastic.
+    state_shardings`) places a restored sharded state on that mesh; without
+    it each leaf is placed as the live state's is.
 
     On disk a checkpoint is the state's portable, per-leaf form (the
     reference's format, `checkpoint.manager`), with the bucket layout stamped
@@ -170,7 +172,8 @@ def run_resilient(step_fn: Callable[[TrainState, dict], tuple[TrainState, dict]]
                         type(e).__name__, e, used, rcfg.max_restarts, budget.total)
             manager.wait()
             restored, extras = manager.restore(state, device="cpu",
-                                               require_finite=rcfg.require_finite_restore)
+                                               require_finite=rcfg.require_finite_restore,
+                                               shardings=shardings)
             state = buckets.residentize(restored, like=state)
             if poison:
                 # the model rolls back, the data does not: the live cursor

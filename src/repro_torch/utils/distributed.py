@@ -1,0 +1,259 @@
+"""Process-group and placement helpers for sharded state (the port's own:
+the reference places arrays by `NamedSharding` and lets GSPMD move them; the
+port places tensors as `DTensor`s on a `DeviceMesh` and moves them itself).
+
+* The world is the default process group (gloo on the CPU, NCCL on the
+  card); without one it is this process alone (`world_size()` 1, `rank()` 0).
+* A live mesh (`launch.mesh.Mesh`) registers its groups here when it is
+  built, on every rank of the world at once (process groups are made
+  collectively): the flattened group of all its ranks, over which sums
+  reduce in one all-reduce (so every rank sees the same bits), and one
+  data-parallel group for each index along the "model" axis.
+* A sharded leaf is a DTensor whose placements are `Shard(d)` or
+  `Replicate()` on each mesh dim. `local_chunk` cuts the local shard out of a
+  full tensor as DTensor does (mesh dims in order, even chunks: the rules
+  shard a dim only when the mesh axes divide it); `place` makes the DTensor,
+  with an empty local tensor on a rank outside the mesh; `gather` is the
+  full tensor again.
+* `sharded_sum` is the global sum over the leaves of a tree whose leaves lie
+  sharded: each rank sums its local shard, a shard held on several ranks
+  (a `Replicate()` mesh dim) counts once, on the rank at index 0 of that
+  dim, and one all-reduce over the flattened mesh adds the per-leaf parts.
+
+Nothing here imports DTensor at module import: only code that meets a
+sharded tensor does.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+# id(DeviceMesh) -> (the DeviceMesh, its flattened group, {model index: dp group})
+_MESH_GROUPS: dict[int, tuple[Any, Any, dict]] = {}
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if is_initialized() else 0
+
+
+def backend_device_type() -> Optional[str]:
+    """The device type the default group's backend carries ("cpu" for gloo,
+    "cuda" for NCCL), None without a group."""
+    if not is_initialized():
+        return None
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def barrier() -> None:
+    if world_size() > 1:
+        dist.barrier()
+
+
+def register_mesh(device_mesh, flat_group, dp_groups: dict) -> None:
+    _MESH_GROUPS[id(device_mesh)] = (device_mesh, flat_group, dp_groups)
+
+
+def mesh_groups(device_mesh) -> tuple[Any, dict]:
+    """(flattened group, {model index: dp group}) of a registered mesh."""
+    entry = _MESH_GROUPS.get(id(device_mesh))
+    if entry is None:
+        raise RuntimeError("DeviceMesh not built by repro_torch.launch.mesh: its "
+                           "groups are unknown")
+    return entry[1], entry[2]
+
+
+def is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def local_chunk(full: torch.Tensor, placements: Sequence, coord: Sequence[int],
+                mesh_sizes: Sequence[int]) -> torch.Tensor:
+    """This coordinate's shard of `full` under `placements` (a copy)."""
+    out = full
+    for p, c, n in zip(placements, coord, mesh_sizes):
+        if p.is_shard():
+            out = out.chunk(n, dim=p.dim)[c]
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def place(full: torch.Tensor, device_mesh, placements: Sequence) -> torch.Tensor:
+    """`full` (the same values on every rank that calls this) as a DTensor on
+    `device_mesh`: its local shard here, an empty tensor outside the mesh."""
+    from torch.distributed.tensor import DTensor
+    coord = device_mesh.get_coordinate()
+    device = torch.device(device_mesh.device_type, _device_index(device_mesh.device_type))
+    if coord is None:
+        local = torch.empty(0, dtype=full.dtype, device=device)
+    else:
+        local = local_chunk(full, placements, coord, device_mesh.shape).to(device)
+    return DTensor.from_local(local, device_mesh, tuple(placements), run_check=False,
+                              shape=full.shape, stride=_contiguous_stride(full.shape))
+
+
+def place_like(full: torch.Tensor, like) -> torch.Tensor:
+    """`full` placed as the DTensor `like` is."""
+    return place(full, like.device_mesh, like.placements)
+
+
+def gather(x: torch.Tensor) -> torch.Tensor:
+    """The full tensor of a DTensor (an all-gather over its mesh; an empty
+    tensor outside the mesh), a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    if x.device_mesh.get_coordinate() is None:
+        return torch.empty(0, dtype=x.dtype, device=x.to_local().device)
+    return x.full_tensor()
+
+
+def counts_here(x: torch.Tensor) -> bool:
+    """Whether this rank's local shard of `x` is the one copy a global sum
+    counts: index 0 along every mesh dim `x` is replicated over. A plain
+    tensor (the same on every rank) counts on world rank 0 only."""
+    if not is_dtensor(x):
+        return rank() == 0
+    coord = x.device_mesh.get_coordinate()
+    if coord is None:
+        return False
+    return all(c == 0 for p, c in zip(x.placements, coord) if not p.is_shard())
+
+
+def sharded_sum(leaves: Sequence[torch.Tensor], part: Callable[..., torch.Tensor],
+                *others: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sum over i of part(local_i, *others_local_i) across the mesh of the
+    DTensor leaves, as a plain fp32 0-d tensor, the same bits on every rank
+    of the mesh. `part` maps local tensors to a 0-d fp32 partial sum."""
+    mesh = next(x.device_mesh for x in leaves if is_dtensor(x))
+    flat, _ = mesh_groups(mesh)
+    device = leaves[0].to_local().device if is_dtensor(leaves[0]) else leaves[0].device
+    parts = []
+    for i, x in enumerate(leaves):
+        if counts_here(x):
+            locs = [t.to_local() if is_dtensor(t) else t for t in (x, *(o[i] for o in others))]
+            parts.append(part(*locs).float())
+        else:
+            parts.append(torch.zeros((), dtype=torch.float32, device=device))
+    vec = torch.stack(parts) if parts else torch.zeros(1, device=device)
+    dist.all_reduce(vec, group=flat)
+    return torch.sum(vec)
+
+
+def dp_index(device_mesh, dp_dims: Sequence[int]) -> tuple[int, int]:
+    """(this rank's index along the data-parallel dims, their size)."""
+    coord = device_mesh.get_coordinate()
+    idx, n = 0, 1
+    for d in dp_dims:
+        size = device_mesh.shape[d]
+        idx, n = idx * size + coord[d], n * size
+    return idx, n
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """`obj` as rank `src` has it, on every rank of the world."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def broadcast_tensor(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """`t` as rank `src` has it, on every rank of the world (every rank
+    passes a tensor of the same shape and dtype)."""
+    if world_size() == 1:
+        return t
+    t = t.contiguous()
+    if t.dtype == torch.bool:
+        buf = t.to(torch.uint8)
+        dist.broadcast(buf, src=src)
+        return buf.bool()
+    dist.broadcast(t, src=src)
+    return t
+
+
+def _contiguous_stride(shape) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for s in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= s
+    return tuple(reversed(stride))
+
+
+def _device_index(device_type: str) -> Optional[int]:
+    if device_type == "cuda":
+        return torch.cuda.current_device()
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel compute on sharded weights (the sharded step, engine.fused)
+# ---------------------------------------------------------------------------
+
+class _GatherForCompute(torch.autograd.Function):
+    """Forward: the full weight (an all-gather over the leaf's mesh).
+    Backward: this rank's gradient of the full weight, from its slice of the
+    batch, averaged over the data-parallel group (an all-reduce, in fp32 for
+    narrower dtypes), then cut to the leaf's own shard."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.mesh, ctx.placements, ctx.group, ctx.n = x.device_mesh, x.placements, group, n
+        full = x.full_tensor()
+        # a replicated leaf's full tensor is a view of its local one
+        return full.clone() if not any(p.is_shard() for p in x.placements) else full
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.n > 1:
+            red = g.float() if g.dtype in (torch.bfloat16, torch.float16) else g.clone()
+            dist.all_reduce(red, group=ctx.group)
+            g = red.div_(ctx.n).to(g.dtype)
+        return place(g, ctx.mesh, ctx.placements), None, None
+
+
+def gather_for_compute(x: torch.Tensor, dp_group, dp_n: int) -> torch.Tensor:
+    """The full tensor of sharded weight `x`, differentiable: its gradient
+    comes back averaged over the `dp_n` ranks of `dp_group` (1: no
+    reduction, every rank computed on the same rows) and placed as `x`."""
+    if not is_dtensor(x):
+        return x
+    return _GatherForCompute.apply(x, dp_group, dp_n)
+
+
+class _DPMean(torch.autograd.Function):
+    """Forward: the mean over the data-parallel group of each rank's loss on
+    its rows. Backward: the identity, so each rank differentiates its own
+    term and `_GatherForCompute` averages the gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group, n):
+        out = t.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def dp_mean(t: torch.Tensor, group, n: int, differentiable: bool = True) -> torch.Tensor:
+    if n <= 1:
+        return t
+    if differentiable:
+        return _DPMean.apply(t, group, n)
+    out = t.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out / n

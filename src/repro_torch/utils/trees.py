@@ -16,7 +16,7 @@ from typing import Any, Callable, Mapping
 
 import torch
 
-from repro_torch.utils import buckets
+from repro_torch.utils import buckets, distributed
 
 Tree = Any
 
@@ -106,8 +106,14 @@ def tree_cast(tree: Tree, dtype) -> Tree:
 
 
 def tree_sq_norm(tree: Tree) -> torch.Tensor:
-    """Global squared L2 norm, accumulated in fp32."""
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    """Global squared L2 norm, accumulated in fp32. On sharded leaves
+    (DTensors) each rank sums its shards and one all-reduce over the mesh
+    adds them (`distributed.sharded_sum`): a plain 0-d tensor, the same bits
+    on every rank."""
+    xs = tree_leaves(tree)
+    if any(map(distributed.is_dtensor, xs)):
+        return distributed.sharded_sum(xs, lambda x: torch.sum(torch.square(x.float())))
+    leaves = [torch.sum(torch.square(x.float())) for x in xs]
     return torch.sum(torch.stack(leaves)) if leaves else torch.zeros(())
 
 
@@ -116,8 +122,11 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
-    """Global inner product <a, b> in fp32."""
-    parts = [torch.sum(x.float() * y.float()) for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    """Global inner product <a, b> in fp32 (sharded leaves as `tree_sq_norm`)."""
+    xs, ys = tree_leaves(a), tree_leaves(b)
+    if any(map(distributed.is_dtensor, xs)):
+        return distributed.sharded_sum(xs, lambda x, y: torch.sum(x.float() * y.float()), ys)
+    parts = [torch.sum(x.float() * y.float()) for x, y in zip(xs, ys)]
     return torch.sum(torch.stack(parts)) if parts else torch.zeros(())
 
 

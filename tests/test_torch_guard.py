@@ -752,17 +752,28 @@ def test_launcher_guard_numchaos_trace_and_telemetry(tmp_path):
 
 
 def test_launcher_flag_checks_and_the_refused_elastic_flags(monkeypatch, capsys):
+    """The launcher's flag checks; the five elastic flags, once refused by
+    name, are accepted with the reference's checks (`--chaos` needs
+    `--elastic`, crash events need `--ckpt-dir`, `--model-axis` is the fused
+    executor's) and run."""
     from repro_torch.launch import train
     base = ["train", "--arch", "olmo-1b", "--reduced", "--device", "cpu", "--steps", "1"]
-    cases = [((flag,), "item 7") for flag in ("--elastic", "--chaos=40:4", "--model-axis=2",
-                                              "--resize-budget=3", "--resize-window-s=5")]
-    cases += [(("--lane-ladder",), "--lane-ladder applies"),
-              (("--netchaos", "drop:GRAD"), "--netchaos applies"),
-              (("--watchdog",), "--watchdog restarts"),
-              (("--executor", "remote", "--serve-ascent", "--watchdog", "--netchaos",
-                "drop:GRAD"), "mutually exclusive")]
+    cases = [(("--chaos=40:4",), "--chaos needs --elastic"),
+             (("--elastic", "--chaos=40:4:crash"), "add --ckpt-dir"),
+             (("--executor", "hetero", "--model-axis=2"), "--model-axis applies"),
+             (("--lane-ladder",), "--lane-ladder applies"),
+             (("--netchaos", "drop:GRAD"), "--netchaos applies"),
+             (("--watchdog",), "--watchdog restarts"),
+             (("--executor", "remote", "--serve-ascent", "--watchdog", "--netchaos",
+               "drop:GRAD"), "mutually exclusive")]
     for args, msg in cases:
         monkeypatch.setattr("sys.argv", base + list(args))
         with pytest.raises(SystemExit) as e:
             train.main()
         assert e.value.code == 2 and msg in capsys.readouterr().err, args
+    monkeypatch.setattr("sys.argv", base[:-1] + [
+        "2", "--batch", "4", "--seq", "16", "--log-every", "1", "--elastic", "--chaos=1:1",
+        "--model-axis=1", "--resize-budget=3", "--resize-window-s=5"])
+    train.main()
+    out = capsys.readouterr().out
+    assert "'mesh_devices': '1.0000', 'resize_events': '1.0000'" in out, out
