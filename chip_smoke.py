@@ -75,6 +75,18 @@
    every step, and every step's launches (counts 0 just before, read just
    after; the replayed steps too) those of the AdamW path; prints the
    resize and restore times;
+8c. dry-run phase: the train phase's step traced on fake tensors on the card
+   (`FusedExecutor.abstract_state` + `lower`, the kernels as custom ops with
+   fake shapes): its kernels must be the train phase's launches a step, its
+   predicted peak within DRYRUN_PEAK_TOL of the train phase's
+   max_memory_allocated, and it prints the predicted flops over the median
+   step; then `launch.dryrun.run_cell` on the card's path for four production
+   cells (olmo-1b train_4k on 16x16 and qwen2.5-32b train_4k on 2x16x16 at a
+   depth cut, zamba2-1.2b long_500k, deepseek-v2-lite-16b prefill_32k), each
+   record printed; the traces must leave memory_allocated and, after a
+   reset, max_memory_allocated unchanged; then the custom ops' dispatch cost
+   (flash and the AdamW epilogue through the dispatcher against their launch
+   called directly, host time a call, in turns);
 9. delta kernel phase: delta_amax and delta_encode_i8 at the epilogue
    phase's sizes (the olmo-1b bucket included), p in fp32 and bf16, and with
    a NaN and an inf in p, held to their plain versions exactly and timed;
@@ -107,9 +119,9 @@
    per decoded token (counts 0 just before, read just after); prefill +
    stepwise decode against one forward, the kernel path against the plain
    path in bf16 and fp32 compute; then its profile as in 5;
-14. rwkv train phase: rwkv6-7b at full width and 4 layers trains 6 AsyncSAM
-   AdamW steps through `FusedExecutor` + `Engine` (remat "full": 16 forward
-   and 8 backward scan launches a step, each epilogue kernel once); one step
+14. rwkv train phase: rwkv6-7b at full width and 2 layers trains 6 AsyncSAM
+   AdamW steps through `FusedExecutor` + `Engine` (remat "full": 8 forward
+   and 4 backward scan launches a step, each epilogue kernel once); one step
    profiled; every wkv call of one step held against its plain version on
    its inputs; the whole kernel path against the plain path at a small lr,
    1 layer, batch 2 x 512, in fp32 and bf16 compute (bf16's moments held
@@ -286,13 +298,10 @@ FLASH_CASES = [
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask lets through: the work this input needs."""
-    total = 0
-    for qi in range(sq):
-        hi = min(sk, qi + 1) if causal else sk
-        lo = max(0, qi - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
+    """(query, key) pairs the mask lets through: the work this input needs
+    (the kernel module's count, which its flop formula uses too)."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.visible_pairs(sq, sk, causal, window)
 
 
 def flash_bound(shape, dtype: str, causal: bool, window) -> tuple[float, str]:
@@ -857,19 +866,16 @@ def flash_per_step(cfg) -> tuple[int, str]:
                f"{calls} calls a forward = {n}")
 
 
-def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
-                  method: str = "async_sam", batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                  mkw=None, loss_wrap=None, mesh=None):
-    """olmo-1b (full width and depth unless `cfg`) from seed 0, AsyncSAM (or
-    `method`, with the MethodConfig fields `mkw`) with AdamW (what `python -m
-    repro_torch.launch.train` builds) or with the paper's sgd(momentum 0.9),
-    on the card, and its pipeline (an ascent sub-batch for async_sam only, as
-    the launcher's). `loss_wrap(loss_fn)` replaces the model's loss; `mesh`
-    (a `launch.mesh.Mesh`) goes to the executor with the config, as the
-    launcher's fused executor gets its host mesh."""
+def train_executor(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
+                   method: str = "async_sam", mkw=None, loss_wrap=None, mesh=None):
+    """(cfg, bundle, executor) of `build_trainer`: olmo-1b (full width and
+    depth unless `cfg`), AsyncSAM (or `method`, with the MethodConfig fields
+    `mkw`) with AdamW (what `python -m repro_torch.launch.train` builds) or
+    with the paper's sgd(momentum 0.9). `loss_wrap(loss_fn)` replaces the
+    model's loss; `mesh` (a `launch.mesh.Mesh`) goes to the executor with the
+    config, as the launcher's fused executor gets its host mesh."""
     from repro_torch.configs import get_config
     from repro_torch.core import MethodConfig
-    from repro_torch.data import PipelineConfig, TokenPipeline
     from repro_torch.engine import FusedExecutor
     from repro_torch.models import build_model
     from repro_torch.optim import cosine_schedule, make_optimizer, sgd
@@ -884,6 +890,18 @@ def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
                        MethodConfig(name=method, rho=RHO, ascent_fraction=ASCENT_FRACTION,
                                     **(mkw or {})),
                        opt, mesh=mesh, model_cfg=cfg if mesh is not None else None)
+    return cfg, bundle, ex
+
+
+def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
+                  method: str = "async_sam", batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                  mkw=None, loss_wrap=None, mesh=None):
+    """`train_executor`'s executor on the card with its state from seed 0,
+    and its pipeline (an ascent sub-batch for async_sam only, as the
+    launcher's)."""
+    from repro_torch.data import PipelineConfig, TokenPipeline
+
+    cfg, bundle, ex = train_executor(steps, lr, family, cfg, method, mkw, loss_wrap, mesh)
     state = ex.init_state(bundle.init(seed=0, device="cuda"), seed=1)
     pipe = TokenPipeline(cfg, PipelineConfig(
         global_batch=batch, seq_len=seq, seed=0,
@@ -1985,12 +2003,6 @@ RWKV_CASES = [
 # outputs (y, dr, dk, dv) also round once to bf16: the reference's bf16
 # tolerance, relative to the output's max
 RWKV_FP32_TOL, RWKV_GRAD_TOL = 1e-5, 1e-4
-# fp32 ops per state element and step that the function needs. Forward: the
-# y product-add and the decay multiply-add of k v (5). Backward (12), with S
-# rebuilt from the initial state: S's recurrence (3), p = S dy (2), one G
-# recurrence (3), G v and G^T k (2 + 2); dw comes through q at O(K) a step.
-# The kernel does these 12: its one G recurrence gives both G v and G^T k.
-RWKV_FWD_OPS, RWKV_BWD_OPS = 5, 12
 PLAIN_GRAD_BATCH = 2                    # autograd of the plain scan, batch rows at a time
 
 
@@ -2048,6 +2060,7 @@ def wkv_ok(got, want, fp32_tol: float) -> bool:
 def wkv_bound(shape, dtype: str, init: bool, backward: bool) -> tuple[float, str]:
     """Least time for the work: every input read once, every output written
     once, against the fp32 operations of the recurrence."""
+    from repro_torch.kernels import rwkv6_scan as r6
     b, s, h, dk, dv = shape
     es = 2 if dtype == "bfloat16" else 4
     tok = b * s * h
@@ -2056,10 +2069,10 @@ def wkv_bound(shape, dtype: str, init: bool, backward: bool) -> tuple[float, str
     if backward:     # + dy, dS_T; out dr, dk, dv, dw, du, d init_state
         nbytes = inputs + tok * dv * es + state + tok * (2 * dk + dv) * es + tok * dk * 4 \
             + h * dk * 4 + state
-        ops = RWKV_BWD_OPS * tok * dk * dv
+        ops = r6.RWKV_BWD_OPS * tok * dk * dv
     else:            # out y, the final state
         nbytes = inputs + tok * dv * es + state
-        ops = RWKV_FWD_OPS * tok * dk * dv
+        ops = r6.RWKV_FWD_OPS * tok * dk * dv
     return bound(nbytes, ops)
 
 
@@ -2292,10 +2305,11 @@ def scan_whole_check(tag: str, model: str, cfg, layers: int, batch: int, seq: in
     return dict(whole=whole, w_bulk=w_bulk, moment_bulk=bulk, moment_limit=limit)
 
 
-# Training: full width at 4 layers (1,411,620,864 parameters); the whole-path
-# check at 1 layer and batch 2 x 512, where autograd of the plain scan fits
-# (at 2 layers its five 3-step runs took ~100 s of a run near its time limit)
-RWKV_TRAIN_LAYERS, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH, RWKV_CHECK_SEQ = 4, 1, 2, 512
+# Training: full width at 2 layers (974,249,984 parameters; 4 until the run
+# neared its time limit on a slow host); the whole-path check at 1 layer and
+# batch 2 x 512, where autograd of the plain scan fits (at 2 layers its five
+# 3-step runs took ~100 s of a run near its time limit)
+RWKV_TRAIN_LAYERS, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH, RWKV_CHECK_SEQ = 2, 1, 2, 512
 
 
 def rwkv_per_step(cfg) -> dict:
@@ -2470,22 +2484,13 @@ def m2_inputs(shape, dtype: str, init: bool, fast: bool, seed: int = 5):
     return x, dt, a, bb, cc, d, (rnd(b, h, p, n, scale=0.5) if init else None)
 
 
-# fp32 ops per state element and step that the function needs: the least
-# over its forms, which is the recurrence's (a chunked form adds its (T, T)
-# products, more of them the longer its chunk, so its count would describe a
-# kernel, not the function). Forward (5): the decay multiply, the xd B^T
-# multiply-add and the y = h C multiply-add. Backward (14), with h rebuilt
-# from the initial state: the rebuild (3), the dh carry (3: the dy C^T
-# multiply-add and the decay), dxd = dh B, dB = dh^T xd, dC = h^T dy and dla
-# = sum(dh h) (2 each).
-M2_FWD_OPS, M2_BWD_OPS = 5, 14
-
-
 def m2_flops(shape, backward: bool) -> float:
-    """fp32 operations the SSD scan needs on this shape (M2_FWD_OPS or
-    M2_BWD_OPS per state element and step)."""
-    b, s, h, p, n, _ = shape
-    return float((M2_BWD_OPS if backward else M2_FWD_OPS) * b * s * h * p * n)
+    """fp32 operations the SSD scan needs on this shape: the kernel module's
+    count (M2_FWD_OPS or M2_BWD_OPS a state element and step), which its
+    flop formula uses too."""
+    from repro_torch.kernels import mamba2_scan as m2
+    b, s, h, p, n, g = shape
+    return float(m2.scan_flops((b, s, h, p), (b, s, g, n), backward))
 
 
 def m2_bound(shape, dtype: str, init: bool, backward: bool) -> tuple[float, str]:
@@ -3518,6 +3523,146 @@ def train_profile(ex, state, pipe, family: str = "adamw", tag: str = "") -> dict
                 copy_us=copy_us, memcpy_us=memcpy_us, host_read_us=read_us)
 
 
+# ---------------------------------------------------------------------------
+# dry-run phase: the train step traced on fake tensors, then production cells
+# ---------------------------------------------------------------------------
+
+# The abstract twin's predicted peak against the train phase's measured
+# max_memory_allocated: the caching allocator rounds every block up (to 512
+# bytes, a large one to 2 MiB) and holds cuBLAS's workspaces, which the
+# trace, counting tensors' storages, does not see.
+DRYRUN_PEAK_TOL = 0.10
+# (arch, shape, multi-pod, layers: a depth cut, None for full depth). The
+# full-depth cells of every arch are `python -m repro_torch.launch.dryrun
+# --all --both-meshes`'s (PERF.md); here each cell shows that the card's path
+# traces on the production mesh, at a depth that keeps the phase short.
+DRYRUN_CELLS = (("olmo-1b", "train_4k", False, 1), ("zamba2-1.2b", "long_500k", False, None),
+                ("deepseek-v2-lite-16b", "prefill_32k", False, None),
+                ("qwen2.5-32b", "train_4k", True, 1))
+DISPATCH_CALLS, DISPATCH_ROUNDS = 2000, 3
+
+
+def host_us(fn, calls: int = DISPATCH_CALLS) -> float:
+    """Host time of one call of fn, over `calls` back-to-back calls ending
+    in a synchronize (tiny inputs, so the host's enqueue sets the pace)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def dispatch_cost() -> dict:
+    """What the `torch.library` custom op adds to a launch: each op called
+    through the dispatcher against its body called directly, in turns (op,
+    direct, direct, op) for DISPATCH_ROUNDS rounds; medians of each."""
+    import statistics
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+
+    q = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16)
+    w, g = (torch.randn(4096, device="cuda") for _ in range(2))
+    mu, nu = torch.zeros_like(w), torch.ones_like(w)
+    scal = torch.tensor([1.0, 1e-6, 1.0, 1.0, 1.0], device="cuda")
+    adam = (w, g, mu, nu, scal, 0.9, 0.999, 1e-8, 0.0)
+    flash = torch.ops.repro_torch.flash_attention_fwd
+    pairs = {"flash_attention": (lambda: flash(q, q, q, True, 0),
+                                 lambda: fa._launch_impl(q, q, q, True, 0)),
+             "adamw_epilogue": (lambda: torch.ops.repro_torch.adamw_epilogue(*adam),
+                                lambda: fu._adamw_impl(*adam))}
+    out = {}
+    for name, (op, direct) in pairs.items():
+        ops, directs = [], []
+        for _ in range(DISPATCH_ROUNDS):
+            ops.append(host_us(op))
+            directs += [host_us(direct), host_us(direct)]
+            ops.append(host_us(op))
+        out[name] = dict(op_us=statistics.median(ops), direct_us=statistics.median(directs),
+                         cost_us=statistics.median(ops) - statistics.median(directs))
+    return out
+
+
+def dryrun_phase(trained: dict) -> dict:
+    """(a) The abstract twin of the AdamW train phase: the same executor,
+    its state from `abstract_state` and the batch from `batch_spec`, fake
+    tensors on the card, one step traced (`FusedExecutor.lower`): the traced
+    kernels equal the train phase's launches a step, the predicted peak is
+    within DRYRUN_PEAK_TOL of its max_memory_allocated, and the traces
+    allocate nothing on the card (memory_allocated and, after a reset,
+    max_memory_allocated unchanged). (b) `launch.dryrun.run_cell` on the
+    card's path for DRYRUN_CELLS, each record printed. (c) the custom ops'
+    dispatch cost."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import batch_spec
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.utils import abstract
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+
+    cfg, bundle, ex = train_executor(TRAIN_STEPS, LR)
+    state = ex.abstract_state(lambda: bundle.init(seed=0, device="cuda"), seed=1)
+    with abstract.fake_mode_of(state):
+        batch = batch_spec(cfg, ShapeSpec("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                           ascent_fraction=ASCENT_FRACTION, device="cuda")
+    lowered = ex.lower(state, batch)
+    twin_s = time.perf_counter() - t0
+    want = {("flash_attention_fwd" if k == "flash_attention" else k): n // TRAIN_STEPS
+            for k, n in trained["launches"].items() if n}
+    if lowered.kernels != want:
+        fail(f"dry run: the traced step's kernels {lowered.kernels} are not the train "
+             f"phase's launches a step {want}")
+    predicted_gib = lowered.peak_bytes / 2**30
+    rel = abs(predicted_gib - trained["peak_gib"]) / trained["peak_gib"]
+    tflops = lowered.flops / trained["median_step_s"] / 1e12
+    print(f"dry run: olmo-1b AdamW step traced in {twin_s:.2f}s: kernels {lowered.kernels}; "
+          f"predicted peak {predicted_gib:.4f} GiB (arguments "
+          f"{lowered.argument_bytes / 2**30:.4f}), measured {trained['peak_gib']:.4f} GiB "
+          f"(|d| {rel:.4f}, limit {DRYRUN_PEAK_TOL}); {lowered.flops:.6e} flops a step, "
+          f"{tflops:.2f} TFLOP/s achieved at the median step {trained['median_step_s']:.4f} s "
+          f"({nvidia_smi()})")
+    if rel > DRYRUN_PEAK_TOL:
+        fail(f"dry run: predicted peak {predicted_gib:.4f} GiB is {rel:.4f} from the "
+             f"measured {trained['peak_gib']:.4f} GiB (limit {DRYRUN_PEAK_TOL})")
+    del state, batch, ex
+
+    cells = []
+    for arch, shape, multi_pod, layers in DRYRUN_CELLS:
+        full = get_config(arch)
+        cut = dc.replace(full, n_layers=layers) if layers else None
+        tag = f"layers {layers} of {full.n_layers}" if layers else ""
+        r = dryrun.run_cell(arch, shape, multi_pod=multi_pod, device="cuda", save=False,
+                            verbose=False, cfg_override=cut, tag=tag)
+        print("dryrun cell " + json.dumps(r.to_json()))
+        if r.status != "ok":
+            fail(f"dry run: {arch} x {shape} x {r.mesh}: {r.status} {r.note}")
+        cells.append(r.to_json())
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    print(f"dry run: memory_allocated {before} before the traces, {after} after; "
+          f"max_memory_allocated since the reset {peak}")
+    if after != before or peak != before:
+        fail(f"dry run: the traces allocated on the card (memory_allocated {before} -> "
+             f"{after}, max {peak})")
+    cost = dispatch_cost()
+    print(f"dry run: custom-op dispatch {json.dumps(cost)}; flash x 64 a step "
+          f"{64 * cost['flash_attention']['cost_us']:.1f} us ({nvidia_smi()})")
+    return dict(phase_s=time.perf_counter() - t0, twin_s=twin_s, kernels=lowered.kernels,
+                predicted_peak_gib=predicted_gib, measured_peak_gib=trained["peak_gib"],
+                peak_rel=rel, flops=lowered.flops, tflops=tflops, cells=cells,
+                dispatch=cost)
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -3579,6 +3724,8 @@ def main() -> int:
     sgd_check()
     restarted = restart_phase()
     elastic = elastic_phase()
+    drun = dryrun_phase(trained)
+    print(f"dryrun phase: {drun['phase_s']:.2f}s")
 
     t0 = time.perf_counter()
     delta = delta_phase()

@@ -45,7 +45,7 @@ from torch import nn
 from repro_torch.obs.registry import scalar_metrics  # noqa: F401  (re-exported)
 from repro_torch.optim import GradientTransform, apply_updates
 from repro_torch.optim.fused import fused_apply
-from repro_torch.utils import buckets, trees
+from repro_torch.utils import buckets, distributed, trees
 
 Tree = Any
 LossFn = Callable[[dict, Any, torch.Generator], tuple[torch.Tensor, dict]]
@@ -287,7 +287,8 @@ def value_and_grad_acc(loss_fn: LossFn, n_micro: int):
     With n_micro > 1 the batch's leading dim is split into n_micro chunks run
     one after another, their gradients summed in the buffer and divided by
     n_micro, as the reference does; aux is reduced to its scalar metrics
-    (mean over chunks).
+    (mean over chunks). A batch placed over a mesh (DTensor leaves) is
+    chunked rank by rank (`utils.distributed.row_chunk`).
     """
     def fn(params: Tree, batch, gen: torch.Generator, out: Optional[Tree] = None):
         grads = out if out is not None else trees.tree_zeros_like(params)
@@ -302,8 +303,8 @@ def value_and_grad_acc(loss_fn: LossFn, n_micro: int):
         b = next(iter(batch.values())).shape[0]
         if b % n_micro != 0:
             raise ValueError(f"batch {b} does not split into {n_micro} microbatches")
-        chunks = [{k: v[i * (b // n_micro):(i + 1) * (b // n_micro)]
-                   for k, v in batch.items()} for i in range(n_micro)]
+        chunks = [{k: distributed.row_chunk(v, i, n_micro) for k, v in batch.items()}
+                  for i in range(n_micro)]
         loss_sum, auxs = 0.0, []
         for chunk in chunks:
             loss, aux = loss_fn(leaves, chunk, gen)

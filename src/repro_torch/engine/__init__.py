@@ -3,17 +3,19 @@ of `repro.engine`): the fused executor (Form A, meshless or sharded over a
 mesh of ranks), the lane executors of Form B (`HeteroExecutor`,
 `RemoteExecutor`), the elastic wrapper (`ElasticExecutor`), the numerics
 guard's wrapper (`GuardedExecutor`, outermost), and the Engine with its
-logging, throughput, checkpoint and staleness callbacks."""
+logging, throughput, eval, checkpoint and staleness callbacks."""
 from repro_torch.engine.api import (  # noqa: F401
     ENGINE_METRIC_KEYS,
     ENGINE_OPTIONAL_METRIC_KEYS,
     FitReport,
+    cost_analysis_dict,
     ensure_metric_contract,
     scalar_metrics,
 )
 from repro_torch.engine.callbacks import (  # noqa: F401
     Callback,
     CheckpointCallback,
+    EvalCallback,
     LoggingCallback,
     StalenessTelemetry,
     ThroughputMeter,

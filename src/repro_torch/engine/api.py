@@ -39,3 +39,14 @@ def ensure_metric_contract(metrics: dict, *, tau, perturbed) -> dict:
     metrics.setdefault("tau", tau)
     metrics.setdefault("perturbed", perturbed)
     return metrics
+
+
+def cost_analysis_dict(lowered) -> dict:
+    """A traced step's cost (`FusedExecutor.lower`, `utils.abstract.trace`)
+    under the reference's keys: "flops", the traced flops
+    (`FlopCounterMode`, the kernels' formulas included), and "bytes
+    accessed", the sum over the traced ops of their tensor inputs' and
+    outputs' bytes on this rank (an in-place operand as read and as
+    written). The reference's comes from XLA's `cost_analysis()`, which also
+    counts elementwise flops and fused ops' bytes once."""
+    return {"flops": float(lowered.flops), "bytes accessed": float(lowered.bytes_accessed)}

@@ -1,5 +1,5 @@
-"""Engine callbacks: logging, throughput and checkpoints (counterpart of
-`repro.engine.callbacks`).
+"""Engine callbacks: logging, throughput, evaluation and checkpoints
+(counterpart of `repro.engine.callbacks`).
 
 A callback observes the fit loop; it never owns it. The hooks are
 
@@ -11,13 +11,13 @@ all no-ops by default. `CheckpointCallback` is the one callback the Engine
 inspects: its presence routes the loop through `runtime.run_resilient`.
 `StalenessTelemetry` aggregates the lane executors' tau ledger and, with
 `jsonl_path`, streams one record per step through the tracker's `JsonlSink`.
-The reference's eval callback is a later slice (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import pathlib
-from typing import Optional, Union
+import time
+from typing import Callable, Optional, Union
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import TrainState
@@ -79,6 +79,29 @@ class ThroughputMeter(Callback):
         if self.tokens_per_batch:
             out["tokens_per_s"] = self.tokens_per_batch / mean
         return out
+
+
+class EvalCallback(Callback):
+    """Run `eval_fn(state) -> float` every `every` steps (and at
+    `total_steps`); keep a (t, value) curve, t the seconds since the fit
+    started."""
+
+    def __init__(self, eval_fn: Callable[[TrainState], float], every: int = 50,
+                 total_steps: Optional[int] = None):
+        self.eval_fn = eval_fn
+        self.every = max(1, every)
+        self.total_steps = total_steps
+        self.curve: list[tuple[float, float]] = []
+        self._t0 = None
+
+    def on_fit_start(self, engine, state):
+        self._t0 = time.perf_counter()
+
+    def on_step(self, engine, state, metrics, step_time_s):
+        step = int(state.step)
+        if step % self.every == 0 or step == self.total_steps:
+            self.curve.append((time.perf_counter() - (self._t0 or 0.0),
+                               float(self.eval_fn(state))))
 
 
 @dataclasses.dataclass

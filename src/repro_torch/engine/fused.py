@@ -26,7 +26,9 @@ computes data-parallel:
     gather_for_compute`, differentiable) and runs the meshless model on its
     slice of the batch over the dp axes (the ascent slice too); a leading
     dim the dp axes do not divide is not split, as `batch_spec_tree` drops
-    it;
+    it. The batch may come whole on every rank (the pipeline's) or placed
+    by `batch_spec_tree` (DTensor leaves: each rank's rows are its local
+    shard, and microbatches are chunks of them);
   * the loss (and each scalar aux) is the mean over the dp group, and each
     weight's gradient is averaged over the dp group and cut to its shard;
   * the per-leaf weight-space path (perturbation, ascent refresh, optimizer
@@ -153,6 +155,32 @@ class FusedExecutor:
             state = reshard_state(state, self.model_cfg, self.mesh)
         return state
 
+    def abstract_state(self, params_fn, seed: int = 0) -> TrainState:
+        """The step-0 state with no data (the dry run's entry): `params_fn()`
+        (the model, e.g. `lambda: bundle.init(device=...)`) and `init_state`
+        run under a fresh `FakeTensorMode`, so a full-size state costs
+        nothing and nothing is allocated on a device. It is placed as the
+        live state is: bucket-resident on no mesh or a 1-device mesh (the
+        buffers the step updates), DTensors placed by the sharding rules on
+        a sharded mesh."""
+        from repro_torch.utils import abstract
+        with abstract.fake_mode():
+            return self.init_state(params_fn(), seed)
+
+    def lower(self, state: TrainState, batch: dict):
+        """One step traced on `state` and `batch` (fake tensors, e.g. from
+        `abstract_state` and `models.registry.batch_spec`, or real ones) by a
+        step built afresh, so the executor's own step and its buffers are
+        untouched: the port's lowered step, a `utils.abstract.Lowered`
+        (ops, flops, collectives, kernels, this rank's argument, output and
+        peak bytes). On a sharded mesh this is this rank's step, its
+        gathers and all-reduces included."""
+        from repro_torch.utils import abstract
+        if self.sharded and not self.mesh.is_member:
+            raise ValueError("this rank lies outside the mesh: it traces no step")
+        _, lowered = abstract.trace(self._make_step(), state, batch)
+        return lowered
+
     def resize(self, state: TrainState, new_mesh) -> TrainState:
         """Elastic re-entry: re-place the live `state` onto `new_mesh` and
         rebuild the step against it.
@@ -242,8 +270,9 @@ def _dp_loss(loss_fn: LossFn, mesh) -> LossFn:
         split = n > 1 and bool(rows) and all(r % n == 0 for r in rows)
         if split:
             batch = trees.tree_map(
-                lambda x: x[idx * (x.shape[0] // n):(idx + 1) * (x.shape[0] // n)]
-                if x.dim() else x, batch)
+                lambda x: distributed.dp_rows(x, dp_dims, idx, n) if x.dim() else x, batch)
+        else:
+            batch = trees.tree_map(distributed.gather, batch)
         n_eff = n if split else 1
         full = {k: distributed.gather_for_compute(v, group, n_eff) for k, v in params.items()}
         loss, aux = loss_fn(full, batch, gen)

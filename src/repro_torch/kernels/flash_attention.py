@@ -22,6 +22,13 @@ layout. A tensor on the CPU goes to the plain version
 (`ref.flash_attention_plain`); a CUDA tensor launches the kernel or raises.
 `launches` counts the kernel's launches.
 
+The launch is the `torch.library` custom op `repro_torch::flash_attention_fwd`:
+its real implementation is the ctypes launch above (it alone reads data
+pointers and counts), its fake implementation gives the output's shape, so
+the dry run traces the kernel on fake tensors (`utils.abstract`), and its
+flop formula for `FlopCounterMode` counts 2 (hd + hd_v) operations a visible
+(query, key) pair and head (`visible_pairs`).
+
 Gradients: on the card the call is a `torch.autograd.Function` whose forward
 is the kernel and whose backward is autograd of the plain version,
 recomputed from the saved q, k and v. The reference has no backward kernel
@@ -37,8 +44,9 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, flat, ref
 
 SOURCE = build.CSRC / "flash_attention.cu"
 MAX_HEAD_DIM = 256
@@ -86,7 +94,7 @@ def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int]) -> None:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    if not (flat.on_kernel_device(q) and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -110,7 +118,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: Optional[int]) -> torch.Tensor:
-    """One kernel launch on checked inputs; returns (B,Sq,H,hd_v)."""
+    """The kernel (its op) on checked inputs; returns (B,Sq,H,hd_v)."""
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal, window or 0)
+
+
+def _launch_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                 window: int) -> torch.Tensor:
+    """One kernel launch on checked inputs (window 0: none): the op's CUDA
+    kernel (`_launch_fake` gives the output's shape on fake tensors)."""
     global launches
     b, sq, h, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
@@ -125,12 +140,41 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                        k.stride(0), k.stride(1), k.stride(2),
                        v.stride(0), v.stride(1), v.stride(2),
                        out.stride(0), out.stride(1), out.stride(2),
-                       1.0 / math.sqrt(hd), int(causal),
-                       0 if window is None else int(window), stream)
+                       1.0 / math.sqrt(hd), int(causal), int(window), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def _launch_fake(q, k, v, causal, window):
+    return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+flat.kernel_op("flash_attention_fwd",
+               "(Tensor q, Tensor k, Tensor v, bool causal, int window) -> Tensor",
+               _launch_impl, _launch_fake)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flops(q_shape, k_shape, v_shape, causal, window, out_shape=None, **kwargs) -> int:
+    """2 (hd + hd_v) operations a visible (query, key) pair and head: the
+    pair count `visible_pairs` gives, as the kernel's bound counts it."""
+    b, sq, h, hd = q_shape
+    return 2 * (hd + v_shape[3]) * b * h * visible_pairs(sq, k_shape[1], causal, window or None)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the mask lets through, query i at position i and
+    keys at 0..sk-1: the work an input needs, in closed form. Query i sees
+    keys [max(0, i - window + 1), min(sk, i + 1)) (causal) or up to sk."""
+    def upto(n: int) -> int:               # sum over j = 1..n of min(sk, j)
+        n = max(0, n)
+        m = min(n, sk)
+        return m * (m + 1) // 2 + (n - m) * sk
+
+    seen = upto(sq) if causal else sq * sk
+    return seen - (upto(sq - window) if window else 0)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -156,7 +200,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """Blocked attention; returns (B,Sq,H,hd_v) in q's dtype."""
-    if q.device.type == "cpu":
+    if flat.takes_plain(q):
         return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
     return FlashAttention.apply(q, k, v, causal, window)

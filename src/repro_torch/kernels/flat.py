@@ -7,6 +7,7 @@ both the wrappers (for a CPU tensor) and `ops` (for `impl="plain"`) take.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, Optional
 
 import torch
@@ -15,6 +16,59 @@ from repro_torch.kernels import ref
 
 CHUNK = 64 * 1024     # elements per CTA, the TPU kernels' chunk
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+
+
+def kernel_op(name: str, schema: str, impl, fake):
+    """`repro_torch::<name>`, a `torch.library` op with `schema`: `impl` (the
+    kernel's launch) its CUDA kernel, `fake` its fake implementation (the
+    outputs' shapes, for FakeTensorMode: the dry run). Defined with
+    `torch.library.Library` rather than `custom_op`, whose Python wrappers
+    cost a launch some 20 us more of host time; no autograd kernel: every
+    call is made with grad off (inside a `torch.autograd.Function`'s forward
+    or backward) or on buffers that need none. Returns the op."""
+    _LIB.define(name + schema)
+    _LIB.impl(name, impl, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    return getattr(torch.ops.repro_torch, name)
+
+
+_trace_kernels = False
+
+
+@contextlib.contextmanager
+def trace_kernels():
+    """Within the block a fake tensor (`utils.abstract`) on the CPU takes its
+    kernel's op, as a CUDA tensor does: the op's fake implementation gives
+    the outputs' shapes and nothing launches. So a dry run on the CPU traces
+    the card's step (its plain versions at production shapes would take
+    hours: the wkv scan's is a loop over the sequence). A real CPU tensor
+    still takes the plain version."""
+    global _trace_kernels
+    before, _trace_kernels = _trace_kernels, True
+    try:
+        yield
+    finally:
+        _trace_kernels = before
+
+
+def on_kernel_device(t: torch.Tensor) -> bool:
+    """Whether a wrapper given t takes its kernel: t lies on a CUDA device,
+    or t is a fake tensor inside `trace_kernels`."""
+    if t.is_cuda:
+        return True
+    if not _trace_kernels:
+        return False
+    from repro_torch.utils import abstract
+    return abstract.is_fake(t)
+
+
+def takes_plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper given t runs the plain version: t lies on the CPU
+    and is not traced as a kernel's input."""
+    return t.device.type == "cpu" and not on_kernel_device(t)
 
 
 def n_chunks(n: int) -> int:
@@ -28,7 +82,7 @@ def check_flat(kernel: str, operands: Mapping[str, torch.Tensor],
     default float32 or bfloat16). Returns the device."""
     tensors = list(operands.values())
     dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    if not on_kernel_device(tensors[0]) or any(t.device != dev for t in tensors):
         raise ValueError(f"{kernel} kernel needs its operands on one CUDA device; got "
                          f"{ {k: str(t.device) for k, t in operands.items()} }")
     for name, t in operands.items():

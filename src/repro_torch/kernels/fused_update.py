@@ -30,7 +30,10 @@ the encoder holds it on the host already, for the wire.
 
 A CPU tensor goes to the plain version (`kernels.ref`); a CUDA tensor
 launches the kernel or raises. Each kernel counts its launches in
-`launches[name]`.
+`launches[name]`. Each launch is a `torch.library` custom op
+(`repro_torch::<name>`; the in-place ones declare what they write) whose
+fake implementation gives its outputs' shapes (the dry run,
+`utils.abstract`); these bandwidth kernels register no flop formula.
 """
 from __future__ import annotations
 
@@ -69,27 +72,49 @@ def _library() -> ctypes.CDLL:
 
 
 def _scalar(x, dev: torch.device) -> torch.Tensor:
-    """x as a 0-dim fp32 tensor on `dev` (no copy when it already is one)."""
-    return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+    """x as a 0-dim fp32 tensor on `dev` (no copy when it already is one). A
+    host number is filled in on the device (`torch.full`), not copied from
+    the host: a copy would allocate a real device tensor under a
+    FakeTensorMode (the dry run)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, torch.float32).reshape(())
+    return torch.full((), float(x), dtype=torch.float32, device=dev)
 
 
 def fused_axpy(alpha, x: torch.Tensor, y: torch.Tensor, *,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y + alpha * x over flat vectors, y's dtype, into `out` when given."""
-    if y.device.type == "cpu":
+    if flat.takes_plain(y):
         return flat.axpy_plain(alpha, x, y, out)
     if out is None:
         out = torch.empty_like(y)
     dev = check_flat("fused_axpy", {"x": x, "y": y, "out": out}, {"out": (y.dtype,)})
     if y.numel() == 0:
         return out
-    a = _scalar(alpha, dev)
+    torch.ops.repro_torch.fused_axpy(_scalar(alpha, dev), x, y, out)
+    return out
+
+
+# Each launch below is a `torch.library` op (`flat.kernel_op`): its CUDA
+# kernel is the launch on checked, non-empty operands, with the count; its
+# fake gives the outputs' shapes on fake tensors, and an op that writes in
+# place declares what it writes in its schema.
+
+def _axpy_impl(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor, out: torch.Tensor) -> None:
+    dev = y.device
     with torch.cuda.device(dev):
         rc = _library().fused_axpy(a.data_ptr(), x.data_ptr(), DTYPES[x.dtype], y.data_ptr(),
                                    DTYPES[y.dtype], out.data_ptr(), y.numel(), stream(dev))
     check_launch("fused_axpy", rc)
     launches["fused_axpy"] += 1
-    return out
+
+
+def _axpy_fake(a, x, y, out):
+    return None
+
+
+flat.kernel_op("fused_axpy", "(Tensor a, Tensor x, Tensor y, Tensor(a!) out) -> ()",
+               _axpy_impl, _axpy_fake)
 
 
 def axpy_tile() -> int:
@@ -100,12 +125,19 @@ def axpy_tile() -> int:
 def fused_dot_norms(a: torch.Tensor, b: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(<a,b>, ||a||^2, ||b||^2), fp32 partials per chunk summed here."""
-    if a.device.type == "cpu":
+    if flat.takes_plain(a):
         return ref.dot_norms_flat_plain(a, b)
     dev = check_flat("fused_dot_norms", {"a": a, "b": b})
     if a.numel() == 0:
         z = torch.zeros((), dtype=torch.float32, device=dev)
         return z, z.clone(), z.clone()
+    dot, sq_a, sq_b = torch.ops.repro_torch.fused_dot_norms(a, b).unbind()
+    return dot, sq_a, sq_b
+
+
+def _dot_norms_impl(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(<a,b>, ||a||^2, ||b||^2) as one fp32 (3,) tensor."""
+    dev = a.device
     partials = torch.empty((3, n_chunks(a.numel())), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _library().fused_dot_norms(a.data_ptr(), DTYPES[a.dtype], b.data_ptr(),
@@ -113,8 +145,15 @@ def fused_dot_norms(a: torch.Tensor, b: torch.Tensor
                                         stream(dev))
     check_launch("fused_dot_norms", rc)
     launches["fused_dot_norms"] += 1
-    dot, sq_a, sq_b = torch.sum(partials, dim=1).unbind()
-    return dot, sq_a, sq_b
+    return torch.sum(partials, dim=1)
+
+
+def _dot_norms_fake(a, b):
+    return a.new_empty((3,), dtype=torch.float32)
+
+
+flat.kernel_op("fused_dot_norms", "(Tensor a, Tensor b) -> Tensor", _dot_norms_impl,
+               _dot_norms_fake)
 
 
 def adamw_epilogue(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
@@ -124,7 +163,7 @@ def adamw_epilogue(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch
     """One clip-Adam-decay-lr step; updates w, mu and nu in place and returns
     them. w fp32 or bf16, g fp32 or bf16, mu and nu fp32. `keep` 0 (the
     guard's skip) leaves all three as they were."""
-    if w.device.type == "cpu":
+    if flat.takes_plain(w):
         return flat.adamw_epilogue_plain_(w, g, mu, nu, clip_scale, lr, c1, c2, b1=b1,
                                           b2=b2, eps=eps, weight_decay=weight_decay,
                                           keep=keep)
@@ -134,6 +173,14 @@ def adamw_epilogue(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch
         return w, mu, nu
     scal = torch.stack([_scalar(v, dev) for v in (clip_scale, lr, c1, c2,
                                                   1.0 if keep is None else keep)])
+    torch.ops.repro_torch.adamw_epilogue(w, g, mu, nu, scal, b1, b2, eps, weight_decay)
+    return w, mu, nu
+
+
+def _adamw_impl(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                scal: torch.Tensor, b1: float, b2: float, eps: float,
+                weight_decay: float) -> None:
+    dev = w.device
     with torch.cuda.device(dev):
         rc = _library().adamw_epilogue(
             w.data_ptr(), DTYPES[w.dtype], g.data_ptr(), DTYPES[g.dtype], mu.data_ptr(),
@@ -141,7 +188,15 @@ def adamw_epilogue(w: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch
             weight_decay, stream(dev))
     check_launch("adamw_epilogue", rc)
     launches["adamw_epilogue"] += 1
-    return w, mu, nu
+
+
+def _adamw_fake(w, g, mu, nu, scal, b1, b2, eps, weight_decay):
+    return None
+
+
+flat.kernel_op("adamw_epilogue", "(Tensor(a!) w, Tensor g, Tensor(b!) mu, Tensor(c!) nu, "
+               "Tensor scal, float b1, float b2, float eps, float weight_decay) -> ()",
+               _adamw_impl, _adamw_fake)
 
 
 def sgd_epilogue(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor], clip_scale, lr,
@@ -151,7 +206,7 @@ def sgd_epilogue(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor], cl
     place and returns (w, m), or (w, None) without momentum, the reference's
     (w', m'-or-None). w fp32 or bf16, g fp32 or bf16, m fp32. `keep` 0 (the
     guard's skip) leaves w and m as they were."""
-    if w.device.type == "cpu":
+    if flat.takes_plain(w):
         return flat.sgd_epilogue_plain_(w, g, m, clip_scale, lr, momentum=momentum,
                                         nesterov=nesterov, weight_decay=weight_decay,
                                         keep=keep)
@@ -163,24 +218,44 @@ def sgd_epilogue(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor], cl
         return w, m if momentum else None
     scal = torch.stack([_scalar(clip_scale, dev), _scalar(lr, dev),
                         _scalar(1.0 if keep is None else keep, dev)])
+    torch.ops.repro_torch.sgd_epilogue(w, g, m if momentum else None, scal, momentum,
+                                       nesterov, weight_decay)
+    return w, m if momentum else None
+
+
+def _sgd_impl(w: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor], scal: torch.Tensor,
+              momentum: float, nesterov: bool, weight_decay: float) -> None:
+    dev = w.device
     with torch.cuda.device(dev):
         rc = _library().sgd_epilogue(
             w.data_ptr(), DTYPES[w.dtype], g.data_ptr(), DTYPES[g.dtype],
-            m.data_ptr() if momentum else None, w.numel(), scal.data_ptr(), momentum,
+            None if m is None else m.data_ptr(), w.numel(), scal.data_ptr(), momentum,
             int(nesterov), weight_decay, stream(dev))
     check_launch("sgd_epilogue", rc)
     launches["sgd_epilogue"] += 1
-    return w, m if momentum else None
+
+
+def _sgd_fake(w, g, m, scal, momentum, nesterov, weight_decay):
+    return None
+
+
+flat.kernel_op("sgd_epilogue", "(Tensor(a!) w, Tensor g, Tensor(b!)? m, Tensor scal, "
+               "float momentum, bool nesterov, float weight_decay) -> ()", _sgd_impl, _sgd_fake)
 
 
 def delta_amax(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """max |p - s + e| as a 0-dim fp32 device tensor: one partial per chunk,
     maxed here (NaN kept). p fp32 or bf16, s and e fp32."""
-    if p.device.type == "cpu":
+    if flat.takes_plain(p):
         return ref.delta_amax_flat_plain(p, s, e)
     dev = check_flat("delta_amax", {"p": p, "s": s, "e": e}, {"s": _F32, "e": _F32})
     if p.numel() == 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.ops.repro_torch.delta_amax(p, s, e)
+
+
+def _amax_impl(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    dev = p.device
     partials = torch.empty(n_chunks(p.numel()), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _library().delta_amax(p.data_ptr(), DTYPES[p.dtype], s.data_ptr(), e.data_ptr(),
@@ -190,21 +265,42 @@ def delta_amax(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor) -> torch.Tenso
     return torch.amax(partials)
 
 
+def _amax_fake(p, s, e):
+    return p.new_empty((), dtype=torch.float32)
+
+
+flat.kernel_op("delta_amax", "(Tensor p, Tensor s, Tensor e) -> Tensor", _amax_impl, _amax_fake)
+
+
 def delta_encode_i8(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor, scale: float
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One int8 delta encode: returns (q, s, e) with q a new int8 buffer and
     the advanced shadow and residual written into s and e. `scale` is a host
     float, a power of two (`service.delta._pow2_scale`)."""
-    if p.device.type == "cpu":
+    if flat.takes_plain(p):
         return flat.delta_encode_i8_plain_(p, s, e, scale)
     dev = check_flat("delta_encode_i8", {"p": p, "s": s, "e": e}, {"s": _F32, "e": _F32})
-    q = torch.empty(p.shape, dtype=torch.int8, device=dev)
     if p.numel() == 0:
-        return q, s, e
+        return torch.empty(p.shape, dtype=torch.int8, device=dev), s, e
+    return torch.ops.repro_torch.delta_encode_i8(p, s, e, float(scale)), s, e
+
+
+def _encode_impl(p: torch.Tensor, s: torch.Tensor, e: torch.Tensor, scale: float
+                 ) -> torch.Tensor:
+    dev = p.device
+    q = torch.empty(p.shape, dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         rc = _library().delta_encode_i8(p.data_ptr(), DTYPES[p.dtype], s.data_ptr(),
-                                        e.data_ptr(), q.data_ptr(), p.numel(), float(scale),
+                                        e.data_ptr(), q.data_ptr(), p.numel(), scale,
                                         stream(dev))
     check_launch("delta_encode_i8", rc)
     launches["delta_encode_i8"] += 1
-    return q, s, e
+    return q
+
+
+def _encode_fake(p, s, e, scale):
+    return torch.empty_like(p, dtype=torch.int8)
+
+
+flat.kernel_op("delta_encode_i8", "(Tensor p, Tensor(a!) s, Tensor(b!) e, float scale) -> Tensor",
+               _encode_impl, _encode_fake)

@@ -30,7 +30,11 @@ live in fp32 scratch allocated per call (134 MB a buffer at zamba2's B 8 x
 the decode step) is one kernel and allocates no scratch. The kernels are
 built with nvcc at the first launch and bound through ctypes, so importing
 this module needs neither nvcc nor a card. `launches[name]` counts each
-forward and each backward once, however many CUDA kernels it takes.
+forward and each backward once, however many CUDA kernels it takes. Each is
+a `torch.library` custom op (`repro_torch::mamba2_scan_fwd` / `_bwd`): the
+real implementation is the launch, the fake one gives the outputs' shapes
+(the dry run, `utils.abstract`), and a flop formula counts M2_FWD_OPS /
+M2_BWD_OPS a state element and step.
 """
 from __future__ import annotations
 
@@ -38,8 +42,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, flat, ref
 
 SOURCE = build.CSRC / "mamba2_scan.cu"
 MAX_DIM = 64
@@ -74,7 +79,7 @@ def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     named = {"x": x, "dt": dt, "a": a, "b": b, "c": c, "d": d}
     if init_state is not None:
         named["init_state"] = init_state
-    if not all(t.is_cuda and t.device == x.device for t in named.values()):
+    if not all(flat.on_kernel_device(t) and t.device == x.device for t in named.values()):
         raise ValueError(f"mamba2 kernel needs every operand on one CUDA device; got "
                          f"{ {n: str(t.device) for n, t in named.items()} }")
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
@@ -142,12 +147,30 @@ def run_fwd(x, dt, a, b, c, d, init_state, bufs: dict, phases: int = FWD_ALL) ->
         raise RuntimeError(f"mamba2_scan_fwd kernel launch failed: CUDA error {rc}")
 
 
-def _launch_fwd(x, dt, a, b, c, d, init_state) -> tuple[torch.Tensor, torch.Tensor]:
-    """One forward (its kernels' phases) on checked inputs: (y, final state)."""
+def _fwd_impl(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, d: torch.Tensor, init_state: Optional[torch.Tensor]
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One forward (its kernels' phases) on checked inputs: (y, final
+    state); the op's CUDA kernel (the fake below gives the outputs' shapes;
+    the scratch is this body's own)."""
     bufs = fwd_buffers(x, b)
     run_fwd(x, dt, a, b, c, d, init_state, bufs)
     launches["mamba2_scan_fwd"] += 1
     return bufs["y"], bufs["state"]
+
+
+def _fwd_fake(x, dt, a, b, c, d, init_state):
+    bsz, s, h, p = x.shape
+    return torch.empty_like(x), x.new_empty((bsz, h, p, b.shape[3]), dtype=torch.float32)
+
+
+_ARGS = "Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, Tensor d, Tensor? init_state"
+flat.kernel_op("mamba2_scan_fwd", f"({_ARGS}) -> (Tensor, Tensor)", _fwd_impl, _fwd_fake)
+
+
+def _launch_fwd(x, dt, a, b, c, d, init_state) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward (its op) on checked inputs: (y, final state)."""
+    return torch.ops.repro_torch.mamba2_scan_fwd(x, dt, a, b, c, d, init_state)
 
 
 BWD_PHASES = {"chunk": 1, "carry": 2, "grad": 4, "reduce": 8}   # the C entry's `phases` bits
@@ -190,13 +213,64 @@ def run_bwd(x, dt, a, b, c, d, init_state, dy, d_state, bufs: dict,
         raise RuntimeError(f"mamba2_scan_bwd kernel launch failed: CUDA error {rc}")
 
 
-def _launch_bwd(x, dt, a, b, c, d, init_state, dy, d_state) -> tuple[torch.Tensor, ...]:
-    """One backward (its kernels' four phases) on checked inputs; dy / d_state
-    may be None (zero). Returns (dx, ddt, da, db, dc, dd, d_init_state)."""
+def _bwd_impl(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, d: torch.Tensor, init_state: Optional[torch.Tensor],
+              dy: Optional[torch.Tensor], d_state: Optional[torch.Tensor]
+              ) -> tuple[torch.Tensor, ...]:
+    """One backward (its kernels' four phases) on checked inputs; dy /
+    d_state may be None (zero). Returns (dx, ddt, da, db, dc, dd,
+    d_init_state); the op's CUDA kernel, as the forward's."""
     bufs = bwd_buffers(x, b)
     run_bwd(x, dt, a, b, c, d, init_state, dy, d_state, bufs)
     launches["mamba2_scan_bwd"] += 1
     return tuple(bufs[k] for k in ("dx", "ddt", "da", "db", "dc", "dd", "ds0"))
+
+
+def _bwd_fake(x, dt, a, b, c, d, init_state, dy, d_state):
+    bsz, s, h, p = x.shape
+    f32 = dict(dtype=torch.float32)
+    return (torch.empty_like(x), dt.new_empty((bsz, s, h), **f32), a.new_empty((h,), **f32),
+            torch.empty_like(b), torch.empty_like(c), d.new_empty((h,), **f32),
+            x.new_empty((bsz, h, p, b.shape[3]), **f32))
+
+
+flat.kernel_op("mamba2_scan_bwd", f"({_ARGS}, Tensor? dy, Tensor? d_state) -> "
+               "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)", _bwd_impl, _bwd_fake)
+
+
+def _launch_bwd(x, dt, a, b, c, d, init_state, dy, d_state) -> tuple[torch.Tensor, ...]:
+    """The backward (its op) on checked inputs: (dx, ddt, da, db, dc, dd,
+    d_init_state)."""
+    return tuple(torch.ops.repro_torch.mamba2_scan_bwd(x, dt, a, b, c, d, init_state, dy,
+                                                        d_state))
+
+
+# fp32 ops per state element and step that the function needs: the least
+# over its forms, which is the recurrence's (a chunked form adds its (T, T)
+# products, more of them the longer its chunk, so its count would describe a
+# kernel, not the function). Forward (5): the decay multiply, the xd B^T
+# multiply-add and the y = h C multiply-add. Backward (14), with h rebuilt
+# from the initial state: the rebuild (3), the dh carry (3: the dy C^T
+# multiply-add and the decay), dxd = dh B, dB = dh^T xd, dC = h^T dy and dla
+# = sum(dh h) (2 each).
+M2_FWD_OPS, M2_BWD_OPS = 5, 14
+
+
+def scan_flops(x_shape, b_shape, backward: bool) -> int:
+    """fp32 operations the SSD scan needs on x (B,S,H,P), b (B,S,G,N):
+    M2_FWD_OPS or M2_BWD_OPS a state element and step."""
+    bsz, s, h, p = x_shape
+    return (M2_BWD_OPS if backward else M2_FWD_OPS) * bsz * s * h * p * b_shape[3]
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba2_scan_fwd)
+def _fwd_flops(x_shape, dt_shape, a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    return scan_flops(x_shape, b_shape, backward=False)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba2_scan_bwd)
+def _bwd_flops(x_shape, dt_shape, a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    return scan_flops(x_shape, b_shape, backward=True)
 
 
 class Mamba2Scan(torch.autograd.Function):
@@ -223,7 +297,7 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Ten
                 chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD mixing; returns (y (B,S,H,P) in x's dtype, final state
     (B,H,P,N) fp32). `chunk` is the plain version's (CPU tensors)."""
-    if x.device.type == "cpu":
+    if flat.takes_plain(x):
         return ref.mamba2_chunked_plain(x, dt, a, b, c, d, chunk=chunk, init_state=init_state)
     _check(x, dt, a, b, c, d, init_state)
     return Mamba2Scan.apply(x, dt, a, b, c, d, init_state)

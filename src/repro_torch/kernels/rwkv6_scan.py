@@ -20,7 +20,11 @@ through `RWKV6Scan`, a `torch.autograd.Function` whose forward launches the
 forward kernel (saving only its inputs) and whose backward launches the
 backward kernel, or raises. Both are built with nvcc at the first launch and
 bound through ctypes, so importing this module needs neither nvcc nor a
-card. `launches[name]` counts each kernel's launches.
+card. `launches[name]` counts each kernel's launches. Each launch is a
+`torch.library` custom op (`repro_torch::rwkv6_scan_fwd` / `_bwd`): the real
+implementation is the launch, the fake one gives the outputs' shapes (the
+dry run, `utils.abstract`), and a flop formula counts RWKV_FWD_OPS /
+RWKV_BWD_OPS a state element and step.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, flat, ref
 
 SOURCE = build.CSRC / "rwkv6_scan.cu"
 MAX_DIM = 64
@@ -61,7 +66,7 @@ def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     named = {"r": r, "k": k, "v": v, "w": w, "u": u}
     if init_state is not None:
         named["init_state"] = init_state
-    if not all(t.is_cuda and t.device == r.device for t in named.values()):
+    if not all(flat.on_kernel_device(t) and t.device == r.device for t in named.values()):
         raise ValueError(f"rwkv6 kernel needs every operand on one CUDA device; got "
                          f"{ {n: str(t.device) for n, t in named.items()} }")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
@@ -91,8 +96,11 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_fwd(r, k, v, w, u, init_state) -> tuple[torch.Tensor, torch.Tensor]:
-    """One forward launch on checked inputs: (y, final state)."""
+def _fwd_impl(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor, init_state: Optional[torch.Tensor]
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One forward launch on checked inputs: (y, final state); the op's
+    CUDA kernel (the fake below gives the outputs' shapes)."""
     b, s, h, dk = r.shape
     dv = v.shape[-1]
     y = torch.empty((b, s, h, dv), dtype=r.dtype, device=r.device)
@@ -108,9 +116,18 @@ def _launch_fwd(r, k, v, w, u, init_state) -> tuple[torch.Tensor, torch.Tensor]:
     return y, state
 
 
-def _launch_bwd(r, k, v, w, u, init_state, dy, d_state) -> tuple[torch.Tensor, ...]:
+def _fwd_fake(r, k, v, w, u, init_state):
+    b, s, h, dk = r.shape
+    dv = v.shape[-1]
+    return r.new_empty((b, s, h, dv)), r.new_empty((b, h, dk, dv), dtype=torch.float32)
+
+
+def _bwd_impl(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor, init_state: Optional[torch.Tensor], dy: Optional[torch.Tensor],
+              d_state: Optional[torch.Tensor]) -> tuple[torch.Tensor, ...]:
     """One backward launch on checked inputs; dy / d_state may be None
-    (zero). Returns (dr, dk, dv, dw, du, d_init_state)."""
+    (zero). Returns (dr, dk, dv, dw, du, d_init_state); the op's CUDA
+    kernel, as the forward's."""
     b, s, h, dk = r.shape
     dv = v.shape[-1]
     grads = [torch.empty_like(t) for t in (r, k, v)]
@@ -128,6 +145,54 @@ def _launch_bwd(r, k, v, w, u, init_state, dy, d_state) -> tuple[torch.Tensor, .
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA error {rc}")
     launches["rwkv6_scan_bwd"] += 1
     return (*grads, dw, du, ds0)
+
+
+def _bwd_fake(r, k, v, w, u, init_state, dy, d_state):
+    b, s, h, dk = r.shape
+    return (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(w), u.new_empty((h, dk), dtype=torch.float32),
+            r.new_empty((b, h, dk, v.shape[-1]), dtype=torch.float32))
+
+
+_ARGS = "Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? init_state"
+flat.kernel_op("rwkv6_scan_fwd", f"({_ARGS}) -> (Tensor, Tensor)", _fwd_impl, _fwd_fake)
+flat.kernel_op("rwkv6_scan_bwd", f"({_ARGS}, Tensor? dy, Tensor? d_state) -> "
+               "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)", _bwd_impl, _bwd_fake)
+
+
+def _scan_flops(ops: int, r_shape, v_shape) -> int:
+    """`ops` fp32 operations a state element and step (RWKV_FWD_OPS /
+    RWKV_BWD_OPS): what the function needs, as the kernels' bounds count."""
+    b, s, h, dk = r_shape
+    return ops * b * s * h * dk * v_shape[-1]
+
+
+# fp32 ops per state element and step that the function needs. Forward: the
+# y product-add and the decay multiply-add of k v (5). Backward (12), with S
+# rebuilt from the initial state: S's recurrence (3), p = S dy (2), one G
+# recurrence (3), G v and G^T k (2 + 2); dw comes through q at O(K) a step.
+RWKV_FWD_OPS, RWKV_BWD_OPS = 5, 12
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_scan_fwd)
+def _fwd_flops(r_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    return _scan_flops(RWKV_FWD_OPS, r_shape, v_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.rwkv6_scan_bwd)
+def _bwd_flops(r_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    return _scan_flops(RWKV_BWD_OPS, r_shape, v_shape)
+
+
+def _launch_fwd(r, k, v, w, u, init_state) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel (its op) on checked inputs: (y, final state)."""
+    return torch.ops.repro_torch.rwkv6_scan_fwd(r, k, v, w, u, init_state)
+
+
+def _launch_bwd(r, k, v, w, u, init_state, dy, d_state) -> tuple[torch.Tensor, ...]:
+    """The backward kernel (its op) on checked inputs: (dr, dk, dv, dw, du,
+    d_init_state)."""
+    return tuple(torch.ops.repro_torch.rwkv6_scan_bwd(r, k, v, w, u, init_state, dy, d_state))
 
 
 class RWKV6Scan(torch.autograd.Function):
@@ -155,7 +220,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV6 wkv recurrence; returns (y (B,S,H,V) in r's dtype, final state
     (B,H,K,V) fp32)."""
-    if r.device.type == "cpu":
+    if flat.takes_plain(r):
         return ref.rwkv6_scan_plain(r, k, v, w, u, init_state=init_state)
     _check(r, k, v, w, u, init_state)
     return RWKV6Scan.apply(r, k, v, w, u, init_state)

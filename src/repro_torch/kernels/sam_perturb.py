@@ -17,7 +17,10 @@ not handed a norm); AsyncSAM carries its norm and perturbs through
 `fused_axpy`.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises. `launches[name]` counts each kernel's launches.
+raises. `launches[name]` counts each kernel's launches. Each launch is a
+`torch.library` custom op (`repro_torch::<name>`) whose fake implementation
+gives its output's shape (the dry run, `utils.abstract`); these bandwidth
+kernels register no flop formula.
 """
 from __future__ import annotations
 
@@ -54,12 +57,18 @@ def _library() -> ctypes.CDLL:
 
 def sq_norm(g: torch.Tensor) -> torch.Tensor:
     """Sum of squares of a flat vector, fp32 (a 0-dim tensor)."""
-    if g.device.type == "cpu":
+    if flat.takes_plain(g):
         return ref.sq_norm_plain(g)
     dev = check_flat("sq_norm", {"g": g})
     if g.numel() == 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
-    lib = _library()
+    return torch.ops.repro_torch.sq_norm(g)
+
+
+def _sq_norm_impl(g: torch.Tensor) -> torch.Tensor:
+    """The launch on a checked, non-empty g and the sum of its partials: the
+    op's CUDA kernel (the fake gives the 0-dim fp32 result)."""
+    dev, lib = g.device, _library()
     partials = torch.empty(-(-g.numel() // lib.tile), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.sq_norm(g.data_ptr(), DTYPES[g.dtype], g.numel(), partials.data_ptr(),
@@ -67,6 +76,13 @@ def sq_norm(g: torch.Tensor) -> torch.Tensor:
     check_launch("sq_norm", rc)
     launches["sq_norm"] += 1
     return torch.sum(partials)
+
+
+def _sq_norm_fake(g):
+    return g.new_empty((), dtype=torch.float32)
+
+
+flat.kernel_op("sq_norm", "(Tensor g) -> Tensor", _sq_norm_impl, _sq_norm_fake)
 
 
 def sq_norm_tile() -> int:
@@ -78,7 +94,7 @@ def sam_perturb(w: torch.Tensor, g: torch.Tensor, rho, sq_norm, *,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """w + rho * g / (sqrt(sq_norm) + 1e-12) over flat vectors, w's dtype, into
     `out` when given. rho and sq_norm may be device scalars."""
-    if w.device.type == "cpu":
+    if flat.takes_plain(w):
         return flat.sam_perturb_plain(w, g, rho, sq_norm, out)
     if out is None:
         out = torch.empty_like(w)
@@ -89,11 +105,27 @@ def sam_perturb(w: torch.Tensor, g: torch.Tensor, rho, sq_norm, *,
     # there, a host one passed by value
     sq = torch.as_tensor(sq_norm).to(dev, torch.float32)
     rho_dev = rho.to(dev, torch.float32) if isinstance(rho, torch.Tensor) else None
+    torch.ops.repro_torch.sam_perturb(float(rho) if rho_dev is None else 0.0, rho_dev, sq,
+                                      w, g, out)
+    return out
+
+
+def _sam_perturb_impl(rho: float, rho_dev: Optional[torch.Tensor], sq: torch.Tensor,
+                      w: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> None:
+    """The launch on checked, non-empty operands, into `out` (which may be
+    w): the op's CUDA kernel."""
+    dev = w.device
     with torch.cuda.device(dev):
-        rc = _library().sam_perturb(float(rho) if rho_dev is None else 0.0,
-                                    None if rho_dev is None else rho_dev.data_ptr(),
+        rc = _library().sam_perturb(rho, None if rho_dev is None else rho_dev.data_ptr(),
                                     sq.data_ptr(), w.data_ptr(), DTYPES[w.dtype], g.data_ptr(),
                                     DTYPES[g.dtype], out.data_ptr(), w.numel(), stream(dev))
     check_launch("sam_perturb", rc)
     launches["sam_perturb"] += 1
-    return out
+
+
+def _sam_perturb_fake(rho, rho_dev, sq, w, g, out):
+    return None
+
+
+flat.kernel_op("sam_perturb", "(float rho, Tensor? rho_dev, Tensor sq, Tensor w, Tensor g, "
+               "Tensor(a!) out) -> ()", _sam_perturb_impl, _sam_perturb_fake)

@@ -18,6 +18,7 @@ and cached, so rebuilding one costs nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -107,16 +108,42 @@ def _live_mesh(axis_sizes: tuple[int, ...], axis_names: tuple[str, ...],
 
 def _device_type(device: Union[str, torch.device, None]) -> str:
     """The device type asked for (the card unless the caller asks for the
-    CPU); a process group's backend must carry it."""
+    CPU); a process group's backend must carry it. The `fake` backend of a
+    dry run (`fake_world`) carries what the other two do: cuda (with a
+    card) and cpu."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} was asked for but CUDA is not available; "
                            "pass device='cpu' to run on the CPU")
+    if distributed.is_fake():
+        if dev.type not in ("cpu", "cuda"):
+            raise RuntimeError(f"the fake process group carries cpu or cuda, not {dev.type}")
+        return dev.type
     backend = distributed.backend_device_type()
     if backend is not None and backend != dev.type:
         raise RuntimeError(f"the process group's backend ({dist.get_backend()}) does not "
                            f"carry {dev.type} tensors")
     return dev.type
+
+
+@contextlib.contextmanager
+def fake_world(size: int):
+    """A world of `size` ranks on the `fake` process-group backend, this
+    process rank 0 (the dry run's: every collective returns at once and
+    moves no byte), for the duration of the block. Afterwards the group, the
+    cached meshes and their registered groups are gone, so a real group can
+    start in the same process."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if distributed.is_initialized():
+        raise RuntimeError("a process group is already up; the fake world needs none")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        _LIVE.clear()
+        distributed.forget_meshes()
 
 
 def init_from_env(device: Union[str, torch.device, None] = None) -> bool:

@@ -52,15 +52,111 @@ def make_train_setup(bundle: ModelBundle,
                       optimizer=optimizer, step_fn=step_fn)
 
 
-def make_prefill_step(bundle: ModelBundle) -> Callable:
+def make_prefill_step(bundle: ModelBundle, mesh=None) -> Callable:
+    """prefill_step(params, batch) -> (logits, cache). On a sharded `mesh`
+    (a `launch.mesh.Mesh`) the data-parallel serve step: see `_dp_serve`."""
     def prefill_step(params, batch: dict):
         return bundle.prefill(params, batch)
 
-    return prefill_step
+    if mesh is None or not mesh.sharded:
+        return prefill_step
+    serve = _dp_serve(lambda p, c, b: prefill_step(p, b), bundle, mesh)
+    return lambda params, batch: serve(params, None, batch)
 
 
-def make_decode_step(bundle: ModelBundle) -> Callable:
+def make_decode_step(bundle: ModelBundle, mesh=None) -> Callable:
+    """decode_step(params, cache, batch) -> (logits, cache), the cache updated
+    in place. On a sharded `mesh` the data-parallel serve step (`_dp_serve`)."""
     def decode_step(params, cache, batch: dict):
         return bundle.decode(params, cache, batch)
 
-    return decode_step
+    if mesh is None or not mesh.sharded:
+        return decode_step
+    return _dp_serve(decode_step, bundle, mesh)
+
+
+def _dp_serve(step: Callable, bundle: ModelBundle, mesh) -> Callable:
+    """A serve step on params, cache and batch placed over `mesh` (DTensors,
+    by `state_spec_tree`, `cache_spec_tree` and `batch_spec_tree`), computed
+    data-parallel as the sharded train step is (`engine.fused`): every
+    weight gathered whole; this rank's rows of the batch over the dp axes
+    when they divide it (else every row); each cache leaf gathered but for
+    those rows (its batch dim stays split over the dp axes, every other dim
+    is gathered); the meshless step; the new cache placed back by
+    `cache_spec_tree` from this rank's rows, which moves no byte. The
+    reference shards the serve step's compute under GSPMD; tensor-parallel
+    compute here is speed work (ROADMAP.md queue 1, item 9).
+
+    Returns step(params, cache, batch) -> (logits of this rank's rows, the
+    placed cache); prefill passes cache None."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.sharding import cache_spec_tree, to_placements
+    from repro_torch.utils import distributed, trees
+
+    names = tuple(mesh.axis_names)
+    dm = mesh.device_mesh
+    dp_dims = [names.index(a) for a in dp_axes(mesh)]
+    idx, n = distributed.dp_index(dm, dp_dims)
+
+    def kept(placements, split: bool) -> list:
+        # the dp dims' shards of the batch dim, when the batch splits
+        return [p if (split and i in dp_dims and p.is_shard()) else Replicate()
+                for i, p in enumerate(placements)]
+
+    def localize(x, split: bool):
+        if not distributed.is_dtensor(x):
+            return x
+        return x.redistribute(dm, kept(x.placements, split)).to_local()
+
+    def place(x, placements, split: bool):
+        if not isinstance(x, torch.Tensor) or not x.dim():
+            return x
+        return DTensor.from_local(x, dm, kept(placements, split),
+                                  run_check=False).redistribute(dm, placements)
+
+    def serve(params, cache, batch: dict):
+        rows = [x.shape[0] for x in trees.tree_leaves(batch) if x.dim()]
+        split = n > 1 and bool(rows) and all(r % n == 0 for r in rows)
+        with torch.no_grad():
+            full = {k: distributed.gather(v) for k, v in params.items()}
+            if split:
+                local_batch = {k: distributed.dp_rows(v, dp_dims, idx, n)
+                               for k, v in batch.items()}
+            else:
+                local_batch = {k: distributed.gather(v) for k, v in batch.items()}
+            local_cache = (None if cache is None
+                           else _zip(lambda x, _: localize(x, split), cache, cache))
+            logits, new_cache = step(full, local_cache, local_batch)
+            if cache is not None:
+                pl = _placements_of(cache)
+            else:    # the prefill's cache at its global shape: max_len S, pos S
+                b, s = batch["tokens"].shape
+                shapes = bundle.init_cache(b, s, pos=s, device="meta")
+                pl = to_placements(cache_spec_tree(shapes, bundle.cfg, mesh), mesh)
+            return logits, _zip(lambda x, p: place(x, p, split), new_cache, pl)
+
+    return serve
+
+
+def _placements_of(tree):
+    """The placements of a tree of DTensors (its structure kept; host values
+    as they are)."""
+    from repro_torch.utils import distributed
+    if isinstance(tree, dict):
+        return {k: _placements_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_placements_of(v) for v in tree)
+    return tree.placements if distributed.is_dtensor(tree) else None
+
+
+def _zip(f, tree, pl):
+    """f(leaf, its entry of pl) over a nested dict / list of tensors and
+    host values, where pl has the structure (None: the leaf as it is)."""
+    if isinstance(tree, dict):
+        return {k: _zip(f, v, pl[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip(f, v, p) for v, p in zip(tree, pl))
+    return f(tree, pl) if pl is not None else tree

@@ -14,7 +14,10 @@ from repro_torch.models.config import (  # noqa: F401
 from repro_torch.models.registry import (  # noqa: F401
     ModelBundle,
     analytic_param_count,
+    batch_spec,
     build_model,
+    cache_spec,
     cross_entropy,
+    decode_batch_spec,
     synth_batch,
 )

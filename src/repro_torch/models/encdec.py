@@ -26,7 +26,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (MLP, Attention, Device, Embedding, Norm,
+from repro_torch.models.transformer import (MLP, Attention, Device, Embedding, Norm, shapes_only,
                                             _final_logits, _groups, _param, dense_init,
                                             init_attention, init_mlp, init_norms_and_biases,
                                             remat_call)
@@ -86,9 +86,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Enc
     reference's distributions (dense fan-in weights, attention `wo` scaled by
     1/sqrt(2 L), N(0, 0.02) embedding, LayerNorm scale 1 and bias 0) from a
     `torch.Generator`, not JAX's values (load those through
-    `convert.params_from_jax`). On the "meta" device, shapes only."""
+    `convert.params_from_jax`). On the "meta" device, or under a
+    `FakeTensorMode`, shapes only."""
     model = EncDec(cfg, device)
-    if torch.device(device).type == "meta":
+    if shapes_only(model, device):
         return model
     gen = torch.Generator(device=device).manual_seed(seed)
     dense = dense_init(gen)

@@ -90,7 +90,7 @@ def mla_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   + torch.einsum("bthn,bsn->bhts", q_rope.float(), krope_c.float()))
         scores = scores / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
         valid = torch.arange(ckv_c.shape[1], device=x.device) < pos + s_new
-        scores = torch.where(valid, scores, torch.tensor(-1e30, device=x.device))
+        scores = torch.where(valid, scores, -1e30)
         probs = torch.softmax(scores, dim=-1)
         o_lat = torch.einsum("bhts,bsr->bthr", probs, ckv_c.float())
         wuv = params["w_uv"].to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)

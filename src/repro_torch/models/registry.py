@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import encdec, transformer
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +78,46 @@ def stub_shapes(cfg: ModelConfig, b: int, s: int) -> dict[str, tuple[int, ...]]:
     if cfg.family == "audio":
         shapes["enc_frames"] = (b, whisper_enc_len(cfg, s), cfg.d_model)
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# Input specs: tensors with no data for the dry run (the reference's
+# ShapeDtypeStructs), made under the caller's FakeTensorMode
+# (`utils.abstract.fake_mode()`)
+# ---------------------------------------------------------------------------
+
+def batch_spec(cfg: ModelConfig, shape: ShapeSpec, ascent_fraction: float = 0.0,
+               device: transformer.Device = "cuda") -> dict:
+    """A train or prefill batch of the cell's shape: tokens and labels (B, S)
+    int32, the stub inputs in the compute dtype and, for a train cell with
+    `ascent_fraction`, the ascent slice of max(1, round(B * fraction)) rows."""
+    b, s = shape.global_batch, shape.seq_len
+    spec = _one_batch_spec(cfg, b, s, device)
+    if shape.kind == "train" and ascent_fraction > 0:
+        spec["ascent"] = _one_batch_spec(cfg, max(1, int(round(b * ascent_fraction))), s,
+                                         device)
+    return spec
+
+
+def _one_batch_spec(cfg: ModelConfig, b: int, s: int, device) -> dict:
+    spec = {"tokens": torch.empty((b, s), dtype=torch.int32, device=device),
+            "labels": torch.empty((b, s), dtype=torch.int32, device=device)}
+    for name, shape in stub_shapes(cfg, b, s).items():
+        spec[name] = torch.empty(shape, dtype=getattr(torch, cfg.compute_dtype), device=device)
+    return spec
+
+
+def decode_batch_spec(cfg: ModelConfig, shape: ShapeSpec,
+                      device: transformer.Device = "cuda") -> dict:
+    """One new token a row: tokens (B, 1) int32."""
+    return {"tokens": torch.empty((shape.global_batch, 1), dtype=torch.int32, device=device)}
+
+
+def cache_spec(cfg: ModelConfig, shape: ShapeSpec, device: transformer.Device = "cuda") -> dict:
+    """The decode cache of the cell's batch and length at pos = seq_len - 1
+    (one slot left)."""
+    return build_model(cfg).init_cache(shape.global_batch, shape.seq_len,
+                                       pos=shape.seq_len - 1, device=device)
 
 
 def synth_batch(cfg: ModelConfig, b: int, s: int, seed: int = 0,

@@ -228,11 +228,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
     `wo` scaled by 1/sqrt(2 L), its kv norm scale 1), drawn from a
     `torch.Generator` on `device`: the values differ from JAX's. To hold the
     port against the reference, load the JAX init through
-    `convert.params_from_jax`. On the "meta" device the
-    parameters get shapes only.
+    `convert.params_from_jax`. On the "meta" device, or under a
+    `FakeTensorMode` (`utils.abstract`), the parameters get shapes only.
     """
     model = Transformer(cfg, device)
-    if torch.device(device).type == "meta":
+    if shapes_only(model, device):
         return model
     gen = torch.Generator(device=device).manual_seed(seed)
     dense = dense_init(gen)
@@ -261,6 +261,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = "cuda") -> Tra
             lora.attn_b.zero_()
             lora.mlp_b.zero_()
     return model
+
+
+def shapes_only(model: nn.Module, device: Device) -> bool:
+    """Whether the model's parameters hold no data to draw: on the "meta"
+    device, or fake (made under a FakeTensorMode)."""
+    from repro_torch.utils import abstract
+    return torch.device(device).type == "meta" or abstract.is_fake(next(model.parameters()))
 
 
 def dense_init(gen: torch.Generator):

@@ -46,6 +46,11 @@ def rank() -> int:
     return dist.get_rank() if is_initialized() else 0
 
 
+def is_fake() -> bool:
+    """Whether the default group is the dry run's `fake` backend."""
+    return is_initialized() and dist.get_backend() == "fake"
+
+
 def backend_device_type() -> Optional[str]:
     """The device type the default group's backend carries ("cpu" for gloo,
     "cuda" for NCCL), None without a group."""
@@ -63,9 +68,18 @@ def register_mesh(device_mesh, flat_group, dp_groups: dict) -> None:
     _MESH_GROUPS[id(device_mesh)] = (device_mesh, flat_group, dp_groups)
 
 
+def forget_meshes() -> None:
+    """Drop every registered mesh (its process group is gone)."""
+    _MESH_GROUPS.clear()
+
+
 def mesh_groups(device_mesh) -> tuple[Any, dict]:
     """(flattened group, {model index: dp group}) of a registered mesh."""
     entry = _MESH_GROUPS.get(id(device_mesh))
+    if entry is None:
+        # a DeviceMesh equal to a registered one (DTensor's sharding cache
+        # may hand back an equal mesh object of an earlier world)
+        entry = next((e for e in _MESH_GROUPS.values() if e[0] == device_mesh), None)
     if entry is None:
         raise RuntimeError("DeviceMesh not built by repro_torch.launch.mesh: its "
                            "groups are unknown")
@@ -160,9 +174,47 @@ def dp_index(device_mesh, dp_dims: Sequence[int]) -> tuple[int, int]:
     return idx, n
 
 
+def _rows_over(x, dp_dims: Sequence[int]) -> bool:
+    """Whether DTensor x shards its rows (dim 0) over exactly the mesh dims
+    `dp_dims`, as `launch.sharding.batch_spec_tree` places a batch."""
+    return bool(dp_dims) and all(p.is_shard(0) == (i in dp_dims)
+                                 for i, p in enumerate(x.placements))
+
+
+def dp_rows(x: torch.Tensor, dp_dims: Sequence[int], idx: int, n: int) -> torch.Tensor:
+    """This rank's rows of batch leaf x, the batch split over n data-parallel
+    ranks (this one at `idx`): a DTensor placed on its rows over the dp dims
+    gives its local shard, the same rows; any other leaf is sliced (a
+    DTensor gathered first)."""
+    if is_dtensor(x):
+        if _rows_over(x, dp_dims):
+            return x.to_local()
+        x = gather(x)
+    m = x.shape[0] // n
+    return x[idx * m:(idx + 1) * m]
+
+
+def row_chunk(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch i of n of batch leaf x: its rows [i b/n, (i+1) b/n). A
+    DTensor placed on its rows gives chunk i of each rank's own rows
+    instead, placed as x is, so no row moves between ranks (the chunks
+    differ from the global ones; their mean gradient does not)."""
+    if is_dtensor(x) and any(p.is_shard(0) for p in x.placements) \
+            and x.to_local().shape[0] % n == 0:
+        from torch.distributed.tensor import DTensor
+        loc = x.to_local()
+        m = loc.shape[0] // n
+        return DTensor.from_local(loc[i * m:(i + 1) * m], x.device_mesh, x.placements,
+                                  run_check=False)
+    b = x.shape[0]
+    return x[i * (b // n):(i + 1) * (b // n)]
+
+
 def broadcast_object(obj: Any, src: int = 0) -> Any:
-    """`obj` as rank `src` has it, on every rank of the world."""
-    if world_size() == 1:
+    """`obj` as rank `src` has it, on every rank of the world. On the
+    dry run's fake backend this process is every rank: nothing moves (an
+    object's broadcast would stage through a device tensor)."""
+    if world_size() == 1 or is_fake():
         return obj
     box = [obj]
     dist.broadcast_object_list(box, src=src)
@@ -171,8 +223,8 @@ def broadcast_object(obj: Any, src: int = 0) -> Any:
 
 def broadcast_tensor(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     """`t` as rank `src` has it, on every rank of the world (every rank
-    passes a tensor of the same shape and dtype)."""
-    if world_size() == 1:
+    passes a tensor of the same shape and dtype; on the fake backend `t`)."""
+    if world_size() == 1 or is_fake():
         return t
     t = t.contiguous()
     if t.dtype == torch.bool:

@@ -138,3 +138,8 @@ def tree_cosine_similarity(a: Tree, b: Tree, eps: float = 1e-12) -> torch.Tensor
 def tree_size(tree: Tree) -> int:
     """Total number of elements."""
     return sum(math.prod(x.shape) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Total bytes of the leaves (a DTensor at its global shape)."""
+    return sum(math.prod(x.shape) * x.dtype.itemsize for x in tree_leaves(tree))
