@@ -91,9 +91,9 @@
    phase's sizes (the olmo-1b bucket included), p in fp32 and bf16, and with
    a NaN and an inf in p, held to their plain versions exactly and timed;
 10. remote phase (Form B across processes, the slice's main path): olmo-1b
-   at full width and 6 layers (the deepest whose snapshot fits the wire's
-   2 GiB frame) trains 4 lockstep SGD-momentum AsyncSAM steps through
-   `RemoteExecutor(serve_ascent=True, job_compress="int8")`, its ascent server
+   at full width and 3 layers (6, the deepest whose snapshot fits the
+   wire's 2 GiB frame, before the examples phase came in) trains 4
+   lockstep SGD-momentum AsyncSAM steps through `RemoteExecutor(serve_ascent=True, job_compress="int8")`, its ascent server
    spawned on the card in a second process; every delta kernel call is held
    to its plain version on its inputs, the launches are counted (0 just
    before, read just after), and the client's shadow must equal a numpy
@@ -107,6 +107,12 @@
    stale reuses and SGD fallbacks; the lanes' spans go to a Chrome trace
    (build/hetero_trace.json) and its hidden-perturbation fraction is printed
    (`repro_torch.obs.compute_overlap`);
+11b. examples phase: `repro_torch.examples.quickstart` and
+   `hetero_async_sam` through their `main()` on the card at their default
+   sizes (the latter's ascent lane on the CPU): each one's final loss, wall
+   time and launches (counts 0 just before, read just after: quickstart's
+   flash launches and AdamW epilogues as its steps imply); quickstart's
+   loss must fall, every run's loss be finite and its accuracy above chance;
 12. rwkv kernel phase: the wkv scan's forward and backward kernels at
    rwkv6-7b's scan shape (8 x 1024 tokens, 64 heads of 64, bf16 r/k/v, fp32
    decay and bonus), a one-token decode step from a state, a ragged S and
@@ -1694,21 +1700,24 @@ def delta_phase() -> dict:
 # remote phase: Form B across processes (the slice's main path)
 # ---------------------------------------------------------------------------
 
-REMOTE_LAYERS, REMOTE_STEPS = 6, 4
-REMOTE_LOSS_SPEC = "chip_smoke:olmo6_loss"
-_OLMO6: list = []
+# 3 layers (6 before the examples phase came in: the deepest whose snapshot
+# fits the wire's 2 GiB frame, 2.02 GB; at 3 a snapshot is 1.22 GB and each
+# exchange's GRAD framing, most of the phase's time, shrinks with it)
+REMOTE_LAYERS, REMOTE_STEPS = 3, 4
+REMOTE_LOSS_SPEC = "chip_smoke:olmo_remote_loss"
+_OLMO_REMOTE: list = []
 
 
-def olmo6_loss(params, batch, gen=None):
+def olmo_remote_loss(params, batch, gen=None):
     """The loss of olmo-1b at full width and REMOTE_LAYERS layers: what the
-    remote phase's ascent server holds (`--loss chip_smoke:olmo6_loss`; the
-    loss specs have no depth override)."""
-    if not _OLMO6:
+    remote phase's ascent server holds (`--loss chip_smoke:olmo_remote_loss`;
+    the loss specs have no depth override)."""
+    if not _OLMO_REMOTE:
         from repro_torch.configs import get_config
         from repro_torch.models import build_model
-        _OLMO6.append(build_model(dataclasses.replace(get_config("olmo-1b"),
-                                                      n_layers=REMOTE_LAYERS)))
-    return _OLMO6[0].loss_fn(params, batch, gen)
+        _OLMO_REMOTE.append(build_model(dataclasses.replace(get_config("olmo-1b"),
+                                                            n_layers=REMOTE_LAYERS)))
+    return _OLMO_REMOTE[0].loss_fn(params, batch, gen)
 
 
 def host_mem_available_gib() -> float:
@@ -1980,6 +1989,63 @@ def hetero_phase() -> dict:
     if not all(math.isfinite(m["loss"]) for m in hist) or ex.ledger.refreshes < 1:
         fail(f"hetero phase: finite losses and a fresh ascent harvested needed: {out}")
     del ex, state, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# examples phase: the user scripts of `repro_torch.examples` on the card
+# ---------------------------------------------------------------------------
+
+def examples_phase() -> dict:
+    """quickstart and hetero_async_sam through their `main()` on the card at
+    their default sizes (quickstart: reduced olmo-1b, 200 AsyncSAM AdamW
+    steps of 8 x 64 tokens; hetero_async_sam: the 64-1024-1024-1024-10 MLP,
+    60 steps of 1,024 rows each of SGD, SAM and AsyncSAM at b/b' 2 and 4 with
+    the ascent lane on the CPU); each one's launches counted from 0 just
+    before it and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples import hetero_async_sam, quickstart
+    from repro_torch.launch.train import kernel_launches
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, mod in (("quickstart", quickstart), ("hetero_async_sam", hetero_async_sam)):
+        reset_launches()                               # counts: 0 just before
+        t0 = time.perf_counter()
+        res = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernel_launches()                   # read just after
+        runs[name] = dict(result=res, wall_s=wall_s, launches=launches)
+        final = res["final_loss"] if name == "quickstart" else {
+            k: v["final_loss"] for k, v in res.items()}
+        print(f"example {name}: final loss {final}, wall time {wall_s:.2f}s, "
+              f"launches {launches}")
+    q, h = runs["quickstart"], runs["hetero_async_sam"]
+    problems = []
+    qr = q["result"]
+    flash_n, _ = flash_per_step(get_config("olmo-1b", reduced=True))
+    want_q = {"flash_attention": flash_n * qr["steps"], "adamw_epilogue": qr["steps"]}
+    if {k: q["launches"][k] for k in want_q} != want_q:
+        problems.append(f"quickstart launches {q['launches']}, expected {want_q}")
+    if not (math.isfinite(qr["final_loss"]) and qr["final_loss"] < qr["first_loss"]):
+        problems.append(f"quickstart loss {qr['first_loss']} -> {qr['final_loss']}")
+    for run, r in h["result"].items():
+        if not (math.isfinite(r["final_loss"]) and r["acc"] > 0.1):
+            problems.append(f"hetero_async_sam {run}: {r}")
+    if h["launches"]["sgd_epilogue"] < 1 or h["launches"]["sam_perturb"] < 1:
+        problems.append(f"hetero_async_sam launches {h['launches']}")
+    if problems:
+        fail(f"examples phase: {problems}")
+    out = {name: dict(wall_s=r["wall_s"], launches=r["launches"]) for name, r in runs.items()}
+    out["quickstart"].update(final_loss=qr["final_loss"], first_loss=qr["first_loss"])
+    out["hetero_async_sam"].update(
+        {run: {k: r[k] for k in ("time_s", "acc", "final_loss", "ledger") if k in r}
+         for run, r in h["result"].items()})
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("examples " + json.dumps(out))
     torch.cuda.empty_cache()
     return out
 
@@ -3737,6 +3803,8 @@ def main() -> int:
     print(f"remote phase: {remote['phase_s']:.2f}s")
     hetero = hetero_phase()
     print(f"hetero phase: {hetero['phase_s']:.2f}s")
+    examples = examples_phase()
+    print(f"examples phase: {examples['phase_s']:.2f}s")
 
     t0 = time.perf_counter()
     wkv = rwkv_kernel_phase()
@@ -3782,7 +3850,8 @@ def main() -> int:
     new_paths = ([r["launches"] for r in arch_served.values()]
                  + [r["launches"] for r in arch_trained.values()]
                  + [variants[m]["launches"] for m in VARIANT_STEPS] + [guarded["launches"]]
-                 + [elastic["launches"]])
+                 + [elastic["launches"]]
+                 + [examples[name]["launches"] for name in ("quickstart", "hetero_async_sam")])
 
     kernels = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",

@@ -3,8 +3,9 @@
 
 `perturb(params, grad, rho)` computes  w + rho * g / ||g||  (paper Eq. 1-3).
 On the fused path (bucket-resident params always, per-leaf params when
-`fused` is not False) it runs on flat buckets: given the norm (AsyncSAM
-carries it), one `fused_axpy` kernel per bucket with the scale
+`utils.buckets.fused_path_enabled(fused)`: unless `fused` is False) it runs
+on flat buckets: given the norm (AsyncSAM carries it), one `fused_axpy`
+kernel per bucket with the scale
 rho / (||g|| + eps); otherwise the reference's two-kernel design
 (`repro/kernels/sam_perturb.py`): one `sq_norm` pass, or the squared norm the
 caller already has, then one `sam_perturb` kernel per bucket. A per-leaf
@@ -26,8 +27,9 @@ _EPS = 1e-12
 
 def on_fused_path(params: Tree, fused: Optional[bool]) -> bool:
     """Whether a step on `params` takes the flat-buffer kernels: resident
-    state always, per-leaf state unless `fused` is False."""
-    return buckets.is_bucketed(params) or fused is not False
+    state always, per-leaf state as `buckets.fused_path_enabled(fused)`
+    says (unless `fused` is False)."""
+    return buckets.is_bucketed(params) or buckets.fused_path_enabled(fused)
 
 
 def grad_sq_norm(grad: Tree, fused: bool) -> torch.Tensor:
@@ -56,7 +58,7 @@ def perturb(params: Tree, grad: Tree, rho: Union[float, torch.Tensor],
     `fused` False keeps per-leaf params on the per-leaf path.
     """
     resident = buckets.is_bucketed(params)
-    if resident or fused is not False:
+    if resident or buckets.fused_path_enabled(fused):
         layout = params.layout if resident else buckets.bucket_layout(params)
         into = out if resident else None
         if grad_norm is not None:

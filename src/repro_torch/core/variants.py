@@ -263,8 +263,7 @@ def make_mesa(cfg: MethodConfig) -> Method:
                 raise ValueError("MESA requires loss_fn aux to include 'logits'")
             ema = ms.ema_params
             with torch.no_grad():
-                _, ema_aux = loss_fn(ema.to_tree() if buckets.is_bucketed(ema) else ema,
-                                     batch, gen)
+                _, ema_aux = loss_fn(buckets.tree_view(ema), batch, gen)
                 p_ema = torch.softmax(ema_aux["logits"].float() / t, dim=-1)
                 del ema_aux
             with torch.set_grad_enabled(active):   # inactive: the term is only a metric

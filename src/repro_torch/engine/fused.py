@@ -38,12 +38,14 @@ computes data-parallel:
 The numbers are the unsharded step's up to summation order. The ranks along
 "model" repeat their dp row's compute: the reference shards that compute by
 heads under GSPMD, and tensor-parallel compute here (around the kernels) is
-speed work (ROADMAP.md queue 1, item 9). A loss whose per-row terms do not
-average (a MoE's load-balancing aux over a batch split) gives the mean of
-the slices' values. A rank outside a smaller mesh (after a shrink) holds
-empty shards, skips the compute, keeps its step count and takes the step's
-metrics from rank 0, so every rank reports the same numbers and can rejoin
-on a grow (`resize`).
+speed work (ROADMAP.md queue 1, item 9). A loss term whose per-row parts
+do not average (a MoE's load-balancing aux, a product of two batch means)
+reads the dp group from `distributed.dp_context`, which the sharded loss
+installs around the model's loss function, and reduces its means over the
+group first: it is the whole batch's value, as the reference's. A rank
+outside a smaller mesh (after a shrink) holds empty shards, skips the
+compute, keeps its step count and takes the step's metrics from rank 0, so
+every rank reports the same numbers and can rejoin on a grow (`resize`).
 """
 from __future__ import annotations
 
@@ -254,8 +256,9 @@ class FusedExecutor:
 
 def _dp_loss(loss_fn: LossFn, mesh) -> LossFn:
     """`loss_fn` data-parallel over `mesh`: the weights gathered, this rank's
-    slice of the batch over the dp axes, the loss and the scalar aux averaged
-    over the dp group (see the module docstring)."""
+    slice of the batch over the dp axes, run inside the dp group's
+    `dp_context`; the loss and the scalar aux averaged over the dp group
+    (see the module docstring)."""
     from repro_torch.launch.mesh import dp_axes
 
     dm, names = mesh.device_mesh, tuple(mesh.axis_names)
@@ -275,7 +278,8 @@ def _dp_loss(loss_fn: LossFn, mesh) -> LossFn:
             batch = trees.tree_map(distributed.gather, batch)
         n_eff = n if split else 1
         full = {k: distributed.gather_for_compute(v, group, n_eff) for k, v in params.items()}
-        loss, aux = loss_fn(full, batch, gen)
+        with distributed.dp_context((group, n_eff)):
+            loss, aux = loss_fn(full, batch, gen)
         if n_eff > 1:
             loss = distributed.dp_mean(loss, group, n_eff)
             aux = {k: (distributed.dp_mean(v, group, n_eff, differentiable=False)

@@ -130,7 +130,7 @@ def serve(cfg: ModelConfig, model: torch.nn.Module,
                   for name, n in mixer_launches(cfg.family).items()})
 
 
-def main() -> None:
+def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -140,7 +140,7 @@ def main() -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     device = resolve_device(args.device)
@@ -158,6 +158,7 @@ def main() -> None:
     for name, n in res.launches.items():
         print(f"{name} kernel launches: {n}")
     print("sample continuation (request 0):", res.tokens[0][:12].tolist())
+    return res
 
 
 if __name__ == "__main__":

@@ -15,6 +15,16 @@ tokens, and a token's output is the gate-weighted sum of the K rows its
 routes name (a dropped route names a zero row). The expert products are
 batched matrix products over E (`torch.bmm`), as the reference's einsums
 are plain products outside any Pallas kernel.
+
+The load-balancing aux `E * sum_e f_e * p_e` is a product of two batch
+means, which does not average over a batch split. Inside a sharded step's
+loss (`utils.distributed.dp_context`, each rank on its slice of the batch)
+both means are reduced over the data-parallel group before their product:
+f_e (the dispatch fraction, no gradient) by an all-reduce mean, p_e (the
+mean router probability) by `distributed.dp_mean`, whose backward leaves
+each rank its own rows' term for the gradient average. So every rank holds
+the whole batch's aux, as the reference's GSPMD means over the global batch
+give it. Outside one, nothing is reduced.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import _act, cdtype
+from repro_torch.utils import distributed
 
 Params = Mapping[str, torch.Tensor]
 
@@ -108,5 +119,10 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
         0, gate_idx.reshape(-1), torch.ones(B * S * K, dtype=torch.float32, device=x.device))
     assign_frac = counts / (B * S)
     mean_prob = probs.mean(dim=(0, 1))
+    dp = distributed.current_dp()
+    if dp is not None:
+        # the whole batch's means (see the module docstring)
+        assign_frac = distributed.dp_mean(assign_frac, *dp, differentiable=False)
+        mean_prob = distributed.dp_mean(mean_prob, *dp)
     aux = moe.router_aux_weight * E * (assign_frac / K * mean_prob).sum()
     return y.to(x.dtype), aux

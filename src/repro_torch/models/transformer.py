@@ -56,6 +56,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils import distributed
 
 Device = Union[str, torch.device]
 
@@ -467,11 +468,21 @@ def _save_projections(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _in_dp_context(dp, fn, *args):
+    with distributed.dp_context(dp):
+        return fn(*args)
+
+
 def remat_call(fn, cfg: ModelConfig, *args):
     """fn(*args), checkpointed per `cfg.remat` when autograd records (the
     reference's `_remat`)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
+    dp = distributed.current_dp()
+    if dp is not None:
+        # the recompute runs in backward, after the sharded step's loss
+        # function has returned: it reduces over the same dp group
+        fn = functools.partial(_in_dp_context, dp, fn)
     if cfg.remat == "full":
         return ckpt.checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "dots":

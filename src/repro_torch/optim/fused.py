@@ -86,7 +86,7 @@ def fused_apply(optimizer: GradientTransform, grads: Tree, opt_state: tuple, par
     """
     spec = optimizer.fused_spec
     resident = buckets.is_bucketed(params)
-    if spec is None or not (resident or spec.enabled is not False):
+    if spec is None or not (resident or buckets.fused_path_enabled(spec.enabled)):
         return None
     fields = _chain_fields(spec)
     layout = params.layout if resident else buckets.bucket_layout(params)

@@ -11,8 +11,9 @@ pointing at the same buffers. Every step derives its generators from
 (rng, step) and the pipeline replays from its cursor, so a restarted run
 gives the same bits as an uninterrupted one.
 
-`PoisonBatch` is the reference's class; the numerics guard that raises it
-is a later slice of the port.
+`PoisonBatch` is the reference's class; the numerics guard
+(`runtime.guard`) raises it at its bottom rung, and the loop then restores
+the checkpoint but keeps the pipeline cursor.
 """
 from __future__ import annotations
 

@@ -26,9 +26,14 @@ wire carry: the reference's tree flattens into its buckets in the same order,
 so a stacked block leaf is a view of the host copy of a bucket, and the
 buckets the ascent server derives from a snapshot's tree are the client's
 device buckets byte for byte.
+
+`track_copies` counts the gather and scatter copies the bucket code makes
+(`CopyStats`); `fused_path_enabled` is the switch every flat-buffer call
+site on per-leaf state consults (`set_fused_default` its process default).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Mapping, Optional, Sequence, Union
@@ -125,6 +130,52 @@ def _shape_of(layout: BucketLayout) -> dict[str, tuple[int, ...]]:
     return dict(zip(layout.names, layout.shapes))
 
 
+# ---------------------------------------------------------------------------
+# Gather/scatter copy accounting
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CopyStats:
+    """Bytes the bucket code moves converting between a tree and buffers.
+
+    Counted: every buffer a gather fills (`BucketedState.from_tree`, so
+    `tree_to_buckets` and `group_buffers` on a mapping: the per-call regime
+    of per-leaf state), at 2N bytes for N payload bytes (each leaf read, the
+    buffer written), a group of one leaf too, since the port's buffer is a
+    tensor of its own; and every leaf `buckets_to_tree` casts to another
+    dtype (read at the buffer's width, written at the leaf's). Not counted:
+    views, the port's scatter (a leaf of the buffer's dtype is a view of it,
+    as `BucketedState.to_tree()`'s leaves are), so the bucket-resident step,
+    buffer -> buffer, counts 0: no copy is made, where the reference's
+    per-call regime scatters every bucket back. `rebucket` and a restore's
+    copies into live buffers (`residentize(like=)`) are not conversions of
+    a step and are not counted, as in the reference.
+    """
+    gather_bytes: int = 0    # bytes of tree -> buffer copies
+    scatter_bytes: int = 0   # bytes of buffer -> tree casts
+    gathers: int = 0
+    scatters: int = 0
+
+    @property
+    def total_bytes(self) -> int:
+        return self.gather_bytes + self.scatter_bytes
+
+
+_COPY_STATS: Optional[CopyStats] = None
+
+
+@contextlib.contextmanager
+def track_copies():
+    """Context manager: count the gather/scatter copies made within (every
+    thread's; see `CopyStats`)."""
+    global _COPY_STATS
+    prev, _COPY_STATS = _COPY_STATS, CopyStats()
+    try:
+        yield _COPY_STATS
+    finally:
+        _COPY_STATS = prev
+
+
 @dataclasses.dataclass(frozen=True)
 class BucketedState:
     """A tree whose leaves are the dtype buckets themselves.
@@ -149,6 +200,9 @@ class BucketedState:
             for n, off, size in zip(grp.names, grp.offsets, grp.sizes):
                 buf[off:off + size].copy_(tree[n].detach().reshape(-1))
             bufs.append(buf)
+            if _COPY_STATS is not None:
+                _COPY_STATS.gathers += 1
+                _COPY_STATS.gather_bytes += 2 * grp.size * buf.element_size()
         return cls(buffers=tuple(bufs), layout=layout)
 
     @classmethod
@@ -193,6 +247,85 @@ def empty_modules(module: nn.Module) -> tuple[str, ...]:
 
 def is_bucketed(x) -> bool:
     return isinstance(x, BucketedState)
+
+
+def tree_view(x):
+    """The tree view of `x`: `.to_tree()` for a BucketedState, else `x`."""
+    return x.to_tree() if is_bucketed(x) else x
+
+
+def tree_to_buckets(tree: Mapping[str, torch.Tensor], layout: BucketLayout
+                    ) -> list[torch.Tensor]:
+    """Gather `tree`'s leaves into one new flat buffer per layout group.
+    `tree` is congruent with the layout's tree (same names and shapes); its
+    dtypes may differ from the layout's if they are uniform within a group
+    (fp32 moments beside bf16 parameters)."""
+    assert len(tree) == layout.n_leaves, (len(tree), layout.n_leaves)
+    for grp in layout.groups:
+        dts = {tree[n].dtype for n in grp.names}
+        assert len(dts) == 1, f"mixed dtypes within bucket {grp.dtype}: {dts}"
+    return list(BucketedState.from_tree(tree, layout).buffers)
+
+
+def buckets_to_tree(bufs: Sequence[torch.Tensor], layout: BucketLayout,
+                    like: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Inverse of tree_to_buckets: each leaf, by name in flatten order, in
+    like's shape and dtype; a view of its buffer where the dtype is the
+    buffer's, a cast copy otherwise."""
+    assert len(like) == layout.n_leaves
+    shapes = _shape_of(layout)
+    out = {}
+    for buf, grp in zip(bufs, layout.groups):
+        cast = 0
+        for n, off, size in zip(grp.names, grp.offsets, grp.sizes):
+            dt = like[n].dtype
+            out[n] = buf[off:off + size].view(shapes[n]).to(dt)
+            if dt != buf.dtype:
+                cast += size * (buf.element_size() + out[n].element_size())
+        if cast and _COPY_STATS is not None:
+            _COPY_STATS.scatters += 1
+            _COPY_STATS.scatter_bytes += cast
+    return {n: out[n] for n in layout.names}
+
+
+def rebucket(state: BucketedState, new_layout: BucketLayout) -> BucketedState:
+    """Re-group a BucketedState's buffers directly into `new_layout`, at the
+    buffer level: an unchanged grouping passes the buffers through untouched
+    (the common elastic-resize case: the layout depends on names, shapes and
+    dtypes, not the mesh); otherwise leaves adjacent in their source buffer
+    travel as one slice, cast to the target group's dtype, and a target
+    group that is one span of one source buffer is that slice, no copy.
+
+    `new_layout` must hold the same leaves and shapes in the same order."""
+    if not is_bucketed(state):
+        raise TypeError(f"rebucket expects a BucketedState, got {type(state)}; "
+                        "use BucketedState.from_tree for a mapping of tensors")
+    old = state.layout
+    if new_layout.names != old.names or new_layout.shapes != old.shapes:
+        raise ValueError(
+            "rebucket needs congruent layouts (same leaves/shapes): "
+            f"{old.n_leaves} leaves {old.shapes[:3]}... vs "
+            f"{new_layout.n_leaves} leaves {new_layout.shapes[:3]}...")
+    if new_layout.groups == old.groups:
+        return BucketedState(buffers=state.buffers, layout=new_layout)
+    src = {}          # leaf name -> (source group index, offset, size)
+    for gi, grp in enumerate(old.groups):
+        for n, off, size in zip(grp.names, grp.offsets, grp.sizes):
+            src[n] = (gi, off, size)
+    bufs = []
+    for grp in new_layout.groups:
+        spans: list[tuple[int, int, int]] = []
+        for n in grp.names:
+            gi, off, size = src[n]
+            if spans and spans[-1][0] == gi and spans[-1][1] + spans[-1][2] == off:
+                g0, o0, s0 = spans[-1]
+                spans[-1] = (g0, o0, s0 + size)    # coalesce an adjacent run
+            else:
+                spans.append((gi, off, size))
+        dt = getattr(torch, grp.dtype)
+        parts = [state.buffers[gi][o:o + s].to(dt) for gi, o, s in spans]
+        bufs.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+    return BucketedState(buffers=tuple(bufs), layout=new_layout)
 
 
 def residentize(params: Union[BucketedState, nn.Module, Mapping[str, torch.Tensor], Tree],
@@ -277,6 +410,36 @@ def to_portable(tree: Tree) -> Tree:
     if isinstance(tree, Mapping):
         return {k: to_portable(v) for k, v in tree.items()}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Fused-path switch
+# ---------------------------------------------------------------------------
+
+_FUSED_DEFAULT: Optional[bool] = None
+
+
+def set_fused_default(enabled: Optional[bool]) -> None:
+    """Process-wide default of the fused weight-space path (a test hook;
+    None restores the port's own)."""
+    global _FUSED_DEFAULT
+    _FUSED_DEFAULT = enabled
+
+
+def fused_path_enabled(override: Optional[bool] = None) -> bool:
+    """Whether a weight-space call on per-leaf state takes the flat-buffer
+    kernels: the override (`MethodConfig.fused_update`, `FusedSpec.enabled`)
+    > the process default (`set_fused_default`) > the port's default, on
+    (the kernels on the card, their plain versions on the CPU; the
+    reference's is on for a TPU only). Off is the reference's per-leaf
+    composition. Bucket-resident state runs the kernels whatever this says,
+    and the executors pin the override when they resolve `fused_update`,
+    so the process default reaches only a call left at None."""
+    if override is not None:
+        return bool(override)
+    if _FUSED_DEFAULT is not None:
+        return _FUSED_DEFAULT
+    return True
 
 
 # ---------------------------------------------------------------------------

@@ -20,11 +20,19 @@ port places tensors as `DTensor`s on a `DeviceMesh` and moves them itself).
   (a `Replicate()` mesh dim) counts once, on the rank at index 0 of that
   dim, and one all-reduce over the flattened mesh adds the per-leaf parts.
 
+* `dp_context` names the data-parallel group of the loss being computed
+  (the sharded step installs it around its loss function, `engine.fused`):
+  a loss term whose per-row parts do not average over a batch split (the
+  MoE router's load-balancing aux) reduces its batch means over the group
+  before it combines them.
+
 Nothing here imports DTensor at module import: only code that meets a
 sharded tensor does.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -32,6 +40,9 @@ import torch.distributed as dist
 
 # id(DeviceMesh) -> (the DeviceMesh, its flattened group, {model index: dp group})
 _MESH_GROUPS: dict[int, tuple[Any, Any, dict]] = {}
+# (dp group, its size) of the loss being computed, None outside a sharded
+# step's loss function (set and reset by `dp_context`)
+_DP: contextvars.ContextVar = contextvars.ContextVar("repro_torch_dp", default=None)
 
 
 def is_initialized() -> bool:
@@ -309,3 +320,21 @@ def dp_mean(t: torch.Tensor, group, n: int, differentiable: bool = True) -> torc
     out = t.detach().clone()
     dist.all_reduce(out, group=group)
     return out / n
+
+
+@contextlib.contextmanager
+def dp_context(dp: Optional[tuple[Any, int]]):
+    """Within: `current_dp()` is `dp`, a (data-parallel group, its size n)
+    over which each rank computes the loss on its slice of the batch, or
+    None (the meshless loss, or a batch every rank computes whole). A size
+    of 1 is taken as None. Reset on exit, so nothing outlives the call."""
+    token = _DP.set(dp if dp is not None and dp[1] > 1 else None)
+    try:
+        yield
+    finally:
+        _DP.reset(token)
+
+
+def current_dp() -> Optional[tuple[Any, int]]:
+    """The (group, n) of the enclosing `dp_context`, None outside one."""
+    return _DP.get()

@@ -7,7 +7,8 @@ walked in sorted key order, as `jax.tree.flatten` walks dicts. A leaf's path
 (`tree_paths`) is the reference's: keys, field names and indices joined by
 "/", where a port parameter name ("blocks.3.attn.wq") is its path in the
 reference's tree ("blocks/attn/wq": the reference stacks the blocks on a
-leading axis). Only the helpers the port uses are ported.
+leading axis). A leaf of a tree is any tensor the tree holds, so the
+leafwise helpers take NamedTuples and BucketedStates alike.
 """
 from __future__ import annotations
 
@@ -96,6 +97,72 @@ def tree_copy_(dst: Tree, src: Tree) -> Tree:
 
 def tree_zeros_like(tree: Tree, dtype=None) -> Tree:
     return tree_map(lambda x: torch.zeros_like(x, dtype=dtype), tree)
+
+
+def tree_ones_like(tree: Tree) -> Tree:
+    return tree_map(torch.ones_like, tree)
+
+
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x: Tree, y: Tree) -> Tree:
+    """alpha * x + y, leafwise (the SAM perturbation primitive)."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_where(pred, a: Tree, b: Tree) -> Tree:
+    """Leafwise select; `pred` is a scalar boolean (a bool or a 0-d tensor)."""
+    return tree_map(lambda x, y: torch.where(torch.as_tensor(pred, device=x.device), x, y),
+                    a, b)
+
+
+def _in_leaf_order(tree: Tree, values: list) -> Tree:
+    """`tree` with its i-th leaf in `tree_leaves` order replaced by
+    values[i] (`tree_map` walks a mapping in its own order)."""
+    by_leaf: dict[int, list] = {}
+    for x, v in zip(tree_leaves(tree), values):
+        by_leaf.setdefault(id(x), []).append(v)
+    return tree_map(lambda x: by_leaf[id(x)].pop(0), tree)
+
+
+def tree_random_like(gen: torch.Generator, tree: Tree, std: float = 1.0) -> Tree:
+    """Gaussian tree matching `tree`'s structure, shapes and dtypes (ESAM
+    masks, the loss landscape's directions, tests): each leaf drawn in fp32
+    from `gen`, in `tree_leaves` order, on gen's device, then cast to the
+    leaf's dtype, moved to its device and scaled by `std`. The reference
+    takes a JAX key and splits it per leaf; the draws differ from its, and
+    the same generator state gives the same tree."""
+    return _in_leaf_order(tree, [
+        torch.randn(tuple(x.shape), generator=gen, dtype=torch.float32, device=gen.device)
+        .to(device=x.device, dtype=x.dtype) * std for x in tree_leaves(tree)])
+
+
+def tree_flatten_to_vector(tree: Tree) -> torch.Tensor:
+    """Concatenate all leaves, in `tree_leaves` order, into one fp32 vector
+    (compression, landscape viz)."""
+    return torch.cat([x.float().reshape(-1) for x in tree_leaves(tree)])
+
+
+def tree_unflatten_from_vector(vec: torch.Tensor, like: Tree) -> Tree:
+    """Inverse of tree_flatten_to_vector against a template tree: each leaf
+    is its span of `vec` in like's shape, cast to like's dtype (a view of
+    `vec` where the dtype is already vec's)."""
+    spans, off = [], 0
+    for x in tree_leaves(like):
+        n = math.prod(x.shape)
+        spans.append(vec[off:off + n].reshape(x.shape).to(x.dtype))
+        off += n
+    return _in_leaf_order(like, spans)
 
 
 def tree_cast(tree: Tree, dtype) -> Tree:

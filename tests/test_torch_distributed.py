@@ -16,6 +16,7 @@ import sys
 import textwrap
 
 import numpy as np
+import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -67,7 +68,7 @@ from repro.models import build_model, synth_batch
 from repro.runtime import make_sized_mesh
 from repro.utils.trees import tree_map_with_path
 
-cfg = get_config("olmo-1b", reduced=True)
+cfg = get_config(ARCH, reduced=True)
 bundle = build_model(cfg)
 params = bundle.init(jax.random.PRNGKey(0))
 batches = [synth_batch(cfg, 8, 16, jax.random.PRNGKey(i), 0.5) for i in range({STEPS})]
@@ -79,18 +80,21 @@ mcfg = MethodConfig(name="async_sam", rho=0.02, ascent_fraction=0.5)
 ex = FusedExecutor(bundle.loss_fn, mcfg, optim.sgd(1e-2, momentum=0.9),
                    mesh=make_sized_mesh(8, 2), model_cfg=cfg)
 state = ex.init_state(params, jax.random.PRNGKey(1))
-losses = []
+losses, aux = [], []
 for b in batches:
     state, m = ex.step(state, b)
     losses.append(float(m["loss"]))
-out["losses"] = np.asarray(losses)
+    aux.append(float(m["moe_aux"]))
+out["losses"], out["moe_aux"] = np.asarray(losses), np.asarray(aux)
 tree_map_with_path(lambda p, x: out.__setitem__("final/" + p, np.asarray(x)),
                    jax.device_get(state.params))
 np.savez(OUT, **out)
 print("REFERENCE_OK")
 '''
 
-_SHARDED = '''
+# the ranks' common part: the reference's init and batches from its npz, and
+# a training run of the port on a mesh (None: one device)
+_SHARDED_COMMON = '''
 import numpy as np
 from repro_torch import optim
 from repro_torch.configs import get_config
@@ -115,9 +119,11 @@ def nest(flat, prefix):
     return tree
 
 
-def run(rank, world, tmp):
+def trainer(tmp):
+    """train(mesh) -> (executor, state, losses, moe_aux values): the
+    reference's 4 steps from its init on its batches."""
     ref = dict(np.load(f"{tmp}/reference.npz"))
-    cfg = get_config("olmo-1b", reduced=True)
+    cfg = get_config(ARCH, reduced=True)
     bundle = build_model(cfg)
     sd = params_from_jax(nest(ref, "init/"))
     batches = []
@@ -136,14 +142,22 @@ def run(rank, world, tmp):
         ex = FusedExecutor(bundle.loss_fn, mcfg, optim.sgd(1e-2, momentum=0.9), mesh=mesh,
                            model_cfg=cfg)
         state = ex.init_state(model(), 1)
-        losses = []
+        losses, aux = [], []
         for b in batches:
             state, m = ex.step(state, b)
             losses.append(float(m["loss"]))
-        return ex, state, losses
+            aux.append(float(m["moe_aux"]))
+        return ex, state, losses, aux
 
+    return cfg, train
+'''
+
+_SHARDED = _SHARDED_COMMON + '''
+
+def run(rank, world, tmp):
+    cfg, train = trainer(tmp)
     mesh = make_sized_mesh(8, 2)
-    ex, state, losses = train(mesh)
+    ex, state, losses, _ = train(mesh)
     assert not ex.resident and not ex.fused_update and ex.sharded
     # every leaf the rules shard holds 1/N of it here, N its sharded mesh dims
     specs = state_spec_tree(state, cfg, mesh)
@@ -160,7 +174,7 @@ def run(rank, world, tmp):
             assert x.to_local().numel() * n == x.numel(), (k, spec_tree[k])
             shares[k] = n
     full = {k: distributed.gather(v) for k, v in state.params.items()}
-    _, plain, plain_losses = train(None)       # one device: fused and resident
+    _, plain, plain_losses, _ = train(None)    # one device: fused and resident
     return {"losses": losses, "plain_losses": plain_losses, "shares": shares,
             "params": to_reference(full, leaf=lambda t: t.numpy()),
             "plain": to_reference(plain.params.to_tree(), leaf=lambda t: t.detach().numpy())}
@@ -169,10 +183,20 @@ def run(rank, world, tmp):
 
 def _flat(tree, prefix=""):
     out = {}
-    for k, v in tree.items():
-        p = f"{prefix}/{k}" if prefix else k
-        out.update(_flat(v, p) if isinstance(v, dict) else {p: v})
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        p = f"{prefix}/{k}" if prefix else str(k)
+        out.update(_flat(v, p) if isinstance(v, (dict, list)) else {p: v})
     return out
+
+
+def reference_run(tmp_path, subprocess_py, arch: str) -> dict:
+    """The reference's 4 steps of `arch` (reduced) on make_sized_mesh(8, 2),
+    with its init and batches, as `tmp_path/reference.npz`."""
+    out = subprocess_py(f"OUT = {str(tmp_path / 'reference.npz')!r}\nARCH = {arch!r}\n"
+                        + _REFERENCE, devices=8, timeout=RANK_TIMEOUT_S)
+    assert "REFERENCE_OK" in out
+    return dict(np.load(tmp_path / "reference.npz"))
 
 
 def test_sharded_async_sam_matches_unsharded_and_the_reference(tmp_path, subprocess_py):
@@ -182,11 +206,8 @@ def test_sharded_async_sam_matches_unsharded_and_the_reference(tmp_path, subproc
     at the reference's own bound (max|dp| < 5e-4, |dloss| < 1e-3,
     tests/test_sharding_dryrun.py) and against the reference's sharded run at
     rtol 2e-5, atol 1e-6."""
-    out = subprocess_py(f"OUT = {str(tmp_path / 'reference.npz')!r}\n" + _REFERENCE,
-                        devices=8, timeout=RANK_TIMEOUT_S)
-    assert "REFERENCE_OK" in out
-    ranks = spawn_ranks(tmp_path, _SHARDED)
-    ref = dict(np.load(tmp_path / "reference.npz"))
+    ref = reference_run(tmp_path, subprocess_py, "olmo-1b")
+    ranks = spawn_ranks(tmp_path, 'ARCH = "olmo-1b"\n' + _SHARDED)
     r0 = ranks[0]
     for r in ranks[1:]:
         assert r["losses"] == r0["losses"]
@@ -202,6 +223,58 @@ def test_sharded_async_sam_matches_unsharded_and_the_reference(tmp_path, subproc
     np.testing.assert_allclose(r0["losses"], ref["losses"], rtol=2e-5, atol=1e-6)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-6, err_msg=k)
+
+
+_SHARDED_MOE = _SHARDED_COMMON + '''
+
+def run(rank, world, tmp):
+    cfg, train = trainer(tmp)
+    mesh = make_sized_mesh(8, 2)
+    _, state, losses, aux = train(mesh)
+    full = {k: distributed.gather(v) for k, v in state.params.items()}
+    # the fault the dp context repairs: each rank's aux from its own rows,
+    # and the dp group's mean of those slice values
+    distributed.current_dp = lambda: None
+    _, sliced, sliced_losses, sliced_aux = train(mesh)
+    sliced_full = {k: distributed.gather(v) for k, v in sliced.params.items()}
+    return {"losses": losses, "moe_aux": aux,
+            "params": to_reference(full, leaf=lambda t: t.numpy()),
+            "sliced_losses": sliced_losses, "sliced_aux": sliced_aux,
+            "sliced": to_reference(sliced_full, leaf=lambda t: t.numpy())}
+'''
+
+
+def _within(got, want, rtol=2e-5, atol=1e-6) -> bool:
+    return bool(np.all(np.abs(np.asarray(got) - np.asarray(want))
+                       <= atol + rtol * np.abs(np.asarray(want))))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b"])
+def test_sharded_moe_aux_is_the_whole_batchs(tmp_path, subprocess_py, arch):
+    """4 SGD-momentum AsyncSAM steps of a reduced MoE model on
+    make_sized_mesh(8, 2) (4 dp ranks of 2 rows, 1 ascent row each): the
+    loss, `moe_aux` and the parameters after the steps hold to the
+    reference's sharded run at rtol 2e-5, atol 1e-6, because each rank's
+    router reduces its dispatch fraction and mean probability over the dp
+    group before their product. A run whose ranks each take their own rows'
+    aux (the dp group's mean of slice values) misses that tolerance, on
+    `moe_aux` from the first step."""
+    ref = reference_run(tmp_path, subprocess_py, arch)
+    ranks = spawn_ranks(tmp_path, f"ARCH = {arch!r}\n" + _SHARDED_MOE)
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        assert r["losses"] == r0["losses"] and r["moe_aux"] == r0["moe_aux"]
+    assert min(r0["moe_aux"]) > 0
+    got, sliced = _flat(r0["params"]), _flat(r0["sliced"])
+    want = {k[len("final/"):]: v for k, v in ref.items() if k.startswith("final/")}
+    assert got.keys() == want.keys()
+    np.testing.assert_allclose(r0["losses"], ref["losses"], rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(r0["moe_aux"], ref["moe_aux"], rtol=2e-5, atol=1e-6)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-6, err_msg=k)
+    assert not _within(r0["sliced_aux"][0], ref["moe_aux"][0])
+    assert not _within(r0["sliced_losses"], ref["losses"])
+    assert not all(_within(sliced[k], want[k]) for k in want)
 
 
 _RESHARD = '''
