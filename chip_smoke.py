@@ -26,8 +26,11 @@
    unaligned cases; deepseek-v2-lite's MLA prefill at batch 8, mixtral's
    2 x 8192 prefill with its 4096-token window, phi-3-vision's hd 96 and
    whisper-tiny's 6 heads of 64, non-causal (encoder, cross) and causal
-   (decoder self)), each case also held to the kernel path it must take:
-   wgmma (TMA + wgmma) for every shape of the model paths;
+   (decoder self), and the local heads of the tensor-parallel layout:
+   olmo-1b's 16 heads on a 2- and a 16-way "model" axis (8 and 1) and
+   qwen3-8b's 32/8 on 4 (8/2), each timed beside its full-head case), each
+   case also held to the kernel path it must take: wgmma (TMA + wgmma) for
+   every shape of the model paths;
 5. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
    serves 8 requests x 1024 prompt tokens + 32 greedy tokens through
    `repro_torch.launch.serve.serve`; the launch counts, set to 0 just before
@@ -81,9 +84,13 @@
    predicted peak within DRYRUN_PEAK_TOL of the train phase's
    max_memory_allocated, and it prints the predicted flops over the median
    step; then `launch.dryrun.run_cell` on the card's path for four production
-   cells (olmo-1b train_4k on 16x16 and qwen2.5-32b train_4k on 2x16x16 at a
-   depth cut, zamba2-1.2b long_500k, deepseek-v2-lite-16b prefill_32k), each
-   record printed; the traces must leave memory_allocated and, after a
+   cells (olmo-1b train_4k on 16x16 at 1 and 2 layers and qwen2.5-32b
+   train_4k on 2x16x16 at a depth cut, zamba2-1.2b long_500k,
+   deepseek-v2-lite-16b prefill_32k), each record printed, and the mesh
+   layout's two checks: olmo-1b's rank-0 flops at full depth (from its two
+   cuts) at most an eighth of the data-parallel layout's 754.3 TFLOP, and
+   qwen2.5-32b's peak at its cut at least the cut's share of 100 GiB below
+   the old layout's record there; the traces must leave memory_allocated and, after a
    reset, max_memory_allocated unchanged; then the custom ops' dispatch cost
    (flash and the AdamW epilogue through the dispatcher against their launch
    called directly, host time a call, in turns);
@@ -300,7 +307,19 @@ FLASH_CASES = [
      "wgmma"),
     ("bf16 hd 40", (2, 256, 256, 4, 2, 40, 40), "bfloat16", True, None, 0, "cuda_cores"),
     ("fp32", (2, 256, 256, 4, 2, 64, 64), "float32", True, None, 0, "cuda_cores"),
+    # the heads one rank computes under the tensor-parallel layout (the
+    # attention sharded on heads over "model", `models.layers`)
+    ("olmo-1b prefill, 8 local heads (model 2)", (8, 1024, 1024, 8, 8, 128, 128),
+     "bfloat16", True, None, 0, "wgmma"),
+    ("olmo-1b prefill, 1 local head (model 16)", (8, 1024, 1024, 1, 1, 128, 128),
+     "bfloat16", True, None, 0, "wgmma"),
+    ("qwen3-8b prefill, 8/2 local heads (model 4)", (8, 1024, 1024, 8, 2, 128, 128),
+     "bfloat16", True, None, 0, "wgmma"),
 ]
+# each local-head case beside the full-head case of its model
+LOCAL_HEAD_CASES = {"olmo-1b prefill, 8 local heads (model 2)": "olmo-1b prefill",
+                    "olmo-1b prefill, 1 local head (model 16)": "olmo-1b prefill",
+                    "qwen3-8b prefill, 8/2 local heads (model 4)": "qwen3-8b prefill"}
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -342,7 +361,7 @@ def flash_phase() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    main_case, failures = None, []
+    main_case, failures, rows = None, [], {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, shape, dtype, causal, window, offset, want_path in FLASH_CASES:
         b, sq, sk, h, kv, hd, hd_v = shape
@@ -369,6 +388,11 @@ def flash_phase() -> dict:
                    path=path, want_path=want_path, max_abs_err=err, atol=tol["atol"],
                    rtol=tol["rtol"], ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
+        full = rows.get(LOCAL_HEAD_CASES.get(name))
+        if full is not None:
+            row.update(full_case=full["case"], full_ms=full["ms"],
+                       full_over_local=full["ms"] / ms)
+        rows[name] = row
         print("flash_attention " + json.dumps(row))
         if not ok:
             failures.append(name)
@@ -3598,13 +3622,28 @@ def train_profile(ex, state, pipe, family: str = "adamw", tag: str = "") -> dict
 # bytes, a large one to 2 MiB) and holds cuBLAS's workspaces, which the
 # trace, counting tensors' storages, does not see.
 DRYRUN_PEAK_TOL = 0.10
+# The mesh layout's two checks. olmo-1b train_4k 16x16 computed 754.3 TFLOP
+# a step on rank 0 in the data-parallel layout before this one (PERF.md, the
+# dry run's records): its flops at full depth, from the 1- and 2-layer cuts
+# (the layers are alike: f(16) = f(1) + 15 (f(2) - f(1))), must be at most
+# an eighth of that. qwen2.5-32b train_4k 2x16x16 held every weight gathered whole at
+# once, 122 GiB at full depth: at a cut of QWEN_CUT layers its peak must lie
+# at least (QWEN_CUT - 1) / 63 of 100 GiB below the old layout's record at
+# that cut (QWEN_OLD_PEAK: bytes, `launch.dryrun.run_cell` of the commit
+# before the per-layer gathers at the same cut, whose records on the CPU
+# equal the card's), the share of the layers whose weights the per-layer
+# gathers no longer hold together.
+OLMO_OLD_TFLOP, OLMO_LAYERS = 754.3, 16
+QWEN_CUT, QWEN_LAYERS, QWEN_OLD_PEAK = 4, 64, 234_791_324_732
+QWEN_DROP_GIB = 100.0
 # (arch, shape, multi-pod, layers: a depth cut, None for full depth). The
 # full-depth cells of every arch are `python -m repro_torch.launch.dryrun
 # --all --both-meshes`'s (PERF.md); here each cell shows that the card's path
 # traces on the production mesh, at a depth that keeps the phase short.
-DRYRUN_CELLS = (("olmo-1b", "train_4k", False, 1), ("zamba2-1.2b", "long_500k", False, None),
+DRYRUN_CELLS = (("olmo-1b", "train_4k", False, 1), ("olmo-1b", "train_4k", False, 2),
+                ("zamba2-1.2b", "long_500k", False, None),
                 ("deepseek-v2-lite-16b", "prefill_32k", False, None),
-                ("qwen2.5-32b", "train_4k", True, 1))
+                ("qwen2.5-32b", "train_4k", True, QWEN_CUT))
 DISPATCH_CALLS, DISPATCH_ROUNDS = 2000, 3
 
 
@@ -3652,6 +3691,49 @@ def dispatch_cost() -> dict:
     return out
 
 
+def dryrun_cells() -> tuple[list, float, float]:
+    """`launch.dryrun.run_cell` on the card's path for DRYRUN_CELLS, each
+    record printed, and the mesh layout's two checks (olmo-1b's flops at
+    full depth from its two cuts, qwen2.5-32b's peak at its cut). Returns
+    (the records, olmo-1b's full-depth flops, qwen2.5-32b's peak bytes)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cells, olmo_flops = [], {}
+    for arch, shape, multi_pod, layers in DRYRUN_CELLS:
+        full = get_config(arch)
+        cut = dc.replace(full, n_layers=layers) if layers else None
+        tag = f"layers {layers} of {full.n_layers}" if layers else ""
+        r = dryrun.run_cell(arch, shape, multi_pod=multi_pod, device="cuda", save=False,
+                            verbose=False, cfg_override=cut, tag=tag)
+        print("dryrun cell " + json.dumps(r.to_json()))
+        if r.status != "ok":
+            fail(f"dry run: {arch} x {shape} x {r.mesh}: {r.status} {r.note}")
+        cells.append(r.to_json())
+        if arch == "olmo-1b":
+            olmo_flops[layers] = r.flops
+        if arch == "qwen2.5-32b":
+            qwen_peak = r.peak_memory_per_device
+    full_flops = olmo_flops[1] + (OLMO_LAYERS - 1) * (olmo_flops[2] - olmo_flops[1])
+    limit = OLMO_OLD_TFLOP * 1e12 / 8
+    print(f"dry run: olmo-1b train_4k 16x16 rank 0 {full_flops / 1e12:.4f} TFLOP a step at "
+          f"full depth (from the 1- and 2-layer cuts {olmo_flops[1]:.6e}, "
+          f"{olmo_flops[2]:.6e}), limit an eighth of {OLMO_OLD_TFLOP}: {limit / 1e12:.4f}")
+    if full_flops > limit:
+        fail(f"dry run: olmo-1b train_4k rank 0 computes {full_flops / 1e12:.4f} TFLOP a "
+             f"step, over an eighth of the data-parallel layout's {OLMO_OLD_TFLOP}")
+    drop = QWEN_DROP_GIB * (QWEN_CUT - 1) / (QWEN_LAYERS - 1)
+    print(f"dry run: qwen2.5-32b train_4k 2x16x16 at {QWEN_CUT} layers: peak "
+          f"{qwen_peak / 2**30:.4f} GiB, the old layout's {QWEN_OLD_PEAK / 2**30:.4f} GiB "
+          f"(drop {(QWEN_OLD_PEAK - qwen_peak) / 2**30:.4f}, at least {drop:.4f})")
+    if QWEN_OLD_PEAK - qwen_peak < drop * 2**30:
+        fail(f"dry run: qwen2.5-32b train_4k 2x16x16 at {QWEN_CUT} layers peaks at "
+             f"{qwen_peak / 2**30:.4f} GiB, less than {drop:.4f} GiB below the old "
+             f"layout's {QWEN_OLD_PEAK / 2**30:.4f}")
+    return cells, full_flops, qwen_peak
+
+
 def dryrun_phase(trained: dict) -> dict:
     """(a) The abstract twin of the AdamW train phase: the same executor,
     its state from `abstract_state` and the batch from `batch_spec`, fake
@@ -3659,13 +3741,9 @@ def dryrun_phase(trained: dict) -> dict:
     kernels equal the train phase's launches a step, the predicted peak is
     within DRYRUN_PEAK_TOL of its max_memory_allocated, and the traces
     allocate nothing on the card (memory_allocated and, after a reset,
-    max_memory_allocated unchanged). (b) `launch.dryrun.run_cell` on the
-    card's path for DRYRUN_CELLS, each record printed. (c) the custom ops'
-    dispatch cost."""
-    import dataclasses as dc
+    max_memory_allocated unchanged). (b) `dryrun_cells`: the production
+    cells and the mesh layout's checks. (c) the custom ops' dispatch cost."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
     from repro_torch.models import batch_spec
     from repro_torch.models.config import ShapeSpec
     from repro_torch.utils import abstract
@@ -3702,17 +3780,7 @@ def dryrun_phase(trained: dict) -> dict:
              f"measured {trained['peak_gib']:.4f} GiB (limit {DRYRUN_PEAK_TOL})")
     del state, batch, ex
 
-    cells = []
-    for arch, shape, multi_pod, layers in DRYRUN_CELLS:
-        full = get_config(arch)
-        cut = dc.replace(full, n_layers=layers) if layers else None
-        tag = f"layers {layers} of {full.n_layers}" if layers else ""
-        r = dryrun.run_cell(arch, shape, multi_pod=multi_pod, device="cuda", save=False,
-                            verbose=False, cfg_override=cut, tag=tag)
-        print("dryrun cell " + json.dumps(r.to_json()))
-        if r.status != "ok":
-            fail(f"dry run: {arch} x {shape} x {r.mesh}: {r.status} {r.note}")
-        cells.append(r.to_json())
+    cells, full_flops, qwen_peak = dryrun_cells()
     torch.cuda.synchronize()
     after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
     print(f"dry run: memory_allocated {before} before the traces, {after} after; "
@@ -3726,7 +3794,7 @@ def dryrun_phase(trained: dict) -> dict:
     return dict(phase_s=time.perf_counter() - t0, twin_s=twin_s, kernels=lowered.kernels,
                 predicted_peak_gib=predicted_gib, measured_peak_gib=trained["peak_gib"],
                 peak_rel=rel, flops=lowered.flops, tflops=tflops, cells=cells,
-                dispatch=cost)
+                olmo_full_flops=full_flops, qwen_peak=qwen_peak, dispatch=cost)
 
 
 def main() -> int:

@@ -10,6 +10,7 @@ from repro_torch.engine.api import (  # noqa: F401
     FitReport,
     cost_analysis_dict,
     ensure_metric_contract,
+    mesh_context,
     scalar_metrics,
 )
 from repro_torch.engine.callbacks import (  # noqa: F401

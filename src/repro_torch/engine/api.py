@@ -11,6 +11,7 @@ parity tests never special-case the schedule.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -39,6 +40,15 @@ def ensure_metric_contract(metrics: dict, *, tau, perturbed) -> dict:
     metrics.setdefault("tau", tau)
     metrics.setdefault("perturbed", perturbed)
     return metrics
+
+
+def mesh_context(mesh) -> contextlib.AbstractContextManager:
+    """The mesh's compute layout for the model code run inside (the
+    reference's `mesh_context` with `activation_sharding`): this rank's
+    `models.partitioning.Layout` on a sharded live mesh; nothing for None,
+    an abstract mesh or one of 1 device."""
+    from repro_torch.models.partitioning import activation_sharding
+    return activation_sharding(mesh)
 
 
 def cost_analysis_dict(lowered) -> dict:

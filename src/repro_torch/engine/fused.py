@@ -21,25 +21,31 @@ With `mesh` (a `launch.mesh.Mesh`, and then `model_cfg` for the sharding
 rules) of more than one rank, the state is stored sharded: every leaf a
 DTensor placed by `launch.sharding.state_spec_tree` (ZeRO-3 storage), each
 rank holding 1/N of a leaf that the rules shard over N devices. The step
-computes data-parallel:
-  * each rank gathers the weights to full tensors (`distributed.
-    gather_for_compute`, differentiable) and runs the meshless model on its
-    slice of the batch over the dp axes (the ascent slice too); a leading
-    dim the dp axes do not divide is not split, as `batch_spec_tree` drops
-    it. The batch may come whole on every rank (the pipeline's) or placed
-    by `batch_spec_tree` (DTensor leaves: each rank's rows are its local
-    shard, and microbatches are chunks of them);
+computes in the reference's mesh layout (`api.mesh_context`,
+`models.partitioning`):
+  * each rank runs the model on its slice of the batch over the dp axes
+    (the ascent slice too); a leading dim the dp axes do not divide is not
+    split, as `batch_spec_tree` drops it. The batch may come whole on every
+    rank (the pipeline's) or placed by `batch_spec_tree` (DTensor leaves:
+    each rank's rows are its local shard; microbatch i is the global chunk
+    i, placed the same way);
+  * the weights are gathered one layer at a time where the layer runs
+    (`partitioning.gather_block`, differentiable): over the dp axes only
+    where tensor-parallel code consumes the rank's "model" shard (the "tp"
+    profile's attention heads, MLP and vocabulary: the ranks along "model"
+    split that compute, Megatron-style), whole elsewhere;
   * the loss (and each scalar aux) is the mean over the dp group, and each
-    weight's gradient is averaged over the dp group and cut to its shard;
+    weight's gradient is averaged over the dp group (summed over the model
+    group where each model rank used a part of a whole weight) and cut to
+    its shard;
   * the per-leaf weight-space path (perturbation, ascent refresh, optimizer
     chain) runs on the DTensor leaves, elementwise on each shard; its norms
     and dots reduce in one all-reduce over the flattened mesh, so every rank
     sees the same bits (`utils.trees`).
-The numbers are the unsharded step's up to summation order. The ranks along
-"model" repeat their dp row's compute: the reference shards that compute by
-heads under GSPMD, and tensor-parallel compute here (around the kernels) is
-speed work (ROADMAP.md queue 1, item 9). A loss term whose per-row parts
-do not average (a MoE's load-balancing aux, a product of two batch means)
+The numbers are the unsharded step's up to summation order. The logits of a
+vocab-sharded head stay sharded (`registry.vocab_parallel_cross_entropy`);
+aux["logits"] is gathered whole for a method that reads it (MESA). A loss
+term whose per-row parts do not average (a MoE's load-balancing aux, a product of two batch means)
 reads the dp group from `distributed.dp_context`, which the sharded loss
 installs around the model's loss function, and reduces its means over the
 group first: it is the whole batch's value, as the reference's. A rank
@@ -141,7 +147,11 @@ class FusedExecutor:
     def _make_step(self):
         """The method's step, built afresh (its workspace is tied to the
         state's placement), on the data-parallel loss when sharded."""
-        loss_fn = _dp_loss(self._loss_fn, self.mesh) if self.sharded else self._loss_fn
+        if not self.sharded:
+            return self.method.make_step(self._loss_fn, self.optimizer)
+        # MESA reads aux["logits"] over the whole vocabulary
+        vocab = self.model_cfg.vocab_size if self.method.name == "mesa" else None
+        loss_fn = _dp_loss(self._loss_fn, self.mesh, whole_vocab=vocab)
         return self.method.make_step(loss_fn, self.optimizer)
 
     def init_state(self, params, seed: int = 0) -> TrainState:
@@ -254,16 +264,24 @@ class FusedExecutor:
         self.close()
 
 
-def _dp_loss(loss_fn: LossFn, mesh) -> LossFn:
-    """`loss_fn` data-parallel over `mesh`: the weights gathered, this rank's
-    slice of the batch over the dp axes, run inside the dp group's
-    `dp_context`; the loss and the scalar aux averaged over the dp group
-    (see the module docstring)."""
+def _dp_loss(loss_fn: LossFn, mesh, whole_vocab: Optional[int] = None) -> LossFn:
+    """`loss_fn` over `mesh`: this rank's slice of the batch over the dp
+    axes, run inside the mesh's layout and the dp group's `dp_context` on
+    the sharded weights (a model bundle's loss gathers them layer by layer;
+    any other loss function gets them gathered whole); the loss
+    and the scalar aux averaged over the dp group (see the module
+    docstring). `whole_vocab`: aux["logits"] of a vocab-sharded head
+    gathered to that many entries over "model"."""
+    from repro_torch.engine.api import mesh_context
     from repro_torch.launch.mesh import dp_axes
+    from repro_torch.models import partitioning
+
+    from repro_torch.models.registry import ModelBundle
 
     dm, names = mesh.device_mesh, tuple(mesh.axis_names)
     dp_dims = [names.index(a) for a in dp_axes(mesh)]
     _, dp_groups = distributed.mesh_groups(dm)
+    per_layer = isinstance(getattr(loss_fn, "__self__", None), ModelBundle)
 
     def fn(params, batch, gen):
         coord = dm.get_coordinate()
@@ -277,9 +295,16 @@ def _dp_loss(loss_fn: LossFn, mesh) -> LossFn:
         else:
             batch = trees.tree_map(distributed.gather, batch)
         n_eff = n if split else 1
-        full = {k: distributed.gather_for_compute(v, group, n_eff) for k, v in params.items()}
-        with distributed.dp_context((group, n_eff)):
-            loss, aux = loss_fn(full, batch, gen)
+        with mesh_context(mesh), distributed.dp_context((group, n_eff)):
+            if not per_layer:
+                params = {k: partitioning.gather_leaf(v) for k, v in params.items()}
+            loss, aux = loss_fn(params, batch, gen)
+            logits = aux.get("logits")
+            if whole_vocab is not None and isinstance(logits, torch.Tensor) \
+                    and logits.dim() and logits.shape[-1] != whole_vocab:
+                lay = partitioning.current_layout()
+                aux = {**aux, "logits": distributed.gather_from_model(
+                    logits, lay.model_group, lay.m, lay.r)}
         if n_eff > 1:
             loss = distributed.dp_mean(loss, group, n_eff)
             aux = {k: (distributed.dp_mean(v, group, n_eff, differentiable=False)

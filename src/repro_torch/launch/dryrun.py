@@ -9,10 +9,10 @@ For each cell this script
      gathers and all-reduces included;
   2. builds the state, batch and cache as fake tensors placed by the
      sharding rules (`FusedExecutor.abstract_state`; `state_spec_tree`,
-     `batch_spec_tree` and `cache_spec_tree` for the serve cells): nothing
+     `batch_spec_tree` and `serve_cache_spec_tree` for the serve cells): nothing
      is allocated on a device, no collective moves a byte;
   3. traces rank 0's step once (`utils.abstract.trace`: the AsyncSAM train
-     step through `FusedExecutor.lower`, or the data-parallel serve step of
+     step through `FusedExecutor.lower`, or the sharded serve step of
      `launch.steps`), recording its ops, flops, collectives, kernels and
      live bytes;
   4. writes a JSON artifact with the reference's fields.
@@ -27,9 +27,14 @@ trace (`engine.api.cost_analysis_dict`), `peak_memory_per_device`,
 the collective inventory from its `c10d` ops (no HLO text to read).
 
 The sharded cells trace the port's step, which stores the state 1/N a rank
-and computes data-parallel on gathered weights (`engine.fused`), not the
-reference's GSPMD step, which shards the compute by heads: the two
-inventories differ by design (ROADMAP.md queue 1, item 9).
+and computes in the reference's mesh layout (`engine.fused`,
+`models.partitioning`): each layer's weights gathered where it runs, and
+under the "tp" profile attention on the rank's heads, the MLP on its d_ff
+and the logits on its vocabulary, with their all-reduces over "model". The
+collectives are the port's own (explicit gathers, Megatron's f and g), not
+GSPMD's, so the two inventories still differ; the modules whose layouts are
+not ported yet (sequence parallelism, MoE experts, MLA, rwkv6, mamba2, the
+encoder-decoder) compute on whole weights (ROADMAP.md queue 1, item 9).
 
 `--device cuda` (the default) traces the card's path with its kernels (the
 kernels' `torch.library` ops and their fake shapes). `--device cpu` traces
@@ -189,9 +194,11 @@ def train_inputs(cfg: ModelConfig, shape: ShapeSpec, mesh, method_cfg: MethodCon
 def serve_inputs(cfg: ModelConfig, shape: ShapeSpec, mesh, device: str = "cuda") -> tuple:
     """The serve step's arguments on the live `mesh`: (params, batch) for a
     prefill cell, (params, cache, batch) for a decode cell, each placed by
-    its rules (`state_spec_tree`, `cache_spec_tree`, `batch_spec_tree`)."""
+    its rules (`state_spec_tree`, `batch_spec_tree`; the cache as the serve
+    step keeps it, `serve_cache_spec_tree`)."""
     from repro_torch.core.api import per_leaf
-    from repro_torch.launch.sharding import batch_spec_tree, cache_spec_tree, state_spec_tree
+    from repro_torch.launch.sharding import (batch_spec_tree, serve_cache_spec_tree,
+                                             state_spec_tree)
     from repro_torch.utils import abstract
 
     with abstract.fake_mode():
@@ -203,7 +210,7 @@ def serve_inputs(cfg: ModelConfig, shape: ShapeSpec, mesh, device: str = "cuda")
         else:
             cache = _abstract_cache(cfg, shape, device=device)
             batch = decode_batch_spec(cfg, shape, device=device)
-            args = (params, place_tree(cache, cache_spec_tree(cache, cfg, mesh), mesh))
+            args = (params, place_tree(cache, serve_cache_spec_tree(cache, cfg, mesh), mesh))
         return args + (place_tree(batch, batch_spec_tree(batch, mesh), mesh),)
 
 

@@ -101,7 +101,14 @@ def _live_mesh(axis_sizes: tuple[int, ...], axis_names: tuple[str, ...],
         members = (grid.select(m, j) if m is not None else grid).reshape(-1).tolist()
         dp_groups[j] = (dist.group.WORLD if len(members) == world
                         else dist.new_group(members))
-    distributed.register_mesh(dm, flat, dp_groups)
+    # one model group per dp index: the ranks along "model" that share their
+    # rows (tensor-parallel compute reduces over it); none for a 1-wide axis
+    model_groups = {}
+    if m is not None and axis_sizes[m] > 1:
+        for j, members in enumerate(grid.movedim(m, -1).reshape(-1, axis_sizes[m]).tolist()):
+            model_groups[j] = (dist.group.WORLD if len(members) == world
+                               else dist.new_group(members))
+    distributed.register_mesh(dm, flat, dp_groups, model_groups)
     mesh = _LIVE[key] = Mesh(axis_names, tuple(axis_sizes), device_type, ranks, dm)
     return mesh
 

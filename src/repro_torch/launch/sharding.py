@@ -29,7 +29,7 @@ from typing import Any, Callable, Mapping
 
 from repro_torch.launch.mesh import axis_size, dp_axes
 from repro_torch.models.partitioning import PartitionSpec as P
-from repro_torch.models.partitioning import make_rules, param_partition_spec
+from repro_torch.models.partitioning import make_rules, param_partition_spec, tp_enabled
 from repro_torch.utils import buckets
 
 Tree = Any
@@ -117,41 +117,101 @@ def cache_spec_tree(cache_shapes: Tree, cfg, mesh) -> Tree:
     not divide (batch 1, long context) the sequence also takes the idle dp
     axes. States (ssm/wkv/conv/shift): heads/channels -> "model", batch -> dp.
     """
+    return map_leaves(lambda path, leaf, blocks: _cache_leaf_spec(path, leaf, mesh),
+                      cache_shapes)
+
+
+def _cache_leaf_spec(path: str, leaf, mesh) -> P:
     dp = dp_axes(mesh)
+    name = path.split("/")[-1]
+    nd, shape = _ndim(leaf), tuple(leaf.shape)
+    if nd == 0:
+        return P()
+    if name in ("k", "v", "cross_k", "cross_v", "c_kv", "k_rope"):
+        # stacked (L,B,S,...) vs per-dense-layer (B,S,...)
+        if name in ("k", "v", "cross_k", "cross_v"):
+            off = 1 if nd == 5 else 0
+        else:  # MLA latents: (L,B,S,R) stacked, (B,S,R) unstacked
+            off = 1 if nd == 4 else 0
+        b, s = shape[off], shape[off + 1]
+        b_ax = _maybe(dp, b, mesh)
+        if b_ax is None:
+            s_ax = _maybe(dp + ("model",), s, mesh) or _maybe("model", s, mesh)
+        else:
+            s_ax = _maybe("model", s, mesh)
+        spec = [None] * nd
+        spec[off], spec[off + 1] = b_ax, s_ax
+        return P(*spec)
+    if name in ("ssm", "wkv"):
+        # (L, B, H, P, N)
+        spec = [None] * nd
+        spec[1] = _maybe(dp, shape[1], mesh)
+        spec[2] = _maybe("model", shape[2], mesh)
+        return P(*spec)
+    if name in ("conv_x", "conv_bc", "tm_shift", "cm_shift"):
+        # (L, B, W-1|1, C)
+        spec = [None] * nd
+        spec[1] = _maybe(dp, shape[1], mesh)
+        spec[-1] = _maybe("model", shape[-1], mesh)
+        return P(*spec)
+    return P(*([None] * nd))
+
+
+def _tp_kv(cfg, mesh) -> bool:
+    """Whether the serve step computes attention on local kv heads: the "tp"
+    layout (`partitioning.tp_enabled`) with both head counts divisible by
+    the "model" axis."""
+    m = axis_size(mesh, "model") if "model" in mesh.axis_names else 1
+    return (m > 1 and tp_enabled(cfg) and cfg.n_heads % m == 0
+            and cfg.n_kv_heads % m == 0)
+
+
+def _is_kv(path: str) -> bool:
+    return path.split("/")[-1] in ("k", "v") and path.split("/")[0] in ("layers",
+                                                                         "dense_layers")
+
+
+def serve_cache_spec_tree(cache_shapes: Tree, cfg, mesh) -> Tree:
+    """The placement the sharded serve step keeps a cache in
+    (`launch.steps`): `cache_spec_tree`'s, but where attention computes on
+    local kv heads (`_tp_kv`) a k/v leaf (.., B, S, K, hd) holds its kv-head
+    dim over "model" (the sequence takes the dp axes when the batch does not
+    divide them), so that each rank's cache is its heads' and decode moves
+    none of it."""
+    dp, tp = dp_axes(mesh), _tp_kv(cfg, mesh)
 
     def f(path, leaf, blocks):
-        name = path.split("/")[-1]
+        if not (tp and _is_kv(path)):
+            return _cache_leaf_spec(path, leaf, mesh)
         nd, shape = _ndim(leaf), tuple(leaf.shape)
+        off = 1 if nd == 5 else 0
+        b_ax = _maybe(dp, shape[off], mesh)
+        out = [None] * nd
+        out[off] = b_ax
+        out[off + 1] = None if b_ax is not None else _maybe(dp, shape[off + 1], mesh)
+        out[off + 2] = "model"
+        return P(*out)
+
+    return map_leaves(f, cache_shapes)
+
+
+def compute_cache_spec_tree(cache_shapes: Tree, cfg, mesh, split: bool) -> Tree:
+    """What each rank of the sharded serve step computes on of a cache: the
+    batch dim over the dp axes when the batch splits over them (`split`),
+    a k/v leaf's kv heads over "model" where attention is tensor-parallel
+    (`_tp_kv`), every other dim whole."""
+    dp, tp = dp_axes(mesh), _tp_kv(cfg, mesh)
+
+    def f(path, leaf, blocks):
+        nd = _ndim(leaf)
         if nd == 0:
             return P()
-        if name in ("k", "v", "cross_k", "cross_v", "c_kv", "k_rope"):
-            # stacked (L,B,S,...) vs per-dense-layer (B,S,...)
-            if name in ("k", "v", "cross_k", "cross_v"):
-                off = 1 if nd == 5 else 0
-            else:  # MLA latents: (L,B,S,R) stacked, (B,S,R) unstacked
-                off = 1 if nd == 4 else 0
-            b, s = shape[off], shape[off + 1]
-            b_ax = _maybe(dp, b, mesh)
-            if b_ax is None:
-                s_ax = _maybe(dp + ("model",), s, mesh) or _maybe("model", s, mesh)
-            else:
-                s_ax = _maybe("model", s, mesh)
-            spec = [None] * nd
-            spec[off], spec[off + 1] = b_ax, s_ax
-            return P(*spec)
-        if name in ("ssm", "wkv"):
-            # (L, B, H, P, N)
-            spec = [None] * nd
-            spec[1] = _maybe(dp, shape[1], mesh)
-            spec[2] = _maybe("model", shape[2], mesh)
-            return P(*spec)
-        if name in ("conv_x", "conv_bc", "tm_shift", "cm_shift"):
-            # (L, B, W-1|1, C)
-            spec = [None] * nd
-            spec[1] = _maybe(dp, shape[1], mesh)
-            spec[-1] = _maybe("model", shape[-1], mesh)
-            return P(*spec)
-        return P(*([None] * nd))
+        out = [None] * nd
+        if split:   # the batch dim: after the layer axis but in "dense_layers"
+            out[0 if path.startswith("dense_layers") else 1] = dp
+        if tp and _is_kv(path):
+            out[nd - 2] = "model"
+        return P(*out)
 
     return map_leaves(f, cache_shapes)
 

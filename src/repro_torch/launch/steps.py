@@ -52,21 +52,22 @@ def make_train_setup(bundle: ModelBundle,
                       optimizer=optimizer, step_fn=step_fn)
 
 
-def make_prefill_step(bundle: ModelBundle, mesh=None) -> Callable:
-    """prefill_step(params, batch) -> (logits, cache). On a sharded `mesh`
-    (a `launch.mesh.Mesh`) the data-parallel serve step: see `_dp_serve`."""
+def make_prefill_step(bundle: ModelBundle, mesh=None, pad_to: int = 0) -> Callable:
+    """prefill_step(params, batch) -> (logits, cache), the cache of length
+    max(S, pad_to) (the bundle's prefill). On a sharded `mesh` (a
+    `launch.mesh.Mesh`) the sharded serve step: see `_dp_serve`."""
     def prefill_step(params, batch: dict):
-        return bundle.prefill(params, batch)
+        return bundle.prefill(params, batch, pad_to=pad_to)
 
     if mesh is None or not mesh.sharded:
         return prefill_step
-    serve = _dp_serve(lambda p, c, b: prefill_step(p, b), bundle, mesh)
+    serve = _dp_serve(lambda p, c, b: prefill_step(p, b), bundle, mesh, pad_to)
     return lambda params, batch: serve(params, None, batch)
 
 
 def make_decode_step(bundle: ModelBundle, mesh=None) -> Callable:
     """decode_step(params, cache, batch) -> (logits, cache), the cache updated
-    in place. On a sharded `mesh` the data-parallel serve step (`_dp_serve`)."""
+    in place. On a sharded `mesh` the sharded serve step (`_dp_serve`)."""
     def decode_step(params, cache, batch: dict):
         return bundle.decode(params, cache, batch)
 
@@ -75,68 +76,71 @@ def make_decode_step(bundle: ModelBundle, mesh=None) -> Callable:
     return _dp_serve(decode_step, bundle, mesh)
 
 
-def _dp_serve(step: Callable, bundle: ModelBundle, mesh) -> Callable:
+def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Callable:
     """A serve step on params, cache and batch placed over `mesh` (DTensors,
-    by `state_spec_tree`, `cache_spec_tree` and `batch_spec_tree`), computed
-    data-parallel as the sharded train step is (`engine.fused`): every
-    weight gathered whole; this rank's rows of the batch over the dp axes
-    when they divide it (else every row); each cache leaf gathered but for
-    those rows (its batch dim stays split over the dp axes, every other dim
-    is gathered); the meshless step; the new cache placed back by
-    `cache_spec_tree` from this rank's rows, which moves no byte. The
-    reference shards the serve step's compute under GSPMD; tensor-parallel
-    compute here is speed work (ROADMAP.md queue 1, item 9).
+    by `state_spec_tree`, a cache by `serve_cache_spec_tree` or
+    `cache_spec_tree`, a batch by `batch_spec_tree`), computed in the mesh's
+    layout as the sharded train step is (`engine.fused`): this rank's rows
+    of the batch over the dp axes when they divide it (else every row); the
+    weights gathered layer by layer where the model runs them, attention,
+    MLP and logits tensor-parallel over "model" under the "tp" profile; the
+    cache as each rank computes on it (`compute_cache_spec_tree`: its rows,
+    and where attention is tensor-parallel its kv heads; every other dim
+    whole), which moves no byte when it comes in `serve_cache_spec_tree`'s
+    placement; the new cache placed back as it came (prefill: by
+    `serve_cache_spec_tree`).
 
-    Returns step(params, cache, batch) -> (logits of this rank's rows, the
-    placed cache); prefill passes cache None."""
+    Returns step(params, cache, batch) -> (logits of this rank's rows over
+    the whole vocabulary (a vocab-sharded head's gathered over "model"),
+    the placed cache); prefill passes cache None."""
     import torch
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor
 
+    from repro_torch.engine.api import mesh_context
     from repro_torch.launch.mesh import dp_axes
-    from repro_torch.launch.sharding import cache_spec_tree, to_placements
+    from repro_torch.launch.sharding import (compute_cache_spec_tree, serve_cache_spec_tree,
+                                             to_placements)
+    from repro_torch.models import partitioning
     from repro_torch.utils import distributed, trees
 
     names = tuple(mesh.axis_names)
     dm = mesh.device_mesh
     dp_dims = [names.index(a) for a in dp_axes(mesh)]
     idx, n = distributed.dp_index(dm, dp_dims)
+    cfg = bundle.cfg
 
-    def kept(placements, split: bool) -> list:
-        # the dp dims' shards of the batch dim, when the batch splits
-        return [p if (split and i in dp_dims and p.is_shard()) else Replicate()
-                for i, p in enumerate(placements)]
-
-    def localize(x, split: bool):
+    def localize(x, pl):
         if not distributed.is_dtensor(x):
             return x
-        return x.redistribute(dm, kept(x.placements, split)).to_local()
+        return x.redistribute(dm, pl).to_local()
 
-    def place(x, placements, split: bool):
+    def place(x, pl, target):
         if not isinstance(x, torch.Tensor) or not x.dim():
             return x
-        return DTensor.from_local(x, dm, kept(placements, split),
-                                  run_check=False).redistribute(dm, placements)
+        return DTensor.from_local(x, dm, pl, run_check=False).redistribute(dm, target)
 
     def serve(params, cache, batch: dict):
         rows = [x.shape[0] for x in trees.tree_leaves(batch) if x.dim()]
         split = n > 1 and bool(rows) and all(r % n == 0 for r in rows)
-        with torch.no_grad():
-            full = {k: distributed.gather(v) for k, v in params.items()}
+        with torch.no_grad(), mesh_context(mesh):
             if split:
                 local_batch = {k: distributed.dp_rows(v, dp_dims, idx, n)
                                for k, v in batch.items()}
             else:
                 local_batch = {k: distributed.gather(v) for k, v in batch.items()}
-            local_cache = (None if cache is None
-                           else _zip(lambda x, _: localize(x, split), cache, cache))
-            logits, new_cache = step(full, local_cache, local_batch)
             if cache is not None:
-                pl = _placements_of(cache)
-            else:    # the prefill's cache at its global shape: max_len S, pos S
+                shapes, target = cache, _placements_of(cache)
+            else:    # the prefill's cache at its global shape: pos S
                 b, s = batch["tokens"].shape
-                shapes = bundle.init_cache(b, s, pos=s, device="meta")
-                pl = to_placements(cache_spec_tree(shapes, bundle.cfg, mesh), mesh)
-            return logits, _zip(lambda x, p: place(x, p, split), new_cache, pl)
+                shapes = bundle.init_cache(b, max(s, pad_to), pos=s, device="meta")
+                target = to_placements(serve_cache_spec_tree(shapes, cfg, mesh), mesh)
+            pl = to_placements(compute_cache_spec_tree(shapes, cfg, mesh, split), mesh)
+            local_cache = None if cache is None else _zip(localize, cache, pl)
+            logits, new_cache = step(params, local_cache, local_batch)
+            if logits.shape[-1] != cfg.vocab_size:
+                lay = partitioning.current_layout()
+                logits = distributed.gather_from_model(logits, lay.model_group, lay.m, lay.r)
+            return logits, _zip(place, new_cache, pl, target)
 
     return serve
 
@@ -152,11 +156,12 @@ def _placements_of(tree):
     return tree.placements if distributed.is_dtensor(tree) else None
 
 
-def _zip(f, tree, pl):
-    """f(leaf, its entry of pl) over a nested dict / list of tensors and
-    host values, where pl has the structure (None: the leaf as it is)."""
+def _zip(f, tree, *pls):
+    """f(leaf, its entry of each pl) over a nested dict / list of tensors
+    and host values, where each pl has the structure (a None entry: the
+    leaf as it is)."""
     if isinstance(tree, dict):
-        return {k: _zip(f, v, pl[k]) for k, v in tree.items()}
+        return {k: _zip(f, v, *(pl[k] for pl in pls)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_zip(f, v, p) for v, p in zip(tree, pl))
-    return f(tree, pl) if pl is not None else tree
+        return type(tree)(_zip(f, v, *ps) for v, *ps in zip(tree, *pls))
+    return tree if any(p is None for p in pls) else f(tree, *pls)

@@ -13,8 +13,11 @@ computed once at prefill; decode's cross-attention runs `ops.decode_attention`
 over them. Parameter names mirror the reference's leaves
 (`enc_blocks.<i>.attn.wq`, `dec_blocks.<i>.cross_attn.wk`,
 `dec_blocks.<i>.ln3.bias`, `enc_norm.scale`); the reference stacks the
-blocks on a leading axis and scans them, the port loops. The reference's
-`constrain_param_tree` calls are sharding hints and are left out.
+blocks on a leading axis and scans them, the port loops. On a sharded
+step each block's weights are gathered whole where the block runs
+(`remat_call`, `partitioning.gather_block`), as the reference's
+`constrain_param_tree` keeps its gathers per layer; the family computes on
+whole weights (its tensor-parallel layout is not ported).
 """
 from __future__ import annotations
 
@@ -25,9 +28,10 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (MLP, Attention, Device, Embedding, Norm, shapes_only,
-                                            _final_logits, _groups, _param, dense_init,
+                                            _final_logits, _groups, _param, dense_init, embed,
                                             init_attention, init_mlp, init_norms_and_biases,
                                             remat_call)
 
@@ -123,7 +127,7 @@ def _dec_blocks(groups: dict, cfg: ModelConfig) -> list[dict]:
 def encode(groups: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The encoder over the frame embeddings: (B, S_enc, d_model)."""
     dt = L.cdtype(cfg)
-    x = frames.to(dt) @ groups[""]["frontend_adapter"].to(dt)
+    x = frames.to(dt) @ partitioning.gather_leaf(groups[""]["frontend_adapter"]).to(dt)
     x = x + _sinusoid_at(0, cfg.d_model, x.shape[1], x.device).to(dt)[None]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
@@ -135,7 +139,7 @@ def encode(groups: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
     for blk in _enc_blocks(groups, cfg):
         x = remat_call(body, cfg, blk, x, positions)
-    return L.norm_apply(groups["enc_norm"], x, cfg)
+    return L.norm_apply(partitioning.gather_part("enc_norm", groups["enc_norm"], cfg), x, cfg)
 
 
 def _dec_block_apply(blk: dict, x: torch.Tensor, enc_out: Optional[torch.Tensor],
@@ -169,7 +173,7 @@ def _dec_block_apply(blk: dict, x: torch.Tensor, enc_out: Optional[torch.Tensor]
 
 
 def _embed(groups: dict, tokens: torch.Tensor, pos: int, cfg: ModelConfig) -> torch.Tensor:
-    x = L.embed_tokens(groups["embedding"], tokens, cfg)
+    x = embed(groups, tokens, cfg)
     return x + _sinusoid_at(pos, cfg.d_model, x.shape[1], x.device).to(x.dtype)[None]
 
 
@@ -223,7 +227,8 @@ def prefill(model: EncDec, batch: dict, cfg: ModelConfig, pad_to: int = 0
                                  device=x.device) for name in ("k", "v")}
     cross = {"cross_k": [], "cross_v": []}
     for i, blk in enumerate(_dec_blocks(groups, cfg)):
-        x, kv, cross_kv = _dec_block_apply(blk, x, enc_out, cfg, positions=positions)
+        x, kv, cross_kv = _dec_block_apply(partitioning.gather_block(blk, cfg), x, enc_out, cfg,
+                                           positions=positions)
         self_kv["k"][i, :, :S] = kv["k"]
         self_kv["v"][i, :, :S] = kv["v"]
         cross["cross_k"].append(cross_kv["k"])
@@ -244,7 +249,8 @@ def decode(model: EncDec, cache: dict, batch: dict, cfg: ModelConfig
     positions = pos + torch.arange(S_new, device=x.device)[None, :]
     layers = cache["layers"]
     for i, blk in enumerate(_dec_blocks(groups, cfg)):
-        x, _, _ = _dec_block_apply(blk, x, None, cfg, positions=positions,
+        x, _, _ = _dec_block_apply(partitioning.gather_block(blk, cfg), x, None, cfg,
+                                   positions=positions,
                                    cache={**{name: t[i] for name, t in layers.items()},
                                           "pos": pos})
     return _final_logits(groups, x, cfg), {**cache, "pos": pos + S_new}

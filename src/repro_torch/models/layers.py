@@ -8,8 +8,16 @@ Conventions:
   parameters (`params_of(module)`, or views of a flat buffer in training);
 * compute runs in `cfg.compute_dtype` (bf16 at full width); parameters are
   stored in `cfg.param_dtype` (fp32 master copies) and cast at use;
-* the reference's `constrain` calls are sharding annotations that do nothing
-  without a mesh, so they are left out, as is `stream_cast`, which is the
+* the reference's `constrain` calls pin GSPMD's layout; the port computes
+  that layout itself. Under a tensor-parallel layout
+  (`partitioning.tp_layout`) a layer is handed this rank's column or row
+  shard of a weight (`partitioning.gather_part`) and reads its layout from
+  the shapes: attention on its local heads (`wq`'s columns), the MLP on its
+  local d_ff, the embedding and logits on its local vocabulary, with
+  Megatron's f (`distributed.copy_to_model`) on a column-parallel product's
+  input and g (`distributed.reduce_from_model`) on a row-parallel product's
+  output. With whole weights (no layout, or a module this port does not
+  shard) the code is the meshless one. `stream_cast` is left out: it is the
   identity for the configs the port supports (`weight_stream_bf16=False`).
 """
 from __future__ import annotations
@@ -20,7 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils import distributed
 
 Params = Mapping[str, torch.Tensor]
 
@@ -102,14 +112,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # gather, then cast: the same values as the reference's cast-then-gather
     # without casting the whole table
-    return params["embed"][tokens.long()].to(cdtype(cfg))
+    table = params["embed"]
+    if table.shape[0] == cfg.vocab_size:
+        return table[tokens.long()].to(cdtype(cfg))
+    # vocab-parallel: this rank's rows of the table, the other ranks' tokens
+    # zero, summed over the model group (each token has one owner)
+    lay = partitioning.tp_layout(cfg)
+    lo, hi = lay.shard_range(cfg.vocab_size)
+    tok = tokens.long()
+    mine = (tok >= lo) & (tok < hi)
+    x = table[(tok - lo).clamp(0, hi - lo - 1)].to(cdtype(cfg)) * mine[..., None].to(cdtype(cfg))
+    return distributed.reduce_from_model(x, lay.model_group)
 
 
 def logits_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits; over this rank's vocabulary shard when the head is
+    vocab-sharded (`registry.vocab_parallel_cross_entropy` reduces them over
+    "model")."""
     if cfg.tie_embeddings:
         w = params["embed"].to(cdtype(cfg)).T
     else:
         w = params["unembed"].to(cdtype(cfg))
+    if w.shape[-1] != cfg.vocab_size:
+        x = distributed.copy_to_model(x, partitioning.tp_layout(cfg).model_group)
     logits = x @ w
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
@@ -134,11 +159,18 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A column-parallel `wi` / `wg` and a row-parallel `wo_mlp` when the
+    weights are this rank's d_ff shards."""
     dt = cdtype(cfg)
+    group = None
+    if params["wi"].shape[-1] != cfg.d_ff:
+        group = partitioning.tp_layout(cfg).model_group
+        x = distributed.copy_to_model(x, group)
     h = _act(x @ params["wi"].to(dt), cfg.act)
     if cfg.mlp_gated:
         h = h * (x @ params["wg"].to(dt))
-    return h @ params["wo_mlp"].to(dt)
+    out = h @ params["wo_mlp"].to(dt)
+    return out if group is None else distributed.reduce_from_model(out, group)
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +178,8 @@ def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 def _project_qkv(params: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig):
+    """q, k, v on the heads of the weights given: all of them, or this
+    rank's column shards' under a tensor-parallel layout."""
     dt = cdtype(cfg)
     hd = cfg.resolved_head_dim
     q = xq @ params["wq"].to(dt)
@@ -155,10 +189,26 @@ def _project_qkv(params: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: Model
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(*q.shape[:-1], cfg.n_heads, hd)
-    k = k.reshape(*k.shape[:-1], cfg.n_kv_heads, hd)
-    v = v.reshape(*v.shape[:-1], cfg.n_kv_heads, hd)
+    q = q.reshape(*q.shape[:-1], -1, hd)
+    k = k.reshape(*k.shape[:-1], -1, hd)
+    v = v.reshape(*v.shape[:-1], -1, hd)
     return q, k, v
+
+
+def kv_head_of(h_loc: int, cfg: ModelConfig, r: int) -> int:
+    """The kv head that query heads [r h_loc, (r+1) h_loc) attend with when
+    n_kv_heads does not divide "model" (gemma's 1, qwen3's and mixtral's 8
+    on 16): one group of n_heads / n_kv_heads query heads holds them all."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = r * h_loc // g
+    if ((r + 1) * h_loc - 1) // g != lo:
+        raise NotImplementedError(f"{cfg.name}: query heads [{r * h_loc}, {(r + 1) * h_loc}) "
+                                  f"span more than one kv group of {g}")
+    return lo
+
+
+def _kv_head(t: torch.Tensor, head: Optional[int]) -> torch.Tensor:
+    return t if head is None else t.narrow(-2, head, 1).contiguous()
 
 
 def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -175,9 +225,24 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     copy; writing into the cache saves a cache-sized copy per layer and step),
     and attention runs over the full cache with a validity mask. Returns
     (out, cache): the updated cache, or this segment's k/v without a cache.
+
+    With `wq` this rank's column shard (a tensor-parallel layout) the heads
+    are this rank's H/m: q, k and v come from the local column shards (k and
+    v of all K heads where K does not divide "model", of which the local
+    query heads take theirs, `kv_head_of`), the kernels run on the local
+    heads, and `wo`'s row shard's product is summed over the model group.
     """
     from repro_torch.kernels import ops  # local import to avoid cycles
 
+    hd = cfg.resolved_head_dim
+    lay, kv_head = None, None
+    if params["wq"].shape[-1] != cfg.n_heads * hd:
+        lay = partitioning.tp_layout(cfg)
+        x = distributed.copy_to_model(x, lay.model_group)
+        if x_cross is not None:
+            x_cross = distributed.copy_to_model(x_cross, lay.model_group)
+        if params["wk"].shape[-1] == cfg.n_kv_heads * hd:
+            kv_head = kv_head_of(params["wq"].shape[-1] // hd, cfg, lay.r)
     xkv = x if x_cross is None else x_cross
     q, k, v = _project_qkv(params, x, xkv, cfg)
     if cfg.qk_norm:
@@ -192,14 +257,16 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         kc, vc = cache["k"], cache["v"]
         kc[:, pos:pos + s_new] = k.to(kc.dtype)
         vc[:, pos:pos + s_new] = v.to(vc.dtype)
-        out = ops.decode_attention(q, kc, vc, pos + s_new, window=cfg.sliding_window)
+        out = ops.decode_attention(q, _kv_head(kc, kv_head), _kv_head(vc, kv_head),
+                                   pos + s_new, window=cfg.sliding_window)
         new_cache = {"k": kc, "v": vc, "pos": pos + s_new}
     else:
-        out = ops.flash_attention(q, k, v, causal=causal and x_cross is None,
-                                  window=cfg.sliding_window)
+        out = ops.flash_attention(q, _kv_head(k, kv_head), _kv_head(v, kv_head),
+                                  causal=causal and x_cross is None, window=cfg.sliding_window)
         # expose this segment's k/v so prefill can build the decode cache
         new_cache = {"k": k, "v": v}
 
-    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.resolved_head_dim)
+    out = out.reshape(*out.shape[:-2], -1)
     out = out @ params["wo"].to(cdtype(cfg))
-    return out, new_cache
+    return (out if lay is None else distributed.reduce_from_model(out, lay.model_group),
+            new_cache)

@@ -1,4 +1,5 @@
-"""Parameter sharding rules (counterpart of `repro.models.partitioning`).
+"""Parameter sharding rules and the activation layout of a sharded step
+(counterpart of `repro.models.partitioning`).
 
 The parameter rules live here, as in the reference: 2-axis FSDP x TP, with
 the reference's name tables and fits, rule for rule (`make_rules`,
@@ -8,16 +9,33 @@ each None (replicated), an axis name, or a tuple of axis names (the dim
 sharded over all of them, the first outermost).
 `launch.sharding.to_placements` turns it into DTensor placements.
 
-The reference's activation constraints (`activation_sharding`, `constrain`,
-`constrain_first_fit`, `constrain_param_tree`) are not ported: they pin
-GSPMD's layouts at call sites in its model bodies and scan loops, and the
-port's models have neither: its sharded step computes on gathered,
-unsharded weights (`engine.fused`), so there is nothing to pin. Without an
-active mesh they are no-ops in the reference too.
+The reference pins GSPMD's activation layouts with `constrain` under
+`activation_sharding(mesh)` and re-pins each scanned layer's weights with
+`constrain_param_tree`, so that they are gathered one layer at a time. The
+port computes the same layout by hand. `activation_sharding(mesh)` installs
+this rank's `Layout` (its model group, its index along "model", the rules);
+without one (meshless, or a 1-device mesh) every helper here is the
+identity and the model code runs as it always did. Under a layout:
+  * `Layout.splits` is `constrain`'s per-dim rule: a dim is sharded over
+    its mesh axes only when their size divides it, else replicated;
+  * `gather_block` / `gather_part` are `constrain_param_tree`: a block's
+    leaves gathered where the block runs (inside its checkpointed function,
+    so a recompute gathers again). A leaf that tensor-parallel code
+    consumes is gathered over the dp axes only and keeps this rank's
+    "model" shard, the Megatron column or row slice the rules give it
+    (`tp_leaves`); any other leaf is gathered whole;
+  * tensor parallelism covers the "tp" profile's attention (heads that
+    divide "model"), MLP (d_ff) and embedding / logits (vocab) of the
+    dense, vlm and moe families (`tp_enabled`); MoE experts, MLA, rwkv6,
+    mamba2, the encoder-decoder and every leaf of an "fsdp_sp" config
+    compute on whole weights.
 """
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+import contextvars
+import dataclasses
+from typing import Any, Optional
 
 import torch
 
@@ -131,3 +149,165 @@ def stream_cast(tree: Tree, cfg) -> Tree:
 
     from repro_torch.utils import trees
     return trees.tree_map(f, tree)
+
+
+# ---------------------------------------------------------------------------
+# Activation layout of a sharded step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """This rank's place in a sharded step's compute: the mesh dim of
+    "model" (None without one), the model group (the ranks along "model" at
+    this rank's dp index), its size m and this rank's index r in it, and the
+    flattened group of the mesh."""
+    model_dim: Optional[int]
+    model_group: Any
+    m: int
+    r: int
+    flat_group: Any
+
+    def splits(self, size: int) -> bool:
+        """The per-dim rule: whether a dim of `size` is sharded over "model"
+        (its size divides it, and exceeds 1); else it is replicated."""
+        return self.m > 1 and size % self.m == 0
+
+    def shard_range(self, size: int) -> tuple[int, int]:
+        """This rank's block [lo, hi) of a dim of `size` split over "model"."""
+        w = size // self.m
+        return self.r * w, (self.r + 1) * w
+
+
+_LAYOUT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_layout", default=None)
+
+
+def make_layout(mesh) -> Layout:
+    """The layout of this rank on live sharded `mesh` (a `launch.mesh.Mesh`)."""
+    from repro_torch.utils import distributed
+    dm = mesh.device_mesh
+    names = tuple(mesh.axis_names)
+    flat, _ = distributed.mesh_groups(dm)
+    group, m, r = distributed.model_group(dm)
+    return Layout(names.index("model") if "model" in names else None, group, m, r, flat)
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh):
+    """Within: the model code computes in `mesh`'s layout on this rank (no
+    layout for None, an abstract mesh, or a mesh that is not sharded);
+    reset on exit."""
+    live = mesh is not None and mesh.sharded and mesh.is_member
+    token = _LAYOUT.set(make_layout(mesh) if live else None)
+    try:
+        yield
+    finally:
+        _LAYOUT.reset(token)
+
+
+@contextlib.contextmanager
+def layout_context(layout: Optional[Layout]):
+    """Within: `current_layout()` is `layout` (a checkpointed block's
+    recompute runs in the layout its forward ran in)."""
+    token = _LAYOUT.set(layout)
+    try:
+        yield
+    finally:
+        _LAYOUT.reset(token)
+
+
+def current_layout() -> Optional[Layout]:
+    """The layout of the enclosing `activation_sharding`, None outside one."""
+    return _LAYOUT.get()
+
+
+def tp_layout(cfg) -> Optional[Layout]:
+    """The layout when `cfg`'s modules compute tensor-parallel here: a
+    layout with a "model" axis of more than one rank, the "tp" profile and
+    a family whose attention, MLP and vocabulary this port shards."""
+    lay = current_layout()
+    if lay is None or lay.m == 1 or not tp_enabled(cfg):
+        return None
+    return lay
+
+
+def tp_enabled(cfg) -> bool:
+    return cfg.sharding_profile == "tp" and cfg.family in ("dense", "vlm", "moe")
+
+
+_ATTN_Q = ("wq", "bq", "wo")
+_ATTN_KV = ("wk", "wv", "bk", "bv")
+
+
+def tp_leaves(part: str, leaves: dict, cfg, lay: Layout) -> tuple[tuple, tuple]:
+    """(the leaves of a block part consumed model-sharded, the leaves used
+    whole of which each model rank uses a part) under the tensor-parallel
+    layout `lay`: attention on heads where `n_heads` divides "model" (its
+    kv projections too where `n_kv_heads` does; else each rank computes
+    them whole and uses its query heads' kv heads), the MLP on d_ff, the
+    embedding and the output head on the vocabulary."""
+    if part == "attn" and cfg.mla is None and "wq" in leaves:
+        if not lay.splits(cfg.n_heads):
+            return (), ()
+        if lay.splits(cfg.n_kv_heads):
+            return _ATTN_Q + _ATTN_KV, ()
+        return _ATTN_Q, _ATTN_KV
+    if part == "mlp" and "wi" in leaves and lay.splits(leaves["wi"].shape[-1]):
+        return ("wi", "wg", "wo_mlp"), ()
+    if part == "embedding" and lay.splits(cfg.vocab_size):
+        return ("embed", "unembed"), ()
+    return (), ()
+
+
+def gather_leaf(x: torch.Tensor, keep_model: bool = False, partial: bool = False
+                ) -> torch.Tensor:
+    """One leaf gathered for compute in the current layout (see
+    `gather_part`); a plain tensor, or no layout, gives `x` itself."""
+    from repro_torch.utils import distributed
+    lay = current_layout()
+    if lay is None or not distributed.is_dtensor(x):
+        return x
+    dp = distributed.current_dp()
+    if partial:
+        group, n = (lay.flat_group, dp[1]) if dp is not None else (lay.model_group, 1)
+    else:
+        group, n = dp if dp is not None else (None, 1)
+    keep = lay.model_dim if keep_model else None
+    return distributed.gather_for_compute(x, group, n, keep)
+
+
+def gather_part(part: str, leaves: dict, cfg) -> dict:
+    """A block part's leaves (nested dicts too) gathered for compute: a
+    leaf of `tp_leaves` keeps its "model" shard; a partly used leaf's
+    gradient is summed over the model group; each gradient is averaged over
+    the dp group of `utils.distributed.dp_context`. The identity without a
+    layout."""
+    lay = current_layout()
+    if lay is None:
+        return leaves
+    tlay = tp_layout(cfg)
+    keep, partial = tp_leaves(part, leaves, cfg, tlay) if tlay is not None else ((), ())
+
+    def one(name, x):
+        if isinstance(x, dict):
+            return gather_part("", x, cfg)
+        return gather_leaf(x, keep_model=name in keep, partial=name in partial)
+
+    return {name: one(name, x) for name, x in leaves.items()}
+
+
+def gather_block(bp: dict, cfg) -> dict:
+    """A block's parameters ({part: {leaf: tensor}}) gathered for compute
+    (`gather_part` on each part); the identity without a layout."""
+    if current_layout() is None:
+        return bp
+    return {part: gather_part(part, leaves, cfg) for part, leaves in bp.items()}
+
+
+def local_kv_heads(cfg) -> int:
+    """The kv heads of an attention cache on this rank: n_kv_heads / m
+    where the tensor-parallel layout splits the heads and the kv heads over
+    "model", else n_kv_heads (MLA's latents have none)."""
+    lay = tp_layout(cfg)
+    if lay is not None and lay.splits(cfg.n_heads) and lay.splits(cfg.n_kv_heads):
+        return cfg.n_kv_heads // lay.m
+    return cfg.n_kv_heads

@@ -5,6 +5,8 @@ The port's bundle takes the model (an `nn.Module`, or for `forward` and
 `loss_fn` a mapping of its parameter names to tensors) where the reference
 takes a parameter pytree, and `init(seed, device)` where it takes a PRNG key.
 The audio family (whisper) is `encdec`'s, every other family `transformer`'s.
+Under a tensor-parallel layout the logits come vocab-sharded and the loss
+is `vocab_parallel_cross_entropy`, which reduces them over "model".
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from torch import nn
 
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, partitioning, transformer
 from repro_torch.models.config import ModelConfig, ShapeSpec
 
 
@@ -35,7 +37,10 @@ class ModelBundle:
         `repro_torch.core`'s loss callback). Takes the model or a mapping of
         its parameter names to tensors; draws nothing from `gen`."""
         logits, aux_loss = self.forward(model_or_params, batch)
-        ce = cross_entropy(logits, batch["labels"])
+        if logits.shape[-1] == self.cfg.vocab_size:
+            ce = cross_entropy(logits, batch["labels"])
+        else:   # this rank's vocabulary shard
+            ce = vocab_parallel_cross_entropy(logits, batch["labels"], self.cfg)
         return ce + aux_loss, {"ce": ce, "moe_aux": aux_loss, "logits": logits}
 
 
@@ -46,6 +51,52 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     picked = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-position lse - logit[label] of logits split on the vocabulary
+    over the model group (this rank's entries [lo, lo + V/m)), in fp32: the
+    max and the sum of exponentials all-reduced over the group, the label's
+    logit taken from the rank that holds it. The gradient is softmax -
+    onehot on the local entries, as autograd of the whole one."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        import torch.distributed as dist
+        lf = logits.float()
+        mx = lf.amax(dim=-1)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        ex = torch.exp(lf - mx[..., None])
+        se = ex.sum(dim=-1)
+        dist.all_reduce(se, group=group)
+        idx = labels.long().clamp_min(0) - lo
+        mine = (idx >= 0) & (idx < lf.shape[-1])
+        picked = torch.gather(lf, -1, idx.clamp(0, lf.shape[-1] - 1)[..., None])[..., 0]
+        picked = picked * mine
+        dist.all_reduce(picked, group=group)
+        ctx.save_for_backward(ex.div_(se[..., None]), idx, mine)
+        ctx.dtype = logits.dtype
+        return torch.log(se) + mx - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        soft, idx, mine = ctx.saved_tensors
+        grad = soft * g[..., None]
+        onehot = torch.zeros_like(grad).scatter_(
+            -1, idx.clamp(0, grad.shape[-1] - 1)[..., None], (g * mine)[..., None])
+        return (grad - onehot).to(ctx.dtype), None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 cfg: ModelConfig) -> torch.Tensor:
+    """`cross_entropy` of logits sharded on the vocabulary over the current
+    tensor-parallel layout's model group (`partitioning.tp_layout`): the
+    same value on every rank of the group."""
+    lay = partitioning.tp_layout(cfg)
+    lo, _ = lay.shard_range(cfg.vocab_size)
+    per = _VocabParallelCE.apply(logits, labels, lo, lay.model_group)
+    mask = (labels >= 0).float()
+    return (per * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:

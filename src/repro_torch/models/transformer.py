@@ -38,6 +38,15 @@ cache holds the compressed latent {"c_kv", "k_rope"} per layer, and the dense
 layers' caches are the list "dense_layers". A vlm model projects the
 precomputed patch embeddings (`batch["patch_embeds"]`, `projector`) over the
 first `vision.n_image_tokens` positions.
+
+On a sharded step the parameters come as DTensors and each block's are
+gathered where the block runs (`partitioning.gather_block`, inside
+`remat_call`'s checkpointed function, so at most one block's gathered
+weights are live at a time outside remat="none"); the embedding, the
+output head, the vlm projector and zamba2's shared block and LoRA where
+they are used. Under the "tp" profile's layout the attention, MLP,
+embedding and logits compute tensor-parallel over "model" (`layers`): the
+logits come back vocab-sharded and the cache holds this rank's kv heads.
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import partitioning
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
@@ -385,13 +395,20 @@ def _block(groups: dict, i: int, cfg: ModelConfig, prefix: str = "blocks"
     return bp
 
 
-def _shared(groups: dict) -> dict[str, dict[str, torch.Tensor]]:
-    return {part: groups.get(f"shared.{part}", {}) for part in ("ln1", "ln2", "attn", "mlp")}
+def _gathered_shared(groups: dict, cfg: ModelConfig) -> dict[str, dict[str, torch.Tensor]]:
+    """zamba2's shared block's parameters, gathered for compute."""
+    return partitioning.gather_block(
+        {part: groups.get(f"shared.{part}", {}) for part in ("ln1", "ln2", "attn", "mlp")}, cfg)
+
+
+def _gathered(groups: dict, i: int, cfg: ModelConfig) -> dict[str, dict[str, torch.Tensor]]:
+    """Block i's parameters gathered for compute (serving: no autograd)."""
+    return partitioning.gather_block(_block(groups, i, cfg), cfg)
 
 
 def _lora(groups: dict, g: int) -> dict[str, torch.Tensor]:
     """The shared block's LoRA of invocation g."""
-    return {name: t[g] for name, t in groups["lora"].items()}
+    return {name: partitioning.gather_leaf(t)[g] for name, t in groups["lora"].items()}
 
 
 def attn_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -468,25 +485,31 @@ def _save_projections(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _in_dp_context(dp, fn, *args):
-    with distributed.dp_context(dp):
+def _in_contexts(dp, layout, fn, *args):
+    with distributed.dp_context(dp), partitioning.layout_context(layout):
         return fn(*args)
 
 
-def remat_call(fn, cfg: ModelConfig, *args):
-    """fn(*args), checkpointed per `cfg.remat` when autograd records (the
-    reference's `_remat`)."""
+def remat_call(fn, cfg: ModelConfig, bp: dict, *args):
+    """fn(bp gathered, *args), checkpointed per `cfg.remat` when autograd
+    records (the reference's `_remat`); `bp` is a block's parameters,
+    gathered inside the checkpointed function (`partitioning.gather_block`,
+    the identity meshless), so a recompute gathers them again."""
+    def body(bp_, *args_):
+        return fn(partitioning.gather_block(bp_, cfg), *args_)
+
     if cfg.remat == "none" or not torch.is_grad_enabled():
-        return fn(*args)
-    dp = distributed.current_dp()
-    if dp is not None:
+        return body(bp, *args)
+    dp, layout = distributed.current_dp(), partitioning.current_layout()
+    run = body
+    if dp is not None or layout is not None:
         # the recompute runs in backward, after the sharded step's loss
-        # function has returned: it reduces over the same dp group
-        fn = functools.partial(_in_dp_context, dp, fn)
+        # function has returned: it gathers and reduces in the same layout
+        run = functools.partial(_in_contexts, dp, layout, body)
     if cfg.remat == "full":
-        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+        return ckpt.checkpoint(run, bp, *args, use_reentrant=False)
     if cfg.remat == "dots":
-        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+        return ckpt.checkpoint(run, bp, *args, use_reentrant=False,
                                context_fn=functools.partial(
                                    ckpt.create_selective_checkpoint_contexts,
                                    _save_projections))
@@ -508,21 +531,33 @@ def _train_block(bp: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.T
 
 
 def _final_logits(groups: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = L.norm_apply(groups.get("final_norm", {}), x, cfg)
-    return L.logits_apply(groups["embedding"], x, cfg)
+    """The logits (vocab-sharded under a tensor-parallel layout whose model
+    axis divides the vocabulary)."""
+    x = L.norm_apply(partitioning.gather_part("final_norm", groups.get("final_norm", {}), cfg),
+                     x, cfg)
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    head = partitioning.gather_part("embedding", {name: groups["embedding"][name]}, cfg)
+    return L.logits_apply(head, x, cfg)
 
 
 # ---------------------------------------------------------------------------
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
+def embed(groups: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The token embeddings, the table gathered where it is used."""
+    table = partitioning.gather_part("embedding", {"embed": groups["embedding"]["embed"]}, cfg)
+    return L.embed_tokens(table, tokens, cfg)
+
+
 def _embed_inputs(groups: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Token embeddings; a vlm model's first n_image_tokens positions are
     overwritten with the projected patch embeddings."""
-    x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
+    x = embed(groups, batch["tokens"], cfg)
     if cfg.vision is not None and "patch_embeds" in batch:
         dt = L.cdtype(cfg)
-        patches = batch["patch_embeds"].to(dt) @ groups[""]["projector"].to(dt)
+        patches = batch["patch_embeds"].to(dt) @ partitioning.gather_leaf(
+            groups[""]["projector"]).to(dt)
         n = patches.shape[1]
         if n > x.shape[1]:
             raise ValueError(f"{n} image tokens do not fit a sequence of {x.shape[1]}")
@@ -555,7 +590,7 @@ def forward(model: Union[Transformer, Params], batch: dict, cfg: ModelConfig
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for g in range(_n_shared_invocations(cfg)):
-            x, _ = shared_block_apply(_shared(groups), _lora(groups, g), x, cfg,
+            x, _ = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g), x, cfg,
                                       positions=positions)
             for i in _segment(g, cfg):
                 x, _ = _train_block(_block(groups, i, cfg), x, cfg, positions)
@@ -616,7 +651,7 @@ def _kv_cache(cfg: ModelConfig, n: int, batch: int, max_len: int, device: Device
                                     device=device),
                 "k_rope": torch.zeros((n, batch, max_len, m.qk_rope_head_dim), dtype=cdt,
                                       device=device)}
-    shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (n, batch, max_len, partitioning.local_kv_heads(cfg), cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device)}
 
@@ -638,7 +673,7 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
     if cfg.family == "ssm":
         states = []
         for i in range(cfg.n_layers):
-            x, c = rwkv_block_apply(_block(groups, i, cfg), x, cfg)
+            x, c = rwkv_block_apply(_gathered(groups, i, cfg), x, cfg)
             states.append(c)
         cache = {"layers": {name: torch.stack([c[name] for c in states])
                             for name in states[0]}, "pos": S}
@@ -648,17 +683,18 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
     if cfg.family == "hybrid":
         layers, shared = cache["layers"], cache["shared"]
         for g in range(_n_shared_invocations(cfg)):
-            x, kv = shared_block_apply(_shared(groups), _lora(groups, g), x, cfg,
+            x, kv = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g), x, cfg,
                                        positions=positions)
             shared["k"][g, :, :S] = kv["k"]
             shared["v"][g, :, :S] = kv["v"]
             for i in _segment(g, cfg):
-                x, c = mamba_block_apply(_block(groups, i, cfg), x, cfg)
+                x, c = mamba_block_apply(_gathered(groups, i, cfg), x, cfg)
                 for name, t in layers.items():
                     t[i].copy_(c[name])
         return _final_logits(groups, x[:, -1:], cfg), cache
     for bp, bcfg, i, dense in _layers(groups, cfg):
-        x, _, kv = attn_block_apply(bp, x, bcfg, positions=positions)
+        x, _, kv = attn_block_apply(partitioning.gather_block(bp, bcfg), x, bcfg,
+                                    positions=positions)
         for name, t in _layer_cache(cache, i, dense).items():
             t[:, :S] = kv[name]
     logits = _final_logits(groups, x[:, -1:], cfg)
@@ -673,13 +709,13 @@ def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
     returned cache carries the advanced `pos`.
     """
     groups = _groups(model)
-    x = L.embed_tokens(groups["embedding"], batch["tokens"], cfg)
+    x = embed(groups, batch["tokens"], cfg)
     S_new = x.shape[1]
     pos = cache["pos"]
     if cfg.family == "ssm":
         layers = cache["layers"]
         for i in range(cfg.n_layers):
-            x, new = rwkv_block_apply(_block(groups, i, cfg), x, cfg,
+            x, new = rwkv_block_apply(_gathered(groups, i, cfg), x, cfg,
                                       cache={name: t[i] for name, t in layers.items()})
             for name, t in layers.items():
                 t[i].copy_(new[name])
@@ -688,18 +724,19 @@ def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
     if cfg.family == "hybrid":
         layers, shared = cache["layers"], cache["shared"]
         for g in range(_n_shared_invocations(cfg)):
-            x, _ = shared_block_apply(_shared(groups), _lora(groups, g), x, cfg,
+            x, _ = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g), x, cfg,
                                       positions=positions,
                                       cache={"k": shared["k"][g], "v": shared["v"][g],
                                              "pos": pos})
             for i in _segment(g, cfg):
-                x, new = mamba_block_apply(_block(groups, i, cfg), x, cfg,
+                x, new = mamba_block_apply(_gathered(groups, i, cfg), x, cfg,
                                            cache={name: t[i] for name, t in layers.items()})
                 for name, t in layers.items():
                     t[i].copy_(new[name])
         return _final_logits(groups, x, cfg), {**cache, "pos": pos + S_new}
     for bp, bcfg, i, dense in _layers(groups, cfg):
-        x, _, _ = attn_block_apply(bp, x, bcfg, positions=positions,
+        x, _, _ = attn_block_apply(partitioning.gather_block(bp, bcfg), x, bcfg,
+                                   positions=positions,
                                    cache={**_layer_cache(cache, i, dense), "pos": pos})
     logits = _final_logits(groups, x, cfg)
     return logits, {**cache, "pos": pos + S_new}

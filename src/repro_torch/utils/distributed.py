@@ -7,8 +7,10 @@ port places tensors as `DTensor`s on a `DeviceMesh` and moves them itself).
 * A live mesh (`launch.mesh.Mesh`) registers its groups here when it is
   built, on every rank of the world at once (process groups are made
   collectively): the flattened group of all its ranks, over which sums
-  reduce in one all-reduce (so every rank sees the same bits), and one
-  data-parallel group for each index along the "model" axis.
+  reduce in one all-reduce (so every rank sees the same bits), one
+  data-parallel group for each index along the "model" axis, and one model
+  group for each data-parallel index (the ranks along "model" that share
+  their rows: tensor-parallel compute reduces over it).
 * A sharded leaf is a DTensor whose placements are `Shard(d)` or
   `Replicate()` on each mesh dim. `local_chunk` cuts the local shard out of a
   full tensor as DTensor does (mesh dims in order, even chunks: the rules
@@ -25,6 +27,11 @@ port places tensors as `DTensor`s on a `DeviceMesh` and moves them itself).
   a loss term whose per-row parts do not average over a batch split (the
   MoE router's load-balancing aux) reduces its batch means over the group
   before it combines them.
+* The sharded step computes on weights gathered one layer at a time
+  (`gather_for_compute`: over the dp axes only where tensor-parallel code
+  consumes the rank's "model" shard, else whole) and on the Megatron pair
+  `copy_to_model` / `reduce_from_model` (f and g) around column- and
+  row-parallel products (`models.partitioning`, `models.layers`).
 
 Nothing here imports DTensor at module import: only code that meets a
 sharded tensor does.
@@ -38,8 +45,9 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-# id(DeviceMesh) -> (the DeviceMesh, its flattened group, {model index: dp group})
-_MESH_GROUPS: dict[int, tuple[Any, Any, dict]] = {}
+# id(DeviceMesh) -> (the DeviceMesh, its flattened group, {model index: dp
+# group}, {dp index: model group})
+_MESH_GROUPS: dict[int, tuple[Any, Any, dict, dict]] = {}
 # (dp group, its size) of the loss being computed, None outside a sharded
 # step's loss function (set and reset by `dp_context`)
 _DP: contextvars.ContextVar = contextvars.ContextVar("repro_torch_dp", default=None)
@@ -75,8 +83,8 @@ def barrier() -> None:
         dist.barrier()
 
 
-def register_mesh(device_mesh, flat_group, dp_groups: dict) -> None:
-    _MESH_GROUPS[id(device_mesh)] = (device_mesh, flat_group, dp_groups)
+def register_mesh(device_mesh, flat_group, dp_groups: dict, model_groups: dict) -> None:
+    _MESH_GROUPS[id(device_mesh)] = (device_mesh, flat_group, dp_groups, model_groups)
 
 
 def forget_meshes() -> None:
@@ -86,6 +94,23 @@ def forget_meshes() -> None:
 
 def mesh_groups(device_mesh) -> tuple[Any, dict]:
     """(flattened group, {model index: dp group}) of a registered mesh."""
+    entry = _mesh_entry(device_mesh)
+    return entry[1], entry[2]
+
+
+def model_group(device_mesh) -> tuple[Any, int, int]:
+    """(this rank's model group, its size m, this rank's index in it) on a
+    registered mesh: the ranks along "model" at this rank's dp index (None
+    and 1 without a "model" axis of more than one rank)."""
+    names = tuple(device_mesh.mesh_dim_names)
+    if "model" not in names or device_mesh.shape[names.index("model")] == 1:
+        return None, 1, 0
+    m = names.index("model")
+    idx, _ = dp_index(device_mesh, [d for d in range(len(names)) if d != m])
+    return _mesh_entry(device_mesh)[3][idx], device_mesh.shape[m], device_mesh.get_coordinate()[m]
+
+
+def _mesh_entry(device_mesh) -> tuple:
     entry = _MESH_GROUPS.get(id(device_mesh))
     if entry is None:
         # a DeviceMesh equal to a registered one (DTensor's sharding cache
@@ -94,7 +119,7 @@ def mesh_groups(device_mesh) -> tuple[Any, dict]:
     if entry is None:
         raise RuntimeError("DeviceMesh not built by repro_torch.launch.mesh: its "
                            "groups are unknown")
-    return entry[1], entry[2]
+    return entry
 
 
 def is_dtensor(x) -> bool:
@@ -206,18 +231,18 @@ def dp_rows(x: torch.Tensor, dp_dims: Sequence[int], idx: int, n: int) -> torch.
 
 
 def row_chunk(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
-    """Microbatch i of n of batch leaf x: its rows [i b/n, (i+1) b/n). A
-    DTensor placed on its rows gives chunk i of each rank's own rows
-    instead, placed as x is, so no row moves between ranks (the chunks
-    differ from the global ones; their mean gradient does not)."""
-    if is_dtensor(x) and any(p.is_shard(0) for p in x.placements) \
-            and x.to_local().shape[0] % n == 0:
-        from torch.distributed.tensor import DTensor
-        loc = x.to_local()
-        m = loc.shape[0] // n
-        return DTensor.from_local(loc[i * m:(i + 1) * m], x.device_mesh, x.placements,
-                                  run_check=False)
+    """Microbatch i of n of batch leaf x: its rows [i b/n, (i+1) b/n), as
+    the reference chunks a batch. A DTensor placed on its rows gives that
+    global chunk placed as x is: the rows move between ranks (an all-gather
+    of the leaf, token ids or stub inputs) and each rank keeps its share; a
+    chunk whose rows do not divide the placement comes whole on every rank."""
     b = x.shape[0]
+    if is_dtensor(x) and any(p.is_shard(0) for p in x.placements):
+        chunk = gather(x)[i * (b // n):(i + 1) * (b // n)]
+        ways = 1
+        for p, size in zip(x.placements, x.device_mesh.shape):
+            ways *= size if p.is_shard(0) else 1
+        return place(chunk, x.device_mesh, x.placements) if chunk.shape[0] % ways == 0 else chunk
     return x[i * (b // n):(i + 1) * (b // n)]
 
 
@@ -265,35 +290,118 @@ def _device_index(device_type: str) -> Optional[int]:
 # ---------------------------------------------------------------------------
 
 class _GatherForCompute(torch.autograd.Function):
-    """Forward: the full weight (an all-gather over the leaf's mesh).
-    Backward: this rank's gradient of the full weight, from its slice of the
-    batch, averaged over the data-parallel group (an all-reduce, in fp32 for
-    narrower dtypes), then cut to the leaf's own shard."""
+    """Forward: the weight gathered over every mesh dim but `keep` (a mesh
+    dim whose shard stays: the "model" shard that tensor-parallel code
+    consumes; None: the full tensor). Backward: this rank's gradient of
+    that tensor, all-reduced over `group` (in fp32 for narrower dtypes) and
+    divided by `n`, then cut to the leaf's own shard."""
 
     @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.mesh, ctx.placements, ctx.group, ctx.n = x.device_mesh, x.placements, group, n
-        full = x.full_tensor()
-        # a replicated leaf's full tensor is a view of its local one
-        return full.clone() if not any(p.is_shard() for p in x.placements) else full
+    def forward(ctx, x, keep, group, n):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh, ctx.placements, ctx.shape = x.device_mesh, x.placements, x.shape
+        ctx.keep, ctx.group, ctx.n = keep, group, n
+        gathered = [i for i, p in enumerate(x.placements) if p.is_shard() and i != keep]
+        if not gathered:
+            # nothing moves: the result would alias the stored leaf
+            return x.to_local().clone()
+        if keep is None:
+            return x.full_tensor()
+        target = [p if i == keep else Replicate() for i, p in enumerate(x.placements)]
+        return x.redistribute(x.device_mesh, target).to_local()
 
     @staticmethod
     def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
         g = g.contiguous()
-        if ctx.n > 1:
+        if ctx.group is not None:
             red = g.float() if g.dtype in (torch.bfloat16, torch.float16) else g.clone()
             dist.all_reduce(red, group=ctx.group)
-            g = red.div_(ctx.n).to(g.dtype)
-        return place(g, ctx.mesh, ctx.placements), None, None
+            g = (red.div_(ctx.n) if ctx.n > 1 else red).to(g.dtype)
+        if ctx.keep is None:
+            return place(g, ctx.mesh, ctx.placements), None, None, None
+        cut = [Replicate() if i == ctx.keep else p for i, p in enumerate(ctx.placements)]
+        local = local_chunk(g, cut, ctx.mesh.get_coordinate(), ctx.mesh.shape)
+        return (DTensor.from_local(local, ctx.mesh, ctx.placements, run_check=False,
+                                   shape=ctx.shape, stride=_contiguous_stride(ctx.shape)),
+                None, None, None)
 
 
-def gather_for_compute(x: torch.Tensor, dp_group, dp_n: int) -> torch.Tensor:
-    """The full tensor of sharded weight `x`, differentiable: its gradient
-    comes back averaged over the `dp_n` ranks of `dp_group` (1: no
-    reduction, every rank computed on the same rows) and placed as `x`."""
+def gather_for_compute(x: torch.Tensor, group=None, n: int = 1, keep: Optional[int] = None
+                       ) -> torch.Tensor:
+    """Sharded weight `x` gathered for compute, differentiable: the full
+    tensor, or with `keep` (a mesh dim) this rank's shard along that dim
+    whole over every other. Its gradient comes back all-reduced over
+    `group` (None: not reduced), divided by `n` and placed as `x`: the
+    data-parallel group and its size average the ranks' gradients of their
+    rows; the flattened group (or the model group with `n` 1) also sums
+    the parts of a weight that the ranks along "model" each used a part of.
+    A plain tensor is returned as it is."""
     if not is_dtensor(x):
         return x
-    return _GatherForCompute.apply(x, dp_group, dp_n)
+    return _GatherForCompute.apply(x, keep, group, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward; the gradient all-reduced (summed)
+    over the model group, since each rank's column shard sees a part of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the forward summed over the model group (the row shards'
+    partial products); the gradient passes as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The model group's shards of a tensor concatenated on its last dim;
+    the gradient is this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, m, r):
+        ctx.r, ctx.w = r, x.shape[-1]
+        parts = [torch.empty_like(x) for _ in range(m)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.r * ctx.w:(ctx.r + 1) * ctx.w], None, None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """f before a column-parallel product (the identity without autograd)."""
+    return _CopyToModel.apply(x, group) if torch.is_grad_enabled() else x
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """g after a row-parallel product: the sum over the model group."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group, m: int, r: int) -> torch.Tensor:
+    """The whole of a tensor split on its last dim over the model group."""
+    return _GatherFromModel.apply(x, group, m, r)
 
 
 class _DPMean(torch.autograd.Function):

@@ -76,7 +76,7 @@ out = {{}}
 tree_map_with_path(lambda p, x: out.__setitem__("init/" + p, np.asarray(x)), params)
 for i, b in enumerate(batches):
     tree_map_with_path(lambda p, x: out.__setitem__(f"batch{{i}}/" + p, np.asarray(x)), b)
-mcfg = MethodConfig(name="async_sam", rho=0.02, ascent_fraction=0.5)
+mcfg = MethodConfig(name="async_sam", rho=0.02, ascent_fraction=0.5, n_microbatches=N_MICRO)
 ex = FusedExecutor(bundle.loss_fn, mcfg, optim.sgd(1e-2, momentum=0.9),
                    mesh=make_sized_mesh(8, 2), model_cfg=cfg)
 state = ex.init_state(params, jax.random.PRNGKey(1))
@@ -131,20 +131,21 @@ def trainer(tmp):
         b = nest(ref, f"batch{i}/")
         batches.append({**{k: torch.from_numpy(v) for k, v in b.items() if k != "ascent"},
                         "ascent": {k: torch.from_numpy(v) for k, v in b["ascent"].items()}})
-    mcfg = MethodConfig(name="async_sam", rho=0.02, ascent_fraction=0.5)
+    mcfg = MethodConfig(name="async_sam", rho=0.02, ascent_fraction=0.5,
+                        n_microbatches=N_MICRO)
 
     def model():
         m = transformer.init_params(cfg, device="meta").to_empty(device="cpu")
         m.load_state_dict(sd)
         return m
 
-    def train(mesh):
+    def train(mesh, prepare=lambda b: b):
         ex = FusedExecutor(bundle.loss_fn, mcfg, optim.sgd(1e-2, momentum=0.9), mesh=mesh,
                            model_cfg=cfg)
         state = ex.init_state(model(), 1)
         losses, aux = [], []
         for b in batches:
-            state, m = ex.step(state, b)
+            state, m = ex.step(state, prepare(b))
             losses.append(float(m["loss"]))
             aux.append(float(m["moe_aux"]))
         return ex, state, losses, aux
@@ -190,11 +191,12 @@ def _flat(tree, prefix=""):
     return out
 
 
-def reference_run(tmp_path, subprocess_py, arch: str) -> dict:
+def reference_run(tmp_path, subprocess_py, arch: str, n_micro: int = 1) -> dict:
     """The reference's 4 steps of `arch` (reduced) on make_sized_mesh(8, 2),
     with its init and batches, as `tmp_path/reference.npz`."""
     out = subprocess_py(f"OUT = {str(tmp_path / 'reference.npz')!r}\nARCH = {arch!r}\n"
-                        + _REFERENCE, devices=8, timeout=RANK_TIMEOUT_S)
+                        f"N_MICRO = {n_micro}\n" + _REFERENCE, devices=8,
+                        timeout=RANK_TIMEOUT_S)
     assert "REFERENCE_OK" in out
     return dict(np.load(tmp_path / "reference.npz"))
 
@@ -207,7 +209,7 @@ def test_sharded_async_sam_matches_unsharded_and_the_reference(tmp_path, subproc
     tests/test_sharding_dryrun.py) and against the reference's sharded run at
     rtol 2e-5, atol 1e-6."""
     ref = reference_run(tmp_path, subprocess_py, "olmo-1b")
-    ranks = spawn_ranks(tmp_path, 'ARCH = "olmo-1b"\n' + _SHARDED)
+    ranks = spawn_ranks(tmp_path, 'ARCH = "olmo-1b"\nN_MICRO = 1\n' + _SHARDED)
     r0 = ranks[0]
     for r in ranks[1:]:
         assert r["losses"] == r0["losses"]
@@ -260,7 +262,7 @@ def test_sharded_moe_aux_is_the_whole_batchs(tmp_path, subprocess_py, arch):
     aux (the dp group's mean of slice values) misses that tolerance, on
     `moe_aux` from the first step."""
     ref = reference_run(tmp_path, subprocess_py, arch)
-    ranks = spawn_ranks(tmp_path, f"ARCH = {arch!r}\n" + _SHARDED_MOE)
+    ranks = spawn_ranks(tmp_path, f"ARCH = {arch!r}\nN_MICRO = 1\n" + _SHARDED_MOE)
     r0 = ranks[0]
     for r in ranks[1:]:
         assert r["losses"] == r0["losses"] and r["moe_aux"] == r0["moe_aux"]
@@ -275,6 +277,69 @@ def test_sharded_moe_aux_is_the_whole_batchs(tmp_path, subprocess_py, arch):
     assert not _within(r0["sliced_aux"][0], ref["moe_aux"][0])
     assert not _within(r0["sliced_losses"], ref["losses"])
     assert not all(_within(sliced[k], want[k]) for k in want)
+
+
+_SHARDED_MICRO = _SHARDED_COMMON + '''
+from repro_torch.launch.sharding import batch_spec_tree, to_placements
+
+
+def placed(batch):
+    """The batch placed by batch_spec_tree (rows over "data")."""
+    pl = to_placements(batch_spec_tree(batch, MESH), MESH)
+    return {k: placed(v) if isinstance(v, dict)
+            else distributed.place(v, MESH.device_mesh, pl[k]) for k, v in batch.items()}
+
+
+def rank_rows_chunk(x, i, n):
+    """The chunking this test shows wrong: chunk i of each rank's own rows
+    (the placed batch's local shard), which is not the global chunk i."""
+    if distributed.is_dtensor(x) and any(p.is_shard(0) for p in x.placements) \\
+            and x.to_local().shape[0] % n == 0:
+        from torch.distributed.tensor import DTensor
+        loc = x.to_local()
+        m = loc.shape[0] // n
+        return DTensor.from_local(loc[i * m:(i + 1) * m], x.device_mesh, x.placements,
+                                  run_check=False)
+    b = x.shape[0]
+    return x[i * (b // n):(i + 1) * (b // n)]
+
+
+def run(rank, world, tmp):
+    global MESH
+    cfg, train = trainer(tmp)
+    MESH = make_sized_mesh(8, 2)
+    _, state, losses, aux = train(MESH, placed)
+    full = {k: distributed.gather(v) for k, v in state.params.items()}
+    distributed.row_chunk = rank_rows_chunk
+    _, _, own_losses, own_aux = train(MESH, placed)
+    return {"losses": losses, "moe_aux": aux,
+            "params": to_reference(full, leaf=lambda t: t.numpy()),
+            "own_losses": own_losses, "own_aux": own_aux}
+'''
+
+
+def test_placed_batch_microbatches_are_the_global_chunks(tmp_path, subprocess_py):
+    """4 SGD-momentum AsyncSAM steps of reduced mixtral-8x7b on
+    make_sized_mesh(8, 2) with 2 microbatches, the batch placed by
+    `batch_spec_tree` (2 rows a dp rank, the 4 ascent rows 1 a rank):
+    microbatch i is the batch's global rows [4 i, 4 i + 4), as the
+    reference chunks it, so the MoE aux of each microbatch (a whole-chunk
+    value) and the loss and parameters hold to the reference's sharded run
+    at rtol 2e-5, atol 1e-6. Chunk i of each rank's own rows (the chunking
+    before this repair) misses that tolerance on `moe_aux`."""
+    ref = reference_run(tmp_path, subprocess_py, "mixtral-8x7b", n_micro=2)
+    ranks = spawn_ranks(tmp_path, 'ARCH = "mixtral-8x7b"\nN_MICRO = 2\n' + _SHARDED_MICRO)
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        assert r["losses"] == r0["losses"] and r["moe_aux"] == r0["moe_aux"]
+    np.testing.assert_allclose(r0["losses"], ref["losses"], rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(r0["moe_aux"], ref["moe_aux"], rtol=2e-5, atol=1e-6)
+    got = _flat(r0["params"])
+    want = {k[len("final/"):]: v for k, v in ref.items() if k.startswith("final/")}
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-6, err_msg=k)
+    assert not _within(r0["own_aux"], ref["moe_aux"])
 
 
 _RESHARD = '''

@@ -245,15 +245,16 @@ def test_fake_trace_equals_the_real_trace(arch):
 # (5) a miniature dry run on a fake 4x2 mesh, the reference test's shapes
 # ---------------------------------------------------------------------------
 
-def _gathered_bytes(leaves, mesh) -> int:
-    """Result bytes of gathering each DTensor leaf whole, one all-gather a
-    sharded mesh dim, the last mesh dim first (DTensor's order)."""
+def _gathered_bytes(leaves, mesh, keep=None) -> int:
+    """Result bytes of gathering each DTensor leaf whole (or but for mesh dim
+    `keep`, whose shard stays), one all-gather a sharded mesh dim, the last
+    mesh dim first (DTensor's order)."""
     sizes = mesh.device_mesh.shape
     total = 0
     for x in leaves:
         n = abstract.nbytes(x)
         for d in reversed(range(len(sizes))):
-            if x.placements[d].is_shard():
+            if x.placements[d].is_shard() and d != keep:
                 n *= sizes[d]
                 total += n
     return total
@@ -271,21 +272,30 @@ def test_mini_dryrun_train_and_decode(tmp_path):
         params = list(state.params.values())
         lowered = dryrun.lower_cell(cfg, train, mesh, mcfg, device="cpu")
         gathers = sum(r["bytes"] for r in lowered.collectives if r["kind"] == "all-gather")
-        # every weight gathered whole by each of the 4 loss calls (2
-        # microbatches of the descent batch, 2 of the ascent batch); the
-        # batch is placed, so no row moves
-        assert gathers == 4 * _gathered_bytes(params, mesh)
-        assert any(r["kind"] == "all-reduce" for r in lowered.collectives)
+        # the tensor-parallel layout: every leaf of reduced olmo-1b (the
+        # blocks' projections and the tied embedding; its norms have no
+        # parameters) is consumed on its "model" shard, so each is gathered
+        # over "data" only, layer by layer, by each of the 4 loss calls (2
+        # microbatches of the descent batch, 2 of the ascent batch), the
+        # embedding twice (the lookup and the logits); the descent batch's
+        # two leaves move whole for each of its 2 global microbatches (its 2
+        # ascent rows do not divide "data": they lie on every rank)
+        embed = state.params["embedding.embed"]
+        rows = 2 * 2 * 8 * 64 * 4
+        assert gathers == 4 * _gathered_bytes(params + [embed], mesh, keep=1) + rows
+        assert any(r["kind"] == "all-reduce" and r["group"] == 2 for r in lowered.collectives)
         assert lowered.flops > 0 and lowered.peak_bytes > lowered.argument_bytes
 
         args = dryrun.serve_inputs(cfg, decode, mesh, device="cpu")
         dlow = dryrun.lower_cell(cfg, decode, mesh, mcfg, device="cpu")
         dgathers = sum(r["bytes"] for r in dlow.collectives if r["kind"] == "all-gather")
-        # the weights whole, and each cache leaf over "model" only (its batch
-        # dim stays split over "data")
+        # the weights over "data" only (the embedding twice), the cache not
+        # at all (placed on its rows and its kv heads, as each rank computes
+        # on it), and this rank's 2 rows of the logits over "model"
         cache = [t for t in trees.tree_leaves(args[1]["layers"])]
-        assert dgathers == _gathered_bytes(args[0].values(), mesh) \
-            + sum(abstract.nbytes(t) * 2 for t in cache)
+        assert all(str(t.placements) == "(Shard(dim=1), Shard(dim=3))" for t in cache)
+        weights = list(args[0].values()) + [args[0]["embedding.embed"]]
+        assert dgathers == _gathered_bytes(weights, mesh, keep=1) + 2 * cfg.vocab_size * 4
     res = dryrun.run_cell("olmo-1b", "decode_32k", device="cpu", save=False, verbose=False,
                           cfg_override=cfg)
     assert res.status == "ok", res.note
