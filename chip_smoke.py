@@ -31,6 +31,15 @@
    qwen3-8b's 32/8 on 4 (8/2), each timed beside its full-head case), each
    case also held to the kernel path it must take: wgmma (TMA + wgmma) for
    every shape of the model paths;
+4b. flash offset phase: the kernel with a query offset at the rank shapes
+   of the "fsdp_sp" profile on a 16-way "model" axis (a rank's block of the
+   queries against the whole sequence's keys: qwen2.5-32b train_4k's 256 of
+   4096 queries at ranks 0, 7 and 15, its prefill_32k's 2048 of 32768 at
+   rank 15, zamba2-1.2b's shared attention, 32 heads of 64, 256 of 4096 at
+   rank 15), each held to the plain version with the same offset within
+   BF16_TOL on the wgmma path, its launch counted, and timed beside its
+   bound (the pairs its rows see) and SDPA with the equivalent boolean
+   mask;
 5. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
    serves 8 requests x 1024 prompt tokens + 32 greedy tokens through
    `repro_torch.launch.serve.serve`; the launch counts, set to 0 just before
@@ -83,14 +92,16 @@
    fake shapes): its kernels must be the train phase's launches a step, its
    predicted peak within DRYRUN_PEAK_TOL of the train phase's
    max_memory_allocated, and it prints the predicted flops over the median
-   step; then `launch.dryrun.run_cell` on the card's path for four production
-   cells (olmo-1b train_4k on 16x16 at 1 and 2 layers and qwen2.5-32b
-   train_4k on 2x16x16 at a depth cut, zamba2-1.2b long_500k,
-   deepseek-v2-lite-16b prefill_32k), each record printed, and the mesh
-   layout's two checks: olmo-1b's rank-0 flops at full depth (from its two
-   cuts) at most an eighth of the data-parallel layout's 754.3 TFLOP, and
-   qwen2.5-32b's peak at its cut at least the cut's share of 100 GiB below
-   the old layout's record there; the traces must leave memory_allocated and, after a
+   step; then `launch.dryrun.run_cell` on the card's path for production
+   cells (olmo-1b train_4k on 16x16 at 1 and 2 layers, qwen2.5-32b
+   train_4k on 2x16x16 at a depth cut and decode_32k on 16x16 at 1 and 2
+   layers, zamba2-1.2b long_500k, deepseek-v2-lite-16b prefill_32k), each
+   record printed, and the mesh layout's three checks: olmo-1b's rank-0
+   flops at full depth (from its two cuts) at most an eighth of the
+   data-parallel layout's 754.3 TFLOP, qwen2.5-32b's train peak at its cut
+   at least the cut's share of 100 GiB below the old layout's record
+   there, and its decode_32k peak at full depth (from its two cuts: the
+   "fsdp_sp" cache on its sequence blocks) within one 80 GB card; the traces must leave memory_allocated and, after a
    reset, max_memory_allocated unchanged; then the custom ops' dispatch cost
    (flash and the AdamW epilogue through the dispatcher against their launch
    called directly, host time a call, in turns);
@@ -148,6 +159,14 @@
    scan and autograd of it (da against the scan in float64; each kernel run
    twice: bit for bit the same), timed beside their bound, the forward's
    three phases and the backward's four also each alone;
+15b. chained scan phase: the SSD kernels at zamba2-1.2b's width (8 x 1024
+   and 2 x 1024, fp32 x/b/c) cut into 4 sequence blocks as the "fsdp_sp"
+   profile's ranks run them: each block from no state, the pure prefix of
+   the entering states (`utils.distributed.state_prefix`), each block again
+   from its state; y, the final state and the gradients by autograd (the
+   backward kernel through both passes and the prefix) held to one
+   whole-sequence kernel call within FP32_TOL of their max; the chain's
+   launches counted and its time beside the whole call's;
 16. zamba2 serve phase: full-width, full-depth zamba2-1.2b (1,177,813,888
    fp32 parameters from seed 0, bf16 compute; 38 mamba layers, 7 invocations
    of the shared attention block) serves 8 x 1024 prompts + 32 greedy tokens
@@ -322,31 +341,38 @@ LOCAL_HEAD_CASES = {"olmo-1b prefill, 8 local heads (model 2)": "olmo-1b prefill
                     "qwen3-8b prefill, 8/2 local heads (model 4)": "qwen3-8b prefill"}
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+def visible_pairs(sq: int, sk: int, causal: bool, window, q_offset: int = 0) -> int:
     """(query, key) pairs the mask lets through: the work this input needs
     (the kernel module's count, which its flop formula uses too)."""
     from repro_torch.kernels import flash_attention as fa
-    return fa.visible_pairs(sq, sk, causal, window)
+    return fa.visible_pairs(sq, sk, causal, window, q_offset)
 
 
-def flash_bound(shape, dtype: str, causal: bool, window) -> tuple[float, str]:
+def flash_bound(shape, dtype: str, causal: bool, window, q_offset: int = 0
+                ) -> tuple[float, str]:
     b, sq, sk, h, kv, hd, hd_v = shape
     elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * (b * sq * h * hd + b * sk * kv * (hd + hd_v) + b * sq * h * hd_v)
-    flops = 2 * (hd + hd_v) * b * h * visible_pairs(sq, sk, causal, window)
+    # k and v are read only for the keys some row sees: up to the last row's
+    # position under causal, from the first row's window start
+    hi = min(sk, q_offset + sq) if causal else sk
+    lo = max(0, q_offset - window + 1) if window else 0
+    keys = max(0, hi - lo)
+    nbytes = elem * (b * sq * h * hd + b * keys * kv * (hd + hd_v) + b * sq * h * hd_v)
+    flops = 2 * (hd + hd_v) * b * h * visible_pairs(sq, sk, causal, window, q_offset)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa_call(q, k, v, causal: bool, window):
+def sdpa_call(q, k, v, causal: bool, window, q_offset: int = 0):
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = q.shape[2] != k.shape[2]
-    if window is None:
+    if window is None and not q_offset:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                       enable_gqa=gqa)
-    qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    window = window or k.shape[1] + q_offset + q.shape[1]
+    qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = (qpos - kpos < window) & ((qpos >= kpos) if causal else True)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
@@ -402,6 +428,70 @@ def flash_phase() -> dict:
         fail(f"flash_attention kernel disagrees with its plain version or takes another "
              f"path than its case's: {failures}")
     return main_case
+
+
+# The flash kernel with a query offset at the rank shapes of the "fsdp_sp"
+# profile on a 16-way "model" axis (`models.layers`: a rank's block of the
+# queries against the whole sequence's k and v, gathered over "model"): the
+# rows of a microbatch of 4 (train_4k's 16 rows a dp rank in 4 microbatches)
+# or of prefill_32k's one row a rank on 2x16x16. (name, (B, Sq, Sk, H, K,
+# hd, hd_v), q_offset); causal, bf16, the wgmma path.
+OFFSET_CASES = [
+    ("qwen2.5-32b train_4k, rank 0 of 16", (4, 256, 4096, 40, 8, 128, 128), 0),
+    ("qwen2.5-32b train_4k, rank 7 of 16", (4, 256, 4096, 40, 8, 128, 128), 1792),
+    ("qwen2.5-32b train_4k, rank 15 of 16", (4, 256, 4096, 40, 8, 128, 128), 3840),
+    ("qwen2.5-32b prefill_32k, rank 15 of 16", (1, 2048, 32768, 40, 8, 128, 128), 30720),
+    ("zamba2-1.2b shared attention train_4k, rank 15 of 16", (4, 256, 4096, 32, 32, 64, 64),
+     3840),
+]
+
+
+def offset_flash_phase() -> list:
+    """Each OFFSET_CASES entry against the plain version with the same
+    offset, its launch counted, timed beside its bound and SDPA with the
+    equivalent boolean mask; fails when a case disagrees, does not launch
+    the kernel or leaves the wgmma path. Returns the rows."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rows, failures = [], []
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name, shape, q_off in OFFSET_CASES:
+        b, sq, sk, h, kv, hd, hd_v = shape
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+                   for s in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd_v)))
+        before = fa.launches
+        out = fa.flash_attention(q, k, v, causal=True, q_offset=q_off)
+        torch.cuda.synchronize()
+        launches = fa.launches - before
+        expect = ref.flash_attention_plain(q, k, v, causal=True, q_offset=q_off)
+        diff = (out.float() - expect.float()).abs()
+        err, path = float(diff.max()), fa.kernel_path(q, k, v)
+        ok = (out.shape == expect.shape and bool(torch.isfinite(out).all()) and launches == 1
+              and bool((diff <= BF16_TOL["atol"] + BF16_TOL["rtol"]
+                        * expect.float().abs()).all()) and path == "wgmma")
+        del out, expect, diff
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True, q_offset=q_off))
+        plain_ms = time_ms(lambda: ref.flash_attention_plain(q, k, v, causal=True,
+                                                             q_offset=q_off), 0.0)
+        library_ms = time_ms(sdpa_call(q, k, v, True, None, q_off))
+        bound_ms, bound_by = flash_bound(shape, "bfloat16", True, None, q_off)
+        row = dict(case=name, shape=shape, q_offset=q_off,
+                   pairs=visible_pairs(sq, sk, True, None, q_off), path=path,
+                   launches=launches, max_abs_err=err, atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], ok=ok, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        print("flash_attention offset " + json.dumps(row))
+        rows.append(row)
+        if not ok:
+            failures.append(name)
+        del q, k, v
+        torch.cuda.empty_cache()
+    if failures:
+        fail(f"flash_attention with a query offset disagrees with its plain version, "
+             f"did not launch or left the wgmma path: {failures}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2716,6 +2806,108 @@ def mamba2_kernel_phase() -> dict:
     return main_rows
 
 
+# The SSD scan chained over CHAIN_BLOCKS sequence blocks as the "fsdp_sp"
+# profile's ranks run it (`models.ssm`), at zamba2-1.2b's width: (name, (B, S,
+# H, P, N, G)). fp32 x/b/c, so that the chain and the whole call differ only
+# in the order of their sums; dt ~ softplus(0.5 N(0, 1) + the model's
+# dt_bias), about the model's 0.01 at init, so that a block's decay,
+# exp(a sum dt) (exp(-2.6) to exp(-41) over 256 positions), leaves the
+# entering state a share of every block's output (a control without the
+# chain must miss).
+CHAIN_CASES = [("zamba2-1.2b scan", (8, 1024, 64, 64, 64, 1)),
+               ("zamba2-1.2b ascent scan", (2, 1024, 64, 64, 64, 1))]
+CHAIN_BLOCKS = 4
+
+
+def chained_scan(x, dt, a, b, c, d, blocks: int, chain: bool = True):
+    """(y, final state) of the SSD kernels over `blocks` blocks of the
+    sequence: each block from no state (its final state S_r and log decay
+    L_r = a sum dt), the exclusive prefix h_r of the stacked lists
+    (`utils.distributed.state_prefix`, as each rank folds the gathered
+    ones), each block again from h_r. Without `chain`, each block from no
+    state (the control)."""
+    import torch
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.utils import distributed
+    w = x.shape[1] // blocks
+    # each block's x, dt, b, c, contiguous as a rank holds them
+    parts = [[t[:, r * w:(r + 1) * w].contiguous() for t in (x, dt, b, c)]
+             for r in range(blocks)]
+    first = [m2.mamba2_scan(xb, dtb, a, bb, cb, d) for xb, dtb, bb, cb in parts]
+    if not chain:
+        return torch.cat([y for y, _ in first], dim=1), first[-1][1]
+    s_all = torch.stack([st for _, st in first])
+    l_all = torch.stack([a * dtb.sum(dim=1) for _, dtb, _, _ in parts])
+    out = [m2.mamba2_scan(xb, dtb, a, bb, cb, d,
+                          init_state=distributed.state_prefix(s_all, l_all, r))
+           for r, (xb, dtb, bb, cb) in enumerate(parts)]
+    return torch.cat([y for y, _ in out], dim=1), out[-1][1]
+
+
+def chained_scan_phase() -> list:
+    """Each CHAIN_CASES shape: the chained scan's y, final state and the
+    gradients of <y, gy> + <state, gs> with respect to x, dt, a, b, c and d
+    (the backward kernel through both passes and the prefix) against one
+    whole-sequence kernel call, each within FP32_TOL of its max; a control,
+    the blocks without the chain, must miss y's limit; the chain's launches
+    (2 x CHAIN_BLOCKS forward, as many backward) counted; the chain's
+    forward timed beside the whole call's. Returns the rows."""
+    import torch
+    from repro_torch.kernels import mamba2_scan as m2
+
+    rows, failures = [], []
+    for case, shape in CHAIN_CASES:
+        bsz, seq, h, p_, n, g = shape
+        gen = torch.Generator(device="cuda").manual_seed(11)
+
+        def rnd(*sh, scale=1.0):
+            return torch.randn(sh, generator=gen, device="cuda") * scale
+
+        x, bb, cc = rnd(bsz, seq, h, p_, scale=0.5), rnd(bsz, seq, g, n, scale=0.3), \
+            rnd(bsz, seq, g, n, scale=0.3)
+        dt = torch.nn.functional.softplus(rnd(bsz, seq, h, scale=0.5)
+                                          + math.log(math.expm1(0.01)))
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")
+        d = torch.full((h,), 0.5, device="cuda")
+        args = [t.requires_grad_() for t in (x, dt, a, bb, cc, d)]
+        gy, gs = rnd(bsz, seq, h, p_), rnd(bsz, h, p_, n)
+        y_w, s_w = m2.mamba2_scan(*args)
+        g_w = torch.autograd.grad((y_w * gy).sum() + (s_w * gs).sum(), args)
+        before = dict(m2.launches)
+        y_c, s_c = chained_scan(*args, blocks=CHAIN_BLOCKS)
+        g_c = torch.autograd.grad((y_c * gy).sum() + (s_c * gs).sum(), args)
+        torch.cuda.synchronize()
+        launches = {k: m2.launches[k] - before[k] for k in before}
+        with torch.no_grad():
+            y_n, _ = chained_scan(*args, blocks=CHAIN_BLOCKS, chain=False)
+            errs = {"y": wkv_error(y_c, y_w), "state": wkv_error(s_c, s_w)}
+            errs.update({f"d{nm}": wkv_error(u, w)
+                         for nm, u, w in zip(("x", "dt", "a", "b", "c", "d"), g_c, g_w)})
+            control = wkv_error(y_n, y_w)[1]
+            ms = time_ms(lambda: m2.mamba2_scan(*args))
+            chain_ms = time_ms(lambda: chained_scan(*args, blocks=CHAIN_BLOCKS))
+        tol = FP32_TOL["rtol"]
+        ok = (all(e[1] <= tol for e in errs.values()) and control > tol
+              and launches == {"mamba2_scan_fwd": 2 * CHAIN_BLOCKS,
+                               "mamba2_scan_bwd": 2 * CHAIN_BLOCKS}
+              and bool(torch.isfinite(y_c).all()))
+        row = dict(case=case, shape=shape, blocks=CHAIN_BLOCKS,
+                   max_rel_err={k: e[1] for k, e in errs.items()},
+                   max_abs_err=max(e[0] for e in errs.values()), tol=tol,
+                   control_rel_err=control, launches=launches, ok=ok, whole_ms=ms,
+                   chain_ms=chain_ms)
+        print("mamba2 chained " + json.dumps(row))
+        rows.append(row)
+        if not ok:
+            failures.append(case)
+        del args, x, dt, a, bb, cc, d, gy, gs, y_w, s_w, g_w, y_c, s_c, g_c, y_n
+        torch.cuda.empty_cache()
+    if failures:
+        fail(f"the chained SSD scan disagrees with the whole call, or its control does "
+             f"not miss: {failures}")
+    return rows
+
+
 def zamba_launches() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_scan as m2
@@ -3622,7 +3814,7 @@ def train_profile(ex, state, pipe, family: str = "adamw", tag: str = "") -> dict
 # bytes, a large one to 2 MiB) and holds cuBLAS's workspaces, which the
 # trace, counting tensors' storages, does not see.
 DRYRUN_PEAK_TOL = 0.10
-# The mesh layout's two checks. olmo-1b train_4k 16x16 computed 754.3 TFLOP
+# The mesh layout's checks. olmo-1b train_4k 16x16 computed 754.3 TFLOP
 # a step on rank 0 in the data-parallel layout before this one (PERF.md, the
 # dry run's records): its flops at full depth, from the 1- and 2-layer cuts
 # (the layers are alike: f(16) = f(1) + 15 (f(2) - f(1))), must be at most
@@ -3631,11 +3823,17 @@ DRYRUN_PEAK_TOL = 0.10
 # at least (QWEN_CUT - 1) / 63 of 100 GiB below the old layout's record at
 # that cut (QWEN_OLD_PEAK: bytes, `launch.dryrun.run_cell` of the commit
 # before the per-layer gathers at the same cut, whose records on the CPU
-# equal the card's), the share of the layers whose weights the per-layer
-# gathers no longer hold together.
+# equal the card's; the cut is 2 layers since the run neared its time limit
+# on a slow host, 4 before), the share of the layers whose weights the
+# per-layer gathers no longer hold together.
 OLMO_OLD_TFLOP, OLMO_LAYERS = 754.3, 16
-QWEN_CUT, QWEN_LAYERS, QWEN_OLD_PEAK = 4, 64, 234_791_324_732
+QWEN_CUT, QWEN_LAYERS, QWEN_OLD_PEAK = 2, 64, 229_509_785_148
 QWEN_DROP_GIB = 100.0
+# qwen2.5-32b decode_32k 16x16 gathered its whole cache on every rank (132.48
+# GiB at full depth, PERF.md); under "fsdp_sp" each rank decodes over its
+# sequence block of the cache: its peak at full depth, from the 1- and
+# 2-layer cuts (the layers are alike), must fit one card.
+CARD_BYTES = 80e9
 # (arch, shape, multi-pod, layers: a depth cut, None for full depth). The
 # full-depth cells of every arch are `python -m repro_torch.launch.dryrun
 # --all --both-meshes`'s (PERF.md); here each cell shows that the card's path
@@ -3643,7 +3841,8 @@ QWEN_DROP_GIB = 100.0
 DRYRUN_CELLS = (("olmo-1b", "train_4k", False, 1), ("olmo-1b", "train_4k", False, 2),
                 ("zamba2-1.2b", "long_500k", False, None),
                 ("deepseek-v2-lite-16b", "prefill_32k", False, None),
-                ("qwen2.5-32b", "train_4k", True, QWEN_CUT))
+                ("qwen2.5-32b", "train_4k", True, QWEN_CUT),
+                ("qwen2.5-32b", "decode_32k", False, 1), ("qwen2.5-32b", "decode_32k", False, 2))
 DISPATCH_CALLS, DISPATCH_ROUNDS = 2000, 3
 
 
@@ -3675,8 +3874,8 @@ def dispatch_cost() -> dict:
     scal = torch.tensor([1.0, 1e-6, 1.0, 1.0, 1.0], device="cuda")
     adam = (w, g, mu, nu, scal, 0.9, 0.999, 1e-8, 0.0)
     flash = torch.ops.repro_torch.flash_attention_fwd
-    pairs = {"flash_attention": (lambda: flash(q, q, q, True, 0),
-                                 lambda: fa._launch_impl(q, q, q, True, 0)),
+    pairs = {"flash_attention": (lambda: flash(q, q, q, True, 0, 0),
+                                 lambda: fa._launch_impl(q, q, q, True, 0, 0)),
              "adamw_epilogue": (lambda: torch.ops.repro_torch.adamw_epilogue(*adam),
                                 lambda: fu._adamw_impl(*adam))}
     out = {}
@@ -3700,7 +3899,7 @@ def dryrun_cells() -> tuple[list, float, float]:
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
 
-    cells, olmo_flops = [], {}
+    cells, olmo_flops, decode_peak = [], {}, {}
     for arch, shape, multi_pod, layers in DRYRUN_CELLS:
         full = get_config(arch)
         cut = dc.replace(full, n_layers=layers) if layers else None
@@ -3713,8 +3912,10 @@ def dryrun_cells() -> tuple[list, float, float]:
         cells.append(r.to_json())
         if arch == "olmo-1b":
             olmo_flops[layers] = r.flops
-        if arch == "qwen2.5-32b":
+        if arch == "qwen2.5-32b" and shape == "train_4k":
             qwen_peak = r.peak_memory_per_device
+        if arch == "qwen2.5-32b" and shape == "decode_32k":
+            decode_peak[layers] = r.peak_memory_per_device
     full_flops = olmo_flops[1] + (OLMO_LAYERS - 1) * (olmo_flops[2] - olmo_flops[1])
     limit = OLMO_OLD_TFLOP * 1e12 / 8
     print(f"dry run: olmo-1b train_4k 16x16 rank 0 {full_flops / 1e12:.4f} TFLOP a step at "
@@ -3731,6 +3932,13 @@ def dryrun_cells() -> tuple[list, float, float]:
         fail(f"dry run: qwen2.5-32b train_4k 2x16x16 at {QWEN_CUT} layers peaks at "
              f"{qwen_peak / 2**30:.4f} GiB, less than {drop:.4f} GiB below the old "
              f"layout's {QWEN_OLD_PEAK / 2**30:.4f}")
+    full_peak = decode_peak[1] + (QWEN_LAYERS - 1) * (decode_peak[2] - decode_peak[1])
+    print(f"dry run: qwen2.5-32b decode_32k 16x16 rank 0 peak {full_peak / 2**30:.4f} GiB at "
+          f"full depth (from the 1- and 2-layer cuts {decode_peak[1]:.6e}, "
+          f"{decode_peak[2]:.6e} bytes), limit one card's {CARD_BYTES / 2**30:.4f} GiB")
+    if full_peak > CARD_BYTES:
+        fail(f"dry run: qwen2.5-32b decode_32k 16x16 peaks at {full_peak / 2**30:.4f} GiB "
+             f"at full depth, past one card's {CARD_BYTES / 2**30:.4f}")
     return cells, full_flops, qwen_peak
 
 
@@ -3834,6 +4042,9 @@ def main() -> int:
 
     epilogue = epilogue_phase()
     flash = flash_phase()
+    t0 = time.perf_counter()
+    offset_flash_phase()
+    print(f"flash offset phase: {time.perf_counter() - t0:.2f}s")
     served, model = serve_phase()
     print("serve " + json.dumps(served))
     profile_phase(model)
@@ -3890,6 +4101,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ssd = mamba2_kernel_phase()
     print(f"mamba2 kernel phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    chained_scan_phase()
+    print(f"chained scan phase: {time.perf_counter() - t0:.2f}s")
     zamba_served, model = zamba_serve_phase()
     print("zamba2 serve " + json.dumps(zamba_served))
     profile_phase(model)

@@ -108,12 +108,12 @@ def main() -> int:
             lib.fa_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                                    + [ctypes.c_int64] * 12
                                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_void_p])
+                                      ctypes.c_int, ctypes.c_void_p])
 
             def call(causal: int) -> None:
                 rc = lib.fa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 1,
                                 b, sq, sk, h, kv, hd, hd_v, *q.stride()[:3], *k.stride()[:3],
-                                *v.stride()[:3], *out.stride()[:3], hd ** -0.5, causal, 0,
+                                *v.stride()[:3], *out.stride()[:3], hd ** -0.5, causal, 0, 0,
                                 stream)
                 if rc != 0:
                     raise RuntimeError(f"{name}: launch failed, CUDA error {rc}")

@@ -239,7 +239,9 @@ def make_mesa(cfg: MethodConfig) -> Method:
     """MESA: one gradient pass on  L(w) + lambda KL(f_ema || f_w)  (at
     temperature mesa_temp, on from step mesa_start_step), where f_ema is the
     model at the EMA of the parameters: the trajectory gives the sharpness
-    signal. The loss callback must expose aux["logits"]."""
+    signal. The loss callback must expose aux["logits"]; a sharded one may
+    give aux["position_mean"], the mean over positions that lie across its
+    ranks (`engine.fused`), else the KL is the mean over the logits'."""
     t = cfg.mesa_temp
 
     def init(params, seed):
@@ -268,7 +270,9 @@ def make_mesa(cfg: MethodConfig) -> Method:
                 del ema_aux
             with torch.set_grad_enabled(active):   # inactive: the term is only a metric
                 logq = torch.log_softmax(aux["logits"].float() / t, dim=-1)
-                kl = -torch.mean(torch.sum(p_ema * logq, dim=-1)) * t * t
+                # a sharded loss's positions lie across ranks: its mean is theirs
+                mean = aux.get("position_mean", torch.mean)
+                kl = -mean(torch.sum(p_ema * logq, dim=-1)) * t * t
                 total = loss + cfg.mesa_lambda * kl if active else loss
             total.backward()
             del p_ema, logq

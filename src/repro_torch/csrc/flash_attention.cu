@@ -6,10 +6,14 @@
 //   q (B,Sq,H,hd), k (B,Sk,K,hd), v (B,Sk,K,hd_v)  ->  o (B,Sq,H,hd_v) in q's dtype,
 // scale 1/sqrt(hd) applied in fp32 to the Q K^T sum, fp32 running max m, sum l
 // and accumulator, l clamped at 1e-30, masked scores -1e30 as the oracle's, GQA
-// by reading kv head h / (H/K) (no repeat). Causal masking is top-left aligned
-// (query i sees keys 0..i), as in the oracle. A row that sees no key at all
-// (only possible with a window and Sq > Sk) is written as zeros, as the Pallas
-// kernel writes it.
+// by reading kv head h / (H/K) (no repeat). Query row i stands at position
+// q_off + i (q_off >= 0, 0 in the oracle: top-left aligned): under the causal
+// mask it sees keys 0..q_off+i, under a window keys with q_off + i - j <
+// window. A rank of a sequence-parallel layout passes its block's first
+// position, so its rows see the whole sequence's keys as the whole call's
+// rows [q_off, q_off + Sq) do. A row that sees no key at all (only possible
+// with a window and Sq > Sk) is written as zeros, as the Pallas kernel
+// writes it.
 //
 // What bounds it on the H100: at the olmo-1b prefill shape (B=8, S=1024,
 // H=K=16, hd=128, bf16, causal) q/k/v/o are 134 MB, 40 us at 3.35 TB/s,
@@ -115,6 +119,7 @@ struct Params {
   float scale;
   int causal;
   int window;                   // <= 0: no window
+  int q_off;                    // position of query row 0
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -162,8 +167,8 @@ __global__ void __launch_bounds__(NT) fa_fwd_fma_kernel(const Params p) {
 
   // keys visible to some row of this tile: [k_begin, k_end)
   const int q_last = min(q0 + BQ, p.Sq) - 1;
-  const int k_end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
-  const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int k_end = p.causal ? min(p.Sk, q_last + p.q_off + 1) : p.Sk;
+  const int k_begin = p.window > 0 ? max(0, q0 + p.q_off - p.window + 1) : 0;
 
   float m_run = NEG_INF, l_run = 0.f;
   float acc[4][NJ];
@@ -203,7 +208,7 @@ __global__ void __launch_bounds__(NT) fa_fwd_fma_kernel(const Params p) {
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
+      const int qi = q0 + ty + 16 * i + p.q_off;   // the row's position
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kj = k0 + tx + 16 * j;
@@ -521,15 +526,16 @@ template <int BKV>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int k0, int wq0, int r0, int c0,
                                              float sl2, const Params& p) {
-  const bool edge = k0 + BKV > p.Sk || (p.causal && k0 + BKV - 1 > wq0) ||
-                    (p.window > 0 && wq0 + 63 - k0 >= p.window);
+  const int wp0 = wq0 + p.q_off;   // the position of the warpgroup's first row
+  const bool edge = k0 + BKV > p.Sk || (p.causal && k0 + BKV - 1 > wp0) ||
+                    (p.window > 0 && wp0 + 63 - k0 >= p.window);
   if (edge) {
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + 8 * j + c0 + (e & 1);
-        const int qi = r0 + 8 * (e >> 1);
+        const int qi = r0 + 8 * (e >> 1) + p.q_off;
         const bool ok = kj < p.Sk && (!p.causal || kj <= qi) &&
                         (p.window <= 0 || qi - kj < p.window);
         if (!ok) sc[4 * j + e] = NEG_INF;
@@ -594,7 +600,10 @@ __device__ __forceinline__ void rescale_and_round(float (&o)[D][32],
 }
 
 // The rows and keys of one query tile: query rows q0 .. q0 + BM - 1, kv
-// tiles t0 .. t0 + n_tiles - 1 (those that some row of the tile sees).
+// tiles t0 .. t0 + n_tiles - 1 (those that some row of the tile sees, the
+// rows at positions q_off + q0 ..). With an offset the two-tile pairing stays
+// balanced: tiles j and n_qt - 1 - j still cover n_qt + 1 kv tiles plus
+// twice the offset's.
 struct QueryTile {
   int q0, t0, n_tiles;
 };
@@ -603,8 +612,8 @@ template <int BKV>
 __device__ __forceinline__ QueryTile query_tile(int qt, const Params& p) {
   const int q0 = qt * wg::BM;
   const int q_last = min(q0 + wg::BM, p.Sq) - 1;
-  const int k_end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
-  const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int k_end = p.causal ? min(p.Sk, q_last + p.q_off + 1) : p.Sk;
+  const int k_begin = p.window > 0 ? max(0, q0 + p.q_off - p.window + 1) : 0;
   const int t0 = k_begin / BKV;
   return QueryTile{q0, t0, k_begin < k_end ? (k_end - t0 * BKV + BKV - 1) / BKV : 0};
 }
@@ -950,21 +959,22 @@ bool wgmma_ok(const Params& p, int dtype) {
 // dtype: 0 = float32, 1 = bfloat16. path: 0 = CUDA cores (takes any input),
 // 1 = wgmma (refused with cudaErrorInvalidValue unless `wgmma_ok`). Strides
 // are in elements; the last dim of every tensor is contiguous. window <= 0
-// means no window. Returns the CUDA error of the launch (0 on success), or
-// 10000 + the CUresult when a tensor map cannot be encoded.
+// means no window; q_off (>= 0) is the position of query row 0. Returns the
+// CUDA error of the launch (0 on success), or 10000 + the CUresult when a
+// tensor map cannot be encoded.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int path,
                       int B, int Sq, int Sk, int H, int KH, int hd, int hdv,
                       int64_t q_sb, int64_t q_ss, int64_t q_sh,
                       int64_t k_sb, int64_t k_ss, int64_t k_sh,
                       int64_t v_sb, int64_t v_ss, int64_t v_sh,
                       int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                      float scale, int causal, int window, void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 || hd < 1 || hd > 256 ||
+                      float scale, int causal, int window, int q_off, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KH < 1 || H % KH != 0 || hd < 1 || hd > 256 || q_off < 0 ||
       hdv < 1 || hdv > 256 || (dtype != 0 && dtype != 1) || (path != 0 && path != 1))
     return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, o, B, Sq, Sk, H, KH, hd, hdv,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                 scale, causal, window};
+                 scale, causal, window, q_off};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 1) return wgmma_ok(p, dtype) ? dispatch_wgmma(p, s) : (int)cudaErrorInvalidValue;
   return (int)(dtype == 0 ? dispatch_fma<float>(p, s) : dispatch_fma<__nv_bfloat16>(p, s));

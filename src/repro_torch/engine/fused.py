@@ -34,6 +34,12 @@ computes in the reference's mesh layout (`api.mesh_context`,
     where tensor-parallel code consumes the rank's "model" shard (the "tp"
     profile's attention heads, MLP and vocabulary: the ranks along "model"
     split that compute, Megatron-style), whole elsewhere;
+  * under the "fsdp_sp" profile each rank of the model group computes its
+    block of the sequence (`partitioning.sequence_block`, installed by the
+    model's forward on the whole token rows, so a microbatch is cut as the
+    batch is); its loss is its share of the global masked mean
+    (`registry.sequence_parallel_cross_entropy`), and every weight's
+    gradient is summed over the model group;
   * the loss (and each scalar aux) is the mean over the dp group, and each
     weight's gradient is averaged over the dp group (summed over the model
     group where each model rank used a part of a whole weight) and cut to
@@ -43,8 +49,12 @@ computes in the reference's mesh layout (`api.mesh_context`,
     and dots reduce in one all-reduce over the flattened mesh, so every rank
     sees the same bits (`utils.trees`).
 The numbers are the unsharded step's up to summation order. The logits of a
-vocab-sharded head stay sharded (`registry.vocab_parallel_cross_entropy`);
-aux["logits"] is gathered whole for a method that reads it (MESA). A loss
+vocab-sharded head stay sharded (`registry.vocab_parallel_cross_entropy`),
+and a sequence block's stay the block's; for a method that reads
+aux["logits"] (MESA) they are gathered over the vocabulary only, and its
+mean over the positions (aux["position_mean"]) is reduced over the ranks
+that hold the dp rows and the blocks, so that the KL term is the whole
+batch's on every rank. A loss
 term whose per-row parts do not average (a MoE's load-balancing aux, a product of two batch means)
 reads the dp group from `distributed.dp_context`, which the sharded loss
 installs around the model's loss function, and reduces its means over the
@@ -56,6 +66,7 @@ every rank reports the same numbers and can rejoin on a grow (`resize`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import torch
@@ -271,7 +282,10 @@ def _dp_loss(loss_fn: LossFn, mesh, whole_vocab: Optional[int] = None) -> LossFn
     any other loss function gets them gathered whole); the loss
     and the scalar aux averaged over the dp group (see the module
     docstring). `whole_vocab`: aux["logits"] of a vocab-sharded head
-    gathered to that many entries over "model"."""
+    gathered to that many entries over "model", and aux["position_mean"]
+    the mean over the whole batch's positions of a function of them
+    (`distributed.global_mean`: the dp rows and the sequence blocks stay
+    on their ranks)."""
     from repro_torch.engine.api import mesh_context
     from repro_torch.launch.mesh import dp_axes
     from repro_torch.models import partitioning
@@ -300,11 +314,18 @@ def _dp_loss(loss_fn: LossFn, mesh, whole_vocab: Optional[int] = None) -> LossFn
                 params = {k: partitioning.gather_leaf(v) for k, v in params.items()}
             loss, aux = loss_fn(params, batch, gen)
             logits = aux.get("logits")
-            if whole_vocab is not None and isinstance(logits, torch.Tensor) \
-                    and logits.dim() and logits.shape[-1] != whole_vocab:
+            if whole_vocab is not None and isinstance(logits, torch.Tensor) and logits.dim():
                 lay = partitioning.current_layout()
-                aux = {**aux, "logits": distributed.gather_from_model(
-                    logits, lay.model_group, lay.m, lay.r)}
+                if logits.shape[-1] != whole_vocab:
+                    logits = distributed.gather_from_model(logits, lay.model_group, lay.m, lay.r)
+                # the positions stay on their dp rows and sequence blocks; a
+                # mean over them is reduced over the ranks that hold them
+                blocks = ("tokens" in batch and logits.dim() == 3
+                          and logits.shape[1] != batch["tokens"].shape[1])
+                over = ((lay.flat_group if n_eff > 1 else lay.model_group) if blocks
+                        else group if n_eff > 1 else None)
+                aux = {**aux, "logits": logits, "position_mean": functools.partial(
+                    distributed.global_mean, group=over, n=n_eff)}
         if n_eff > 1:
             loss = distributed.dp_mean(loss, group, n_eff)
             aux = {k: (distributed.dp_mean(v, group, n_eff, differentiable=False)

@@ -18,7 +18,10 @@ built with nvcc at the first launch and bound through ctypes, so importing
 this module needs neither nvcc nor a card.
 
 `flash_attention` takes q (B,Sq,H,hd) and k/v (B,Sk,K,hd[_v]) in the model's
-layout. A tensor on the CPU goes to the plain version
+layout, and `q_offset`, the position of query row 0 (a sequence-parallel
+rank's block of queries against the whole sequence's keys: row i sees keys
+up to q_offset + i under the causal mask, and those with q_offset + i - j <
+window). A tensor on the CPU goes to the plain version
 (`ref.flash_attention_plain`); a CUDA tensor launches the kernel or raises.
 `launches` counts the kernel's launches.
 
@@ -65,7 +68,7 @@ def _library() -> ctypes.CDLL:
         lib.fa_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                                + [ctypes.c_int64] * 12
                                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_void_p])
+                                  ctypes.c_int, ctypes.c_void_p])
         lib.fa_fwd.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -93,7 +96,7 @@ def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int]) -> None:
+           window: Optional[int], q_offset: int = 0) -> None:
     if not (flat.on_kernel_device(q) and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device; "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -114,16 +117,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention kernel needs a contiguous last dim")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: Optional[int]) -> torch.Tensor:
+            window: Optional[int], q_offset: int = 0) -> torch.Tensor:
     """The kernel (its op) on checked inputs; returns (B,Sq,H,hd_v)."""
-    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal, window or 0)
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal, window or 0, q_offset)
 
 
 def _launch_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                 window: int) -> torch.Tensor:
+                 window: int, q_offset: int) -> torch.Tensor:
     """One kernel launch on checked inputs (window 0: none): the op's CUDA
     kernel (`_launch_fake` gives the output's shape on fake tensors)."""
     global launches
@@ -140,41 +145,46 @@ def _launch_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
                        k.stride(0), k.stride(1), k.stride(2),
                        v.stride(0), v.stride(1), v.stride(2),
                        out.stride(0), out.stride(1), out.stride(2),
-                       1.0 / math.sqrt(hd), int(causal), int(window), stream)
+                       1.0 / math.sqrt(hd), int(causal), int(window), int(q_offset), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
 
 
-def _launch_fake(q, k, v, causal, window):
+def _launch_fake(q, k, v, causal, window, q_offset):
     return q.new_empty((*q.shape[:3], v.shape[3]))
 
 
 flat.kernel_op("flash_attention_fwd",
-               "(Tensor q, Tensor k, Tensor v, bool causal, int window) -> Tensor",
+               "(Tensor q, Tensor k, Tensor v, bool causal, int window, int q_offset) -> Tensor",
                _launch_impl, _launch_fake)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
-def _flops(q_shape, k_shape, v_shape, causal, window, out_shape=None, **kwargs) -> int:
+def _flops(q_shape, k_shape, v_shape, causal, window, q_offset, out_shape=None,
+           **kwargs) -> int:
     """2 (hd + hd_v) operations a visible (query, key) pair and head: the
     pair count `visible_pairs` gives, as the kernel's bound counts it."""
     b, sq, h, hd = q_shape
-    return 2 * (hd + v_shape[3]) * b * h * visible_pairs(sq, k_shape[1], causal, window or None)
+    return 2 * (hd + v_shape[3]) * b * h * visible_pairs(sq, k_shape[1], causal, window or None,
+                                                          q_offset)
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
-    """(query, key) pairs the mask lets through, query i at position i and
-    keys at 0..sk-1: the work an input needs, in closed form. Query i sees
-    keys [max(0, i - window + 1), min(sk, i + 1)) (causal) or up to sk."""
+def visible_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs the mask lets through, query i at position
+    q_offset + i and keys at 0..sk-1: the work an input needs, in closed
+    form. Query i sees keys [max(0, p - window + 1), min(sk, p + 1)) at p =
+    q_offset + i (causal) or up to sk."""
     def upto(n: int) -> int:               # sum over j = 1..n of min(sk, j)
         n = max(0, n)
         m = min(n, sk)
         return m * (m + 1) // 2 + (n - m) * sk
 
-    seen = upto(sq) if causal else sq * sk
-    return seen - (upto(sq - window) if window else 0)
+    o = q_offset
+    seen = upto(o + sq) - upto(o) if causal else sq * sk
+    return seen - (upto(o + sq - window) - upto(o - window) if window else 0)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -183,24 +193,28 @@ class FlashAttention(torch.autograd.Function):
     none either; one is speed work, ROADMAP queue 1)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int], q_offset: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return _launch(q, k, v, causal, window)
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
+        return _launch(q, k, v, causal, window, q_offset)
 
     @staticmethod
     def backward(ctx, d_out):
         inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = ref.flash_attention_plain(*inputs, causal=ctx.causal, window=ctx.window)
+            out = ref.flash_attention_plain(*inputs, causal=ctx.causal, window=ctx.window,
+                                            q_offset=ctx.q_offset)
             dq, dk, dv = torch.autograd.grad(out, inputs, d_out)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """Blocked attention; returns (B,Sq,H,hd_v) in q's dtype."""
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Blocked attention, query row i at position q_offset + i; returns
+    (B,Sq,H,hd_v) in q's dtype."""
     if flat.takes_plain(q):
-        return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
-    _check(q, k, v, window)
-    return FlashAttention.apply(q, k, v, causal, window)
+        return ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         q_offset=q_offset)
+    _check(q, k, v, window, q_offset)
+    return FlashAttention.apply(q, k, v, causal, window, q_offset)

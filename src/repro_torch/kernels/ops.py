@@ -54,12 +54,14 @@ def _resolve(impl: Optional[str]) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
+                    causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
                     impl: Optional[str] = None) -> torch.Tensor:
-    """Blocked attention. q (B,Sq,H,hd); k/v (B,Sk,K,hd) with GQA K<=H."""
+    """Blocked attention. q (B,Sq,H,hd); k/v (B,Sk,K,hd) with GQA K<=H;
+    query row i at position q_offset + i."""
     if _resolve(impl) == "plain":
-        return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
-    return fa.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         q_offset=q_offset)
+    return fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

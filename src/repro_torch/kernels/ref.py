@@ -61,24 +61,25 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: Optional[int] = None,
-                          kv_block: int = 512) -> torch.Tensor:
+                          kv_block: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention over kv blocks (mirror of
     `ref.flash_attention_jnp`; the jnp `lax.scan` becomes a Python loop).
 
     Falls back to `mha_reference` when `sk % kv_block != 0`, as the oracle
-    does. `hd_v` may differ from `hd` (MLA).
+    does. `hd_v` may differ from `hd` (MLA). `q_offset`: the position of
+    q[0] (the oracle's is 0), as in `mha_reference`.
     """
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     if sk % kv_block != 0:
-        return mha_reference(q, k, v, causal=causal, window=window)
+        return mha_reference(q, k, v, causal=causal, window=window, q_offset=q_offset)
     n_blocks = sk // kv_block
     n_kv = k.shape[2]
     g = h // n_kv
     hd_v = v.shape[-1]
     dev = q.device
     qg = q.reshape(b, sq, n_kv, g, hd).float() / math.sqrt(hd)
-    qpos = torch.arange(sq, device=dev)
+    qpos = torch.arange(q_offset, q_offset + sq, device=dev)
 
     m = torch.full((b, n_kv, g, sq), _NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, n_kv, g, sq), dtype=torch.float32, device=dev)

@@ -28,13 +28,19 @@ the collective inventory from its `c10d` ops (no HLO text to read).
 
 The sharded cells trace the port's step, which stores the state 1/N a rank
 and computes in the reference's mesh layout (`engine.fused`,
-`models.partitioning`): each layer's weights gathered where it runs, and
-under the "tp" profile attention on the rank's heads, the MLP on its d_ff
-and the logits on its vocabulary, with their all-reduces over "model". The
-collectives are the port's own (explicit gathers, Megatron's f and g), not
-GSPMD's, so the two inventories still differ; the modules whose layouts are
-not ported yet (sequence parallelism, MoE experts, MLA, rwkv6, mamba2, the
+`models.partitioning`): each layer's weights gathered where it runs; under
+the "tp" profile attention on the rank's heads, the MLP on its d_ff and the
+logits on its vocabulary, with their all-reduces over "model"; under the
+"fsdp_sp" profile (qwen2.5-32b, zamba2-1.2b) the rank's block of the
+sequence, k and v gathered whole, the SSD state chained, a decode cache on
+its sequence blocks. The collectives are the port's own (explicit gathers,
+Megatron's f and g), not GSPMD's, so the two inventories still differ; the
+modules whose layouts are not ported yet (MoE experts, MLA, rwkv6, the
 encoder-decoder) compute on whole weights (ROADMAP.md queue 1, item 9).
+A record is one rank's step (`rank`, 0): under "fsdp_sp" rank 0 holds the
+sequence's first block, whose causal attention sees the fewest keys (rank
+r's block sees about (2r + 1) / (2m) of the pairs), so its flops are the
+group's least; its memory and wire bytes are any rank's.
 
 `--device cuda` (the default) traces the card's path with its kernels (the
 kernels' `torch.library` ops and their fake shapes). `--device cpu` traces
@@ -43,7 +49,10 @@ versions at production shapes would take hours.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-32b --both-meshes --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --device cpu
+
+`--arch` without `--shape` runs every shape of the arch.
 """
 from __future__ import annotations
 
@@ -126,6 +135,7 @@ class CellResult:
     mesh: str
     status: str                  # ok | skipped | failed
     note: str = ""
+    rank: int = 0                # the rank whose step is traced
     lower_s: float = 0.0         # building the abstract state and inputs
     compile_s: float = 0.0       # tracing the step
     flops: float = 0.0           # per-device traced flops
@@ -328,6 +338,7 @@ def main() -> None:
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--all", action="store_true", help="run every cell")
+    # --arch alone: every shape of that arch
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--method", default="async_sam")
@@ -339,10 +350,10 @@ def main() -> None:
     cells: list[tuple[str, str]] = []
     if args.all:
         cells = [(a, s) for a in ARCH_IDS for s in SHAPES]
+    elif args.arch:
+        cells = [(args.arch, s) for s in ([args.shape] if args.shape else SHAPES)]
     else:
-        if not (args.arch and args.shape):
-            ap.error("--arch/--shape or --all required")
-        cells = [(args.arch, args.shape)]
+        ap.error("--arch [--shape] or --all required")
 
     meshes = [args.multi_pod] if not args.both_meshes else [False, True]
     failures = 0

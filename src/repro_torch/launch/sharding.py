@@ -29,7 +29,8 @@ from typing import Any, Callable, Mapping
 
 from repro_torch.launch.mesh import axis_size, dp_axes
 from repro_torch.models.partitioning import PartitionSpec as P
-from repro_torch.models.partitioning import make_rules, param_partition_spec, tp_enabled
+from repro_torch.models.partitioning import (make_rules, param_partition_spec, sp_enabled,
+                                             tp_enabled)
 from repro_torch.utils import buckets
 
 Tree = Any
@@ -195,17 +196,30 @@ def serve_cache_spec_tree(cache_shapes: Tree, cfg, mesh) -> Tree:
     return map_leaves(f, cache_shapes)
 
 
+def _sp_kv(cfg, mesh) -> bool:
+    """Whether the serve step computes attention over the cache's sequence
+    blocks: the sequence-parallel layout (`partitioning.sp_enabled`) on a
+    "model" axis of more than one rank."""
+    m = axis_size(mesh, "model") if "model" in mesh.axis_names else 1
+    return m > 1 and sp_enabled(cfg)
+
+
 def compute_cache_spec_tree(cache_shapes: Tree, cfg, mesh, split: bool) -> Tree:
     """What each rank of the sharded serve step computes on of a cache: the
     batch dim over the dp axes when the batch splits over them (`split`),
     a k/v leaf's kv heads over "model" where attention is tensor-parallel
-    (`_tp_kv`), every other dim whole."""
-    dp, tp = dp_axes(mesh), _tp_kv(cfg, mesh)
+    (`_tp_kv`), every other dim whole. Under the sequence-parallel layout
+    (`_sp_kv`) a k/v leaf keeps `_cache_leaf_spec`'s placement, its
+    sequence on its blocks (over "model", or the dp axes and "model" where
+    the batch does not split), so decode moves no byte of it."""
+    dp, tp, sp = dp_axes(mesh), _tp_kv(cfg, mesh), _sp_kv(cfg, mesh)
 
     def f(path, leaf, blocks):
         nd = _ndim(leaf)
         if nd == 0:
             return P()
+        if sp and path.split("/")[-1] in ("k", "v"):
+            return _cache_leaf_spec(path, leaf, mesh)
         out = [None] * nd
         if split:   # the batch dim: after the layer axis but in "dense_layers"
             out[0 if path.startswith("dense_layers") else 1] = dp

@@ -88,7 +88,12 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
     and where attention is tensor-parallel its kv heads; every other dim
     whole), which moves no byte when it comes in `serve_cache_spec_tree`'s
     placement; the new cache placed back as it came (prefill: by
-    `serve_cache_spec_tree`).
+    `serve_cache_spec_tree`). Under the "fsdp_sp" profile each rank of the
+    model group computes its block of the prompt's sequence, and k and v
+    stay on their sequence blocks (`partitioning.cache_sequence`): prefill
+    writes each rank's block, decode combines the ranks' attention over
+    theirs, and the sampler's last-position logits come from the last
+    block's rank, broadcast to its group (`transformer.prefill`).
 
     Returns step(params, cache, batch) -> (logits of this rank's rows over
     the whole vocabulary (a vocab-sharded head's gathered over "model"),
@@ -136,13 +141,44 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
                 target = to_placements(serve_cache_spec_tree(shapes, cfg, mesh), mesh)
             pl = to_placements(compute_cache_spec_tree(shapes, cfg, mesh, split), mesh)
             local_cache = None if cache is None else _zip(localize, cache, pl)
-            logits, new_cache = step(params, local_cache, local_batch)
+            with _cache_sequence(pl, dm):
+                logits, new_cache = step(params, local_cache, local_batch)
             if logits.shape[-1] != cfg.vocab_size:
                 lay = partitioning.current_layout()
                 logits = distributed.gather_from_model(logits, lay.model_group, lay.m, lay.r)
             return logits, _zip(place, new_cache, pl, target)
 
     return serve
+
+
+def _cache_sequence(pl: dict, dm):
+    """`partitioning.cache_sequence` for a cache whose k/v placements `pl`
+    shard the sequence (dim 2 of a stacked (L, B, S, K, hd) leaf) over some
+    mesh dims: this rank's block index over them (the first outermost),
+    their number of blocks, and the group that spans them (the model group,
+    or the flattened mesh when the dp axes take part); a null context where
+    no k/v leaf is split on its sequence."""
+    import contextlib
+
+    from repro_torch.models import partitioning
+    from repro_torch.utils import distributed
+
+    kv = next((sub["k"] for sub in pl.values() if isinstance(sub, dict) and "k" in sub), None)
+    dims = [] if kv is None else [i for i, p in enumerate(kv) if p.is_shard(2)]
+    if not dims:
+        return contextlib.nullcontext()
+    coord, shape = dm.get_coordinate(), dm.shape
+    index, ways = 0, 1
+    for i in dims:
+        index, ways = index * shape[i] + coord[i], ways * shape[i]
+    lay = partitioning.current_layout()
+    if dims == [lay.model_dim]:
+        group = lay.model_group
+    elif len(dims) == len(shape):
+        group = lay.flat_group
+    else:
+        raise NotImplementedError(f"a cache sequence split over mesh dims {dims}")
+    return partitioning.cache_sequence(index, ways, group)
 
 
 def _placements_of(tree):

@@ -16,12 +16,19 @@ Conventions:
   local d_ff, the embedding and logits on its local vocabulary, with
   Megatron's f (`distributed.copy_to_model`) on a column-parallel product's
   input and g (`distributed.reduce_from_model`) on a row-parallel product's
-  output. With whole weights (no layout, or a module this port does not
-  shard) the code is the meshless one. `stream_cast` is left out: it is the
-  identity for the configs the port supports (`weight_stream_bf16=False`).
+  output. Under the sequence-parallel layout (`partitioning.seq_block`) x
+  is this rank's block of the sequence: attention gathers k and v whole
+  over the model group (`distributed.gather_seq`) and runs the flash
+  kernel with the block's query offset; decode over a cache split on the
+  sequence (`partitioning.cache_block`) combines the ranks' parts
+  (`distributed.lse_combine`). With whole weights (no layout, or a module
+  this port does not shard) the code is the meshless one. `stream_cast` is
+  left out: it is the identity for the configs the port supports
+  (`weight_stream_bf16=False`).
 """
 from __future__ import annotations
 
+import math
 from typing import Mapping, Optional, Union
 
 import torch
@@ -211,6 +218,48 @@ def _kv_head(t: torch.Tensor, head: Optional[int]) -> torch.Tensor:
     return t if head is None else t.narrow(-2, head, 1).contiguous()
 
 
+def decode_attention_part(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: int,
+                          kv_offset: int, window: Optional[int] = None
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One rank's part of `ref.decode_attention_plain` over its block of a
+    cache, the keys at positions kv_offset .. kv_offset + k.shape[1] - 1,
+    with the same validity and window masks: (row max m (B,K,G,Sq), l = sum
+    exp(s - m), o = sum exp(s - m) v (B,K,G,Sq,hd_v)) in fp32, for
+    `distributed.lse_combine`."""
+    b, sq, h, hd = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(b, sq, n_kv, h // n_kv, hd).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(hd)
+    kpos = kv_offset + torch.arange(k.shape[1], device=q.device)
+    mask = kpos < valid_len
+    if window is not None:
+        mask &= kpos > valid_len - 1 - window
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(dim=-1), torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+
+
+def _decode_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: dict,
+                    blk: tuple, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Decode over this rank's block [lo, hi) of a cache split on the
+    sequence over `group`: the new k/v written by the rank whose block
+    holds their positions, each rank's attention over its block, the parts
+    combined over the group. Returns (out (B,Sq,H,hd_v), the cache)."""
+    lo, hi, group = blk
+    pos, s_new = cache["pos"], q.shape[1]
+    kc, vc = cache["k"], cache["v"]
+    a, e = max(pos, lo), min(pos + s_new, hi)
+    if a < e:
+        kc[:, a - lo:e - lo] = k[:, a - pos:e - pos].to(kc.dtype)
+        vc[:, a - lo:e - lo] = v[:, a - pos:e - pos].to(vc.dtype)
+    m, l, o = decode_attention_part(q, kc, vc, pos + s_new, lo, window=cfg.sliding_window)
+    out = distributed.lse_combine(m, l, o, group)                 # (B,K,G,Sq,hd_v)
+    b, n_kv, g, sq, hd_v = out.shape
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, n_kv * g, hd_v).to(q.dtype)
+    return out, {"k": kc, "v": vc, "pos": pos + s_new}
+
+
 def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor,
                     causal: bool = True,
@@ -231,6 +280,12 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     v of all K heads where K does not divide "model", of which the local
     query heads take theirs, `kv_head_of`), the kernels run on the local
     heads, and `wo`'s row shard's product is summed over the model group.
+
+    Under a sequence block (`partitioning.seq_block`, x this rank's block
+    [lo, hi) and `positions` absolute) self-attention gathers k and v whole
+    over the model group and the flash kernel runs with q_offset lo; the
+    returned k/v are the whole sequence's. Decode over a cache split on the
+    sequence (`partitioning.cache_block` of its length) is `_decode_sharded`.
     """
     from repro_torch.kernels import ops  # local import to avoid cycles
 
@@ -251,7 +306,11 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None and x_cross is None:
+    blk = partitioning.seq_block() if x_cross is None else None
+    cblk = partitioning.cache_block(cache["k"].shape[1]) if cache is not None else None
+    if cblk is not None and x_cross is None:
+        out, new_cache = _decode_sharded(q, k, v, cache, cblk, cfg)
+    elif cache is not None and x_cross is None:
         # decode: write new kv at cache["pos"], attend over the cache
         pos, s_new = cache["pos"], x.shape[1]
         kc, vc = cache["k"], cache["v"]
@@ -261,8 +320,14 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                    pos + s_new, window=cfg.sliding_window)
         new_cache = {"k": kc, "v": vc, "pos": pos + s_new}
     else:
+        q_offset = 0
+        if blk is not None:
+            here = partitioning.current_layout()
+            k, v = distributed.gather_seq(k, here), distributed.gather_seq(v, here)
+            q_offset = blk[0]
         out = ops.flash_attention(q, _kv_head(k, kv_head), _kv_head(v, kv_head),
-                                  causal=causal and x_cross is None, window=cfg.sliding_window)
+                                  causal=causal and x_cross is None, window=cfg.sliding_window,
+                                  q_offset=q_offset)
         # expose this segment's k/v so prefill can build the decode cache
         new_cache = {"k": k, "v": v}
 

@@ -26,9 +26,25 @@ identity and the model code runs as it always did. Under a layout:
     (`tp_leaves`); any other leaf is gathered whole;
   * tensor parallelism covers the "tp" profile's attention (heads that
     divide "model"), MLP (d_ff) and embedding / logits (vocab) of the
-    dense, vlm and moe families (`tp_enabled`); MoE experts, MLA, rwkv6,
-    mamba2, the encoder-decoder and every leaf of an "fsdp_sp" config
-    compute on whole weights.
+    dense, vlm and moe families (`tp_enabled`);
+  * sequence parallelism covers the "fsdp_sp" profile of the dense and
+    hybrid families (`sp_enabled`: qwen2.5-32b, zamba2-1.2b): rank r of the
+    model group computes its block [r S/m, (r+1) S/m) of the sequence on
+    whole weights, each leaf gathered with its gradient summed over the
+    model group (every rank used all of it on its own tokens) and averaged
+    over dp. `sequence_block` installs the block for the model code
+    (`seq_block`): attention gathers k and v whole and runs the flash kernel
+    with the block's query offset, the SSD scan chains its state across the
+    blocks, the conv takes the previous block's rows; the loss is the
+    global mean of the blocks' labels (`registry`). A sequence that "model"
+    does not divide (or, for mamba2, whose blocks are shorter than the
+    conv's halo) stays whole on every rank, as `constrain` leaves it, and
+    its gradients are averaged over dp only (every rank computed all). The
+    serve step splits a cache's sequence as it is stored
+    (`cache_sequence`, `cache_block`), so decode combines the ranks'
+    attention over their parts (`distributed.lse_combine`);
+  * MoE experts, MLA, rwkv6, mamba2 outside "fsdp_sp" and the
+    encoder-decoder compute on whole weights.
 """
 from __future__ import annotations
 
@@ -166,6 +182,13 @@ class Layout:
     m: int
     r: int
     flat_group: Any
+    # the sequence block this rank computes, (lo, hi) of the model code's
+    # sequence (`sequence_block`); None: the whole sequence
+    seq: Optional[tuple[int, int]] = None
+    # a cache's sequence split as the serve step holds it (`cache_sequence`):
+    # (this rank's block index, the number of blocks, the group over which
+    # the blocks lie); None: the cache whole on every rank
+    cache_seq: Optional[tuple[int, int, Any]] = None
 
     def splits(self, size: int) -> bool:
         """The per-dim rule: whether a dim of `size` is sharded over "model"
@@ -234,6 +257,84 @@ def tp_enabled(cfg) -> bool:
     return cfg.sharding_profile == "tp" and cfg.family in ("dense", "vlm", "moe")
 
 
+def sp_enabled(cfg) -> bool:
+    """Whether `cfg` computes sequence-parallel on a model axis: the
+    "fsdp_sp" profile of the dense (no MLA) and hybrid families."""
+    return (cfg.sharding_profile == "fsdp_sp" and cfg.family in ("dense", "hybrid")
+            and cfg.mla is None)
+
+
+def sp_layout(cfg) -> Optional[Layout]:
+    """The layout when `cfg`'s model computes sequence-parallel here: a
+    layout with a "model" axis of more than one rank and `sp_enabled`."""
+    lay = current_layout()
+    if lay is None or lay.m == 1 or not sp_enabled(cfg):
+        return None
+    return lay
+
+
+def sp_range(cfg, seq_len: int) -> Optional[tuple[int, int]]:
+    """This rank's block [lo, hi) of a sequence of `seq_len` under the
+    sequence-parallel layout, None where it is computed whole: no such
+    layout, "model" not dividing it, or (mamba2) blocks shorter than the
+    causal conv's halo of d_conv - 1 rows."""
+    lay = sp_layout(cfg)
+    if lay is None or not lay.splits(seq_len):
+        return None
+    if cfg.ssm is not None and seq_len // lay.m < cfg.ssm.d_conv - 1:
+        return None
+    return lay.shard_range(seq_len)
+
+
+@contextlib.contextmanager
+def sequence_block(cfg, seq_len: int):
+    """Within: the model code computes this rank's block of a sequence of
+    `seq_len` (`sp_range`), which `seq_block` reads; yields the block (lo,
+    hi), or None (and changes nothing) where the sequence is whole."""
+    blk = sp_range(cfg, seq_len)
+    if blk is None:
+        yield None
+        return
+    with layout_context(dataclasses.replace(current_layout(), seq=blk)):
+        yield blk
+
+
+def seq_block() -> Optional[tuple[int, int]]:
+    """The (lo, hi) of the enclosing `sequence_block`, None outside one."""
+    lay = current_layout()
+    return None if lay is None else lay.seq
+
+
+@contextlib.contextmanager
+def cache_sequence(index: int, ways: int, group):
+    """Within: a cache's sequence dim lies in `ways` blocks over `group`,
+    this rank holding block `index` (the serve step, `launch.steps`); a
+    no-op outside a layout or for one block."""
+    lay = current_layout()
+    if lay is None or ways == 1:
+        yield
+        return
+    with layout_context(dataclasses.replace(lay, cache_seq=(index, ways, group))):
+        yield
+
+
+def cache_ways() -> int:
+    """The number of blocks a cache's sequence lies in (`cache_sequence`),
+    1 where every rank holds it whole."""
+    lay = current_layout()
+    return 1 if lay is None or lay.cache_seq is None else lay.cache_seq[1]
+
+
+def cache_block(n: int) -> Optional[tuple[int, int, Any]]:
+    """(lo, hi, group) of this rank's block, of `n` positions, of a cache's
+    sequence under `cache_sequence`; None where every rank holds it whole."""
+    lay = current_layout()
+    if lay is None or lay.cache_seq is None:
+        return None
+    index, _, group = lay.cache_seq
+    return index * n, (index + 1) * n, group
+
+
 _ATTN_Q = ("wq", "bq", "wo")
 _ATTN_KV = ("wk", "wv", "bk", "bv")
 
@@ -278,14 +379,18 @@ def gather_leaf(x: torch.Tensor, keep_model: bool = False, partial: bool = False
 def gather_part(part: str, leaves: dict, cfg) -> dict:
     """A block part's leaves (nested dicts too) gathered for compute: a
     leaf of `tp_leaves` keeps its "model" shard; a partly used leaf's
-    gradient is summed over the model group; each gradient is averaged over
-    the dp group of `utils.distributed.dp_context`. The identity without a
-    layout."""
+    gradient is summed over the model group, and so is every leaf's within
+    a sequence block (each rank used it on its own block; a sequence left
+    whole is every rank's, and its gradients are not summed); each
+    gradient is averaged over the dp group of
+    `utils.distributed.dp_context`. The identity without a layout."""
     lay = current_layout()
     if lay is None:
         return leaves
     tlay = tp_layout(cfg)
     keep, partial = tp_leaves(part, leaves, cfg, tlay) if tlay is not None else ((), ())
+    if lay.seq is not None and sp_layout(cfg) is not None:
+        partial = tuple(leaves)
 
     def one(name, x):
         if isinstance(x, dict):

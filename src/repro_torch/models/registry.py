@@ -6,7 +6,9 @@ The port's bundle takes the model (an `nn.Module`, or for `forward` and
 takes a parameter pytree, and `init(seed, device)` where it takes a PRNG key.
 The audio family (whisper) is `encdec`'s, every other family `transformer`'s.
 Under a tensor-parallel layout the logits come vocab-sharded and the loss
-is `vocab_parallel_cross_entropy`, which reduces them over "model".
+is `vocab_parallel_cross_entropy`, which reduces them over "model"; under
+the sequence-parallel layout they are this rank's sequence block's and the
+loss is `sequence_parallel_cross_entropy`, the global masked mean.
 """
 from __future__ import annotations
 
@@ -15,11 +17,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.models import encdec, partitioning, transformer
 from repro_torch.models.config import ModelConfig, ShapeSpec
+from repro_torch.utils import distributed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +40,11 @@ class ModelBundle:
         `repro_torch.core`'s loss callback). Takes the model or a mapping of
         its parameter names to tensors; draws nothing from `gen`."""
         logits, aux_loss = self.forward(model_or_params, batch)
-        if logits.shape[-1] == self.cfg.vocab_size:
+        blk = partitioning.sp_range(self.cfg, batch["labels"].shape[1])
+        if blk is not None:     # this rank's block of the sequence
+            ce = sequence_parallel_cross_entropy(logits, batch["labels"][:, blk[0]:blk[1]],
+                                                 self.cfg)
+        elif logits.shape[-1] == self.cfg.vocab_size:
             ce = cross_entropy(logits, batch["labels"])
         else:   # this rank's vocabulary shard
             ce = vocab_parallel_cross_entropy(logits, batch["labels"], self.cfg)
@@ -62,7 +69,6 @@ class _VocabParallelCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, labels, lo, group):
-        import torch.distributed as dist
         lf = logits.float()
         mx = lf.amax(dim=-1)
         dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
@@ -97,6 +103,28 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     per = _VocabParallelCE.apply(logits, labels, lo, lay.model_group)
     mask = (labels >= 0).float()
     return (per * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def sequence_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                    cfg: ModelConfig) -> torch.Tensor:
+    """`cross_entropy` of the whole sequence from this rank's block of
+    logits and labels under the sequence-parallel layout: the sum over the
+    block's labelled positions and their count, each summed over the model
+    group, divide. Each rank's term is its share, its sum over the global
+    count, and the forward adds the shares (`distributed.group_sum`), so the
+    value is the global mean on every rank and the shares' gradients, summed
+    over the group where the weights are gathered, are the mean's. (The
+    blocks' counts differ, the last holding the -1 label: a mean of the
+    ranks' means is not the mean.)"""
+    lay = partitioning.sp_layout(cfg)
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    count = mask.sum()
+    dist.all_reduce(count, group=lay.model_group)
+    share = ((lse - picked) * mask).sum() / count.clamp_min(1.0)
+    return distributed.group_sum(share, lay.model_group)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:

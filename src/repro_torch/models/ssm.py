@@ -8,6 +8,19 @@ input projection is split per segment (z / x / BC / dt) as the reference's
 is; the depthwise causal conv uses explicit shifts so that decode carries a
 (width - 1)-deep conv cache. Parameters are mappings of the reference's leaf
 names to tensors, as in `layers.py`.
+
+Under a sequence block (`partitioning.seq_block`: the "fsdp_sp" profile,
+x this rank's block of the sequence) the conv's first rows read the
+previous block's last d_conv - 1 inputs (`distributed.halo_from_prev`), and
+the SSD scan runs twice through the kernel: from a zero state, for the
+block's final state S_r and log decay L_r = a_h sum_t dt; then, after the
+model group has exchanged them (`distributed.gather_stack`) and each rank
+has folded the exclusive prefix h_r (`distributed.state_prefix`), from h_r,
+for y and the final state. The gradient reaches the other blocks through
+the kernel's d_init_state and d_state. Every rank runs both passes (rank
+0's from a zero h_0), so the ranks' graphs, and the collectives their
+backward runs, are the same; rank 0's extra pass is off the group's
+critical path (its causal attention is the group's least).
 """
 from __future__ import annotations
 
@@ -16,8 +29,10 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, cdtype
+from repro_torch.utils import distributed
 
 
 def _dims(cfg: ModelConfig):
@@ -71,10 +86,14 @@ def mamba2_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     bc = x @ params["wbc"].to(dt_c)
     dt_raw = x @ params["wdt"].to(dt_c)
 
-    xs, new_conv_x = _causal_conv(xs, params["conv_x_w"], params["conv_x_b"],
-                                  cache["conv_x"] if cache else None)
-    bc, new_conv_bc = _causal_conv(bc, params["conv_bc_w"], params["conv_bc_b"],
-                                   cache["conv_bc"] if cache else None)
+    lay = partitioning.current_layout() if cache is None and partitioning.seq_block() else None
+    if lay is not None:           # this rank's block: the conv's halo from the previous one
+        halo_x = distributed.halo_from_prev(xs, s.d_conv - 1, lay)
+        halo_bc = distributed.halo_from_prev(bc, s.d_conv - 1, lay)
+    else:
+        halo_x, halo_bc = (cache["conv_x"], cache["conv_bc"]) if cache else (None, None)
+    xs, new_conv_x = _causal_conv(xs, params["conv_x_w"], params["conv_x_b"], halo_x)
+    bc, new_conv_bc = _causal_conv(bc, params["conv_bc_w"], params["conv_bc_b"], halo_bc)
     gn = s.n_groups * s.d_state
     b = bc[..., :gn].reshape(B, S, s.n_groups, s.d_state).contiguous()
     c = bc[..., gn:].reshape(B, S, s.n_groups, s.d_state).contiguous()
@@ -83,7 +102,15 @@ def mamba2_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     a = -torch.exp(params["a_log"].float())
     d_skip = params["d_skip"].float()
 
-    if cache is None:
+    if lay is not None:
+        # the state chained over the blocks: this block's zero-start final
+        # state and log decay, every block's gathered, this rank's prefix
+        _, s_r = ops.mamba2_mix(xh, dt, a, b, c, d_skip, chunk=s.chunk_size)
+        h = distributed.state_prefix(distributed.gather_stack(s_r, lay),
+                                     distributed.gather_stack(a * dt.sum(dim=1), lay), lay.r)
+        y, final_state = ops.mamba2_mix(xh, dt, a, b, c, d_skip, chunk=s.chunk_size,
+                                        init_state=h)
+    elif cache is None:
         y, final_state = ops.mamba2_mix(xh, dt, a, b, c, d_skip, chunk=s.chunk_size)
     else:
         y, final_state = ops.mamba2_decode_step(xh, dt, a, b, c, d_skip, state=cache["ssm"])

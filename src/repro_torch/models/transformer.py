@@ -47,6 +47,14 @@ output head, the vlm projector and zamba2's shared block and LoRA where
 they are used. Under the "tp" profile's layout the attention, MLP,
 embedding and logits compute tensor-parallel over "model" (`layers`): the
 logits come back vocab-sharded and the cache holds this rank's kv heads.
+Under the "fsdp_sp" profile's layout (`partitioning.sequence_block`) each
+rank computes its block of the sequence, at absolute positions, on whole
+weights: `forward` returns the block's logits; `prefill` writes the part of
+the gathered k/v that falls in its block of the cache
+(`partitioning.cache_block`; the whole cache without one) and takes the
+last position's hidden state and the mamba layers' final states from the
+last block (`distributed.broadcast_from`); `decode` runs the new token
+whole on each rank, attention over the rank's part of the cache.
 """
 from __future__ import annotations
 
@@ -406,9 +414,10 @@ def _gathered(groups: dict, i: int, cfg: ModelConfig) -> dict[str, dict[str, tor
     return partitioning.gather_block(_block(groups, i, cfg), cfg)
 
 
-def _lora(groups: dict, g: int) -> dict[str, torch.Tensor]:
+def _lora(groups: dict, g: int, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """The shared block's LoRA of invocation g."""
-    return {name: partitioning.gather_leaf(t)[g] for name, t in groups["lora"].items()}
+    return {name: t[g] for name, t in
+            partitioning.gather_part("lora", groups["lora"], cfg).items()}
 
 
 def attn_block_apply(bp: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -578,19 +587,39 @@ def _layers(groups: dict, cfg: ModelConfig):
         yield _block(groups, i, cfg), cfg, i, False
 
 
+def _block_inputs(groups: dict, batch: dict, cfg: ModelConfig, blk: Optional[tuple[int, int]]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The embedded inputs and their positions: of this rank's sequence
+    block [lo, hi) (`partitioning.sequence_block`), else of the whole
+    sequence."""
+    if blk is None:
+        x = _embed_inputs(groups, batch, cfg)
+        return x, torch.arange(x.shape[1], device=x.device)[None, :]
+    lo, hi = blk
+    if cfg.vision is None:
+        x = embed(groups, batch["tokens"][:, lo:hi], cfg)
+    else:
+        x = _embed_inputs(groups, batch, cfg)[:, lo:hi]
+    return x, torch.arange(lo, hi, device=x.device)[None, :]
+
+
 def forward(model: Union[Transformer, Params], batch: dict, cfg: ModelConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward of the model or of a mapping of its parameter
     names to tensors. Returns (logits, aux_loss): the MoE aux loss summed
-    over the layers, 0 without MoE."""
-    groups = _groups(model)
-    x = _embed_inputs(groups, batch, cfg)
-    S = x.shape[1]
-    positions = torch.arange(S, device=x.device)[None, :]
+    over the layers, 0 without MoE. Under the sequence-parallel layout the
+    logits are this rank's block's (`partitioning.sp_range`)."""
+    with partitioning.sequence_block(cfg, batch["tokens"].shape[1]) as blk:
+        return _forward(_groups(model), batch, cfg, blk)
+
+
+def _forward(groups: dict, batch: dict, cfg: ModelConfig, blk: Optional[tuple[int, int]]
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    x, positions = _block_inputs(groups, batch, cfg, blk)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for g in range(_n_shared_invocations(cfg)):
-            x, _ = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g), x, cfg,
+            x, _ = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g, cfg), x, cfg,
                                       positions=positions)
             for i in _segment(g, cfg):
                 x, _ = _train_block(_block(groups, i, cfg), x, cfg, positions)
@@ -666,11 +695,39 @@ def _layer_cache(cache: dict, i: int, dense: bool) -> dict:
 def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
             ) -> tuple[torch.Tensor, dict]:
     """Run the prompt; return (last-position logits, cache) with cache length
-    max(S, pad_to) and pos = S."""
-    groups = _groups(model)
-    x = _embed_inputs(groups, batch, cfg)
-    B, S, _ = x.shape
+    max(S, pad_to) and pos = S (under `partitioning.cache_sequence`, this
+    rank's block of that length)."""
+    with partitioning.sequence_block(cfg, batch["tokens"].shape[1]) as blk:
+        return _prefill(_groups(model), batch, cfg, pad_to, blk)
+
+
+def _last_block(t: torch.Tensor, blk: Optional[tuple[int, int]]) -> torch.Tensor:
+    """`t` as the model group's last rank has it (its block holds the
+    sequence's end); `t` itself where the sequence is whole."""
+    if blk is None:
+        return t
+    lay = partitioning.current_layout()
+    return distributed.broadcast_from(t, lay.model_group, lay.m - 1)
+
+
+def _write_kv(t: torch.Tensor, kv: torch.Tensor, S: int) -> None:
+    """Prefill's k or v (B, S, ...) of the whole prompt into cache tensor
+    t (B, n, ...): positions [0, S) where every rank holds the cache whole,
+    else those of this rank's block (`partitioning.cache_block`)."""
+    cblk = partitioning.cache_block(t.shape[1])
+    if cblk is None:
+        t[:, :S] = kv
+        return
+    lo, e = cblk[0], min(cblk[1], S)
+    if lo < e:
+        t[:, :e - lo] = kv[:, lo:e]
+
+
+def _prefill(groups: dict, batch: dict, cfg: ModelConfig, pad_to: int,
+             blk: Optional[tuple[int, int]]) -> tuple[torch.Tensor, dict]:
+    S = batch["tokens"].shape[1]
     if cfg.family == "ssm":
+        x = _embed_inputs(groups, batch, cfg)
         states = []
         for i in range(cfg.n_layers):
             x, c = rwkv_block_apply(_gathered(groups, i, cfg), x, cfg)
@@ -678,26 +735,28 @@ def prefill(model: Transformer, batch: dict, cfg: ModelConfig, pad_to: int = 0
         cache = {"layers": {name: torch.stack([c[name] for c in states])
                             for name in states[0]}, "pos": S}
         return _final_logits(groups, x[:, -1:], cfg), cache
-    cache = init_cache(cfg, B, max(S, pad_to), pos=S, device=x.device)
-    positions = torch.arange(S, device=x.device)[None, :]
+    x, positions = _block_inputs(groups, batch, cfg, blk)
+    B = x.shape[0]
+    length = max(S, pad_to)
+    cache = init_cache(cfg, B, length // partitioning.cache_ways(), pos=S, device=x.device)
     if cfg.family == "hybrid":
         layers, shared = cache["layers"], cache["shared"]
         for g in range(_n_shared_invocations(cfg)):
-            x, kv = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g), x, cfg,
+            x, kv = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g, cfg), x, cfg,
                                        positions=positions)
-            shared["k"][g, :, :S] = kv["k"]
-            shared["v"][g, :, :S] = kv["v"]
+            _write_kv(shared["k"][g], kv["k"], S)
+            _write_kv(shared["v"][g], kv["v"], S)
             for i in _segment(g, cfg):
                 x, c = mamba_block_apply(_gathered(groups, i, cfg), x, cfg)
                 for name, t in layers.items():
-                    t[i].copy_(c[name])
-        return _final_logits(groups, x[:, -1:], cfg), cache
+                    t[i].copy_(_last_block(c[name], blk))
+        return _final_logits(groups, _last_block(x[:, -1:], blk), cfg), cache
     for bp, bcfg, i, dense in _layers(groups, cfg):
         x, _, kv = attn_block_apply(partitioning.gather_block(bp, bcfg), x, bcfg,
                                     positions=positions)
         for name, t in _layer_cache(cache, i, dense).items():
-            t[:, :S] = kv[name]
-    logits = _final_logits(groups, x[:, -1:], cfg)
+            _write_kv(t, kv[name], S)
+    logits = _final_logits(groups, _last_block(x[:, -1:], blk), cfg)
     return logits, cache
 
 
@@ -724,7 +783,7 @@ def decode(model: Transformer, cache: dict, batch: dict, cfg: ModelConfig
     if cfg.family == "hybrid":
         layers, shared = cache["layers"], cache["shared"]
         for g in range(_n_shared_invocations(cfg)):
-            x, _ = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g), x, cfg,
+            x, _ = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g, cfg), x, cfg,
                                       positions=positions,
                                       cache={"k": shared["k"][g], "v": shared["v"][g],
                                              "pos": pos})

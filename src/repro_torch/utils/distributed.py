@@ -32,6 +32,16 @@ port places tensors as `DTensor`s on a `DeviceMesh` and moves them itself).
   consumes the rank's "model" shard, else whole) and on the Megatron pair
   `copy_to_model` / `reduce_from_model` (f and g) around column- and
   row-parallel products (`models.partitioning`, `models.layers`).
+* Sequence-parallel compute (the "fsdp_sp" profile: each rank of the model
+  group computes its block of the sequence) moves activations between the
+  blocks: `gather_seq` (k and v whole for attention; its gradient
+  reduce-scattered back to the blocks), `halo_from_prev` (the previous
+  block's last rows, for the causal conv), `gather_stack` with the pure
+  `state_prefix` (the SSD scan's entering state, chained over the blocks),
+  `lse_combine` (decode attention over a cache split on the sequence),
+  `group_sum` (a loss's shares summed), `global_mean` (a mean over
+  positions that lie across the ranks: MESA's KL) and `broadcast_from`
+  (the last block's rows, where a prefill needs the sequence's end).
 
 Nothing here imports DTensor at module import: only code that meets a
 sharded tensor does.
@@ -404,6 +414,166 @@ def gather_from_model(x: torch.Tensor, group, m: int, r: int) -> torch.Tensor:
     return _GatherFromModel.apply(x, group, m, r)
 
 
+# ---------------------------------------------------------------------------
+# Sequence-parallel compute (the "fsdp_sp" profile, models.partitioning)
+# ---------------------------------------------------------------------------
+
+def _reduce_scatter(g: torch.Tensor, dim: int, group, m: int, r: int) -> torch.Tensor:
+    """This rank's block r of m along `dim` of the sum over `group` of g: a
+    reduce-scatter (gloo has none: an all-reduce and this rank's slice)."""
+    w = g.shape[dim] // m
+    if dist.get_backend(group) == "gloo":
+        red = g.contiguous().clone()
+        dist.all_reduce(red, group=group)
+        return red.narrow(dim, r * w, w).contiguous()
+    src = g.movedim(dim, 0).contiguous()
+    out = src.new_empty((w, *src.shape[1:]))
+    # the same call under its newer name where the installed torch has it
+    getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Forward: the blocks of the model group concatenated on `dim` (an
+    all-gather). Backward: each block's gradient summed over the ranks that
+    used the whole (each rank's attention reads every block's k and v), and
+    this rank's block of it (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, m, r):
+        ctx.dim, ctx.group, ctx.m, ctx.r = dim, group, m, r
+        parts = [torch.empty_like(x) for _ in range(m)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group, ctx.m, ctx.r), None, None, None, None
+
+
+def gather_seq(x: torch.Tensor, lay, dim: int = 1) -> torch.Tensor:
+    """The whole sequence of a tensor of which each rank of `lay`'s model
+    group holds its block along `dim` (k or v: (B, S/m, K, hd) -> (B, S, K,
+    hd)); differentiable, its gradient reduce-scattered back to the blocks."""
+    return _GatherSeq.apply(x, dim, lay.model_group, lay.m, lay.r)
+
+
+def gather_stack(x: torch.Tensor, lay) -> torch.Tensor:
+    """Each model rank's `x` stacked on a new leading dim (m, *x.shape), in
+    rank order; differentiable as `gather_seq`: rank j's gradient is the sum
+    over the ranks of their gradients of entry j."""
+    return gather_seq(x.unsqueeze(0), lay, dim=0)
+
+
+class _HaloFromPrev(torch.autograd.Function):
+    """Forward: the previous rank's last w rows along dim 1 (zeros on rank
+    0). Backward: the next rank's halo gradient, added to this rank's last w
+    rows (rank m-1's tail feeds no one). Both directions move the tails by
+    an all-gather over the model group: w rows a rank."""
+
+    @staticmethod
+    def forward(ctx, x, w, group, m, r):
+        ctx.shape, ctx.w, ctx.group, ctx.m, ctx.r = x.shape, w, group, m, r
+        tail = x[:, x.shape[1] - w:].contiguous()
+        parts = [torch.empty_like(tail) for _ in range(m)]
+        dist.all_gather(parts, tail, group=group)
+        return parts[r - 1] if r > 0 else torch.zeros_like(tail)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        parts = [torch.empty_like(g) for _ in range(ctx.m)]
+        dist.all_gather(parts, g, group=ctx.group)
+        gx = g.new_zeros(ctx.shape)
+        if ctx.r < ctx.m - 1:
+            gx[:, ctx.shape[1] - ctx.w:] = parts[ctx.r + 1]
+        return gx, None, None, None, None
+
+
+def halo_from_prev(x: torch.Tensor, w: int, lay) -> torch.Tensor:
+    """(B, w, C): the w rows before this rank's block of x (B, S/m, C), the
+    previous rank's last w; zeros on rank 0, where the sequence starts.
+    Differentiable: the gradient goes back to rank r-1. Needs S/m >= w."""
+    if x.shape[1] < w:
+        raise ValueError(f"a block of {x.shape[1]} rows is shorter than the halo's {w}")
+    return _HaloFromPrev.apply(x, w, lay.model_group, lay.m, lay.r)
+
+
+def state_prefix(s_all: torch.Tensor, l_all: torch.Tensor, r: int) -> torch.Tensor:
+    """The state entering block r of a linear scan cut into blocks, from
+    every block's zero-start final state s_all (m, B, H, P, N) and its log
+    decay l_all (m, B, H) (a_h times the block's sum of dt): the exclusive
+    prefix h_r = sum_{j<r} exp(sum_{j<i<r} l_i) s_j, folded in s_all's dtype
+    as h <- exp(l_j) h + s_j over j < r. A pure function of the gathered
+    lists, the same on every rank for the same r. The result depends on
+    every entry (`_Tie`: a zero gradient for those from block r on, rank
+    0's all), so each rank's gather runs its backward."""
+    h = torch.zeros_like(s_all[0])
+    for j in range(r):
+        h = h * torch.exp(l_all[j])[..., None, None] + s_all[j]
+    return _Tie.apply(h, s_all, l_all)
+
+
+class _Tie(torch.autograd.Function):
+    """Forward: t. Backward: g for t and a zero gradient for each of
+    `others`, which makes their producers' backward (a collective) run on a
+    rank whose t does not read them."""
+
+    @staticmethod
+    def forward(ctx, t, *others):
+        ctx.others = [(o.shape, o.dtype, o.device) for o in others]
+        return t.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=v) for s, d, v in ctx.others))
+
+
+def lse_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, group) -> torch.Tensor:
+    """Softmax attention over keys split across `group`, from each rank's
+    row max m (..., Sq), sum of exponentials l = sum exp(s - m) and
+    unnormalised output o = sum exp(s - m) v (..., Sq, hd_v), in fp32:
+    every rank's rows rescaled to the group's max, l and o summed over the
+    group, o / l. A rank that sees no key (m at the masked score) adds 0."""
+    mx = m.clone()
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.exp(m - mx)
+    l = l * scale
+    o = o * scale[..., None]
+    dist.all_reduce(l, group=group)
+    dist.all_reduce(o, group=group)
+    return o / l.clamp_min(1e-30)[..., None]
+
+
+class _GroupSum(torch.autograd.Function):
+    """Forward: the sum over `group` of each rank's t. Backward: the
+    identity: each rank differentiates its own share, and the gradients of
+    the weights it used are summed over the group where they are gathered
+    (`gather_for_compute`)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    return _GroupSum.apply(t, group)
+
+
+def broadcast_from(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """`t` as the rank at index `src` of `group` has it, on every rank of
+    the group (no autograd: the prefill's cache and last position)."""
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
+    return t
+
+
 class _DPMean(torch.autograd.Function):
     """Forward: the mean over the data-parallel group of each rank's loss on
     its rows. Backward: the identity, so each rank differentiates its own
@@ -418,6 +588,19 @@ class _DPMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+def global_mean(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The mean of every entry of t over the ranks of `group`, which hold
+    different entries (a dp group's rows, the sequence blocks, or both),
+    on every rank; None: t's own mean. Each rank differentiates its share,
+    its sum over the global count, times the n ranks of the dp group over
+    which the weights' gradients are averaged (as `dp_mean`'s term)."""
+    if group is None:
+        return t.mean()
+    count = torch.tensor(float(t.numel()), dtype=torch.float32, device=t.device)
+    dist.all_reduce(count, group=group)
+    return _DPMean.apply(t.sum() * (n / count), group, n)
 
 
 def dp_mean(t: torch.Tensor, group, n: int, differentiable: bool = True) -> torch.Tensor:

@@ -71,6 +71,35 @@ def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, hd, hd_v, dtype, caus
     torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,q_off,dtype,window,path", [
+    (2, 64, 256, 8, 2, 128, 0, torch.bfloat16, None, "wgmma"),
+    (2, 64, 256, 8, 2, 128, 64, torch.bfloat16, None, "wgmma"),
+    (2, 64, 256, 8, 2, 128, 192, torch.bfloat16, None, "wgmma"),       # the last block
+    (2, 200, 1000, 4, 4, 64, 600, torch.bfloat16, None, "wgmma"),      # ragged, mid-tile
+    (2, 128, 512, 4, 4, 64, 300, torch.bfloat16, 100, "wgmma"),        # window
+    (1, 256, 4096, 40, 8, 128, 3840, torch.bfloat16, None, "wgmma"),   # qwen2.5-32b rank 15
+    (2, 64, 256, 4, 2, 64, 96, torch.float32, None, "cuda_cores"),
+    (2, 50, 300, 4, 2, 64, 170, torch.float32, 40, "cuda_cores"),
+])
+def test_flash_kernel_with_a_query_offset(dev, b, sq, sk, h, kv, hd, q_off, dtype, window,
+                                          path):
+    """A rank's block of queries (query row i at position q_off + i) against
+    the whole sequence's keys, as the "fsdp_sp" layout calls the kernel:
+    the plain version with the same offset, and the whole causal call's
+    rows [q_off, q_off + sq)."""
+    q, k, v = _qkv(dev, b, sk, sk, h, kv, hd, hd, dtype)
+    qb = q[:, q_off:q_off + sq].contiguous()
+    assert fa.kernel_path(qb, k, v) == path
+    before = fa.launches
+    out = fa.flash_attention(qb, k, v, causal=True, window=window, q_offset=q_off)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    expect = ref.flash_attention_plain(qb, k, v, causal=True, window=window, q_offset=q_off)
+    torch.testing.assert_close(out.float(), expect.float(), **TOL[dtype])
+    whole = fa.flash_attention(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), whole[:, q_off:q_off + sq].float(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64), (torch.bfloat16, 128),
                                       (torch.float32, 64)])
 def test_flash_kernel_rows_that_see_no_key_are_zeros(dev, dtype, hd):

@@ -305,13 +305,15 @@ def _launch_counter(monkeypatch):
     mode); returns the launch count list."""
     calls = []
 
-    def fake_launch(q, k, v, causal, window):
+    def fake_launch(q, k, v, causal, window, q_offset=0):
         calls.append(1)
-        return ref.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         q_offset=q_offset)
 
     monkeypatch.setattr(fa, "_launch", fake_launch)
-    monkeypatch.setattr(fa, "flash_attention", lambda q, k, v, *, causal=True, window=None:
-                        fa.FlashAttention.apply(q, k, v, causal, window))
+    monkeypatch.setattr(fa, "flash_attention",
+                        lambda q, k, v, *, causal=True, window=None, q_offset=0:
+                        fa.FlashAttention.apply(q, k, v, causal, window, q_offset))
     return calls
 
 
