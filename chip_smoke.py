@@ -27,8 +27,10 @@
    2 x 8192 prefill with its 4096-token window, phi-3-vision's hd 96 and
    whisper-tiny's 6 heads of 64, non-causal (encoder, cross) and causal
    (decoder self), and the local heads of the tensor-parallel layout:
-   olmo-1b's 16 heads on a 2- and a 16-way "model" axis (8 and 1) and
-   qwen3-8b's 32/8 on 4 (8/2), each timed beside its full-head case), each
+   olmo-1b's 16 heads on a 2- and a 16-way "model" axis (8 and 1),
+   qwen3-8b's 32/8 on 4 (8/2), deepseek's MLA on 1 of its 16 heads and
+   mixtral's 2 of 32 query heads on their one kv head with the window, each
+   timed beside its full-head case), each case's launch counted and the
    case also held to the kernel path it must take: wgmma (TMA + wgmma) for
    every shape of the model paths;
 4b. flash offset phase: the kernel with a query offset at the rank shapes
@@ -40,6 +42,21 @@
    BF16_TOL on the wgmma path, its launch counted, and timed beside its
    bound (the pairs its rows see) and SDPA with the equivalent boolean
    mask;
+4c. expert share phase: one full-width MoE layer of deepseek-v2-lite (16 EP
+   shares of 4 experts, its shared experts in 16 column shares) and of
+   mixtral (16 expert-TP shares of 896 columns) at x 8 x 1024, bf16: the
+   shares computed one after another through `models.moe.moe_share` from
+   one routing and summed, held against the whole `moe_apply` within
+   BF16_TOL of its max, forward and the gradients of x, the router and
+   we_in (no route can flip: the routing is one); one share's time beside
+   the whole layer's;
+4d. block decode phase: mixtral's GQA decode with its window and
+   deepseek's absorbed MLA decode over a 65,536-position cache in 16
+   blocks, each block's part on one card merged by
+   `utils.distributed.lse_merge` (the combine `lse_combine` does across
+   ranks), held against the whole decode within FP32_TOL of its max, the
+   blocks that see no key counted (14 of mixtral's 16); timed beside the
+   whole;
 5. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
    serves 8 requests x 1024 prompt tokens + 32 greedy tokens through
    `repro_torch.launch.serve.serve`; the launch counts, set to 0 just before
@@ -334,11 +351,21 @@ FLASH_CASES = [
      "bfloat16", True, None, 0, "wgmma"),
     ("qwen3-8b prefill, 8/2 local heads (model 4)", (8, 1024, 1024, 8, 2, 128, 128),
      "bfloat16", True, None, 0, "wgmma"),
+    # MLA on its heads (1 of deepseek's 16 a rank) and mixtral's 2 of 32
+    # query heads a rank on the one kv head they share (8 on 16 do not split)
+    ("deepseek-v2-lite MLA prefill, 1 local head (model 16)",
+     (8, 1024, 1024, 1, 1, 192, 128), "bfloat16", True, None, 0, "wgmma"),
+    ("mixtral-8x7b prefill, window 4096, 2/1 local heads (model 16)",
+     (2, 8192, 8192, 2, 1, 128, 128), "bfloat16", True, 4096, 0, "wgmma"),
 ]
 # each local-head case beside the full-head case of its model
 LOCAL_HEAD_CASES = {"olmo-1b prefill, 8 local heads (model 2)": "olmo-1b prefill",
                     "olmo-1b prefill, 1 local head (model 16)": "olmo-1b prefill",
-                    "qwen3-8b prefill, 8/2 local heads (model 4)": "qwen3-8b prefill"}
+                    "qwen3-8b prefill, 8/2 local heads (model 4)": "qwen3-8b prefill",
+                    "deepseek-v2-lite MLA prefill, 1 local head (model 16)":
+                        "deepseek-v2-lite MLA prefill",
+                    "mixtral-8x7b prefill, window 4096, 2/1 local heads (model 16)":
+                        "mixtral-8x7b prefill, window 4096"}
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window, q_offset: int = 0) -> int:
@@ -395,8 +422,10 @@ def flash_phase() -> dict:
         q, k, v = (torch.randn((*s[:-1], s[-1] + offset), generator=gen,
                                device="cuda").to(tdt)[..., offset:]
                    for s in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd_v)))
+        before = fa.launches
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        launches = fa.launches - before
         expect = ref.flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = BF16_TOL if dtype == "bfloat16" else FP32_TOL
         diff = (out.float() - expect.float()).abs()
@@ -404,14 +433,15 @@ def flash_phase() -> dict:
         path = fa.kernel_path(q, k, v)
         ok = (out.shape == expect.shape and bool(torch.isfinite(out).all())
               and bool((diff <= tol["atol"] + tol["rtol"] * expect.float().abs()).all())
-              and path == want_path)
+              and path == want_path and launches == 1)
         ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
         plain_ms = time_ms(lambda: ref.flash_attention_plain(q, k, v, causal=causal,
                                                              window=window))
         library_ms = time_ms(sdpa_call(q, k, v, causal, window))
         bound_ms, bound_by = flash_bound(shape, dtype, causal, window)
         row = dict(case=name, shape=shape, dtype=dtype, causal=causal, window=window,
-                   path=path, want_path=want_path, max_abs_err=err, atol=tol["atol"],
+                   path=path, want_path=want_path, launches=launches, max_abs_err=err,
+                   atol=tol["atol"],
                    rtol=tol["rtol"], ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
         full = rows.get(LOCAL_HEAD_CASES.get(name))
@@ -491,6 +521,213 @@ def offset_flash_phase() -> list:
     if failures:
         fail(f"flash_attention with a query offset disagrees with its plain version, "
              f"did not launch or left the wgmma path: {failures}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the moe family's layout under "tp": expert shares and decode over blocks
+# ---------------------------------------------------------------------------
+
+# One full-width MoE layer of each moe arch cut into the shares its ranks
+# compute on a 16-way "model" axis (`models.moe.moe_share`): deepseek in 16
+# EP shares of 4 of its 64 experts (its 2 shared experts in 16 shares of
+# their 2816 columns), mixtral in 16 expert-TP shares of 896 of its 14336
+# columns. (arch, m); x of SHARE_TOKENS, bf16 compute.
+SHARE_CASES = (("deepseek-v2-lite-16b", 16), ("mixtral-8x7b", 16))
+SHARE_TOKENS = (8, 1024)
+
+
+def held(got, want, tol: dict) -> tuple[bool, float, float]:
+    """(got finite and every element within atol + rtol max |want|, max
+    |got - want|, that over max |want|): the tolerance of the tensor's
+    scale, since a gradient summed over every token (the router's) rounds
+    each partial sum in bf16 on both sides."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().max()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (diff <= tol["atol"] + tol["rtol"] * scale).all())
+    return ok, float(diff.max()), float(diff.max() / scale.clamp_min(1e-30))
+
+
+def expert_share_phase() -> list:
+    """Each SHARE_CASES layer (fp32 weights from seed 0 at the models' init
+    scale, std 1/sqrt(fan-in); bf16 compute) on x of SHARE_TOKENS: the m
+    shares computed one after another through `moe_share`, each on
+    `moe.expert_share` of the whole weights and its own bf16 copy of x, from
+    one routing, summed with the shared experts' shares and one aux, held
+    against the whole `moe_apply` within BF16_TOL of its max (`held`), and
+    so are the gradients of x, the router and we_in (a loss of y against
+    fixed random weights plus the aux); the routing is one, so no route
+    differs. A rank's forward (the routing, its share of the experts and of
+    the shared experts) timed beside the whole layer's. Fails on a
+    disagreement."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+
+    rows = []
+    for arch, m in SHARE_CASES:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def init(shapes):
+            return {k: (torch.randn(sh, generator=gen, device="cuda") * sh[-2] ** -0.5
+                        ).requires_grad_() for k, sh in shapes.items()}
+
+        params = init(MOE.moe_shapes(cfg))
+        if cfg.moe.n_shared_experts:
+            params["shared"] = init(MOE.shared_shapes(cfg))
+        x32 = torch.randn(*SHARE_TOKENS, cfg.d_model, generator=gen, device="cuda"
+                          ).to(torch.bfloat16).float().requires_grad_()
+        w = torch.randn(*SHARE_TOKENS, cfg.d_model, generator=gen, device="cuda")
+        dt = getattr(torch, cfg.compute_dtype)
+        leaves = [x32, params["router"], params["we_in"]]
+
+        y, aux = MOE.moe_apply(params, x32.to(dt), cfg)
+        want = torch.autograd.grad((y.float() * w).sum() + aux, leaves)
+        y = y.detach()
+        rt = MOE.make_routing(params["router"], x32.to(dt), cfg)
+        total = torch.zeros(y.shape, dtype=torch.float32, device="cuda")
+        for r in range(m):
+            share = MOE.expert_share(params, cfg, r, m)
+            xr = x32.to(dt)
+            total = total + MOE.moe_share(share, xr, cfg, r, m, routing=rt).float()
+            if "shared" in share:
+                total = total + MOE.shared_apply(share["shared"], xr, cfg).float()
+        aux_s = MOE.aux_loss(rt, cfg)
+        got = torch.autograd.grad((total * w).sum() + aux_s, leaves)
+        total, aux, aux_s = total.detach(), aux.detach(), aux_s.detach()
+        checks = {"y": held(total, y, BF16_TOL)}
+        for name, g, g_want in zip(("x_grad", "router_grad", "we_in_grad"), got, want):
+            checks[name] = held(g, g_want, BF16_TOL)
+        del got, want
+        with torch.no_grad():
+            xb = x32.detach().to(dt)
+            share0 = MOE.expert_share(params, cfg, 0, m)
+
+            def one_share():
+                out = MOE.moe_share(share0, xb, cfg, 0, m)
+                if "shared" in share0:
+                    out = out + MOE.shared_apply(share0["shared"], xb, cfg)
+                return out
+
+            whole_ms = time_ms(lambda: MOE.moe_apply(params, xb, cfg))
+            share_ms = time_ms(one_share)
+        e_loc = share0["we_in"].shape[0]
+        row = dict(case=f"{arch} MoE layer, {m} shares", layout="EP" if e_loc != cfg.moe.n_experts
+                   else "expert TP", we_in_share=tuple(share0["we_in"].shape),
+                   we_out_share=tuple(share0["we_out"].shape), tokens=SHARE_TOKENS,
+                   aux=float(aux.detach()), aux_shares=float(aux_s.detach()), route_flips=0,
+                   **{f"{k}_max_abs_err": v[1] for k, v in checks.items()},
+                   **{f"{k}_err_over_max": v[2] for k, v in checks.items()},
+                   atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"],
+                   ok=all(v[0] for v in checks.values()) and float(aux) == float(aux_s),
+                   whole_ms=whole_ms, share_ms=share_ms, whole_over_share=whole_ms / share_ms,
+                   phase_s=time.perf_counter() - t0)
+        print("moe shares " + json.dumps(row))
+        rows.append(row)
+        del params, x32, w, y, total, share0, leaves
+        torch.cuda.empty_cache()
+        if not row["ok"]:
+            fail(f"{arch}: the sum of the {m} expert shares disagrees with the whole layer")
+    return rows
+
+
+# Decode over a cache in 16 sequence blocks, as the "tp" serve step's ranks
+# hold it where the kv heads cannot carry it: mixtral's GQA (32 query heads
+# on 8 kv heads, window 4096) and deepseek's absorbed MLA (16 heads over a
+# 512 + 64 latent), each block's part computed on one card and the parts
+# merged by `distributed.lse_merge`, the combine `lse_combine` does across
+# ranks. (name, batch, cache length, valid length); fp32.
+BLOCK_DECODE_CASES = (("mixtral-8x7b GQA, window 4096", 4, 65536, 40000),
+                      ("deepseek-v2-lite absorbed MLA", 4, 65536, 40000))
+DECODE_BLOCKS = 16
+
+
+def block_decode_phase() -> list:
+    """Each BLOCK_DECODE_CASES decode (one new position, fp32, seed 1)
+    computed as DECODE_BLOCKS parts (`layers.decode_attention_part` with the
+    window, `mla.absorbed_decode_part`) merged by `distributed.lse_merge`,
+    held against the whole decode (`ref.decode_attention_plain`; MLA's
+    whole-cache absorbed decode as `mla_apply` computes it) within FP32_TOL
+    of its max;
+    mixtral's window leaves all but two blocks with no visible key, which
+    must come out with l = o = 0. The parts and merge timed beside the
+    whole. Fails on a disagreement."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla as MLA
+    from repro_torch.utils import distributed
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, b, n, valid in BLOCK_DECODE_CASES:
+        w = n // DECODE_BLOCKS
+        if name.startswith("mixtral"):
+            cfg = get_config("mixtral-8x7b")
+            hd = cfg.resolved_head_dim
+            q = torch.randn(b, 1, cfg.n_heads, hd, generator=gen, device="cuda")
+            k, v = (torch.randn(b, n, cfg.n_kv_heads, hd, generator=gen, device="cuda")
+                    for _ in range(2))
+
+            def parts():
+                return [L.decode_attention_part(q, k[:, i:i + w], v[:, i:i + w], valid, i,
+                                                window=cfg.sliding_window)
+                        for i in range(0, n, w)]
+
+            def merged():
+                out = distributed.lse_merge(*(torch.stack(t) for t in zip(*parts())))
+                return out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.n_heads, hd)
+
+            def whole():
+                return ref.decode_attention_plain(q, k, v, valid, window=cfg.sliding_window)
+        else:
+            cfg = get_config("deepseek-v2-lite-16b")
+            mc = cfg.mla
+            q_lat = torch.randn(b, 1, cfg.n_heads, mc.kv_lora_rank, generator=gen, device="cuda")
+            q_rope = torch.randn(b, 1, cfg.n_heads, mc.qk_rope_head_dim, generator=gen,
+                                 device="cuda")
+            c_kv = torch.randn(b, n, mc.kv_lora_rank, generator=gen, device="cuda")
+            k_rope = torch.randn(b, n, mc.qk_rope_head_dim, generator=gen, device="cuda")
+
+            def parts():
+                return [MLA.absorbed_decode_part(q_lat, q_rope, c_kv[:, i:i + w],
+                                                 k_rope[:, i:i + w], valid, i, cfg)
+                        for i in range(0, n, w)]
+
+            def merged():
+                return distributed.lse_merge(*(torch.stack(t) for t in zip(*parts())))
+
+            def whole():
+                # mla_apply's whole-cache absorbed decode: o_lat (B, H, T, R)
+                scores = (torch.einsum("bthr,bsr->bhts", q_lat, c_kv)
+                          + torch.einsum("bthn,bsn->bhts", q_rope, k_rope))
+                scores = scores / math.sqrt(mc.qk_nope_head_dim + mc.qk_rope_head_dim)
+                scores = torch.where(torch.arange(n, device="cuda") < valid, scores, -1e30)
+                return torch.einsum("bhts,bsr->bhtr", torch.softmax(scores, dim=-1), c_kv)
+
+        with torch.no_grad():
+            empty = sum(int(not bool(l.any()) and not bool(o.any())) for _, l, o in parts())
+            got, want = merged(), whole()
+            ok, err, rel = held(got, want, FP32_TOL)
+            merged_ms, whole_ms = time_ms(merged), time_ms(whole)
+        row = dict(case=name, batch=b, cache=n, blocks=DECODE_BLOCKS, valid=valid,
+                   blocks_without_keys=empty, max_abs_err=err, err_over_max=rel,
+                   atol=FP32_TOL["atol"],
+                   rtol=FP32_TOL["rtol"], ok=ok, merged_ms=merged_ms, whole_ms=whole_ms)
+        print("block decode " + json.dumps(row))
+        rows.append(row)
+        torch.cuda.empty_cache()
+        if not ok:
+            fail(f"{name}: the merged block parts disagree with the whole decode")
+    want_empty = DECODE_BLOCKS - 2
+    if rows[0]["blocks_without_keys"] != want_empty:
+        fail(f"mixtral's window should leave {want_empty} blocks without a key, "
+             f"not {rows[0]['blocks_without_keys']}")
     return rows
 
 
@@ -4045,6 +4282,12 @@ def main() -> int:
     t0 = time.perf_counter()
     offset_flash_phase()
     print(f"flash offset phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    expert_share_phase()
+    print(f"expert share phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    block_decode_phase()
+    print(f"block decode phase: {time.perf_counter() - t0:.2f}s")
     served, model = serve_phase()
     print("serve " + json.dumps(served))
     profile_phase(model)

@@ -161,9 +161,9 @@ def _cache_leaf_spec(path: str, leaf, mesh) -> P:
 def _tp_kv(cfg, mesh) -> bool:
     """Whether the serve step computes attention on local kv heads: the "tp"
     layout (`partitioning.tp_enabled`) with both head counts divisible by
-    the "model" axis."""
+    the "model" axis, and a k/v cache (MLA's latents have no heads)."""
     m = axis_size(mesh, "model") if "model" in mesh.axis_names else 1
-    return (m > 1 and tp_enabled(cfg) and cfg.n_heads % m == 0
+    return (m > 1 and tp_enabled(cfg) and cfg.mla is None and cfg.n_heads % m == 0
             and cfg.n_kv_heads % m == 0)
 
 
@@ -196,29 +196,35 @@ def serve_cache_spec_tree(cache_shapes: Tree, cfg, mesh) -> Tree:
     return map_leaves(f, cache_shapes)
 
 
-def _sp_kv(cfg, mesh) -> bool:
-    """Whether the serve step computes attention over the cache's sequence
-    blocks: the sequence-parallel layout (`partitioning.sp_enabled`) on a
-    "model" axis of more than one rank."""
+def _seq_kv(cfg, mesh) -> bool:
+    """Whether the serve step attends over the cache's sequence blocks: on a
+    "model" axis of more than one rank, the sequence-parallel layout
+    (`partitioning.sp_enabled`), or the "tp" layout where the kv heads do
+    not carry the cache (`_tp_kv` false: a head count "model" does not
+    divide, or MLA's latents)."""
     m = axis_size(mesh, "model") if "model" in mesh.axis_names else 1
-    return m > 1 and sp_enabled(cfg)
+    return m > 1 and (sp_enabled(cfg) or (tp_enabled(cfg) and not _tp_kv(cfg, mesh)))
+
+
+_SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")
 
 
 def compute_cache_spec_tree(cache_shapes: Tree, cfg, mesh, split: bool) -> Tree:
     """What each rank of the sharded serve step computes on of a cache: the
     batch dim over the dp axes when the batch splits over them (`split`),
     a k/v leaf's kv heads over "model" where attention is tensor-parallel
-    (`_tp_kv`), every other dim whole. Under the sequence-parallel layout
-    (`_sp_kv`) a k/v leaf keeps `_cache_leaf_spec`'s placement, its
-    sequence on its blocks (over "model", or the dp axes and "model" where
-    the batch does not split), so decode moves no byte of it."""
-    dp, tp, sp = dp_axes(mesh), _tp_kv(cfg, mesh), _sp_kv(cfg, mesh)
+    on them (`_tp_kv`), every other dim whole. Where attention runs over
+    the cache's sequence blocks (`_seq_kv`) a k/v or MLA latent leaf keeps
+    `_cache_leaf_spec`'s placement, its sequence on its blocks (over
+    "model", or the dp axes and "model" where the batch does not split),
+    so decode moves no byte of it."""
+    dp, tp, seq = dp_axes(mesh), _tp_kv(cfg, mesh), _seq_kv(cfg, mesh)
 
     def f(path, leaf, blocks):
         nd = _ndim(leaf)
         if nd == 0:
             return P()
-        if sp and path.split("/")[-1] in ("k", "v"):
+        if seq and path.split("/")[-1] in _SEQ_LEAVES:
             return _cache_leaf_spec(path, leaf, mesh)
         out = [None] * nd
         if split:   # the batch dim: after the layer axis but in "dense_layers"

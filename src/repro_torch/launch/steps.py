@@ -85,15 +85,19 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
     weights gathered layer by layer where the model runs them, attention,
     MLP and logits tensor-parallel over "model" under the "tp" profile; the
     cache as each rank computes on it (`compute_cache_spec_tree`: its rows,
-    and where attention is tensor-parallel its kv heads; every other dim
-    whole), which moves no byte when it comes in `serve_cache_spec_tree`'s
-    placement; the new cache placed back as it came (prefill: by
-    `serve_cache_spec_tree`). Under the "fsdp_sp" profile each rank of the
-    model group computes its block of the prompt's sequence, and k and v
-    stay on their sequence blocks (`partitioning.cache_sequence`): prefill
-    writes each rank's block, decode combines the ranks' attention over
-    theirs, and the sampler's last-position logits come from the last
-    block's rank, broadcast to its group (`transformer.prefill`).
+    and where attention is tensor-parallel on kv heads its kv heads; every
+    other dim whole), which moves no byte when it comes in
+    `serve_cache_spec_tree`'s placement; the new cache placed back as it
+    came (prefill: by `serve_cache_spec_tree`). Under the "fsdp_sp"
+    profile, and under "tp" where the kv heads do not carry the cache (or
+    it holds MLA's latents), k and v (the latents) stay on their sequence
+    blocks (`partitioning.cache_sequence`): prefill writes each rank's
+    block from what it computed, decode combines the ranks' attention over
+    theirs ("tp": every query head over each block, the rank's heads kept
+    after). Under "fsdp_sp" each rank of the model group computes its
+    block of the prompt's sequence, and the sampler's last-position logits
+    come from the last block's rank, broadcast to its group
+    (`transformer.prefill`).
 
     Returns step(params, cache, batch) -> (logits of this rank's rows over
     the whole vocabulary (a vocab-sharded head's gathered over "model"),
@@ -152,8 +156,9 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
 
 
 def _cache_sequence(pl: dict, dm):
-    """`partitioning.cache_sequence` for a cache whose k/v placements `pl`
-    shard the sequence (dim 2 of a stacked (L, B, S, K, hd) leaf) over some
+    """`partitioning.cache_sequence` for a cache whose k/v (or MLA latent)
+    placements `pl` shard the sequence (dim 2 of a stacked (L, B, S, K, hd)
+    or (L, B, S, R) leaf) over some
     mesh dims: this rank's block index over them (the first outermost),
     their number of blocks, and the group that spans them (the model group,
     or the flattened mesh when the dp axes take part); a null context where
@@ -163,7 +168,8 @@ def _cache_sequence(pl: dict, dm):
     from repro_torch.models import partitioning
     from repro_torch.utils import distributed
 
-    kv = next((sub["k"] for sub in pl.values() if isinstance(sub, dict) and "k" in sub), None)
+    kv = next((sub[name] for sub in pl.values() if isinstance(sub, dict)
+               for name in ("k", "c_kv") if name in sub), None)
     dims = [] if kv is None else [i for i, p in enumerate(kv) if p.is_shard(2)]
     if not dims:
         return contextlib.nullcontext()

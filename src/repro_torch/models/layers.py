@@ -236,27 +236,44 @@ def decode_attention_part(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, val
         mask &= kpos > valid_len - 1 - window
     s = torch.where(mask, s, -1e30)
     m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
+    # a block that no query sees (past the valid entries, or before the
+    # window) gives l = 0 and o = 0, and weighs 0 in the combine
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
     return m, p.sum(dim=-1), torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
 
 
+def write_positions(t: torch.Tensor, new: torch.Tensor, pos: int, lo: int = 0) -> None:
+    """Cache tensor t (B, n, ...) holds positions lo .. lo + n - 1: write
+    into it the part of `new` (B, s, ...), positions pos .. pos + s - 1,
+    that falls there (in place)."""
+    a, e = max(pos, lo), min(pos + new.shape[1], lo + t.shape[1])
+    if a < e:
+        t[:, a - lo:e - lo] = new[:, a - pos:e - pos].to(t.dtype)
+
+
 def _decode_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: dict,
-                    blk: tuple, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+                    blk: tuple, cfg: ModelConfig, lay=None) -> tuple[torch.Tensor, dict]:
     """Decode over this rank's block [lo, hi) of a cache split on the
     sequence over `group`: the new k/v written by the rank whose block
     holds their positions, each rank's attention over its block, the parts
-    combined over the group. Returns (out (B,Sq,H,hd_v), the cache)."""
-    lo, hi, group = blk
+    combined over the group. Under the tensor-parallel layout `lay` (q this
+    rank's heads, k and v every kv head) the queries of every head are
+    gathered over the model group first, and the rank's heads kept after.
+    Returns (out (B,Sq,H_q,hd_v), the cache)."""
+    lo, _, group = blk
     pos, s_new = cache["pos"], q.shape[1]
     kc, vc = cache["k"], cache["v"]
-    a, e = max(pos, lo), min(pos + s_new, hi)
-    if a < e:
-        kc[:, a - lo:e - lo] = k[:, a - pos:e - pos].to(kc.dtype)
-        vc[:, a - lo:e - lo] = v[:, a - pos:e - pos].to(vc.dtype)
+    write_positions(kc, k, pos, lo)
+    write_positions(vc, v, pos, lo)
+    h_loc = q.shape[2]
+    if lay is not None:
+        q = distributed.all_heads(q, lay)
     m, l, o = decode_attention_part(q, kc, vc, pos + s_new, lo, window=cfg.sliding_window)
     out = distributed.lse_combine(m, l, o, group)                 # (B,K,G,Sq,hd_v)
     b, n_kv, g, sq, hd_v = out.shape
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, n_kv * g, hd_v).to(q.dtype)
+    if lay is not None:
+        out = out.narrow(2, lay.r * h_loc, h_loc)
     return out, {"k": kc, "v": vc, "pos": pos + s_new}
 
 
@@ -285,7 +302,9 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     [lo, hi) and `positions` absolute) self-attention gathers k and v whole
     over the model group and the flash kernel runs with q_offset lo; the
     returned k/v are the whole sequence's. Decode over a cache split on the
-    sequence (`partitioning.cache_block` of its length) is `_decode_sharded`.
+    sequence (`partitioning.cache_block` of its length; under "fsdp_sp", or
+    under "tp" where the kv heads do not carry the cache) is
+    `_decode_sharded`.
     """
     from repro_torch.kernels import ops  # local import to avoid cycles
 
@@ -309,7 +328,7 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     blk = partitioning.seq_block() if x_cross is None else None
     cblk = partitioning.cache_block(cache["k"].shape[1]) if cache is not None else None
     if cblk is not None and x_cross is None:
-        out, new_cache = _decode_sharded(q, k, v, cache, cblk, cfg)
+        out, new_cache = _decode_sharded(q, k, v, cache, cblk, cfg, lay)
     elif cache is not None and x_cross is None:
         # decode: write new kv at cache["pos"], attend over the cache
         pos, s_new = cache["pos"], x.shape[1]

@@ -25,14 +25,28 @@ mean router probability) by `distributed.dp_mean`, whose backward leaves
 each rank its own rows' term for the gradient average. So every rank holds
 the whole batch's aux, as the reference's GSPMD means over the global batch
 give it. Outside one, nothing is reduced.
+
+Under the tensor-parallel layout (`partitioning.tp_layout`) each rank of
+the model group is handed its share of the experts as the rules place them
+over "model" (`partitioning.gather_part`): EP's E/m experts where m divides
+E, else expert TP's f/m columns of every expert. Every rank routes the same
+tokens (x after Megatron's f, `distributed.copy_to_model`) with the same
+gathered router, so the routing is the same bits on every rank; each
+computes its share of y (`moe_share`) and, on their d_ff shard, the shared
+experts' part, and one all-reduce over the group sums them
+(`distributed.reduce_from_model`). The router's gradient is then partial
+(each rank combines its own share), and its leaf's gradient is summed over
+the group; the aux, which every rank computes whole, is differentiated at
+1/m on each rank (`distributed.scale_grad`), so that the sum counts it once.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import _act, cdtype
 from repro_torch.utils import distributed
@@ -77,52 +91,148 @@ def assign(gate_idx: torch.Tensor, n_experts: int, capacity: int) -> torch.Tenso
     return before.gather(-1, flat[..., None]).reshape(g, s, k)
 
 
-def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux_loss). Group == batch row. `params` holds
-    router/we_in/we_gate/we_out and, with shared experts, "shared"
-    (wi/wg/wo_mlp)."""
+class Routing(NamedTuple):
+    """The router's decisions for x (B, S, D), computed whole (every model
+    rank computes them from the same bits): probs (B,S,E) in fp32, the
+    renormalised top-k gates and their experts (B,S,K), and each route's
+    rank in its expert's buffer (B,S,K), a rank >= the capacity dropping it."""
+    probs: torch.Tensor
+    gate_vals: torch.Tensor
+    gate_idx: torch.Tensor
+    rank: torch.Tensor
+
+
+def make_routing(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> Routing:
+    probs, gate_vals, gate_idx = route(router, x, cfg)
+    capacity = _capacity(cfg.moe, x.shape[1])
+    return Routing(probs, gate_vals, gate_idx, assign(gate_idx, cfg.moe.n_experts, capacity))
+
+
+def moe_share(params: Params, x: torch.Tensor, cfg: ModelConfig, r: int = 0, m: int = 1,
+              routing: Optional[Routing] = None) -> torch.Tensor:
+    """Rank r of m's share of the routed experts' output (B, S, D), in the
+    compute dtype, from `params`' router and this rank's share of the
+    expert weights (`expert_share`): under EP (we_* hold E/m experts) the
+    gate-weighted rows of experts [r E/m, (r+1) E/m), its buffer (E/m,
+    B*C, D) built from their slots only; under expert TP (every expert on
+    f/m columns of we_in / we_gate and the rows of we_out) every route's
+    partial row. The activation is elementwise, so the shares of r = 0 ..
+    m-1 sum to the whole (m 1). `routing` is `make_routing`'s, computed
+    here when None."""
     moe = cfg.moe
     dt = cdtype(cfg)
     B, S, D = x.shape
     E, K = moe.n_experts, moe.top_k
     C = _capacity(moe, S)
-
-    probs, gate_vals, gate_idx = route(params["router"], x, cfg)
-    rank = assign(gate_idx, E, C)
-    keep = rank < C
-    # slot of each route in the (E, B, C) buffer; the dropped ones name the
-    # zero row after it
+    rt = make_routing(params["router"], x, cfg) if routing is None else routing
+    e_loc = params["we_in"].shape[0]
+    if e_loc != E and e_loc * m != E:
+        raise ValueError(f"{e_loc} experts a rank do not split {E} over {m} ranks")
+    lo = r * e_loc if e_loc != E else 0
+    mine = (rt.rank < C) & (rt.gate_idx >= lo) & (rt.gate_idx < lo + e_loc)
+    # slot of each of this share's routes in the (E_loc, B, C) buffer; the
+    # others name the zero row after it
     group = torch.arange(B, device=x.device)[:, None, None]
-    slot = torch.where(keep, (gate_idx * B + group) * C + rank, E * B * C).reshape(-1)
+    slot = torch.where(mine, ((rt.gate_idx - lo) * B + group) * C + rt.rank,
+                       e_loc * B * C).reshape(-1)
     token = torch.arange(B * S, device=x.device).repeat_interleave(K)
     # the token each slot holds (the zero row B*S where it holds none)
-    holder = torch.full((E * B * C + 1,), B * S, dtype=torch.long, device=x.device)
+    holder = torch.full((e_loc * B * C + 1,), B * S, dtype=torch.long, device=x.device)
     holder[slot] = token
     x_rows = torch.cat([x.reshape(B * S, D).to(dt), x.new_zeros((1, D), dtype=dt)])
-    xe = x_rows[holder[:-1]].reshape(E, B * C, D)
+    xe = x_rows[holder[:-1]].reshape(e_loc, B * C, D)
 
     h = _act(torch.bmm(xe, params["we_in"].to(dt)), cfg.act)
     h = h * torch.bmm(xe, params["we_gate"].to(dt))
-    ye = torch.bmm(h, params["we_out"].to(dt))                    # (E, B*C, D)
-    ye_rows = torch.cat([ye.reshape(E * B * C, D), ye.new_zeros((1, D))])
+    ye = torch.bmm(h, params["we_out"].to(dt))                    # (E_loc, B*C, D)
+    ye_rows = torch.cat([ye.reshape(e_loc * B * C, D), ye.new_zeros((1, D))])
     picked = ye_rows[slot].reshape(B * S, K, D)
-    y = (picked * gate_vals.to(dt).reshape(B * S, K, 1)).sum(dim=1).reshape(B, S, D)
+    return (picked * rt.gate_vals.to(dt).reshape(B * S, K, 1)).sum(dim=1).reshape(B, S, D)
 
+
+def shared_apply(sp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The shared experts (a gated MLP), on whole weights or this rank's
+    d_ff columns of wi / wg and rows of wo_mlp (a partial sum)."""
+    dt = cdtype(cfg)
+    hs = _act(x @ sp["wi"].to(dt), cfg.act) * (x @ sp["wg"].to(dt))
+    return hs @ sp["wo_mlp"].to(dt)
+
+
+def expert_share(params: Params, cfg: ModelConfig, r: int, m: int) -> dict:
+    """Rank r of m's share of whole MoE weights, as `param_partition_spec`
+    places them over "model" (views, so gradients reach the whole): EP's
+    experts [r E/m, (r+1) E/m) where m divides E, else expert TP's f/m
+    columns of we_in / we_gate and rows of we_out; the shared experts' d_ff
+    columns and rows where m divides it; the router whole."""
+    E, f = cfg.moe.n_experts, cfg.moe.expert_d_ff
+
+    def cut(t, dim, n):
+        w = n // m
+        return t.narrow(dim, r * w, w)
+
+    out = {"router": params["router"]}
+    if E % m == 0:
+        out.update({name: cut(params[name], 0, E) for name in ("we_in", "we_gate", "we_out")})
+    else:
+        out.update(we_in=cut(params["we_in"], 2, f), we_gate=cut(params["we_gate"], 2, f),
+                   we_out=cut(params["we_out"], 1, f))
     if "shared" in params:
         sp = params["shared"]
-        hs = _act(x @ sp["wi"].to(dt), cfg.act) * (x @ sp["wg"].to(dt))
-        y = y + hs @ sp["wo_mlp"].to(dt)
+        fs = sp["wi"].shape[-1]
+        out["shared"] = sp if fs % m else {"wi": cut(sp["wi"], 1, fs), "wg": cut(sp["wg"], 1, fs),
+                                           "wo_mlp": cut(sp["wo_mlp"], 0, fs)}
+    return out
 
-    # load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
-    counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, gate_idx.reshape(-1), torch.ones(B * S * K, dtype=torch.float32, device=x.device))
+
+def aux_loss(rt: Routing, cfg: ModelConfig) -> torch.Tensor:
+    """The load-balancing aux (Switch-style) E * sum_e f_e * p_e, its means
+    over the whole batch inside a sharded step's loss (see the module
+    docstring)."""
+    moe = cfg.moe
+    E, K = moe.n_experts, moe.top_k
+    B, S = rt.gate_idx.shape[:2]
+    device = rt.gate_idx.device
+    counts = torch.zeros(E, dtype=torch.float32, device=device).index_add_(
+        0, rt.gate_idx.reshape(-1), torch.ones(B * S * K, dtype=torch.float32, device=device))
     assign_frac = counts / (B * S)
-    mean_prob = probs.mean(dim=(0, 1))
+    mean_prob = rt.probs.mean(dim=(0, 1))
     dp = distributed.current_dp()
     if dp is not None:
-        # the whole batch's means (see the module docstring)
         assign_frac = distributed.dp_mean(assign_frac, *dp, differentiable=False)
         mean_prob = distributed.dp_mean(mean_prob, *dp)
-    aux = moe.router_aux_weight * E * (assign_frac / K * mean_prob).sum()
+    return moe.router_aux_weight * E * (assign_frac / K * mean_prob).sum()
+
+
+def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss). Group == batch row. `params` holds
+    router/we_in/we_gate/we_out and, with shared experts, "shared"
+    (wi/wg/wo_mlp): whole, or under the tensor-parallel layout this rank's
+    shares (see the module docstring)."""
+    moe = cfg.moe
+    e_in = params["we_in"].shape
+    split = e_in[0] != moe.n_experts or e_in[-1] != moe.expert_d_ff
+    shared = params.get("shared")
+    shared_split = (shared is not None
+                    and shared["wi"].shape[-1] != moe.expert_d_ff * moe.n_shared_experts)
+    lay = partitioning.tp_layout(cfg) if split or shared_split else None
+    xm = x if lay is None else distributed.copy_to_model(x, lay.model_group)
+    xe = xm if split else x
+    rt = make_routing(params["router"], xe, cfg)
+    y = moe_share(params, xe, cfg, *((lay.r, lay.m) if split else (0, 1)), routing=rt)
+    aux = aux_loss(rt, cfg)
+    local = None
+    if split:
+        local, y = y, 0
+        # every model rank computes the aux whole: each differentiates 1/m
+        # of it, so that the model group's sum counts it once
+        aux = distributed.scale_grad(aux, 1.0 / lay.m)
+    if shared is not None:
+        ys = shared_apply(shared, xm if shared_split else x, cfg)
+        if shared_split:
+            local = ys if local is None else local + ys
+        else:
+            y = y + ys
+    if local is not None:
+        y = y + distributed.reduce_from_model(local, lay.model_group)
     return y.to(x.dtype), aux

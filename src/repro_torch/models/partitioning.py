@@ -25,8 +25,17 @@ identity and the model code runs as it always did. Under a layout:
     "model" shard, the Megatron column or row slice the rules give it
     (`tp_leaves`); any other leaf is gathered whole;
   * tensor parallelism covers the "tp" profile's attention (heads that
-    divide "model"), MLP (d_ff) and embedding / logits (vocab) of the
-    dense, vlm and moe families (`tp_enabled`);
+    divide "model", MLA's too), MLP (d_ff), MoE experts and embedding /
+    logits (vocab) of the dense, vlm and moe families (`tp_enabled`). The
+    experts keep their "model" shard as the rules place it: EP's E/m
+    experts where m divides E (deepseek's 64 on 16), else expert TP's f/m
+    columns of we_in / we_gate and rows of we_out (mixtral's 8 on 16);
+    the router is computed whole on every rank, the shared experts are an
+    MLP on their d_ff (`moe.moe_apply`). Under "tp" a decode cache whose
+    kv heads do not carry it ("model" not dividing both head counts, or
+    MLA's latents) stays on its sequence blocks, as the serve step holds
+    it (`cache_sequence`): each rank attends with every query head over
+    its block and the parts are combined (`distributed.lse_combine`);
   * sequence parallelism covers the "fsdp_sp" profile of the dense and
     hybrid families (`sp_enabled`: qwen2.5-32b, zamba2-1.2b): rank r of the
     model group computes its block [r S/m, (r+1) S/m) of the sequence on
@@ -43,8 +52,9 @@ identity and the model code runs as it always did. Under a layout:
     serve step splits a cache's sequence as it is stored
     (`cache_sequence`, `cache_block`), so decode combines the ranks'
     attention over their parts (`distributed.lse_combine`);
-  * MoE experts, MLA, rwkv6, mamba2 outside "fsdp_sp" and the
-    encoder-decoder compute on whole weights.
+  * rwkv6, mamba2 outside "fsdp_sp" and the encoder-decoder compute on
+    whole weights, and so does attention whose heads "model" does not
+    divide (as `constrain` drops the axis there).
 """
 from __future__ import annotations
 
@@ -337,6 +347,9 @@ def cache_block(n: int) -> Optional[tuple[int, int, Any]]:
 
 _ATTN_Q = ("wq", "bq", "wo")
 _ATTN_KV = ("wk", "wv", "bk", "bv")
+_MLA_HEADS = ("wq", "w_uk", "w_uv", "wo")
+_MLA_LATENT = ("w_dkv", "kv_norm_scale")
+_EXPERTS = ("we_in", "we_gate", "we_out")
 
 
 def tp_leaves(part: str, leaves: dict, cfg, lay: Layout) -> tuple[tuple, tuple]:
@@ -344,16 +357,23 @@ def tp_leaves(part: str, leaves: dict, cfg, lay: Layout) -> tuple[tuple, tuple]:
     whole of which each model rank uses a part) under the tensor-parallel
     layout `lay`: attention on heads where `n_heads` divides "model" (its
     kv projections too where `n_kv_heads` does; else each rank computes
-    them whole and uses its query heads' kv heads), the MLP on d_ff, the
-    embedding and the output head on the vocabulary."""
-    if part == "attn" and cfg.mla is None and "wq" in leaves:
+    them whole and uses its query heads' kv heads; MLA's latent is every
+    rank's, its queries and up-projections the rank's heads), the MLP on
+    d_ff, the MoE experts on EP's experts or expert TP's d_ff (the router
+    computed whole, its gradient partial: each rank combines its share),
+    the embedding and the output head on the vocabulary."""
+    if part == "attn" and "wq" in leaves:
         if not lay.splits(cfg.n_heads):
             return (), ()
+        if cfg.mla is not None:
+            return _MLA_HEADS, _MLA_LATENT
         if lay.splits(cfg.n_kv_heads):
             return _ATTN_Q + _ATTN_KV, ()
         return _ATTN_Q, _ATTN_KV
     if part == "mlp" and "wi" in leaves and lay.splits(leaves["wi"].shape[-1]):
         return ("wi", "wg", "wo_mlp"), ()
+    if part == "moe" and (lay.splits(cfg.moe.n_experts) or lay.splits(cfg.moe.expert_d_ff)):
+        return _EXPERTS, ("router",)
     if part == "embedding" and lay.splits(cfg.vocab_size):
         return ("embed", "unembed"), ()
     return (), ()
@@ -393,8 +413,8 @@ def gather_part(part: str, leaves: dict, cfg) -> dict:
         partial = tuple(leaves)
 
     def one(name, x):
-        if isinstance(x, dict):
-            return gather_part("", x, cfg)
+        if isinstance(x, dict):   # a moe part's shared experts: an MLP
+            return gather_part("mlp" if name == "shared" else "", x, cfg)
         return gather_leaf(x, keep_model=name in keep, partial=name in partial)
 
     return {name: one(name, x) for name, x in leaves.items()}

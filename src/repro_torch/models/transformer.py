@@ -44,9 +44,13 @@ gathered where the block runs (`partitioning.gather_block`, inside
 `remat_call`'s checkpointed function, so at most one block's gathered
 weights are live at a time outside remat="none"); the embedding, the
 output head, the vlm projector and zamba2's shared block and LoRA where
-they are used. Under the "tp" profile's layout the attention, MLP,
-embedding and logits compute tensor-parallel over "model" (`layers`): the
-logits come back vocab-sharded and the cache holds this rank's kv heads.
+they are used. Under the "tp" profile's layout the attention (MLA too),
+MLP, MoE experts, embedding and logits compute tensor-parallel over
+"model" (`layers`, `mla`, `moe`): a moe block's "moe" part comes as the
+rank's expert share (EP's experts or expert TP's d_ff) with its shared
+experts on their d_ff; the logits come back vocab-sharded; the cache holds
+this rank's kv heads where both head counts divide "model", else it stays
+on its sequence blocks (`partitioning.cache_block`), as under "fsdp_sp".
 Under the "fsdp_sp" profile's layout (`partitioning.sequence_block`) each
 rank computes its block of the sequence, at absolute positions, on whole
 weights: `forward` returns the block's logits; `prefill` writes the part of
@@ -710,17 +714,12 @@ def _last_block(t: torch.Tensor, blk: Optional[tuple[int, int]]) -> torch.Tensor
     return distributed.broadcast_from(t, lay.model_group, lay.m - 1)
 
 
-def _write_kv(t: torch.Tensor, kv: torch.Tensor, S: int) -> None:
+def _write_kv(t: torch.Tensor, kv: torch.Tensor) -> None:
     """Prefill's k or v (B, S, ...) of the whole prompt into cache tensor
     t (B, n, ...): positions [0, S) where every rank holds the cache whole,
     else those of this rank's block (`partitioning.cache_block`)."""
     cblk = partitioning.cache_block(t.shape[1])
-    if cblk is None:
-        t[:, :S] = kv
-        return
-    lo, e = cblk[0], min(cblk[1], S)
-    if lo < e:
-        t[:, :e - lo] = kv[:, lo:e]
+    L.write_positions(t, kv, 0, 0 if cblk is None else cblk[0])
 
 
 def _prefill(groups: dict, batch: dict, cfg: ModelConfig, pad_to: int,
@@ -744,8 +743,8 @@ def _prefill(groups: dict, batch: dict, cfg: ModelConfig, pad_to: int,
         for g in range(_n_shared_invocations(cfg)):
             x, kv = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g, cfg), x, cfg,
                                        positions=positions)
-            _write_kv(shared["k"][g], kv["k"], S)
-            _write_kv(shared["v"][g], kv["v"], S)
+            _write_kv(shared["k"][g], kv["k"])
+            _write_kv(shared["v"][g], kv["v"])
             for i in _segment(g, cfg):
                 x, c = mamba_block_apply(_gathered(groups, i, cfg), x, cfg)
                 for name, t in layers.items():
@@ -755,7 +754,7 @@ def _prefill(groups: dict, batch: dict, cfg: ModelConfig, pad_to: int,
         x, _, kv = attn_block_apply(partitioning.gather_block(bp, bcfg), x, bcfg,
                                     positions=positions)
         for name, t in _layer_cache(cache, i, dense).items():
-            _write_kv(t, kv[name], S)
+            _write_kv(t, kv[name])
     logits = _final_logits(groups, _last_block(x[:, -1:], blk), cfg)
     return logits, cache
 

@@ -38,7 +38,8 @@ port places tensors as `DTensor`s on a `DeviceMesh` and moves them itself).
   reduce-scattered back to the blocks), `halo_from_prev` (the previous
   block's last rows, for the causal conv), `gather_stack` with the pure
   `state_prefix` (the SSD scan's entering state, chained over the blocks),
-  `lse_combine` (decode attention over a cache split on the sequence),
+  `lse_combine` (decode attention over a cache split on the sequence;
+  `lse_merge` its pure form over parts on one device),
   `group_sum` (a loss's shares summed), `global_mean` (a mean over
   positions that lie across the ranks: MESA's KL) and `broadcast_from`
   (the last block's rows, where a prefill needs the sequence's end).
@@ -414,6 +415,13 @@ def gather_from_model(x: torch.Tensor, group, m: int, r: int) -> torch.Tensor:
     return _GatherFromModel.apply(x, group, m, r)
 
 
+def all_heads(t: torch.Tensor, lay) -> torch.Tensor:
+    """Every head of t (..., H/m, X), of which each rank of `lay`'s model
+    group holds its H/m, in rank order: (..., H, X) (decode's queries)."""
+    whole = gather_from_model(t.flatten(-2), lay.model_group, lay.m, lay.r)
+    return whole.unflatten(-1, (-1, t.shape[-1]))
+
+
 # ---------------------------------------------------------------------------
 # Sequence-parallel compute (the "fsdp_sp" profile, models.partitioning)
 # ---------------------------------------------------------------------------
@@ -529,20 +537,54 @@ class _Tie(torch.autograd.Function):
         return (g, *(torch.zeros(s, dtype=d, device=v) for s, d, v in ctx.others))
 
 
+def lse_rescale(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, mx: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One part of softmax attention over split keys, its row max m (...,
+    Sq), sum of exponentials l = sum exp(s - m) and unnormalised output o =
+    sum exp(s - m) v (..., Sq, hd_v), rescaled to the parts' max mx: (l, o)
+    times exp(m - mx). A part that sees no key (m at the masked score)
+    weighs 0."""
+    scale = torch.exp(m - mx)
+    return l * scale, o * scale[..., None]
+
+
+def lse_merge(m_all: torch.Tensor, l_all: torch.Tensor, o_all: torch.Tensor) -> torch.Tensor:
+    """The pure combine of parts stacked on dim 0 (what `lse_combine` does
+    across ranks): every part rescaled to their max, l and o summed, o / l."""
+    l, o = lse_rescale(m_all, l_all, o_all, m_all.amax(dim=0))
+    return o.sum(dim=0) / l.sum(dim=0).clamp_min(1e-30)[..., None]
+
+
 def lse_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, group) -> torch.Tensor:
     """Softmax attention over keys split across `group`, from each rank's
-    row max m (..., Sq), sum of exponentials l = sum exp(s - m) and
-    unnormalised output o = sum exp(s - m) v (..., Sq, hd_v), in fp32:
-    every rank's rows rescaled to the group's max, l and o summed over the
-    group, o / l. A rank that sees no key (m at the masked score) adds 0."""
+    part (m, l, o) in fp32 (`lse_rescale`): `lse_merge` over the group's
+    ranks, the max and the sums by all-reduces."""
     mx = m.clone()
     dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
-    scale = torch.exp(m - mx)
-    l = l * scale
-    o = o * scale[..., None]
+    l, o = lse_rescale(m, l, o, mx)
     dist.all_reduce(l, group=group)
     dist.all_reduce(o, group=group)
     return o / l.clamp_min(1e-30)[..., None]
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Forward: t. Backward: g times s."""
+
+    @staticmethod
+    def forward(ctx, t, s):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def scale_grad(t: torch.Tensor, s: float) -> torch.Tensor:
+    """t, its gradient scaled by s: a term every rank of a group computes
+    whole, of whose gradient each rank takes 1/m (s) where the group sums
+    the gradients (the MoE aux under the tensor-parallel layout)."""
+    return _ScaleGrad.apply(t, s) if torch.is_grad_enabled() else t
 
 
 class _GroupSum(torch.autograd.Function):

@@ -78,7 +78,7 @@ from repro_torch.engine import FusedExecutor
 from repro_torch.kernels import ops
 from repro_torch.launch.sharding import batch_spec_tree, state_spec_tree, to_placements
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models import build_model, transformer
+from repro_torch.models import build_model, layers, transformer
 from repro_torch.models.convert import params_from_jax, to_reference
 from repro_torch.runtime import make_sized_mesh
 from repro_torch.utils import distributed
@@ -109,6 +109,9 @@ def probe(name, fn):
 
 ops.flash_attention = probe("flash", ops.flash_attention)
 ops.decode_attention = probe("decode", ops.decode_attention)
+# decode over a cache left on its sequence blocks (kv heads that do not
+# divide "model"): each rank's part over its block
+layers.decode_attention_part = probe("decode", layers.decode_attention_part)
 
 # the bytes of gathered weights alive at once on this rank
 LIVE = {"now": 0, "max": 0}
@@ -245,20 +248,25 @@ def test_tp_async_sam_matches_the_reference(tp_runs, arch):
 # heads their own half where n_kv_heads divides 2, else the one kv head that
 # gemma's query heads share
 LOCAL_HEADS = {"olmo-1b": (2, 2), "gemma-2b": (2, 1), "qwen3-8b": (2, 1)}
+# decode: the same, but gemma's cache stays on its sequence blocks (its one
+# kv head does not divide "model"), over which each rank attends with every
+# query head
+DECODE_HEADS = {**LOCAL_HEADS, "gemma-2b": (4, 1)}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_tp_probe_local_heads_and_one_block_gathered(tp_runs, arch):
     """(b) The same run's probes: the flash wrapper (training, prefill) and
-    decode attention saw H/2 query heads on every rank; with remat "full"
+    decode attention saw H/2 query heads on every rank (gemma's decode, over
+    the cache's sequence blocks, all H); with remat "full"
     the gathered weights alive at once on a rank never exceeded one block's
     and the embedding's whole bytes, which the whole-tree gather of every
     weight before the loss would exceed."""
     _, ranks = tp_runs
     for r in ranks:
         a = r[arch]
-        want = [LOCAL_HEADS[arch]]
-        assert a["train_heads"] == a["serve_heads"] == a["decode_heads"] == want, a
+        assert a["train_heads"] == a["serve_heads"] == [LOCAL_HEADS[arch]], a
+        assert a["decode_heads"] == [DECODE_HEADS[arch]], a
         assert 0 < a["live_max"] <= a["bound"] < a["every"], (a["live_max"], a["bound"])
 
 
