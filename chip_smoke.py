@@ -52,11 +52,12 @@
    the whole layer's;
 4d. block decode phase: mixtral's GQA decode with its window and
    deepseek's absorbed MLA decode over a 65,536-position cache in 16
-   blocks, each block's part on one card merged by
-   `utils.distributed.lse_merge` (the combine `lse_combine` does across
-   ranks), held against the whole decode within FP32_TOL of its max, the
-   blocks that see no key counted (14 of mixtral's 16); timed beside the
-   whole;
+   blocks, and whisper-tiny's cross-attention decode over 32,768 encoder
+   positions in 16 blocks (every position valid), each block's part on one
+   card merged by `utils.distributed.lse_merge` (the combine `lse_combine`
+   does across ranks), held against the whole decode within FP32_TOL of
+   its max, the blocks that see no key counted (14 of mixtral's 16, none of
+   whisper's); timed beside the whole;
 5. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
    serves 8 requests x 1024 prompt tokens + 32 greedy tokens through
    `repro_torch.launch.serve.serve`; the launch counts, set to 0 just before
@@ -154,6 +155,19 @@
    K = V = 16 in fp32, held against the plain scan and autograd of it (the
    forward run twice: the same bits), and timed beside their bound; the
    forward kernel's registers and spills (ptxas) printed;
+12b. rwkv local heads phase: both wkv kernels on a rank's 4 of the 64
+   heads (rwkv6's "tp" layout on a 16-way "model" axis) at the scan shape,
+   their inputs strided views of the whole call's, held against the plain
+   versions on 2 of the 8 rows and timed beside the whole 64-head call and
+   their bound;
+12c. rwkv share phase: one full-width rwkv6-7b layer's time mix in 16 head
+   shares and channel mix in 16 d_ff shares (`models.rwkv` on
+   `partitioning.rwkv_share`: each share's gate on its 256 columns of the
+   summed value, joined), summed in bf16 rank after rank where the
+   program's collectives move bf16 (the time-mix output, the value, each
+   mix's gradient of x), bf16 at x 2 x 1024, held against the whole layer
+   within BF16_TOL of its max, forward and the gradients of x and of every
+   leaf; a rank's forward timed beside the whole layer's;
 13. rwkv serve phase: full-width, full-depth rwkv6-7b (7,534,813,184 fp32
    parameters from seed 0, bf16 compute) serves 8 x 1024 prompts + 32 greedy
    tokens through `launch.serve.serve`: 32 forward launches per prefill and
@@ -637,22 +651,27 @@ def expert_share_phase() -> list:
 
 # Decode over a cache in 16 sequence blocks, as the "tp" serve step's ranks
 # hold it where the kv heads cannot carry it: mixtral's GQA (32 query heads
-# on 8 kv heads, window 4096) and deepseek's absorbed MLA (16 heads over a
-# 512 + 64 latent), each block's part computed on one card and the parts
-# merged by `distributed.lse_merge`, the combine `lse_combine` does across
-# ranks. (name, batch, cache length, valid length); fp32.
+# on 8 kv heads, window 4096), deepseek's absorbed MLA (16 heads over a
+# 512 + 64 latent) and whisper-tiny's cross-attention (6 heads, which 16
+# does not divide, over decode_32k's 32,768 encoder positions, every one
+# valid), each block's part computed on one card and the parts merged by
+# `distributed.lse_merge`, the combine `lse_combine` does across ranks.
+# (name, batch, cache length, valid length); fp32.
 BLOCK_DECODE_CASES = (("mixtral-8x7b GQA, window 4096", 4, 65536, 40000),
-                      ("deepseek-v2-lite absorbed MLA", 4, 65536, 40000))
+                      ("deepseek-v2-lite absorbed MLA", 4, 65536, 40000),
+                      ("whisper-tiny cross-attention", 8, 32768, 32768))
 DECODE_BLOCKS = 16
 
 
 def block_decode_phase() -> list:
     """Each BLOCK_DECODE_CASES decode (one new position, fp32, seed 1)
     computed as DECODE_BLOCKS parts (`layers.decode_attention_part` with the
-    window, `mla.absorbed_decode_part`) merged by `distributed.lse_merge`,
-    held against the whole decode (`ref.decode_attention_plain`; MLA's
-    whole-cache absorbed decode as `mla_apply` computes it) within FP32_TOL
-    of its max;
+    window, or each block valid to its end as `layers.decode_blocks` takes
+    the cross k/v; `mla.absorbed_decode_part`) merged by
+    `distributed.lse_merge`, held against the whole decode
+    (`ref.decode_attention_plain`; MLA's whole-cache absorbed decode as
+    `mla_apply` computes it; the encoder-decoder's cross decode,
+    `ops.decode_attention` over every position) within FP32_TOL of its max;
     mixtral's window leaves all but two blocks with no visible key, which
     must come out with l = o = 0. The parts and merge timed beside the
     whole. Fails on a disagreement."""
@@ -685,6 +704,24 @@ def block_decode_phase() -> list:
 
             def whole():
                 return ref.decode_attention_plain(q, k, v, valid, window=cfg.sliding_window)
+        elif name.startswith("whisper"):
+            from repro_torch.kernels import ops
+            cfg = get_config("whisper-tiny")
+            hd = cfg.resolved_head_dim
+            q = torch.randn(b, 1, cfg.n_heads, hd, generator=gen, device="cuda")
+            k, v = (torch.randn(b, n, cfg.n_kv_heads, hd, generator=gen, device="cuda")
+                    for _ in range(2))
+
+            def parts():
+                return [L.decode_attention_part(q, k[:, i:i + w], v[:, i:i + w], i + w, i)
+                        for i in range(0, n, w)]
+
+            def merged():
+                out = distributed.lse_merge(*(torch.stack(t) for t in zip(*parts())))
+                return out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.n_heads, hd)
+
+            def whole():
+                return ops.decode_attention(q, k, v, n)
         else:
             cfg = get_config("deepseek-v2-lite-16b")
             mc = cfg.mla
@@ -724,6 +761,9 @@ def block_decode_phase() -> list:
         torch.cuda.empty_cache()
         if not ok:
             fail(f"{name}: the merged block parts disagree with the whole decode")
+    if rows[2]["blocks_without_keys"]:
+        fail("every block of whisper's cross k/v holds valid keys, "
+             f"not {DECODE_BLOCKS - rows[2]['blocks_without_keys']} of {DECODE_BLOCKS}")
     want_empty = DECODE_BLOCKS - 2
     if rows[0]["blocks_without_keys"] != want_empty:
         fail(f"mixtral's window should leave {want_empty} blocks without a key, "
@@ -2572,6 +2612,227 @@ def rwkv_kernel_phase() -> dict:
     return main_rows
 
 
+# rwkv6's "tp" layout on a 16-way model axis, one card standing in for the
+# ranks: the wkv kernels on a rank's 4 of the 64 heads at the model's scan
+# shape, their inputs strided views of the whole call's (the wrapper makes
+# them contiguous), and one full-width layer's 16 time-mix (head) and
+# channel-mix (d_ff) shares against the whole layer
+TP_RANKS, WKV_SHAPE = 16, (8, 1024, 64, 64, 64)
+RWKV_SHARE_TOKENS = (2, 1024)
+
+
+def rwkv_local_heads_phase() -> dict:
+    """The wkv kernels, forward and backward, on a rank's 64 / TP_RANKS
+    heads of WKV_SHAPE (bf16 r/k/v, seed 3; the cotangents seed 4) through
+    the wrapper on strided views, against their plain versions on the first
+    PLAIN_GRAD_BATCH rows (y and the state within RWKV_FP32_TOL of their
+    max, the fp32 gradients within RWKV_GRAD_TOL, bf16 outputs bf16's
+    tolerance, as `rwkv_kernel_phase`); each kernel timed at WKV_SHAPE's
+    batch on the rank's contiguous heads (as the model hands them over)
+    beside the whole 64-head call, the wrapper's call on the views (their
+    copies included) too; the plain versions once on the checked rows, by
+    the host clock. Fails on a disagreement."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6_scan as r6
+
+    b, s, h, dk, dv = WKV_SHAPE
+    n = h // TP_RANKS
+    r, k, v, w, u, _ = wkv_inputs(WKV_SHAPE, "bfloat16", False)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dy = torch.randn((b, s, h, dv), generator=g, device="cuda").to(r.dtype)
+    ds = torch.randn((b, h, dk, dv), generator=g, device="cuda")
+    views = [t.narrow(2, 0, n) for t in (r, k, v, w)] + [u[:n]]
+    loc = [t.contiguous() for t in views]
+    dy_l, ds_l = dy[:, :, :n].contiguous(), ds[:, :n].contiguous()
+    strided = not views[0].is_contiguous()
+
+    def host_ms(fn):
+        """One call's time by the host clock between synchronizes (the plain
+        versions take 0.2-5 s: repeats would cost the run seconds)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    # the check on the first PLAIN_GRAD_BATCH rows (the plain backward of
+    # all 8 takes ~5 s), the times on all of them
+    rows_ = slice(0, PLAIN_GRAD_BATCH)
+    views_c = [t[rows_] for t in views[:4]] + [views[4]]
+    loc_c = [t[rows_] for t in loc[:4]] + [loc[4]]
+    y, state = r6.rwkv6_scan(*views_c)
+    (y_p, state_p), plain_fwd_ms = host_ms(lambda: ref.rwkv6_scan_plain(*loc_c))
+    ok_f = wkv_ok(y, y_p, RWKV_FP32_TOL) and wkv_ok(state, state_p, RWKV_FP32_TOL)
+    err_f = max(wkv_error(y, y_p)[0], wkv_error(state, state_p)[0])
+    leaves = [t.detach().requires_grad_() for t in views_c]
+    y, state = r6.rwkv6_scan(*leaves)
+    got = torch.autograd.grad([y, state], leaves, [dy[rows_, :, :n], ds[rows_, :n]])
+    want, plain_bwd_ms = host_ms(lambda: plain_wkv_grads(*loc_c, None, dy_l[rows_],
+                                                         ds_l[rows_])[:5])
+    ok_b = all(a.shape == e.shape and wkv_ok(a, e, RWKV_GRAD_TOL) for a, e in zip(got, want))
+    err_b = max(wkv_error(a, e)[0] for a, e in zip(got, want))
+    del y, state, y_p, state_p, leaves, got, want
+    shape = (b, s, n, dk, dv)
+    rows = {}
+    for name, backward in (("rwkv6_scan_fwd", False), ("rwkv6_scan_bwd", True)):
+        if backward:
+            def local():
+                return r6._launch_bwd(*loc, None, dy_l, ds_l)
+
+            def whole():
+                return r6._launch_bwd(r, k, v, w, u, None, dy, ds)
+        else:
+            def local():
+                return r6._launch_fwd(*loc, None)
+
+            def whole():
+                return r6._launch_fwd(r, k, v, w, u, None)
+        ms, whole_ms = time_ms(local), time_ms(whole)
+        ms2, whole_ms2 = time_ms(local), time_ms(whole)
+        bound_ms, bound_by = wkv_bound(shape, "bfloat16", False, backward)
+        rows[name] = dict(
+            kernel=name, case=f"rwkv6-7b scan, {n} of {h} heads (a rank's on {TP_RANKS})",
+            shape=shape, dtype="bfloat16", strided_views=strided, checked_rows=PLAIN_GRAD_BATCH,
+            max_abs_err=err_b if backward else err_f, ok=ok_b if backward else ok_f,
+            ms=ms, ms_again=ms2, whole_ms=whole_ms, whole_ms_again=whole_ms2,
+            whole_over_local=whole_ms / ms, plain_ms=plain_bwd_ms if backward else plain_fwd_ms,
+            library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by)
+    rows["rwkv6_scan_fwd"]["wrapper_on_views_ms"] = time_ms(lambda: r6.rwkv6_scan(*views))
+    for row in rows.values():
+        print("rwkv local heads " + json.dumps(row))
+    del r, k, v, w, u, dy, ds, views, loc
+    torch.cuda.empty_cache()
+    if not all(row["ok"] for row in rows.values()):
+        fail(f"the wkv kernels on {n} heads disagree with their plain versions")
+    return rows
+
+
+def rwkv_share_sums(cfg, tm: dict, cm: dict, x32, wt, m: int):
+    """(y, the gradients of x32 and of every tm and cm leaf) of one rwkv6
+    layer's time mix plus channel mix as m ranks of the "tp" layout compute
+    them, summed as their collectives sum them: each rank on its own bf16
+    copy of x for each mix (f's input), its time-mix part (`timemix_part` on
+    `partitioning.rwkv_share`) and its channel value (`channel_value`) added
+    in bf16 rank after rank, as a ring all-reduce (g) and reduce-scatter
+    round at every hop; each rank's gate on its columns of the summed value,
+    joined (the all-gather); each mix's m gradients of its x copies added in
+    bf16 the same way (f's backward all-reduce), then the two mixes' added;
+    the leaves' in fp32, as the partial leaves' gradient sync sums them. The
+    loss is (y * wt).sum()."""
+    import torch
+    from repro_torch.models import partitioning
+    from repro_torch.models import rwkv as RWKV
+
+    def ring(parts):
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    dt = getattr(torch, cfg.compute_dtype)
+    xt = [x32.detach().to(dt).requires_grad_() for _ in range(m)]
+    xc = [x32.detach().to(dt).requires_grad_() for _ in range(m)]
+    tm_parts, values, xrs = [], [], []
+    for r in range(m):
+        tm_parts.append(RWKV.timemix_part(partitioning.rwkv_share("tm", tm, r, m), xt[r], cfg,
+                                          r, m)[0])
+        prev = RWKV._token_shift(xc[r], None)[0]
+        values.append(RWKV.channel_value(partitioning.rwkv_share("cm", cm, r, m),
+                                         RWKV._lerp(xc[r], prev, cm["mix_k"]), cfg))
+        xrs.append(RWKV._lerp(xc[r], prev, cm["mix_r"]))
+    v, w = ring(values), cfg.d_model // m
+    out_c = torch.cat([RWKV.channel_gate(partitioning.rwkv_share("cm", cm, r, m), xrs[r],
+                                         v[..., r * w:(r + 1) * w], cfg) for r in range(m)], dim=-1)
+    y = ring(tm_parts).float() + out_c.float()
+    grads = torch.autograd.grad((y * wt).sum(), xt + xc + [*tm.values(), *cm.values()])
+    gx = (ring(grads[:m]) + ring(grads[m:2 * m])).float()
+    return y.detach(), [gx, *grads[2 * m:]]
+
+
+def rwkv_share_phase() -> dict:
+    """One full-width rwkv6-7b layer's mixes (fp32 weights from seed 2,
+    matrices at std 1/sqrt(fan-in), the other leaves 0.3 N(0, 1) with w0
+    shifted by -2; bf16 compute) on x of RWKV_SHARE_TOKENS: the TP_RANKS
+    time-mix (4 heads each) and channel-mix (896 of d_ff, 256 of d_model
+    each) shares summed as the program's collectives sum them
+    (`rwkv_share_sums`, in bf16 where they move bf16), held against the
+    whole `timemix_apply` + `channelmix_apply` within BF16_TOL of its max
+    (`held`), and so are the gradients of x and of every leaf (a loss of y
+    against fixed random weights). A rank's forward timed beside the whole
+    layer's. Fails on a disagreement."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import partitioning
+    from repro_torch.models import rwkv as RWKV
+
+    t0 = time.perf_counter()
+    cfg = get_config("rwkv6-7b")
+    m, d = TP_RANKS, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def init(shapes):
+        return {k: (torch.randn(sh, generator=gen, device="cuda")
+                    * (sh[-2] ** -0.5 if len(sh) == 2 else 0.3)).requires_grad_()
+                for k, sh in shapes.items()}
+
+    tm, cm = init(RWKV.timemix_shapes(cfg)), init(RWKV.channelmix_shapes(cfg))
+    with torch.no_grad():
+        tm["w0"].sub_(2.0)
+    dt = getattr(torch, cfg.compute_dtype)
+    x32 = torch.randn(*RWKV_SHARE_TOKENS, d, generator=gen, device="cuda"
+                      ).to(dt).float().requires_grad_()
+    wt = torch.randn(*RWKV_SHARE_TOKENS, d, generator=gen, device="cuda")
+    names = ["x"] + [f"tm.{k}" for k in tm] + [f"cm.{k}" for k in cm]
+
+    xb = x32.to(dt)
+    y = (RWKV.timemix_apply(tm, xb, cfg)[0].float()
+         + RWKV.channelmix_apply(cm, xb, cfg)[0].float())
+    want = torch.autograd.grad((y * wt).sum(), [x32, *tm.values(), *cm.values()])
+    y = y.detach()
+    total, got = rwkv_share_sums(cfg, tm, cm, x32, wt, m)
+    checks = {"y": held(total, y, BF16_TOL)}
+    for name, g, g_want in zip(names, got, want):
+        checks[f"{name}_grad"] = held(g, g_want, BF16_TOL)
+    del got, want, total
+    w = d // m
+    with torch.no_grad():
+        tm0, cm0 = partitioning.rwkv_share("tm", tm, 0, m), partitioning.rwkv_share("cm", cm, 0, m)
+        prev = RWKV._token_shift(xb, None)[0]
+        xk, xr = RWKV._lerp(xb, prev, cm["mix_k"]), RWKV._lerp(xb, prev, cm["mix_r"])
+
+        def one_rank():
+            RWKV.timemix_part(tm0, xb, cfg, 0, m)
+            RWKV.channel_gate(cm0, xr, RWKV.channel_value(cm0, xk, cfg)[..., :w], cfg)
+
+        def whole_layer():
+            RWKV.timemix_apply(tm, xb, cfg)
+            RWKV.channelmix_apply(cm, xb, cfg)
+
+        whole_ms, rank_ms = time_ms(whole_layer), time_ms(one_rank)
+    worst = max(checks, key=lambda k: checks[k][2])
+    row = dict(case=f"rwkv6-7b layer, {m} head / d_ff shares", tokens=RWKV_SHARE_TOKENS,
+               heads_a_share=d // cfg.rwkv.head_dim // m, d_ff_a_share=cfg.d_ff // m,
+               d_model_a_share=w, held=len(checks), sums="bf16 rank after rank",
+               ok=all(c[0] for c in checks.values()),
+               worst=worst, worst_err_over_max=checks[worst][2],
+               y_err_over_max=checks["y"][2], x_grad_err_over_max=checks["x_grad"][2],
+               failed=[k for k, c in checks.items() if not c[0]],
+               atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], whole_ms=whole_ms,
+               rank_ms=rank_ms, whole_over_rank=whole_ms / rank_ms,
+               phase_s=time.perf_counter() - t0)
+    print("rwkv shares " + json.dumps(row))
+    print("rwkv shares, each check's max |d| over max |want|: "
+          + json.dumps({k: c[2] for k, c in checks.items()}))
+    del tm, cm, x32, wt, xb, y
+    torch.cuda.empty_cache()
+    if not row["ok"]:
+        fail(f"rwkv6's {m} time-mix and channel-mix shares disagree with the whole layer: "
+             f"{row['failed']}")
+    return row
+
+
 def rwkv_serve_phase():
     """Serve full-width, full-depth rwkv6-7b through the kernels and check
     the logits. Returns (summary dict, model)."""
@@ -4331,6 +4592,12 @@ def main() -> int:
     t0 = time.perf_counter()
     wkv = rwkv_kernel_phase()
     print(f"rwkv kernel phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    rwkv_local_heads_phase()
+    print(f"rwkv local heads phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    rwkv_share_phase()
+    print(f"rwkv share phase: {time.perf_counter() - t0:.2f}s")
     rwkv_served, model = rwkv_serve_phase()
     print("rwkv serve " + json.dumps(rwkv_served))
     profile_phase(model)

@@ -14,7 +14,8 @@ how the backward gets S_{t-1} without dividing by the decay:
 
 `rwkv6_scan` takes r, k, w (B,S,H,K), v (B,S,H,V) (r, k, v one dtype,
 fp32 or bf16; w the log decay in fp32), u (H,K) fp32, K and V up to
-`MAX_DIM`. A tensor on the CPU goes to the plain version
+`MAX_DIM`; a strided view (a rank's heads of a whole tensor) is taken
+too, made contiguous first. A tensor on the CPU goes to the plain version
 (`ref.rwkv6_scan_plain`, differentiated by autograd); a CUDA tensor goes
 through `RWKV6Scan`, a `torch.autograd.Function` whose forward launches the
 forward kernel (saving only its inputs) and whose backward launches the
@@ -222,5 +223,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     (B,H,K,V) fp32)."""
     if flat.takes_plain(r):
         return ref.rwkv6_scan_plain(r, k, v, w, u, init_state=init_state)
+    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    init_state = None if init_state is None else init_state.contiguous()
     _check(r, k, v, w, u, init_state)
     return RWKV6Scan.apply(r, k, v, w, u, init_state)

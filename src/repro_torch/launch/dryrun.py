@@ -29,17 +29,20 @@ the collective inventory from its `c10d` ops (no HLO text to read).
 The sharded cells trace the port's step, which stores the state 1/N a rank
 and computes in the reference's mesh layout (`engine.fused`,
 `models.partitioning`): each layer's weights gathered where it runs; under
-the "tp" profile attention (MLA too) on the rank's heads, the MLP on its
-d_ff, the MoE experts on the rank's share (EP's E/m experts, or expert
-TP's d_ff / m of every expert) and the logits on its vocabulary, with
-their all-reduces over "model", and a decode cache whose kv heads do not
-divide "model" (or MLA's latents) on its sequence blocks; under the
-"fsdp_sp" profile (qwen2.5-32b, zamba2-1.2b) the rank's block of the
-sequence, k and v gathered whole, the SSD state chained, a decode cache on
-its sequence blocks. The collectives are the port's own (explicit gathers,
-Megatron's f and g), not GSPMD's, so the two inventories still differ; the
-modules whose layouts are not ported yet (rwkv6, the encoder-decoder)
-compute on whole weights (ROADMAP.md queue 1, item 9).
+the "tp" profile attention (MLA and the encoder-decoder's self- and
+cross-attention too) on the rank's heads, the MLP on its d_ff, the MoE
+experts on the rank's share (EP's E/m experts, or expert TP's d_ff / m of
+every expert), rwkv6's time mix on its heads and channel mix on its d_ff
+(its wkv decode state on the heads) and the logits on its vocabulary,
+with their all-reduces over "model", and a decode cache whose kv heads do
+not divide "model" (or MLA's latents, or whisper's 6 heads on 16, its
+cross k/v too) on its sequence blocks; under the "fsdp_sp" profile
+(qwen2.5-32b, zamba2-1.2b) the rank's block of the sequence, k and v
+gathered whole, the SSD state chained, a decode cache on its sequence
+blocks. The collectives are the port's own (explicit gathers, Megatron's f
+and g), not GSPMD's, so the two inventories still differ; mamba2's "tp"
+branch (no shipped config uses it) computes on whole weights (ROADMAP.md
+queue 1, item 9).
 A record is one rank's step (`rank`, 0): under "fsdp_sp" rank 0 holds the
 sequence's first block, whose causal attention sees the fewest keys (rank
 r's block sees about (2r + 1) / (2m) of the pairs), so its flops are the

@@ -159,26 +159,29 @@ def _cache_leaf_spec(path: str, leaf, mesh) -> P:
 
 
 def _tp_kv(cfg, mesh) -> bool:
-    """Whether the serve step computes attention on local kv heads: the "tp"
-    layout (`partitioning.tp_enabled`) with both head counts divisible by
-    the "model" axis, and a k/v cache (MLA's latents have no heads)."""
+    """Whether the serve step computes on local heads: the "tp" layout
+    (`partitioning.tp_enabled`) with both head counts divisible by the
+    "model" axis, and a cache with heads (attention's k/v, the
+    encoder-decoder's cross k/v too, or rwkv6's wkv state; MLA's latents
+    have none)."""
     m = axis_size(mesh, "model") if "model" in mesh.axis_names else 1
     return (m > 1 and tp_enabled(cfg) and cfg.mla is None and cfg.n_heads % m == 0
             and cfg.n_kv_heads % m == 0)
 
 
 def _is_kv(path: str) -> bool:
-    return path.split("/")[-1] in ("k", "v") and path.split("/")[0] in ("layers",
-                                                                         "dense_layers")
+    return path.split("/")[-1] in ("k", "v", "cross_k", "cross_v") and path.split("/")[0] in (
+        "layers", "dense_layers")
 
 
 def serve_cache_spec_tree(cache_shapes: Tree, cfg, mesh) -> Tree:
     """The placement the sharded serve step keeps a cache in
     (`launch.steps`): `cache_spec_tree`'s, but where attention computes on
-    local kv heads (`_tp_kv`) a k/v leaf (.., B, S, K, hd) holds its kv-head
-    dim over "model" (the sequence takes the dp axes when the batch does not
-    divide them), so that each rank's cache is its heads' and decode moves
-    none of it."""
+    local kv heads (`_tp_kv`) a k/v leaf (.., B, S, K, hd), the cross k/v
+    too, holds its kv-head dim over "model" (the sequence takes the dp axes
+    when the batch does not divide them), so that each rank's cache is its
+    heads' and decode moves none of it (rwkv6's wkv state is on its heads
+    in `cache_spec_tree`'s already)."""
     dp, tp = dp_axes(mesh), _tp_kv(cfg, mesh)
 
     def f(path, leaf, blocks):
@@ -206,15 +209,17 @@ def _seq_kv(cfg, mesh) -> bool:
     return m > 1 and (sp_enabled(cfg) or (tp_enabled(cfg) and not _tp_kv(cfg, mesh)))
 
 
-_SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")
+_SEQ_LEAVES = ("k", "v", "cross_k", "cross_v", "c_kv", "k_rope")
 
 
 def compute_cache_spec_tree(cache_shapes: Tree, cfg, mesh, split: bool) -> Tree:
     """What each rank of the sharded serve step computes on of a cache: the
     batch dim over the dp axes when the batch splits over them (`split`),
-    a k/v leaf's kv heads over "model" where attention is tensor-parallel
-    on them (`_tp_kv`), every other dim whole. Where attention runs over
-    the cache's sequence blocks (`_seq_kv`) a k/v or MLA latent leaf keeps
+    the heads over "model" where the model computes on its heads
+    (`_tp_kv`: a k/v or cross k/v leaf's kv heads, rwkv6's wkv state's),
+    every other dim whole (rwkv6's token-shift states, a token wide, are
+    gathered). Where attention runs over the cache's sequence blocks
+    (`_seq_kv`) a k/v, cross k/v or MLA latent leaf keeps
     `_cache_leaf_spec`'s placement, its sequence on its blocks (over
     "model", or the dp axes and "model" where the batch does not split),
     so decode moves no byte of it."""
@@ -231,6 +236,8 @@ def compute_cache_spec_tree(cache_shapes: Tree, cfg, mesh, split: bool) -> Tree:
             out[0 if path.startswith("dense_layers") else 1] = dp
         if tp and _is_kv(path):
             out[nd - 2] = "model"
+        elif tp and path.split("/")[-1] == "wkv":   # (L, B, H, K, V)
+            out[2] = "model"
         return P(*out)
 
     return map_leaves(f, cache_shapes)

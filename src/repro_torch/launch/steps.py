@@ -82,15 +82,18 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
     `cache_spec_tree`, a batch by `batch_spec_tree`), computed in the mesh's
     layout as the sharded train step is (`engine.fused`): this rank's rows
     of the batch over the dp axes when they divide it (else every row); the
-    weights gathered layer by layer where the model runs them, attention,
-    MLP and logits tensor-parallel over "model" under the "tp" profile; the
-    cache as each rank computes on it (`compute_cache_spec_tree`: its rows,
-    and where attention is tensor-parallel on kv heads its kv heads; every
-    other dim whole), which moves no byte when it comes in
+    weights gathered layer by layer where the model runs them, attention
+    (the encoder-decoder's self- and cross-attention too), MLP, MoE
+    experts, rwkv6's time and channel mixes and the logits tensor-parallel
+    over "model" under the "tp" profile; the cache as each rank computes
+    on it (`compute_cache_spec_tree`: its rows, and where the model
+    computes on its heads the k/v's, cross k/v's or rwkv6 wkv state's
+    heads; every other dim whole), which moves no byte when it comes in
     `serve_cache_spec_tree`'s placement; the new cache placed back as it
-    came (prefill: by `serve_cache_spec_tree`). Under the "fsdp_sp"
-    profile, and under "tp" where the kv heads do not carry the cache (or
-    it holds MLA's latents), k and v (the latents) stay on their sequence
+    came (prefill: by `serve_cache_spec_tree`, the cross k/v as long as
+    the batch's encoder frames). Under the "fsdp_sp" profile, and under
+    "tp" where the kv heads do not carry the cache (or it holds MLA's
+    latents), k and v (the latents, the cross k/v) stay on their sequence
     blocks (`partitioning.cache_sequence`): prefill writes each rank's
     block from what it computed, decode combines the ranks' attention over
     theirs ("tp": every query head over each block, the rank's heads kept
@@ -142,6 +145,11 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
             else:    # the prefill's cache at its global shape: pos S
                 b, s = batch["tokens"].shape
                 shapes = bundle.init_cache(b, max(s, pad_to), pos=s, device="meta")
+                if "enc_frames" in batch:   # the cross k/v: one row an encoder frame
+                    n_enc = batch["enc_frames"].shape[1]
+                    shapes["layers"] = {k: t.new_empty((*t.shape[:2], n_enc, *t.shape[3:]))
+                                        if k.startswith("cross_") else t
+                                        for k, t in shapes["layers"].items()}
                 target = to_placements(serve_cache_spec_tree(shapes, cfg, mesh), mesh)
             pl = to_placements(compute_cache_spec_tree(shapes, cfg, mesh, split), mesh)
             local_cache = None if cache is None else _zip(localize, cache, pl)
@@ -158,33 +166,37 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
 def _cache_sequence(pl: dict, dm):
     """`partitioning.cache_sequence` for a cache whose k/v (or MLA latent)
     placements `pl` shard the sequence (dim 2 of a stacked (L, B, S, K, hd)
-    or (L, B, S, R) leaf) over some
-    mesh dims: this rank's block index over them (the first outermost),
-    their number of blocks, and the group that spans them (the model group,
-    or the flattened mesh when the dp axes take part); a null context where
-    no k/v leaf is split on its sequence."""
+    or (L, B, S, R) leaf) over some mesh dims, and the encoder-decoder's
+    cross k/v (its `cross`) likewise: this rank's block index over them
+    (the first outermost), their number of blocks, and the group that spans
+    them (the model group, or the flattened mesh when the dp axes take
+    part); a null context where no such leaf is split on its sequence."""
     import contextlib
 
     from repro_torch.models import partitioning
-    from repro_torch.utils import distributed
 
-    kv = next((sub[name] for sub in pl.values() if isinstance(sub, dict)
-               for name in ("k", "c_kv") if name in sub), None)
-    dims = [] if kv is None else [i for i, p in enumerate(kv) if p.is_shard(2)]
-    if not dims:
-        return contextlib.nullcontext()
-    coord, shape = dm.get_coordinate(), dm.shape
-    index, ways = 0, 1
-    for i in dims:
-        index, ways = index * shape[i] + coord[i], ways * shape[i]
-    lay = partitioning.current_layout()
-    if dims == [lay.model_dim]:
-        group = lay.model_group
-    elif len(dims) == len(shape):
-        group = lay.flat_group
-    else:
+    def blocks(names):
+        kv = next((sub[name] for sub in pl.values() if isinstance(sub, dict)
+                   for name in names if name in sub), None)
+        dims = [] if kv is None else [i for i, p in enumerate(kv) if p.is_shard(2)]
+        if not dims:
+            return 0, 1, None
+        coord, shape = dm.get_coordinate(), dm.shape
+        index, ways = 0, 1
+        for i in dims:
+            index, ways = index * shape[i] + coord[i], ways * shape[i]
+        lay = partitioning.current_layout()
+        if dims == [lay.model_dim]:
+            return index, ways, lay.model_group
+        if len(dims) == len(shape):
+            return index, ways, lay.flat_group
         raise NotImplementedError(f"a cache sequence split over mesh dims {dims}")
-    return partitioning.cache_sequence(index, ways, group)
+
+    index, ways, group = blocks(("k", "c_kv"))
+    cross = blocks(("cross_k",))
+    if ways == 1 and cross[1] == 1:
+        return contextlib.nullcontext()
+    return partitioning.cache_sequence(index, ways, group, cross=cross)
 
 
 def _placements_of(tree):

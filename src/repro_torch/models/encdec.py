@@ -14,10 +14,18 @@ over them. Parameter names mirror the reference's leaves
 (`enc_blocks.<i>.attn.wq`, `dec_blocks.<i>.cross_attn.wk`,
 `dec_blocks.<i>.ln3.bias`, `enc_norm.scale`); the reference stacks the
 blocks on a leading axis and scans them, the port loops. On a sharded
-step each block's weights are gathered whole where the block runs
-(`remat_call`, `partitioning.gather_block`), as the reference's
-`constrain_param_tree` keeps its gathers per layer; the family computes on
-whole weights (its tensor-parallel layout is not ported).
+step each block's weights are gathered where the block runs (`remat_call`,
+`partitioning.gather_block`), as the reference's `constrain_param_tree`
+keeps its gathers per layer. Under the "tp" layout the encoder's
+attention, the decoder's self- and cross-attention run on the rank's heads
+where "model" divides them (the cross k/v from the encoder output after
+f), every MLP on its d_ff and the tied embedding and logits on the
+vocabulary where they divide (`layers`); the decode cache's self and cross
+k/v hold the rank's kv heads, or where the heads do not divide "model"
+they stay on their sequence blocks (`partitioning.cache_block`, with
+`cross=True` for the cross k/v): decode's self-attention combines the
+ranks' parts over the self cache's blocks and its cross-attention over the
+cross k/v's, every position valid (`layers.decode_blocks`).
 """
 from __future__ import annotations
 
@@ -31,9 +39,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (MLP, Attention, Device, Embedding, Norm, shapes_only,
-                                            _final_logits, _groups, _param, dense_init, embed,
-                                            init_attention, init_mlp, init_norms_and_biases,
-                                            remat_call)
+                                            _final_logits, _groups, _param, _write_kv,
+                                            dense_init, embed, init_attention, init_mlp,
+                                            init_norms_and_biases, remat_call)
+from repro_torch.utils import distributed
 
 Params = Mapping[str, torch.Tensor]
 
@@ -159,17 +168,32 @@ def _dec_block_apply(blk: dict, x: torch.Tensor, enc_out: Optional[torch.Tensor]
         h, cross_kv = L.attention_apply(blk["cross_attn"], xn, cfg, positions=positions,
                                         causal=False, use_rope=False, x_cross=enc_out)
     else:
-        # decode: attend over the stored cross k/v (no growth, no mask)
-        from repro_torch.kernels import ops
-        q, _, _ = L._project_qkv(blk["cross_attn"], xn, xn, cfg)
-        kx, vx = cache["cross_k"], cache["cross_v"]
-        h = ops.decode_attention(q, kx, vx, kx.shape[1])
-        h = h.reshape(*h.shape[:-2], cfg.n_heads * cfg.resolved_head_dim)
-        h = h @ blk["cross_attn"]["wo"].to(L.cdtype(cfg))
+        h = _cross_decode(blk["cross_attn"], xn, cache["cross_k"], cache["cross_v"], cfg)
         cross_kv = None
     x = x + h
     x = x + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln3"], x, cfg), cfg)
     return x, self_kv, cross_kv
+
+
+def _cross_decode(params: Params, xn: torch.Tensor, kx: torch.Tensor, vx: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Decode's cross-attention over the stored cross k/v (no growth, no
+    mask): on the rank's heads where `wq` is its column shard (`wo`'s row
+    shard's product summed over the model group), or over the rank's block
+    of the cross k/v combined with the other ranks' (`partitioning.
+    cache_block(.., cross=True)`), else over the whole."""
+    from repro_torch.kernels import ops
+    group = None
+    if params["wq"].shape[-1] != cfg.n_heads * cfg.resolved_head_dim:
+        group = partitioning.tp_layout(cfg).model_group
+    q, _, _ = L._project_qkv(params, xn, xn, cfg)
+    blk = partitioning.cache_block(kx.shape[1], cross=True)
+    if blk is None:
+        h = ops.decode_attention(q, kx, vx, kx.shape[1])
+    else:
+        h = L.decode_blocks(q, kx, vx, blk[1], blk)
+    h = h.reshape(*h.shape[:-2], -1) @ params["wo"].to(L.cdtype(cfg))
+    return h if group is None else distributed.reduce_from_model(h, group)
 
 
 def _embed(groups: dict, tokens: torch.Tensor, pos: int, cfg: ModelConfig) -> torch.Tensor:
@@ -199,14 +223,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, pos: int = 0,
                device: Device = "cuda") -> dict:
     """Zero cache {"layers": {"k", "v": (L, B, max_len, K, hd), "cross_k",
     "cross_v": (L, B, enc_len, K, hd)}, "pos": int}, enc_len =
-    `registry.whisper_enc_len(cfg, max_len)` (the reference's `_encdec_cache`)."""
+    `registry.whisper_enc_len(cfg, max_len)` (the reference's `_encdec_cache`;
+    K this rank's kv heads under a "tp" layout that splits them)."""
     from repro_torch.models.registry import whisper_enc_len
     cdt = L.cdtype(cfg)
     hd = cfg.resolved_head_dim
     lens = {"k": max_len, "v": max_len, "cross_k": whisper_enc_len(cfg, max_len),
             "cross_v": whisper_enc_len(cfg, max_len)}
-    return {"layers": {name: torch.zeros((cfg.n_layers, batch, n, cfg.n_kv_heads, hd),
-                                         dtype=cdt, device=device)
+    kv = partitioning.local_kv_heads(cfg)
+    return {"layers": {name: torch.zeros((cfg.n_layers, batch, n, kv, hd), dtype=cdt,
+                                         device=device)
                        for name, n in lens.items()}, "pos": pos}
 
 
@@ -214,7 +240,8 @@ def prefill(model: EncDec, batch: dict, cfg: ModelConfig, pad_to: int = 0
             ) -> tuple[torch.Tensor, dict]:
     """Encode the frames and run the prompt: (last-position logits, cache)
     with the self k/v padded to max(S, pad_to), the cross k/v as the
-    encoder gave them, and pos = S."""
+    encoder gave them, and pos = S (under `partitioning.cache_sequence`,
+    this rank's blocks of both)."""
     groups = _groups(model)
     enc_out = encode(groups, batch["enc_frames"], cfg)
     x = _embed(groups, batch["tokens"], 0, cfg)
@@ -223,16 +250,19 @@ def prefill(model: EncDec, batch: dict, cfg: ModelConfig, pad_to: int = 0
     positions = torch.arange(S, device=x.device)[None, :]
     cdt = L.cdtype(cfg)
     hd = cfg.resolved_head_dim
-    self_kv = {name: torch.zeros((cfg.n_layers, B, max_len, cfg.n_kv_heads, hd), dtype=cdt,
-                                 device=x.device) for name in ("k", "v")}
+    shape = (cfg.n_layers, B, max_len // partitioning.cache_ways(),
+             partitioning.local_kv_heads(cfg), hd)
+    self_kv = {name: torch.zeros(shape, dtype=cdt, device=x.device) for name in ("k", "v")}
     cross = {"cross_k": [], "cross_v": []}
+    cblk = partitioning.cache_block(enc_out.shape[1] // partitioning.cache_ways(cross=True),
+                                    cross=True)
     for i, blk in enumerate(_dec_blocks(groups, cfg)):
         x, kv, cross_kv = _dec_block_apply(partitioning.gather_block(blk, cfg), x, enc_out, cfg,
                                            positions=positions)
-        self_kv["k"][i, :, :S] = kv["k"]
-        self_kv["v"][i, :, :S] = kv["v"]
-        cross["cross_k"].append(cross_kv["k"])
-        cross["cross_v"].append(cross_kv["v"])
+        _write_kv(self_kv["k"][i], kv["k"])
+        _write_kv(self_kv["v"][i], kv["v"])
+        for name, t in (("cross_k", cross_kv["k"]), ("cross_v", cross_kv["v"])):
+            cross[name].append(t if cblk is None else t[:, cblk[0]:cblk[1]])
     layers = {**self_kv, **{name: torch.stack(ts) for name, ts in cross.items()}}
     return _final_logits(groups, x[:, -1:], cfg), {"layers": layers, "pos": S}
 

@@ -251,29 +251,38 @@ def write_positions(t: torch.Tensor, new: torch.Tensor, pos: int, lo: int = 0) -
         t[:, a - lo:e - lo] = new[:, a - pos:e - pos].to(t.dtype)
 
 
-def _decode_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: dict,
-                    blk: tuple, cfg: ModelConfig, lay=None) -> tuple[torch.Tensor, dict]:
-    """Decode over this rank's block [lo, hi) of a cache split on the
-    sequence over `group`: the new k/v written by the rank whose block
-    holds their positions, each rank's attention over its block, the parts
-    combined over the group. Under the tensor-parallel layout `lay` (q this
-    rank's heads, k and v every kv head) the queries of every head are
-    gathered over the model group first, and the rank's heads kept after.
-    Returns (out (B,Sq,H_q,hd_v), the cache)."""
+def decode_blocks(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor, valid_len: int,
+                  blk: tuple, window: Optional[int] = None, lay=None) -> torch.Tensor:
+    """Decode attention of q over this rank's block [lo, hi) of a cache
+    split on the sequence over `group` (`blk` = (lo, hi, group)): each
+    rank's part over its block, the parts combined over the group. Under
+    the tensor-parallel layout `lay` (q this rank's heads, the cache every
+    kv head) the queries of every head are gathered over the model group
+    first, and the rank's heads kept after. Returns (B,Sq,H_q,hd_v)."""
     lo, _, group = blk
-    pos, s_new = cache["pos"], q.shape[1]
-    kc, vc = cache["k"], cache["v"]
-    write_positions(kc, k, pos, lo)
-    write_positions(vc, v, pos, lo)
     h_loc = q.shape[2]
     if lay is not None:
         q = distributed.all_heads(q, lay)
-    m, l, o = decode_attention_part(q, kc, vc, pos + s_new, lo, window=cfg.sliding_window)
+    m, l, o = decode_attention_part(q, kc, vc, valid_len, lo, window=window)
     out = distributed.lse_combine(m, l, o, group)                 # (B,K,G,Sq,hd_v)
     b, n_kv, g, sq, hd_v = out.shape
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, n_kv * g, hd_v).to(q.dtype)
     if lay is not None:
         out = out.narrow(2, lay.r * h_loc, h_loc)
+    return out
+
+
+def _decode_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: dict,
+                    blk: tuple, cfg: ModelConfig, lay=None) -> tuple[torch.Tensor, dict]:
+    """Decode over this rank's block [lo, hi) of a cache split on the
+    sequence over `group`: the new k/v written by the rank whose block
+    holds their positions, then `decode_blocks`. Returns (out
+    (B,Sq,H_q,hd_v), the cache)."""
+    pos, s_new = cache["pos"], q.shape[1]
+    kc, vc = cache["k"], cache["v"]
+    write_positions(kc, k, pos, blk[0])
+    write_positions(vc, v, pos, blk[0])
+    out = decode_blocks(q, kc, vc, pos + s_new, blk, cfg.sliding_window, lay)
     return out, {"k": kc, "v": vc, "pos": pos + s_new}
 
 

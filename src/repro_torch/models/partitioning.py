@@ -26,16 +26,26 @@ identity and the model code runs as it always did. Under a layout:
     (`tp_leaves`); any other leaf is gathered whole;
   * tensor parallelism covers the "tp" profile's attention (heads that
     divide "model", MLA's too), MLP (d_ff), MoE experts and embedding /
-    logits (vocab) of the dense, vlm and moe families (`tp_enabled`). The
-    experts keep their "model" shard as the rules place it: EP's E/m
-    experts where m divides E (deepseek's 64 on 16), else expert TP's f/m
-    columns of we_in / we_gate and rows of we_out (mixtral's 8 on 16);
-    the router is computed whole on every rank, the shared experts are an
-    MLP on their d_ff (`moe.moe_apply`). Under "tp" a decode cache whose
-    kv heads do not carry it ("model" not dividing both head counts, or
-    MLA's latents) stays on its sequence blocks, as the serve step holds
-    it (`cache_sequence`): each rank attends with every query head over
-    its block and the parts are combined (`distributed.lse_combine`);
+    logits (vocab) of the dense, vlm, moe, ssm (rwkv6) and audio
+    (encoder-decoder) families (`tp_enabled`). The experts keep their
+    "model" shard as the rules place it: EP's E/m experts where m divides
+    E (deepseek's 64 on 16), else expert TP's f/m columns of we_in /
+    we_gate and rows of we_out (mixtral's 8 on 16); the router is
+    computed whole on every rank, the shared experts are an MLP on their
+    d_ff (`moe.moe_apply`). rwkv6's time mix runs on the rank's heads (r,
+    k, v, g and the decay on its columns, the wkv scan and the per-head
+    norm on its heads, `wo` row-parallel), its channel mix on its d_ff
+    (`wv_c`'s partial sums reduce-scattered over d_model, the receptance
+    gate on the rank's columns of `wr_c`, the gated product all-gathered;
+    `models.rwkv`); f sits on each mix's normed input, so every leaf of
+    the mix that is not split is partial. The encoder-decoder's
+    self-attention, cross-attention and MLP take the layout of `attn` and
+    `mlp` (`tp_leaves`). Under "tp" a decode cache whose kv heads do not
+    carry it ("model" not dividing both head counts, or MLA's latents)
+    stays on its sequence blocks, as the serve step holds it
+    (`cache_sequence`): each rank attends with every query head over its
+    block and the parts are combined (`distributed.lse_combine`); the
+    encoder-decoder's cross k/v likewise over theirs;
   * sequence parallelism covers the "fsdp_sp" profile of the dense and
     hybrid families (`sp_enabled`: qwen2.5-32b, zamba2-1.2b): rank r of the
     model group computes its block [r S/m, (r+1) S/m) of the sequence on
@@ -52,9 +62,11 @@ identity and the model code runs as it always did. Under a layout:
     serve step splits a cache's sequence as it is stored
     (`cache_sequence`, `cache_block`), so decode combines the ranks'
     attention over their parts (`distributed.lse_combine`);
-  * rwkv6, mamba2 outside "fsdp_sp" and the encoder-decoder compute on
-    whole weights, and so does attention whose heads "model" does not
-    divide (as `constrain` drops the axis there).
+  * mamba2 outside "fsdp_sp" (and so the hybrid family under "tp")
+    computes on whole weights, and so do attention whose heads "model"
+    does not divide and rwkv6's time mix whose heads it does not divide
+    (as `constrain` drops the axis there; the reference splits rwkv6's
+    channels even then, the port keeps its heads whole).
 """
 from __future__ import annotations
 
@@ -199,6 +211,9 @@ class Layout:
     # (this rank's block index, the number of blocks, the group over which
     # the blocks lie); None: the cache whole on every rank
     cache_seq: Optional[tuple[int, int, Any]] = None
+    # the same for an encoder-decoder's cross k/v, whose length is the
+    # encoder's (`cache_block(n, cross=True)`)
+    cross_seq: Optional[tuple[int, int, Any]] = None
 
     def splits(self, size: int) -> bool:
         """The per-dim rule: whether a dim of `size` is sharded over "model"
@@ -264,7 +279,7 @@ def tp_layout(cfg) -> Optional[Layout]:
 
 
 def tp_enabled(cfg) -> bool:
-    return cfg.sharding_profile == "tp" and cfg.family in ("dense", "vlm", "moe")
+    return cfg.sharding_profile == "tp" and cfg.family in ("dense", "vlm", "moe", "ssm", "audio")
 
 
 def sp_enabled(cfg) -> bool:
@@ -316,32 +331,44 @@ def seq_block() -> Optional[tuple[int, int]]:
 
 
 @contextlib.contextmanager
-def cache_sequence(index: int, ways: int, group):
+def cache_sequence(index: int, ways: int, group, cross: Optional[tuple[int, int, Any]] = None):
     """Within: a cache's sequence dim lies in `ways` blocks over `group`,
-    this rank holding block `index` (the serve step, `launch.steps`); a
-    no-op outside a layout or for one block."""
+    this rank holding block `index` (the serve step, `launch.steps`), and an
+    encoder-decoder's cross k/v in `cross`'s (index, ways, group), None
+    where they are whole; a no-op outside a layout, or for one block of
+    each."""
     lay = current_layout()
-    if lay is None or ways == 1:
+    if cross is not None and cross[1] == 1:
+        cross = None
+    if lay is None or (ways == 1 and cross is None):
         yield
         return
-    with layout_context(dataclasses.replace(lay, cache_seq=(index, ways, group))):
+    seq = (index, ways, group) if ways > 1 else None
+    with layout_context(dataclasses.replace(lay, cache_seq=seq, cross_seq=cross)):
         yield
 
 
-def cache_ways() -> int:
-    """The number of blocks a cache's sequence lies in (`cache_sequence`),
-    1 where every rank holds it whole."""
+def _cache_seq(cross: bool) -> Optional[tuple[int, int, Any]]:
     lay = current_layout()
-    return 1 if lay is None or lay.cache_seq is None else lay.cache_seq[1]
+    return None if lay is None else (lay.cross_seq if cross else lay.cache_seq)
 
 
-def cache_block(n: int) -> Optional[tuple[int, int, Any]]:
+def cache_ways(cross: bool = False) -> int:
+    """The number of blocks a cache's sequence (`cross`: an encoder-decoder's
+    cross k/v's) lies in (`cache_sequence`), 1 where every rank holds it
+    whole."""
+    seq = _cache_seq(cross)
+    return 1 if seq is None else seq[1]
+
+
+def cache_block(n: int, cross: bool = False) -> Optional[tuple[int, int, Any]]:
     """(lo, hi, group) of this rank's block, of `n` positions, of a cache's
-    sequence under `cache_sequence`; None where every rank holds it whole."""
-    lay = current_layout()
-    if lay is None or lay.cache_seq is None:
+    sequence (`cross`: the cross k/v's) under `cache_sequence`; None where
+    every rank holds it whole."""
+    seq = _cache_seq(cross)
+    if seq is None:
         return None
-    index, _, group = lay.cache_seq
+    index, _, group = seq
     return index * n, (index + 1) * n, group
 
 
@@ -350,6 +377,23 @@ _ATTN_KV = ("wk", "wv", "bk", "bv")
 _MLA_HEADS = ("wq", "w_uk", "w_uv", "wo")
 _MLA_LATENT = ("w_dkv", "kv_norm_scale")
 _EXPERTS = ("we_in", "we_gate", "we_out")
+_ATTN_PARTS = ("attn", "self_attn", "cross_attn")
+# rwkv6's leaves split over "model" under "tp" (`tp_leaves`, `rwkv_share`)
+_RWKV_SPLIT = {"tm": ("wr", "wk", "wv", "wg", "wo"), "cm": ("wk_c", "wv_c", "wr_c")}
+
+
+def rwkv_share(part: str, leaves: dict, r: int, m: int) -> dict:
+    """rwkv6's `tm` or `cm` leaves as rank r of m holds them under the "tp"
+    layout, cut from whole ones (views, so gradients reach the whole): each
+    split leaf's block r on the dim `param_partition_spec` places over
+    "model" (an output projection's rows, else its columns), the others
+    whole. The collective-free pieces of `models.rwkv` run on it."""
+    out = dict(leaves)
+    for name in _RWKV_SPLIT[part]:
+        dim = -2 if name in _OUT_PROJ else -1
+        w = leaves[name].shape[dim] // m
+        out[name] = leaves[name].narrow(dim, r * w, w)
+    return out
 
 
 def tp_leaves(part: str, leaves: dict, cfg, lay: Layout) -> tuple[tuple, tuple]:
@@ -361,8 +405,21 @@ def tp_leaves(part: str, leaves: dict, cfg, lay: Layout) -> tuple[tuple, tuple]:
     rank's, its queries and up-projections the rank's heads), the MLP on
     d_ff, the MoE experts on EP's experts or expert TP's d_ff (the router
     computed whole, its gradient partial: each rank combines its share),
-    the embedding and the output head on the vocabulary."""
-    if part == "attn" and "wq" in leaves:
+    rwkv6's time mix on its heads where they divide "model" and its
+    channel mix on d_ff and d_model where both do (every other leaf of a
+    split mix partial: f sits on the mix's normed input, so each rank's
+    gradient of a mix coefficient, the decay's LoRA, w0, the bonus and the
+    norm scale is its own heads' or columns' part), the embedding and the
+    output head on the vocabulary. The encoder-decoder's self- and
+    cross-attention take `attn`'s layout."""
+    if part in _RWKV_SPLIT and _RWKV_SPLIT[part][0] in leaves:
+        if part == "tm" and not lay.splits(cfg.d_model // cfg.rwkv.head_dim):
+            return (), ()
+        if part == "cm" and not (lay.splits(cfg.d_ff) and lay.splits(cfg.d_model)):
+            return (), ()
+        split = _RWKV_SPLIT[part]
+        return split, tuple(n for n in leaves if n not in split)
+    if part in _ATTN_PARTS and "wq" in leaves:
         if not lay.splits(cfg.n_heads):
             return (), ()
         if cfg.mla is not None:

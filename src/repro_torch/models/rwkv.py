@@ -7,6 +7,28 @@ coefficients; the decay w is data-dependent through a low-rank MLP and is
 computed in fp32. Decode carries the shift states (compute dtype) and the
 per-head wkv state (fp32). Parameters are mappings of the reference's leaf
 names to tensors, as in `layers.py`.
+
+Under the "tp" layout (`partitioning.tp_layout`) a mix is handed the
+rank's shards of its split weights (`partitioning.tp_leaves`) and reads
+its layout from their shapes, as `layers.attention_apply` does:
+  * the time mix (`wr`'s columns) runs on the rank's heads: r, k, v, g and
+    the log decay on its columns, the wkv scan, the per-head norm and the
+    gate on its heads, and `wo`'s row shard's product summed over the model
+    group (Megatron's g); its state is the rank's heads' (B, H/m, K, V);
+  * the channel mix (`wk_c`'s columns) runs on the rank's d_ff: each
+    rank's partial v = relu(xk Wk)^2 Wv over its d_ff is reduce-scattered
+    over d_model, the receptance gate computed on the rank's columns of
+    `wr_c` multiplies the summed v there (the gate multiplies the sum, so
+    it cannot go inside it), and the gated columns are all-gathered. Every
+    product is split: a token costs d_model (2 d_ff + d_model) / m
+    multiply-adds a rank, no d_model^2 repeated on every rank.
+f (`distributed.copy_to_model`) sits on each mix's input, so each rank's
+gradient of a leaf that it uses whole or a slice of (the mixes, the
+decay's LoRA, w0, the bonus, the norm scale) is its own part: those leaves
+are partial, their gradients summed over the model group. `timemix_part`
+and the channel mix's `channel_value` / `channel_gate` are the collective-
+free pieces of rank r of m, which `partitioning.rwkv_share` cuts from
+whole weights.
 """
 from __future__ import annotations
 
@@ -15,8 +37,10 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, cdtype
+from repro_torch.utils import distributed
 
 
 def _dims(cfg: ModelConfig):
@@ -52,14 +76,20 @@ def _lerp(x: torch.Tensor, prev: torch.Tensor, mix: torch.Tensor) -> torch.Tenso
     return x + (prev - x) * mix.to(x.dtype)
 
 
-def timemix_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
-    """cache: {"shift": (B,1,D), "wkv": (B,H,K,V)}. Returns (out, new cache)."""
+def timemix_part(params: Params, x: torch.Tensor, cfg: ModelConfig, r: int = 0, m: int = 1, *,
+                 cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+    """The time mix of heads [r H/m, (r+1) H/m) (`rwkv_share("tm")`'s weights;
+    r 0 of m 1: all of them), without collectives: (the heads' part of the
+    output, which the m parts sum to, the cache: the shift (B,1,D) and the
+    heads' wkv state (B,H/m,K,V)). cache: {"shift": (B,1,D), "wkv" of the
+    same heads}."""
     from repro_torch.kernels import ops  # local import to avoid cycles
 
-    r, n_heads = _dims(cfg)
+    rw, n_heads = _dims(cfg)
+    hs, h = rw.head_dim, n_heads // m
+    lo, hi = r * h * hs, (r + 1) * h * hs
     dt = cdtype(cfg)
-    B, S, D = x.shape
+    B, S, _ = x.shape
     prev, new_shift = _token_shift(x, None if cache is None else cache["shift"])
 
     xr = _lerp(x, prev, params["mix_r"])
@@ -72,38 +102,74 @@ def timemix_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     kk = xk @ params["wk"].to(dt)
     vv = xv @ params["wv"].to(dt)
     gg = xg @ params["wg"].to(dt)
-    # data-dependent log decay (<0): -exp(w0 + tanh(xw A) B), in fp32
-    dd = torch.tanh(xw.float() @ params["decay_a"].float()) @ params["decay_b"].float()
-    logw = -torch.exp(params["w0"].float() + dd)                   # (B,S,D)
+    # data-dependent log decay (<0): -exp(w0 + tanh(xw A) B), in fp32, on
+    # the heads' channels
+    dd = torch.tanh(xw.float() @ params["decay_a"].float()) @ params["decay_b"][:, lo:hi].float()
+    logw = -torch.exp(params["w0"][lo:hi].float() + dd)            # (B,S,D/m)
 
-    hs = r.head_dim
-    y, new_wkv = ops.rwkv6_mix(rr.reshape(B, S, n_heads, hs), kk.reshape(B, S, n_heads, hs),
-                               vv.reshape(B, S, n_heads, hs), logw.reshape(B, S, n_heads, hs),
-                               params["bonus_u"].float(),
+    y, new_wkv = ops.rwkv6_mix(rr.reshape(B, S, h, hs), kk.reshape(B, S, h, hs),
+                               vv.reshape(B, S, h, hs), logw.reshape(B, S, h, hs),
+                               params["bonus_u"][r * h:(r + 1) * h].float(),
                                init_state=None if cache is None else cache["wkv"])
     # per-head groupnorm, then the silu(g) gate
     yf = y.float()
     mu = yf.mean(dim=-1, keepdim=True)
     var = (yf - mu).square().mean(dim=-1, keepdim=True)
     yf = (yf - mu) * torch.rsqrt(var + 1e-5)
-    yf = yf.reshape(B, S, D) * params["ln_scale"].float()
+    yf = yf.reshape(B, S, h * hs) * params["ln_scale"][lo:hi].float()
     y = (yf * F.silu(gg.float())).to(dt)
     out = y @ params["wo"].to(dt)
     return out, {"shift": new_shift, "wkv": new_wkv}
 
 
+def timemix_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+    """cache: {"shift": (B,1,D), "wkv": (B,H,K,V)}. Returns (out, new cache).
+    With `wr` this rank's column shard: the rank's heads (`timemix_part`),
+    its output summed over the model group, the cache's wkv its heads'."""
+    if params["wr"].shape[-1] == cfg.d_model:
+        return timemix_part(params, x, cfg, cache=cache)
+    lay = partitioning.tp_layout(cfg)
+    x = distributed.copy_to_model(x, lay.model_group)
+    out, new_cache = timemix_part(params, x, cfg, lay.r, lay.m, cache=cache)
+    return distributed.reduce_from_model(out, lay.model_group), new_cache
+
+
+def channel_value(params: Params, xk: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """v = relu(xk Wk)^2 Wv over the d_ff of the weights given (all of it,
+    or a rank's `rwkv_share("cm")`: its part of the sum)."""
+    dt = cdtype(cfg)
+    k = F.relu(xk @ params["wk_c"].to(dt)).square()
+    return k @ params["wv_c"].to(dt)
+
+
+def channel_gate(params: Params, xr: torch.Tensor, v: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """sigmoid(xr Wr) v on the columns of `wr_c` given, v the summed value
+    there."""
+    rgate = torch.sigmoid((xr @ params["wr_c"].to(cdtype(cfg))).float())
+    return (rgate * v.float()).to(cdtype(cfg))
+
+
 def channelmix_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                      cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
-    """cache: {"shift": (B,1,D)}. Returns (out, new cache)."""
-    dt = cdtype(cfg)
+    """cache: {"shift": (B,1,D)}. Returns (out, new cache). With `wk_c`
+    this rank's column shard: v's partial sums over the rank's d_ff
+    reduce-scattered over d_model, gated on the rank's columns, and the
+    product all-gathered."""
+    lay = None
+    if params["wk_c"].shape[-1] != cfg.d_ff:
+        lay = partitioning.tp_layout(cfg)
+        x = distributed.copy_to_model(x, lay.model_group)
     prev, new_shift = _token_shift(x, None if cache is None else cache["shift"])
     xk = _lerp(x, prev, params["mix_k"])
     xr = _lerp(x, prev, params["mix_r"])
-    k = F.relu(xk @ params["wk_c"].to(dt)).square()
-    v = k @ params["wv_c"].to(dt)
-    rgate = torch.sigmoid((xr @ params["wr_c"].to(dt)).float())
-    out = (rgate * v.float()).to(dt)
-    return out, {"shift": new_shift}
+    v = channel_value(params, xk, cfg)
+    if lay is None:
+        return channel_gate(params, xr, v, cfg), {"shift": new_shift}
+    v = distributed.reduce_scatter_to_model(v, lay)
+    out = channel_gate(params, xr, v, cfg)
+    return distributed.gather_from_model(out, lay.model_group, lay.m, lay.r), {"shift": new_shift}
 
 
 def rwkv_cache_shape(cfg: ModelConfig, batch: int,

@@ -45,12 +45,14 @@ gathered where the block runs (`partitioning.gather_block`, inside
 weights are live at a time outside remat="none"); the embedding, the
 output head, the vlm projector and zamba2's shared block and LoRA where
 they are used. Under the "tp" profile's layout the attention (MLA too),
-MLP, MoE experts, embedding and logits compute tensor-parallel over
-"model" (`layers`, `mla`, `moe`): a moe block's "moe" part comes as the
-rank's expert share (EP's experts or expert TP's d_ff) with its shared
-experts on their d_ff; the logits come back vocab-sharded; the cache holds
-this rank's kv heads where both head counts divide "model", else it stays
-on its sequence blocks (`partitioning.cache_block`), as under "fsdp_sp".
+MLP, MoE experts, rwkv6's time and channel mixes, embedding and logits
+compute tensor-parallel over "model" (`layers`, `mla`, `moe`, `rwkv`): a
+moe block's "moe" part comes as the rank's expert share (EP's experts or
+expert TP's d_ff) with its shared experts on their d_ff; the logits come
+back vocab-sharded; the cache holds this rank's kv heads where both head
+counts divide "model", else it stays on its sequence blocks
+(`partitioning.cache_block`), as under "fsdp_sp"; an rwkv6 cache holds
+the rank's heads of the wkv state and the whole token shifts.
 Under the "fsdp_sp" profile's layout (`partitioning.sequence_block`) each
 rank computes its block of the sequence, at absolute positions, on whole
 weights: `forward` returns the block's logits; `prefill` writes the part of

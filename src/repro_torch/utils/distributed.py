@@ -31,7 +31,9 @@ port places tensors as `DTensor`s on a `DeviceMesh` and moves them itself).
   (`gather_for_compute`: over the dp axes only where tensor-parallel code
   consumes the rank's "model" shard, else whole) and on the Megatron pair
   `copy_to_model` / `reduce_from_model` (f and g) around column- and
-  row-parallel products (`models.partitioning`, `models.layers`).
+  row-parallel products (`models.partitioning`, `models.layers`);
+  `reduce_scatter_to_model` and `gather_from_model` split a row-parallel
+  sum over the last dim and join it back (rwkv6's channel mix).
 * Sequence-parallel compute (the "fsdp_sp" profile: each rank of the model
   group computes its block of the sequence) moves activations between the
   blocks: `gather_seq` (k and v whole for attention; its gradient
@@ -384,6 +386,13 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _gather_last(x: torch.Tensor, group, m: int) -> torch.Tensor:
+    """The m ranks' x of `group` concatenated on the last dim (an all-gather)."""
+    parts = [torch.empty_like(x) for _ in range(m)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
+
+
 class _GatherFromModel(torch.autograd.Function):
     """The model group's shards of a tensor concatenated on its last dim;
     the gradient is this rank's slice of it."""
@@ -391,13 +400,26 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, m, r):
         ctx.r, ctx.w = r, x.shape[-1]
-        parts = [torch.empty_like(x) for _ in range(m)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=-1)
+        return _gather_last(x, group, m)
 
     @staticmethod
     def backward(ctx, g):
         return g[..., ctx.r * ctx.w:(ctx.r + 1) * ctx.w], None, None, None
+
+
+class _ReduceScatterToModel(torch.autograd.Function):
+    """Forward: this rank's block of the last dim of the sum over the model
+    group of each rank's partial x (a reduce-scatter). Backward: the
+    blocks' gradients all-gathered, the gradient of every rank's partial."""
+
+    @staticmethod
+    def forward(ctx, x, group, m, r):
+        ctx.group, ctx.m = group, m
+        return _reduce_scatter(x, -1, group, m, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_last(g, ctx.group, ctx.m), None, None, None
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
@@ -413,6 +435,13 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
 def gather_from_model(x: torch.Tensor, group, m: int, r: int) -> torch.Tensor:
     """The whole of a tensor split on its last dim over the model group."""
     return _GatherFromModel.apply(x, group, m, r)
+
+
+def reduce_scatter_to_model(x: torch.Tensor, lay) -> torch.Tensor:
+    """The sum over `lay`'s model group of the ranks' partial x (..., D),
+    this rank's block (..., D/m) of it (rwkv6's channel-mix value before
+    its gate)."""
+    return _ReduceScatterToModel.apply(x, lay.model_group, lay.m, lay.r)
 
 
 def all_heads(t: torch.Tensor, lay) -> torch.Tensor:
