@@ -38,7 +38,10 @@
    queries against the whole sequence's keys: qwen2.5-32b train_4k's 256 of
    4096 queries at ranks 0, 7 and 15, its prefill_32k's 2048 of 32768 at
    rank 15, zamba2-1.2b's shared attention, 32 heads of 64, 256 of 4096 at
-   rank 15), each held to the plain version with the same offset within
+   rank 15; and the other families "fsdp_sp" reaches: deepseek's MLA,
+   hd 192 / hd_v 128, mixtral's 4096-token window on prefill_32k's last
+   block, phi-3-vision's hd 96 and whisper-tiny's non-causal encoder
+   block), each held to the plain version with the same offset within
    BF16_TOL on the wgmma path, its launch counted, and timed beside its
    bound (the pairs its rows see) and SDPA with the equivalent boolean
    mask;
@@ -58,6 +61,14 @@
    does across ranks), held against the whole decode within FP32_TOL of
    its max, the blocks that see no key counted (14 of mixtral's 16, none of
    whisper's); timed beside the whole;
+4e. moe block phase: one full-width mixtral MoE layer on 16 sequence
+   blocks of 2 x 4096 tokens as the "fsdp_sp" profile's ranks compute it
+   (each block routed on its rows, each route ranked after the row's
+   earlier blocks' routes to its expert, the whole row's capacity 1280;
+   bf16, x skewed so that routes drop): the routes and ranks that differ
+   from the whole layer's must be 0 (`route_flips`), the dropped routes
+   the same, y within BF16_TOL of its max, the aux from the blocks' sums
+   within FP32_TOL; one block's forward timed beside the whole layer's;
 5. serve phase: full-width olmo-1b (bf16 compute, fp32 weights from seed 0)
    serves 8 requests x 1024 prompt tokens + 32 greedy tokens through
    `repro_torch.launch.serve.serve`; the launch counts, set to 0 just before
@@ -168,6 +179,15 @@
    mix's gradient of x), bf16 at x 2 x 1024, held against the whole layer
    within BF16_TOL of its max, forward and the gradients of x and of every
    leaf; a rank's forward timed beside the whole layer's;
+12d. rwkv chain phase: the wkv kernels over a 2 x 4096 sequence of
+   rwkv6-7b's 64 heads of 64 (bf16 r/k/v, slow decays) cut into 16 blocks
+   as the "fsdp_sp" profile's ranks run them: each block from no state,
+   the per-key prefix of the entering states (`state_prefix`), each block
+   again from its state; y, the final state and the gradients by autograd
+   (the backward kernel through both passes) held to one whole-sequence
+   call (the scan phase's tolerances); a control without the chain must
+   miss; launches counted; forward and backward timed beside the whole
+   call's;
 13. rwkv serve phase: full-width, full-depth rwkv6-7b (7,534,813,184 fp32
    parameters from seed 0, bf16 compute) serves 8 x 1024 prompts + 32 greedy
    tokens through `launch.serve.serve`: 32 forward launches per prefill and
@@ -179,7 +199,7 @@
    and 4 backward scan launches a step, each epilogue kernel once); one step
    profiled; every wkv call of one step held against its plain version on
    its inputs; the whole kernel path against the plain path at a small lr,
-   1 layer, batch 2 x 512, in fp32 and bf16 compute (bf16's moments held
+   1 layer, batch 2 x 256, in fp32 and bf16 compute (bf16's moments held
    by their bulk to twice the plain path's own bf16 error; a control with
    its weights at 6 bits must fail that limit);
 15. mamba2 kernel phase: the SSD scan's forward and backward kernels at
@@ -198,6 +218,17 @@
    backward kernel through both passes and the prefix) held to one
    whole-sequence kernel call within FP32_TOL of their max; the chain's
    launches counted and its time beside the whole call's;
+15c. mamba share phase: one full-width zamba2-1.2b mamba2 layer in 16
+   "tp" shares of 4 heads (`ssm.mamba2_gated` / `mamba2_out` on
+   `partitioning.mamba_share`), the gated norm's sums of squares added in
+   fp32 and the outputs and x's gradients in bf16 rank after rank, as the
+   collectives sum them, at x 2 x 1024: forward and the gradients of x and
+   of every leaf within BF16_TOL of the whole layer's max; a control, the
+   norm over each share's own columns, must miss; a rank's forward timed
+   beside the whole layer's;
+15d. SSD local heads phase: both SSD kernels on a rank's 4 of 64 heads at
+   the scan shape (8 x 1024, B and C whole), held to the plain versions
+   and timed beside the whole call and their bound;
 16. zamba2 serve phase: full-width, full-depth zamba2-1.2b (1,177,813,888
    fp32 parameters from seed 0, bf16 compute; 38 mamba layers, 7 invocations
    of the shared attention block) serves 8 x 1024 prompts + 32 greedy tokens
@@ -479,7 +510,8 @@ def flash_phase() -> dict:
 # queries against the whole sequence's k and v, gathered over "model"): the
 # rows of a microbatch of 4 (train_4k's 16 rows a dp rank in 4 microbatches)
 # or of prefill_32k's one row a rank on 2x16x16. (name, (B, Sq, Sk, H, K,
-# hd, hd_v), q_offset); causal, bf16, the wgmma path.
+# hd, hd_v), q_offset[, causal (default True)[, window]]); bf16, the wgmma
+# path.
 OFFSET_CASES = [
     ("qwen2.5-32b train_4k, rank 0 of 16", (4, 256, 4096, 40, 8, 128, 128), 0),
     ("qwen2.5-32b train_4k, rank 7 of 16", (4, 256, 4096, 40, 8, 128, 128), 1792),
@@ -487,6 +519,17 @@ OFFSET_CASES = [
     ("qwen2.5-32b prefill_32k, rank 15 of 16", (1, 2048, 32768, 40, 8, 128, 128), 30720),
     ("zamba2-1.2b shared attention train_4k, rank 15 of 16", (4, 256, 4096, 32, 32, 64, 64),
      3840),
+    # the other families the "fsdp_sp" profile reaches: deepseek's MLA
+    # (k and v decompressed from the latents, hd 192 / hd_v 128), mixtral's
+    # 4096-token window on prefill_32k's last block, phi-3-vision's hd 96,
+    # and whisper-tiny's non-causal encoder block (its decoder's
+    # cross-attention is the same call over the encoder's frames)
+    ("deepseek-v2-lite MLA train_4k, rank 15 of 16", (4, 256, 4096, 16, 16, 192, 128), 3840),
+    ("mixtral-8x7b prefill_32k, window 4096, rank 15 of 16",
+     (1, 2048, 32768, 32, 8, 128, 128), 30720, True, 4096),
+    ("phi-3-vision train_4k, rank 15 of 16", (4, 256, 4096, 32, 32, 96, 96), 3840),
+    ("whisper-tiny encoder train_4k, non-causal, rank 15 of 16", (4, 256, 4096, 6, 6, 64, 64),
+     3840, False),
 ]
 
 
@@ -501,28 +544,31 @@ def offset_flash_phase() -> list:
 
     rows, failures = [], []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for name, shape, q_off in OFFSET_CASES:
+    for name, shape, q_off, *mask in OFFSET_CASES:
+        causal, window = (mask + [True, None][len(mask):])
         b, sq, sk, h, kv, hd, hd_v = shape
         q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
                    for s in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd_v)))
         before = fa.launches
-        out = fa.flash_attention(q, k, v, causal=True, q_offset=q_off)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_off)
         torch.cuda.synchronize()
         launches = fa.launches - before
-        expect = ref.flash_attention_plain(q, k, v, causal=True, q_offset=q_off)
+        expect = ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                           q_offset=q_off)
         diff = (out.float() - expect.float()).abs()
         err, path = float(diff.max()), fa.kernel_path(q, k, v)
         ok = (out.shape == expect.shape and bool(torch.isfinite(out).all()) and launches == 1
               and bool((diff <= BF16_TOL["atol"] + BF16_TOL["rtol"]
                         * expect.float().abs()).all()) and path == "wgmma")
         del out, expect, diff
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True, q_offset=q_off))
-        plain_ms = time_ms(lambda: ref.flash_attention_plain(q, k, v, causal=True,
-                                                             q_offset=q_off), 0.0)
-        library_ms = time_ms(sdpa_call(q, k, v, True, None, q_off))
-        bound_ms, bound_by = flash_bound(shape, "bfloat16", True, None, q_off)
-        row = dict(case=name, shape=shape, q_offset=q_off,
-                   pairs=visible_pairs(sq, sk, True, None, q_off), path=path,
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                                q_offset=q_off))
+        plain_ms = time_ms(lambda: ref.flash_attention_plain(q, k, v, causal=causal,
+                                                             window=window, q_offset=q_off), 0.0)
+        library_ms = time_ms(sdpa_call(q, k, v, causal, window, q_off))
+        bound_ms, bound_by = flash_bound(shape, "bfloat16", causal, window, q_off)
+        row = dict(case=name, shape=shape, q_offset=q_off, causal=causal, window=window,
+                   pairs=visible_pairs(sq, sk, causal, window, q_off), path=path,
                    launches=launches, max_abs_err=err, atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], ok=ok, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by)
@@ -562,6 +608,15 @@ def held(got, want, tol: dict) -> tuple[bool, float, float]:
     ok = bool(torch.isfinite(got).all()) and bool(
         (diff <= tol["atol"] + tol["rtol"] * scale).all())
     return ok, float(diff.max()), float(diff.max() / scale.clamp_min(1e-30))
+
+
+def ring(parts):
+    """The parts added one after another in their dtype, as a ring's hops
+    add them."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
 
 
 def expert_share_phase() -> list:
@@ -647,6 +702,100 @@ def expert_share_phase() -> list:
         if not row["ok"]:
             fail(f"{arch}: the sum of the {m} expert shares disagrees with the whole layer")
     return rows
+
+
+# One full-width mixtral-8x7b MoE layer on MOE_BLOCKS sequence blocks of
+# MOE_BLOCK_TOKENS, as the "fsdp_sp" profile's ranks compute it
+# (`models.moe`): each block routed on its own rows, each route ranked
+# after the row's earlier blocks' routes to its expert (`moe.routing_of`,
+# as `make_routing` calls it, over every block's `moe.expert_counts`),
+# its block's buffer at the whole row's capacity (`moe_share` in the
+# block's layout: no collective runs there, so a layout without groups
+# stands for the rank's), the aux from every block's `moe.aux_shares`
+# summed (`aux_loss`'s group_sum); fp32 weights from seed 4, bf16
+# compute, the config's capacity factor 1.25, x skewed so that the whole
+# row drops routes.
+MOE_BLOCKS, MOE_BLOCK_TOKENS = 16, (2, 4096)
+
+
+def moe_block_phase() -> dict:
+    """The MOE_BLOCKS blocks' routes, their ranks and outputs against the
+    whole layer's (`moe_apply`, `make_routing`): the (token, slot) routes
+    that differ (route_flips) and the ranks that differ must be 0, the
+    dropped routes the same, y within BF16_TOL of its max (`held`) and the
+    aux from the blocks' summed counts and probabilities within FP32_TOL of
+    the whole's; one block's forward timed beside the whole layer's. Fails
+    on a disagreement."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import partitioning
+
+    t0 = time.perf_counter()
+    cfg = get_config("mixtral-8x7b")
+    E, C = cfg.moe.n_experts, MOE._capacity(cfg.moe, MOE_BLOCK_TOKENS[1])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = {k: torch.randn(sh, generator=gen, device="cuda") * sh[-2] ** -0.5
+              for k, sh in MOE.moe_shapes(cfg).items()}
+    dt = getattr(torch, cfg.compute_dtype)
+    # a direction every token shares skews the routing to a few experts
+    common = torch.randn(cfg.d_model, generator=gen, device="cuda")
+    xb = (torch.randn(*MOE_BLOCK_TOKENS, cfg.d_model, generator=gen, device="cuda")
+          + common).to(dt)
+    b, s = MOE_BLOCK_TOKENS
+    w = s // MOE_BLOCKS
+    blocks = [xb[:, r * w:(r + 1) * w].contiguous() for r in range(MOE_BLOCKS)]
+
+    def block_routes(r, counts):
+        """Block r's routing as `make_routing` computes it on rank r, every
+        block's `expert_counts` stacked here in place of its all-gather."""
+        return MOE.routing_of(*MOE.route(params["router"], blocks[r], cfg), cfg, s, counts, r)
+
+    def block_share(r, rt):
+        """Block r's share (the whole experts), in its rank's layout."""
+        lay = partitioning.Layout(None, None, MOE_BLOCKS, r, None, seq=(r * w, (r + 1) * w))
+        with partitioning.layout_context(lay):
+            return MOE.moe_share(params, blocks[r], cfg, routing=rt)
+
+    with torch.inference_mode():
+        y_w, aux_w = MOE.moe_apply(params, xb, cfg)
+        rt_w = MOE.make_routing(params["router"], xb, cfg)
+        counts = torch.stack([MOE.expert_counts(MOE.route(params["router"], xr, cfg)[2], E)
+                              for xr in blocks])
+        routes = [block_routes(r, counts) for r in range(MOE_BLOCKS)]
+        y = torch.cat([block_share(r, rt) for r, rt in enumerate(routes)], dim=1)
+        gate_idx = torch.cat([rt.gate_idx for rt in routes], dim=1)
+        rank = torch.cat([rt.rank for rt in routes], dim=1)
+        flips = int((gate_idx != rt_w.gate_idx).sum())
+        moved = int((rank != rt_w.rank).sum())
+        dropped, dropped_w = int((rank >= C).sum()), int((rt_w.rank >= C).sum())
+        # `aux_loss` under a block: every block's shares, summed (group_sum)
+        shares = [MOE.aux_shares(rt, b * s) for rt in routes]
+        aux = MOE.aux_value(sum(f for f, _ in shares), sum(p for _, p in shares), cfg)
+        ok_y, err, rel = held(y, y_w, BF16_TOL)
+        aux_rel = abs(float(aux) - float(aux_w)) / abs(float(aux_w))
+
+        def one_block():
+            block_share(MOE_BLOCKS - 1, block_routes(MOE_BLOCKS - 1, counts))
+
+        whole_ms = time_ms(lambda: MOE.moe_apply(params, xb, cfg))
+        block_ms = time_ms(one_block)
+    ok = (ok_y and flips == 0 and moved == 0 and dropped == dropped_w > 0
+          and aux_rel <= FP32_TOL["rtol"])
+    row = dict(case=f"mixtral-8x7b MoE layer, {MOE_BLOCKS} sequence blocks",
+               tokens=MOE_BLOCK_TOKENS, block_tokens=(b, w), capacity=C, route_flips=flips,
+               ranks_moved=moved, dropped=dropped, dropped_whole=dropped_w, y_max_abs_err=err,
+               y_err_over_max=rel, aux=float(aux), aux_whole=float(aux_w), aux_rel_err=aux_rel,
+               atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], ok=ok, whole_ms=whole_ms,
+               block_ms=block_ms, whole_over_block=whole_ms / block_ms,
+               phase_s=time.perf_counter() - t0)
+    print("moe blocks " + json.dumps(row))
+    del params, xb, blocks, y_w, y, routes, rt_w
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("mixtral's MoE layer on sequence blocks disagrees with the whole layer "
+             f"(route flips {flips}, ranks moved {moved}, y ok {ok_y}, aux {aux_rel})")
+    return row
 
 
 # Decode over a cache in 16 sequence blocks, as the "tp" serve step's ranks
@@ -2725,12 +2874,6 @@ def rwkv_share_sums(cfg, tm: dict, cm: dict, x32, wt, m: int):
     from repro_torch.models import partitioning
     from repro_torch.models import rwkv as RWKV
 
-    def ring(parts):
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
-        return total
-
     dt = getattr(torch, cfg.compute_dtype)
     xt = [x32.detach().to(dt).requires_grad_() for _ in range(m)]
     xc = [x32.detach().to(dt).requires_grad_() for _ in range(m)]
@@ -2830,6 +2973,109 @@ def rwkv_share_phase() -> dict:
     if not row["ok"]:
         fail(f"rwkv6's {m} time-mix and channel-mix shares disagree with the whole layer: "
              f"{row['failed']}")
+    return row
+
+
+# The wkv scan chained over WKV_CHAIN_BLOCKS sequence blocks as the
+# "fsdp_sp" profile's ranks run it (`models.rwkv`), at rwkv6-7b's heads: a
+# sequence of WKV_CHAIN_SHAPE, bf16 r/k/v. The log decay w = -exp(N(0, 0.5)
+# - 6), slower than `wkv_inputs`' (a block's 256 steps keep exp(-0.6) of a
+# channel's state on average), so that the entering state is a share of
+# every block's output (a control without the chain must miss).
+WKV_CHAIN_SHAPE, WKV_CHAIN_BLOCKS = (2, 4096, 64, 64, 64), 16
+
+
+def chained_wkv(r, k, v, w, u, blocks: int, chain: bool = True):
+    """(y, final state) of the wkv kernels over `blocks` blocks: each block
+    from no state (its final state and per-key log decay, the block's sum
+    of w), the exclusive prefix of the stacked lists
+    (`utils.distributed.state_prefix`), each block again from it. Without
+    `chain`, each block from no state (the control)."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan as r6
+    from repro_torch.utils import distributed
+    n = r.shape[1] // blocks
+    parts = [[t[:, i * n:(i + 1) * n].contiguous() for t in (r, k, v, w)]
+             for i in range(blocks)]
+    first = [r6.rwkv6_scan(*p, u) for p in parts]
+    if not chain:
+        return torch.cat([y for y, _ in first], dim=1), first[-1][1]
+    s_all = torch.stack([st for _, st in first])
+    l_all = torch.stack([p[3].sum(dim=1) for p in parts])
+    out = [r6.rwkv6_scan(*p, u, init_state=distributed.state_prefix(s_all, l_all, i))
+           for i, p in enumerate(parts)]
+    return torch.cat([y for y, _ in out], dim=1), out[-1][1]
+
+
+def rwkv_chain_phase() -> dict:
+    """The chained wkv scan's y, final state and the gradients of <y, gy> +
+    <state, gs> with respect to r, k, v, w and u (the backward kernel
+    through both passes and the prefix) against one whole-sequence kernel
+    call: y and the state within RWKV_FP32_TOL of their max (bf16 y the
+    reference's bf16 tolerance), the fp32 gradients within RWKV_GRAD_TOL,
+    the bf16 ones bf16's (`wkv_ok`); the control (no chain) must miss y's
+    limit; the chain's launches counted (2 x WKV_CHAIN_BLOCKS forward, as
+    many backward); its forward and backward timed beside the whole
+    call's. Fails on a disagreement."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan as r6
+
+    t0 = time.perf_counter()
+    b, s, h, dk, dv = WKV_CHAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def n(*sh, scale=0.5):
+        return torch.randn(sh, generator=gen, device="cuda") * scale
+
+    r, k, v = (n(b, s, h, dk).to(torch.bfloat16) for _ in range(3))
+    w = -torch.exp(n(b, s, h, dk) - 6.0)
+    u = n(h, dk, scale=0.1)
+    args = [t.requires_grad_() for t in (r, k, v, w, u)]
+    gy, gs = n(b, s, h, dv, scale=1.0).to(torch.bfloat16), n(b, h, dk, dv, scale=1.0)
+    y_w, s_w = r6.rwkv6_scan(*args)
+    g_w = torch.autograd.grad([y_w, s_w], args, [gy, gs])
+    before = dict(r6.launches)
+    y_c, s_c = chained_wkv(*args, blocks=WKV_CHAIN_BLOCKS)
+    g_c = torch.autograd.grad([y_c, s_c], args, [gy, gs])
+    torch.cuda.synchronize()
+    launches = {key: r6.launches[key] - before[key] for key in before}
+    names = ("dr", "dk", "dv", "dw", "du")
+    with torch.no_grad():
+        y_n, _ = chained_wkv(*args, blocks=WKV_CHAIN_BLOCKS, chain=False)
+        errs = {"y": wkv_error(y_c, y_w), "state": wkv_error(s_c, s_w),
+                **{nm: wkv_error(a, e) for nm, a, e in zip(names, g_c, g_w)}}
+        ok = (wkv_ok(y_c, y_w, RWKV_FP32_TOL) and wkv_ok(s_c, s_w, RWKV_FP32_TOL)
+              and all(wkv_ok(a, e, RWKV_GRAD_TOL) for a, e in zip(g_c, g_w))
+              and not wkv_ok(y_n, y_w, RWKV_FP32_TOL)
+              and launches == {"rwkv6_scan_fwd": 2 * WKV_CHAIN_BLOCKS,
+                               "rwkv6_scan_bwd": 2 * WKV_CHAIN_BLOCKS})
+        control = wkv_error(y_n, y_w)[1]
+        del y_n
+        whole_ms = time_ms(lambda: r6.rwkv6_scan(*args))
+        chain_ms = time_ms(lambda: chained_wkv(*args, blocks=WKV_CHAIN_BLOCKS))
+
+    def backward(fn):
+        def run():
+            y_, s_ = fn()
+            torch.autograd.grad([y_, s_], args, [gy, gs])
+        return run
+
+    whole_bwd_ms = time_ms(backward(lambda: r6.rwkv6_scan(*args))) - whole_ms
+    chain_bwd_ms = time_ms(backward(lambda: chained_wkv(*args, blocks=WKV_CHAIN_BLOCKS))) \
+        - chain_ms
+    row = dict(case=f"rwkv6-7b wkv, {WKV_CHAIN_BLOCKS} sequence blocks", shape=WKV_CHAIN_SHAPE,
+               dtype="bfloat16", blocks=WKV_CHAIN_BLOCKS,
+               max_rel_err={key: e[1] for key, e in errs.items()},
+               max_abs_err=max(e[0] for e in errs.values()), control_rel_err=control,
+               launches=launches, ok=ok, whole_ms=whole_ms, chain_ms=chain_ms,
+               whole_bwd_ms=whole_bwd_ms, chain_bwd_ms=chain_bwd_ms,
+               phase_s=time.perf_counter() - t0)
+    print("rwkv chained " + json.dumps(row))
+    del args, r, k, v, w, u, gy, gs, y_w, s_w, g_w, y_c, s_c, g_c
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("the chained wkv scan disagrees with the whole call, or its control does not "
+             f"miss: {row['max_rel_err']}, control {control}")
     return row
 
 
@@ -2985,9 +3231,11 @@ def scan_whole_check(tag: str, model: str, cfg, layers: int, batch: int, seq: in
 
 # Training: full width at 2 layers (974,249,984 parameters; 4 until the run
 # neared its time limit on a slow host); the whole-path check at 1 layer and
-# batch 2 x 512, where autograd of the plain scan fits (at 2 layers its five
-# 3-step runs took ~100 s of a run near its time limit)
-RWKV_TRAIN_LAYERS, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH, RWKV_CHECK_SEQ = 2, 1, 2, 512
+# batch 2 x 256, where autograd of the plain scan fits (at 2 layers its five
+# 3-step runs took ~100 s of a run near its time limit; at 2 x 512 they
+# took 72.5 s on one H100 against 48.8 at 2 x 256, when the run neared it
+# again)
+RWKV_TRAIN_LAYERS, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH, RWKV_CHECK_SEQ = 2, 1, 2, 256
 
 
 def rwkv_per_step(cfg) -> dict:
@@ -3403,6 +3651,187 @@ def chained_scan_phase() -> list:
     if failures:
         fail(f"the chained SSD scan disagrees with the whole call, or its control does "
              f"not miss: {failures}")
+    return rows
+
+
+# One full-width zamba2-1.2b mamba2 layer in the TP_RANKS shares its ranks
+# compute under the "tp" layout (`models.ssm`: 4 of its 64 heads a share,
+# `partitioning.mamba_share`), bf16 compute at x MAMBA_SHARE_TOKENS; and the
+# SSD kernels on a rank's 4 heads at the model's scan shape, as the layer
+# hands them over (its own contiguous projections, B and C whole).
+MAMBA_SHARE_TOKENS = (2, 1024)
+SSD_SHAPE = (8, 1024, 64, 64, 64, 1)
+
+
+def mamba_share_sums(cfg, leaves: dict, x32, wt, m: int):
+    """(y, the gradients of x32 and of every leaf) of one mamba2 layer as m
+    ranks of the "tp" layout compute it, summed as their collectives sum
+    it: each rank on its own bf16 copy of x (f's input), its heads' gated
+    columns (`mamba2_gated`), the sums of squares added in fp32 rank after
+    rank (the gated norm's all-reduce), each rank's normed out projection
+    (`mamba2_out`) added in bf16 rank after rank (g); the m gradients of
+    the x copies added in bf16 the same way (f's backward), the leaves' in
+    fp32, as the partial leaves' gradient sync sums them. The loss is (y *
+    wt).sum()."""
+    import torch
+    from repro_torch.models import partitioning
+    from repro_torch.models import ssm as SSM
+
+    dt = getattr(torch, cfg.compute_dtype)
+    xs = [x32.detach().to(dt).requires_grad_() for _ in range(m)]
+    shares = [partitioning.mamba_share(leaves, r, m) for r in range(m)]
+    gated = [SSM.mamba2_gated(shares[r], xs[r], cfg, r, m)[0] for r in range(m)]
+    sq = ring([g.square().sum(dim=-1, keepdim=True) for g in gated])
+    y = ring([SSM.mamba2_out(shares[r], gated[r], sq, cfg, r, m) for r in range(m)])
+    grads = torch.autograd.grad((y.float() * wt).sum(), xs + list(leaves.values()))
+    return y.detach().float(), [ring(grads[:m]).float(), *grads[m:]]
+
+
+def mamba_share_phase() -> dict:
+    """One full-width zamba2-1.2b mamba2 layer (fp32 weights from seed 7:
+    matrices at std 1/sqrt(fan-in), the conv weights N(0, 1)/sqrt(d_conv),
+    a_log, d_skip and dt_bias the model's init, the biases and the norm
+    scale 0.3 N(0, 1) about their init) on x of MAMBA_SHARE_TOKENS: the
+    TP_RANKS shares summed as the program's collectives sum them
+    (`mamba_share_sums`), held against the whole `mamba2_apply` within
+    BF16_TOL of its max (`held`), and so are the gradients of x and of
+    every leaf; a control, the gated norm over each share's own columns
+    (no sum of squares over the group), must miss y's limit. A rank's
+    forward timed beside the whole layer's. Fails on a disagreement."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import partitioning
+    from repro_torch.models import ssm as SSM
+
+    t0 = time.perf_counter()
+    cfg = get_config("zamba2-1.2b")
+    m = TP_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = SSM.mamba2_shapes(cfg)
+    leaves = {name: torch.randn(sh, generator=gen, device="cuda")
+              * (sh[-2] ** -0.5 if len(sh) == 2 else 0.3) for name, sh in shapes.items()}
+    heads = shapes["a_log"][0]
+    with torch.no_grad():
+        leaves["a_log"].copy_(torch.log(torch.linspace(1.0, 16.0, heads, device="cuda")))
+        leaves["d_skip"].fill_(1.0)
+        leaves["dt_bias"].add_(math.log(math.expm1(0.01)))
+        leaves["gate_norm_scale"].add_(1.0)
+    leaves = {name: t.requires_grad_() for name, t in leaves.items()}
+    dt = getattr(torch, cfg.compute_dtype)
+    x32 = torch.randn(*MAMBA_SHARE_TOKENS, cfg.d_model, generator=gen, device="cuda"
+                      ).to(dt).float().requires_grad_()
+    wt = torch.randn(*MAMBA_SHARE_TOKENS, cfg.d_model, generator=gen, device="cuda")
+    xb = x32.to(dt)
+    y = SSM.mamba2_apply(leaves, xb, cfg)[0].float()
+    want = torch.autograd.grad((y * wt).sum(), [x32, *leaves.values()])
+    y = y.detach()
+    total, got = mamba_share_sums(cfg, leaves, x32, wt, m)
+    checks = {"y": held(total, y, BF16_TOL)}
+    for name, g, g_want in zip(["x", *leaves], got, want):
+        checks[f"{name}_grad"] = held(g, g_want, BF16_TOL)
+    del got, want, total
+    with torch.no_grad():
+        shares = [partitioning.mamba_share(leaves, r, m) for r in range(m)]
+        gated = [SSM.mamba2_gated(shares[r], xb, cfg, r, m)[0] for r in range(m)]
+        local = ring([SSM.mamba2_out(shares[r], g, g.square().sum(dim=-1, keepdim=True) * m,
+                                     cfg, r, m) for r, g in enumerate(gated)])
+        control = held(local.float(), y, BF16_TOL)
+        del gated, local
+
+        def one_rank():
+            yf = SSM.mamba2_gated(shares[0], xb, cfg, 0, m)[0]
+            SSM.mamba2_out(shares[0], yf, yf.square().sum(dim=-1, keepdim=True), cfg, 0, m)
+
+        whole_ms = time_ms(lambda: SSM.mamba2_apply(leaves, xb, cfg))
+        rank_ms = time_ms(one_rank)
+    worst = max(checks, key=lambda key: checks[key][2])
+    row = dict(case=f"zamba2-1.2b mamba2 layer, {m} head shares", tokens=MAMBA_SHARE_TOKENS,
+               heads_a_share=heads // m, d_inner_a_share=shapes["wz"][1] // m,
+               held=len(checks), sums="bf16 rank after rank; sums of squares fp32",
+               ok=all(c[0] for c in checks.values()) and not control[0],
+               worst=worst, worst_err_over_max=checks[worst][2],
+               y_err_over_max=checks["y"][2], x_grad_err_over_max=checks["x_grad"][2],
+               control_err_over_max=control[2],
+               failed=[key for key, c in checks.items() if not c[0]],
+               atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], whole_ms=whole_ms,
+               rank_ms=rank_ms, whole_over_rank=whole_ms / rank_ms,
+               phase_s=time.perf_counter() - t0)
+    print("mamba shares " + json.dumps(row))
+    print("mamba shares, each check's max |d| over max |want|: "
+          + json.dumps({key: c[2] for key, c in checks.items()}))
+    del leaves, x32, wt, xb, y, shares
+    torch.cuda.empty_cache()
+    if not row["ok"]:
+        fail(f"zamba2's {m} mamba2 head shares disagree with the whole layer, or the "
+             f"control does not miss: {row['failed']}")
+    return row
+
+
+def ssd_local_heads_phase() -> dict:
+    """The SSD kernels, forward and backward, on a rank's 64 / TP_RANKS
+    heads of SSD_SHAPE (bf16 x/b/c, `m2_inputs`' seed; the cotangents seed
+    6) as the "tp" layout hands them over: the rank's x, dt, a and d
+    contiguous, B and C of the single group whole; held against the plain
+    scan and autograd of it (M2_TOL, as `mamba2_kernel_phase`), timed beside
+    the whole 64-head call and their bound. Returns the rows by kernel.
+    Fails on a disagreement."""
+    import torch
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import ref
+
+    b, s, h, p, n, g = SSD_SHAPE
+    nh = h // TP_RANKS
+    x, dt, a, bb, cc, d, _ = m2_inputs(SSD_SHAPE, "bfloat16", False, False)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    ds = torch.randn((b, h, p, n), generator=gen, device="cuda")
+    loc = [x[:, :, :nh].contiguous(), dt[:, :, :nh].contiguous(), a[:nh].contiguous(), bb, cc,
+           d[:nh].contiguous()]
+    dy_l, ds_l = dy[:, :, :nh].contiguous(), ds[:, :nh].contiguous()
+    y, state = m2.mamba2_scan(*loc)
+    y_p, state_p = ref.mamba2_chunked_plain(*loc, chunk=M2_PLAIN_CHUNK)
+    ok_f = wkv_ok(y, y_p, M2_TOL) and wkv_ok(state, state_p, M2_TOL)
+    err_f = max(wkv_error(y, y_p)[0], wkv_error(state, state_p)[0])
+    got = m2._launch_bwd(*loc, None, dy_l, ds_l)
+    want = list(plain_m2_grads(*loc, None, dy_l, ds_l))
+    want[2] = m2_da_f64(*loc, None, dy_l, ds_l)
+    ok_b = all(u.shape == e.shape and wkv_ok(u, e, M2_TOL) for u, e in zip(got, want))
+    err_b = max(wkv_error(u, e)[0] for u, e in zip(got, want))
+    del y, state, y_p, state_p, got, want
+    shape = (b, s, nh, p, n, g)
+    rows = {}
+    for name, backward in (("mamba2_scan_fwd", False), ("mamba2_scan_bwd", True)):
+        if backward:
+            def local():
+                return m2._launch_bwd(*loc, None, dy_l, ds_l)
+
+            def whole():
+                return m2._launch_bwd(x, dt, a, bb, cc, d, None, dy, ds)
+
+            def plain():
+                return plain_m2_grads(*loc, None, dy_l, ds_l)
+        else:
+            def local():
+                return m2.mamba2_scan(*loc)
+
+            def whole():
+                return m2.mamba2_scan(x, dt, a, bb, cc, d)
+
+            def plain():
+                return ref.mamba2_chunked_plain(*loc, chunk=M2_PLAIN_CHUNK)
+        ms, whole_ms = time_ms(local), time_ms(whole)
+        bound_ms, bound_by = m2_bound(shape, "bfloat16", False, backward)
+        rows[name] = dict(
+            kernel=name, case=f"zamba2-1.2b scan, {nh} of {h} heads (a rank's on {TP_RANKS})",
+            shape=shape, dtype="bfloat16", max_abs_err=err_b if backward else err_f,
+            ok=ok_b if backward else ok_f, ms=ms, whole_ms=whole_ms,
+            whole_over_local=whole_ms / ms, plain_ms=time_ms(plain, 0.0), library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by)
+        print("mamba2 local heads " + json.dumps(rows[name]))
+    del x, dt, a, bb, cc, d, dy, ds, loc, dy_l, ds_l
+    torch.cuda.empty_cache()
+    if not all(row["ok"] for row in rows.values()):
+        fail(f"the SSD kernels on {nh} heads disagree with their plain versions")
     return rows
 
 
@@ -4547,6 +4976,9 @@ def main() -> int:
     expert_share_phase()
     print(f"expert share phase: {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
+    moe_block_phase()
+    print(f"moe block phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
     block_decode_phase()
     print(f"block decode phase: {time.perf_counter() - t0:.2f}s")
     served, model = serve_phase()
@@ -4598,6 +5030,9 @@ def main() -> int:
     t0 = time.perf_counter()
     rwkv_share_phase()
     print(f"rwkv share phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    rwkv_chain_phase()
+    print(f"rwkv chain phase: {time.perf_counter() - t0:.2f}s")
     rwkv_served, model = rwkv_serve_phase()
     print("rwkv serve " + json.dumps(rwkv_served))
     profile_phase(model)
@@ -4614,6 +5049,12 @@ def main() -> int:
     t0 = time.perf_counter()
     chained_scan_phase()
     print(f"chained scan phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    mamba_share_phase()
+    print(f"mamba share phase: {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    ssd_local_heads_phase()
+    print(f"ssd local heads phase: {time.perf_counter() - t0:.2f}s")
     zamba_served, model = zamba_serve_phase()
     print("zamba2 serve " + json.dumps(zamba_served))
     profile_phase(model)

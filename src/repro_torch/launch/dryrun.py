@@ -39,10 +39,11 @@ not divide "model" (or MLA's latents, or whisper's 6 heads on 16, its
 cross k/v too) on its sequence blocks; under the "fsdp_sp" profile
 (qwen2.5-32b, zamba2-1.2b) the rank's block of the sequence, k and v
 gathered whole, the SSD state chained, a decode cache on its sequence
-blocks. The collectives are the port's own (explicit gathers, Megatron's f
-and g), not GSPMD's, so the two inventories still differ; mamba2's "tp"
-branch (no shipped config uses it) computes on whole weights (ROADMAP.md
-queue 1, item 9).
+blocks. `--profile` traces an arch under the other profile (every family
+computes in either: zamba2's mamba2 on its heads under "tp", rwkv6's wkv
+state chained and the MoE dispatch at the whole row's places under
+"fsdp_sp"). The collectives are the port's own (explicit gathers,
+Megatron's f and g), not GSPMD's, so the two inventories still differ.
 A record is one rank's step (`rank`, 0): under "fsdp_sp" rank 0 holds the
 sequence's first block, whose causal attention sees the fewest keys (rank
 r's block sees about (2r + 1) / (2m) of the pairs), so its flops are the
@@ -57,6 +58,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-32b --both-meshes --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch zamba2-1.2b --shape train_4k \
+      --profile tp --device cpu
 
 `--arch` without `--shape` runs every shape of the arch.
 """
@@ -351,6 +354,9 @@ def main() -> None:
     ap.add_argument("--tag", default="")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the device the abstract tensors lie on (the card's path either way)")
+    ap.add_argument("--profile", choices=("tp", "fsdp_sp"),
+                    help="trace under this sharding profile in place of the config's "
+                         "(records tagged with it)")
     args = ap.parse_args()
 
     cells: list[tuple[str, str]] = []
@@ -365,8 +371,11 @@ def main() -> None:
     failures = 0
     for arch, shape in cells:
         for mp in meshes:
+            override = (None if args.profile is None else
+                        dataclasses.replace(get_config(arch), sharding_profile=args.profile))
             r = run_cell(arch, shape, multi_pod=mp, method=args.method,
-                         tag=args.tag, device=args.device)
+                         tag=args.tag or (args.profile or ""), device=args.device,
+                         cfg_override=override)
             failures += r.status == "failed"
     if failures:
         raise SystemExit(f"{failures} cells failed")

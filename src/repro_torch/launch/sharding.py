@@ -29,8 +29,8 @@ from typing import Any, Callable, Mapping
 
 from repro_torch.launch.mesh import axis_size, dp_axes
 from repro_torch.models.partitioning import PartitionSpec as P
-from repro_torch.models.partitioning import (make_rules, param_partition_spec, sp_enabled,
-                                             tp_enabled)
+from repro_torch.models.partitioning import (make_rules, mamba_heads, param_partition_spec,
+                                             sp_enabled, tp_enabled)
 from repro_torch.utils import buckets
 
 Tree = Any
@@ -171,7 +171,15 @@ def _tp_kv(cfg, mesh) -> bool:
 
 def _is_kv(path: str) -> bool:
     return path.split("/")[-1] in ("k", "v", "cross_k", "cross_v") and path.split("/")[0] in (
-        "layers", "dense_layers")
+        "layers", "dense_layers", "shared")
+
+
+def _tp_mamba(cfg, mesh) -> bool:
+    """Whether the serve step computes mamba2 on the rank's heads: the "tp"
+    layout with "model" dividing them (`partitioning.tp_leaves`); the x
+    conv's tail and the SSM state are then the rank's."""
+    m = axis_size(mesh, "model") if "model" in mesh.axis_names else 1
+    return m > 1 and tp_enabled(cfg) and cfg.ssm is not None and mamba_heads(cfg) % m == 0
 
 
 def serve_cache_spec_tree(cache_shapes: Tree, cfg, mesh) -> Tree:
@@ -217,13 +225,16 @@ def compute_cache_spec_tree(cache_shapes: Tree, cfg, mesh, split: bool) -> Tree:
     batch dim over the dp axes when the batch splits over them (`split`),
     the heads over "model" where the model computes on its heads
     (`_tp_kv`: a k/v or cross k/v leaf's kv heads, rwkv6's wkv state's),
-    every other dim whole (rwkv6's token-shift states, a token wide, are
-    gathered). Where attention runs over the cache's sequence blocks
+    mamba2's x-conv tail's channels and SSM state's heads where it computes
+    on its heads (`_tp_mamba`), every other dim whole (rwkv6's token-shift
+    states and mamba2's BC-conv tail, a few tokens wide, are gathered).
+    Where attention runs over the cache's sequence blocks
     (`_seq_kv`) a k/v, cross k/v or MLA latent leaf keeps
     `_cache_leaf_spec`'s placement, its sequence on its blocks (over
     "model", or the dp axes and "model" where the batch does not split),
     so decode moves no byte of it."""
     dp, tp, seq = dp_axes(mesh), _tp_kv(cfg, mesh), _seq_kv(cfg, mesh)
+    mamba = _tp_mamba(cfg, mesh)
 
     def f(path, leaf, blocks):
         nd = _ndim(leaf)
@@ -238,6 +249,10 @@ def compute_cache_spec_tree(cache_shapes: Tree, cfg, mesh, split: bool) -> Tree:
             out[nd - 2] = "model"
         elif tp and path.split("/")[-1] == "wkv":   # (L, B, H, K, V)
             out[2] = "model"
+        elif mamba and path.split("/")[-1] == "ssm":   # (L, B, H, P, N)
+            out[2] = "model"
+        elif mamba and path.split("/")[-1] == "conv_x":   # (L, B, d_conv - 1, d_inner)
+            out[3] = "model"
         return P(*out)
 
     return map_leaves(f, cache_shapes)

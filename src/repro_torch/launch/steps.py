@@ -87,8 +87,9 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
     experts, rwkv6's time and channel mixes and the logits tensor-parallel
     over "model" under the "tp" profile; the cache as each rank computes
     on it (`compute_cache_spec_tree`: its rows, and where the model
-    computes on its heads the k/v's, cross k/v's or rwkv6 wkv state's
-    heads; every other dim whole), which moves no byte when it comes in
+    computes on its heads the k/v's, cross k/v's, rwkv6 wkv state's or
+    mamba2 SSM state's heads and x-conv tail's channels; every other dim
+    whole), which moves no byte when it comes in
     `serve_cache_spec_tree`'s placement; the new cache placed back as it
     came (prefill: by `serve_cache_spec_tree`, the cross k/v as long as
     the batch's encoder frames). Under the "fsdp_sp" profile, and under
@@ -98,9 +99,10 @@ def _dp_serve(step: Callable, bundle: ModelBundle, mesh, pad_to: int = 0) -> Cal
     block from what it computed, decode combines the ranks' attention over
     theirs ("tp": every query head over each block, the rank's heads kept
     after). Under "fsdp_sp" each rank of the model group computes its
-    block of the prompt's sequence, and the sampler's last-position logits
-    come from the last block's rank, broadcast to its group
-    (`transformer.prefill`).
+    block of the prompt's sequence (the encoder-decoder its blocks of the
+    frames too), and the sampler's last-position logits, and rwkv6's and
+    mamba2's states, come from the last block's rank, broadcast to its
+    group (`transformer.prefill`, `encdec.prefill`).
 
     Returns step(params, cache, batch) -> (logits of this rank's rows over
     the whole vocabulary (a vocab-sharded head's gathered over "model"),

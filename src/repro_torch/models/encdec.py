@@ -25,7 +25,14 @@ k/v hold the rank's kv heads, or where the heads do not divide "model"
 they stay on their sequence blocks (`partitioning.cache_block`, with
 `cross=True` for the cross k/v): decode's self-attention combines the
 ranks' parts over the self cache's blocks and its cross-attention over the
-cross k/v's, every position valid (`layers.decode_blocks`).
+cross k/v's, every position valid (`layers.decode_blocks`). Under the
+"fsdp_sp" layout (`seq_blocks`) each rank computes its block of the
+frames and of the tokens, at absolute positions, on whole weights: the
+encoder's attention over k and v gathered from every block, non-causal;
+the decoder's self-attention causal with the block's query offset, its
+cross-attention over k and v gathered from the encoder's blocks; the
+decode cache's self and cross k/v on their sequence blocks, as the serve
+step holds them.
 """
 from __future__ import annotations
 
@@ -39,9 +46,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (MLP, Attention, Device, Embedding, Norm, shapes_only,
-                                            _final_logits, _groups, _param, _write_kv,
-                                            dense_init, embed, init_attention, init_mlp,
-                                            init_norms_and_biases, remat_call)
+                                            _final_logits, _groups, _last_block, _param,
+                                            _write_kv, dense_init, embed, init_attention,
+                                            init_mlp, init_norms_and_biases, remat_call)
 from repro_torch.utils import distributed
 
 Params = Mapping[str, torch.Tensor]
@@ -133,22 +140,40 @@ def _dec_blocks(groups: dict, cfg: ModelConfig) -> list[dict]:
                    ("ln1", "ln2", "ln3", "self_attn", "cross_attn", "mlp"))
 
 
-def encode(groups: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The encoder over the frame embeddings: (B, S_enc, d_model)."""
+def seq_blocks(cfg: ModelConfig, dec_len: int, enc_len: int
+               ) -> tuple[Optional[tuple[int, int]], Optional[tuple[int, int]]]:
+    """This rank's blocks (lo, hi) of the decoder's tokens and the
+    encoder's frames under the sequence-parallel layout
+    (`partitioning.sp_range`), or (None, None): both whole where either is
+    (cross-attention runs a decoder block over the encoder's blocks)."""
+    dec, enc = partitioning.sp_range(cfg, dec_len), partitioning.sp_range(cfg, enc_len)
+    return (dec, enc) if dec is not None and enc is not None else (None, None)
+
+
+def encode(groups: dict, frames: torch.Tensor, cfg: ModelConfig,
+           blk: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    """The encoder over the frame embeddings: (B, S_enc, d_model), or over
+    frames [lo, hi) of them (`blk`, a sequence block: non-causal attention
+    over k and v gathered from every block) their rows of it."""
     dt = L.cdtype(cfg)
-    x = frames.to(dt) @ partitioning.gather_leaf(groups[""]["frontend_adapter"]).to(dt)
-    x = x + _sinusoid_at(0, cfg.d_model, x.shape[1], x.device).to(dt)[None]
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    lo, hi = (0, frames.shape[1]) if blk is None else blk
+    with partitioning.in_block(blk):
+        adapter = partitioning.gather_part(
+            "", {"frontend_adapter": groups[""]["frontend_adapter"]}, cfg)["frontend_adapter"]
+        x = frames[:, lo:hi].to(dt) @ adapter.to(dt)
+        x = x + _sinusoid_at(lo, cfg.d_model, hi - lo, x.device).to(dt)[None]
+        positions = torch.arange(lo, hi, device=x.device)[None, :]
 
-    def body(blk, xc, positions_):
-        h, _ = L.attention_apply(blk["attn"], L.norm_apply(blk["ln1"], xc, cfg), cfg,
-                                 positions=positions_, causal=False, use_rope=False)
-        xc = xc + h
-        return xc + L.mlp_apply(blk["mlp"], L.norm_apply(blk["ln2"], xc, cfg), cfg)
+        def body(blk_, xc, positions_):
+            h, _ = L.attention_apply(blk_["attn"], L.norm_apply(blk_["ln1"], xc, cfg), cfg,
+                                     positions=positions_, causal=False, use_rope=False)
+            xc = xc + h
+            return xc + L.mlp_apply(blk_["mlp"], L.norm_apply(blk_["ln2"], xc, cfg), cfg)
 
-    for blk in _enc_blocks(groups, cfg):
-        x = remat_call(body, cfg, blk, x, positions)
-    return L.norm_apply(partitioning.gather_part("enc_norm", groups["enc_norm"], cfg), x, cfg)
+        for part in _enc_blocks(groups, cfg):
+            x = remat_call(body, cfg, part, x, positions)
+        return L.norm_apply(partitioning.gather_part("enc_norm", groups["enc_norm"], cfg), x,
+                            cfg)
 
 
 def _dec_block_apply(blk: dict, x: torch.Tensor, enc_out: Optional[torch.Tensor],
@@ -201,22 +226,33 @@ def _embed(groups: dict, tokens: torch.Tensor, pos: int, cfg: ModelConfig) -> to
     return x + _sinusoid_at(pos, cfg.d_model, x.shape[1], x.device).to(x.dtype)[None]
 
 
+def _decoder_inputs(groups: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                    blk: Optional[tuple[int, int]]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The embedded tokens of the block [lo, hi) (all for None) and their
+    absolute positions."""
+    lo, hi = (0, tokens.shape[1]) if blk is None else blk
+    x = _embed(groups, tokens[:, lo:hi], lo, cfg)
+    return x, torch.arange(lo, hi, device=x.device)[None, :]
+
+
 def forward(model: Union[EncDec, Params], batch: dict, cfg: ModelConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward of the model or of a mapping of its parameter names
-    to tensors: (logits over the decoder positions, aux 0)."""
+    to tensors: (logits over the decoder positions, aux 0); under the
+    sequence-parallel layout (`seq_blocks`) this rank's block's."""
     groups = _groups(model)
-    enc_out = encode(groups, batch["enc_frames"], cfg)
-    x = _embed(groups, batch["tokens"], 0, cfg)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    dec_blk, enc_blk = seq_blocks(cfg, batch["tokens"].shape[1], batch["enc_frames"].shape[1])
+    enc_out = encode(groups, batch["enc_frames"], cfg, enc_blk)
+    with partitioning.in_block(dec_blk):
+        x, positions = _decoder_inputs(groups, batch["tokens"], cfg, dec_blk)
 
-    def body(blk, xc, enc, positions_):
-        return _dec_block_apply(blk, xc, enc, cfg, positions=positions_)[0]
+        def body(blk, xc, enc, positions_):
+            return _dec_block_apply(blk, xc, enc, cfg, positions=positions_)[0]
 
-    for blk in _dec_blocks(groups, cfg):
-        x = remat_call(body, cfg, blk, x, enc_out, positions)
-    return (_final_logits(groups, x, cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+        for blk in _dec_blocks(groups, cfg):
+            x = remat_call(body, cfg, blk, x, enc_out, positions)
+        return (_final_logits(groups, x, cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, pos: int = 0,
@@ -241,30 +277,35 @@ def prefill(model: EncDec, batch: dict, cfg: ModelConfig, pad_to: int = 0
     """Encode the frames and run the prompt: (last-position logits, cache)
     with the self k/v padded to max(S, pad_to), the cross k/v as the
     encoder gave them, and pos = S (under `partitioning.cache_sequence`,
-    this rank's blocks of both)."""
+    this rank's blocks of both). Under the sequence-parallel layout each
+    rank runs its blocks of the frames and the prompt, and the
+    last-position logits come from the last block's rank."""
     groups = _groups(model)
-    enc_out = encode(groups, batch["enc_frames"], cfg)
-    x = _embed(groups, batch["tokens"], 0, cfg)
-    B, S, _ = x.shape
-    max_len = max(S, pad_to)
-    positions = torch.arange(S, device=x.device)[None, :]
-    cdt = L.cdtype(cfg)
-    hd = cfg.resolved_head_dim
-    shape = (cfg.n_layers, B, max_len // partitioning.cache_ways(),
-             partitioning.local_kv_heads(cfg), hd)
-    self_kv = {name: torch.zeros(shape, dtype=cdt, device=x.device) for name in ("k", "v")}
-    cross = {"cross_k": [], "cross_v": []}
-    cblk = partitioning.cache_block(enc_out.shape[1] // partitioning.cache_ways(cross=True),
-                                    cross=True)
-    for i, blk in enumerate(_dec_blocks(groups, cfg)):
-        x, kv, cross_kv = _dec_block_apply(partitioning.gather_block(blk, cfg), x, enc_out, cfg,
-                                           positions=positions)
-        _write_kv(self_kv["k"][i], kv["k"])
-        _write_kv(self_kv["v"][i], kv["v"])
-        for name, t in (("cross_k", cross_kv["k"]), ("cross_v", cross_kv["v"])):
-            cross[name].append(t if cblk is None else t[:, cblk[0]:cblk[1]])
-    layers = {**self_kv, **{name: torch.stack(ts) for name, ts in cross.items()}}
-    return _final_logits(groups, x[:, -1:], cfg), {"layers": layers, "pos": S}
+    S = batch["tokens"].shape[1]
+    dec_blk, enc_blk = seq_blocks(cfg, S, batch["enc_frames"].shape[1])
+    enc_out = encode(groups, batch["enc_frames"], cfg, enc_blk)
+    with partitioning.in_block(dec_blk):
+        x, positions = _decoder_inputs(groups, batch["tokens"], cfg, dec_blk)
+        B = x.shape[0]
+        max_len = max(S, pad_to)
+        cdt = L.cdtype(cfg)
+        hd = cfg.resolved_head_dim
+        shape = (cfg.n_layers, B, max_len // partitioning.cache_ways(),
+                 partitioning.local_kv_heads(cfg), hd)
+        self_kv = {name: torch.zeros(shape, dtype=cdt, device=x.device) for name in ("k", "v")}
+        cross = {"cross_k": [], "cross_v": []}
+        n_enc = batch["enc_frames"].shape[1]
+        cblk = partitioning.cache_block(n_enc // partitioning.cache_ways(cross=True), cross=True)
+        for i, blk in enumerate(_dec_blocks(groups, cfg)):
+            x, kv, cross_kv = _dec_block_apply(partitioning.gather_block(blk, cfg), x, enc_out,
+                                               cfg, positions=positions)
+            _write_kv(self_kv["k"][i], kv["k"])
+            _write_kv(self_kv["v"][i], kv["v"])
+            for name, t in (("cross_k", cross_kv["k"]), ("cross_v", cross_kv["v"])):
+                cross[name].append(t if cblk is None else t[:, cblk[0]:cblk[1]])
+        layers = {**self_kv, **{name: torch.stack(ts) for name, ts in cross.items()}}
+        logits = _final_logits(groups, _last_block(x[:, -1:], dec_blk), cfg)
+        return logits, {"layers": layers, "pos": S}
 
 
 def decode(model: EncDec, cache: dict, batch: dict, cfg: ModelConfig

@@ -18,9 +18,10 @@ Conventions:
   input and g (`distributed.reduce_from_model`) on a row-parallel product's
   output. Under the sequence-parallel layout (`partitioning.seq_block`) x
   is this rank's block of the sequence: attention gathers k and v whole
-  over the model group (`distributed.gather_seq`) and runs the flash
-  kernel with the block's query offset; decode over a cache split on the
-  sequence (`partitioning.cache_block`) combines the ranks' parts
+  over the model group (`distributed.gather_seq`; cross-attention's from
+  the encoder output's blocks) and runs the flash kernel with the block's
+  query offset; decode over a cache split on the sequence
+  (`partitioning.cache_block`) combines the ranks' parts
   (`distributed.lse_combine`). With whole weights (no layout, or a module
   this port does not shard) the code is the meshless one. `stream_cast` is
   left out: it is the identity for the configs the port supports
@@ -309,11 +310,13 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     Under a sequence block (`partitioning.seq_block`, x this rank's block
     [lo, hi) and `positions` absolute) self-attention gathers k and v whole
-    over the model group and the flash kernel runs with q_offset lo; the
-    returned k/v are the whole sequence's. Decode over a cache split on the
-    sequence (`partitioning.cache_block` of its length; under "fsdp_sp", or
-    under "tp" where the kv heads do not carry the cache) is
-    `_decode_sharded`.
+    over the model group and the flash kernel runs with q_offset lo;
+    cross-attention likewise, `x_cross` this rank's block of the encoder
+    output (the encoder-decoder computes the two sequences on blocks
+    together, `encdec`); the returned k/v are the whole sequence's. Decode
+    over a cache split on the sequence (`partitioning.cache_block` of its
+    length; under "fsdp_sp", or under "tp" where the kv heads do not carry
+    the cache) is `_decode_sharded`.
     """
     from repro_torch.kernels import ops  # local import to avoid cycles
 
@@ -334,7 +337,7 @@ def attention_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    blk = partitioning.seq_block() if x_cross is None else None
+    blk = partitioning.seq_block()
     cblk = partitioning.cache_block(cache["k"].shape[1]) if cache is not None else None
     if cblk is not None and x_cross is None:
         out, new_cache = _decode_sharded(q, k, v, cache, cblk, cfg, lay)

@@ -8,7 +8,9 @@ projected into the latent space, so the cache stays (S, kv_lora + rope_dim)
 per token, and attention runs against the compressed cache in plain torch, as
 the reference's does (it has no kernel there). Under the tensor-parallel
 layout MLA computes on the rank's heads, and decode over a latent cache
-split on its sequence combines the ranks' parts (`mla_apply`).
+split on its sequence combines the ranks' parts (`mla_apply`); under the
+sequence-parallel one each rank's queries attend over k and v gathered
+from every block.
 """
 from __future__ import annotations
 
@@ -96,7 +98,14 @@ def mla_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     over the model group. Decode over a cache split on its sequence
     (`partitioning.cache_block`) gathers the queries of every head, attends
     over the rank's block (`absorbed_decode_part`), combines the parts over
-    the group and keeps the rank's heads for `w_uv` and `wo`."""
+    the group and keeps the rank's heads for `w_uv` and `wo`.
+
+    Under a sequence block (`partitioning.seq_block`: x this rank's block,
+    `positions` absolute, whole weights) k and v are decompressed from the
+    block's latents and gathered whole over the model group
+    (`distributed.gather_seq`), and the flash kernel runs with the block's
+    query offset; the returned latents are the block's (the prefill
+    gathers them for its cache)."""
     from repro_torch.kernels import ops  # local import to avoid cycles
 
     m = cfg.mla
@@ -116,7 +125,11 @@ def mla_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         # contiguous (B, S, H, nope + rope): the kernel's TMA path reads it
         k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], m.qk_rope_head_dim)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        out = ops.flash_attention(q, k, v, causal=True)
+        blk = partitioning.seq_block()
+        if blk is not None:   # this rank's block: k and v of every block
+            here = partitioning.current_layout()
+            k, v = distributed.gather_seq(k, here), distributed.gather_seq(v, here)
+        out = ops.flash_attention(q, k, v, causal=True, q_offset=0 if blk is None else blk[0])
         new_cache = {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
     else:
         pos, s_new = cache["pos"], x.shape[1]

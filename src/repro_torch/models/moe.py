@@ -38,6 +38,14 @@ experts' part, and one all-reduce over the group sums them
 (each rank combines its own share), and its leaf's gradient is summed over
 the group; the aux, which every rank computes whole, is differentiated at
 1/m on each rank (`distributed.scale_grad`), so that the sum counts it once.
+
+Under a sequence block (`partitioning.seq_block`: the "fsdp_sp" profile,
+whole weights) a row is still one group: the capacity is the whole row's,
+each route's rank adds the row's earlier blocks' counts for its expert
+(`make_routing`: the model group's (B, E) counts gathered), so the blocks
+drop exactly the routes the whole row drops, and each rank's buffer holds
+its block's routes; the aux's counts and mean probabilities are summed
+over the blocks before their product (`aux_loss`).
 """
 from __future__ import annotations
 
@@ -91,21 +99,67 @@ def assign(gate_idx: torch.Tensor, n_experts: int, capacity: int) -> torch.Tenso
     return before.gather(-1, flat[..., None]).reshape(g, s, k)
 
 
+def expert_counts(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each group's routes to each expert: gate_idx (G,S,K) -> (G,E)."""
+    return F.one_hot(gate_idx.reshape(gate_idx.shape[0], -1), n_experts).sum(dim=1)
+
+
+def block_ranks(gate_idx: torch.Tensor, ranks: torch.Tensor, counts: torch.Tensor, r: int
+                ) -> torch.Tensor:
+    """The ranks in the whole row's buffers of sequence block r's routes:
+    their ranks among the block's own (`assign` of the block) plus the
+    routes to the same expert in the row's earlier blocks, counts (m,G,E)
+    every block's `expert_counts`."""
+    g = gate_idx.shape[0]
+    before = counts[:r].sum(dim=0)
+    return ranks + before.gather(-1, gate_idx.reshape(g, -1)).reshape(ranks.shape)
+
+
 class Routing(NamedTuple):
     """The router's decisions for x (B, S, D), computed whole (every model
     rank computes them from the same bits): probs (B,S,E) in fp32, the
-    renormalised top-k gates and their experts (B,S,K), and each route's
-    rank in its expert's buffer (B,S,K), a rank >= the capacity dropping it."""
+    renormalised top-k gates and their experts (B,S,K), each route's rank
+    in its expert's buffer of its row (B,S,K), a rank >= the capacity
+    dropping it, and its slot in this rank's buffer (B,S,K): the rank
+    itself, or under a sequence block its rank among the block's routes."""
     probs: torch.Tensor
     gate_vals: torch.Tensor
     gate_idx: torch.Tensor
     rank: torch.Tensor
+    slot: torch.Tensor
+
+
+def _row_len(s: int) -> int:
+    """The tokens of a group (a batch row) of which x holds s: the row's
+    whole length under a sequence block (`partitioning.seq_block`, each of
+    the m ranks holding s), else s."""
+    lay = partitioning.current_layout() if partitioning.seq_block() is not None else None
+    return s if lay is None else s * lay.m
+
+
+def routing_of(probs: torch.Tensor, gate_vals: torch.Tensor, gate_idx: torch.Tensor,
+               cfg: ModelConfig, row_len: int, counts: Optional[torch.Tensor] = None,
+               r: int = 0) -> Routing:
+    """The Routing of `route`'s decisions for rows of `row_len` tokens (the
+    capacity's): each route's slot its rank among x's own routes, and its
+    rank that, or for sequence block r of the rows (counts (m,G,E), every
+    block's `expert_counts`) `block_ranks`'."""
+    slot = assign(gate_idx, cfg.moe.n_experts, _capacity(cfg.moe, row_len))
+    rank = slot if counts is None else block_ranks(gate_idx, slot, counts, r)
+    return Routing(probs, gate_vals, gate_idx, rank, slot)
 
 
 def make_routing(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The routing of x. Under a sequence block each route's rank counts
+    the routes of its row's earlier blocks to the same expert (the model
+    group's per-row, per-expert counts gathered): the whole row's
+    `assign`, so the capacity drops the same routes."""
     probs, gate_vals, gate_idx = route(router, x, cfg)
-    capacity = _capacity(cfg.moe, x.shape[1])
-    return Routing(probs, gate_vals, gate_idx, assign(gate_idx, cfg.moe.n_experts, capacity))
+    if partitioning.seq_block() is None:
+        return routing_of(probs, gate_vals, gate_idx, cfg, x.shape[1])
+    lay = partitioning.current_layout()
+    counts = distributed.gather_stack(expert_counts(gate_idx, cfg.moe.n_experts), lay)
+    return routing_of(probs, gate_vals, gate_idx, cfg, x.shape[1] * lay.m, counts, lay.r)
 
 
 def moe_share(params: Params, x: torch.Tensor, cfg: ModelConfig, r: int = 0, m: int = 1,
@@ -118,34 +172,37 @@ def moe_share(params: Params, x: torch.Tensor, cfg: ModelConfig, r: int = 0, m: 
     f/m columns of we_in / we_gate and the rows of we_out) every route's
     partial row. The activation is elementwise, so the shares of r = 0 ..
     m-1 sum to the whole (m 1). `routing` is `make_routing`'s, computed
-    here when None."""
+    here when None. Under a sequence block the capacity C is the whole
+    row's and the buffer holds the block's routes, min(C, S) a row and
+    expert."""
     moe = cfg.moe
     dt = cdtype(cfg)
     B, S, D = x.shape
     E, K = moe.n_experts, moe.top_k
-    C = _capacity(moe, S)
+    C = _capacity(moe, _row_len(S))
+    width = min(C, S)
     rt = make_routing(params["router"], x, cfg) if routing is None else routing
     e_loc = params["we_in"].shape[0]
     if e_loc != E and e_loc * m != E:
         raise ValueError(f"{e_loc} experts a rank do not split {E} over {m} ranks")
     lo = r * e_loc if e_loc != E else 0
     mine = (rt.rank < C) & (rt.gate_idx >= lo) & (rt.gate_idx < lo + e_loc)
-    # slot of each of this share's routes in the (E_loc, B, C) buffer; the
-    # others name the zero row after it
+    # slot of each of this share's routes in the (E_loc, B, width) buffer;
+    # the others name the zero row after it
     group = torch.arange(B, device=x.device)[:, None, None]
-    slot = torch.where(mine, ((rt.gate_idx - lo) * B + group) * C + rt.rank,
-                       e_loc * B * C).reshape(-1)
+    slot = torch.where(mine, ((rt.gate_idx - lo) * B + group) * width + rt.slot,
+                       e_loc * B * width).reshape(-1)
     token = torch.arange(B * S, device=x.device).repeat_interleave(K)
     # the token each slot holds (the zero row B*S where it holds none)
-    holder = torch.full((e_loc * B * C + 1,), B * S, dtype=torch.long, device=x.device)
+    holder = torch.full((e_loc * B * width + 1,), B * S, dtype=torch.long, device=x.device)
     holder[slot] = token
     x_rows = torch.cat([x.reshape(B * S, D).to(dt), x.new_zeros((1, D), dtype=dt)])
-    xe = x_rows[holder[:-1]].reshape(e_loc, B * C, D)
+    xe = x_rows[holder[:-1]].reshape(e_loc, B * width, D)
 
     h = _act(torch.bmm(xe, params["we_in"].to(dt)), cfg.act)
     h = h * torch.bmm(xe, params["we_gate"].to(dt))
-    ye = torch.bmm(h, params["we_out"].to(dt))                    # (E_loc, B*C, D)
-    ye_rows = torch.cat([ye.reshape(e_loc * B * C, D), ye.new_zeros((1, D))])
+    ye = torch.bmm(h, params["we_out"].to(dt))                    # (E_loc, B*width, D)
+    ye_rows = torch.cat([ye.reshape(e_loc * B * width, D), ye.new_zeros((1, D))])
     picked = ye_rows[slot].reshape(B * S, K, D)
     return (picked * rt.gate_vals.to(dt).reshape(B * S, K, 1)).sum(dim=1).reshape(B, S, D)
 
@@ -184,23 +241,43 @@ def expert_share(params: Params, cfg: ModelConfig, r: int, m: int) -> dict:
     return out
 
 
+def aux_shares(rt: Routing, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """rt's shares (E,) of the aux's route fractions and mean probabilities
+    over n tokens: its routes to each expert and its probabilities' sums,
+    each over n."""
+    E = rt.probs.shape[-1]
+    device = rt.gate_idx.device
+    counts = torch.zeros(E, dtype=torch.float32, device=device).index_add_(
+        0, rt.gate_idx.reshape(-1),
+        torch.ones(rt.gate_idx.numel(), dtype=torch.float32, device=device))
+    return counts / n, rt.probs.sum(dim=(0, 1)) / n
+
+
+def aux_value(assign_frac: torch.Tensor, mean_prob: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """The aux of the route fractions f_e and mean probabilities p_e:
+    weight * E * sum_e f_e / K * p_e."""
+    moe = cfg.moe
+    return moe.router_aux_weight * moe.n_experts * (assign_frac / moe.top_k * mean_prob).sum()
+
+
 def aux_loss(rt: Routing, cfg: ModelConfig) -> torch.Tensor:
     """The load-balancing aux (Switch-style) E * sum_e f_e * p_e, its means
     over the whole batch inside a sharded step's loss (see the module
-    docstring)."""
-    moe = cfg.moe
-    E, K = moe.n_experts, moe.top_k
+    docstring): under a sequence block over every block of the rows, each
+    block's shares (`aux_shares`) summed over the model group
+    (`distributed.group_sum`: each rank differentiates its own)."""
     B, S = rt.gate_idx.shape[:2]
-    device = rt.gate_idx.device
-    counts = torch.zeros(E, dtype=torch.float32, device=device).index_add_(
-        0, rt.gate_idx.reshape(-1), torch.ones(B * S * K, dtype=torch.float32, device=device))
-    assign_frac = counts / (B * S)
-    mean_prob = rt.probs.mean(dim=(0, 1))
+    assign_frac, mean_prob = aux_shares(rt, B * _row_len(S))
+    if partitioning.seq_block() is not None:
+        group = partitioning.current_layout().model_group
+        assign_frac = distributed.group_sum(assign_frac, group)
+        mean_prob = distributed.group_sum(mean_prob, group)
     dp = distributed.current_dp()
     if dp is not None:
         assign_frac = distributed.dp_mean(assign_frac, *dp, differentiable=False)
         mean_prob = distributed.dp_mean(mean_prob, *dp)
-    return moe.router_aux_weight * E * (assign_frac / K * mean_prob).sum()
+    return aux_value(assign_frac, mean_prob, cfg)
 
 
 def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig

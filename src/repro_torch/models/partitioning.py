@@ -26,8 +26,7 @@ identity and the model code runs as it always did. Under a layout:
     (`tp_leaves`); any other leaf is gathered whole;
   * tensor parallelism covers the "tp" profile's attention (heads that
     divide "model", MLA's too), MLP (d_ff), MoE experts and embedding /
-    logits (vocab) of the dense, vlm, moe, ssm (rwkv6) and audio
-    (encoder-decoder) families (`tp_enabled`). The experts keep their
+    logits (vocab) of every family (`tp_enabled`). The experts keep their
     "model" shard as the rules place it: EP's E/m experts where m divides
     E (deepseek's 64 on 16), else expert TP's f/m columns of we_in /
     we_gate and rows of we_out (mixtral's 8 on 16); the router is
@@ -38,35 +37,49 @@ identity and the model code runs as it always did. Under a layout:
     (`wv_c`'s partial sums reduce-scattered over d_model, the receptance
     gate on the rank's columns of `wr_c`, the gated product all-gathered;
     `models.rwkv`); f sits on each mix's normed input, so every leaf of
-    the mix that is not split is partial. The encoder-decoder's
-    self-attention, cross-attention and MLP take the layout of `attn` and
-    `mlp` (`tp_leaves`). Under "tp" a decode cache whose kv heads do not
-    carry it ("model" not dividing both head counts, or MLA's latents)
-    stays on its sequence blocks, as the serve step holds it
-    (`cache_sequence`): each rank attends with every query head over its
-    block and the parts are combined (`distributed.lse_combine`); the
-    encoder-decoder's cross k/v likewise over theirs;
-  * sequence parallelism covers the "fsdp_sp" profile of the dense and
-    hybrid families (`sp_enabled`: qwen2.5-32b, zamba2-1.2b): rank r of the
-    model group computes its block [r S/m, (r+1) S/m) of the sequence on
-    whole weights, each leaf gathered with its gradient summed over the
-    model group (every rank used all of it on its own tokens) and averaged
-    over dp. `sequence_block` installs the block for the model code
-    (`seq_block`): attention gathers k and v whole and runs the flash kernel
-    with the block's query offset, the SSD scan chains its state across the
-    blocks, the conv takes the previous block's rows; the loss is the
-    global mean of the blocks' labels (`registry`). A sequence that "model"
-    does not divide (or, for mamba2, whose blocks are shorter than the
-    conv's halo) stays whole on every rank, as `constrain` leaves it, and
-    its gradients are averaged over dp only (every rank computed all). The
-    serve step splits a cache's sequence as it is stored
-    (`cache_sequence`, `cache_block`), so decode combines the ranks'
-    attention over their parts (`distributed.lse_combine`);
-  * mamba2 outside "fsdp_sp" (and so the hybrid family under "tp")
-    computes on whole weights, and so do attention whose heads "model"
-    does not divide and rwkv6's time mix whose heads it does not divide
-    (as `constrain` drops the axis there; the reference splits rwkv6's
-    channels even then, the port keeps its heads whole).
+    the mix that is not split is partial. mamba2 runs on the rank's heads
+    where they divide "model" (`wz`, `wx`, `wdt` and the x conv on its
+    d_inner columns and heads, the SSD scan on its heads, the gated norm's
+    sum of squares summed over the group, `w_out` row-parallel; B and C
+    whole on every rank, `wbc` and the BC conv partial leaves;
+    `models.ssm`), and the hybrid family's shared block takes the layout
+    of `attn` and `mlp`, its LoRA added once after their sums. The
+    encoder-decoder's self-attention, cross-attention and MLP take the
+    layout of `attn` and `mlp` (`tp_leaves`). Under "tp" a decode cache
+    whose kv heads do not carry it ("model" not dividing both head
+    counts, or MLA's latents) stays on its sequence blocks, as the serve
+    step holds it (`cache_sequence`): each rank attends with every query
+    head over its block and the parts are combined
+    (`distributed.lse_combine`); the encoder-decoder's cross k/v likewise
+    over theirs;
+  * sequence parallelism covers the "fsdp_sp" profile of every family
+    (`sp_enabled`): rank r of the model group computes its block [r S/m,
+    (r+1) S/m) of the sequence on whole weights, each leaf gathered with
+    its gradient summed over the model group (every rank used all of it
+    on its own tokens) and averaged over dp. `sequence_block` installs the
+    block for the model code (`seq_block`): attention gathers k and v
+    whole and runs the flash kernel with the block's query offset (MLA's
+    k and v from the block's latents; cross-attention's from the
+    encoder's blocks), the SSD and wkv scans chain their states across
+    the blocks, the conv and the token shifts take the previous block's
+    rows, a MoE layer dispatches each row's routes at their places in the
+    whole row's buffers and takes the whole batch's aux, a vlm block its
+    rows of the image-prefixed sequence, the encoder-decoder's encoder
+    its block of the frames; the loss is the global mean of the blocks'
+    labels (`registry`). A sequence that "model" does not divide (or
+    whose blocks are shorter than the causal conv's halo of d_conv - 1
+    rows for mamba2, of 1 for rwkv6's token shift) stays whole on every
+    rank, as `constrain` leaves it, and its gradients are averaged over dp
+    only (every rank computed all). The serve step splits a cache's
+    sequence as it is stored (`cache_sequence`, `cache_block`), so decode
+    combines the ranks' attention over their parts
+    (`distributed.lse_combine`);
+  * attention whose heads "model" does not divide, and mamba2 whose heads
+    it does not divide, compute on whole weights (as `constrain` drops the
+    axis there). The one branch of the reference left out: where "model"
+    does not divide rwkv6's heads the reference still splits the time
+    mix's channels, the port keeps its heads whole (the same values;
+    rwkv6-7b's 64 heads divide 16, so no shipped config reaches it).
 """
 from __future__ import annotations
 
@@ -270,8 +283,8 @@ def current_layout() -> Optional[Layout]:
 
 def tp_layout(cfg) -> Optional[Layout]:
     """The layout when `cfg`'s modules compute tensor-parallel here: a
-    layout with a "model" axis of more than one rank, the "tp" profile and
-    a family whose attention, MLP and vocabulary this port shards."""
+    layout with a "model" axis of more than one rank and the "tp"
+    profile."""
     lay = current_layout()
     if lay is None or lay.m == 1 or not tp_enabled(cfg):
         return None
@@ -279,14 +292,15 @@ def tp_layout(cfg) -> Optional[Layout]:
 
 
 def tp_enabled(cfg) -> bool:
-    return cfg.sharding_profile == "tp" and cfg.family in ("dense", "vlm", "moe", "ssm", "audio")
+    """Whether `cfg` computes tensor-parallel on a model axis: the "tp"
+    profile, every family."""
+    return cfg.sharding_profile == "tp"
 
 
 def sp_enabled(cfg) -> bool:
     """Whether `cfg` computes sequence-parallel on a model axis: the
-    "fsdp_sp" profile of the dense (no MLA) and hybrid families."""
-    return (cfg.sharding_profile == "fsdp_sp" and cfg.family in ("dense", "hybrid")
-            and cfg.mla is None)
+    "fsdp_sp" profile, every family (MLA too)."""
+    return cfg.sharding_profile == "fsdp_sp"
 
 
 def sp_layout(cfg) -> Optional[Layout]:
@@ -301,14 +315,31 @@ def sp_layout(cfg) -> Optional[Layout]:
 def sp_range(cfg, seq_len: int) -> Optional[tuple[int, int]]:
     """This rank's block [lo, hi) of a sequence of `seq_len` under the
     sequence-parallel layout, None where it is computed whole: no such
-    layout, "model" not dividing it, or (mamba2) blocks shorter than the
-    causal conv's halo of d_conv - 1 rows."""
+    layout, "model" not dividing it, or blocks shorter than the rows a
+    block reads from the previous one (`halo_rows`)."""
     lay = sp_layout(cfg)
-    if lay is None or not lay.splits(seq_len):
-        return None
-    if cfg.ssm is not None and seq_len // lay.m < cfg.ssm.d_conv - 1:
+    if lay is None or not lay.splits(seq_len) or seq_len // lay.m < halo_rows(cfg):
         return None
     return lay.shard_range(seq_len)
+
+
+def halo_rows(cfg) -> int:
+    """The rows a sequence block reads from the end of the previous one:
+    mamba2's causal conv d_conv - 1, rwkv6's token shift 1, else 0."""
+    if cfg.ssm is not None:
+        return cfg.ssm.d_conv - 1
+    return 1 if cfg.rwkv is not None else 0
+
+
+@contextlib.contextmanager
+def in_block(blk: Optional[tuple[int, int]]):
+    """Within: the model code computes the block (lo, hi) of its sequence,
+    which `seq_block` reads; None changes nothing."""
+    if blk is None:
+        yield None
+        return
+    with layout_context(dataclasses.replace(current_layout(), seq=blk)):
+        yield blk
 
 
 @contextlib.contextmanager
@@ -316,11 +347,7 @@ def sequence_block(cfg, seq_len: int):
     """Within: the model code computes this rank's block of a sequence of
     `seq_len` (`sp_range`), which `seq_block` reads; yields the block (lo,
     hi), or None (and changes nothing) where the sequence is whole."""
-    blk = sp_range(cfg, seq_len)
-    if blk is None:
-        yield None
-        return
-    with layout_context(dataclasses.replace(current_layout(), seq=blk)):
+    with in_block(sp_range(cfg, seq_len)) as blk:
         yield blk
 
 
@@ -380,6 +407,14 @@ _EXPERTS = ("we_in", "we_gate", "we_out")
 _ATTN_PARTS = ("attn", "self_attn", "cross_attn")
 # rwkv6's leaves split over "model" under "tp" (`tp_leaves`, `rwkv_share`)
 _RWKV_SPLIT = {"tm": ("wr", "wk", "wv", "wg", "wo"), "cm": ("wk_c", "wv_c", "wr_c")}
+# mamba2's leaves split over "model" under "tp" (its d_inner columns and
+# heads; `w_out`'s rows); the mixer's others are used whole or sliced
+_MAMBA_SPLIT = ("wz", "wx", "wdt", "conv_x_w", "conv_x_b", "w_out")
+
+
+def mamba_heads(cfg) -> int:
+    """mamba2's heads: expand * d_model / head_dim."""
+    return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
 
 
 def rwkv_share(part: str, leaves: dict, r: int, m: int) -> dict:
@@ -390,6 +425,19 @@ def rwkv_share(part: str, leaves: dict, r: int, m: int) -> dict:
     whole. The collective-free pieces of `models.rwkv` run on it."""
     out = dict(leaves)
     for name in _RWKV_SPLIT[part]:
+        dim = -2 if name in _OUT_PROJ else -1
+        w = leaves[name].shape[dim] // m
+        out[name] = leaves[name].narrow(dim, r * w, w)
+    return out
+
+
+def mamba_share(leaves: dict, r: int, m: int) -> dict:
+    """mamba2's mixer leaves as rank r of m holds them under the "tp"
+    layout, cut from whole ones (views): `wz`, `wx`, `wdt` and the x conv
+    on the heads' columns, `w_out`'s rows, the others whole.
+    `ssm.mamba2_gated` and `ssm.mamba2_out` run on it."""
+    out = dict(leaves)
+    for name in _MAMBA_SPLIT:
         dim = -2 if name in _OUT_PROJ else -1
         w = leaves[name].shape[dim] // m
         out[name] = leaves[name].narrow(dim, r * w, w)
@@ -410,8 +458,15 @@ def tp_leaves(part: str, leaves: dict, cfg, lay: Layout) -> tuple[tuple, tuple]:
     split mix partial: f sits on the mix's normed input, so each rank's
     gradient of a mix coefficient, the decay's LoRA, w0, the bonus and the
     norm scale is its own heads' or columns' part), the embedding and the
-    output head on the vocabulary. The encoder-decoder's self- and
-    cross-attention take `attn`'s layout."""
+    output head on the vocabulary; mamba2's mixer on its heads where they
+    divide "model" (`wz`, `wx`, `wdt`, the x conv and `w_out` sharded;
+    `wbc` and the BC conv used whole, the per-head and per-channel vectors
+    sliced: all partial). The encoder-decoder's self- and cross-attention
+    take `attn`'s layout."""
+    if part == "mixer" and "wz" in leaves:
+        if not lay.splits(mamba_heads(cfg)):
+            return (), ()
+        return _MAMBA_SPLIT, tuple(n for n in leaves if n not in _MAMBA_SPLIT)
     if part in _RWKV_SPLIT and _RWKV_SPLIT[part][0] in leaves:
         if part == "tm" and not lay.splits(cfg.d_model // cfg.rwkv.head_dim):
             return (), ()

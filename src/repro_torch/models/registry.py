@@ -40,10 +40,11 @@ class ModelBundle:
         `repro_torch.core`'s loss callback). Takes the model or a mapping of
         its parameter names to tensors; draws nothing from `gen`."""
         logits, aux_loss = self.forward(model_or_params, batch)
-        blk = partitioning.sp_range(self.cfg, batch["labels"].shape[1])
+        labels = batch["labels"]
+        blk = (encdec.seq_blocks(self.cfg, labels.shape[1], batch["enc_frames"].shape[1])[0]
+               if self.cfg.family == "audio" else partitioning.sp_range(self.cfg, labels.shape[1]))
         if blk is not None:     # this rank's block of the sequence
-            ce = sequence_parallel_cross_entropy(logits, batch["labels"][:, blk[0]:blk[1]],
-                                                 self.cfg)
+            ce = sequence_parallel_cross_entropy(logits, labels[:, blk[0]:blk[1]], self.cfg)
         elif logits.shape[-1] == self.cfg.vocab_size:
             ce = cross_entropy(logits, batch["labels"])
         else:   # this rank's vocabulary shard

@@ -29,6 +29,17 @@ are partial, their gradients summed over the model group. `timemix_part`
 and the channel mix's `channel_value` / `channel_gate` are the collective-
 free pieces of rank r of m, which `partitioning.rwkv_share` cuts from
 whole weights.
+
+Under a sequence block (`partitioning.seq_block`: the "fsdp_sp" profile,
+x this rank's block of the sequence, whole weights) both mixes' token
+shift takes the previous block's last row (`distributed.halo_from_prev`),
+and the wkv scan runs twice through the kernel, as `models.ssm` chains the
+SSD scan: from a zero state, for the block's final state and its per-key
+log decay (the block's sum of log w); then, after the model group has
+exchanged them (`distributed.gather_stack`) and each rank has folded its
+entering state (`distributed.state_prefix`), from that state. The
+gradient reaches the earlier blocks through the kernel's d_init_state and
+d_state.
 """
 from __future__ import annotations
 
@@ -72,6 +83,22 @@ def _token_shift(x: torch.Tensor, shift_state: Optional[torch.Tensor]
     return prev, x[:, -1:]
 
 
+def _block_layout(cache: Optional[dict]):
+    """The layout of a sequence block (`partitioning.seq_block`, outside
+    decode), else None."""
+    if cache is None and partitioning.seq_block() is not None:
+        return partitioning.current_layout()
+    return None
+
+
+def _shift_state(x: torch.Tensor, cache: Optional[dict], lay) -> Optional[torch.Tensor]:
+    """The row before x: the previous block's last (`distributed.
+    halo_from_prev`) in a sequence block, the cache's shift in decode."""
+    if lay is not None:
+        return distributed.halo_from_prev(x, 1, lay)
+    return None if cache is None else cache["shift"]
+
+
 def _lerp(x: torch.Tensor, prev: torch.Tensor, mix: torch.Tensor) -> torch.Tensor:
     return x + (prev - x) * mix.to(x.dtype)
 
@@ -90,7 +117,8 @@ def timemix_part(params: Params, x: torch.Tensor, cfg: ModelConfig, r: int = 0, 
     lo, hi = r * h * hs, (r + 1) * h * hs
     dt = cdtype(cfg)
     B, S, _ = x.shape
-    prev, new_shift = _token_shift(x, None if cache is None else cache["shift"])
+    lay = _block_layout(cache)
+    prev, new_shift = _token_shift(x, _shift_state(x, cache, lay))
 
     xr = _lerp(x, prev, params["mix_r"])
     xk = _lerp(x, prev, params["mix_k"])
@@ -107,10 +135,18 @@ def timemix_part(params: Params, x: torch.Tensor, cfg: ModelConfig, r: int = 0, 
     dd = torch.tanh(xw.float() @ params["decay_a"].float()) @ params["decay_b"][:, lo:hi].float()
     logw = -torch.exp(params["w0"][lo:hi].float() + dd)            # (B,S,D/m)
 
-    y, new_wkv = ops.rwkv6_mix(rr.reshape(B, S, h, hs), kk.reshape(B, S, h, hs),
-                               vv.reshape(B, S, h, hs), logw.reshape(B, S, h, hs),
-                               params["bonus_u"][r * h:(r + 1) * h].float(),
-                               init_state=None if cache is None else cache["wkv"])
+    heads = (rr.reshape(B, S, h, hs), kk.reshape(B, S, h, hs), vv.reshape(B, S, h, hs),
+             logw.reshape(B, S, h, hs), params["bonus_u"][r * h:(r + 1) * h].float())
+    if lay is not None:
+        # the state chained over the blocks: this block's zero-start final
+        # state and per-key log decay, every block's gathered, this rank's
+        # prefix
+        _, s_r = ops.rwkv6_mix(*heads)
+        st = distributed.state_prefix(distributed.gather_stack(s_r, lay),
+                                      distributed.gather_stack(heads[3].sum(dim=1), lay), lay.r)
+        y, new_wkv = ops.rwkv6_mix(*heads, init_state=st)
+    else:
+        y, new_wkv = ops.rwkv6_mix(*heads, init_state=None if cache is None else cache["wkv"])
     # per-head groupnorm, then the silu(g) gate
     yf = y.float()
     mu = yf.mean(dim=-1, keepdim=True)
@@ -161,7 +197,7 @@ def channelmix_apply(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if params["wk_c"].shape[-1] != cfg.d_ff:
         lay = partitioning.tp_layout(cfg)
         x = distributed.copy_to_model(x, lay.model_group)
-    prev, new_shift = _token_shift(x, None if cache is None else cache["shift"])
+    prev, new_shift = _token_shift(x, _shift_state(x, cache, _block_layout(cache)))
     xk = _lerp(x, prev, params["mix_k"])
     xr = _lerp(x, prev, params["mix_r"])
     v = channel_value(params, xk, cfg)

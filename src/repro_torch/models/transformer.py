@@ -52,15 +52,23 @@ expert TP's d_ff) with its shared experts on their d_ff; the logits come
 back vocab-sharded; the cache holds this rank's kv heads where both head
 counts divide "model", else it stays on its sequence blocks
 (`partitioning.cache_block`), as under "fsdp_sp"; an rwkv6 cache holds
-the rank's heads of the wkv state and the whole token shifts.
+the rank's heads of the wkv state and the whole token shifts. zamba2's
+mamba blocks run on the rank's heads (`ssm`), its shared block's
+attention and MLP tensor-parallel with the invocation's LoRA added once,
+after their sums (each rank computes it whole on the block's normed
+input, outside f); its cache holds the rank's x-conv channels and SSM
+heads.
 Under the "fsdp_sp" profile's layout (`partitioning.sequence_block`) each
 rank computes its block of the sequence, at absolute positions, on whole
-weights: `forward` returns the block's logits; `prefill` writes the part of
-the gathered k/v that falls in its block of the cache
+weights (a vlm's block of the image-prefixed sequence, its projector run
+on the image positions the block holds): `forward` returns the block's
+logits; `prefill` writes the part of the gathered k/v (MLA's latents, the
+blocks' gathered) that falls in its block of the cache
 (`partitioning.cache_block`; the whole cache without one) and takes the
-last position's hidden state and the mamba layers' final states from the
-last block (`distributed.broadcast_from`); `decode` runs the new token
-whole on each rank, attention over the rank's part of the cache.
+last position's hidden state and the mamba and rwkv6 layers' final
+states from the last block (`distributed.broadcast_from`); `decode` runs
+the new token whole on each rank, attention over the rank's part of the
+cache.
 """
 from __future__ import annotations
 
@@ -565,18 +573,25 @@ def embed(groups: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.embed_tokens(table, tokens, cfg)
 
 
-def _embed_inputs(groups: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Token embeddings; a vlm model's first n_image_tokens positions are
-    overwritten with the projected patch embeddings."""
-    x = embed(groups, batch["tokens"], cfg)
+def _embed_inputs(groups: dict, batch: dict, cfg: ModelConfig,
+                  blk: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    """Token embeddings of positions [lo, hi) (`blk`; all of them for None);
+    a vlm model's first n_image_tokens positions are overwritten with the
+    projected patch embeddings, of which a block projects those it holds
+    (the projector's gradient then partial, `partitioning.gather_part`)."""
+    lo, hi = (0, batch["tokens"].shape[1]) if blk is None else blk
+    x = embed(groups, batch["tokens"][:, lo:hi], cfg)
     if cfg.vision is not None and "patch_embeds" in batch:
         dt = L.cdtype(cfg)
-        patches = batch["patch_embeds"].to(dt) @ partitioning.gather_leaf(
-            groups[""]["projector"]).to(dt)
-        n = patches.shape[1]
-        if n > x.shape[1]:
-            raise ValueError(f"{n} image tokens do not fit a sequence of {x.shape[1]}")
-        x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
+        n = batch["patch_embeds"].shape[1]
+        if n > batch["tokens"].shape[1]:
+            raise ValueError(f"{n} image tokens do not fit a sequence of "
+                             f"{batch['tokens'].shape[1]}")
+        # every rank gathers the projector (and reduces its gradient), its
+        # block holding image positions or none
+        proj = partitioning.gather_part("", {"projector": groups[""]["projector"]}, cfg)
+        patches = batch["patch_embeds"][:, lo:max(lo, min(n, hi))].to(dt) @ proj["projector"].to(dt)
+        x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
     return x
 
 
@@ -598,15 +613,9 @@ def _block_inputs(groups: dict, batch: dict, cfg: ModelConfig, blk: Optional[tup
     """The embedded inputs and their positions: of this rank's sequence
     block [lo, hi) (`partitioning.sequence_block`), else of the whole
     sequence."""
-    if blk is None:
-        x = _embed_inputs(groups, batch, cfg)
-        return x, torch.arange(x.shape[1], device=x.device)[None, :]
-    lo, hi = blk
-    if cfg.vision is None:
-        x = embed(groups, batch["tokens"][:, lo:hi], cfg)
-    else:
-        x = _embed_inputs(groups, batch, cfg)[:, lo:hi]
-    return x, torch.arange(lo, hi, device=x.device)[None, :]
+    x = _embed_inputs(groups, batch, cfg, blk)
+    lo = 0 if blk is None else blk[0]
+    return x, torch.arange(lo, lo + x.shape[1], device=x.device)[None, :]
 
 
 def forward(model: Union[Transformer, Params], batch: dict, cfg: ModelConfig
@@ -724,39 +733,62 @@ def _write_kv(t: torch.Tensor, kv: torch.Tensor) -> None:
     L.write_positions(t, kv, 0, 0 if cblk is None else cblk[0])
 
 
-def _prefill(groups: dict, batch: dict, cfg: ModelConfig, pad_to: int,
-             blk: Optional[tuple[int, int]]) -> tuple[torch.Tensor, dict]:
-    S = batch["tokens"].shape[1]
+def _whole_seq(t: torch.Tensor, blk: Optional[tuple[int, int]], cfg: ModelConfig
+               ) -> torch.Tensor:
+    """A prefill's cache entry of the whole prompt: `t` itself (attention
+    returns k/v gathered whole), or under a sequence block MLA's latents of
+    the block, gathered over the model group."""
+    if blk is None or cfg.mla is None:
+        return t
+    return distributed.gather_seq(t, partitioning.current_layout())
+
+
+def _prefill_states(groups: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                    seq_len: int, length: int, blk: Optional[tuple[int, int]]
+                    ) -> tuple[torch.Tensor, dict]:
+    """The prefill of rwkv6 and zamba2: each layer's states (the token
+    shifts and the wkv state, or the conv tails and the SSM state, as the
+    layout computes them: a "tp" rank's heads and columns) from the block
+    that holds the prompt's end, zamba2's shared k/v into a cache of
+    `length` positions."""
+    states, shared = [], None
     if cfg.family == "ssm":
-        x = _embed_inputs(groups, batch, cfg)
-        states = []
         for i in range(cfg.n_layers):
             x, c = rwkv_block_apply(_gathered(groups, i, cfg), x, cfg)
             states.append(c)
-        cache = {"layers": {name: torch.stack([c[name] for c in states])
-                            for name in states[0]}, "pos": S}
-        return _final_logits(groups, x[:, -1:], cfg), cache
-    x, positions = _block_inputs(groups, batch, cfg, blk)
-    B = x.shape[0]
-    length = max(S, pad_to)
-    cache = init_cache(cfg, B, length // partitioning.cache_ways(), pos=S, device=x.device)
-    if cfg.family == "hybrid":
-        layers, shared = cache["layers"], cache["shared"]
+    else:
+        shared = _kv_cache(cfg, _n_shared_invocations(cfg), x.shape[0],
+                           length // partitioning.cache_ways(), x.device)
         for g in range(_n_shared_invocations(cfg)):
-            x, kv = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g, cfg), x, cfg,
-                                       positions=positions)
+            x, kv = shared_block_apply(_gathered_shared(groups, cfg), _lora(groups, g, cfg), x,
+                                       cfg, positions=positions)
             _write_kv(shared["k"][g], kv["k"])
             _write_kv(shared["v"][g], kv["v"])
             for i in _segment(g, cfg):
                 x, c = mamba_block_apply(_gathered(groups, i, cfg), x, cfg)
-                for name, t in layers.items():
-                    t[i].copy_(_last_block(c[name], blk))
-        return _final_logits(groups, _last_block(x[:, -1:], blk), cfg), cache
+                states.append(c)
+    cache = {"layers": {name: _last_block(torch.stack([c[name] for c in states]), blk)
+                        for name in states[0]}}
+    if shared is not None:
+        cache["shared"] = shared
+    cache["pos"] = seq_len
+    return _final_logits(groups, _last_block(x[:, -1:], blk), cfg), cache
+
+
+def _prefill(groups: dict, batch: dict, cfg: ModelConfig, pad_to: int,
+             blk: Optional[tuple[int, int]]) -> tuple[torch.Tensor, dict]:
+    S = batch["tokens"].shape[1]
+    x, positions = _block_inputs(groups, batch, cfg, blk)
+    if cfg.family in ("ssm", "hybrid"):
+        return _prefill_states(groups, x, positions, cfg, S, max(S, pad_to), blk)
+    B = x.shape[0]
+    length = max(S, pad_to)
+    cache = init_cache(cfg, B, length // partitioning.cache_ways(), pos=S, device=x.device)
     for bp, bcfg, i, dense in _layers(groups, cfg):
         x, _, kv = attn_block_apply(partitioning.gather_block(bp, bcfg), x, bcfg,
                                     positions=positions)
         for name, t in _layer_cache(cache, i, dense).items():
-            _write_kv(t, kv[name])
+            _write_kv(t, _whole_seq(kv[name], blk, cfg))
     logits = _final_logits(groups, _last_block(x[:, -1:], blk), cfg)
     return logits, cache
 

@@ -38,8 +38,9 @@ port places tensors as `DTensor`s on a `DeviceMesh` and moves them itself).
   group computes its block of the sequence) moves activations between the
   blocks: `gather_seq` (k and v whole for attention; its gradient
   reduce-scattered back to the blocks), `halo_from_prev` (the previous
-  block's last rows, for the causal conv), `gather_stack` with the pure
-  `state_prefix` (the SSD scan's entering state, chained over the blocks),
+  block's last rows, for the causal conv and the token shift),
+  `gather_stack` with the pure `state_prefix` (the SSD and wkv scans'
+  entering states, chained over the blocks),
   `lse_combine` (decode attention over a cache split on the sequence;
   `lse_merge` its pure form over parts on one device),
   `group_sum` (a loss's shares summed), `global_mean` (a mean over
@@ -432,6 +433,14 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromModel.apply(x, group)
 
 
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the model group of each rank's partial x, which every
+    rank then uses on its own part (mamba2's gated norm's sum of squares
+    over the rank's columns): forward and backward both sum over the
+    group (g, then f)."""
+    return copy_to_model(reduce_from_model(x, group), group)
+
+
 def gather_from_model(x: torch.Tensor, group, m: int, r: int) -> torch.Tensor:
     """The whole of a tensor split on its last dim over the model group."""
     return _GatherFromModel.apply(x, group, m, r)
@@ -538,16 +547,19 @@ def halo_from_prev(x: torch.Tensor, w: int, lay) -> torch.Tensor:
 
 def state_prefix(s_all: torch.Tensor, l_all: torch.Tensor, r: int) -> torch.Tensor:
     """The state entering block r of a linear scan cut into blocks, from
-    every block's zero-start final state s_all (m, B, H, P, N) and its log
-    decay l_all (m, B, H) (a_h times the block's sum of dt): the exclusive
-    prefix h_r = sum_{j<r} exp(sum_{j<i<r} l_i) s_j, folded in s_all's dtype
-    as h <- exp(l_j) h + s_j over j < r. A pure function of the gathered
-    lists, the same on every rank for the same r. The result depends on
-    every entry (`_Tie`: a zero gradient for those from block r on, rank
-    0's all), so each rank's gather runs its backward."""
+    every block's zero-start final state s_all (m, B, H, ...) and its log
+    decay l_all: (m, B, H) for the SSD scan (a_h times the block's sum of
+    dt, broadcast over the state's P and N), (m, B, H, K) for the wkv
+    scan (the block's sum of the per-key log decay, broadcast over V).
+    The exclusive prefix h_r = sum_{j<r} exp(sum_{j<i<r} l_i) s_j, folded
+    in s_all's dtype as h <- exp(l_j) h + s_j over j < r. A pure function
+    of the gathered lists, the same on every rank for the same r. The
+    result depends on every entry (`_Tie`: a zero gradient for those from
+    block r on, rank 0's all), so each rank's gather runs its backward."""
     h = torch.zeros_like(s_all[0])
+    pad = (1,) * (s_all.dim() - l_all.dim())
     for j in range(r):
-        h = h * torch.exp(l_all[j])[..., None, None] + s_all[j]
+        h = h * torch.exp(l_all[j]).reshape(*l_all.shape[1:], *pad) + s_all[j]
     return _Tie.apply(h, s_all, l_all)
 
 

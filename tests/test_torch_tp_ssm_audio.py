@@ -5,7 +5,7 @@ heads; whisper's attention, cross-attention, MLP and vocabulary over
 "model", and its decode over the cache's sequence blocks where its heads
 do not divide "model", on a world of CPU ranks (gloo).
 
-For each arch, and the two at once: one reference subprocess (8 fake CPU
+For each arch, one after the other: one reference subprocess (8 fake CPU
 devices, `tests/conftest.py:run_py`) runs the reference's 4 sharded
 AsyncSAM SGD-momentum steps (of reduced rwkv6-7b on `make_sized_mesh(8,
 2)`, `(8, 4)` and `(8, 8)`: 2, 1 and, not dividing, 4 of its 4 heads a
@@ -20,8 +20,6 @@ cross-attention decode over blocks merged against the whole, and a
 fake-tensor trace on a (data 2, model 2) fake mesh whose rwkv6 flops are
 counted by hand.
 """
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 import pytest
 import torch
@@ -252,7 +250,8 @@ _tp_leaves = partitioning.tp_leaves
 def runs(tmp_path_factory):
     """The reference's runs (by npz name) and the port's 8 ranks' results
     (each rank's runs of both archs): each arch's reference subprocess and
-    then its spawn of ranks, the two archs at once."""
+    then its spawn of ranks, one arch after the other (never two spawns of
+    8 ranks at once beside the suite's other workers)."""
     tmps = {arch: tmp_path_factory.mktemp(f"tp_{arch}") for arch in ARCHS}
 
     def one(arch):
@@ -265,8 +264,7 @@ def runs(tmp_path_factory):
         refs = {n: dict(np.load(tmp / f"{n}.npz")) for n in names}
         return refs, spawn_ranks(tmp, consts + _RANKS, timeout=3 * RANK_TIMEOUT_S)
 
-    with ThreadPoolExecutor(len(ARCHS)) as pool:
-        done = list(pool.map(one, ARCHS))
+    done = [one(arch) for arch in ARCHS]
     refs = {k: v for r, _ in done for k, v in r.items()}
     ranks = [{k: v for _, per_rank in done for k, v in per_rank[i].items()}
              for i in range(len(done[0][1]))]
