@@ -139,8 +139,9 @@
    a NaN and an inf in p, held to their plain versions exactly and timed;
 10. remote phase (Form B across processes, the slice's main path): olmo-1b
    at full width and 3 layers (6, the deepest whose snapshot fits the
-   wire's 2 GiB frame, before the examples phase came in) trains 4
-   lockstep SGD-momentum AsyncSAM steps through `RemoteExecutor(serve_ascent=True, job_compress="int8")`, its ascent server
+   wire's 2 GiB frame, before the examples phase came in) trains 3
+   lockstep SGD-momentum AsyncSAM steps (a snapshot and two int8 deltas)
+   through `RemoteExecutor(serve_ascent=True, job_compress="int8")`, its ascent server
    spawned on the card in a second process; every delta kernel call is held
    to its plain version on its inputs, the launches are counted (0 just
    before, read just after), and the client's shadow must equal a numpy
@@ -148,7 +149,7 @@
    exchange's bytes and times and both processes' peak memory; it runs with
    the lane ladder on and a tracker: lane_state 0 every step, the
    ascent_rpc spans counted;
-11. hetero phase: olmo-1b at full width and 2 layers, the descent on the
+11. hetero phase: olmo-1b at full width and 2 layers, 8 x 256 tokens, the descent on the
    card and the ascent lane a CPU thread, calibrated (t_fast, t_slow, b'/b),
    then steps until a fresh ascent gradient was harvested: the tau schedule,
    stale reuses and SGD fallbacks; the lanes' spans go to a Chrome trace
@@ -164,8 +165,9 @@
    rwkv6-7b's scan shape (8 x 1024 tokens, 64 heads of 64, bf16 r/k/v, fp32
    decay and bonus), a one-token decode step from a state, a ragged S and
    K = V = 16 in fp32, held against the plain scan and autograd of it (the
-   forward run twice: the same bits), and timed beside their bound; the
-   forward kernel's registers and spills (ptxas) printed;
+   forward run twice: the same bits), and timed beside their bound (the
+   plain versions on one warm call by CUDA events); the forward kernel's
+   registers and spills (ptxas) printed;
 12b. rwkv local heads phase: both wkv kernels on a rank's 4 of the 64
    heads (rwkv6's "tp" layout on a 16-way "model" axis) at the scan shape,
    their inputs strided views of the whole call's, held against the plain
@@ -179,7 +181,22 @@
    mix's gradient of x), bf16 at x 2 x 1024, held against the whole layer
    within BF16_TOL of its max, forward and the gradients of x and of every
    leaf; a rank's forward timed beside the whole layer's;
-12d. rwkv chain phase: the wkv kernels over a 2 x 4096 sequence of
+12d. rwkv column share phase: one full-width rwkv6-7b time mix in 128
+   column shares of 32 (the "tp" layout where "model" divides d_model but
+   not the 64 heads: half a head a share; `models.rwkv`'s
+   `timemix_project` / `timemix_scan` / `timemix_gate_out` on
+   `partitioning.rwkv_share`): each share's r, k, v and g on its columns,
+   r, k and v joined whole, the decay and the wkv kernels on every head on
+   each share, its columns of y through its rows of wo, the outputs and
+   x's gradients summed in fp32 and rounded once (as the branch's f and g
+   sum them), bf16 at x 2 x 1024: forward and the gradients of x and of
+   every leaf within BF16_TOL of the whole `timemix_apply`'s max; the same
+   two sums added in bf16 rank after rank, as 128 ranks' ring all-reduces
+   of bf16 would add them, reported beside (why the branch sums in fp32); a
+   control, each share's gradient of the joined r, k and v its own alone
+   (not summed over the shares), must miss; a share's forward timed
+   beside the whole time mix's;
+12e. rwkv chain phase: the wkv kernels over a 2 x 4096 sequence of
    rwkv6-7b's 64 heads of 64 (bf16 r/k/v, slow decays) cut into 16 blocks
    as the "fsdp_sp" profile's ranks run them: each block from no state,
    the per-key prefix of the entering states (`state_prefix`), each block
@@ -193,7 +210,9 @@
    tokens through `launch.serve.serve`: 32 forward launches per prefill and
    per decoded token (counts 0 just before, read just after); prefill +
    stepwise decode against one forward, the kernel path against the plain
-   path in bf16 and fp32 compute; then its profile as in 5;
+   path in bf16 and fp32 compute; then its profile as in 5, the prefill's
+   kernels also read from the profiler's event tree and the two readings
+   printed side by side;
 14. rwkv train phase: rwkv6-7b at full width and 2 layers trains 6 AsyncSAM
    AdamW steps through `FusedExecutor` + `Engine` (remat "full": 8 forward
    and 4 backward scan launches a step, each epilogue kernel once); one step
@@ -286,7 +305,10 @@
    logits held by their bulk to twice bf16's own error (a 6-bit-weights
    control must exceed it); then the whole training path against the
    plain path as the scan families' (`scan_whole_check`);
-22. prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+22. prints the wall seconds of every phase as it ends ("X phase: Ns") and,
+   at the end, of every phase and of the parts of it that take time
+   (`spans {...}`: nested phases joined by "/"), the whole run's, the
+   kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero before the last line. Without CUDA, or
 without the repository beside it, it exits nonzero and prints no result.
@@ -321,6 +343,45 @@ def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# wall seconds of each span of the run, by its path of nested span names;
+# printed in full before the kernels' line
+SPANS: dict = {}
+_SPAN_PATH: list = []
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """Adds the wall time of the block to SPANS under the enclosing spans'
+    names and `name`, joined by "/"."""
+    _SPAN_PATH.append(name)
+    key, t0 = "/".join(_SPAN_PATH), time.perf_counter()
+    try:
+        yield
+    finally:
+        SPANS[key] = SPANS.get(key, 0.0) + time.perf_counter() - t0
+        _SPAN_PATH.pop()
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """A span that prints its seconds on exit as "`name` phase: Xs"."""
+    key = "/".join(_SPAN_PATH + [name])
+    with span(name):
+        yield
+    print(f"{name} phase: {SPANS[key]:.2f}s")
+
+
+def spanned(fn):
+    """`fn` with each call's time added to its own span, named after it."""
+    import functools
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with span(fn.__name__):
+            return fn(*args, **kwargs)
+    return call
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -330,6 +391,7 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+@spanned
 def time_ms(fn, min_total_ms: float = 200.0) -> float:
     """Mean device time of fn() over enough back-to-back calls (CUDA events)."""
     import torch
@@ -347,6 +409,22 @@ def time_ms(fn, min_total_ms: float = 200.0) -> float:
         if total >= min_total_ms or reps >= 256:
             return total / reps
         reps = min(256, max(reps * 2, int(reps * min_total_ms / max(total, 1e-3)) + 1))
+
+
+@spanned
+def result_and_ms(fn):
+    """(fn(), the device time of one more call by CUDA events, the first
+    having warmed it, as `time_ms(fn, 0.0)` times it): a plain version whose
+    result is the oracle too (they take 0.1-3 s a call: `time_ms`'s own
+    warm-up call would cost the run seconds)."""
+    import torch
+    out = fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +715,6 @@ def expert_share_phase() -> list:
 
     rows = []
     for arch, m in SHARE_CASES:
-        t0 = time.perf_counter()
         cfg = get_config(arch)
         gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -693,8 +770,7 @@ def expert_share_phase() -> list:
                    **{f"{k}_err_over_max": v[2] for k, v in checks.items()},
                    atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"],
                    ok=all(v[0] for v in checks.values()) and float(aux) == float(aux_s),
-                   whole_ms=whole_ms, share_ms=share_ms, whole_over_share=whole_ms / share_ms,
-                   phase_s=time.perf_counter() - t0)
+                   whole_ms=whole_ms, share_ms=share_ms, whole_over_share=whole_ms / share_ms)
         print("moe shares " + json.dumps(row))
         rows.append(row)
         del params, x32, w, y, total, share0, leaves
@@ -731,7 +807,6 @@ def moe_block_phase() -> dict:
     from repro_torch.models import moe as MOE
     from repro_torch.models import partitioning
 
-    t0 = time.perf_counter()
     cfg = get_config("mixtral-8x7b")
     E, C = cfg.moe.n_experts, MOE._capacity(cfg.moe, MOE_BLOCK_TOKENS[1])
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -787,8 +862,7 @@ def moe_block_phase() -> dict:
                ranks_moved=moved, dropped=dropped, dropped_whole=dropped_w, y_max_abs_err=err,
                y_err_over_max=rel, aux=float(aux), aux_whole=float(aux_w), aux_rel_err=aux_rel,
                atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], ok=ok, whole_ms=whole_ms,
-               block_ms=block_ms, whole_over_block=whole_ms / block_ms,
-               phase_s=time.perf_counter() - t0)
+               block_ms=block_ms, whole_over_block=whole_ms / block_ms)
     print("moe blocks " + json.dumps(row))
     del params, xb, blocks, y_w, y, routes, rt_w
     torch.cuda.empty_cache()
@@ -980,6 +1054,7 @@ def max_rel(got, expect) -> tuple[float, float]:
 SQ_NORM_ROUNDS = 7
 
 
+@spanned
 def sq_norm_rounds(x) -> dict:
     """sq_norm(x) and torch.linalg.vector_norm(x) ** 2 timed in turns: each
     one's median, min and max over SQ_NORM_ROUNDS rounds (ms), and which is
@@ -1271,8 +1346,9 @@ def serve_phase():
         finally:
             ops.set_default_impl(None)
 
-    plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
-    kernel32 = prefill_logits(cfg32, "kernel")
+    with span("plain prefills"):
+        plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
+        kernel32 = prefill_logits(cfg32, "kernel")
     err_plain = rel_err(res.logits[:, 0], plain16)
     err_fp32 = rel_err(kernel32, plain32)
     print(f"serve check (max|d|/max|ref|): prefill+decode vs forward {err_fwd:.3e}; "
@@ -1290,12 +1366,16 @@ def serve_phase():
                 max_new=max_new), model
 
 
+@spanned
 def profile_phase(model, cfg=None, n_req: int = 8, prompt_len: int = 1024,
-                  tag: str = "") -> dict:
+                  tag: str = "", compare_readings: bool = False) -> dict:
     """Device time by kernel over one full-width prefill of n_req x
     prompt_len prompts (with the launcher's stub inputs) and 4 decode steps
-    (torch.profiler), and the device's busy share of the wall time. Returns
-    {phase: {wall_us, busy_us, busy}}."""
+    (torch.profiler), and the device's busy share of the wall time. With
+    `compare_readings` the prefill's kernels are also read from the event
+    tree (`event_tree_by_kernel`) and the two readings printed side by
+    side, with the names only one of them has. Returns {phase: {wall_us,
+    busy_us, busy}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import TokenTask
@@ -1331,6 +1411,20 @@ def profile_phase(model, cfg=None, n_req: int = 8, prompt_len: int = 1024,
               f"{len(by_name)} kernel names")
         for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
             print(f"  {t:12.1f} us {100 * t / busy_us:5.1f}%  {n:5d}x  {name[:110]}")
+        if compare_readings and phase == "prefill":
+            tree = event_tree_by_kernel(prof)
+
+            def only(a, b):
+                return {k[:110]: a[k] for k in sorted(set(a) - set(b))}
+
+            calls = (sum(n for _, n in by_name.values()), sum(n for _, n in tree.values()))
+            print(f"profile {tag + ' ' if tag else ''}prefill, raw events against the event "
+                  f"tree: {len(by_name)} / {len(tree)} kernel names, {busy_us:.1f} / "
+                  f"{sum(t for t, _ in tree.values()):.1f} us, {calls[0]} / {calls[1]} "
+                  f"kernels; in the raw events only "
+                  f"{json.dumps(only(by_name, tree))}; in the tree only "
+                  f"{json.dumps(only(tree, by_name))}; every name, by device time: "
+                  f"{json.dumps([k[:80] for k in sorted(by_name, key=lambda k: -by_name[k][0])])}")
     return out
 
 
@@ -1439,6 +1533,7 @@ def train_executor(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
     return cfg, bundle, ex
 
 
+@spanned
 def build_trainer(steps: int, lr: float = LR, family: str = "adamw", cfg=None,
                   method: str = "async_sam", batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
                   mkw=None, loss_wrap=None, mesh=None):
@@ -1543,7 +1638,6 @@ def guard_phase(unguarded_step_s: float) -> dict:
     from repro_torch.obs import MemorySink, Tracker
     from repro_torch.optim.base import AdamState
 
-    t_phase = time.perf_counter()
     poison = {"on": False}
 
     def wrap(loss_fn):
@@ -1602,7 +1696,7 @@ def guard_phase(unguarded_step_s: float) -> dict:
                logged_steps=len(sink.steps), median_clean_guarded_step_s=guarded_s,
                median_unguarded_step_s=unguarded_step_s,
                guard_cost_s=guarded_s - unguarded_step_s, peak_gib=peak_gib,
-               loss_last=rows[-1]["loss"], phase_s=time.perf_counter() - t_phase)
+               loss_last=rows[-1]["loss"])
     print(f"guard: median clean guarded step {guarded_s:.4f} s (steps "
           f"{[r['step'] for r in rows if r['step'] >= 2 and r['step'] not in GUARD_SKIPS]}) "
           f"against the train phase's unguarded {unguarded_step_s:.4f} s: "
@@ -1645,15 +1739,13 @@ def coarsen_(t, bits: int) -> None:
     iv.copy_((iv + (1 << (drop - 1))) & ~((1 << drop) - 1))
 
 
-def check_run(lr: float, plain=False, w0=None, to_host: bool = False, coarse_bits: int = 0,
-              **trainer):
+def check_run(lr: float, plain=False, w0=None, coarse_bits: int = 0, **trainer):
     """3 steps from the seed-0 init (olmo-1b unless `trainer` names another
     cfg, batch or seq for `build_trainer`; with `coarse_bits` its weights
     rounded to that many significant bits), every entry point forced to its
     plain version when `plain`. Returns (metrics history, final {w, mu, nu}
-    buffers, the init w on the host); the buffers stay on the card unless
-    `to_host` (the plain path's temporaries need the room), and the
-    executor's workspace is freed."""
+    buffers, the init w), all on the card; the executor's workspace is
+    freed."""
     import gc
     import torch
     from repro_torch.engine import Engine
@@ -1662,20 +1754,20 @@ def check_run(lr: float, plain=False, w0=None, to_host: bool = False, coarse_bit
     if plain:
         ops.set_default_impl("plain")
     try:
-        cfg, ex, state, pipe = build_trainer(TRAIN_CHECK_STEPS, lr, **trainer)
-        if w0 is None:
-            w0 = state.params.buffers[0].cpu()
-        if coarse_bits:
-            for buf in state.params.buffers:
-                coarsen_(buf, coarse_bits)
-        report = Engine(ex, pipe).fit(state, TRAIN_CHECK_STEPS)
+        with span("build"):
+            cfg, ex, state, pipe = build_trainer(TRAIN_CHECK_STEPS, lr, **trainer)
+            if w0 is None:
+                w0 = state.params.buffers[0].clone()
+            if coarse_bits:
+                for buf in state.params.buffers:
+                    coarsen_(buf, coarse_bits)
+        with span("fit"):
+            report = Engine(ex, pipe).fit(state, TRAIN_CHECK_STEPS)
     finally:
         ops.set_default_impl(None)
     final = report.final_state
     adam = final.opt_state[0]                          # (AdamState, (), lr state)
     bufs = {"w": final.params.buffers[0], "mu": adam.mu.buffers[0], "nu": adam.nu.buffers[0]}
-    if to_host:
-        bufs = {k: v.cpu() for k, v in bufs.items()}
     hist = report.metrics_history
     del ex, state, pipe, report, final, adam
     gc.collect()
@@ -1683,11 +1775,12 @@ def check_run(lr: float, plain=False, w0=None, to_host: bool = False, coarse_bit
     return hist, bufs, w0
 
 
+@spanned
 def compare_runs(ref_run, run, w0) -> dict:
     """Per-step scalar differences and, per buffer, max|d|, max|change| and
     their ratio, and the BULK_QUANTILES of |d| and of |change| (over every
     BULK_STRIDE-th element); change is the reference run's own move from the
-    init, for mu and nu their value. Buffers may lie on the host."""
+    init, for mu and nu their value."""
     import torch
     (hist_r, bufs_r), (hist, bufs) = ref_run, run
     out = {"steps": []}
@@ -1701,9 +1794,9 @@ def compare_runs(ref_run, run, w0) -> dict:
         err = change = 0.0
         d_s, c_s = [], []
         for i in range(0, bufs[name].numel(), COMPARE_CHUNK):
-            r = bufs_r[name][i:i + COMPARE_CHUNK].cuda()
-            d = (bufs[name][i:i + COMPARE_CHUNK].cuda() - r).abs()
-            c = (r - w0[i:i + COMPARE_CHUNK].cuda()).abs() if name == "w" else r.abs()
+            r = bufs_r[name][i:i + COMPARE_CHUNK]
+            d = (bufs[name][i:i + COMPARE_CHUNK] - r).abs()
+            c = (r - w0[i:i + COMPARE_CHUNK]).abs() if name == "w" else r.abs()
             err, change = max(err, float(d.max())), max(change, float(c.max()))
             d_s.append(d[(-i) % BULK_STRIDE::BULK_STRIDE])
             c_s.append(c[(-i) % BULK_STRIDE::BULK_STRIDE])
@@ -1713,6 +1806,7 @@ def compare_runs(ref_run, run, w0) -> dict:
     return out
 
 
+@spanned
 def lockstep_check(family: str = "adamw", names=None, steps: int = TRAIN_CHECK_STEPS,
                    **trainer) -> dict:
     """`steps` steps at the train phase's lr through the kernels (olmo-1b's
@@ -1849,15 +1943,18 @@ def sgd_check() -> dict:
 def train_check() -> dict:
     """The lockstep check and the whole-path check (see LOCKSTEP_REL_TOL and
     WHOLE_CHECK_LR for what each holds and why)."""
-    lock = lockstep_check()
+    with span("lockstep"):
+        lock = lockstep_check()
     ok_lock = all(r["calls"] == r["launches"] == TRAIN_CHECK_STEPS
                   and r["max_rel_err"] <= LOCKSTEP_REL_TOL for r in lock.values())
     print(f"train check, lockstep ({TRAIN_CHECK_STEPS} steps, lr {LR}; each epilogue kernel "
           f"call on the path vs its plain version on the same inputs): {json.dumps(lock)}; "
           f"tolerance: rel {LOCKSTEP_REL_TOL}, one call and one launch per step each")
 
-    kern_hist, kern_bufs, w0 = check_run(WHOLE_CHECK_LR, to_host=True)
-    hist, bufs, _ = check_run(WHOLE_CHECK_LR, True, w0)
+    # the plain path first, on the whole card; its buffers stay there beside
+    # the kernel path's run
+    hist, bufs, w0 = check_run(WHOLE_CHECK_LR, True)
+    kern_hist, kern_bufs, _ = check_run(WHOLE_CHECK_LR, w0=w0)
     whole = compare_runs((hist, bufs), (kern_hist, kern_bufs), w0)
     del kern_bufs, bufs, w0
     ok_whole = all(v <= (COSINE_ABS_TOL if k == "ascent_cosine_abs" else SCALAR_REL_TOL)
@@ -1883,6 +1980,7 @@ RESTART_LAYERS, RESTART_STEPS, RESTART_SAVE_EVERY, RESTART_FAIL_AT = 2, 6, 3, 4
 SAM_STEPS = 2
 
 
+@spanned
 def timed_manager(root, keep: int = 3):
     """A CheckpointManager that times every save() call (its blocking part:
     the copy to host, and the write too for a blocking save), wait() and
@@ -2033,7 +2131,6 @@ def elastic_phase() -> dict:
     from repro_torch.launch.train import kernel_launches
     from repro_torch.runtime import ChaosSchedule, MeshEvent, ResilienceConfig
 
-    t_phase = time.perf_counter()
     cfg = dc.replace(get_config("olmo-1b"), n_layers=ELASTIC_LAYERS)
     flash_n, _ = flash_per_step(cfg)
     want = {"flash_attention": flash_n, **dict.fromkeys(PATH_KERNELS["adamw"], 1)}
@@ -2104,12 +2201,10 @@ def elastic_phase() -> dict:
                losses=[m["loss"] for m in hist])
     out["launches"] = {k: launches.get(k, 0) + clean_launches.get(k, 0)
                        for k in set(launches) | set(clean_launches)}
-    out["phase_s"] = time.perf_counter() - t_phase
     print(f"elastic: olmo-1b at full width, {ELASTIC_LAYERS} layers, {ELASTIC_STEPS} AsyncSAM "
           f"AdamW steps on a 1-device host mesh (world-1 NCCL group), save every "
           f"{ELASTIC_SAVE_EVERY}, events {ELASTIC_EVENTS}: {json.dumps(out)}")
-    print(f"elastic phase: resize_time_s {out['resize_time_s']}, restore "
-          f"{out['restore_s']} s, phase {out['phase_s']:.2f}s")
+    print(f"elastic: resize_time_s {out['resize_time_s']}, restore {out['restore_s']} s")
     problems = []
     if not (rep.restarts == 1 and ex.resize_events == 2 and rep.steps_done == ELASTIC_STEPS):
         problems.append("one restart, two resizes and every step done expected")
@@ -2242,8 +2337,10 @@ def delta_phase() -> dict:
 
 # 3 layers (6 before the examples phase came in: the deepest whose snapshot
 # fits the wire's 2 GiB frame, 2.02 GB; at 3 a snapshot is 1.22 GB and each
-# exchange's GRAD framing, most of the phase's time, shrinks with it)
-REMOTE_LAYERS, REMOTE_STEPS = 3, 4
+# exchange's GRAD framing, most of the phase's time, shrinks with it); 3
+# steps: the snapshot and two int8 deltas, the second applied on the first
+# (a fourth step, a third delta, took ~8 s of an H100 host's run)
+REMOTE_LAYERS, REMOTE_STEPS = 3, 3
 REMOTE_LOSS_SPEC = "chip_smoke:olmo_remote_loss"
 _OLMO_REMOTE: list = []
 
@@ -2410,8 +2507,7 @@ def remote_phase() -> dict:
                server_peak=server_peak, pool_stats=pool_stats,
                lane_states=[m.get("lane_state") for m in hist],
                ascent_rpc_spans=sum(sp.name == "ascent_rpc" for sp in sink.spans),
-               ascent_exchange_spans=sum(sp.name == "ascent_exchange" for sp in sink.spans),
-               phase_s=time.perf_counter() - t_phase)
+               ascent_exchange_spans=sum(sp.name == "ascent_exchange" for sp in sink.spans))
     print("remote " + json.dumps(out))
     flash_n = (1 if cfg.remat == "none" else 2) * cfg.n_layers     # one gradient pass a step
     want = {"flash_attention": flash_n * REMOTE_STEPS, "sq_norm": REMOTE_STEPS,
@@ -2450,9 +2546,10 @@ def remote_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 # 10 steps, then more until the first fresh ascent gradient is harvested (a
-# CPU ascent of one 512-token sequence takes ~8 s against a ~0.07 s descent
-# step on an H100 host), at most HETERO_MAX_S seconds of stepping
-HETERO_LAYERS, HETERO_SEQ, HETERO_STEPS, HETERO_MAX_S = 2, 512, 10, 60.0
+# CPU ascent of one 512-token sequence took ~8 s against a ~0.07 s descent
+# step on an H100 host; 256 tokens since the run neared its time limit), at
+# most HETERO_MAX_S seconds of stepping
+HETERO_LAYERS, HETERO_SEQ, HETERO_STEPS, HETERO_MAX_S = 2, 256, 10, 60.0
 
 
 def hetero_phase() -> dict:
@@ -2467,7 +2564,6 @@ def hetero_phase() -> dict:
     from repro_torch.optim import cosine_schedule, sgd
     from repro_torch.runtime import ExecutorConfig
 
-    t_phase = time.perf_counter()
     cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=HETERO_LAYERS)
     bundle = build_model(cfg)
     ex = HeteroExecutor(
@@ -2523,8 +2619,7 @@ def hetero_phase() -> dict:
                ledger=ex.ledger.summary(), ascent_exchange_s=list(ex.timings["ascent"]),
                median_descent_s=statistics.median(ex.timings["descent"]),
                median_step_s=statistics.median(step_s),
-               loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"], overlap=overlap,
-               phase_s=time.perf_counter() - t_phase)
+               loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"], overlap=overlap)
     print("hetero " + json.dumps(out))
     if not all(math.isfinite(m["loss"]) for m in hist) or ex.ledger.refreshes < 1:
         fail(f"hetero phase: finite losses and a fresh ascent harvested needed: {out}")
@@ -2549,7 +2644,6 @@ def examples_phase() -> dict:
     from repro_torch.examples import hetero_async_sam, quickstart
     from repro_torch.launch.train import kernel_launches
 
-    t_phase = time.perf_counter()
     runs = {}
     for name, mod in (("quickstart", quickstart), ("hetero_async_sam", hetero_async_sam)):
         reset_launches()                               # counts: 0 just before
@@ -2584,7 +2678,6 @@ def examples_phase() -> dict:
     out["hetero_async_sam"].update(
         {run: {k: r[k] for k in ("time_s", "acc", "final_loss", "ledger") if k in r}
          for run, r in h["result"].items()})
-    out["phase_s"] = time.perf_counter() - t_phase
     print("examples " + json.dumps(out))
     torch.cuda.empty_cache()
     return out
@@ -2630,6 +2723,7 @@ def wkv_inputs(shape, dtype: str, init: bool, seed: int = 3):
     return r, k, v, w, n(h, dk, scale=0.1), (n(b, h, dk, dv) if init else None)
 
 
+@spanned
 def plain_wkv_grads(r, k, v, w, u, s0, dy, ds):
     """Autograd of the plain scan, PLAIN_GRAD_BATCH batch rows at a time (its
     saved states take ~34 GB at the model's whole scan shape); du summed."""
@@ -2682,6 +2776,7 @@ def wkv_bound(shape, dtype: str, init: bool, backward: bool) -> tuple[float, str
     return bound(nbytes, ops)
 
 
+@spanned
 def ptxas_report(source, kernel: str) -> dict:
     """Registers and spills of each instantiation of `kernel` in the build
     log of `source` (ptxas -v), keyed by its mangled name."""
@@ -2698,8 +2793,10 @@ def ptxas_report(source, kernel: str) -> dict:
 
 
 def rwkv_kernel_phase() -> dict:
-    """Both wkv kernels against their plain versions at RWKV_CASES, timed;
-    the forward run twice (the same bits); returns the model shape's row per
+    """Both wkv kernels against their plain versions at RWKV_CASES, timed
+    (the plain versions on one warm call by CUDA events, the call before it
+    giving the result they are checked against: `result_and_ms`); the
+    forward run twice (the same bits); returns the model shape's row per
     kernel."""
     import torch
     from repro_torch.kernels import ref
@@ -2715,13 +2812,13 @@ def rwkv_kernel_phase() -> dict:
         torch.cuda.synchronize()
         same_bits = bool(torch.equal(y, y2) and torch.equal(state, state2))
         del y2, state2
-        y_p, state_p = ref.rwkv6_scan_plain(r, k, v, w, u, s0)
+        (y_p, state_p), plain_ms = result_and_ms(
+            lambda: ref.rwkv6_scan_plain(r, k, v, w, u, s0))
         ok = (wkv_ok(y, y_p, RWKV_FP32_TOL) and wkv_ok(state, state_p, RWKV_FP32_TOL)
               and same_bits)
         err = max(wkv_error(y, y_p)[0], wkv_error(state, state_p)[0])
         del y, state, y_p, state_p
         ms = time_ms(lambda: r6.rwkv6_scan(r, k, v, w, u, s0))
-        plain_ms = time_ms(lambda: ref.rwkv6_scan_plain(r, k, v, w, u, s0), 0.0)
         bound_ms, bound_by = wkv_bound(shape, dtype, init, backward=False)
         rows = {"rwkv6_scan_fwd": dict(
             kernel="rwkv6_scan_fwd", case=case, shape=shape, dtype=dtype, init_state=init,
@@ -2734,14 +2831,13 @@ def rwkv_kernel_phase() -> dict:
         ds = torch.randn((b, h, dk, dv), generator=g, device="cuda")
         got = r6._launch_bwd(r, k, v, w, u, s0, dy, ds)
         torch.cuda.synchronize()
-        want = plain_wkv_grads(r, k, v, w, u, s0, dy, ds)
+        want, plain_ms = result_and_ms(lambda: plain_wkv_grads(r, k, v, w, u, s0, dy, ds))
         names = ("dr", "dk", "dv", "dw", "du", "d_init_state")
         errs = {n_: wkv_error(a, e) for n_, a, e in zip(names, got, want)}
         ok_b = all(a.shape == e.shape and a.dtype == e.dtype and wkv_ok(a, e, RWKV_GRAD_TOL)
                    for a, e in zip(got, want))
         del got, want
         ms = time_ms(lambda: r6._launch_bwd(r, k, v, w, u, s0, dy, ds))
-        plain_ms = time_ms(lambda: plain_wkv_grads(r, k, v, w, u, s0, dy, ds), 0.0)
         bound_ms, bound_by = wkv_bound(shape, dtype, init, backward=True)
         rows["rwkv6_scan_bwd"] = dict(
             kernel="rwkv6_scan_bwd", case=case, shape=shape, dtype=dtype, init_state=init,
@@ -2779,8 +2875,8 @@ def rwkv_local_heads_phase() -> dict:
     tolerance, as `rwkv_kernel_phase`); each kernel timed at WKV_SHAPE's
     batch on the rank's contiguous heads (as the model hands them over)
     beside the whole 64-head call, the wrapper's call on the views (their
-    copies included) too; the plain versions once on the checked rows, by
-    the host clock. Fails on a disagreement."""
+    copies included) too; the plain versions on the checked rows
+    (`result_and_ms`). Fails on a disagreement."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as r6
@@ -2796,29 +2892,20 @@ def rwkv_local_heads_phase() -> dict:
     dy_l, ds_l = dy[:, :, :n].contiguous(), ds[:, :n].contiguous()
     strided = not views[0].is_contiguous()
 
-    def host_ms(fn):
-        """One call's time by the host clock between synchronizes (the plain
-        versions take 0.2-5 s: repeats would cost the run seconds)."""
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t)
-
     # the check on the first PLAIN_GRAD_BATCH rows (the plain backward of
     # all 8 takes ~5 s), the times on all of them
     rows_ = slice(0, PLAIN_GRAD_BATCH)
     views_c = [t[rows_] for t in views[:4]] + [views[4]]
     loc_c = [t[rows_] for t in loc[:4]] + [loc[4]]
     y, state = r6.rwkv6_scan(*views_c)
-    (y_p, state_p), plain_fwd_ms = host_ms(lambda: ref.rwkv6_scan_plain(*loc_c))
+    (y_p, state_p), plain_fwd_ms = result_and_ms(lambda: ref.rwkv6_scan_plain(*loc_c))
     ok_f = wkv_ok(y, y_p, RWKV_FP32_TOL) and wkv_ok(state, state_p, RWKV_FP32_TOL)
     err_f = max(wkv_error(y, y_p)[0], wkv_error(state, state_p)[0])
     leaves = [t.detach().requires_grad_() for t in views_c]
     y, state = r6.rwkv6_scan(*leaves)
     got = torch.autograd.grad([y, state], leaves, [dy[rows_, :, :n], ds[rows_, :n]])
-    want, plain_bwd_ms = host_ms(lambda: plain_wkv_grads(*loc_c, None, dy_l[rows_],
-                                                         ds_l[rows_])[:5])
+    want, plain_bwd_ms = result_and_ms(
+        lambda: plain_wkv_grads(*loc_c, None, dy_l[rows_], ds_l[rows_])[:5])
     ok_b = all(a.shape == e.shape and wkv_ok(a, e, RWKV_GRAD_TOL) for a, e in zip(got, want))
     err_b = max(wkv_error(a, e)[0] for a, e in zip(got, want))
     del y, state, y_p, state_p, leaves, got, want
@@ -2858,6 +2945,7 @@ def rwkv_local_heads_phase() -> dict:
     return rows
 
 
+@spanned
 def rwkv_share_sums(cfg, tm: dict, cm: dict, x32, wt, m: int):
     """(y, the gradients of x32 and of every tm and cm leaf) of one rwkv6
     layer's time mix plus channel mix as m ranks of the "tp" layout compute
@@ -2910,7 +2998,6 @@ def rwkv_share_phase() -> dict:
     from repro_torch.models import partitioning
     from repro_torch.models import rwkv as RWKV
 
-    t0 = time.perf_counter()
     cfg = get_config("rwkv6-7b")
     m, d = TP_RANKS, cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2963,8 +3050,7 @@ def rwkv_share_phase() -> dict:
                y_err_over_max=checks["y"][2], x_grad_err_over_max=checks["x_grad"][2],
                failed=[k for k, c in checks.items() if not c[0]],
                atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], whole_ms=whole_ms,
-               rank_ms=rank_ms, whole_over_rank=whole_ms / rank_ms,
-               phase_s=time.perf_counter() - t0)
+               rank_ms=rank_ms, whole_over_rank=whole_ms / rank_ms)
     print("rwkv shares " + json.dumps(row))
     print("rwkv shares, each check's max |d| over max |want|: "
           + json.dumps({k: c[2] for k, c in checks.items()}))
@@ -2973,6 +3059,171 @@ def rwkv_share_phase() -> dict:
     if not row["ok"]:
         fail(f"rwkv6's {m} time-mix and channel-mix shares disagree with the whole layer: "
              f"{row['failed']}")
+    return row
+
+
+# rwkv6's time mix in the "tp" layout's column branch: "model" divides
+# d_model (4096) but not the 64 heads, so each rank computes r, k, v and g
+# on its d_model / COLUMN_RANKS columns, half a head here
+COLUMN_RANKS = 128
+
+
+@spanned
+def rwkv_column_sums(cfg, tm: dict, x32, wt, m: int, summed: bool = True):
+    """rwkv6's time mix as m ranks of the column layout compute it: each
+    rank on its own bf16 copy of x (f's input) takes r, k, v, g and the
+    decay's input on its columns (`timemix_project` on
+    `partitioning.rwkv_share`), r, k and v are joined whole (the
+    all-gather), each rank runs the decay, the wkv kernels and the norm on
+    every head (`timemix_scan`) and its columns of y through its rows of wo
+    (`timemix_gate_out`); autograd adds the ranks' gradients of the joined
+    r, k and v (the reduce-scatter's sum: two ranks' non-zero parts a
+    column, those of its head's two shares). `summed` False is the control:
+    rank j's scan reads the other ranks' columns detached, so its columns
+    of r, k and v get its own gradient alone. Each rank's two pieces are
+    checkpointed (recomputed in backward), which keeps 128 ranks'
+    activations within the card. The loss is (y * wt).sum().
+
+    Returns (y, the gradients of x32 and of every tm leaf, y and x's
+    gradient summed in bf16): y is the ranks' outputs summed in fp32 and
+    rounded to bf16 once, as `timemix_apply`'s g sums them on this branch,
+    and x's gradient the ranks' gradients of their x copies summed the
+    same way (its f's backward); the last two are the same sums added in
+    bf16 rank after rank, as a ring all-reduce of bf16 would add them (what
+    the branch would give without its fp32 sums)."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import partitioning
+    from repro_torch.models import rwkv as RWKV
+
+    dt = getattr(torch, cfg.compute_dtype)
+    w = cfg.d_model // m
+    xt = [x32.detach().to(dt).requires_grad_() for _ in range(m)]
+    shares = [partitioning.rwkv_share("tm", tm, r, m) for r in range(m)]
+
+    def project(share, x):
+        p = RWKV.timemix_project(share, x, cfg)
+        return p["r"], p["k"], p["v"], p["g"], p["xw"]
+
+    def scan_out(r, share, rr, kk, vv, xw, g):
+        y, _ = RWKV.timemix_scan(share, rr, kk, vv, xw, cfg)
+        return RWKV.timemix_gate_out(share, y[..., r * w:(r + 1) * w], g, cfg, r * w,
+                                     (r + 1) * w)
+
+    pieces = [checkpoint(project, shares[r], xt[r], use_reentrant=False) for r in range(m)]
+    joined = [torch.cat([p[i] for p in pieces], dim=-1) for i in range(3)]
+    parts = []
+    for r, p in enumerate(pieces):
+        if summed:
+            rkv = joined
+        else:
+            rkv = [torch.cat([q[i] if j == r else q[i].detach() for j, q in enumerate(pieces)],
+                             dim=-1) for i in range(3)]
+        parts.append(checkpoint(scan_out, r, shares[r], *rkv, p[4], p[3], use_reentrant=False))
+    y = torch.stack([t.float() for t in parts]).sum(0).to(dt).float()
+    y16 = ring([t.detach() for t in parts]).float()
+    del parts, pieces, joined
+    grads = torch.autograd.grad((y * wt).sum(), xt + list(tm.values()))
+    gx = torch.stack([g.float() for g in grads[:m]]).sum(0).to(dt).float()
+    return y.detach(), [gx, *grads[m:]], y16, ring(grads[:m]).float()
+
+
+def rwkv_column_share_phase() -> dict:
+    """One full-width rwkv6-7b time mix (fp32 weights from seed 2, as
+    `rwkv_share_phase`'s; bf16 compute) on x of RWKV_SHARE_TOKENS: the
+    COLUMN_RANKS column shares composed as the program's collectives
+    compose them (`rwkv_column_sums`: their outputs and x's gradients
+    summed in fp32 and rounded once, as the branch's f and g sum them),
+    held against the whole `timemix_apply` within BF16_TOL of its max
+    (`held`), and so are the gradients of every leaf (a loss of y against
+    fixed random weights); the control (each share's gradient of the
+    joined r, k and v its own alone) must miss on wr, wk or wv. The same
+    sums added in bf16 rank after rank, as bf16 ring all-reduces over 128
+    ranks would add them, are reported beside them: they are why the
+    branch sums in fp32 (the 16 head shares of `rwkv_share_phase` hold
+    with bf16 sums, as their branch adds them). A share's forward (its
+    columns, the scan on the joined r, k and v, its gate and rows of wo)
+    timed beside the whole time mix's. Fails on a
+    disagreement or a control that holds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import partitioning
+    from repro_torch.models import rwkv as RWKV
+
+    cfg = get_config("rwkv6-7b")
+    m, d = COLUMN_RANKS, cfg.d_model
+    heads = d // cfg.rwkv.head_dim
+    if heads % m == 0 or d % m:
+        fail(f"rwkv column shares: {m} ranks must divide d_model {d} and not its {heads} heads")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tm = {k: (torch.randn(sh, generator=gen, device="cuda")
+              * (sh[-2] ** -0.5 if len(sh) == 2 else 0.3)).requires_grad_()
+          for k, sh in RWKV.timemix_shapes(cfg).items()}
+    with torch.no_grad():
+        tm["w0"].sub_(2.0)
+    dt = getattr(torch, cfg.compute_dtype)
+    x32 = torch.randn(*RWKV_SHARE_TOKENS, d, generator=gen, device="cuda"
+                      ).to(dt).float().requires_grad_()
+    wt = torch.randn(*RWKV_SHARE_TOKENS, d, generator=gen, device="cuda")
+    names = ["x"] + [f"tm.{k}" for k in tm]
+
+    xb = x32.to(dt)
+    y = RWKV.timemix_apply(tm, xb, cfg)[0].float()
+    want = torch.autograd.grad((y * wt).sum(), [x32, *tm.values()])
+    y = y.detach()
+    checks, missed, rings = {}, {}, {}
+    for summed in (True, False):
+        total, got, y16, gx16 = rwkv_column_sums(cfg, tm, x32, wt, m, summed)
+        for name, g, g_want in zip(["y"] + [f"{n}_grad" for n in names], [total, *got],
+                                   [y, *want]):
+            (checks if summed else missed)[name] = held(g, g_want, BF16_TOL)
+        if summed:
+            rings = {"y": held(y16, y, BF16_TOL), "x_grad": held(gx16, want[0], BF16_TOL)}
+        del total, got, y16, gx16
+    del want
+    torch.cuda.empty_cache()
+    w = d // m
+    with torch.no_grad():
+        share0 = partitioning.rwkv_share("tm", tm, 0, m)
+        whole_p = RWKV.timemix_project(tm, xb, cfg)
+
+        def one_rank():
+            p = RWKV.timemix_project(share0, xb, cfg)
+            y0, _ = RWKV.timemix_scan(share0, whole_p["r"], whole_p["k"], whole_p["v"],
+                                      p["xw"], cfg)
+            RWKV.timemix_gate_out(share0, y0[..., :w], p["g"], cfg, 0, w)
+
+        def whole_mix():
+            RWKV.timemix_apply(tm, xb, cfg)
+
+        whole_ms, rank_ms = time_ms(whole_mix), time_ms(one_rank)
+    worst = max(checks, key=lambda k: checks[k][2])
+    control_missed = [k for k, c in missed.items() if not c[0]]
+    row = dict(case=f"rwkv6-7b time mix, {m} column shares", tokens=RWKV_SHARE_TOKENS,
+               columns_a_share=w, heads_a_share=w / cfg.rwkv.head_dim, held=len(checks),
+               sums="fp32, rounded once (y, x's gradient)", ok=all(c[0] for c in checks.values()),
+               worst=worst, worst_err_over_max=checks[worst][2],
+               y_err_over_max=checks["y"][2], x_grad_err_over_max=checks["x_grad"][2],
+               failed=[k for k, c in checks.items() if not c[0]],
+               control_missed=control_missed,
+               control_wr_grad_err_over_max=missed["tm.wr_grad"][2],
+               bf16_ring_y_err_over_max=rings["y"][2],
+               bf16_ring_x_grad_err_over_max=rings["x_grad"][2],
+               bf16_ring_within_tol={k: r[0] for k, r in rings.items()},
+               atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], whole_ms=whole_ms,
+               rank_ms=rank_ms, whole_over_rank=whole_ms / rank_ms)
+    print("rwkv column shares " + json.dumps(row))
+    print("rwkv column shares, each check's max |d| over max |want| (control after the "
+          "slash): " + json.dumps({k: f"{c[2]:.4e} / {missed[k][2]:.4e}"
+                                   for k, c in checks.items()}))
+    del tm, x32, wt, xb, y, share0, whole_p
+    torch.cuda.empty_cache()
+    if not row["ok"]:
+        fail(f"rwkv6's {m} column shares of the time mix disagree with the whole time mix: "
+             f"{row['failed']}")
+    if not {"tm.wr_grad", "tm.wk_grad", "tm.wv_grad"} & set(control_missed):
+        fail("rwkv column shares: the control (the joined r, k and v's gradients not summed "
+             "over the shares) meets the tolerance on wr, wk and wv")
     return row
 
 
@@ -2985,6 +3236,7 @@ def rwkv_share_phase() -> dict:
 WKV_CHAIN_SHAPE, WKV_CHAIN_BLOCKS = (2, 4096, 64, 64, 64), 16
 
 
+@spanned
 def chained_wkv(r, k, v, w, u, blocks: int, chain: bool = True):
     """(y, final state) of the wkv kernels over `blocks` blocks: each block
     from no state (its final state and per-key log decay, the block's sum
@@ -3020,7 +3272,6 @@ def rwkv_chain_phase() -> dict:
     import torch
     from repro_torch.kernels import rwkv6_scan as r6
 
-    t0 = time.perf_counter()
     b, s, h, dk, dv = WKV_CHAIN_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(12)
 
@@ -3068,8 +3319,7 @@ def rwkv_chain_phase() -> dict:
                max_rel_err={key: e[1] for key, e in errs.items()},
                max_abs_err=max(e[0] for e in errs.values()), control_rel_err=control,
                launches=launches, ok=ok, whole_ms=whole_ms, chain_ms=chain_ms,
-               whole_bwd_ms=whole_bwd_ms, chain_bwd_ms=chain_bwd_ms,
-               phase_s=time.perf_counter() - t0)
+               whole_bwd_ms=whole_bwd_ms, chain_bwd_ms=chain_bwd_ms)
     print("rwkv chained " + json.dumps(row))
     del args, r, k, v, w, u, gy, gs, y_w, s_w, g_w, y_c, s_c, g_c
     torch.cuda.empty_cache()
@@ -3090,7 +3340,6 @@ def rwkv_serve_phase():
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model, transformer
 
-    t_phase = time.perf_counter()
     n_req, prompt_len, max_new = 8, 1024, 32
     cfg = get_config("rwkv6-7b")
     t0 = time.perf_counter()
@@ -3141,8 +3390,9 @@ def rwkv_serve_phase():
         finally:
             ops.set_default_impl(None)
 
-    plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
-    kernel32 = prefill_logits(cfg32, "kernel")
+    with span("plain prefills"):
+        plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
+        kernel32 = prefill_logits(cfg32, "kernel")
     err_plain = rel_err(res.logits[:, 0], plain16)
     err_fp32 = rel_err(kernel32, plain32)
     print(f"rwkv serve check (max|d|/max|ref|): prefill+decode vs forward {err_fwd:.3e}; "
@@ -3155,8 +3405,7 @@ def rwkv_serve_phase():
     return dict(launches=launches, prefill_s=res.prefill_s, decode_s=res.decode_s,
                 prefill_tok_s=res.prefill_tok_s, decode_tok_s=res.decode_tok_s,
                 peak_gib=peak_gib, err_forward=err_fwd, err_plain=err_plain,
-                err_fp32=err_fp32, requests=n_req, prompt_len=prompt_len, max_new=max_new,
-                phase_s=time.perf_counter() - t_phase), model
+                err_fp32=err_fp32, requests=n_req, prompt_len=prompt_len, max_new=max_new), model
 
 
 # The scan families' whole-path check, at a small lr: the kernel path against
@@ -3184,12 +3433,16 @@ def scan_whole_check(tag: str, model: str, cfg, layers: int, batch: int, seq: in
     """The whole kernel path against the plain path (see MOMENT_BULK_MARGIN)
     for `cfg` cut to `layers` layers at batch x seq; prints the comparisons
     and fails the run if they disagree or the control meets the limit.
-    Returns the comparisons, w's and the moments' bulk and the moments'
-    limits."""
+    Every run's buffers stay on the card (at most two runs' and the init w
+    at once: at these cuts they fit beside a run, and copying them to the
+    host took most of the check's time). Returns the comparisons, w's and
+    the moments' bulk and the moments' limits."""
     def run(compute, plain, w0=None, coarse_bits=0):
         ccfg = dataclasses.replace(cfg, n_layers=layers, compute_dtype=compute)
-        return check_run(WHOLE_CHECK_LR, plain, w0, to_host=True, coarse_bits=coarse_bits,
-                         cfg=ccfg, batch=batch, seq=seq)
+        name = f"{compute} {'plain' if plain else 'kernel'}{' coarse' if coarse_bits else ''}"
+        with span(name):
+            return check_run(WHOLE_CHECK_LR, plain, w0, coarse_bits=coarse_bits, cfg=ccfg,
+                             batch=batch, seq=seq)
 
     plain32 = run("float32", True)
     w0 = plain32[2]
@@ -3246,6 +3499,7 @@ def rwkv_per_step(cfg) -> dict:
     return {"rwkv6_scan_fwd": 2 * fwd * cfg.n_layers, "rwkv6_scan_bwd": 2 * cfg.n_layers}
 
 
+@spanned
 def rwkv_lockstep(ex, state, pipe) -> dict:
     """One step through the kernels, every wkv call (forward and backward,
     every layer, both passes) held against its plain version on its inputs."""
@@ -3294,7 +3548,6 @@ def rwkv_train_phase() -> dict:
     from repro_torch.engine import Engine, ThroughputMeter
     from repro_torch.launch.train import kernel_launches
 
-    t_phase = time.perf_counter()
     cfg = dataclasses.replace(get_config("rwkv6-7b"), n_layers=RWKV_TRAIN_LAYERS)
     _, ex, state, pipe = build_trainer(TRAIN_STEPS, LR, cfg=cfg)
     n_params = sum(b.numel() for b in state.params.buffers)
@@ -3305,7 +3558,8 @@ def rwkv_train_phase() -> dict:
     meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
     reset_launches()                                   # counts: 0 just before
     torch.cuda.reset_peak_memory_stats()
-    report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
+    with span("fit"):
+        report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
     launches = kernel_launches(family="ssm")           # read just after
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     hist = report.metrics_history
@@ -3332,13 +3586,15 @@ def rwkv_train_phase() -> dict:
     print(f"rwkv train: median step (steps 2-{TRAIN_STEPS - 1}) {step_s:.4f} s, "
           f"{out['descent_tokens_per_s']:.1f} descent tok/s, peak {peak_gib:.2f} GiB")
     final = report.final_state
-    out["profile"] = train_profile(ex, final, pipe)
+    with span("profile"):
+        out["profile"] = train_profile(ex, final, pipe)
     del report, state, final
     torch.cuda.empty_cache()
 
     # lockstep: every wkv call of one step against its plain version
-    _, ex, state, pipe = build_trainer(TRAIN_STEPS, LR, cfg=cfg)
-    lock = rwkv_lockstep(ex, state, pipe)
+    with span("lockstep"):
+        _, ex, state, pipe = build_trainer(TRAIN_STEPS, LR, cfg=cfg)
+        lock = rwkv_lockstep(ex, state, pipe)
     del ex, state, pipe
     torch.cuda.empty_cache()
     calls_ok = {k: v["calls"] for k, v in lock.items()} == per_step
@@ -3351,8 +3607,9 @@ def rwkv_train_phase() -> dict:
     out["lockstep"] = lock
 
     # whole path: kernels against plain versions at a small lr
-    out.update(scan_whole_check("rwkv", "rwkv6", cfg, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH,
-                                RWKV_CHECK_SEQ), phase_s=time.perf_counter() - t_phase)
+    with span("whole"):
+        out.update(scan_whole_check("rwkv", "rwkv6", cfg, RWKV_CHECK_LAYERS, RWKV_CHECK_BATCH,
+                                    RWKV_CHECK_SEQ))
     return out
 
 
@@ -3437,6 +3694,7 @@ def m2_bound(shape, dtype: str, init: bool, backward: bool) -> tuple[float, str]
     return bound(nbytes, m2_flops(shape, backward))
 
 
+@spanned
 def m2_fwd_phase_ms(x, dt, a, b, c, d, s0) -> dict:
     """Device time of each phase of the SSD forward launched alone (CUDA
     events), on buffers that one whole forward filled first; with one chunk
@@ -3448,6 +3706,7 @@ def m2_fwd_phase_ms(x, dt, a, b, c, d, s0) -> dict:
             for name, bit in m2.FWD_PHASES.items()}
 
 
+@spanned
 def m2_bwd_phase_ms(x, dt, a, b, c, d, s0, dy, ds) -> dict:
     """Device time of each phase of the SSD backward launched alone (CUDA
     events), on buffers that one whole backward filled first."""
@@ -3458,6 +3717,7 @@ def m2_bwd_phase_ms(x, dt, a, b, c, d, s0, dy, ds) -> dict:
             for name, bit in m2.BWD_PHASES.items()}
 
 
+@spanned
 def plain_m2_grads(x, dt, a, b, c, d, s0, dy, ds):
     """Autograd of the plain chunked scan, PLAIN_GRAD_BATCH batch rows at a
     time; da and dd (summed over b) summed."""
@@ -3474,6 +3734,7 @@ def plain_m2_grads(x, dt, a, b, c, d, s0, dy, ds):
                  else torch.cat([p[j] for p in parts]) for j in range(7))
 
 
+@spanned
 def m2_da_f64(*args):
     """da of the plain scan in float64 (plain_m2_grads' arguments): the
     witness the kernels' da is held against."""
@@ -3565,6 +3826,7 @@ CHAIN_CASES = [("zamba2-1.2b scan", (8, 1024, 64, 64, 64, 1)),
 CHAIN_BLOCKS = 4
 
 
+@spanned
 def chained_scan(x, dt, a, b, c, d, blocks: int, chain: bool = True):
     """(y, final state) of the SSD kernels over `blocks` blocks of the
     sequence: each block from no state (its final state S_r and log decay
@@ -3663,6 +3925,7 @@ MAMBA_SHARE_TOKENS = (2, 1024)
 SSD_SHAPE = (8, 1024, 64, 64, 64, 1)
 
 
+@spanned
 def mamba_share_sums(cfg, leaves: dict, x32, wt, m: int):
     """(y, the gradients of x32 and of every leaf) of one mamba2 layer as m
     ranks of the "tp" layout compute it, summed as their collectives sum
@@ -3703,7 +3966,6 @@ def mamba_share_phase() -> dict:
     from repro_torch.models import partitioning
     from repro_torch.models import ssm as SSM
 
-    t0 = time.perf_counter()
     cfg = get_config("zamba2-1.2b")
     m = TP_RANKS
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -3754,8 +4016,7 @@ def mamba_share_phase() -> dict:
                control_err_over_max=control[2],
                failed=[key for key, c in checks.items() if not c[0]],
                atol=BF16_TOL["atol"], rtol=BF16_TOL["rtol"], whole_ms=whole_ms,
-               rank_ms=rank_ms, whole_over_rank=whole_ms / rank_ms,
-               phase_s=time.perf_counter() - t0)
+               rank_ms=rank_ms, whole_over_rank=whole_ms / rank_ms)
     print("mamba shares " + json.dumps(row))
     print("mamba shares, each check's max |d| over max |want|: "
           + json.dumps({key: c[2] for key, c in checks.items()}))
@@ -3851,7 +4112,6 @@ def zamba_serve_phase():
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model, transformer
 
-    t_phase = time.perf_counter()
     n_req, prompt_len, max_new = 8, 1024, 32
     cfg = get_config("zamba2-1.2b")
     n_inv = -(-cfg.n_layers // cfg.hybrid.period)
@@ -3904,8 +4164,9 @@ def zamba_serve_phase():
         finally:
             ops.set_default_impl(None)
 
-    plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
-    kernel32 = prefill_logits(cfg32, "kernel")
+    with span("plain prefills"):
+        plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
+        kernel32 = prefill_logits(cfg32, "kernel")
     err_plain = rel_err(res.logits[:, 0], plain16)
     err_fp32 = rel_err(kernel32, plain32)
     print(f"zamba2 serve check (max|d|/max|ref|): prefill+decode vs forward {err_fwd:.3e}; "
@@ -3918,8 +4179,7 @@ def zamba_serve_phase():
     return dict(launches=launches, prefill_s=res.prefill_s, decode_s=res.decode_s,
                 prefill_tok_s=res.prefill_tok_s, decode_tok_s=res.decode_tok_s,
                 peak_gib=peak_gib, err_forward=err_fwd, err_plain=err_plain,
-                err_fp32=err_fp32, requests=n_req, prompt_len=prompt_len, max_new=max_new,
-                phase_s=time.perf_counter() - t_phase), model
+                err_fp32=err_fp32, requests=n_req, prompt_len=prompt_len, max_new=max_new), model
 
 
 # The whole-path check at full width, 8 layers (two invocations of the shared
@@ -3938,6 +4198,7 @@ def zamba_per_step(cfg) -> dict:
             "mamba2_scan_bwd": 2 * cfg.n_layers}
 
 
+@spanned
 def zamba_lockstep(ex, state, pipe) -> dict:
     """One step through the kernels, every SSD call (forward and backward,
     every layer, both passes) held against its plain version on its inputs."""
@@ -3987,7 +4248,6 @@ def zamba_train_phase() -> dict:
     from repro_torch.engine import Engine, ThroughputMeter
     from repro_torch.launch.train import kernel_launches
 
-    t_phase = time.perf_counter()
     cfg = get_config("zamba2-1.2b")
     _, ex, state, pipe = build_trainer(TRAIN_STEPS, LR, cfg=cfg)
     n_params = sum(b.numel() for b in state.params.buffers)
@@ -3998,7 +4258,8 @@ def zamba_train_phase() -> dict:
     meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
     reset_launches()                                   # counts: 0 just before
     torch.cuda.reset_peak_memory_stats()
-    report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
+    with span("fit"):
+        report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
     launches = kernel_launches(family="hybrid")        # read just after
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     hist = report.metrics_history
@@ -4026,13 +4287,15 @@ def zamba_train_phase() -> dict:
     print(f"zamba2 train: median step (steps 2-{TRAIN_STEPS - 1}) {step_s:.4f} s, "
           f"{out['descent_tokens_per_s']:.1f} descent tok/s, peak {peak_gib:.2f} GiB")
     final = report.final_state
-    out["profile"] = train_profile(ex, final, pipe)
+    with span("profile"):
+        out["profile"] = train_profile(ex, final, pipe)
     del report, state, final
     torch.cuda.empty_cache()
 
     # lockstep: every SSD call of one step against its plain version
-    _, ex, state, pipe = build_trainer(TRAIN_STEPS, LR, cfg=cfg)
-    lock = zamba_lockstep(ex, state, pipe)
+    with span("lockstep"):
+        _, ex, state, pipe = build_trainer(TRAIN_STEPS, LR, cfg=cfg)
+        lock = zamba_lockstep(ex, state, pipe)
     del ex, state, pipe
     torch.cuda.empty_cache()
     calls_ok = {k: v["calls"] for k, v in lock.items()} == {
@@ -4045,8 +4308,9 @@ def zamba_train_phase() -> dict:
     out["lockstep"] = lock
 
     # whole path: kernels against plain versions at a small lr
-    out.update(scan_whole_check("zamba2", "zamba2", cfg, ZAMBA_CHECK_LAYERS, ZAMBA_CHECK_BATCH,
-                                ZAMBA_CHECK_SEQ), phase_s=time.perf_counter() - t_phase)
+    with span("whole"):
+        out.update(scan_whole_check("zamba2", "zamba2", cfg, ZAMBA_CHECK_LAYERS,
+                                    ZAMBA_CHECK_BATCH, ZAMBA_CHECK_SEQ))
     return out
 
 
@@ -4129,7 +4393,6 @@ def model_serve_phase(arch: str) -> dict:
     from repro_torch.launch.serve import prompt_batch, serve
     from repro_torch.models import build_model
 
-    t_phase = time.perf_counter()
     n_req, prompt_len = SERVE_PROMPTS.get(arch, (8, 1024))
     max_new = SERVE_NEW_TOKENS
     full_cfg = get_config(arch)
@@ -4138,8 +4401,9 @@ def model_serve_phase(arch: str) -> dict:
             [f"depth {cfg.n_layers} of {full_cfg.n_layers} layers (fp32 weights + "
              f"{SERVE_HEADROOM_GIB} GiB of the card)"])
     t0 = time.perf_counter()
-    model = build_model(cfg).init(seed=0, device="cuda")
-    torch.cuda.synchronize()
+    with span("init"):
+        model = build_model(cfg).init(seed=0, device="cuda")
+        torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{arch} serve: init on the card {time.perf_counter() - t0:.3f}s, {n_params} params "
           f"({cfg.param_dtype}, {4 * n_params / 2**30:.2f} GiB; full depth "
@@ -4147,11 +4411,13 @@ def model_serve_phase(arch: str) -> dict:
           f"{n_req} x {prompt_len} prompts + {max_new} greedy tokens, compute "
           f"{cfg.compute_dtype}, window {cfg.sliding_window}")
     prompts = TokenTask(cfg.vocab_size, seed=0).sample(n_req, prompt_len)
-    serve(cfg, model, prompts[:, :1024], 2)               # warm-up, not counted
+    with span("warm-up"):
+        serve(cfg, model, prompts[:, :1024], 2)           # warm-up, not counted
 
     reset_launches()                                      # counts: 0 just before
     torch.cuda.reset_peak_memory_stats()
-    res = serve(cfg, model, prompts, max_new)
+    with span("serve"):
+        res = serve(cfg, model, prompts, max_new)
     launches = {"flash_attention": fa.launches}           # read just after
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = flash_calls_per_forward(cfg)
@@ -4173,7 +4439,7 @@ def model_serve_phase(arch: str) -> dict:
     moe = cfg.moe is not None
     measure = bulk_rel if moe else rel_err
     check_cfg, check, flips = cfg, res, None
-    with recorded_routes() as dec_routes:
+    with span("forward check"), recorded_routes() as dec_routes:
         if moe:
             check_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=CHECK_CAPACITY_FACTOR))
@@ -4181,7 +4447,7 @@ def model_serve_phase(arch: str) -> dict:
     # the prompt's stub inputs (whisper's frame count follows the prompt)
     full = {**prompt_batch(check_cfg, tokens),
             "tokens": torch.cat([tokens.long(), check.tokens[:, :-1]], dim=1)}
-    with torch.inference_mode(), recorded_routes() as fwd_routes:
+    with span("forward check"), torch.inference_mode(), recorded_routes() as fwd_routes:
         fwd, _ = build_model(check_cfg).forward(model, full)
     if moe:
         # prefill's routes, then each decode step's, a call per MoE layer
@@ -4205,8 +4471,9 @@ def model_serve_phase(arch: str) -> dict:
         finally:
             ops.set_default_impl(None)
 
-    plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
-    kernel32 = prefill_logits(cfg32, "kernel")
+    with span("plain prefills"):
+        plain16, plain32 = prefill_logits(cfg, "plain"), prefill_logits(cfg32, "plain")
+        kernel32 = prefill_logits(cfg32, "kernel")
     err_plain = measure(res.logits[:, 0], plain16)
     err_fp32 = rel_err(kernel32, plain32)
     own = measure(plain16, plain32)
@@ -4242,10 +4509,10 @@ def model_serve_phase(arch: str) -> dict:
     del model, plain16, plain32, kernel32, res
     gc.collect()
     torch.cuda.empty_cache()
-    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
+@spanned
 def probe_peak(cfg, layers: int) -> int:
     """Peak device bytes of one AsyncSAM AdamW step of `cfg` cut to `layers`
     layers at the train phase's batch, its state included."""
@@ -4270,6 +4537,7 @@ def shallowest_cut(cfg) -> int:
     return n_dense(cfg) + 1
 
 
+@spanned
 def train_depth(cfg) -> tuple[int, dict]:
     """The deepest cut of `cfg` whose step's peak leaves TRAIN_HEADROOM of
     the card, from one-step probes at lo = `shallowest_cut` and lo + 1
@@ -4311,7 +4579,6 @@ def model_train_phase(arch: str) -> dict:
     from repro_torch.engine import Engine, ThroughputMeter
     from repro_torch.launch.train import kernel_launches
 
-    t_phase = time.perf_counter()
     full_cfg = get_config(arch)
     layers, probes = train_depth(full_cfg)
     cfg = dataclasses.replace(full_cfg, n_layers=layers)
@@ -4327,7 +4594,8 @@ def model_train_phase(arch: str) -> dict:
     meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
     reset_launches()                                   # counts: 0 just before
     torch.cuda.reset_peak_memory_stats()
-    report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
+    with span("fit"):
+        report = Engine(ex, pipe, [meter]).fit(state, TRAIN_STEPS)
     launches = kernel_launches("fused", cfg.family)    # read just after
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     hist = report.metrics_history
@@ -4371,8 +4639,7 @@ def model_train_phase(arch: str) -> dict:
     if not all(r["calls"] == r["launches"] == 1 and r["max_rel_err"] <= LOCKSTEP_REL_TOL
                for r in lock.values()):
         fail(f"an epilogue kernel on the {arch} training path disagrees with its plain version")
-    out.update(lockstep=lock, lockstep_layers=check_layers,
-               phase_s=time.perf_counter() - t_phase)
+    out.update(lockstep=lock, lockstep_layers=check_layers)
     return out
 
 
@@ -4392,6 +4659,7 @@ WEIGHT_KERNELS = ("sq_norm", "sam_perturb", "fused_axpy", "fused_dot_norms", "ad
 VARIANT_LOCKSTEP = {"gsam": 1, "looksam": 2}
 
 
+@spanned
 def variant_per_step(method: str, m: dict, cfg) -> dict:
     """The launches one step of `method` makes on one fp32 bucket, by the
     branch its metrics `m` report: a SAM-like step takes two gradient
@@ -4426,6 +4694,7 @@ def carried_bytes(tree) -> int:
     return 0
 
 
+@spanned
 def esam_mask_check(beta: float) -> dict:
     """ESAM's mask drawn over olmo-1b's parameter bucket on the card: one
     byte an element, density beta within 5 binomial standard deviations."""
@@ -4474,89 +4743,87 @@ def variants_phase() -> dict:
     import dataclasses as dc
     from repro_torch.configs import get_config
 
-    t_phase = time.perf_counter()
     vcfg = dc.replace(get_config("olmo-1b"), n_layers=VARIANT_LAYERS)
     print(f"variants: olmo-1b at full width, {VARIANT_LAYERS} of "
           f"{get_config('olmo-1b').n_layers} layers")
     out = {"layers": VARIANT_LAYERS}
     for method, steps in VARIANT_STEPS.items():
-        t0 = time.perf_counter()
-        mkw = VARIANT_MKW.get(method, {})
-        cfg, ex, state, pipe = build_trainer(steps, LR, method=method, mkw=mkw, cfg=vcfg)
-        reset_launches()                               # counts: 0 just before
-        meter, per_step = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ), StepLaunches()
-        torch.cuda.reset_peak_memory_stats()
-        report = Engine(ex, pipe, [meter, per_step]).fit(state, steps)
-        launches = kernel_launches()                   # read just after
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        hist = report.metrics_history
-        final = report.final_state
-        row = dict(resident=ex.resident, steps=steps, mkw=mkw, launches=launches,
-                   per_step=per_step.rows, step_times_s=meter.step_times,
-                   median_step_s=statistics.median(meter.step_times[1:]), peak_gib=peak_gib,
-                   carried_bytes=carried_bytes(final.method_state),
-                   loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"])
-        for i, (m, got) in enumerate(zip(hist, per_step.rows)):
-            want = variant_per_step(method, m, cfg)
-            print(f"variant {method} step {i}: {json.dumps(m)} ({meter.step_times[i]:.4f} s); "
-                  f"launches {json.dumps({k: got[k] for k in want})}")
-            if {k: got[k] for k in got if got[k] or k in want} != want:
-                fail(f"variant {method} step {i}: launches {got}, expected {want}")
-        if report.steps_done != steps or not all(
-                math.isfinite(v) for m in hist for v in m.values()):
-            fail(f"variant {method}: training did not finish with finite metrics: {hist}")
-        if ex.resident != (method == "gsam"):
-            fail(f"variant {method}: resident {ex.resident}; gsam alone is resident")
-        if method == "looksam" and [m["fresh"] for m in hist] != [1.0, 0.0] * (steps // 2):
-            fail(f"looksam (k 2): fresh {[m['fresh'] for m in hist]}, expected 1, 0, 1, 0")
-        if method == "aesam":
-            mcfg = ex.method.cfg
-            mean, var, zs = 0.0, 1.0, []          # z as the step computes it, from gnorm_sq
-            for m in hist:
-                zs.append((m["gnorm_sq"] - mean) / (math.sqrt(var) + 1e-12))
-                mean, var = (mcfg.aesam_ema * mean + (1 - mcfg.aesam_ema) * m["gnorm_sq"],
-                             mcfg.aesam_ema * var
-                             + (1 - mcfg.aesam_ema) * (m["gnorm_sq"] - mean) ** 2)
-            row["z"], row["sam_step"] = zs, [m["sam_step"] for m in hist]
-            print(f"variant aesam: sam_step {row['sam_step']}; z {zs}; lambda_hi "
-                  f"{mcfg.aesam_lambda_hi}")
-            want = [1.0 if (i < 8 or z > mcfg.aesam_lambda_hi) else 0.0
-                    for i, z in enumerate(zs)]
-            if row["sam_step"] != want:
-                fail(f"aesam: sam_step {row['sam_step']}, expected {want} from z")
-        if method == "esam":
-            row["mask"] = esam_mask_check(ex.method.cfg.esam_beta)
-        if method == "mesa":
-            mcfg = ex.method.cfg
-            if not all(m["mesa_kl"] > 0 for m in hist[mcfg.mesa_start_step:]):
-                fail(f"mesa: mesa_kl {[m['mesa_kl'] for m in hist]} not > 0 once active")
-            if not all(m["loss"] > m["ce"] for m in hist[mcfg.mesa_start_step:]):
-                fail("mesa: the distillation term is not in the loss once active")
-        row["profile"] = train_profile(ex, final, pipe, tag=f"variant {method}")
-        print(f"variant {method}: resident {ex.resident}; median step {row['median_step_s']:.4f} s "
-              f"(steps 1-{steps - 1}), peak {peak_gib:.2f} GiB, carried state "
-              f"{row['carried_bytes']} bytes; in the profiled step copy kernels "
-              f"{row['profile']['copy_us']:.1f} us, memcpys {row['profile']['memcpy_us']:.1f} "
-              f"us, host reads {row['profile']['host_read_us']:.1f} us")
-        del ex, state, pipe, report, final
-        gc.collect()
-        torch.cuda.empty_cache()
-        if method in VARIANT_LOCKSTEP:
-            n = VARIANT_LOCKSTEP[method]
-            lock = lockstep_check(names=WEIGHT_KERNELS, steps=n, method=method, mkw=mkw,
-                                  cfg=vcfg)
-            print(f"variant {method} check, lockstep ({n} step(s), lr {LR}; every weight-space "
-                  f"kernel call vs its plain version on the same inputs): {json.dumps(lock)}; "
-                  f"tolerance rel {LOCKSTEP_REL_TOL}")
-            if not all(r["calls"] == r["launches"] and r["max_rel_err"] <= LOCKSTEP_REL_TOL
-                       for r in lock.values()):
-                fail(f"a weight-space kernel on the {method} path disagrees with its plain "
-                     f"version")
-            row["lockstep"] = lock
-        row["phase_s"] = time.perf_counter() - t0
-        print(f"variant {method} phase: {row['phase_s']:.2f}s")
-        out[method] = row
-    out["phase_s"] = time.perf_counter() - t_phase
+        with phase(f"variant {method}"):
+            mkw = VARIANT_MKW.get(method, {})
+            cfg, ex, state, pipe = build_trainer(steps, LR, method=method, mkw=mkw, cfg=vcfg)
+            reset_launches()                               # counts: 0 just before
+            meter = ThroughputMeter(tokens_per_batch=TRAIN_BATCH * TRAIN_SEQ)
+            per_step = StepLaunches()
+            torch.cuda.reset_peak_memory_stats()
+            report = Engine(ex, pipe, [meter, per_step]).fit(state, steps)
+            launches = kernel_launches()                   # read just after
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            hist = report.metrics_history
+            final = report.final_state
+            row = dict(resident=ex.resident, steps=steps, mkw=mkw, launches=launches,
+                       per_step=per_step.rows, step_times_s=meter.step_times,
+                       median_step_s=statistics.median(meter.step_times[1:]), peak_gib=peak_gib,
+                       carried_bytes=carried_bytes(final.method_state),
+                       loss_first=hist[0]["loss"], loss_last=hist[-1]["loss"])
+            for i, (m, got) in enumerate(zip(hist, per_step.rows)):
+                want = variant_per_step(method, m, cfg)
+                print(f"variant {method} step {i}: {json.dumps(m)} ({meter.step_times[i]:.4f} s); "
+                      f"launches {json.dumps({k: got[k] for k in want})}")
+                if {k: got[k] for k in got if got[k] or k in want} != want:
+                    fail(f"variant {method} step {i}: launches {got}, expected {want}")
+            if report.steps_done != steps or not all(
+                    math.isfinite(v) for m in hist for v in m.values()):
+                fail(f"variant {method}: training did not finish with finite metrics: {hist}")
+            if ex.resident != (method == "gsam"):
+                fail(f"variant {method}: resident {ex.resident}; gsam alone is resident")
+            if method == "looksam" and [m["fresh"] for m in hist] != [1.0, 0.0] * (steps // 2):
+                fail(f"looksam (k 2): fresh {[m['fresh'] for m in hist]}, expected 1, 0, 1, 0")
+            if method == "aesam":
+                mcfg = ex.method.cfg
+                mean, var, zs = 0.0, 1.0, []          # z as the step computes it, from gnorm_sq
+                for m in hist:
+                    zs.append((m["gnorm_sq"] - mean) / (math.sqrt(var) + 1e-12))
+                    mean, var = (mcfg.aesam_ema * mean + (1 - mcfg.aesam_ema) * m["gnorm_sq"],
+                                 mcfg.aesam_ema * var
+                                 + (1 - mcfg.aesam_ema) * (m["gnorm_sq"] - mean) ** 2)
+                row["z"], row["sam_step"] = zs, [m["sam_step"] for m in hist]
+                print(f"variant aesam: sam_step {row['sam_step']}; z {zs}; lambda_hi "
+                      f"{mcfg.aesam_lambda_hi}")
+                want = [1.0 if (i < 8 or z > mcfg.aesam_lambda_hi) else 0.0
+                        for i, z in enumerate(zs)]
+                if row["sam_step"] != want:
+                    fail(f"aesam: sam_step {row['sam_step']}, expected {want} from z")
+            if method == "esam":
+                row["mask"] = esam_mask_check(ex.method.cfg.esam_beta)
+            if method == "mesa":
+                mcfg = ex.method.cfg
+                if not all(m["mesa_kl"] > 0 for m in hist[mcfg.mesa_start_step:]):
+                    fail(f"mesa: mesa_kl {[m['mesa_kl'] for m in hist]} not > 0 once active")
+                if not all(m["loss"] > m["ce"] for m in hist[mcfg.mesa_start_step:]):
+                    fail("mesa: the distillation term is not in the loss once active")
+            row["profile"] = train_profile(ex, final, pipe, tag=f"variant {method}")
+            print(f"variant {method}: resident {ex.resident}; median step "
+                  f"{row['median_step_s']:.4f} s (steps 1-{steps - 1}), peak {peak_gib:.2f} "
+                  f"GiB, carried state {row['carried_bytes']} bytes; in the profiled step copy "
+                  f"kernels "
+                  f"{row['profile']['copy_us']:.1f} us, memcpys {row['profile']['memcpy_us']:.1f} "
+                  f"us, host reads {row['profile']['host_read_us']:.1f} us")
+            del ex, state, pipe, report, final
+            gc.collect()
+            torch.cuda.empty_cache()
+            if method in VARIANT_LOCKSTEP:
+                n = VARIANT_LOCKSTEP[method]
+                lock = lockstep_check(names=WEIGHT_KERNELS, steps=n, method=method, mkw=mkw,
+                                      cfg=vcfg)
+                print(f"variant {method} check, lockstep ({n} step(s), lr {LR}; every weight-space "
+                      f"kernel call vs its plain version on the same inputs): {json.dumps(lock)}; "
+                      f"tolerance rel {LOCKSTEP_REL_TOL}")
+                if not all(r["calls"] == r["launches"] and r["max_rel_err"] <= LOCKSTEP_REL_TOL
+                           for r in lock.values()):
+                    fail(f"a weight-space kernel on the {method} path disagrees with its plain "
+                         f"version")
+                row["lockstep"] = lock
+            out[method] = row
     return out
 
 
@@ -4606,6 +4873,7 @@ def route_flips(a, b) -> dict:
     return dict(slots=slots, tokens=sets)
 
 
+@spanned
 def route_flip_check(cfg, batch: int, seq: int) -> dict:
     """One forward of `cfg` (seed-0 weights) over a batch x seq batch on the
     kernel path in bf16, the plain path in bf16 and in fp32, and the kernel
@@ -4662,9 +4930,9 @@ def moe_whole_check() -> dict:
     MOE_CHECK_SEQ: the route flips of one forward (kernel vs plain path) and
     the whole training path against the plain path (`scan_whole_check`)."""
     from repro_torch.configs import get_config
-    t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(MOE_CHECK_ARCH), n_layers=MOE_CHECK_LAYERS)
-    routes = route_flip_check(cfg, MOE_CHECK_BATCH, MOE_CHECK_SEQ)
+    with span("routes"):
+        routes = route_flip_check(cfg, MOE_CHECK_BATCH, MOE_CHECK_SEQ)
     print(f"{MOE_CHECK_ARCH} route check ({MOE_CHECK_LAYERS} layers, batch {MOE_CHECK_BATCH} "
           f"x {MOE_CHECK_SEQ}, one forward; routes that differ from the plain bf16 path's, "
           f"by (token, slot) and by token's expert set; logits' bulk median|d|/median|ref|): "
@@ -4675,13 +4943,31 @@ def moe_whole_check() -> dict:
         fail(f"{MOE_CHECK_ARCH} route check: the coarse-weights control meets the limit")
     whole = scan_whole_check(MOE_CHECK_ARCH, MOE_CHECK_ARCH, cfg, MOE_CHECK_LAYERS,
                              MOE_CHECK_BATCH, MOE_CHECK_SEQ)
-    return dict(routes=routes, **whole, phase_s=time.perf_counter() - t0)
+    return dict(routes=routes, **whole)
 
 
 def device_time_by_kernel(prof) -> dict:
+    """{name: [device us, calls]} of the device-side kernels (and memcpys)
+    the profiler recorded, from its raw (kineto) events: the same sums as
+    its FunctionEvents (`prof.events()`, `key_averages()`), whose building
+    took about ten times as long and most of a profile's host time."""
     from torch.autograd import DeviceType
     by_name: dict[str, list] = {}
-    for e in prof.events():                            # device-side kernels only
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            tot = by_name.setdefault(e.name(), [0.0, 0])
+            tot[0] += e.duration_ns() / 1e3
+            tot[1] += 1
+    return by_name
+
+
+def event_tree_by_kernel(prof) -> dict:
+    """`device_time_by_kernel` read from the profiler's event tree
+    (`prof.events()`, FunctionEvents), the reading the profiles used before
+    the raw events: to compare the two on one profile."""
+    from torch.autograd import DeviceType
+    by_name: dict[str, list] = {}
+    for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             tot = by_name.setdefault(e.name, [0.0, 0])
             tot[0] += e.time_range.elapsed_us()
@@ -4689,6 +4975,15 @@ def device_time_by_kernel(prof) -> dict:
     return by_name
 
 
+def host_time_us(prof, op: str) -> float:
+    """The host time of every call of `op` the profiler recorded (its raw
+    events, as `device_time_by_kernel`): key_averages()'s cpu_time_total."""
+    from torch.autograd import DeviceType
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CPU and e.name() == op) / 1e3
+
+
+@spanned
 def train_profile(ex, state, pipe, family: str = "adamw", tag: str = "") -> dict:
     """Device time by kernel over one training step, its busy share, the
     epilogue kernels' share, the device time of copy kernels (casts, and
@@ -4718,8 +5013,7 @@ def train_profile(ex, state, pipe, family: str = "adamw", tag: str = "") -> dict
     epi_us = sum(ours[k] for k in PATH_KERNELS[family])
     memcpy_us = sum(t for n, (t, _) in by_name.items() if n.startswith("Memcpy"))
     copy_us = sum(t for n, (t, _) in by_name.items() if "copy" in n.lower())
-    read_us = sum(e.cpu_time_total for e in prof.key_averages()
-                  if e.key == "aten::_local_scalar_dense")
+    read_us = host_time_us(prof, "aten::_local_scalar_dense")
     print(f"profile train {tag or family} step: wall {wall_us:.1f} us, device kernels "
           f"{busy_us:.1f} us (busy {100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel "
           f"names; epilogue kernels {epi_us:.1f} us = {100 * epi_us / wall_us:.2f}% of the "
@@ -4786,6 +5080,7 @@ def host_us(fn, calls: int = DISPATCH_CALLS) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+@spanned
 def dispatch_cost() -> dict:
     """What the `torch.library` custom op adds to a launch: each op called
     through the dispatcher against its body called directly, in turns (op,
@@ -4915,7 +5210,8 @@ def dryrun_phase(trained: dict) -> dict:
              f"measured {trained['peak_gib']:.4f} GiB (limit {DRYRUN_PEAK_TOL})")
     del state, batch, ex
 
-    cells, full_flops, qwen_peak = dryrun_cells()
+    with span("cells"):
+        cells, full_flops, qwen_peak = dryrun_cells()
     torch.cuda.synchronize()
     after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
     print(f"dry run: memory_allocated {before} before the traces, {after} after; "
@@ -4923,10 +5219,11 @@ def dryrun_phase(trained: dict) -> dict:
     if after != before or peak != before:
         fail(f"dry run: the traces allocated on the card (memory_allocated {before} -> "
              f"{after}, max {peak})")
-    cost = dispatch_cost()
+    with span("dispatch"):
+        cost = dispatch_cost()
     print(f"dry run: custom-op dispatch {json.dumps(cost)}; flash x 64 a step "
           f"{64 * cost['flash_attention']['cost_us']:.1f} us ({nvidia_smi()})")
-    return dict(phase_s=time.perf_counter() - t0, twin_s=twin_s, kernels=lowered.kernels,
+    return dict(twin_s=twin_s, kernels=lowered.kernels,
                 predicted_peak_gib=predicted_gib, measured_peak_gib=trained["peak_gib"],
                 peak_rel=rel, flops=lowered.flops, tflops=tflops, cells=cells,
                 olmo_full_flops=full_flops, qwen_peak=qwen_peak, dispatch=cost)
@@ -4958,127 +5255,117 @@ def main() -> int:
     print(f"device: {kind}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
           f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    libs = build.build([fa.SOURCE, sp.SOURCE, fu.SOURCE, r6.SOURCE, m2.SOURCE])
-    print(f"build: {len(libs)} kernel source(s) in {time.perf_counter() - t0:.2f}s")
+    with span("build"):
+        libs = build.build([fa.SOURCE, sp.SOURCE, fu.SOURCE, r6.SOURCE, m2.SOURCE])
+    print(f"build: {len(libs)} kernel source(s) in {SPANS['build']:.2f}s")
     for src, lib in libs.items():
         log = lib.with_name(lib.name + ".log").read_text()
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {src.name}: {line.strip()}")
 
-    epilogue = epilogue_phase()
-    flash = flash_phase()
-    t0 = time.perf_counter()
-    offset_flash_phase()
-    print(f"flash offset phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    expert_share_phase()
-    print(f"expert share phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    moe_block_phase()
-    print(f"moe block phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    block_decode_phase()
-    print(f"block decode phase: {time.perf_counter() - t0:.2f}s")
-    served, model = serve_phase()
-    print("serve " + json.dumps(served))
-    profile_phase(model)
-    del model
-    torch.cuda.empty_cache()
+    with phase("epilogue"):
+        epilogue = epilogue_phase()
+    with phase("flash"):
+        flash = flash_phase()
+    for name, fn in (("flash offset", offset_flash_phase), ("expert share", expert_share_phase),
+                     ("moe block", moe_block_phase), ("block decode", block_decode_phase)):
+        with phase(name):
+            fn()
+    with phase("serve"):
+        served, model = serve_phase()
+        print("serve " + json.dumps(served))
+        profile_phase(model)
+        del model
+        torch.cuda.empty_cache()
 
-    trained, ex, state, pipe = train_phase()
-    print("train " + json.dumps(trained))
-    train_profile(ex, state, pipe)
-    del ex, state, pipe
-    torch.cuda.empty_cache()
-    print("train check " + json.dumps(train_check()))
-    guarded = guard_phase(trained["median_step_s"])
-    print("guard " + json.dumps(guarded))
-    print(f"guard phase: {guarded['phase_s']:.2f}s")
+    with phase("train"):
+        trained, ex, state, pipe = train_phase()
+        print("train " + json.dumps(trained))
+        train_profile(ex, state, pipe)
+        del ex, state, pipe
+        torch.cuda.empty_cache()
+    with phase("train check"):
+        print("train check " + json.dumps(train_check()))
+    with phase("guard"):
+        guarded = guard_phase(trained["median_step_s"])
+        print("guard " + json.dumps(guarded))
 
-    sgd_trained, ex, state, pipe = train_phase("sgd")
-    print("train sgd " + json.dumps(sgd_trained))
-    train_profile(ex, state, pipe, "sgd")
-    del ex, state, pipe
-    torch.cuda.empty_cache()
-    sgd_check()
-    restarted = restart_phase()
-    elastic = elastic_phase()
-    drun = dryrun_phase(trained)
-    print(f"dryrun phase: {drun['phase_s']:.2f}s")
+    with phase("train sgd"):
+        sgd_trained, ex, state, pipe = train_phase("sgd")
+        print("train sgd " + json.dumps(sgd_trained))
+        train_profile(ex, state, pipe, "sgd")
+        del ex, state, pipe
+        torch.cuda.empty_cache()
+    with phase("sgd check"):
+        sgd_check()
+    with phase("restart"):
+        restarted = restart_phase()
+    with phase("elastic"):
+        elastic = elastic_phase()
+    with phase("dryrun"):
+        dryrun_phase(trained)
 
-    t0 = time.perf_counter()
-    delta = delta_phase()
-    print(f"delta kernel phase: {time.perf_counter() - t0:.2f}s")
+    with phase("delta kernel"):
+        delta = delta_phase()
     # the remote phase's server imports this file for its loss
     os.environ["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
-    remote = remote_phase()
-    print(f"remote phase: {remote['phase_s']:.2f}s")
-    hetero = hetero_phase()
-    print(f"hetero phase: {hetero['phase_s']:.2f}s")
-    examples = examples_phase()
-    print(f"examples phase: {examples['phase_s']:.2f}s")
+    with phase("remote"):
+        remote = remote_phase()
+    with phase("hetero"):
+        hetero_phase()
+    with phase("examples"):
+        examples = examples_phase()
 
-    t0 = time.perf_counter()
-    wkv = rwkv_kernel_phase()
-    print(f"rwkv kernel phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    rwkv_local_heads_phase()
-    print(f"rwkv local heads phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    rwkv_share_phase()
-    print(f"rwkv share phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    rwkv_chain_phase()
-    print(f"rwkv chain phase: {time.perf_counter() - t0:.2f}s")
-    rwkv_served, model = rwkv_serve_phase()
-    print("rwkv serve " + json.dumps(rwkv_served))
-    profile_phase(model)
-    del model
-    torch.cuda.empty_cache()
-    print(f"rwkv serve phase: {rwkv_served['phase_s']:.2f}s")
-    rwkv_trained = rwkv_train_phase()
-    print("rwkv train " + json.dumps(rwkv_trained))
-    print(f"rwkv train phase: {rwkv_trained['phase_s']:.2f}s")
+    with phase("rwkv kernel"):
+        wkv = rwkv_kernel_phase()
+    for name, fn in (("rwkv local heads", rwkv_local_heads_phase),
+                     ("rwkv share", rwkv_share_phase),
+                     ("rwkv column share", rwkv_column_share_phase),
+                     ("rwkv chain", rwkv_chain_phase)):
+        with phase(name):
+            fn()
+    with phase("rwkv serve"):
+        rwkv_served, model = rwkv_serve_phase()
+        print("rwkv serve " + json.dumps(rwkv_served))
+        profile_phase(model, compare_readings=True)
+        del model
+        torch.cuda.empty_cache()
+    with phase("rwkv train"):
+        rwkv_trained = rwkv_train_phase()
+        print("rwkv train " + json.dumps(rwkv_trained))
 
-    t0 = time.perf_counter()
-    ssd = mamba2_kernel_phase()
-    print(f"mamba2 kernel phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    chained_scan_phase()
-    print(f"chained scan phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    mamba_share_phase()
-    print(f"mamba share phase: {time.perf_counter() - t0:.2f}s")
-    t0 = time.perf_counter()
-    ssd_local_heads_phase()
-    print(f"ssd local heads phase: {time.perf_counter() - t0:.2f}s")
-    zamba_served, model = zamba_serve_phase()
-    print("zamba2 serve " + json.dumps(zamba_served))
-    profile_phase(model)
-    del model
-    torch.cuda.empty_cache()
-    print(f"zamba2 serve phase: {zamba_served['phase_s']:.2f}s")
-    zamba_trained = zamba_train_phase()
-    print("zamba2 train " + json.dumps(zamba_trained))
-    print(f"zamba2 train phase: {zamba_trained['phase_s']:.2f}s")
+    with phase("mamba2 kernel"):
+        ssd = mamba2_kernel_phase()
+    for name, fn in (("chained scan", chained_scan_phase), ("mamba share", mamba_share_phase),
+                     ("ssd local heads", ssd_local_heads_phase)):
+        with phase(name):
+            fn()
+    with phase("zamba2 serve"):
+        zamba_served, model = zamba_serve_phase()
+        print("zamba2 serve " + json.dumps(zamba_served))
+        profile_phase(model)
+        del model
+        torch.cuda.empty_cache()
+    with phase("zamba2 train"):
+        zamba_trained = zamba_train_phase()
+        print("zamba2 train " + json.dumps(zamba_trained))
 
     arch_served, arch_trained = {}, {}
     for arch in SERVE_ARCHS:
-        arch_served[arch] = model_serve_phase(arch)
-        print(f"{arch} serve " + json.dumps(arch_served[arch]))
-        print(f"{arch} serve phase: {arch_served[arch]['phase_s']:.2f}s")
+        with phase(f"{arch} serve"):
+            arch_served[arch] = model_serve_phase(arch)
+            print(f"{arch} serve " + json.dumps(arch_served[arch]))
     for arch in TRAIN_ARCHS:
-        arch_trained[arch] = model_train_phase(arch)
-        print(f"{arch} train " + json.dumps(arch_trained[arch]))
-        print(f"{arch} train phase: {arch_trained[arch]['phase_s']:.2f}s")
-    variants = variants_phase()
-    print("variants " + json.dumps(variants))
-    print(f"variants phase: {variants['phase_s']:.2f}s")
-    moe_check = moe_whole_check()
-    print(f"{MOE_CHECK_ARCH} whole-path check phase: {moe_check['phase_s']:.2f}s")
+        with phase(f"{arch} train"):
+            arch_trained[arch] = model_train_phase(arch)
+            print(f"{arch} train " + json.dumps(arch_trained[arch]))
+    with phase("variants"):
+        variants = variants_phase()
+        print("variants " + json.dumps(variants))
+    with phase(f"{MOE_CHECK_ARCH} whole-path check"):
+        moe_whole_check()
     # the launches of these paths, each counted from 0 just before it
     new_paths = ([r["launches"] for r in arch_served.values()]
                  + [r["launches"] for r in arch_trained.values()]
@@ -5146,6 +5433,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")
+    print("spans " + json.dumps(SPANS))
     print(f"whole run: {time.perf_counter() - t_run:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -23,9 +23,10 @@ Conventions:
   query offset; decode over a cache split on the sequence
   (`partitioning.cache_block`) combines the ranks' parts
   (`distributed.lse_combine`). With whole weights (no layout, or a module
-  this port does not shard) the code is the meshless one. `stream_cast` is
-  left out: it is the identity for the configs the port supports
-  (`weight_stream_bf16=False`).
+  this port does not shard) the code is the meshless one. With
+  `weight_stream_bf16` the blocks' >=2-D weights reach this code already
+  in the compute dtype (`partitioning.stream_cast`, applied where a block's
+  parameters are taken: `transformer._block`).
 """
 from __future__ import annotations
 

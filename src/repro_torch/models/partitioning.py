@@ -31,9 +31,14 @@ identity and the model code runs as it always did. Under a layout:
     E (deepseek's 64 on 16), else expert TP's f/m columns of we_in /
     we_gate and rows of we_out (mixtral's 8 on 16); the router is
     computed whole on every rank, the shared experts are an MLP on their
-    d_ff (`moe.moe_apply`). rwkv6's time mix runs on the rank's heads (r,
-    k, v, g and the decay on its columns, the wkv scan and the per-head
-    norm on its heads, `wo` row-parallel), its channel mix on its d_ff
+    d_ff (`moe.moe_apply`). rwkv6's time mix runs on the rank's heads
+    where they divide "model" (r, k, v, g and the decay on its columns,
+    the wkv scan and the per-head norm on its heads, `wo` row-parallel),
+    else on its d_model / m columns where "model" divides d_model, as the
+    reference pins r, k, v and g on their channels whatever the heads (r,
+    k and v all-gathered whole, the decay, the scan and the norm on every
+    head, the rank's columns of y gated and through `wo`'s rows), its
+    channel mix on its d_ff
     (`wv_c`'s partial sums reduce-scattered over d_model, the receptance
     gate on the rank's columns of `wr_c`, the gated product all-gathered;
     `models.rwkv`); f sits on each mix's normed input, so every leaf of
@@ -74,12 +79,9 @@ identity and the model code runs as it always did. Under a layout:
     sequence as it is stored (`cache_sequence`, `cache_block`), so decode
     combines the ranks' attention over their parts
     (`distributed.lse_combine`);
-  * attention whose heads "model" does not divide, and mamba2 whose heads
-    it does not divide, compute on whole weights (as `constrain` drops the
-    axis there). The one branch of the reference left out: where "model"
-    does not divide rwkv6's heads the reference still splits the time
-    mix's channels, the port keeps its heads whole (the same values;
-    rwkv6-7b's 64 heads divide 16, so no shipped config reaches it).
+  * attention whose heads "model" does not divide, mamba2 whose heads it
+    does not divide, and rwkv6's mixes whose dims it does not divide,
+    compute on whole weights (as `constrain` drops the axis there).
 """
 from __future__ import annotations
 
@@ -189,8 +191,10 @@ def param_partition_spec(path: str, shape: tuple[int, ...], rules: dict) -> Part
 
 def stream_cast(tree: Tree, cfg) -> Tree:
     """Cast >=2-D fp32 weights to the compute dtype before sharded use (the
-    cast is shard-local, so every gather and gradient reduction after it
-    moves the narrower dtype); 1-D leaves (norm scales, biases) stay fp32."""
+    cast is shard-local, so every weight gather after it moves the narrower
+    dtype; the gradients' all-reduce still runs in fp32,
+    `distributed.gather_for_compute`); 1-D leaves (norm scales, biases)
+    stay fp32."""
     if not getattr(cfg, "weight_stream_bf16", False):
         return tree
     dt = getattr(torch, cfg.compute_dtype)
@@ -421,8 +425,10 @@ def rwkv_share(part: str, leaves: dict, r: int, m: int) -> dict:
     """rwkv6's `tm` or `cm` leaves as rank r of m holds them under the "tp"
     layout, cut from whole ones (views, so gradients reach the whole): each
     split leaf's block r on the dim `param_partition_spec` places over
-    "model" (an output projection's rows, else its columns), the others
-    whole. The collective-free pieces of `models.rwkv` run on it."""
+    "model" (an output projection's rows, else its columns: the rank's
+    heads' or, where m does not divide the heads, its d_model / m
+    columns), the others whole. The collective-free pieces of
+    `models.rwkv` run on it."""
     out = dict(leaves)
     for name in _RWKV_SPLIT[part]:
         dim = -2 if name in _OUT_PROJ else -1
@@ -453,11 +459,12 @@ def tp_leaves(part: str, leaves: dict, cfg, lay: Layout) -> tuple[tuple, tuple]:
     rank's, its queries and up-projections the rank's heads), the MLP on
     d_ff, the MoE experts on EP's experts or expert TP's d_ff (the router
     computed whole, its gradient partial: each rank combines its share),
-    rwkv6's time mix on its heads where they divide "model" and its
-    channel mix on d_ff and d_model where both do (every other leaf of a
-    split mix partial: f sits on the mix's normed input, so each rank's
-    gradient of a mix coefficient, the decay's LoRA, w0, the bonus and the
-    norm scale is its own heads' or columns' part), the embedding and the
+    rwkv6's time mix on its heads or, where "model" divides d_model but not
+    the heads, on its columns (the same leaves split either way), and its
+    channel mix on d_ff and d_model where both divide it (every other leaf
+    of a split mix partial: f sits on the mix's normed input, so each
+    rank's gradient of a mix coefficient, the decay's LoRA, w0, the bonus
+    and the norm scale is its own heads' or columns' part), the embedding and the
     output head on the vocabulary; mamba2's mixer on its heads where they
     divide "model" (`wz`, `wx`, `wdt`, the x conv and `w_out` sharded;
     `wbc` and the BC conv used whole, the per-head and per-channel vectors
@@ -468,7 +475,7 @@ def tp_leaves(part: str, leaves: dict, cfg, lay: Layout) -> tuple[tuple, tuple]:
             return (), ()
         return _MAMBA_SPLIT, tuple(n for n in leaves if n not in _MAMBA_SPLIT)
     if part in _RWKV_SPLIT and _RWKV_SPLIT[part][0] in leaves:
-        if part == "tm" and not lay.splits(cfg.d_model // cfg.rwkv.head_dim):
+        if part == "tm" and not lay.splits(cfg.d_model):
             return (), ()
         if part == "cm" and not (lay.splits(cfg.d_ff) and lay.splits(cfg.d_model)):
             return (), ()

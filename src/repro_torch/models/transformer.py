@@ -407,14 +407,17 @@ def _block(groups: dict, i: int, cfg: ModelConfig, prefix: str = "blocks"
            ) -> dict[str, dict[str, torch.Tensor]]:
     """Block i's parameters by part; a moe block's "moe" part holds its
     shared experts under "shared". `prefix` "dense_blocks" names a moe
-    model's leading dense layers."""
+    model's leading dense layers. The "blocks" ones go through
+    `partitioning.stream_cast` (their >=2-D fp32 weights in the compute
+    dtype with `weight_stream_bf16`, before any gather), as the reference
+    casts its params["blocks"]."""
     parts = (_BLOCK_PARTS.get(cfg.family, ("ln1", "ln2", "attn", "mlp"))
              if prefix == "blocks" else ("ln1", "ln2", "attn", "mlp"))
     bp = {part: groups.get(f"{prefix}.{i}.{part}", {}) for part in parts}
     shared = groups.get(f"{prefix}.{i}.moe.shared")
     if shared is not None:
         bp["moe"] = {**bp["moe"], "shared": shared}
-    return bp
+    return partitioning.stream_cast(bp, cfg) if prefix == "blocks" else bp
 
 
 def _gathered_shared(groups: dict, cfg: ModelConfig) -> dict[str, dict[str, torch.Tensor]]:

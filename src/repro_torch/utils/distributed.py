@@ -500,7 +500,9 @@ class _GatherSeq(torch.autograd.Function):
 def gather_seq(x: torch.Tensor, lay, dim: int = 1) -> torch.Tensor:
     """The whole sequence of a tensor of which each rank of `lay`'s model
     group holds its block along `dim` (k or v: (B, S/m, K, hd) -> (B, S, K,
-    hd)); differentiable, its gradient reduce-scattered back to the blocks."""
+    hd); rwkv6's r, k and v on their channels, dim -1, in the column
+    layout); differentiable, its gradient reduce-scattered back to the
+    blocks."""
     return _GatherSeq.apply(x, dim, lay.model_group, lay.m, lay.r)
 
 

@@ -1,9 +1,10 @@
 """The reference's "tp" layout for rwkv6 and the encoder-decoder in the port
 (`models.rwkv`, `models.encdec`, `models.partitioning`): rwkv6's time mix
-on its heads and channel mix on its d_ff, its wkv decode state on its
-heads; whisper's attention, cross-attention, MLP and vocabulary over
-"model", and its decode over the cache's sequence blocks where its heads
-do not divide "model", on a world of CPU ranks (gloo).
+on its heads, or on its d_model columns where "model" does not divide the
+heads, and its channel mix on its d_ff, its wkv decode state on its heads
+where they split; whisper's attention, cross-attention, MLP and vocabulary
+over "model", and its decode over the cache's sequence blocks where its
+heads do not divide "model", on a world of CPU ranks (gloo).
 
 For each arch, one after the other: one reference subprocess (8 fake CPU
 devices, `tests/conftest.py:run_py`) runs the reference's 4 sharded
@@ -14,12 +15,16 @@ everything split, and `(8, 8)`, its 4 heads whole, its d_ff of 128 and
 vocabulary of 256 split) and the meshless prefill and decode; then one
 spawn of 8 gloo ranks (`test_torch_distributed.spawn_ranks`) runs the
 port's on the same init and batches, with probes on the wkv wrapper, the
-decode parts and the cache's moves. In process: the m time-mix and
-channel-mix shares of a layer against the whole layer, whisper's
-cross-attention decode over blocks merged against the whole, and a
-fake-tensor trace on a (data 2, model 2) fake mesh whose rwkv6 flops are
-counted by hand.
+time mix's weights, the decode parts and the cache's moves, and two
+controls that must miss. In process: the m time-mix (heads or columns)
+and channel-mix shares of a layer against the whole layer, whisper's
+cross-attention decode over blocks merged against the whole, and
+fake-tensor traces on (data 2, model 2) and (data 1, model 8) fake meshes
+whose rwkv6 flops are counted by hand, and on (data 2, model 1) whose
+weight gathers with `weight_stream_bf16` move bf16.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -106,7 +111,7 @@ from repro_torch.engine import FusedExecutor
 from repro_torch.kernels import ops
 from repro_torch.launch.sharding import batch_spec_tree, state_spec_tree, to_placements
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models import build_model, layers, partitioning
+from repro_torch.models import build_model, layers, partitioning, rwkv
 from repro_torch.models.convert import params_from_jax, to_reference
 from repro_torch.runtime import make_sized_mesh
 from repro_torch.utils import distributed
@@ -124,17 +129,24 @@ def nest(flat, prefix):
     return tree
 
 
-# the heads each wkv call got (r's, u's, the initial state's or -1), the decode
+# the heads each wkv call got (r's, u's, the initial state's or -1), the
+# shapes of the time mix's five matrices as each call got them, the decode
 # parts (query heads, kv heads, block length, the block's offset, all of
 # the block valid) and the global shapes of the cache leaves a decode step
 # moved (redistributed to other placements)
-SEEN = {"wkv": set(), "parts": set(), "moved": set(), "watch": False}
+SEEN = {"wkv": set(), "tm": set(), "parts": set(), "moved": set(), "watch": False}
 _mix, _part, _redistribute = ops.rwkv6_mix, layers.decode_attention_part, DTensor.redistribute
+_timemix, _gather_seq = rwkv.timemix_apply, distributed.gather_seq
 
 
 def mix_probe(r, k, v, w, u, init_state=None, impl=None):
     SEEN["wkv"].add((r.shape[2], u.shape[0], -1 if init_state is None else init_state.shape[1]))
     return _mix(r, k, v, w, u, init_state=init_state, impl=impl)
+
+
+def timemix_probe(params, x, cfg, *, cache=None):
+    SEEN["tm"].add(tuple(tuple(params[n].shape) for n in ("wr", "wk", "wv", "wg", "wo")))
+    return _timemix(params, x, cfg, cache=cache)
 
 
 def part_probe(q, k, v, valid_len, kv_offset, window=None):
@@ -151,6 +163,7 @@ def redistribute_probe(self, *args, **kwargs):
 
 
 ops.rwkv6_mix, layers.decode_attention_part = mix_probe, part_probe
+rwkv.timemix_apply = timemix_probe
 DTensor.redistribute = redistribute_probe
 
 
@@ -187,8 +200,9 @@ def train(tmp, arch, devices, model):
         return {"losses": losses, "params": to_reference(full, leaf=lambda t: t.numpy())}
 
     SEEN["wkv"].clear()
+    SEEN["tm"].clear()
     out = run_steps()
-    out["wkv"] = sorted(SEEN["wkv"])
+    out["wkv"], out["tm"] = sorted(SEEN["wkv"]), sorted(SEEN["tm"])
     if (arch, model) == ("rwkv6-7b", 2):
         # the control: the time mix's partial leaves averaged over dp only,
         # their gradients not summed over the model group
@@ -196,6 +210,14 @@ def train(tmp, arch, devices, model):
             _tp_leaves(part, leaves, cfg, lay)[0], ())
         out["control"] = run_steps()
         partitioning.tp_leaves = _tp_leaves
+    if (arch, model) == ("rwkv6-7b", 8):
+        # the control: the column layout's r, k and v all-gathered with the
+        # backward of gather_from_model, this rank's slice of its own
+        # gradient, not summed over the model group first
+        distributed.gather_seq = lambda x, lay, dim=1: distributed.gather_from_model(
+            x, lay.model_group, lay.m, lay.r)
+        out["control"] = run_steps()
+        distributed.gather_seq = _gather_seq
     return out
 
 
@@ -213,7 +235,7 @@ def serve(tmp, arch, devices, model):
         bpl = to_placements(batch_spec_tree(b, mesh), mesh)
         return {k: distributed.place(v, mesh.device_mesh, bpl[k]) for k, v in b.items()}
 
-    for name in ("parts", "wkv", "moved"):
+    for name in ("parts", "wkv", "tm", "moved"):
         SEEN[name].clear()
     pre = {"tokens": ref["prompt"], **({"enc_frames": ref["frames"]} if "frames" in ref else {})}
     served = []
@@ -227,7 +249,7 @@ def serve(tmp, arch, devices, model):
             SEEN["watch"] = False
             served.append(logits.numpy())
     return {"served": served, "parts": sorted(SEEN["parts"]), "wkv": sorted(SEEN["wkv"]),
-            "moved": sorted(SEEN["moved"]),
+            "tm": sorted(SEEN["tm"]), "moved": sorted(SEEN["moved"]),
             "cache": {name: (tuple(t.shape), tuple(t.to_local().shape), str(t.placements))
                       for name, t in cache["layers"].items()},
             "rows": distributed.dp_index(mesh.device_mesh, [0]),
@@ -302,28 +324,39 @@ def test_tp_async_sam_matches_the_reference(runs, arch, devices, model):
 
 @pytest.mark.parametrize("model", (2, 4, 8))
 def test_wkv_runs_on_the_ranks_heads(runs, model):
-    """The wkv wrapper on each rank got H/m of rwkv6's 4 heads (r, u and, in
-    decode, the carried state: 2 on (8, 2), 1 on (8, 4)); on (8, 8), which
-    does not divide them, all 4. The serve step's cache holds each rank's
-    heads of the wkv state (its placement Shard(2) over "model") and no
-    decode step moves it: of the cache the steps redistribute only the
-    token shifts (L, B, 1, D), a token wide (the other moves are the
-    weights' gathers and the batch's)."""
+    """Every rank's time mix got `wr`, `wk`, `wv` and `wg` at d_model / m of
+    their 64 columns and `wo` at 64 / m rows, none gathered over "model",
+    in training and in serving; on (8, 8), which its 4 heads do not
+    divide, that is 8 columns, half a head (the column layout). The wkv
+    wrapper got H/m of the 4 heads (r, u and, in decode, the carried
+    state: 2 on (8, 2), 1 on (8, 4)); on (8, 8) all 4, fed by the gathered
+    columns. The serve step's cache holds each rank's heads of the wkv
+    state (its placement Shard(2) over "model"), on (8, 8) every head
+    (replicated over "model", whose 8 ranks then move none of it: the
+    placement it is computed in differs only over the 1-rank "data" axis).
+    Where it is split no decode step moves it: of the cache the steps
+    redistribute only the token shifts (L, B, 1, D), a token wide (the
+    other moves are the weights' gathers and the batch's)."""
     from repro_torch.configs import get_config
     _, ranks = runs
     cfg = get_config("rwkv6-7b", reduced=True)
-    heads = cfg.d_model // cfg.rwkv.head_dim
+    d, heads = cfg.d_model, cfg.d_model // cfg.rwkv.head_dim
     h = heads // model if heads % model == 0 else heads
+    shards = [((d, d // model),) * 4 + ((d // model, d),)]
     for r in ranks:
         assert r[_key("rwkv6-7b", 8, model)]["wkv"] == [(h, h, -1)]
+        assert r[_key("rwkv6-7b", 8, model)]["tm"] == shards
         s = r[f"serve_{_key('rwkv6-7b', 8, model)}"]
+        assert s["tm"] == shards
         assert s["wkv"] == [(h, h, -1), (h, h, h)]
         shape, local, placements = s["cache"]["wkv"]
         assert local[2] == h and shape[2] == heads
-        if h < heads:
-            assert placements == "(Shard(dim=1), Shard(dim=2))", placements
-            assert shape not in [tuple(m) for m in s["moved"]]
-            assert (2, 8, 1, cfg.d_model) in [tuple(m) for m in s["moved"]]
+        if h == heads:
+            assert placements == "(Shard(dim=1), Replicate())", placements
+            continue
+        assert placements == "(Shard(dim=1), Shard(dim=2))", placements
+        assert shape not in [tuple(m) for m in s["moved"]]
+        assert (2, 8, 1, cfg.d_model) in [tuple(m) for m in s["moved"]]
 
 
 def test_partial_leaves_not_summed_miss_the_reference(runs):
@@ -337,6 +370,20 @@ def test_partial_leaves_not_summed_miss_the_reference(runs):
     got, want = _flat(ranks[0][key]["control"]["params"]), _final(refs[key])
     missed = [k for k in want if not _within(got[k], want[k])]
     assert "blocks/tm/bonus_u" in missed and "blocks/tm/decay_b" in missed, missed
+
+
+def test_gathered_columns_not_summed_miss_the_reference(runs):
+    """The control: rwkv6 on (8, 8) in the column layout with r, k and v
+    all-gathered by `gather_from_model`, whose backward hands each rank its
+    slice of its own gradient of the whole r, k and v where the ranks'
+    gradients must first be summed (each rank's scan feeds only its
+    columns of y), misses the reference's parameters, wr, wk and wv among
+    them."""
+    refs, ranks = runs
+    key = _key("rwkv6-7b", 8, 8)
+    got, want = _flat(ranks[0][key]["control"]["params"]), _final(refs[key])
+    missed = [k for k in want if not _within(got[k], want[k])]
+    assert {"blocks/tm/wr", "blocks/tm/wk", "blocks/tm/wv"} <= set(missed), missed
 
 
 @pytest.mark.parametrize("arch,devices,model", RUNS)
@@ -405,15 +452,49 @@ def _rwkv_layer(seed=0):
     return cfg, tm, cm, x, w
 
 
-@pytest.mark.parametrize("m", (2, 4))
+def _timemix_shares(tm, x, cfg, m, shift, wkv):
+    """The m time-mix shares of `partitioning.rwkv_share` composed without
+    collectives: (their outputs' sum, the wkv state). Where m divides the
+    heads, `timemix_part` of each share's heads from its heads' state, the
+    states stacked on the heads; else the column layout's pieces: each
+    share's `timemix_project` on its d_model / m columns, r, k and v joined
+    whole (autograd sums the shares' gradients of them, as the reduce-
+    scatter of f after the all-gather does), `timemix_scan` on every head
+    from the whole state on each share, and `timemix_gate_out` of its
+    columns through its rows of wo; every share's state is the whole."""
+    from repro_torch.models import partitioning, rwkv
+    heads = cfg.d_model // cfg.rwkv.head_dim
+    shares = [partitioning.rwkv_share("tm", tm, r, m) for r in range(m)]
+    if heads % m == 0:
+        h = heads // m
+        parts = [rwkv.timemix_part(shares[r], x, cfg, r, m,
+                                   cache={"shift": shift, "wkv": wkv[:, r * h:(r + 1) * h]})
+                 for r in range(m)]
+        return sum(p[0] for p in parts), torch.cat([p[1]["wkv"] for p in parts], dim=1)
+    w = cfg.d_model // m
+    pieces = [rwkv.timemix_project(sh, x, cfg, cache={"shift": shift}) for sh in shares]
+    rr, kk, vv = (torch.cat([p[c] for p in pieces], dim=-1) for c in "rkv")
+    total, states = 0, []
+    for r, (sh, p) in enumerate(zip(shares, pieces)):
+        y, st = rwkv.timemix_scan(sh, rr, kk, vv, p["xw"], cfg, cache={"shift": shift, "wkv": wkv})
+        total = total + rwkv.timemix_gate_out(sh, y[..., r * w:(r + 1) * w], p["g"], cfg, r * w,
+                                              (r + 1) * w)
+        states.append(st)
+    for st in states[1:]:
+        torch.testing.assert_close(st, states[0], rtol=0, atol=0)
+    return total, states[0]
+
+
+@pytest.mark.parametrize("m", (2, 4, 8))
 def test_rwkv_shares_sum_to_the_whole_layer(m):
-    """The m time-mix parts (`timemix_part` on `rwkv_share` of the whole
-    weights, each from the carried shift and its heads' wkv state) sum to
-    the whole `timemix_apply`, their states stacked on the heads are its
-    state; the channel mix's m values (`channel_value` on its `rwkv_share`)
-    summed, gated on each share's columns (`channel_gate`) and joined, are
-    the whole `channelmix_apply`: forward and the gradients of x and every
-    leaf, fp32 at 2e-5."""
+    """The m time-mix shares of the whole weights (`_timemix_shares`: on 2
+    and 4 the heads' parts, each from the carried shift and its heads' wkv
+    state; on 8, which the 4 heads do not divide, the column pieces, half a
+    head a share) sum to the whole `timemix_apply` and their state is its
+    state; the channel mix's m values (`channel_value` on its
+    `rwkv_share`) summed, gated on each share's columns (`channel_gate`)
+    and joined, are the whole `channelmix_apply`: forward and the
+    gradients of x and every leaf, fp32 at 2e-5."""
     from repro_torch.models import partitioning, rwkv
     cfg, tm, cm, x, w = _rwkv_layer()
     b, d = x.shape[0], cfg.d_model
@@ -426,12 +507,7 @@ def test_rwkv_shares_sum_to_the_whole_layer(m):
     leaves = [x, *tm.values(), *cm.values()]
     want = torch.autograd.grad(((y_t + y_c) * w).sum(), leaves)
 
-    h = heads // m
-    parts = [rwkv.timemix_part(partitioning.rwkv_share("tm", tm, r, m), x, cfg, r, m,
-                               cache={"shift": shift, "wkv": wkv[:, r * h:(r + 1) * h]})
-             for r in range(m)]
-    total_t = sum(p[0] for p in parts)
-    state = torch.cat([p[1]["wkv"] for p in parts], dim=1)
+    total_t, state = _timemix_shares(tm, x, cfg, m, shift, wkv)
     prev = torch.cat([shift, x[:, :-1]], dim=1)
     xk = x + (prev - x) * cm["mix_k"]
     xr = x + (prev - x) * cm["mix_r"]
@@ -467,20 +543,14 @@ def test_cross_decode_blocks_merge_to_the_whole_decode():
     torch.testing.assert_close(out, ops.decode_attention(q, k, v, 24), rtol=1e-5, atol=1e-5)
 
 
-def test_rwkv_tp_train_step_flops_by_hand():
-    """Reduced rwkv6 traced on fake tensors over a fake (data 2, model 2)
-    mesh, batch 8 x 64 (b' 2) placed over "data": rank 0 computes its dp
-    half of the rows, the time mix on 2 of the 4 heads, the channel mix on
-    half the d_ff and half of wr_c's columns, and half the vocabulary. Its
-    flops, backward twice forward: r, k, v, g and o (5 d^2 / 2 a token), the
-    decay's LoRA (d R whole, R d / 2), the channel mix (2 d f / 2 + d^2 /
-    2), the logits (d V / 2); the wkv kernels' formulas on 2 heads. The
-    reduce-scatter of the channel mix's value is in the collectives."""
+def _rwkv_tp_lowered(b, s, bp, dp, m, **over):
+    """Reduced rwkv6's AsyncSAM step traced on fake tensors over a fake
+    (data dp, model m) mesh, batch b x s (b' bp) placed over "data"; `over`
+    replaces fields of its config."""
     from repro_torch.configs import get_config
     from repro_torch.core import MethodConfig
     from repro_torch.engine import FusedExecutor
     from repro_torch.kernels import flat
-    from repro_torch.kernels import rwkv6_scan as r6
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_world, make_host_mesh
     from repro_torch.launch.sharding import batch_spec_tree
@@ -489,10 +559,9 @@ def test_rwkv_tp_train_step_flops_by_hand():
     from repro_torch.optim import make_optimizer
     from repro_torch.utils import abstract
 
-    cfg = get_config("rwkv6-7b", reduced=True)
-    b, s, bp, m, dp = 8, 64, 2, 2, 2
+    cfg = dataclasses.replace(get_config("rwkv6-7b", reduced=True), **over)
     bundle = build_model(cfg)
-    with fake_world(4), flat.trace_kernels():
+    with fake_world(dp * m), flat.trace_kernels():
         mesh = make_host_mesh(model_axis=m, device="cpu")
         ex = FusedExecutor(bundle.loss_fn, MethodConfig(name="async_sam"),
                            make_optimizer("adamw", 1e-3, clip_norm=1.0), mesh=mesh,
@@ -502,17 +571,75 @@ def test_rwkv_tp_train_step_flops_by_hand():
             batch = dryrun.batch_spec(cfg, ShapeSpec("t", "train", s, b), ascent_fraction=0.25,
                                       device="cpu")
             batch = dryrun.place_tree(batch, batch_spec_tree(batch, mesh), mesh)
-        lowered = ex.lower(state, batch)
+        return cfg, ex.lower(state, batch)
+
+
+def _scan_flops(cfg, rows, s, heads) -> int:
+    """Both wkv kernels' formulas on `heads` heads of rows x s, every layer."""
+    from repro_torch.kernels import rwkv6_scan as r6
+    shape = (rows, s, heads, cfg.rwkv.head_dim)
+    return cfg.n_layers * (r6._fwd_flops(shape, shape, shape) + r6._bwd_flops(shape, shape, shape))
+
+
+def test_rwkv_tp_train_step_flops_by_hand():
+    """Reduced rwkv6 traced on fake tensors over a fake (data 2, model 2)
+    mesh, batch 8 x 64 (b' 2) placed over "data": rank 0 computes its dp
+    half of the rows, the time mix on 2 of the 4 heads, the channel mix on
+    half the d_ff and half of wr_c's columns, and half the vocabulary. Its
+    flops, backward twice forward: r, k, v, g and o (5 d^2 / 2 a token), the
+    decay's LoRA (d R whole, R d / 2), the channel mix (2 d f / 2 + d^2 /
+    2), the logits (d V / 2); the wkv kernels' formulas on 2 heads. The
+    reduce-scatter of the channel mix's value is in the collectives."""
+    b, s, bp, m, dp = 8, 64, 2, 2, 2
+    cfg, lowered = _rwkv_tp_lowered(b, s, bp, dp, m)
     d, f, v, L, rank = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers, cfg.rwkv.decay_lora_rank
-    hs = cfg.rwkv.head_dim
     rows = (b + bp) // dp
     tokens = rows * s
     per_layer = 5 * d * d // m + d * rank + rank * d // m + 2 * d * f // m + d * d // m
     dense = 3 * 2 * tokens * (L * per_layer + d * v // m)
-    scan_shape = (rows, s, d // hs // m, hs)
-    scan = L * (r6._fwd_flops(scan_shape, scan_shape, scan_shape)
-                + r6._bwd_flops(scan_shape, scan_shape, scan_shape))
     assert lowered.kernels["rwkv6_scan_fwd"] == 2 * L
-    assert lowered.flops == dense + scan
+    assert lowered.flops == dense + _scan_flops(cfg, rows, s, d // cfg.rwkv.head_dim // m)
     kinds = {(c["kind"], c["group"]) for c in lowered.collectives}
     assert ("reduce-scatter", m) in kinds, sorted(kinds)
+
+
+def test_weight_stream_bf16_gathers_move_bf16():
+    """`weight_stream_bf16` under a mesh: reduced rwkv6 (bf16 compute)
+    traced on a fake (data 2, model 1) mesh with the option and without.
+    The same collectives run in the same order; every all-gather of a
+    block's d x d or d x d_ff matrix moves half the bytes (the cast comes
+    before the gather), and nothing else changes (the gradients'
+    all-reduces stay fp32, `distributed.gather_for_compute`)."""
+    runs = {ws: _rwkv_tp_lowered(2, 32, 1, 2, 1, compute_dtype="bfloat16",
+                                 weight_stream_bf16=ws) for ws in (False, True)}
+    cfg = runs[False][0]
+    off, on = ([(c["kind"], c["group"], c["bytes"]) for c in runs[ws][1].collectives]
+               for ws in (False, True))
+    mats = {4 * cfg.d_model * cfg.d_model, 4 * cfg.d_model * cfg.d_ff}
+    assert len(off) == len(on)
+    halved = [a for a, b in zip(off, on) if a != b]
+    assert halved and all(b == (a[0], a[1], a[2] // 2) for a, b in zip(off, on) if a != b)
+    assert {a[2] for a in halved} == mats
+    assert halved == [a for a in off if a[0] == "all-gather" and a[2] in mats]
+
+
+def test_rwkv_tp_column_layout_flops_by_hand():
+    """Reduced rwkv6 traced on fake tensors over a fake (data 1, model 8)
+    mesh, whose model axis its 4 heads do not divide, batch 2 x 64 (b' 1):
+    rank 0 computes the time mix on its 8 of the 64 columns (r, k, v, g and
+    o: 5 d^2 / 8 a token), the decay's LoRA whole (2 d R: every rank takes
+    the log decay of every head), the channel mix on 28 of the 224 d_ff and
+    8 of wr_c's columns, and 32 of the 256 logits; backward twice forward;
+    the wkv kernels' formulas on all 4 heads. r, k and v all-gathered over
+    the 8 ranks (and the gradient reduce-scattered back) are among the
+    collectives."""
+    b, s, bp, m, dp = 2, 64, 1, 8, 1
+    cfg, lowered = _rwkv_tp_lowered(b, s, bp, dp, m)
+    d, f, v, L, rank = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers, cfg.rwkv.decay_lora_rank
+    tokens = (b + bp) * s
+    per_layer = 5 * d * d // m + 2 * d * rank + 2 * d * f // m + d * d // m
+    dense = 3 * 2 * tokens * (L * per_layer + d * v // m)
+    assert lowered.kernels["rwkv6_scan_fwd"] == 2 * L
+    assert lowered.flops == dense + _scan_flops(cfg, b + bp, s, d // cfg.rwkv.head_dim)
+    kinds = {(c["kind"], c["group"]) for c in lowered.collectives}
+    assert {("all-gather", m), ("reduce-scatter", m)} <= kinds, sorted(kinds)
