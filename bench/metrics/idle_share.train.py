@@ -1,0 +1,7 @@
+"""The device's idle share of the traced training steps: 1 - (the union of
+its operations' intervals) / (the traced window), in %."""
+from bench import readers
+
+
+def read(run):
+    return readers.idle_share(run)
